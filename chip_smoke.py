@@ -1,0 +1,325 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (multi_view_stereonet_tpu_torch) on one NVIDIA card.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing its results; any failure raises and exits non-zero:
+
+1. Device: a CUDA card is required. Prints ``nvidia-smi`` name and power
+   limit, and the torch and CUDA versions.
+2. Build: compiles both hand-written kernels from ``csrc/`` with nvcc.
+3. Kernels vs their plain PyTorch versions on the card, TF32 off, at the
+   serving path's shapes: the grid sample (480x640 min-idepth warp, and
+   the 5-view level-4 plane sweep) within 1e-5 abs; the incremental chain
+   (N = 1 and 5, 30x40x32, D = 12) within atol 2e-5 * max|plain|, rtol
+   2e-4. Median ms of each over 20 timed runs after warm-up (CUDA events).
+4. Serving: a synthetic 480x640 GTA-SfM tree, a params.yaml (D = 12, cost
+   filter on, five refiners) and seeded fan-in-scale weights saved as
+   stereo_network.pth are served through StreamingRunner: four requests at
+   B = 1, V = 1, then two at V = 2. Outputs must be finite, (B, 480, 640),
+   and within 0.2% of the output range of the same batches served with
+   impl="plain" on the card. The launch counters, zeroed just before the
+   run, must show two grid-sample launches and one chain launch per
+   forward. Prints ms per frame of kernel and plain paths (B = 1, V = 1).
+
+Before the last line it prints one JSON line with the kernels' names,
+sources, launches, errors and times, and the nvidia-smi line; the last
+line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WARP_BAR = 1e-5
+CHAIN_ATOL, CHAIN_RTOL = 2e-5, 2e-4
+SERVE_BAR = 2e-3  # fraction of the plain path's output range
+H0, W0, D = 480, 640, 12
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def median_ms(fn, runs=20, warmup=3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def scene(n, seed):
+    """n left cameras (K at 480x640) and right poses like the GTA-SfM frames'."""
+    rng = np.random.default_rng(seed)
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0] = K[1, 1] = 0.9 * W0
+    K[0, 2], K[1, 2] = (W0 - 1) / 2.0, (H0 - 1) / 2.0
+    Ts = []
+    for _ in range(n):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        angle = rng.uniform(-0.05, 0.05)
+        S = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        T = np.eye(4)
+        T[:3, :3] = np.eye(3) + np.sin(angle) * S + (1 - np.cos(angle)) * (S @ S)
+        T[:3, 3] = [rng.uniform(0.3, 0.5), rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05)]
+        Ts.append(T)
+    return (torch.from_numpy(np.repeat(K[None], n, 0)).cuda(),
+            torch.from_numpy(np.stack(Ts).astype(np.float32)).cuda())
+
+
+def check_kernels(dev):
+    """Phase 3: each kernel against its plain version at the serving shapes."""
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.geometry import (
+        build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
+        incremental_homographies, normalize_baseline)
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner
+    from multi_view_stereonet_tpu_torch.ops import homography_grid
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import warp
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
+
+    g = torch.Generator().manual_seed(0)
+    results = {}
+
+    def geometry(n, seed):
+        K, T = scene(n, seed)
+        T, _ = normalize_baseline(T)
+        K_pyr = build_K_pyramid(K, pyramid_sizes(H0, W0, 5))
+        samples = create_idepth_samples(T, K_pyr[4], 30, 40, D)
+        return K_pyr, T, samples
+
+    # K1 at the min-idepth warp: (1, 480, 640, 3), zero_invalid.
+    K_pyr, T, samples = geometry(1, 1)
+    H_min = create_plane_sweep_homographies(T, K_pyr[0], samples[:, :1])[:, 0]
+    grid = homography_grid(H_min, H0, W0)
+    image = (torch.rand(1, H0, W0, 3, generator=g) * 2 - 1).to(dev)
+    got, inv = warp.grid_sample(image, grid, zero_invalid=True, impl="kernel")
+    ref, inv_ref = warp.grid_sample(image, grid, zero_invalid=True, impl="plain")
+    err = (got - ref).abs().max().item()
+    ms = median_ms(lambda: warp.grid_sample(image, grid, True, impl="kernel"))
+    plain_ms = median_ms(lambda: warp.grid_sample(image, grid, True, impl="plain"))
+    log(f"K1 grid_sample (1,480,640,3) min-idepth warp: max_abs_err {err:.3e} "
+        f"(bar {WARP_BAR:.0e}), invalid masks equal {bool(torch.equal(inv, inv_ref))}, "
+        f"invalid share {inv.float().mean().item():.4f}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not (err <= WARP_BAR and torch.equal(inv, inv_ref)):
+        raise AssertionError("K1 disagrees with its plain version at 480x640")
+    results["warp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    # K1 at the plane sweep: (5, 30, 40, 3) -> (5, 12, 30, 40, 3).
+    K_pyr, T, samples = geometry(5, 2)
+    H_fam = create_plane_sweep_homographies(T, K_pyr[4], samples)
+    grid = homography_grid(H_fam, 30, 40)
+    image4 = (torch.rand(5, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+    got, inv = warp.grid_sample(image4, grid, zero_invalid=True, impl="kernel")
+    ref, inv_ref = warp.grid_sample(image4, grid, zero_invalid=True, impl="plain")
+    err = (got - ref).abs().max().item()
+    ms = median_ms(lambda: warp.grid_sample(image4, grid, True, impl="kernel"))
+    plain_ms = median_ms(lambda: warp.grid_sample(image4, grid, True, impl="plain"))
+    log(f"K1 grid_sample (5,30,40,3)->(5,12,30,40,3) plane sweep: max_abs_err {err:.3e} "
+        f"(bar {WARP_BAR:.0e}), invalid masks equal {bool(torch.equal(inv, inv_ref))}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not (err <= WARP_BAR and torch.equal(inv, inv_ref)):
+        raise AssertionError("K1 disagrees with its plain version at the plane sweep")
+    results["warp"]["max_abs_err"] = max(results["warp"]["max_abs_err"], err)
+
+    # K2 at N = 1 and N = 5, 30x40x32, D = 12, seeded fan-in-scale refiner.
+    refiner = FeatureRefiner(32)
+    prefix = "right_feature_extractor.refiner."
+    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
+                             if k.startswith(prefix)})
+    refiner = refiner.to(dev).eval()
+    for n in (1, 5):
+        K_pyr, T, samples = geometry(n, 10 + n)
+        H_inc = incremental_homographies(
+            create_plane_sweep_homographies(T, K_pyr[4], samples))
+        feats0 = torch.randn(n, 30, 40, 32, generator=g).to(dev)
+        image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+        got = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="kernel")
+        ref = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, ref, atol=CHAIN_ATOL * scale, rtol=CHAIN_RTOL)
+        ms = median_ms(lambda: chain.incremental_chain(refiner, feats0, image_rest, H_inc,
+                                                       impl="kernel"))
+        plain_ms = median_ms(lambda: chain.incremental_chain(refiner, feats0, image_rest,
+                                                             H_inc, impl="plain"))
+        log(f"K2 incremental_chain N={n} 30x40x32 D={D}: max_abs_err {err:.3e}, "
+            f"max|plain| {scale:.3f} (bar atol {CHAIN_ATOL:.0e}*max|plain| + rtol "
+            f"{CHAIN_RTOL:.0e}), within bar {ok}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version at N={n}")
+        if n == 1:
+            results["chain"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        else:
+            results["chain"]["max_abs_err"] = max(results["chain"]["max_abs_err"], err)
+    return results
+
+
+def write_run(root, comparisons, seed):
+    """A synthetic 480x640 GTA-SfM tree with 6 - 2 * comparisons requests;
+    returns (data_dir, split)."""
+    # By path: an installed package named ``tests`` may shadow the repo's.
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_data", os.path.join(REPO, "tests", "synthetic_data.py"))
+    synthetic_data = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synthetic_data)
+    return synthetic_data.make_gta_sfm_tree(
+        os.path.join(root, f"v{comparisons}"), num_sequences=1, frames=6 - comparisons,
+        rows=H0, cols=W0, seed=seed, comparisons=comparisons)
+
+
+def serve(dev):
+    """Phase 4: the serving slice through StreamingRunner; returns launch counts and ms."""
+    import yaml
+
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.eval.streaming import (
+        MODEL_KEYS, WEIGHTS_FILE, StreamingRunner, load_model, make_dataset,
+        model_config_from_params, serving_forward)
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import warp
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        weights_dir = os.path.join(run_dir, "checkpoints", "epoch0000")
+        os.makedirs(weights_dir)
+        with open(os.path.join(run_dir, "params.yaml"), "w") as f:
+            yaml.safe_dump({"size": [H0, W0], "num_idepth_samples": D,
+                            "cost_volume_filter": True, "refiners": [True] * 5}, f)
+        torch.save(random_state_dict(0), os.path.join(weights_dir, WEIGHTS_FILE))
+        t0 = time.perf_counter()
+        trees = {v: write_run(tmp, v, seed=v) for v in (1, 2)}
+        log(f"serving: wrote synthetic 480x640 trees in {time.perf_counter() - t0:.1f} s")
+
+        cfg = load_params_yaml(os.path.join(run_dir, "params.yaml"))
+        config = model_config_from_params(cfg)
+        model = load_model(weights_dir, dev)
+        datasets = {v: make_dataset(data_dir, split, cfg, decode_backend="pil")
+                    for v, (data_dir, split) in trees.items()}
+
+        def serve_all(impl):
+            runner = StreamingRunner(model, config, device=dev, impl=impl)
+            outs = []
+            for v in (1, 2):
+                for idepth, names in runner.run(datasets[v], batch_size=1, workers=1):
+                    outs.append((v, idepth, names))
+            torch.cuda.synchronize()
+            return outs
+
+        warp.launches = 0
+        chain.launches = 0
+        served = serve_all("auto")
+        launches = {"warp": warp.launches, "chain": chain.launches}
+        n_forward = len(served)
+        log(f"serving: {n_forward} forwards "
+            f"({sum(v == 1 for v, _, _ in served)} at V=1, {sum(v == 2 for v, _, _ in served)} at V=2); "
+            f"launches grid_sample {launches['warp']}, incremental_chain {launches['chain']}")
+        if launches != {"warp": 2 * n_forward, "chain": n_forward}:
+            raise AssertionError(f"expected {2 * n_forward} grid-sample and {n_forward} "
+                                 f"chain launches, got {launches}")
+        plain = serve_all("plain")
+        if (warp.launches, chain.launches) != (launches["warp"], launches["chain"]):
+            raise AssertionError("impl='plain' launched a kernel")
+        worst = 0.0
+        for (v, got, names), (_, ref, _) in zip(served, plain):
+            if tuple(got.shape) != (1, H0, W0) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"bad output for {names}: shape {tuple(got.shape)}")
+            rng = (ref.max() - ref.min()).item()
+            rel = (got - ref).abs().max().item() / rng
+            worst = max(worst, rel)
+            log(f"serving V={v} {os.path.basename(names[0])}: shape {tuple(got.shape)}, finite, "
+                f"range {rng:.4f}, max|kernel - plain| / range {rel:.3e} (bar {SERVE_BAR:.0e})")
+            if not rel <= SERVE_BAR:
+                raise AssertionError("serving output disagrees with the plain path")
+
+        # ms per frame at B = 1, V = 1 on one batch already on the card.
+        sample = datasets[1][0]
+        batch = {"left_image": sample["left_image"], "K": sample["K"],
+                 "right_images": np.stack(sample["right_images"]),
+                 "T_right_in_left": np.stack(sample["T_right_in_left"])}
+        tensors = {k: torch.as_tensor(np.asarray(batch[k], np.float32)[None]).to(dev)
+                   for k in MODEL_KEYS}
+        with torch.inference_mode():
+            ms = {impl: median_ms(lambda: serving_forward(model, tensors, config, impl))
+                  for impl in ("auto", "plain")}
+    return launches, ms, worst
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an "
+                         "NVIDIA card")
+    sys.path.insert(0, REPO)
+    from multi_view_stereonet_tpu_torch.ops.cuda import build
+
+    smi = nvidia_smi()
+    log(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"count {torch.cuda.device_count()}")
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    for name in ("warp", "incremental_chain"):
+        t0 = time.perf_counter()
+        build.load_library(name)
+        log(f"build {name}.cu: {time.perf_counter() - t0:.2f} s")
+
+    with torch.inference_mode():
+        kernels = check_kernels(dev)
+    launches, ms, worst = serve(dev)
+    log(f"serving ms/frame B=1 V=1 480x640 D=12 ({smi}): kernels {ms['auto']:.3f}, "
+        f"plain {ms['plain']:.3f}; worst serving error {worst:.3e} of range")
+
+    pkg = "multi_view_stereonet_tpu_torch"
+    report = {"kernels": [
+        {"name": "grid_sample", "route": "cuda", "source": f"{pkg}/csrc/warp.cu",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/warp_kernel.py:270",
+         "launches": launches["warp"], **kernels["warp"]},
+        {"name": "incremental_chain", "route": "cuda",
+         "source": f"{pkg}/csrc/incremental_chain.cu",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/incremental_chain.py:224",
+         "launches": launches["chain"], **kernels["chain"]},
+    ]}
+    log(json.dumps(report))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,105 @@
+"""Bilinear grid sample: the CUDA kernel (csrc/warp.cu) and its plain version.
+
+Port of the TPU band-warp kernel (``multi_view_stereonet_tpu/ops/pallas/
+warp_kernel.py``, ``homography_warp_pallas``) and of the XLA gather it is
+held against (``multi_view_stereonet_tpu/ops/warp.py:31-79``). Layout:
+image NHWC (B, H, W, C), grid (B, ..., 2) normalized (x, y); returns
+(sampled (B, ..., C), invalid (B, ...) bool), invalid marking samples
+outside [-1, 1] before the border clamp.
+
+Forward only: a CUDA input that requires grad raises (the scatter-add
+backward comes with training).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import check_status, load_library, use_kernel
+
+# Kernel launches since the last reset; only the kernel path counts.
+launches = 0
+
+
+def grid_sample_plain(image: torch.Tensor, grid: torch.Tensor,
+                      zero_invalid: bool = False):
+    """Gather version, in the arithmetic order of the JAX ``grid_sample``."""
+    B, H, W, C = image.shape
+    out_shape = grid.shape[:-1]
+    gx = grid[..., 0].reshape(B, -1)
+    gy = grid[..., 1].reshape(B, -1)
+    invalid = (gx.abs() > 1.0) | (gy.abs() > 1.0)
+
+    ix = torch.clamp(((gx + 1.0) * W - 1.0) * 0.5, 0.0, W - 1.0)
+    iy = torch.clamp(((gy + 1.0) * H - 1.0) * 0.5, 0.0, H - 1.0)
+    x0f = torch.floor(ix)
+    y0f = torch.floor(iy)
+    wx = (ix - x0f)[..., None]
+    wy = (iy - y0f)[..., None]
+    # The index clamp only matters for a NaN coordinate (a degenerate
+    # homography), which must not become an out-of-range gather.
+    x0 = x0f.long().clamp(0, W - 1)
+    y0 = y0f.long().clamp(0, H - 1)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+
+    flat = image.reshape(B, H * W, C)
+
+    def gather(yy, xx):
+        idx = (yy * W + xx)[..., None].expand(-1, -1, C)
+        return torch.gather(flat, 1, idx)
+
+    top = gather(y0, x0) * (1.0 - wx) + gather(y0, x1) * wx
+    bot = gather(y1, x0) * (1.0 - wx) + gather(y1, x1) * wx
+    out = top * (1.0 - wy) + bot * wy
+    if zero_invalid:
+        out = out.masked_fill(invalid[..., None], 0.0)
+    return out.reshape(*out_shape, C), invalid.reshape(out_shape)
+
+
+def _library():
+    lib = load_library("warp")
+    fn = lib.mvs_grid_sample_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def grid_sample_kernel(image: torch.Tensor, grid: torch.Tensor,
+                       zero_invalid: bool = False):
+    """Launch csrc/warp.cu on CUDA tensors; same contract as the plain version."""
+    global launches
+    if not (image.is_cuda and grid.is_cuda and image.device == grid.device):
+        raise ValueError("grid_sample_kernel needs image and grid on one CUDA device")
+    if image.dtype != torch.float32 or grid.dtype != torch.float32:
+        raise TypeError(f"grid_sample_kernel takes float32, got {image.dtype}, {grid.dtype}")
+    if image.ndim != 4 or grid.shape[0] != image.shape[0] or grid.shape[-1] != 2:
+        raise ValueError(f"bad shapes: image {tuple(image.shape)}, grid {tuple(grid.shape)}")
+    if torch.is_grad_enabled() and (image.requires_grad or grid.requires_grad):
+        raise NotImplementedError("the CUDA warp kernel is forward only")
+    B, H, W, C = image.shape
+    out_shape = grid.shape[:-1]
+    M = grid[0, ..., 0].numel()
+    image = image.contiguous()
+    grid = grid.contiguous()
+    out = torch.empty(out_shape + (C,), dtype=torch.float32, device=image.device)
+    invalid = torch.empty(out_shape, dtype=torch.bool, device=image.device)
+    stream = torch.cuda.current_stream(image.device).cuda_stream
+    status = _library().mvs_grid_sample_f32(
+        image.data_ptr(), grid.data_ptr(), out.data_ptr(), invalid.data_ptr(),
+        B, H, W, C, M, int(zero_invalid), stream)
+    check_status("mvs_grid_sample_f32", status)
+    launches += 1
+    return out, invalid
+
+
+def grid_sample(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool = False,
+                impl: str = "auto"):
+    """Bilinear border-clamped sample; the kernel for CUDA tensors (see build.py)."""
+    if use_kernel(impl, image):
+        return grid_sample_kernel(image, grid, zero_invalid)
+    return grid_sample_plain(image, grid, zero_invalid)

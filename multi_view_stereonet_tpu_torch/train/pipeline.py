@@ -1,0 +1,65 @@
+"""Batch unpacking for the multi-view forward.
+
+Port of ``multi_view_stereonet_tpu/train/pipeline.py:71-114``. Tensors,
+on the batch's device: images NHWC (B, H, W, 3), right views
+(B, V, H, W, 3), K (B, 4, 4), T_right_in_left (B, V, 4, 4), optional
+depthmaps (B, H, W) and (B, V, H, W).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..geometry import baseline_norm, build_K_pyramid, se3_inverse
+from ..ops import build_image_pyramid
+
+
+def pyramid_sizes(H: int, W: int, num_levels: int):
+    sizes = [(H, W)]
+    for _ in range(1, num_levels):
+        H = (H + 1) // 2
+        W = (W + 1) // 2
+        sizes.append((H, W))
+    return sizes
+
+
+def _idepth_from_depth(depth: torch.Tensor) -> torch.Tensor:
+    """1/depth where depth > 0, else depth."""
+    pos = depth > 0
+    return torch.where(pos, 1.0 / torch.where(pos, depth, torch.ones_like(depth)), depth)
+
+
+def multi_view_unpack_batch(batch: dict, num_levels: int = 5) -> dict:
+    """Poses scaled by the FIRST right camera's baseline; area pyramids; K pyramid."""
+    left = batch["left_image"]
+    rights = batch["right_images"]
+    B, V = rights.shape[0], rights.shape[1]
+    H, W = left.shape[1], left.shape[2]
+
+    T = batch["T_right_in_left"].clone()  # (B, V, 4, 4)
+    baseline = baseline_norm(T[:, 0])  # (B,)
+    T[..., :3, 3] = T[..., :3, 3] / baseline[:, None, None]
+
+    left_pyr = build_image_pyramid(left, num_levels)
+    rights_flat = build_image_pyramid(rights.reshape((B * V,) + rights.shape[2:]),
+                                      num_levels)
+    right_pyrs = [r.reshape((B, V) + r.shape[1:]) for r in rights_flat]
+
+    inputs = {
+        "T_right_in_left": T,
+        "T_left_in_right": se3_inverse(T),
+        "K_pyr": build_K_pyramid(batch["K"], pyramid_sizes(H, W, num_levels)),
+        "left_image_pyr": left_pyr,
+        "right_image_pyr": right_pyrs,
+        "baseline": baseline,
+    }
+
+    if "left_depthmap_true" in batch:
+        inputs["left_depthmap_true"] = batch["left_depthmap_true"] / baseline[:, None, None]
+        inputs["left_idepthmap_true"] = _idepth_from_depth(inputs["left_depthmap_true"])
+        if "right_depthmap_true" in batch:
+            inputs["right_depthmap_true"] = (batch["right_depthmap_true"]
+                                             / baseline[:, None, None, None])
+            inputs["right_idepthmap_true"] = _idepth_from_depth(
+                inputs["right_depthmap_true"])
+    return inputs
