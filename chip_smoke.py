@@ -9,20 +9,27 @@ Phases, each printing its results; any failure raises and exits non-zero:
 
 1. Device: a CUDA card is required. Prints ``nvidia-smi`` name and power
    limit, and the torch and CUDA versions.
-2. Build: compiles both hand-written kernels from ``csrc/`` with nvcc.
+2. Build: compiles the four hand-written kernels from ``csrc/``, one nvcc
+   each, all started together.
 3. Kernels vs their plain PyTorch versions on the card, TF32 off, at the
    serving path's shapes: the grid sample (480x640 min-idepth warp, and
    the 5-view level-4 plane sweep) within 1e-5 abs; the incremental chain
-   (N = 1 and 5, 30x40x32, D = 12) within atol 2e-5 * max|plain|, rtol
-   2e-4. Median ms of each over 20 timed runs after warm-up (CUDA events).
+   (N = 1 and 5, 30x40x32, D = 12) and the idepthmap refiner ((N, 35, h,
+   w) = (1, 35, 30, 40), (2, 35, 30, 40), (1, 35, 60, 80)) within atol
+   2e-5 * max|plain|, rtol 2e-4; the GroupNorm tail ((2, 32, 30, 40),
+   (1, 32, 120, 160), (1, 32, 480, 640)) within 1e-5 * max(1, max|plain|).
+   Median ms of each over 20 timed runs after warm-up (CUDA events).
 4. Serving: a synthetic 480x640 GTA-SfM tree, a params.yaml (D = 12, cost
    filter on, five refiners) and seeded fan-in-scale weights saved as
    stereo_network.pth are served through StreamingRunner: four requests at
    B = 1, V = 1, then two at V = 2. Outputs must be finite, (B, 480, 640),
    and within 0.2% of the output range of the same batches served with
    impl="plain" on the card. The launch counters, zeroed just before the
-   run, must show two grid-sample launches and one chain launch per
-   forward. Prints ms per frame of kernel and plain paths (B = 1, V = 1).
+   run, must show per forward two grid-sample launches, one chain, two
+   refiner (levels 4 and 3) and 24 GroupNorm-tail launches (the
+   extractor's six resblocks and six for each of refiners 2, 1 and 0), and
+   none on the plain path. Prints ms per frame of kernel and plain paths
+   (B = 1, V = 1).
 
 Before the last line it prints one JSON line with the kernels' names,
 sources, launches, errors and times, and the nvidia-smi line; the last
@@ -45,7 +52,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WARP_BAR = 1e-5
-CHAIN_ATOL, CHAIN_RTOL = 2e-5, 2e-4
+CHAIN_ATOL, CHAIN_RTOL = 2e-5, 2e-4  # also the idepthmap refiner's bar
+GN_BAR = 1e-5  # times max(1, max|plain|)
 SERVE_BAR = 2e-3  # fraction of the plain path's output range
 H0, W0, D = 480, 640, 12
 
@@ -104,9 +112,11 @@ def check_kernels(dev):
     from multi_view_stereonet_tpu_torch.geometry import (
         build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
         incremental_homographies, normalize_baseline)
-    from multi_view_stereonet_tpu_torch.models import FeatureRefiner
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner, IDepthmapRefiner
     from multi_view_stereonet_tpu_torch.ops import homography_grid
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
     from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
     from multi_view_stereonet_tpu_torch.ops.cuda import warp
     from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
 
@@ -185,6 +195,59 @@ def check_kernels(dev):
             results["chain"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         else:
             results["chain"]["max_abs_err"] = max(results["chain"]["max_abs_err"], err)
+
+    # K3 at the refiners of levels 4 (N = B*V = 1, 2) and 3 (N = 1); the JSON line
+    # keeps the level-3 times, where it does the most work.
+    state = random_state_dict(4)
+    results["refiner"] = {"max_abs_err": 0.0}
+    for n, h, w, name in ((1, 30, 40, "refiner4"), (2, 30, 40, "refiner4"),
+                          (1, 60, 80, "refiner3")):
+        module = IDepthmapRefiner(35)
+        module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                if k.startswith(name + ".")})
+        module = module.to(dev).eval()
+        guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev)
+        idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+        got = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="kernel")
+        ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, ref, atol=CHAIN_ATOL * scale, rtol=CHAIN_RTOL)
+        ms = median_ms(lambda: refiner_op.idepthmap_refiner(module, guidance, idepth,
+                                                            impl="kernel"))
+        plain_ms = median_ms(lambda: refiner_op.idepthmap_refiner(module, guidance, idepth,
+                                                                  impl="plain"))
+        log(f"K3 idepthmap_refiner ({n},35,{h},{w}): max_abs_err {err:.3e}, max|plain| "
+            f"{scale:.3f} (bar atol {CHAIN_ATOL:.0e}*max|plain| + rtol {CHAIN_RTOL:.0e}), "
+            f"within bar {ok}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version at ({n},35,{h},{w})")
+        results["refiner"].update(max_abs_err=max(results["refiner"]["max_abs_err"], err),
+                                  ms=ms, plain_ms=plain_ms)
+
+    # K4 at the extractor's resblocks (N = B + B*V = 2, level 4) and the refiners'
+    # at levels 2 and 0; the JSON line keeps the 480x640 times.
+    weight = state["refiner0.res0.bn1.weight"].to(dev)
+    bias = state["refiner0.res0.bn1.bias"].to(dev)
+    results["gn_apply"] = {"max_abs_err": 0.0}
+    for shape in ((2, 32, 30, 40), (1, 32, 120, 160), (1, 32, H0, W0)):
+        x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev)
+        res = torch.randn(shape, generator=g).to(dev)
+        got = gn_apply.gn_apply_residual(x, res, weight, bias, 4, impl="kernel")
+        ref = gn_apply.gn_apply_residual(x, res, weight, bias, 4, impl="plain")
+        bar = GN_BAR * max(1.0, ref.abs().max().item())
+        err = (got - ref).abs().max().item()
+        ms = median_ms(lambda: gn_apply.gn_apply_residual(x, res, weight, bias, 4,
+                                                          impl="kernel"))
+        plain_ms = median_ms(lambda: gn_apply.gn_apply_residual(x, res, weight, bias, 4,
+                                                                impl="plain"))
+        log(f"K4 gn_apply_residual {shape}: max_abs_err {err:.3e} (bar {bar:.3e}), "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not err <= bar:
+            raise AssertionError(f"K4 disagrees with its plain version at {shape}")
+        results["gn_apply"].update(max_abs_err=max(results["gn_apply"]["max_abs_err"], err),
+                                   ms=ms, plain_ms=plain_ms)
     return results
 
 
@@ -209,7 +272,9 @@ def serve(dev):
     from multi_view_stereonet_tpu_torch.eval.streaming import (
         MODEL_KEYS, WEIGHTS_FILE, StreamingRunner, load_model, make_dataset,
         model_config_from_params, serving_forward)
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
     from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
     from multi_view_stereonet_tpu_torch.ops.cuda import warp
     from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
 
@@ -240,19 +305,22 @@ def serve(dev):
             torch.cuda.synchronize()
             return outs
 
-        warp.launches = 0
-        chain.launches = 0
+        modules = {"warp": warp, "chain": chain, "refiner": refiner_op,
+                   "gn_apply": gn_apply}
+        for module in modules.values():
+            module.launches = 0
         served = serve_all("auto")
-        launches = {"warp": warp.launches, "chain": chain.launches}
+        launches = {name: module.launches for name, module in modules.items()}
         n_forward = len(served)
         log(f"serving: {n_forward} forwards "
             f"({sum(v == 1 for v, _, _ in served)} at V=1, {sum(v == 2 for v, _, _ in served)} at V=2); "
-            f"launches grid_sample {launches['warp']}, incremental_chain {launches['chain']}")
-        if launches != {"warp": 2 * n_forward, "chain": n_forward}:
-            raise AssertionError(f"expected {2 * n_forward} grid-sample and {n_forward} "
-                                 f"chain launches, got {launches}")
+            f"launches {launches}")
+        expected = {"warp": 2 * n_forward, "chain": n_forward, "refiner": 2 * n_forward,
+                    "gn_apply": 24 * n_forward}
+        if launches != expected:
+            raise AssertionError(f"expected launches {expected}, got {launches}")
         plain = serve_all("plain")
-        if (warp.launches, chain.launches) != (launches["warp"], launches["chain"]):
+        if {name: module.launches for name, module in modules.items()} != launches:
             raise AssertionError("impl='plain' launched a kernel")
         worst = 0.0
         for (v, got, names), (_, ref, _) in zip(served, plain):
@@ -293,10 +361,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    for name in ("warp", "incremental_chain"):
-        t0 = time.perf_counter()
-        build.load_library(name)
-        log(f"build {name}.cu: {time.perf_counter() - t0:.2f} s")
+    sources = ("warp", "incremental_chain", "idepthmap_refiner", "gn_apply")
+    t0 = time.perf_counter()
+    build.load_libraries(*sources)
+    log(f"build {', '.join(s + '.cu' for s in sources)} (parallel): "
+        f"{time.perf_counter() - t0:.2f} s")
 
     with torch.inference_mode():
         kernels = check_kernels(dev)
@@ -313,6 +382,13 @@ def main():
          "source": f"{pkg}/csrc/incremental_chain.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/incremental_chain.py:224",
          "launches": launches["chain"], **kernels["chain"]},
+        {"name": "idepthmap_refiner", "route": "cuda",
+         "source": f"{pkg}/csrc/idepthmap_refiner.cu",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:213",
+         "launches": launches["refiner"], **kernels["refiner"]},
+        {"name": "gn_apply_residual", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
+         "launches": launches["gn_apply"], **kernels["gn_apply"]},
     ]}
     log(json.dumps(report))
     log(smi)

@@ -26,7 +26,7 @@ class FeatureNetwork(nn.Module):
             self.add_module(f"res{i}", ResnetBlock(chans[-1], bias=False))
         self.conv_final = conv2d(chans[-1], chans[-1], 3)
 
-    def forward(self, x):
+    def forward(self, x, impl: str = "auto"):
         """x (B, 3, H, W) -> [x, conv0, conv1, conv2, features], NCHW."""
         pyramid = [x]
         h = x
@@ -35,6 +35,6 @@ class FeatureNetwork(nn.Module):
             pyramid.append(h)
         h = self.conv3(h)
         for i in range(NUM_RES_BLOCKS):
-            h = getattr(self, f"res{i}")(h)
+            h = getattr(self, f"res{i}")(h, impl=impl)
         pyramid.append(self.conv_final(h))
         return pyramid

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda.gn_apply import gn_apply_residual
+
 LEAKY_SLOPE = 0.2
 GN_EPS = 1e-5
 
@@ -44,5 +46,8 @@ class ResnetBlock(nn.Module):
         self.conv1 = conv2d(channels, channels, 3, dilation=dilation, bias=bias)
         self.bn1 = group_norm(channels)
 
-    def forward(self, x):
-        return leaky_relu(self.bn1(self.conv1(x))) + x
+    def forward(self, x, impl: str = "auto"):
+        """The tail (GroupNorm, LeakyReLU, + x) is ``ops.cuda.gn_apply``'s kernel for
+        CUDA tensors; ``impl`` as in ops/cuda/build.py."""
+        return gn_apply_residual(self.conv1(x), x, self.bn1.weight, self.bn1.bias,
+                                 self.bn1.num_groups, impl)

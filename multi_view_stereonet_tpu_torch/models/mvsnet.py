@@ -7,10 +7,12 @@ forward). Public layouts are the JAX package's: image pyramids NHWC
 
 The comparison views are folded into the batch (N = B*V); the left image
 and the min-idepth-warped right images go through the feature extractor
-as one batch, which is per-sample and so changes no value. Two
-hand-written CUDA kernels carry the level-4 work on the card: the grid
-sample (min-idepth warp and plane sweep) and the incremental chain.
-``impl`` ("auto" | "kernel" | "plain") reaches both; see ops/cuda/build.py.
+as one batch, which is per-sample and so changes no value. Four
+hand-written CUDA kernels run on the card: the grid sample (min-idepth
+warp and plane sweep), the incremental chain, the whole idepthmap refiner
+at the small levels (``fused_refiner_supported``: 4 and 3 at 480x640), and
+the GroupNorm tail of every other resblock. ``impl`` ("auto" | "kernel" |
+"plain") reaches all four; see ops/cuda/build.py.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from ..geometry import (
     normalize_baseline,
 )
 from ..ops import homography_warp_auto, plane_sweep_warp, resize_bilinear, upsample_mask
+from ..ops.cuda.build import use_kernel
 from ..ops.cuda.incremental_chain import incremental_chain
+from ..ops.cuda.refiner import fused_refiner_supported, idepthmap_refiner
 from .cost_volume import CostVolumeFilter, extract_idepthmap
 from .feature_network import FeatureNetwork
 from .refiners import FeatureRefiner, IDepthmapRefiner
@@ -106,10 +110,16 @@ def incremental_right_features(net, T_right_in_left, K4, right_image4, idepth_sa
     return feature_volume, mask_volume
 
 
-def _refine_level(refiner, guidance, idepth_prior, fx):
-    """Run a refiner on fx-scaled idepth and scale back."""
+def _refine_level(refiner, guidance, idepth_prior, fx, impl="auto"):
+    """Run a refiner on fx-scaled idepth and scale back: a small level on the
+    card as one kernel, any other as the module (its resblock tails kernels)."""
     scale = fx[:, None, None]
-    return refiner(guidance, idepth_prior * scale) / scale
+    n, _, h, w = guidance.shape
+    if use_kernel(impl, guidance) and fused_refiner_supported(h, w, n):
+        refined = idepthmap_refiner(refiner, guidance, idepth_prior * scale, impl)
+    else:
+        refined = refiner(guidance, idepth_prior * scale, impl=impl)
+    return refined / scale
 
 
 def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyrs,
@@ -144,7 +154,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
 
     # Left and min-idepth right features from one extractor call (B + B*V).
     stacked_pyr = net.left_feature_extractor(
-        _nchw(torch.cat([left_image_pyr[0], warped0], dim=0)))
+        _nchw(torch.cat([left_image_pyr[0], warped0], dim=0)), impl=impl)
     left_feature_pyr = [lvl[:B] for lvl in stacked_pyr]
     right_feats0 = stacked_pyr[-1][B:].permute(0, 2, 3, 1).contiguous()
     left_feats4 = left_feature_pyr[-1]  # (B, C, h4, w4)
@@ -166,7 +176,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
     if do_refiners[4]:
         guidance4 = torch.cat([_nchw(left_image_pyr[4]), left_feats4], dim=1)
         idepth4 = _refine_level(net.refiner4, guidance4.repeat_interleave(V, dim=0),
-                                idepth4_raw, K4_bv[:, 0, 0])
+                                idepth4_raw, K4_bv[:, 0, 0], impl)
         idepth4_raw = idepth4_raw / b_hw
         idepth4 = idepth4 / b_hw
     else:
@@ -196,7 +206,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
             if lvl > 0:
                 guidance = torch.cat([guidance, left_feature_pyr[lvl]], dim=1)
             idepth_lvl = _refine_level(getattr(net, f"refiner{lvl}"), guidance, prior,
-                                       K_pyr[lvl][:, 0, 0])
+                                       K_pyr[lvl][:, 0, 0], impl)
         else:
             idepth_lvl = prior
         idepthmap_pyr[lvl], raw_pyr[lvl], mask_pyr[lvl] = idepth_lvl, prior, mask_lvl

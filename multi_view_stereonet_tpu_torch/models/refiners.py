@@ -24,9 +24,9 @@ class FeatureRefiner(nn.Module):
         self.res0 = ResnetBlock(32, dilation=DILATIONS[0])
         self.conv_final = conv2d(32, feature_channels, 3)
 
-    def forward(self, image, features):
+    def forward(self, image, features, impl: str = "auto"):
         x = leaky_relu(self.bn0(self.conv0(torch.cat([image, features], dim=1))))
-        x = self.res0(x)
+        x = self.res0(x, impl=impl)
         return features + self.conv_final(x)
 
 
@@ -42,10 +42,11 @@ class IDepthmapRefiner(nn.Module):
             self.add_module(f"res{i}", ResnetBlock(32, dilation=dil))
         self.conv_final = conv2d(32, 1, 3)
 
-    def forward(self, guidance, idepthmap):
-        """guidance (B, Cg, H, W), idepthmap (B, H, W) -> (B, H, W)."""
+    def forward(self, guidance, idepthmap, impl: str = "auto"):
+        """guidance (B, Cg, H, W), idepthmap (B, H, W) -> (B, H, W); ``impl``
+        reaches the resblocks' GroupNorm tails (ops/cuda/build.py)."""
         x = torch.cat([guidance, idepthmap[:, None]], dim=1)
         x = leaky_relu(self.bn0(self.conv0(x)))
         for i in range(len(DILATIONS)):
-            x = getattr(self, f"res{i}")(x)
+            x = getattr(self, f"res{i}")(x, impl=impl)
         return torch.relu(idepthmap + self.conv_final(x)[:, 0])

@@ -1,8 +1,9 @@
 """Compute primitives: separable resizes and the homography warps.
 
 The warps sample through ``ops.cuda.warp`` (a hand-written CUDA kernel
-with a plain PyTorch version beside it); ``ops.cuda.incremental_chain``
-holds the fused incremental feature chain.
+with a plain PyTorch version beside it); ``ops.cuda`` also holds the fused
+incremental feature chain, the small-level idepthmap refiner and the
+resblocks' GroupNorm tail.
 """
 
 from .resize import (

@@ -74,23 +74,45 @@ def _sources_digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def load_libraries(*names: str) -> list:
+    """Build the missing ``csrc/<name>.cu`` libraries, one nvcc each, all started
+    together, then load them; cached per process."""
+    with _lock:
+        missing = [n for n in dict.fromkeys(names) if n not in _libs]
+        if missing:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+        paths = {n: os.path.join(BUILD_DIR, f"lib{n}-{_sources_digest(n)}.so")
+                 for n in missing}
+        builds = {}
+        try:
+            for n, path in paths.items():
+                if not os.path.exists(path):
+                    tmp = f"{path}.{os.getpid()}.tmp"
+                    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{n}.cu")]
+                    builds[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True), tmp)
+            failed = []
+            for n, (proc, tmp) in builds.items():
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed for {n}.cu:\n{err}")
+                else:
+                    os.replace(tmp, paths[n])
+        finally:
+            for proc, _ in builds.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for n, path in paths.items():
+            _libs[n] = ctypes.CDLL(path)
+        return [_libs[n] for n in names]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    with _lock:
-        if name in _libs:
-            return _libs[name]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR, f"lib{name}-{_sources_digest(name)}.so")
-        if not os.path.exists(path):
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC_DIR, f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-            os.replace(tmp, path)
-        _libs[name] = ctypes.CDLL(path)
-        return _libs[name]
+    return load_libraries(name)[0]
 
 
 def check_status(name: str, status: int) -> None:

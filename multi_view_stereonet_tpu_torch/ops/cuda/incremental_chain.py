@@ -29,7 +29,8 @@ launches = 0
 
 def incremental_chain_plain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
                             H_inc: torch.Tensor) -> torch.Tensor:
-    """Python loop over the hypotheses, in the order of ``_incremental_scan``."""
+    """Python loop over the hypotheses, in the order of ``_incremental_scan``; the
+    refiner runs on its plain version too, so this path launches no kernel."""
     h, w = feats0.shape[1], feats0.shape[2]
     feats = feats0
     volume = [feats0]
@@ -37,7 +38,7 @@ def incremental_chain_plain(refiner, feats0: torch.Tensor, image_rest: torch.Ten
         grid = homography_grid(H_inc[:, d], h, w)
         warped, _ = grid_sample_plain(feats, grid, zero_invalid=True)
         image = image_rest[:, d].permute(0, 3, 1, 2)
-        refined = refiner(image, warped.permute(0, 3, 1, 2))
+        refined = refiner(image, warped.permute(0, 3, 1, 2), impl="plain")
         feats = refined.permute(0, 2, 3, 1).contiguous()
         volume.append(feats)
     return torch.stack(volume, dim=1)

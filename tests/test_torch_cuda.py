@@ -6,8 +6,9 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Bars, with TF32 off: the grid sample within 1e-5 abs and equal invalid
-masks; the incremental chain within atol 2e-5 * max|plain|, rtol 2e-4; the
-whole forward within 0.2% of each level's output range.
+masks; the incremental chain and the idepthmap refiner within atol
+2e-5 * max|plain|, rtol 2e-4; the GroupNorm tail within 1e-5 * max(1,
+max|plain|); the whole forward within 0.2% of each level's output range.
 """
 
 import numpy as np
@@ -19,10 +20,20 @@ from multi_view_stereonet_tpu_torch.geometry import (
     build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
     incremental_homographies, normalize_baseline)
 from multi_view_stereonet_tpu_torch.models import (
-    FeatureRefiner, MultiViewStereoNet, MultiViewStereoNetConfig, mvsnet_forward)
+    FeatureRefiner, IDepthmapRefiner, MultiViewStereoNet, MultiViewStereoNetConfig,
+    mvsnet_forward)
 from multi_view_stereonet_tpu_torch.ops import build_image_pyramid, homography_grid
+from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
 from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 from multi_view_stereonet_tpu_torch.ops.cuda import warp
+
+REFINER_ATOL, REFINER_RTOL = 2e-5, 2e-4
+GN_BAR = 1e-5
+
+
+def counts():
+    return (warp.launches, chain.launches, refiner_op.launches, gn_apply.launches)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +97,56 @@ def test_chain_kernel_matches_plain(dev, n):
     assert torch.allclose(got, ref, atol=2e-5 * ref.abs().max().item(), rtol=2e-4)
 
 
+def idepthmap_refiner_module(cg, seed, dev):
+    """A seeded fan-in-scale IDepthmapRefiner: refiner4's weights (cg = 35) or
+    refiner0's (cg = 3)."""
+    prefix = "refiner4." if cg == 35 else "refiner0."
+    module = IDepthmapRefiner(cg)
+    module.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(seed).items()
+                            if k.startswith(prefix)})
+    return module.to(dev).eval()
+
+
+# The serving shapes (levels 4 at N = 1, 2 and level 3 at 480x640), the
+# image-only refiner, and a map smaller than the dilation-8 taps.
+@pytest.mark.parametrize("n,cg,h,w", [(1, 35, 30, 40), (2, 35, 30, 40), (1, 35, 60, 80),
+                                      (2, 3, 16, 24), (3, 35, 4, 5)])
+def test_refiner_kernel_matches_plain(dev, n, cg, h, w):
+    module = idepthmap_refiner_module(cg, seed=n, dev=dev)
+    g = torch.Generator().manual_seed(h)
+    guidance = (torch.rand(n, cg, h, w, generator=g) * 2 - 1).to(dev)
+    idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+    with torch.inference_mode():
+        before = refiner_op.launches
+        got = refiner_op.idepthmap_refiner(module, guidance, idepth)
+        ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+    torch.cuda.synchronize()
+    assert refiner_op.launches == before + 1
+    assert got.shape == (n, h, w) and torch.isfinite(got).all()
+    assert torch.allclose(got, ref, atol=REFINER_ATOL * ref.abs().max().item(),
+                          rtol=REFINER_RTOL)
+    # The refiner moves the map: a kernel returning ReLU(idepth) would not pass.
+    assert (ref - torch.relu(idepth)).abs().mean().item() > 0.01
+
+
+# The serving shapes (extractor at level 4, refiner levels 2 and 0) and a map
+# whose H*W is not a multiple of 4 (the scalar path).
+@pytest.mark.parametrize("shape", [(2, 32, 30, 40), (1, 32, 120, 160), (1, 32, 480, 640),
+                                   (3, 32, 5, 7)])
+def test_gn_apply_kernel_matches_plain(dev, shape):
+    g = torch.Generator().manual_seed(shape[2])
+    x = (torch.randn(shape, generator=g) * 3 + 1).to(dev)
+    res = torch.randn(shape, generator=g).to(dev)
+    weight = (torch.rand(shape[1], generator=g) + 0.5).to(dev)
+    bias = (torch.randn(shape[1], generator=g) * 0.1).to(dev)
+    before = gn_apply.launches
+    got = gn_apply.gn_apply_residual(x, res, weight, bias, shape[1] // 8)
+    ref = gn_apply.gn_apply_residual(x, res, weight, bias, shape[1] // 8, impl="plain")
+    torch.cuda.synchronize()
+    assert gn_apply.launches == before + 1
+    assert (got - ref).abs().max().item() <= GN_BAR * max(1.0, ref.abs().max().item())
+
+
 def test_forward_kernels_match_plain_and_are_launched(dev):
     model = MultiViewStereoNet()
     model.load_state_dict(random_state_dict(0))
@@ -101,11 +162,14 @@ def test_forward_kernels_match_plain_and_are_launched(dev):
     T = T.reshape(B, V, 4, 4).to(dev)
     config = MultiViewStereoNetConfig(num_idepth_samples=12)
     with torch.inference_mode():
-        counts = (warp.launches, chain.launches)
+        before = counts()
         got = mvsnet_forward(model, left_pyr, K_pyr, T, right_pyrs, config)
-        assert (warp.launches, chain.launches) == (counts[0] + 2, counts[1] + 1)
+        # At 64x80 the refiners of levels 4..1 are small enough for K3; K4 takes the
+        # extractor's six resblocks (one batched call each) and refiner0's six.
+        expected = tuple(b + d for b, d in zip(before, (2, 1, 4, 12)))
+        assert counts() == expected
         ref = mvsnet_forward(model, left_pyr, K_pyr, T, right_pyrs, config, impl="plain")
-        assert (warp.launches, chain.launches) == (counts[0] + 2, counts[1] + 1)
+        assert counts() == expected, "impl='plain' launched a kernel"
     for lvl in range(5):
         a, b = got["left_idepthmap_pyr"][lvl], ref["left_idepthmap_pyr"][lvl]
         span = (b.max() - b.min()).item()
@@ -138,6 +202,32 @@ def test_serving_forward_never_synchronizes(dev):
     assert out.shape == (1, 64, 80) and torch.isfinite(out).all()
 
 
+def test_plain_paths_launch_nothing(dev):
+    """impl='plain' on the card: the chain's plain loop (whose refiner owns a
+    resblock) and the refiners run no kernel."""
+    prefix = "right_feature_extractor.refiner."
+    feature_refiner = FeatureRefiner(32)
+    feature_refiner.load_state_dict({k[len(prefix):]: v for k, v in
+                                     random_state_dict(0).items() if k.startswith(prefix)})
+    feature_refiner = feature_refiner.to(dev).eval()
+    K, T = scene(1, 30, 40, seed=5)
+    samples = create_idepth_samples(T, K, 30, 40, 4)
+    H_inc = incremental_homographies(create_plane_sweep_homographies(T, K, samples)).to(dev)
+    module = idepthmap_refiner_module(35, seed=0, dev=dev)
+    with torch.inference_mode():
+        before = counts()
+        chain.incremental_chain(feature_refiner, torch.randn(1, 30, 40, 32, device=dev),
+                                torch.rand(1, 3, 30, 40, 3, device=dev), H_inc, impl="plain")
+        chain.incremental_chain_plain(feature_refiner, torch.randn(1, 30, 40, 32, device=dev),
+                                      torch.rand(1, 3, 30, 40, 3, device=dev), H_inc)
+        refiner_op.idepthmap_refiner(module, torch.rand(1, 35, 30, 40, device=dev),
+                                     torch.rand(1, 30, 40, device=dev), impl="plain")
+        module(torch.rand(1, 35, 120, 160, device=dev), torch.rand(1, 120, 160, device=dev),
+               impl="plain")
+    torch.cuda.synchronize()
+    assert counts() == before
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     image = torch.zeros(1, 4, 5, 3, device=dev, requires_grad=True)
     grid = torch.zeros(1, 4, 5, 2, device=dev)
@@ -145,3 +235,24 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         warp.grid_sample(image, grid)
     with pytest.raises(TypeError, match="float32"):
         warp.grid_sample(image.detach().double(), grid)
+
+    x = torch.zeros(1, 32, 4, 8, device=dev, requires_grad=True)
+    w, b = torch.ones(32, device=dev), torch.zeros(32, device=dev)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        gn_apply.gn_apply_residual(x, x, w, b, 4)
+    with pytest.raises(TypeError, match="float32"):
+        gn_apply.gn_apply_residual(x.detach().double(), x.detach().double(), w, b, 4)
+    with pytest.raises(ValueError, match="bad shapes"):
+        gn_apply.gn_apply_residual(x.detach(), x.detach()[:, :16], w, b, 4)
+
+    module = idepthmap_refiner_module(35, seed=0, dev=dev)
+    guidance = torch.zeros(1, 35, 6, 8, device=dev, requires_grad=True)
+    idepth = torch.zeros(1, 6, 8, device=dev)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        refiner_op.idepthmap_refiner(module, guidance, idepth)
+    with pytest.raises(TypeError, match="float32"):
+        refiner_op.idepthmap_refiner(module.double(), guidance.detach().double(),
+                                     idepth.double())
+    with pytest.raises(ValueError, match="bad shapes"):
+        refiner_op.idepthmap_refiner(idepthmap_refiner_module(35, seed=0, dev=dev),
+                                     guidance.detach()[:, :3], idepth)
