@@ -16,9 +16,12 @@ Phases, each printing its results; any failure raises and exits non-zero:
    the 5-view level-4 plane sweep) within 1e-5 abs; the incremental chain
    (N = 1 and 5, 30x40x32, D = 12) and the idepthmap refiner ((N, 35, h,
    w) = (1, 35, 30, 40), (2, 35, 30, 40), (1, 35, 60, 80)) within atol
-   2e-5 * max|plain|, rtol 2e-4; the GroupNorm tail ((2, 32, 30, 40),
-   (1, 32, 120, 160), (1, 32, 480, 640)) within 1e-5 * max(1, max|plain|).
-   Median ms of each over 20 timed runs after warm-up (CUDA events).
+   2e-5 * max|plain|, rtol 2e-4; the GroupNorm kernel at every GroupNorm
+   shape of the forward (``GN_SHAPES``: resblock tails with the residual,
+   bn0 and the 5-D cost filter without) within 1e-5 * max(1, max|plain|).
+   Median ms of each over 20 timed runs after warm-up (CUDA events); for
+   K4 also the device time alone of kernel and plain (20 calls replayed
+   from a CUDA graph).
 4. Serving: a synthetic 480x640 GTA-SfM tree, a params.yaml (D = 12, cost
    filter on, five refiners) and seeded fan-in-scale weights saved as
    stereo_network.pth are served through StreamingRunner: four requests at
@@ -26,10 +29,10 @@ Phases, each printing its results; any failure raises and exits non-zero:
    and within 0.2% of the output range of the same batches served with
    impl="plain" on the card. The launch counters, zeroed just before the
    run, must show per forward two grid-sample launches, one chain, two
-   refiner (levels 4 and 3) and 24 GroupNorm-tail launches (the
-   extractor's six resblocks and six for each of refiners 2, 1 and 0), and
-   none on the plain path. Prints ms per frame of kernel and plain paths
-   (B = 1, V = 1).
+   refiner (levels 4 and 3) and 31 GroupNorm launches (the extractor's six
+   resblocks, six resblocks and bn0 for each of refiners 2, 1 and 0, and
+   the cost filter's four), and none on the plain path. Prints ms per
+   frame of kernel and plain paths (B = 1, V = 1).
 
 Before the last line it prints one JSON line with the kernels' names,
 sources, launches, errors and times, and the nvidia-smi line; the last
@@ -56,6 +59,14 @@ CHAIN_ATOL, CHAIN_RTOL = 2e-5, 2e-4  # also the idepthmap refiner's bar
 GN_BAR = 1e-5  # times max(1, max|plain|)
 SERVE_BAR = 2e-3  # fraction of the plain path's output range
 H0, W0, D = 480, 640, 12
+# K4's shapes in the serving forward at B = 1, V = 1 (the filter also at V = 5).
+GN_SHAPES = (((2, 32, 30, 40), True, "extractor resblocks, N = B + B*V"),
+             ((1, 32, 120, 160), True, "refiner 2 resblocks"),
+             ((1, 32, 240, 320), True, "refiner 1 resblocks"),
+             ((1, 32, H0, W0), True, "refiner 0 resblocks"),
+             ((1, 32, H0, W0), False, "refiner 0 bn0"),
+             ((1, 32, D, 30, 40), False, "cost filter, N = B*V = 1"),
+             ((5, 32, D, 30, 40), False, "cost filter, N = B*V = 5"))
 
 
 def log(*args):
@@ -83,6 +94,22 @@ def median_ms(fn, runs=20, warmup=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=20) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph, median of 7
+    replays, divided by reps (no host work in the timed span)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return median_ms(graph.replay, runs=7, warmup=1) / reps
 
 
 def scene(n, seed):
@@ -226,28 +253,33 @@ def check_kernels(dev):
         results["refiner"].update(max_abs_err=max(results["refiner"]["max_abs_err"], err),
                                   ms=ms, plain_ms=plain_ms)
 
-    # K4 at the extractor's resblocks (N = B + B*V = 2, level 4) and the refiners'
-    # at levels 2 and 0; the JSON line keeps the 480x640 times.
+    # K4 at every GroupNorm shape of the serving forward, held against the plain
+    # version; the JSON line keeps the 480x640 resblock's times.
     weight = state["refiner0.res0.bn1.weight"].to(dev)
     bias = state["refiner0.res0.bn1.bias"].to(dev)
     results["gn_apply"] = {"max_abs_err": 0.0}
-    for shape in ((2, 32, 30, 40), (1, 32, 120, 160), (1, 32, H0, W0)):
+    for shape, residual, what in GN_SHAPES:
         x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev)
-        res = torch.randn(shape, generator=g).to(dev)
-        got = gn_apply.gn_apply_residual(x, res, weight, bias, 4, impl="kernel")
-        ref = gn_apply.gn_apply_residual(x, res, weight, bias, 4, impl="plain")
+        res = torch.randn(shape, generator=g).to(dev) if residual else None
+
+        def kernel():
+            return gn_apply.group_norm_act(x, weight, bias, 4, res, impl="kernel")
+
+        def plain():
+            return gn_apply.group_norm_act(x, weight, bias, 4, res, impl="plain")
+        got, ref = kernel(), plain()
         bar = GN_BAR * max(1.0, ref.abs().max().item())
         err = (got - ref).abs().max().item()
-        ms = median_ms(lambda: gn_apply.gn_apply_residual(x, res, weight, bias, 4,
-                                                          impl="kernel"))
-        plain_ms = median_ms(lambda: gn_apply.gn_apply_residual(x, res, weight, bias, 4,
-                                                                impl="plain"))
-        log(f"K4 gn_apply_residual {shape}: max_abs_err {err:.3e} (bar {bar:.3e}), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not err <= bar:
+        ms, plain_ms = median_ms(kernel), median_ms(plain)
+        log(f"K4 group_norm_act {shape} {'+ res' if residual else 'no res'} ({what}): "
+            f"max_abs_err {err:.3e} (bar {bar:.3e}); a call: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; device: kernel {graph_ms(kernel):.4f} ms, plain "
+            f"{graph_ms(plain):.4f} ms")
+        if not (err <= bar and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K4 disagrees with its plain version at {shape}")
-        results["gn_apply"].update(max_abs_err=max(results["gn_apply"]["max_abs_err"], err),
-                                   ms=ms, plain_ms=plain_ms)
+        results["gn_apply"]["max_abs_err"] = max(results["gn_apply"]["max_abs_err"], err)
+        if shape == (1, 32, H0, W0) and residual:
+            results["gn_apply"].update(ms=ms, plain_ms=plain_ms)
     return results
 
 
@@ -316,7 +348,7 @@ def serve(dev):
             f"({sum(v == 1 for v, _, _ in served)} at V=1, {sum(v == 2 for v, _, _ in served)} at V=2); "
             f"launches {launches}")
         expected = {"warp": 2 * n_forward, "chain": n_forward, "refiner": 2 * n_forward,
-                    "gn_apply": 24 * n_forward}
+                    "gn_apply": 31 * n_forward}
         if launches != expected:
             raise AssertionError(f"expected launches {expected}, got {launches}")
         plain = serve_all("plain")
@@ -386,7 +418,7 @@ def main():
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:213",
          "launches": launches["refiner"], **kernels["refiner"]},
-        {"name": "gn_apply_residual", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
+        {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
          "launches": launches["gn_apply"], **kernels["gn_apply"]},
     ]}

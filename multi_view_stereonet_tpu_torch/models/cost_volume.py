@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import conv3d, group_norm, leaky_relu
+from .layers import conv3d, group_norm, group_norm_leaky
 
 
 class CostVolumeFilter(nn.Module):
@@ -22,11 +22,13 @@ class CostVolumeFilter(nn.Module):
             self.add_module(f"bn{i}", group_norm(channels))
         self.conv4 = conv3d(channels, 1)
 
-    def forward(self, volume):
-        """volume (B, C, D, H, W) -> filtered cost (B, D, H, W)."""
+    def forward(self, volume, impl: str = "auto"):
+        """volume (B, C, D, H, W) -> filtered cost (B, D, H, W); ``impl`` reaches the
+        GroupNorms (ops/cuda/build.py)."""
         x = volume
         for i in range(4):
-            x = leaky_relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+            x = group_norm_leaky(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(x),
+                                 impl=impl)
         return self.conv4(x)[:, 0]
 
 

@@ -1,4 +1,4 @@
-"""Primitive layers: "same"-padded convs, GroupNorm(C // 8), residual block.
+"""Primitive layers: "same"-padded convs, GroupNorm(C // 8) -> LeakyReLU, residual block.
 
 Port of ``multi_view_stereonet_tpu/models/layers.py:25-154``. Modules take
 NCHW (or NCDHW) tensors, PyTorch's own layout; the model converts from the
@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda.gn_apply import gn_apply_residual
+from ..ops.cuda.gn_apply import group_norm_act
 
 LEAKY_SLOPE = 0.2
 GN_EPS = 1e-5
@@ -38,6 +38,12 @@ def leaky_relu(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
+def group_norm_leaky(bn: nn.GroupNorm, x, res=None, impl: str = "auto"):
+    """leaky_relu(bn(x), 0.2) (+ res), NCHW or NCDHW: ``ops.cuda.gn_apply``'s kernel for
+    CUDA tensors; ``impl`` as in ops/cuda/build.py."""
+    return group_norm_act(x, bn.weight, bn.bias, bn.num_groups, res, impl)
+
+
 class ResnetBlock(nn.Module):
     """conv3x3 -> GroupNorm -> LeakyReLU(0.2) -> + identity (no final activation)."""
 
@@ -47,7 +53,5 @@ class ResnetBlock(nn.Module):
         self.bn1 = group_norm(channels)
 
     def forward(self, x, impl: str = "auto"):
-        """The tail (GroupNorm, LeakyReLU, + x) is ``ops.cuda.gn_apply``'s kernel for
-        CUDA tensors; ``impl`` as in ops/cuda/build.py."""
-        return gn_apply_residual(self.conv1(x), x, self.bn1.weight, self.bn1.bias,
-                                 self.bn1.num_groups, impl)
+        """The tail (GroupNorm, LeakyReLU, + x) is ``group_norm_leaky``."""
+        return group_norm_leaky(self.bn1, self.conv1(x), x, impl)

@@ -11,8 +11,10 @@ as one batch, which is per-sample and so changes no value. Four
 hand-written CUDA kernels run on the card: the grid sample (min-idepth
 warp and plane sweep), the incremental chain, the whole idepthmap refiner
 at the small levels (``fused_refiner_supported``: 4 and 3 at 480x640), and
-the GroupNorm tail of every other resblock. ``impl`` ("auto" | "kernel" |
-"plain") reaches all four; see ops/cuda/build.py.
+GroupNorm -> LeakyReLU (+ residual) everywhere else: the extractor's and
+the larger refiners' resblocks, those refiners' bn0 and the cost filter.
+``impl`` ("auto" | "kernel" | "plain") reaches all four; see
+ops/cuda/build.py.
 """
 
 from __future__ import annotations
@@ -166,7 +168,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
     left_vol = left_feats4.permute(0, 2, 3, 1).repeat_interleave(V, dim=0)[:, None]
     cost = (left_vol - right_feat_vol).abs().masked_fill(right_mask_vol[..., None], 0.0)
     if config.do_cost_volume_filter:
-        cost_volume = net.volume_filter4(cost.permute(0, 4, 1, 2, 3))
+        cost_volume = net.volume_filter4(cost.permute(0, 4, 1, 2, 3), impl=impl)
     else:
         cost_volume = torch.sqrt(torch.sum(cost.float() ** 2, dim=-1))
     idepth4_raw = extract_idepthmap(cost_volume, idepth_samples)  # (B*V, h4, w4)

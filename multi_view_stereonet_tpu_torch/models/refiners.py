@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import ResnetBlock, conv2d, group_norm, leaky_relu
+from .layers import ResnetBlock, conv2d, group_norm, group_norm_leaky, leaky_relu
 
 DILATIONS = (1, 2, 4, 8, 1, 1)
 
@@ -44,9 +44,9 @@ class IDepthmapRefiner(nn.Module):
 
     def forward(self, guidance, idepthmap, impl: str = "auto"):
         """guidance (B, Cg, H, W), idepthmap (B, H, W) -> (B, H, W); ``impl``
-        reaches the resblocks' GroupNorm tails (ops/cuda/build.py)."""
+        reaches every GroupNorm, bn0's and the resblocks' (ops/cuda/build.py)."""
         x = torch.cat([guidance, idepthmap[:, None]], dim=1)
-        x = leaky_relu(self.bn0(self.conv0(x)))
+        x = group_norm_leaky(self.bn0, self.conv0(x), impl=impl)
         for i in range(len(DILATIONS)):
             x = getattr(self, f"res{i}")(x, impl=impl)
         return torch.relu(idepthmap + self.conv_final(x)[:, 0])

@@ -6,8 +6,8 @@
   (``csrc/incremental_chain.cu``).
 - ``refiner``: the whole idepthmap refiner of a small pyramid level
   (``csrc/idepthmap_refiner.cu``).
-- ``gn_apply``: the resblock tail, GroupNorm with its statistics ->
-  LeakyReLU -> + residual (``csrc/gn_apply.cu``).
+- ``gn_apply``: every GroupNorm of the forward, GroupNorm with its
+  statistics -> LeakyReLU -> optional residual (``csrc/gn_apply.cu``).
 
 ``build`` compiles each kernel with nvcc on first use and routes calls by
 tensor device; nothing here is built or imported from triton at import.

@@ -1,16 +1,20 @@
-"""The resblock tail, GroupNorm -> LeakyReLU(0.2) -> + residual: CUDA kernel
-(csrc/gn_apply.cu) and its plain version.
+"""GroupNorm -> LeakyReLU(0.2) -> optional residual add: CUDA kernel
+(csrc/gn_apply.cu) and its plain version. Every GroupNorm of the serving
+forward on the card goes through it: the resblock tails (with the residual),
+the refiners' ``bn0`` and the cost filter's four (without).
 
 Port of the TPU kernel ``multi_view_stereonet_tpu/ops/pallas/gn_apply.py``
 (``gn_apply_residual_fused``) together with the statistics it takes from
 ``models/s2d.py`` ``gn_s2d_stats``: one call computes the statistics of x
-and applies them. Layout NCHW (the port's modules' own), f32, eps 1e-5 (the
-port's ``GroupNorm(C // 8)``). Forward only.
+(a statistics pass over chunks of each (sample, group) row) and applies them
+(an apply pass). Layout NCHW or NCDHW (the port's modules' own), f32, eps
+1e-5 (the port's ``GroupNorm(C // 8)``). Forward only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -27,72 +31,93 @@ SLOPE = 0.2
 BLOCKS_PER_SM = 4
 MIN_CHUNK = 4096
 
-
-def gn_apply_residual_plain(x: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
-                            bias: torch.Tensor, groups: int) -> torch.Tensor:
-    """leaky_relu(group_norm(x), 0.2) + res, as ``nn.GroupNorm`` computes it."""
-    return F.leaky_relu(F.group_norm(x, groups, weight, bias, EPS), SLOPE) + res
-
-
-def _library():
-    lib = load_library("gn_apply")
-    fn = lib.mvs_gn_apply_residual_f32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                       + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p])
+# Per device index: (SM count, ctypes entry).
+_device_cache: dict = {}
 
 
-def _chunking(rows: int, L: int, target_blocks: int) -> tuple:
-    """(chunk, chunks): each row cut into chunks of a multiple of 4 elements."""
+def group_norm_act_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         groups: int, res: torch.Tensor | None = None) -> torch.Tensor:
+    """leaky_relu(group_norm(x), 0.2) (+ res), as ``nn.GroupNorm`` computes it."""
+    y = F.leaky_relu(F.group_norm(x, groups, weight, bias, EPS), SLOPE)
+    return y if res is None else y + res
+
+
+def chunking(rows: int, L: int, target_blocks: int) -> tuple:
+    """(chunk, chunks): each of ``rows`` rows of L floats cut into chunks of a multiple
+    of 4 elements, about ``target_blocks`` in all, none under MIN_CHUNK unless the row
+    is; chunks * chunk >= L and no chunk is empty."""
     chunks = max(1, min(-(-target_blocks // rows), -(-L // MIN_CHUNK)))
     chunk = -(-L // chunks)
     chunk = -(-chunk // 4) * 4
     return chunk, -(-L // chunk)
 
 
-def gn_apply_residual_kernel(x: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
-                             bias: torch.Tensor, groups: int) -> torch.Tensor:
-    """Launch csrc/gn_apply.cu (a statistics pass, then an apply pass) on CUDA tensors."""
+def _device_functions(device: int) -> tuple:
+    info = _device_cache.get(device)
+    if info is None:
+        fn = load_library("gn_apply").mvs_gn_act_f32
+        fn.argtypes, fn.restype = _ARGS, ctypes.c_int
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        info = _device_cache[device] = (sms, fn)
+    return info
+
+
+def group_norm_act_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                          groups: int, res: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch csrc/gn_apply.cu (a statistics pass, then an apply pass) on CUDA
+    tensors. A launch the card refuses raises."""
     global launches
-    tensors = (x, res, weight, bias)
-    if not all(t.is_cuda and t.device == x.device for t in tensors):
-        raise ValueError("gn_apply_residual_kernel needs x, res, weight and bias on one "
+    tensors = (x, weight, bias) if res is None else (x, weight, bias, res)
+    dev = x.get_device()  # -1 on the CPU
+    if dev < 0 or any(t.get_device() != dev for t in tensors):
+        raise ValueError("group_norm_act_kernel needs x, weight, bias (and res) on one "
                          "CUDA device")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("gn_apply_residual_kernel takes float32 tensors")
-    if (x.ndim != 4 or res.shape != x.shape or groups < 1 or x.shape[1] % groups
-            or weight.shape != (x.shape[1],) or bias.shape != (x.shape[1],)):
-        raise ValueError(f"bad shapes: x {tuple(x.shape)}, res {tuple(res.shape)}, weight "
+        raise TypeError("group_norm_act_kernel takes float32 tensors")
+    C = x.shape[1] if x.ndim >= 3 else 0
+    if (x.ndim not in (4, 5) or (res is not None and res.shape != x.shape) or groups < 1
+            or C % groups or weight.shape != (C,) or bias.shape != (C,)):
+        raise ValueError(f"bad shapes: x {tuple(x.shape)}, res "
+                         f"{None if res is None else tuple(res.shape)}, weight "
                          f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, groups {groups}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("the CUDA GroupNorm-apply kernel is forward only")
-    N, C, H, W = x.shape
-    x = x.contiguous()
-    res = res.contiguous()
-    weight = weight.contiguous()
-    bias = bias.contiguous()
+        raise NotImplementedError("the CUDA GroupNorm kernel is forward only")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if res is not None and not res.is_contiguous():
+        res = res.contiguous()
+    if not (weight.is_contiguous() and bias.is_contiguous()):
+        weight, bias = weight.contiguous(), bias.contiguous()
+    N, span = x.shape[0], math.prod(x.shape[2:])
+    L = C // groups * span
     out = torch.empty_like(x)
-    L = (C // groups) * H * W
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunk, chunks = _chunking(N * groups, L, BLOCKS_PER_SM * sms)
+    ptrs = [x.data_ptr(), out.data_ptr()] + ([] if res is None else [res.data_ptr()])
+    vec = 4 if span % 4 == 0 and not any(p % 16 for p in ptrs) else 1
+    sms, fn = _device_functions(dev)
+    chunk, chunks = chunking(N * groups, L, BLOCKS_PER_SM * sms)
     partials = torch.empty((N * groups, chunks, 2), dtype=torch.float64, device=x.device)
-    vec = 4 if (H * W) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, res, out)) else 1
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _library().mvs_gn_apply_residual_f32(
-        x.data_ptr(), res.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), N, C, groups, H * W, chunk, chunks, vec, EPS, stream)
-    check_status("mvs_gn_apply_residual_f32", status)
+    status = fn(x.data_ptr(), None if res is None else res.data_ptr(), weight.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), partials.data_ptr(), N, C, groups, span,
+                chunk, chunks, vec, EPS, torch._C._cuda_getCurrentRawStream(dev))
+    check_status("mvs_gn_act_f32", status)
     launches += 1
     return out
 
 
+def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+                   res: torch.Tensor | None = None, impl: str = "auto") -> torch.Tensor:
+    """leaky_relu(group_norm(x), 0.2) (+ res) for NCHW or NCDHW f32; the kernel for
+    CUDA tensors, the plain version otherwise (see build.py)."""
+    if use_kernel(impl, x):
+        return group_norm_act_kernel(x, weight, bias, groups, res)
+    return group_norm_act_plain(x, weight, bias, groups, res)
+
+
 def gn_apply_residual(x: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, groups: int, impl: str = "auto") -> torch.Tensor:
-    """leaky_relu(group_norm(x), 0.2) + res for NCHW f32; the kernel for CUDA
-    tensors, the plain version otherwise (see build.py)."""
-    if use_kernel(impl, x):
-        return gn_apply_residual_kernel(x, res, weight, bias, groups)
-    return gn_apply_residual_plain(x, res, weight, bias, groups)
+    """The resblock tail, leaky_relu(group_norm(x), 0.2) + res: ``group_norm_act``'s
+    residual case."""
+    return group_norm_act(x, weight, bias, groups, res, impl)

@@ -7,8 +7,8 @@ imports no JAX, so it also runs where JAX is not installed:
 
 Bars, with TF32 off: the grid sample within 1e-5 abs and equal invalid
 masks; the incremental chain and the idepthmap refiner within atol
-2e-5 * max|plain|, rtol 2e-4; the GroupNorm tail within 1e-5 * max(1,
-max|plain|); the whole forward within 0.2% of each level's output range.
+2e-5 * max|plain|, rtol 2e-4; the GroupNorm kernel within
+1e-5 * max(1, max|plain|); the whole forward within 0.2% of each level's output range.
 """
 
 import numpy as np
@@ -20,8 +20,8 @@ from multi_view_stereonet_tpu_torch.geometry import (
     build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
     incremental_homographies, normalize_baseline)
 from multi_view_stereonet_tpu_torch.models import (
-    FeatureRefiner, IDepthmapRefiner, MultiViewStereoNet, MultiViewStereoNetConfig,
-    mvsnet_forward)
+    CostVolumeFilter, FeatureRefiner, IDepthmapRefiner, MultiViewStereoNet,
+    MultiViewStereoNetConfig, mvsnet_forward)
 from multi_view_stereonet_tpu_torch.ops import build_image_pyramid, homography_grid
 from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
 from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
@@ -129,22 +129,65 @@ def test_refiner_kernel_matches_plain(dev, n, cg, h, w):
     assert (ref - torch.relu(idepth)).abs().mean().item() > 0.01
 
 
-# The serving shapes (extractor at level 4, refiner levels 2 and 0) and a map
-# whose H*W is not a multiple of 4 (the scalar path).
-@pytest.mark.parametrize("shape", [(2, 32, 30, 40), (1, 32, 120, 160), (1, 32, 480, 640),
-                                   (3, 32, 5, 7)])
-def test_gn_apply_kernel_matches_plain(dev, shape):
+def gn_case(shape, residual, dev):
+    """x (off-centre, as a conv output is), weight, bias and res (or None) on the card."""
     g = torch.Generator().manual_seed(shape[2])
     x = (torch.randn(shape, generator=g) * 3 + 1).to(dev)
-    res = torch.randn(shape, generator=g).to(dev)
+    res = torch.randn(shape, generator=g).to(dev) if residual else None
     weight = (torch.rand(shape[1], generator=g) + 0.5).to(dev)
     bias = (torch.randn(shape[1], generator=g) * 0.1).to(dev)
+    return x, weight, bias, res
+
+
+def assert_gn_matches_plain(got, x, weight, bias, res):
+    ref = gn_apply.group_norm_act(x, weight, bias, x.shape[1] // 8, res, impl="plain")
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= GN_BAR * max(1.0, ref.abs().max().item())
+
+
+# The serving shapes (extractor at level 4, refiner levels 2, 1 and 0, the cost
+# filter at N = B*V = 1 and 5) and a map whose H*W is not a multiple of 4 (the
+# scalar path), with the residual (resblock tails) and without (bn0, the filter).
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(2, 32, 30, 40), (1, 32, 120, 160), (1, 32, 240, 320),
+                                   (1, 32, 480, 640), (1, 32, 12, 30, 40),
+                                   (5, 32, 12, 30, 40), (3, 32, 5, 7)])
+def test_gn_apply_kernel_matches_plain(dev, shape, residual):
+    x, weight, bias, res = gn_case(shape, residual, dev)
     before = gn_apply.launches
-    got = gn_apply.gn_apply_residual(x, res, weight, bias, shape[1] // 8)
-    ref = gn_apply.gn_apply_residual(x, res, weight, bias, shape[1] // 8, impl="plain")
+    got = gn_apply.group_norm_act(x, weight, bias, shape[1] // 8, res)
     torch.cuda.synchronize()
     assert gn_apply.launches == before + 1
-    assert (got - ref).abs().max().item() <= GN_BAR * max(1.0, ref.abs().max().item())
+    assert_gn_matches_plain(got, x, weight, bias, res)
+
+
+@pytest.mark.parametrize("shape,residual", [((1, 32, 120, 160), True),
+                                            ((5, 32, 12, 30, 40), False)])
+def test_gn_kernel_unaligned_takes_scalar_loads(dev, shape, residual):
+    """Tensors that start off a 16-byte boundary take the scalar (non-float4) loads."""
+    x, weight, bias, res = gn_case(shape, residual, dev)
+
+    def unaligned(t):
+        return None if t is None else torch.cat([t.new_zeros(1), t.flatten()])[1:].view(shape)
+    x, res = unaligned(x), unaligned(res)
+    assert x.data_ptr() % 16
+    got = gn_apply.group_norm_act_kernel(x, weight, bias, 4, res)
+    assert_gn_matches_plain(got, x, weight, bias, res)
+
+
+def test_gn_launch_error_raises(dev):
+    """A launch the card refuses (more than 65535 (sample, group) rows in the grid's y
+    dimension) raises; it never runs the plain version instead, and leaves no error
+    behind for the next launch."""
+    x, weight, bias, res = gn_case((1, 32, 120, 160), True, dev)
+    before = gn_apply.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gn_apply.group_norm_act_kernel(torch.zeros(16400, 32, 2, 2, device=dev), weight,
+                                       bias, 4)
+    assert gn_apply.launches == before
+    got = gn_apply.group_norm_act_kernel(x, weight, bias, 4, res)
+    assert_gn_matches_plain(got, x, weight, bias, res)
 
 
 def test_forward_kernels_match_plain_and_are_launched(dev):
@@ -165,8 +208,9 @@ def test_forward_kernels_match_plain_and_are_launched(dev):
         before = counts()
         got = mvsnet_forward(model, left_pyr, K_pyr, T, right_pyrs, config)
         # At 64x80 the refiners of levels 4..1 are small enough for K3; K4 takes the
-        # extractor's six resblocks (one batched call each) and refiner0's six.
-        expected = tuple(b + d for b, d in zip(before, (2, 1, 4, 12)))
+        # extractor's six resblocks (one batched call each), refiner0's six and its
+        # bn0, and the cost filter's four GroupNorms.
+        expected = tuple(b + d for b, d in zip(before, (2, 1, 4, 17)))
         assert counts() == expected
         ref = mvsnet_forward(model, left_pyr, K_pyr, T, right_pyrs, config, impl="plain")
         assert counts() == expected, "impl='plain' launched a kernel"
@@ -204,7 +248,7 @@ def test_serving_forward_never_synchronizes(dev):
 
 def test_plain_paths_launch_nothing(dev):
     """impl='plain' on the card: the chain's plain loop (whose refiner owns a
-    resblock) and the refiners run no kernel."""
+    resblock), the refiners and the cost filter run no kernel."""
     prefix = "right_feature_extractor.refiner."
     feature_refiner = FeatureRefiner(32)
     feature_refiner.load_state_dict({k[len(prefix):]: v for k, v in
@@ -224,6 +268,7 @@ def test_plain_paths_launch_nothing(dev):
                                      torch.rand(1, 30, 40, device=dev), impl="plain")
         module(torch.rand(1, 35, 120, 160, device=dev), torch.rand(1, 120, 160, device=dev),
                impl="plain")
+        CostVolumeFilter(32).to(dev)(torch.rand(1, 32, 4, 30, 40, device=dev), impl="plain")
     torch.cuda.synchronize()
     assert counts() == before
 

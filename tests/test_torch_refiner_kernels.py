@@ -1,4 +1,4 @@
-"""The plain versions of the port's idepthmap-refiner (K3) and GroupNorm-tail (K4)
+"""The plain versions of the port's idepthmap-refiner (K3) and GroupNorm (K4)
 kernels against the JAX package, on the CPU.
 
 On the CPU the wrappers in ``ops/cuda/refiner.py`` and ``ops/cuda/gn_apply.py``
@@ -9,7 +9,8 @@ refiner through its XLA paths (plain and s2d), and the Pallas refiner under
 ``force_tpu_interpret_mode`` (slow).
 
 Bars:
-- K4: max abs error <= 1e-5 * max(1, max|ref|);
+- K4 and the modules it serves (bn0's refiner, the cost filter): max abs error
+  <= 1e-5 * max(1, max|ref|);
 - K3: atol 2e-5 * max|ref|, rtol 2e-4 (the chain's bar);
 - whole forward: every level within 0.2% of its output range
   (tests/test_torch_model.py).
@@ -23,6 +24,9 @@ import jax
 import jax.numpy as jnp
 
 from multi_view_stereonet_tpu.models import MultiViewStereoNetConfig as JaxConfig
+from multi_view_stereonet_tpu.models.cost_volume import cost_volume_filter as jax_cost_filter
+from multi_view_stereonet_tpu.models.layers import group_norm as jax_group_norm
+from multi_view_stereonet_tpu.models.layers import leaky_relu as jax_leaky_relu
 from multi_view_stereonet_tpu.models.layers import resnet_block as jax_resnet_block
 from multi_view_stereonet_tpu.models.refiners import idepthmap_refiner as jax_idepth_refiner
 from multi_view_stereonet_tpu.models.s2d import (
@@ -52,7 +56,13 @@ def gn_inputs(shape, seed):
 
 
 def nhwc(a):
+    """Channels last: NCHW -> NHWC, NCDHW -> NDHWC."""
     return np.ascontiguousarray(np.moveaxis(a, 1, -1))
+
+
+def nchw(a):
+    """Channels first: NHWC -> NCHW."""
+    return np.ascontiguousarray(np.moveaxis(a, -1, 1))
 
 
 def assert_gn_close(got, ref):
@@ -74,6 +84,70 @@ def test_gn_apply_plain_matches_pallas_interpret():
                                   space_to_depth(jnp.asarray(nhwc(x))),
                                   space_to_depth(jnp.asarray(nhwc(res))), 4, True)
     assert_gn_close(nhwc(got.numpy()), depth_to_space(out))
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(2, 32, 12, 16), (2, 32, 4, 16, 20)])
+def test_group_norm_act_plain_matches_jax(shape, residual):
+    """K4's generalised op, plain (CPU tensors), NCHW and NCDHW, with and without the
+    residual, vs ``leaky_relu(group_norm(...))`` (+ res) of the JAX layers."""
+    x, res, gamma, beta = gn_inputs(shape, seed=len(shape) + residual)
+    before = gn_apply.launches
+    got = gn_apply.group_norm_act(torch.from_numpy(x), torch.from_numpy(gamma),
+                                  torch.from_numpy(beta), 4,
+                                  torch.from_numpy(res) if residual else None)
+    assert gn_apply.launches == before, "a CPU tensor must not reach the kernel"
+    params = {"scale": jnp.asarray(gamma), "bias": jnp.asarray(beta)}
+    ref = jax_leaky_relu(jax_group_norm(params, jnp.asarray(nhwc(x)), groups=4))
+    if residual:
+        ref = ref + nhwc(res)
+    assert_gn_close(nhwc(got.numpy()), ref)
+
+
+H100_SMS = 132  # multiprocessors of an NVIDIA H100 80GB HBM3
+
+
+@pytest.mark.parametrize("shape,chunks", [
+    ((2, 32, 30, 40), 3),         # extractor, level 4 (B + B*V = 2): 8 rows of 9600
+    ((3, 32, 5, 7), 1),           # a row under MIN_CHUNK: one chunk
+    ((1, 32, 12, 30, 40), 29),    # cost filter, N = B*V = 1: 4 rows
+    ((5, 32, 12, 30, 40), 27),    # cost filter, N = 5: 20 rows
+    ((1, 32, 120, 160), 38),      # refiner 2
+    ((1, 32, 240, 320), 132),     # refiner 1
+    ((8, 32, 240, 320), 17),      # 32 rows: the block target split over them
+    ((1, 32, 480, 640), 132),     # refiner 0: 9.4 MiB a row
+])
+def test_group_norm_act_chunking(shape, chunks):
+    """How the kernel cuts each (sample, group) row at the serving shapes on an H100:
+    chunks of a multiple of 4 floats covering the row with none empty, about
+    BLOCKS_PER_SM blocks per SM in all, none cut finer than MIN_CHUNK needs."""
+    rows, L = shape[0] * 4, int(np.prod(shape[1:])) // 4
+    chunk, n = gn_apply.chunking(rows, L, gn_apply.BLOCKS_PER_SM * H100_SMS)
+    assert n == chunks
+    assert chunk % 4 == 0
+    assert (n - 1) * chunk < L <= n * chunk
+    assert n <= -(-L // gn_apply.MIN_CHUNK)
+    assert n <= -(-gn_apply.BLOCKS_PER_SM * H100_SMS // rows)
+
+
+@pytest.mark.parametrize("module", ["refiner0", "volume_filter4"])
+def test_group_norm_act_modules_match_jax(module):
+    """The modules whose bn0 / GroupNorms now go through K4's op, plain on the CPU:
+    refiner0 at a level-0-like (image-only guidance) size and the cost filter at
+    (2, 32, 4, 16, 20), each against its JAX function with the same weights."""
+    model, params = weights(seed=21)
+    rng = np.random.default_rng(22)
+    with jax.default_matmul_precision("highest"), torch.no_grad():
+        if module == "refiner0":
+            guidance = rng.uniform(-1, 1, size=(2, 48, 64, 3)).astype(np.float32)
+            idepth = rng.uniform(0, 20, size=(2, 48, 64)).astype(np.float32)
+            got = model.refiner0(torch.from_numpy(nchw(guidance)), torch.from_numpy(idepth))
+            ref = jax.jit(jax_idepth_refiner)(params["refiner0"], guidance, idepth)
+        else:
+            volume = np.abs(rng.normal(size=(2, 4, 16, 20, 32))).astype(np.float32)
+            got = model.volume_filter4(torch.from_numpy(nchw(volume)))
+            ref = jax.jit(jax_cost_filter)(params["volume_filter4"], volume)
+    assert_gn_close(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("dilation", [1, 2])
@@ -192,3 +266,8 @@ def test_kernel_impl_refuses_cpu_tensors():
     x = torch.zeros(1, 32, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
         gn_apply.gn_apply_residual(x, x, torch.ones(32), torch.zeros(32), 4, impl="kernel")
+    volume = torch.zeros(1, 32, 2, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn_apply.group_norm_act(volume, torch.ones(32), torch.zeros(32), 4, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        gn_apply.group_norm_act_kernel(volume, torch.ones(32), torch.zeros(32), 4)
