@@ -14,14 +14,18 @@ Phases, each printing its results; any failure raises and exits non-zero:
 3. Kernels vs their plain PyTorch versions on the card, TF32 off, at the
    serving path's shapes: the grid sample (480x640 min-idepth warp, and
    the 5-view level-4 plane sweep) within 1e-5 abs; the incremental chain
-   (N = 1 and 5, 30x40x32, D = 12) and the idepthmap refiner ((N, 35, h,
+   (N = 1, 5 and 8, 30x40x32, D = 12) and the idepthmap refiner ((N, 35, h,
    w) = (1, 35, 30, 40), (2, 35, 30, 40), (1, 35, 60, 80)) within atol
    2e-5 * max|plain|, rtol 2e-4; the GroupNorm kernel at every GroupNorm
    shape of the forward (``GN_SHAPES``: resblock tails with the residual,
    bn0 and the 5-D cost filter without) within 1e-5 * max(1, max|plain|).
-   Median ms of each over 20 timed runs after warm-up (CUDA events); for
-   K4 also the device time alone of kernel and plain (20 calls replayed
-   from a CUDA graph).
+   For each: a call's median ms over 20 timed runs after warm-up (CUDA
+   events, host work included), and the device time alone (``graph_ms``:
+   20 calls replayed from a CUDA graph), of kernel and plain version; the
+   bound (the larger of the bytes read and written over 3.35 TB/s and the
+   f32 operations over 67 TFLOP/s); for the grid sample also
+   ``F.grid_sample``'s device time on the same data; for the chain the
+   device time with 16- and with 8-block clusters forced.
 4. Serving: a synthetic 480x640 GTA-SfM tree, a params.yaml (D = 12, cost
    filter on, five refiners) and seeded fan-in-scale weights saved as
    stereo_network.pth are served through StreamingRunner: four requests at
@@ -35,8 +39,10 @@ Phases, each printing its results; any failure raises and exits non-zero:
    frame of kernel and plain paths (B = 1, V = 1).
 
 Before the last line it prints one JSON line with the kernels' names,
-sources, launches, errors and times, and the nvidia-smi line; the last
-line is {"ok": true, "device": {...}}.
+sources, launches, errors, times ("ms" and "plain_ms" are device times of
+one call, "call_ms" and "plain_call_ms" a call's time with its host work),
+bounds and library times, and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,6 +64,10 @@ WARP_BAR = 1e-5
 CHAIN_ATOL, CHAIN_RTOL = 2e-5, 2e-4  # also the idepthmap refiner's bar
 GN_BAR = 1e-5  # times max(1, max|plain|)
 SERVE_BAR = 2e-3  # fraction of the plain path's output range
+# The bound's peaks: NVIDIA H100 SXM data sheet, HBM3 rate and f32 outside the tensor
+# cores (dense), at the full 700 W power limit.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 H0, W0, D = 480, 640, 12
 # K4's shapes in the serving forward at B = 1, V = 1 (the filter also at V = 5).
 GN_SHAPES = (((2, 32, 30, 40), True, "extractor resblocks, N = B + B*V"),
@@ -133,8 +143,42 @@ def scene(n, seed):
             torch.from_numpy(np.stack(Ts).astype(np.float32)).cuda())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(read_write_bytes, flops):
+    """The least time (ms) the card could take: bytes over its memory rate or f32
+    operations over its peak, the larger, and which of the two it is."""
+    by_bytes = read_write_bytes / PEAK_BYTES_S * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def conv_flops(module, pixels) -> int:
+    """2 x multiply-adds of every 3x3 conv of ``module`` over ``pixels`` outputs each."""
+    return 2 * pixels * sum(m.weight.numel() for m in module.modules()
+                            if isinstance(m, torch.nn.Conv2d))
+
+
+def timings(kernel, plain):
+    """A call (wrapper, host work included) and the device time alone, of kernel and
+    plain version."""
+    return {"call_ms": median_ms(kernel), "plain_call_ms": median_ms(plain),
+            "ms": graph_ms(kernel), "plain_ms": graph_ms(plain)}
+
+
+def describe(t, b):
+    return (f"a call: kernel {t['call_ms']:.4f} ms, plain {t['plain_call_ms']:.4f} ms; "
+            f"device: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+
+
 def check_kernels(dev):
-    """Phase 3: each kernel against its plain version at the serving shapes."""
+    """Phase 3: each kernel against its plain version at the serving shapes, its time
+    on the device beside its bound, and (K1) the one PyTorch call that computes it."""
+    import torch.nn.functional as F
+
     from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
     from multi_view_stereonet_tpu_torch.geometry import (
         build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
@@ -157,76 +201,88 @@ def check_kernels(dev):
         samples = create_idepth_samples(T, K_pyr[4], 30, 40, D)
         return K_pyr, T, samples
 
-    # K1 at the min-idepth warp: (1, 480, 640, 3), zero_invalid.
+    def check_warp(image, grid, what):
+        """K1 vs plain; F.grid_sample on the same data, the NCHW copy made outside the
+        timed span, is the one PyTorch call for the same function (less the mask)."""
+        got, inv = warp.grid_sample(image, grid, zero_invalid=True, impl="kernel")
+        ref, inv_ref = warp.grid_sample(image, grid, zero_invalid=True, impl="plain")
+        err = (got - ref).abs().max().item()
+        t = timings(lambda: warp.grid_sample(image, grid, True, impl="kernel"),
+                    lambda: warp.grid_sample(image, grid, True, impl="plain"))
+        x_nchw = image.permute(0, 3, 1, 2).contiguous()
+        grid4 = grid.reshape(grid.shape[0], -1, grid.shape[-2], 2)
+        t["library_ms"] = graph_ms(lambda: F.grid_sample(
+            x_nchw, grid4, mode="bilinear", padding_mode="border", align_corners=False))
+        pixels = got.numel() // image.shape[-1]
+        b = bound(nbytes(image, grid, got, inv), pixels * (20 + 7 * image.shape[-1]))
+        log(f"K1 grid_sample {what}: max_abs_err {err:.3e} (bar {WARP_BAR:.0e}), invalid "
+            f"masks equal {bool(torch.equal(inv, inv_ref))}, invalid share "
+            f"{inv.float().mean().item():.4f}; {describe(t, b)}; F.grid_sample device "
+            f"{t['library_ms']:.4f} ms")
+        if not (err <= WARP_BAR and torch.equal(inv, inv_ref)):
+            raise AssertionError(f"K1 disagrees with its plain version at {what}")
+        return err, t, b
+
+    # K1 at the min-idepth warp, (1, 480, 640, 3), and at the plane sweep,
+    # (5, 30, 40, 3) -> (5, 12, 30, 40, 3); the JSON line keeps the first's times.
     K_pyr, T, samples = geometry(1, 1)
     H_min = create_plane_sweep_homographies(T, K_pyr[0], samples[:, :1])[:, 0]
-    grid = homography_grid(H_min, H0, W0)
     image = (torch.rand(1, H0, W0, 3, generator=g) * 2 - 1).to(dev)
-    got, inv = warp.grid_sample(image, grid, zero_invalid=True, impl="kernel")
-    ref, inv_ref = warp.grid_sample(image, grid, zero_invalid=True, impl="plain")
-    err = (got - ref).abs().max().item()
-    ms = median_ms(lambda: warp.grid_sample(image, grid, True, impl="kernel"))
-    plain_ms = median_ms(lambda: warp.grid_sample(image, grid, True, impl="plain"))
-    log(f"K1 grid_sample (1,480,640,3) min-idepth warp: max_abs_err {err:.3e} "
-        f"(bar {WARP_BAR:.0e}), invalid masks equal {bool(torch.equal(inv, inv_ref))}, "
-        f"invalid share {inv.float().mean().item():.4f}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    if not (err <= WARP_BAR and torch.equal(inv, inv_ref)):
-        raise AssertionError("K1 disagrees with its plain version at 480x640")
-    results["warp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-
-    # K1 at the plane sweep: (5, 30, 40, 3) -> (5, 12, 30, 40, 3).
+    err, t, b = check_warp(image, homography_grid(H_min, H0, W0),
+                           "(1,480,640,3) min-idepth warp")
+    results["warp"] = {"max_abs_err": err, **t, "bound_ms": b[0], "bound_by": b[1]}
     K_pyr, T, samples = geometry(5, 2)
-    H_fam = create_plane_sweep_homographies(T, K_pyr[4], samples)
-    grid = homography_grid(H_fam, 30, 40)
+    grid = homography_grid(create_plane_sweep_homographies(T, K_pyr[4], samples), 30, 40)
     image4 = (torch.rand(5, 30, 40, 3, generator=g) * 2 - 1).to(dev)
-    got, inv = warp.grid_sample(image4, grid, zero_invalid=True, impl="kernel")
-    ref, inv_ref = warp.grid_sample(image4, grid, zero_invalid=True, impl="plain")
-    err = (got - ref).abs().max().item()
-    ms = median_ms(lambda: warp.grid_sample(image4, grid, True, impl="kernel"))
-    plain_ms = median_ms(lambda: warp.grid_sample(image4, grid, True, impl="plain"))
-    log(f"K1 grid_sample (5,30,40,3)->(5,12,30,40,3) plane sweep: max_abs_err {err:.3e} "
-        f"(bar {WARP_BAR:.0e}), invalid masks equal {bool(torch.equal(inv, inv_ref))}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    if not (err <= WARP_BAR and torch.equal(inv, inv_ref)):
-        raise AssertionError("K1 disagrees with its plain version at the plane sweep")
+    err, _, _ = check_warp(image4, grid, "(5,30,40,3)->(5,12,30,40,3) plane sweep")
     results["warp"]["max_abs_err"] = max(results["warp"]["max_abs_err"], err)
 
-    # K2 at N = 1 and N = 5, 30x40x32, D = 12, seeded fan-in-scale refiner.
+    # K2 at N = B*V = 1, 5 and 8, 30x40x32, D = 12, seeded fan-in-scale refiner; the
+    # device time also with each cluster size forced. The JSON line keeps N = 1.
     refiner = FeatureRefiner(32)
     prefix = "right_feature_extractor.refiner."
     refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
                              if k.startswith(prefix)})
     refiner = refiner.to(dev).eval()
-    for n in (1, 5):
+    for n in (1, 5, 8):
         K_pyr, T, samples = geometry(n, 10 + n)
         H_inc = incremental_homographies(
             create_plane_sweep_homographies(T, K_pyr[4], samples))
         feats0 = torch.randn(n, 30, 40, 32, generator=g).to(dev)
         image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
-        got = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="kernel")
-        ref = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
+
+        def kernel(cluster=0):
+            return chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc, cluster)
+
+        def plain():
+            return chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
+        got, ref = kernel(), plain()
         scale = ref.abs().max().item()
         err = (got - ref).abs().max().item()
         ok = bool(torch.isfinite(got).all()) and torch.allclose(
             got, ref, atol=CHAIN_ATOL * scale, rtol=CHAIN_RTOL)
-        ms = median_ms(lambda: chain.incremental_chain(refiner, feats0, image_rest, H_inc,
-                                                       impl="kernel"))
-        plain_ms = median_ms(lambda: chain.incremental_chain(refiner, feats0, image_rest,
-                                                             H_inc, impl="plain"))
-        log(f"K2 incremental_chain N={n} 30x40x32 D={D}: max_abs_err {err:.3e}, "
-            f"max|plain| {scale:.3f} (bar atol {CHAIN_ATOL:.0e}*max|plain| + rtol "
-            f"{CHAIN_RTOL:.0e}), within bar {ok}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        t = timings(kernel, plain) if n == 1 else {"ms": graph_ms(kernel)}
+        forced = {c: graph_ms(lambda: kernel(c)) for c in (16, 8)}
+        b = bound(nbytes(feats0, image_rest, H_inc, got, *refiner.parameters()),
+                  (D - 1) * (conv_flops(refiner, n * 30 * 40) + 20 * got[:, 0].numel()))
+        detail = describe(t, b) if n == 1 else f"device {t['ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]})"
+        log(f"K2 incremental_chain N={n} 30x40x32 D={D}: max_abs_err {err:.3e}, max|plain| "
+            f"{scale:.3f} (bar atol {CHAIN_ATOL:.0e}*max|plain| + rtol {CHAIN_RTOL:.0e}), "
+            f"within bar {ok}; cluster {chain.cluster_size(n, 30, 40)} blocks a sample; "
+            f"{detail}; device with 16-block clusters {forced[16]:.4f} ms, with 8 "
+            f"{forced[8]:.4f} ms")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at N={n}")
         if n == 1:
-            results["chain"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            results["chain"] = {"max_abs_err": err, **t, "bound_ms": b[0], "bound_by": b[1],
+                                "library_ms": None}
         else:
             results["chain"]["max_abs_err"] = max(results["chain"]["max_abs_err"], err)
 
     # K3 at the refiners of levels 4 (N = B*V = 1, 2) and 3 (N = 1); the JSON line
     # keeps the level-3 times, where it does the most work.
     state = random_state_dict(4)
-    results["refiner"] = {"max_abs_err": 0.0}
+    results["refiner"] = {"max_abs_err": 0.0, "library_ms": None}
     for n, h, w, name in ((1, 30, 40, "refiner4"), (2, 30, 40, "refiner4"),
                           (1, 60, 80, "refiner3")):
         module = IDepthmapRefiner(35)
@@ -241,23 +297,25 @@ def check_kernels(dev):
         err = (got - ref).abs().max().item()
         ok = bool(torch.isfinite(got).all()) and torch.allclose(
             got, ref, atol=CHAIN_ATOL * scale, rtol=CHAIN_RTOL)
-        ms = median_ms(lambda: refiner_op.idepthmap_refiner(module, guidance, idepth,
-                                                            impl="kernel"))
-        plain_ms = median_ms(lambda: refiner_op.idepthmap_refiner(module, guidance, idepth,
-                                                                  impl="plain"))
+        t = timings(lambda: refiner_op.idepthmap_refiner(module, guidance, idepth,
+                                                         impl="kernel"),
+                    lambda: refiner_op.idepthmap_refiner(module, guidance, idepth,
+                                                         impl="plain"))
+        b = bound(nbytes(guidance, idepth, got, *module.parameters()),
+                  conv_flops(module, n * h * w) + 7 * 10 * 32 * n * h * w)
         log(f"K3 idepthmap_refiner ({n},35,{h},{w}): max_abs_err {err:.3e}, max|plain| "
             f"{scale:.3f} (bar atol {CHAIN_ATOL:.0e}*max|plain| + rtol {CHAIN_RTOL:.0e}), "
-            f"within bar {ok}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"within bar {ok}; {describe(t, b)}")
         if not ok:
             raise AssertionError(f"K3 disagrees with its plain version at ({n},35,{h},{w})")
         results["refiner"].update(max_abs_err=max(results["refiner"]["max_abs_err"], err),
-                                  ms=ms, plain_ms=plain_ms)
+                                  **t, bound_ms=b[0], bound_by=b[1])
 
     # K4 at every GroupNorm shape of the serving forward, held against the plain
     # version; the JSON line keeps the 480x640 resblock's times.
     weight = state["refiner0.res0.bn1.weight"].to(dev)
     bias = state["refiner0.res0.bn1.bias"].to(dev)
-    results["gn_apply"] = {"max_abs_err": 0.0}
+    results["gn_apply"] = {"max_abs_err": 0.0, "library_ms": None}
     for shape, residual, what in GN_SHAPES:
         x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev)
         res = torch.randn(shape, generator=g).to(dev) if residual else None
@@ -268,18 +326,17 @@ def check_kernels(dev):
         def plain():
             return gn_apply.group_norm_act(x, weight, bias, 4, res, impl="plain")
         got, ref = kernel(), plain()
-        bar = GN_BAR * max(1.0, ref.abs().max().item())
+        tol = GN_BAR * max(1.0, ref.abs().max().item())
         err = (got - ref).abs().max().item()
-        ms, plain_ms = median_ms(kernel), median_ms(plain)
+        t = timings(kernel, plain)
+        b = bound(nbytes(x, got, weight, bias, *([res] if residual else [])), 10 * x.numel())
         log(f"K4 group_norm_act {shape} {'+ res' if residual else 'no res'} ({what}): "
-            f"max_abs_err {err:.3e} (bar {bar:.3e}); a call: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms; device: kernel {graph_ms(kernel):.4f} ms, plain "
-            f"{graph_ms(plain):.4f} ms")
-        if not (err <= bar and bool(torch.isfinite(got).all())):
+            f"max_abs_err {err:.3e} (bar {tol:.3e}); {describe(t, b)}")
+        if not (err <= tol and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K4 disagrees with its plain version at {shape}")
         results["gn_apply"]["max_abs_err"] = max(results["gn_apply"]["max_abs_err"], err)
         if shape == (1, 32, H0, W0) and residual:
-            results["gn_apply"].update(ms=ms, plain_ms=plain_ms)
+            results["gn_apply"].update(**t, bound_ms=b[0], bound_by=b[1])
     return results
 
 

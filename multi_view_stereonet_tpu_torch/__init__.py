@@ -14,8 +14,11 @@ reference network's.
 - ``eval``       ``serving_forward`` and the single-device ``StreamingRunner``
 - ``checkpoint`` JAX pytree -> state dict, and a seeded initialiser
 - ``csrc``       CUDA sources, built with nvcc on first use into ``_build/``
+- ``data``, ``utils``, ``native``  the host data path (datasets, transforms,
+                 batch loader, the g++-built JPEG loader), copied from the JAX
+                 package so that the port stands on its own
 
-It imports no JAX. Data loading reuses the JAX package's jax-free ``data``.
+It imports no JAX and nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

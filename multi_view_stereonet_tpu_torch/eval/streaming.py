@@ -29,9 +29,7 @@ import time
 
 import torch
 
-from multi_view_stereonet_tpu.data import (
-    BatchLoader, DeMoNDataset, GTASfMMultiViewDataset, get_testing_transforms)
-
+from ..data import BatchLoader, DeMoNDataset, GTASfMMultiViewDataset, get_testing_transforms
 from ..models import MultiViewStereoNet, MultiViewStereoNetConfig, mvsnet_forward
 from ..train.config import load_params_yaml
 from ..train.pipeline import multi_view_unpack_batch

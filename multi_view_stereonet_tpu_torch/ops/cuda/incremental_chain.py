@@ -48,9 +48,22 @@ def _library():
     lib = load_library("incremental_chain")
     fn = lib.mvs_incremental_chain_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        query = lib.mvs_incremental_chain_cluster
+        query.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        query.restype = ctypes.c_int
     return lib
+
+
+def cluster_size(n: int, h: int, w: int, device=None) -> int:
+    """The blocks a sample the kernel takes for n samples of an h x w map on ``device``
+    (the current CUDA device by default): 16, or 8 where that needs fewer waves."""
+    size = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check_status("mvs_incremental_chain_cluster",
+                     _library().mvs_incremental_chain_cluster(n, h, w, ctypes.byref(size)))
+    return size.value
 
 
 def _taps(weight: torch.Tensor) -> torch.Tensor:
@@ -59,8 +72,10 @@ def _taps(weight: torch.Tensor) -> torch.Tensor:
 
 
 def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
-                             H_inc: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/incremental_chain.cu: one block per sample runs all D-1 steps."""
+                             H_inc: torch.Tensor, cluster: int = 0) -> torch.Tensor:
+    """Launch csrc/incremental_chain.cu: one thread-block cluster per sample runs all D-1
+    steps. ``cluster`` sets the blocks a sample (0: the kernel chooses, see
+    ``cluster_size``); a size the card refuses raises."""
     global launches
     tensors = (feats0, image_rest, H_inc) + tuple(refiner.parameters())
     if not all(t.is_cuda and t.device == feats0.device for t in tensors):
@@ -84,6 +99,8 @@ def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Te
     wr = _taps(res.conv1.weight)
     wf = _taps(refiner.conv_final.weight)
     feats0 = feats0.contiguous()
+    if feats0.data_ptr() % 16:  # the kernel reads it as float4
+        feats0 = feats0.clone()
     image_rest = image_rest.contiguous()
     H_inc = H_inc.contiguous()
     out = torch.empty((N, Dm1 + 1, h, w, C), dtype=torch.float32, device=feats0.device)
@@ -92,7 +109,7 @@ def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Te
     status = _library().mvs_incremental_chain_f32(
         feats0.data_ptr(), image_rest.data_ptr(), H_inc.data_ptr(), w0.data_ptr(),
         wr.data_ptr(), wf.data_ptr(), vec.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), N, Dm1, h, w, stream)
+        scratch.data_ptr(), N, Dm1, h, w, cluster, stream)
     check_status("mvs_incremental_chain_f32", status)
     launches += 1
     return out

@@ -6,8 +6,9 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Bars, with TF32 off: the grid sample within 1e-5 abs and equal invalid
-masks; the incremental chain and the idepthmap refiner within atol
-2e-5 * max|plain|, rtol 2e-4; the GroupNorm kernel within
+masks; the incremental chain (at the serving shapes and at N = 8, one step,
+a 4x5 and a 48x64 map, a pose with many invalid samples) and the idepthmap
+refiner within atol 2e-5 * max|plain|, rtol 2e-4; the GroupNorm kernel within
 1e-5 * max(1, max|plain|); the whole forward within 0.2% of each level's output range.
 """
 
@@ -60,8 +61,11 @@ def scene(n, rows, cols, seed):
     return torch.from_numpy(np.repeat(K[None], n, 0)), T
 
 
+# Three channels (the serving path's warps, the kernel's unrolled path) and 32 (its
+# loop over a runtime channel count).
 @pytest.mark.parametrize("image_shape,grid_shape", [((2, 64, 80, 3), (2, 64, 80, 2)),
-                                                    ((3, 30, 40, 3), (3, 12, 30, 40, 2))])
+                                                    ((3, 30, 40, 3), (3, 12, 30, 40, 2)),
+                                                    ((2, 16, 20, 32), (2, 4, 16, 20, 2))])
 def test_grid_sample_kernel_matches_plain(dev, image_shape, grid_shape):
     g = torch.Generator().manual_seed(0)
     image = (torch.rand(image_shape, generator=g) * 2 - 1).to(dev)
@@ -75,25 +79,66 @@ def test_grid_sample_kernel_matches_plain(dev, image_shape, grid_shape):
     assert torch.equal(inv, inv_ref)
 
 
-@pytest.mark.parametrize("n", [1, 3])
-def test_chain_kernel_matches_plain(dev, n):
+def chain_case(n, h, w, d, shift, seed, dev):
+    """A seeded FeatureRefiner and chain inputs for n samples of an h x w map, d
+    hypotheses. ``shift`` moves every incremental homography's output by that fraction
+    of the map (many samples then fall outside it and are zeroed)."""
     prefix = "right_feature_extractor.refiner."
     refiner = FeatureRefiner(32)
-    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(n).items()
+    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(seed).items()
                              if k.startswith(prefix)})
     refiner = refiner.to(dev).eval()
-    K, T = scene(n, 30, 40, seed=n)
-    samples = create_idepth_samples(T, K, 30, 40, 12)
-    H_inc = incremental_homographies(create_plane_sweep_homographies(T, K, samples)).to(dev)
-    g = torch.Generator().manual_seed(n)
-    feats0 = torch.randn(n, 30, 40, 32, generator=g).to(dev)
-    image_rest = (torch.rand(n, 11, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+    K, T = scene(n, h, w, seed=seed)
+    samples = create_idepth_samples(T, K, h, w, d)
+    H_inc = incremental_homographies(create_plane_sweep_homographies(T, K, samples))
+    if shift:
+        move = torch.tensor([[1.0, 0.0, shift * w], [0.0, 1.0, shift * h], [0.0, 0.0, 1.0]])
+        H_inc = move @ H_inc
+    g = torch.Generator().manual_seed(seed)
+    feats0 = torch.randn(n, h, w, 32, generator=g).to(dev)
+    image_rest = (torch.rand(n, d - 1, h, w, 3, generator=g) * 2 - 1).to(dev)
+    return refiner, feats0, image_rest, H_inc.to(dev)
+
+
+# The serving shapes (N = B*V = 1 and 5, 30x40, D = 12), N = 3 and 8 (two waves of
+# 16-block clusters, or one of 8), a single step, a map smaller than the cluster (4x5
+# at 64x80 input), a 48x64 map, maps that a block works through in two column tiles
+# (20x72) and in two row tiles (160x64), a pose that puts most samples outside the
+# map, and the 8-block cluster forced at the serving shape.
+@pytest.mark.parametrize("n,h,w,d,shift,cluster", [
+    (1, 30, 40, 12, 0.0, 0), (3, 30, 40, 12, 0.0, 0), (5, 30, 40, 12, 0.0, 0),
+    (8, 30, 40, 12, 0.0, 0), (2, 30, 40, 2, 0.0, 0), (3, 4, 5, 12, 0.0, 0),
+    (2, 48, 64, 12, 0.0, 0), (1, 20, 72, 6, 0.0, 0), (1, 160, 64, 4, 0.0, 0),
+    (2, 30, 40, 12, 0.45, 0), (1, 30, 40, 12, 0.0, 8)])
+def test_chain_kernel_matches_plain(dev, n, h, w, d, shift, cluster):
+    refiner, feats0, image_rest, H_inc = chain_case(n, h, w, d, shift, seed=n + d, dev=dev)
+    if shift:
+        grid = homography_grid(H_inc[:, 0], h, w)
+        assert (grid.abs() > 1).any(-1).float().mean().item() > 0.3
     with torch.inference_mode():
         before = chain.launches
-        got = chain.incremental_chain(refiner, feats0, image_rest, H_inc)
+        got = chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc, cluster)
         ref = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
     torch.cuda.synchronize()
     assert chain.launches == before + 1
+    assert got.shape == (n, d, h, w, 32) and torch.isfinite(got).all()
+    assert torch.allclose(got, ref, atol=2e-5 * ref.abs().max().item(), rtol=2e-4)
+
+
+def test_chain_cluster_size_and_refused_launch(dev):
+    """16 blocks a sample at the serving shape; a cluster size the card refuses raises,
+    counts no launch, and leaves no error behind for the next launch."""
+    assert chain.cluster_size(1, 30, 40) == 16
+    assert chain.cluster_size(5, 30, 40) in (8, 16)
+    refiner, feats0, image_rest, H_inc = chain_case(1, 30, 40, 4, 0.0, seed=0, dev=dev)
+    with torch.inference_mode():
+        before = chain.launches
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc, cluster=32)
+        assert chain.launches == before
+        got = chain.incremental_chain(refiner, feats0, image_rest, H_inc)
+        ref = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
+    torch.cuda.synchronize()
     assert torch.allclose(got, ref, atol=2e-5 * ref.abs().max().item(), rtol=2e-4)
 
 

@@ -6,7 +6,11 @@
 - ``multi_view_unpack_batch`` against JAX: <= 1e-5 * max(1, max|ref|);
 - ``load_params_yaml`` equal to the JAX package's;
 - the runner's read-only attributes, the CLI, and an import of every
-  module of the port leaving ``jax`` out of ``sys.modules``.
+  module of the port leaving ``jax`` and the JAX package out of
+  ``sys.modules``.
+
+The port's side reads the tree through the port's own datasets; the JAX
+side through the JAX package's.
 """
 
 import os
@@ -21,13 +25,14 @@ import yaml
 import jax
 import jax.numpy as jnp
 
-from multi_view_stereonet_tpu.data import GTASfMMultiViewDataset, get_testing_transforms
-from multi_view_stereonet_tpu.data.loader import collate
+from multi_view_stereonet_tpu import data as jax_data
+from multi_view_stereonet_tpu.data.loader import collate as jax_collate
 from multi_view_stereonet_tpu.eval.streaming import serving_forward as jax_serving_forward
 from multi_view_stereonet_tpu.models import MultiViewStereoNetConfig as JaxConfig
 from multi_view_stereonet_tpu.train.config import load_params_yaml as jax_load_params_yaml
 from multi_view_stereonet_tpu.train.pipeline import (
     multi_view_unpack_batch as jax_unpack)
+from multi_view_stereonet_tpu_torch import data
 from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
 from multi_view_stereonet_tpu_torch.eval.streaming import (
     MODEL_KEYS, WEIGHTS_FILE, StreamingRunner, main, serving_forward)
@@ -46,14 +51,14 @@ def tree(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("gta"))
     data_dir, split = make_gta_sfm_tree(root, num_sequences=1, frames=3, rows=ROWS,
                                         cols=COLS, comparisons=1)
-    dataset = GTASfMMultiViewDataset(
-        data_dir, split, transform=get_testing_transforms({"size": [ROWS, COLS]}),
-        shuffle=False, decode_backend="pil")
-    return root, data_dir, split, dataset
+    datasets = [m.GTASfMMultiViewDataset(
+        data_dir, split, transform=m.get_testing_transforms({"size": [ROWS, COLS]}),
+        shuffle=False, decode_backend="pil") for m in (data, jax_data)]
+    return root, data_dir, split, datasets
 
 
 def test_serving_matches_jax_serving_forward(tree):
-    _, _, _, dataset = tree
+    _, _, _, (dataset, jax_dataset) = tree
     model, params = weights(seed=21)
     runner = StreamingRunner(model, MultiViewStereoNetConfig(num_idepth_samples=D),
                              device="cpu")
@@ -61,9 +66,9 @@ def test_serving_matches_jax_serving_forward(tree):
         params, batch, JaxConfig(num_idepth_samples=D, **JAX_PARITY)))
 
     served = list(runner.run(dataset, batch_size=1, workers=1))
-    assert len(served) == len(dataset) == 2
+    assert len(served) == len(dataset) == len(jax_dataset) == 2
     for i, (idepth, names) in enumerate(served):
-        batch = collate([dataset[i]])
+        batch = jax_collate([jax_dataset[i]])
         assert names == batch["left_filenames"]
         ref = np.asarray(jax_fn({k: jnp.asarray(batch[k]) for k in MODEL_KEYS}))
         got = idepth.numpy()
@@ -147,7 +152,8 @@ def test_streaming_cli_serves_the_split(tree, tmp_path, capsys):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling JAX in."""
+    """Every module of the port imports without pulling in JAX or any module of the
+    JAX package (``multi_view_stereonet_tpu`` or ``multi_view_stereonet_tpu.*``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multi_view_stereonet_tpu_torch as pkg\n"
@@ -155,8 +161,11 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert 'jax' not in sys.modules, [m for m in sys.modules if m.startswith('jax')]\n"
+        "ref = [m for m in sys.modules if m == 'multi_view_stereonet_tpu'\n"
+        "       or m.startswith('multi_view_stereonet_tpu.')]\n"
+        "assert not ref, ref\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 20
+    assert int(proc.stdout.split()[-1]) >= 30
