@@ -15,7 +15,7 @@ Phases, each printing its results; any failure raises and exits non-zero:
    serving path's shapes: the grid sample (480x640 min-idepth warp, and
    the 5-view level-4 plane sweep) within 1e-5 abs; the incremental chain
    (N = 1, 5 and 8, 30x40x32, D = 12) and the idepthmap refiner ((N, 35, h,
-   w) = (1, 35, 30, 40), (2, 35, 30, 40), (1, 35, 60, 80)) within atol
+   w) = (N, 35, 30, 40) for N = 1, 2, 5, 8, and (1, 35, 60, 80)) within atol
    2e-5 * max|plain|, rtol 2e-4; the GroupNorm kernel at every GroupNorm
    shape of the forward (``GN_SHAPES``: resblock tails with the residual,
    bn0 and the 5-D cost filter without) within 1e-5 * max(1, max|plain|).
@@ -279,16 +279,19 @@ def check_kernels(dev):
         else:
             results["chain"]["max_abs_err"] = max(results["chain"]["max_abs_err"], err)
 
-    # K3 at the refiners of levels 4 (N = B*V = 1, 2) and 3 (N = 1); the JSON line
-    # keeps the level-3 times, where it does the most work.
+    # K3 at the refiners of level 4 (N = B*V = 1, 2, 5 and 8: the B=1 V=1, V=2, V=5 and
+    # B=8 cells) and level 3 (N = 1); the JSON line keeps the level-3 times, where it
+    # does the most work.
     state = random_state_dict(4)
     results["refiner"] = {"max_abs_err": 0.0, "library_ms": None}
     for n, h, w, name in ((1, 30, 40, "refiner4"), (2, 30, 40, "refiner4"),
+                          (5, 30, 40, "refiner4"), (8, 30, 40, "refiner4"),
                           (1, 60, 80, "refiner3")):
-        module = IDepthmapRefiner(35)
-        module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
-                                if k.startswith(name + ".")})
-        module = module.to(dev).eval()
+        with torch.inference_mode(False):  # parameters with version counters, as served
+            module = IDepthmapRefiner(35)
+            module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                    if k.startswith(name + ".")})
+            module = module.to(dev).eval()
         guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev)
         idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
         got = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="kernel")

@@ -6,12 +6,14 @@ Port of the TPU kernel ``multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py``
 ``idepthmap_refiner``. Layouts are the port's modules': guidance (N, Cg, h, w),
 idepthmap (N, h, w), already fx-scaled by the caller -> ReLU(idepthmap + delta)
 (N, h, w). The refiner is the port's ``IDepthmapRefiner`` module; its weights are
-packed at the call. Forward only.
+packed into the kernel's layout once and reused until a parameter changes
+(``packed_weights``). Forward only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -21,9 +23,19 @@ from .incremental_chain import _taps
 # Kernel launches since the last reset; only the kernel path counts.
 launches = 0
 
-TILE = 64          # pixels per unit of work, csrc/idepthmap_refiner.cu's TILE (it checks)
 MAX_CIN0 = 36      # conv0 input channels the kernel's shared memory holds
 NUM_RES = 6
+NUM_GN = NUM_RES + 1
+M_TILE = 16        # pixels a kernel m-tile, csrc/idepthmap_refiner.cu's MTILE
+C = 32
+WF_COLS = 8        # the final conv's one output channel, padded to an n8 tile
+
+# refiner -> (parameters, their versions and the dilations, (packed weights, dilations
+# as a ctypes array))
+_packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# (device index, stream) -> the grid-barrier counter of launches on that stream
+_barriers: dict = {}
+_fn = None  # the kernel's ctypes entry, loaded on first use
 
 
 def fused_refiner_supported(h: int, w: int, n: int) -> bool:
@@ -42,66 +54,136 @@ def idepthmap_refiner_plain(refiner, guidance: torch.Tensor,
     return refiner(guidance, idepthmap, impl="plain")
 
 
-def _library():
-    lib = load_library("idepthmap_refiner")
-    fn = lib.mvs_idepthmap_refiner_f32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+def _kernel_function():
+    """The ctypes entry of csrc/idepthmap_refiner.cu (built on first use)."""
+    global _fn
+    if _fn is None:
+        fn = load_library("idepthmap_refiner").mvs_idepthmap_refiner_f32
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
                        + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+        _fn = fn
+    return _fn
+
+
+def scratch_floats(n: int, h: int, w: int) -> int:
+    """Floats of scratch a launch takes (the kernel checks it): h and T, double-buffered,
+    then the f64 (sum, sum of squares) partials of 7 GroupNorms x 4 groups per m-tile."""
+    m_tiles = n * -(-(h * w) // M_TILE)
+    return 4 * n * h * w * C + NUM_GN * m_tiles * 4 * 4
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) as the kernel splits an operand for 3xTF32: hi is x rounded to TF32 (10
+    mantissa bits, half away from zero) on its integer bits, lo = x - hi exactly."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+def pair_image(w: torch.Tensor) -> torch.Tensor:
+    """(..., rows, cols) weights, cols 32 or 8 -> (..., rows, cols, 2) (hi, lo) pairs with
+    the column of row r at col ^ s(r): s = 4 (r % 4) for 32 columns, 4 ((r // 2) % 2) for 8,
+    as csrc/idepthmap_refiner.cu's wpair reads them (distinct banks for a half-warp)."""
+    r = torch.arange(w.shape[-2], device=w.device)[:, None]
+    s = (r & 3) << 2 if w.shape[-1] == C else ((r >> 1) & 1) << 2
+    col = torch.arange(w.shape[-1], device=w.device)[None, :] ^ s
+    hi, lo = tf32_split(w.gather(-1, col.expand(w.shape)))
+    return torch.stack([hi, lo], dim=-1)
 
 
 def _pack(refiner):
-    """(w0, wr, wf, vec, dilations) in the kernel's layouts."""
+    """(packed weights, dilations) in the layout csrc/idepthmap_refiner.cu reads."""
     blocks = [getattr(refiner, f"res{i}") for i in range(NUM_RES)]
-    w0 = _taps(refiner.conv0.weight)
-    wr = torch.stack([_taps(b.conv1.weight) for b in blocks])
-    wf = _taps(refiner.conv_final.weight)
-    rows = [refiner.conv0.bias, refiner.bn0.weight, refiner.bn0.bias]
-    for b in blocks:
-        rows += [b.conv1.bias, b.bn1.weight, b.bn1.bias]
-    vec = torch.cat([torch.stack(rows).reshape(-1), refiner.conv_final.bias])
-    dilations = tuple(b.conv1.dilation[0] for b in blocks)
-    return w0, wr, wf, vec, dilations
+    params = tuple(refiner.parameters())
+    if len({p.device for p in params}) != 1:
+        raise ValueError("idepthmap_refiner_kernel needs every weight on one device")
+    if any(p.dtype != torch.float32 for p in params):
+        raise TypeError("idepthmap_refiner_kernel takes float32 tensors and weights")
+    with torch.no_grad():
+        w0 = _taps(refiner.conv0.weight)
+        cin_pad = -(-w0.shape[1] // 4) * 4
+        w0 = pair_image(torch.nn.functional.pad(w0, (0, 0, 0, cin_pad - w0.shape[1])))
+        wr = pair_image(torch.stack([_taps(b.conv1.weight) for b in blocks]))
+        wf = pair_image(torch.nn.functional.pad(_taps(refiner.conv_final.weight),
+                                                (0, WF_COLS - 1)))
+        rows = [refiner.conv0.bias, refiner.bn0.weight, refiner.bn0.bias]
+        for b in blocks:
+            rows += [b.conv1.bias, b.bn1.weight, b.bn1.bias]
+        pack = torch.cat([w0.reshape(-1), wr.reshape(-1), wf.reshape(-1),
+                          torch.stack(rows).reshape(-1), refiner.conv_final.bias])
+    dilations = (ctypes.c_int * NUM_RES)(*(b.conv1.dilation[0] for b in blocks))
+    return pack, dilations
+
+
+def packed_weights(refiner):
+    """The refiner's weights packed for the kernel, (pack, dilations): packed on first
+    use and reused while every parameter is the same tensor at the same version and the
+    dilations are unchanged, so an in-place update or ``load_state_dict`` repacks. Parameters made under
+    ``torch.inference_mode`` keep no version counter, so they are packed at every call."""
+    params = tuple(refiner.parameters())
+    try:
+        key = tuple(p._version for p in params) + tuple(
+            getattr(refiner, f"res{i}").conv1.dilation[0] for i in range(NUM_RES))
+    except RuntimeError:
+        return _pack(refiner)
+    cached = _packs.get(refiner)
+    if (cached is not None and cached[1] == key
+            and all(a is b for a, b in zip(cached[0], params))):
+        return cached[2]
+    packed = _pack(refiner)
+    _packs[refiner] = (params, key, packed)
+    return packed
+
+
+def _barrier(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid-barrier counter of launches on ``stream``: zeroed once, and left ready
+    for the next launch by every launch. A launch captured in a CUDA graph keeps its
+    capture stream's counter (one made during capture is zeroed by that graph at each
+    replay), so graphs captured on one stream are replayed one at a time."""
+    key = (device.index, stream)
+    counter = _barriers.get(key)
+    if counter is None:
+        counter = _barriers[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return counter
 
 
 def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
                              idepthmap: torch.Tensor) -> torch.Tensor:
     """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner."""
     global launches
-    tensors = (guidance, idepthmap) + tuple(refiner.parameters())
-    if not all(t.is_cuda and t.device == guidance.device for t in tensors):
+    if not (guidance.is_cuda and idepthmap.device == guidance.device):
         raise ValueError("idepthmap_refiner_kernel needs every tensor and weight on one "
                          "CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
+    if guidance.dtype != torch.float32 or idepthmap.dtype != torch.float32:
         raise TypeError("idepthmap_refiner_kernel takes float32 tensors and weights")
     if guidance.ndim != 4:
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}")
     N, Cg, h, w = guidance.shape
     if (idepthmap.shape != (N, h, w) or Cg + 1 > MAX_CIN0
-            or refiner.conv0.weight.shape != (32, Cg + 1, 3, 3)
-            or refiner.conv_final.weight.shape != (1, 32, 3, 3)):
+            or refiner.conv0.weight.shape != (C, Cg + 1, 3, 3)
+            or refiner.conv_final.weight.shape != (1, C, 3, 3)):
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, idepthmap "
                          f"{tuple(idepthmap.shape)}, conv0 "
                          f"{tuple(refiner.conv0.weight.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and (guidance.requires_grad or idepthmap.requires_grad or any(
+            p.requires_grad for p in refiner.parameters())):
         raise NotImplementedError("the CUDA idepthmap-refiner kernel is forward only")
-    w0, wr, wf, vec, dilations = _pack(refiner)
+    pack, dilations = packed_weights(refiner)
+    dev = guidance.device
+    if pack.device != dev:
+        raise ValueError("idepthmap_refiner_kernel needs every tensor and weight on one "
+                         "CUDA device")
     guidance = guidance.contiguous()
     idepthmap = idepthmap.contiguous()
-    dev = guidance.device
+    fn = _kernel_function()
     out = torch.empty((N, h, w), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, N, h * w, 32), dtype=torch.float32, device=dev)
-    units = N * -(-(h * w) // TILE)
-    partials = torch.empty((units, 4, 2), dtype=torch.float64, device=dev)
-    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _library().mvs_idepthmap_refiner_f32(
-        guidance.data_ptr(), idepthmap.data_ptr(), w0.data_ptr(), wr.data_ptr(),
-        wf.data_ptr(), vec.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        partials.data_ptr(), units, barrier.data_ptr(), N, Cg + 1, h, w,
-        (ctypes.c_int * NUM_RES)(*dilations), stream)
+    size = scratch_floats(N, h, w)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    status = fn(guidance.data_ptr(), idepthmap.data_ptr(), pack.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), size, _barrier(dev, stream).data_ptr(), N, Cg, h, w,
+                dilations, stream)
     check_status("mvs_idepthmap_refiner_f32", status)
     launches += 1
     return out

@@ -13,6 +13,9 @@ change, parent, ... (``--pairs`` of each):
   events around each 30);
 - the incremental-chain kernel (K2) alone at N = 1 and 5, 30x40x32, D = 12:
   device time of one call, 20 calls replayed from a CUDA graph, median of 7;
+- the idepthmap-refiner kernel (K3) alone at (N, 35, h, w) = (1, 35, 30, 40),
+  (8, 35, 30, 40) and (1, 35, 60, 80): the same device time, and a call's time
+  with its host work (CUDA events around 30 calls, median of 3);
 
 then ``scripts/profile_torch_serving.py`` of each checkout, parent, change,
 change, parent. Prints every run, the medians, the card's name and power
@@ -29,6 +32,9 @@ import subprocess
 import sys
 
 H0, W0, D = 480, 640, 12
+K3_SHAPES = ((1, 30, 40, "refiner4"), (8, 30, 40, "refiner4"), (1, 60, 80, "refiner3"))
+K3_KEYS = tuple(f"k3_{what}_ms_{n}x{h}x{w}" for n, h, w, _ in K3_SHAPES
+                for what in ("device", "call"))
 
 
 def smi() -> str:
@@ -46,8 +52,9 @@ def measure(tree: str) -> dict:
     from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
     from multi_view_stereonet_tpu_torch.eval.streaming import serving_forward
     from multi_view_stereonet_tpu_torch.models import (
-        FeatureRefiner, MultiViewStereoNet, MultiViewStereoNetConfig)
+        FeatureRefiner, IDepthmapRefiner, MultiViewStereoNet, MultiViewStereoNetConfig)
     from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -76,6 +83,22 @@ def measure(tree: str) -> dict:
         end.synchronize()
         return start.elapsed_time(end) / count
 
+    def device_ms(call):
+        """One call's device time: 20 calls replayed from a CUDA graph, median of 7."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                call()
+        graph.replay()
+        torch.cuda.synchronize()
+        return statistics.median(timed(graph.replay, 1) for _ in range(7)) / 20
+
     result = {"tree": tree}
     with torch.inference_mode():
         for _ in range(5):
@@ -97,22 +120,27 @@ def measure(tree: str) -> dict:
             H_inc[..., 0, 2] = torch.rand(n, D - 1, generator=g) * 2 - 1
             H_inc = H_inc.to(dev)
 
+            result[f"k2_device_ms_n{n}"] = device_ms(
+                lambda: chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc))
+
+        state = random_state_dict(4)
+        for n, h, w, name in K3_SHAPES:
+            with torch.inference_mode(False):  # parameters with version counters
+                module = IDepthmapRefiner(35)
+                module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                        if k.startswith(name + ".")})
+                module = module.to(dev).eval()
+            guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev)
+            idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+
             def call():
-                return chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    call()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(20):
-                    call()
-            graph.replay()
+                return refiner_op.idepthmap_refiner(module, guidance, idepth, impl="kernel")
+            for _ in range(5):
+                call()
             torch.cuda.synchronize()
-            result[f"k2_device_ms_n{n}"] = statistics.median(
-                timed(graph.replay, 1) for _ in range(7)) / 20
+            result[f"k3_call_ms_{n}x{h}x{w}"] = statistics.median(
+                timed(call, 30) for _ in range(3))
+            result[f"k3_device_ms_{n}x{h}x{w}"] = device_ms(call)
     return result
 
 
@@ -137,14 +165,16 @@ def main():
                               text=True, check=True)
         run = {"label": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
         runs.append(run)
+        k3 = ", ".join(f"{key[3:]} {run[key]:.4f}" for key in K3_KEYS)
         print(f"{label}: {run['ms_per_frame']:.3f} ms/frame, K2 device "
-              f"{run['k2_device_ms_n1']:.4f} ms at N=1, {run['k2_device_ms_n5']:.4f} at N=5",
-              flush=True)
+              f"{run['k2_device_ms_n1']:.4f} ms at N=1, {run['k2_device_ms_n5']:.4f} at N=5; "
+              f"K3 {k3}", flush=True)
     summary = {}
     for label in trees:
         mine = [r for r in runs if r["label"] == label]
         summary[label] = {key: statistics.median(r[key] for r in mine)
-                          for key in ("ms_per_frame", "k2_device_ms_n1", "k2_device_ms_n5")}
+                          for key in ("ms_per_frame", "k2_device_ms_n1", "k2_device_ms_n5",
+                                      *K3_KEYS)}
         print(f"{label} medians: {summary[label]}", flush=True)
 
     profiles = []

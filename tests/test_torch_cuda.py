@@ -152,10 +152,14 @@ def idepthmap_refiner_module(cg, seed, dev):
     return module.to(dev).eval()
 
 
-# The serving shapes (levels 4 at N = 1, 2 and level 3 at 480x640), the
-# image-only refiner, and a map smaller than the dilation-8 taps.
-@pytest.mark.parametrize("n,cg,h,w", [(1, 35, 30, 40), (2, 35, 30, 40), (1, 35, 60, 80),
-                                      (2, 3, 16, 24), (3, 35, 4, 5)])
+# The serving shapes (level 4 at N = B*V = 1, 2, 5 and 8, level 3 at N = B = 1 and 8, the
+# latter several passes of m-tiles a block), the image-only refiner, maps whose h*w is
+# not a multiple of the kernel's 16-pixel m-tile (7x13, and 4x5, smaller than the
+# dilation-8 taps), and 8 samples whose m-tile ranges cross sample boundaries.
+@pytest.mark.parametrize("n,cg,h,w", [(1, 35, 30, 40), (2, 35, 30, 40), (5, 35, 30, 40),
+                                      (8, 35, 30, 40), (1, 35, 60, 80), (8, 35, 60, 80),
+                                      (2, 3, 16, 24), (2, 35, 7, 13), (3, 35, 4, 5),
+                                      (8, 35, 9, 11)])
 def test_refiner_kernel_matches_plain(dev, n, cg, h, w):
     module = idepthmap_refiner_module(cg, seed=n, dev=dev)
     g = torch.Generator().manual_seed(h)
@@ -172,6 +176,39 @@ def test_refiner_kernel_matches_plain(dev, n, cg, h, w):
                           rtol=REFINER_RTOL)
     # The refiner moves the map: a kernel returning ReLU(idepth) would not pass.
     assert (ref - torch.relu(idepth)).abs().mean().item() > 0.01
+
+
+def test_refiner_kernel_follows_weight_updates(dev):
+    """The kernel's packed weights are reused while the parameters are unchanged and
+    repacked after an in-place update and after load_state_dict: each time the kernel's
+    output follows the plain path's."""
+    module = idepthmap_refiner_module(35, seed=7, dev=dev)
+    g = torch.Generator().manual_seed(7)
+    guidance = (torch.rand(1, 35, 30, 40, generator=g) * 2 - 1).to(dev)
+    idepth = (torch.rand(1, 30, 40, generator=g) * 20).to(dev)
+
+    def check():
+        with torch.inference_mode():
+            got = refiner_op.idepthmap_refiner(module, guidance, idepth)
+            ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+        torch.cuda.synchronize()
+        assert torch.allclose(got, ref, atol=REFINER_ATOL * ref.abs().max().item(),
+                              rtol=REFINER_RTOL)
+        return got
+
+    first = check()
+    pack = refiner_op.packed_weights(module)[0]
+    check()
+    assert refiner_op.packed_weights(module)[0] is pack
+    with torch.no_grad():
+        module.res3.conv1.weight.mul_(-1.5)
+        module.conv_final.bias.add_(0.25)
+    second = check()
+    assert refiner_op.packed_weights(module)[0] is not pack
+    assert (second - first).abs().max().item() > 1e-3
+    module.load_state_dict(idepthmap_refiner_module(35, seed=8, dev=dev).state_dict())
+    third = check()
+    assert (third - second).abs().max().item() > 1e-3
 
 
 def gn_case(shape, residual, dev):
@@ -346,3 +383,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="bad shapes"):
         refiner_op.idepthmap_refiner(idepthmap_refiner_module(35, seed=0, dev=dev),
                                      guidance.detach()[:, :3], idepth)
+    # A dilation wider than the kernel's staged halo (8) is refused at launch.
+    wide = idepthmap_refiner_module(35, seed=0, dev=dev)
+    wide.res3.conv1.dilation, wide.res3.conv1.padding = (16, 16), (16, 16)
+    before = refiner_op.launches
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="failed to launch"):
+        refiner_op.idepthmap_refiner(wide, guidance.detach(), idepth)
+    assert refiner_op.launches == before

@@ -174,6 +174,8 @@ def python_files(target):
 
 
 @pytest.mark.parametrize("target", ["chip_smoke.py", "scripts/profile_torch_serving.py",
+                                    "scripts/compare_torch_trees.py",
+                                    "scripts/refiner_variants.py",
                                     "multi_view_stereonet_tpu_torch"])
 def test_imports_nothing_of_jax_or_the_jax_package(target):
     """A static check: no import statement names jax or multi_view_stereonet_tpu."""

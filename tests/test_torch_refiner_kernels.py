@@ -6,7 +6,9 @@ take their plain versions; the kernels themselves are held against those on the
 card (tests/test_torch_cuda.py, chip_smoke.py). The JAX side runs as the JAX
 package's own tests run it: the Pallas GN-apply kernel in interpret mode, the
 refiner through its XLA paths (plain and s2d), and the Pallas refiner under
-``force_tpu_interpret_mode`` (slow).
+``force_tpu_interpret_mode`` (slow). What of K3's kernel path runs on the CPU is
+checked here too: the packed-weight image and its cache, and the kernel's 3xTF32
+operand split, emulated in torch through the whole refiner.
 
 Bars:
 - K4 and the modules it serves (bn0's refiner, the cost filter): max abs error
@@ -19,6 +21,7 @@ Bars:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +36,8 @@ from multi_view_stereonet_tpu.models.s2d import (
     depth_to_space, idepthmap_refiner_s2d, space_to_depth)
 from multi_view_stereonet_tpu.ops.pallas.gn_apply import gn_apply_residual_fused
 from multi_view_stereonet_tpu_torch.models import MultiViewStereoNetConfig, ResnetBlock
+from multi_view_stereonet_tpu_torch.models.refiners import DILATIONS
+from multi_view_stereonet_tpu_torch.ops.cuda.incremental_chain import _taps
 from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
 from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
@@ -246,6 +251,110 @@ def test_forward_matches_jax_with_fused_small_refiners(seed, V, D):
                              MultiViewStereoNetConfig(num_idepth_samples=D))
     assert (refiner_op.launches, gn_apply.launches) == before
     assert_forward_close(got, ref)
+
+
+def swizzled_back(w):
+    """Undo the kernel's column swizzle (its own inverse) of a (..., rows, cols) image."""
+    r = torch.arange(w.shape[-2])[:, None]
+    s = (r & 3) << 2 if w.shape[-1] == 32 else ((r >> 1) & 1) << 2
+    return w.gather(-1, (torch.arange(w.shape[-1])[None, :] ^ s).expand(w.shape))
+
+
+def test_packed_weights_layout():
+    """The packed image holds every weight as hi + lo (hi on the TF32 grid, lo exact) in
+    [tap][ci][oc] order under the kernel's column swizzle, conv0's rows padded to a
+    multiple of 4, the final conv in column 0 of 8, then the bias and GroupNorm vector."""
+    refiner, _, _, _ = refiner_case(35, 30, 40)
+    pack, dilations = refiner_op.packed_weights(refiner)
+    assert tuple(dilations) == DILATIONS
+    n0, nr, nf = 2 * 9 * 36 * 32, 2 * 6 * 9 * 32 * 32, 2 * 9 * 32 * 8
+    assert pack.shape == (n0 + nr + nf + 7 * 96 + 1,)
+    w0 = pack[:n0].view(9, 36, 32, 2)
+    wr = pack[n0:n0 + nr].view(6, 9, 32, 32, 2)
+    wf = pack[n0 + nr:n0 + nr + nf].view(9, 32, 8, 2)
+    for image in (w0, wr, wf):
+        assert not (image[..., 0].view(torch.int32) & 0x1FFF).any()  # hi is TF32
+    assert torch.equal(swizzled_back(w0[..., 0] + w0[..., 1]), _taps(refiner.conv0.weight))
+    blocks = [getattr(refiner, f"res{i}") for i in range(6)]
+    assert torch.equal(swizzled_back(wr[..., 0] + wr[..., 1]),
+                       torch.stack([_taps(b.conv1.weight) for b in blocks]))
+    final = swizzled_back(wf[..., 0] + wf[..., 1])
+    assert torch.equal(final[..., :1], _taps(refiner.conv_final.weight))
+    assert not final[..., 1:].any()
+    vec = pack[n0 + nr + nf:]
+    assert torch.equal(vec[:96], torch.cat([refiner.conv0.bias, refiner.bn0.weight,
+                                            refiner.bn0.bias]).detach())
+    assert vec[-1] == refiner.conv_final.bias[0]
+    # The image-only refiner: conv0's 4 input channels need no padding rows.
+    refiner0, _, _, _ = refiner_case(3, 16, 24)
+    pack0, _ = refiner_op.packed_weights(refiner0)
+    assert torch.equal(swizzled_back(pack0[:2 * 9 * 4 * 32].view(9, 4, 32, 2).sum(-1)),
+                       _taps(refiner0.conv0.weight))
+
+
+def test_packed_weights_cached_until_a_parameter_changes():
+    """One packing while the parameters are unchanged; a new one after an in-place
+    update and after load_state_dict, equal to a fresh packing of the new weights."""
+    refiner, _, _, _ = refiner_case(35, 30, 40)
+    pack = refiner_op.packed_weights(refiner)[0]
+    assert refiner_op.packed_weights(refiner)[0] is pack
+    with torch.no_grad():
+        refiner.res2.conv1.weight.mul_(0.5)
+    updated = refiner_op.packed_weights(refiner)[0]
+    assert updated is not pack and not torch.equal(updated, pack)
+    assert refiner_op.packed_weights(refiner)[0] is updated
+    other, _, _, _ = refiner_case(35, 30, 40, seed=4)
+    refiner.load_state_dict(other.state_dict())
+    reloaded = refiner_op.packed_weights(refiner)[0]
+    assert reloaded is not updated
+    assert torch.equal(reloaded, refiner_op.packed_weights(other)[0])
+    assert refiner_op.packed_weights(refiner)[0] is reloaded
+
+
+def tf32_truncate(x):
+    """What the tensor core reads of an f32 operand: its top 19 bits."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def refiner_tf32(refiner, guidance, idepth, terms):
+    """The refiner with every conv done as the kernel does it on the tensor cores: each
+    operand split on its bits (``tf32_split``), lo read as TF32, and the products
+    hi*hi + hi*lo + lo*hi (terms = 3, 3xTF32) or hi*hi alone (terms = 1, TF32)."""
+    def conv(x, c):
+        xh, xl = refiner_op.tf32_split(x)
+        wh, wl = refiner_op.tf32_split(c.weight)
+
+        def f(a, b):
+            return F.conv2d(a, b, None, padding=c.padding, dilation=c.dilation)
+        out = f(xh, wh)
+        if terms == 3:
+            out = f(tf32_truncate(xl), wh) + f(xh, tf32_truncate(wl)) + out
+        return out + c.bias[:, None, None]
+
+    def gn(bn, x):
+        return F.leaky_relu(F.group_norm(x, 4, bn.weight, bn.bias, 1e-5), 0.2)
+    x = gn(refiner.bn0, conv(torch.cat([guidance, idepth[:, None]], 1), refiner.conv0))
+    for i in range(6):
+        block = getattr(refiner, f"res{i}")
+        x = x + gn(block.bn1, conv(x, block.conv1))
+    return torch.relu(idepth + conv(x, refiner.conv_final)[:, 0])
+
+
+def test_refiner_3xtf32_split_holds_the_bar():
+    """The kernel's operand split through the whole refiner at (1,35,30,40), emulated
+    in torch, against the JAX ``idepthmap_refiner``: 3xTF32 holds the chain bar, and
+    TF32 alone (one product) does not, so the bar tells the two apart."""
+    refiner, params, guidance, idepth = refiner_case(35, 30, 40)
+    guidance, idepth = guidance[:1], idepth[:1]
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(jax.jit(jax_idepth_refiner)(params, guidance, idepth))
+    g = torch.from_numpy(np.ascontiguousarray(guidance.transpose(0, 3, 1, 2)))
+    with torch.no_grad():
+        got = refiner_tf32(refiner, g, torch.from_numpy(idepth), terms=3).numpy()
+        tf32 = refiner_tf32(refiner, g, torch.from_numpy(idepth), terms=1).numpy()
+    assert_refiner_close(got, ref)
+    with pytest.raises(AssertionError):
+        assert_refiner_close(tf32, ref)
 
 
 @pytest.mark.parametrize("n", [1, 2, 8, 9])
