@@ -1,4 +1,5 @@
-"""Serving: ``serving_forward`` and the single-device ``StreamingRunner``."""
+"""Serving (``serving_forward``, the single-device ``StreamingRunner``) and the eval CLI
+(``test_cli.run_eval``, its metrics in ``metrics``)."""
 
 from .streaming import StreamingRunner, load_model, serving_forward
 

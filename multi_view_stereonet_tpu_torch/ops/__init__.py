@@ -3,7 +3,8 @@
 The warps sample through ``ops.cuda.warp`` (a hand-written CUDA kernel
 with a plain PyTorch version beside it); ``ops.cuda`` also holds the fused
 incremental feature chain, the small-level idepthmap refiner and the
-resblocks' GroupNorm tail.
+resblocks' GroupNorm tail. ``ops.quantize`` holds the u8 transport's
+bit-exact dequantize.
 """
 
 from .resize import (

@@ -7,7 +7,8 @@ Port of the TPU kernel ``multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py``
 idepthmap (N, h, w), already fx-scaled by the caller -> ReLU(idepthmap + delta)
 (N, h, w). The refiner is the port's ``IDepthmapRefiner`` module; its weights are
 packed into the kernel's layout once and reused until a parameter changes
-(``packed_weights``). Forward only.
+(``packed_weights``; after an in-place write through ``.data``, which no key sees,
+call ``invalidate_packed_weights``). Forward only.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ M_TILE = 16        # pixels a kernel m-tile, csrc/idepthmap_refiner.cu's MTILE
 C = 32
 WF_COLS = 8        # the final conv's one output channel, padded to an n8 tile
 
-# refiner -> (parameters, their versions and the dilations, (packed weights, dilations
-# as a ctypes array))
+# refiner -> (parameters, their storages kept alive, each parameter's (data_ptr, version,
+# dtype, device) and the dilations, (packed weights, dilations as a ctypes array))
 _packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 # (device index, stream) -> the grid-barrier counter of launches on that stream
 _barriers: dict = {}
@@ -117,23 +118,44 @@ def _pack(refiner):
 
 
 def packed_weights(refiner):
-    """The refiner's weights packed for the kernel, (pack, dilations): packed on first
-    use and reused while every parameter is the same tensor at the same version and the
-    dilations are unchanged, so an in-place update or ``load_state_dict`` repacks. Parameters made under
-    ``torch.inference_mode`` keep no version counter, so they are packed at every call."""
+    """The refiner's weights packed for the kernel, (pack, dilations).
+
+    Packed on first use and reused while every parameter is the same tensor, on the
+    same storage (``data_ptr``) at the same ``_version``, dtype and device, and the
+    dilations are unchanged. So ``load_state_dict``, an in-place update of a parameter,
+    ``p.data = ...``, ``vector_to_parameters``, a ``Module.to`` round trip and a move to
+    another card all repack. The cache keeps the storages it packed from alive, so a
+    new storage never takes an old one's address. A write through ``p.data`` in place
+    (``p.data.mul_(...)``) keeps both the storage and the version, which no key can
+    see: call ``invalidate_packed_weights`` after one. Parameters made under
+    ``torch.inference_mode`` keep no version counter, so they are packed at every call.
+
+    A CUDA graph captured over the kernel keeps the pack's address: after a repack,
+    capture it again."""
     params = tuple(refiner.parameters())
     try:
-        key = tuple(p._version for p in params) + tuple(
+        key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params) + tuple(
             getattr(refiner, f"res{i}").conv1.dilation[0] for i in range(NUM_RES))
     except RuntimeError:
         return _pack(refiner)
     cached = _packs.get(refiner)
-    if (cached is not None and cached[1] == key
+    if (cached is not None and cached[2] == key
             and all(a is b for a, b in zip(cached[0], params))):
-        return cached[2]
+        return cached[3]
     packed = _pack(refiner)
-    _packs[refiner] = (params, key, packed)
+    _packs[refiner] = (params, tuple(p.detach() for p in params), key, packed)
     return packed
+
+
+def invalidate_packed_weights(refiner=None) -> None:
+    """Drop the kernel's packed weights of ``refiner``, or of every refiner when it is
+    None, so that the next launch packs them anew. A caller that writes weights in
+    place through ``.data`` (``p.data.mul_(...)``, ``p.data.copy_(...)``) must call it:
+    such a write changes neither the storage nor the version ``packed_weights`` keys on."""
+    if refiner is None:
+        _packs.clear()
+    else:
+        _packs.pop(refiner, None)
 
 
 def _barrier(device: torch.device, stream: int) -> torch.Tensor:
@@ -150,7 +172,10 @@ def _barrier(device: torch.device, stream: int) -> torch.Tensor:
 
 def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
                              idepthmap: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner."""
+    """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner.
+
+    The weights come from ``packed_weights``: a caller that writes them in place
+    through ``.data`` must call ``invalidate_packed_weights`` before the next launch."""
     global launches
     if not (guidance.is_cuda and idepthmap.device == guidance.device):
         raise ValueError("idepthmap_refiner_kernel needs every tensor and weight on one "
@@ -192,7 +217,8 @@ def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
 def idepthmap_refiner(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
                       impl: str = "auto") -> torch.Tensor:
     """ReLU(idepthmap + refiner delta): the kernel for CUDA tensors, the module's
-    plain version otherwise (see build.py)."""
+    plain version otherwise (see build.py). After writing the refiner's weights in place
+    through ``.data``, call ``invalidate_packed_weights``."""
     if use_kernel(impl, guidance):
         return idepthmap_refiner_kernel(refiner, guidance, idepthmap)
     return idepthmap_refiner_plain(refiner, guidance, idepthmap)

@@ -8,13 +8,20 @@ imports no JAX, so it also runs where JAX is not installed:
 Bars, with TF32 off: the grid sample within 1e-5 abs and equal invalid
 masks; the incremental chain (at the serving shapes and at N = 8, one step,
 a 4x5 and a 48x64 map, a pose with many invalid samples) and the idepthmap
-refiner within atol 2e-5 * max|plain|, rtol 2e-4; the GroupNorm kernel within
-1e-5 * max(1, max|plain|); the whole forward within 0.2% of each level's output range.
+refiner within atol 2e-5 * max|plain|, rtol 2e-4, also after its weights are written
+(its packed weights followed); the GroupNorm kernel within 1e-5 * max(1, max|plain|);
+the whole forward within 0.2% of each level's output range. The u8 dequantize is
+bit-equal to the host pipeline for all 256 values.
 """
+
+import importlib.util
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
 from multi_view_stereonet_tpu_torch.geometry import (
@@ -211,6 +218,53 @@ def test_refiner_kernel_follows_weight_updates(dev):
     assert (third - second).abs().max().item() > 1e-3
 
 
+def test_refiner_kernel_follows_new_storage_and_invalidation(dev):
+    """``p.data = ...`` gives new storage at the same version: the pack follows it. An
+    in-place write through ``.data`` keeps both, and after ``invalidate_packed_weights``
+    the next launch packs the new weights. Each time the kernel matches its plain
+    version at (1,35,30,40)."""
+    module = idepthmap_refiner_module(35, seed=9, dev=dev)
+    g = torch.Generator().manual_seed(9)
+    guidance = (torch.rand(1, 35, 30, 40, generator=g) * 2 - 1).to(dev)
+    idepth = (torch.rand(1, 30, 40, generator=g) * 20).to(dev)
+
+    def check():
+        with torch.inference_mode():
+            before = refiner_op.launches
+            got = refiner_op.idepthmap_refiner(module, guidance, idepth)
+            ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+        torch.cuda.synchronize()
+        assert refiner_op.launches == before + 1
+        assert torch.allclose(got, ref, atol=REFINER_ATOL * ref.abs().max().item(),
+                              rtol=REFINER_RTOL)
+        return got
+
+    first = check()
+    versions = [p._version for p in module.parameters()]
+    module.res2.conv1.weight.data = module.res2.conv1.weight.data * -1.5
+    second = check()
+    assert [p._version for p in module.parameters()] == versions
+    assert (second - first).abs().max().item() > 1e-3
+    module.conv0.weight.data.mul_(0.5)
+    refiner_op.invalidate_packed_weights(module)
+    third = check()
+    assert (third - second).abs().max().item() > 1e-3
+
+
+def test_dequantize_on_the_card_is_bit_exact_for_all_256_values(dev):
+    from multi_view_stereonet_tpu_torch.ops.quantize import (
+        dequantize_images_u8, dequantize_images_u8_unit)
+
+    u = np.arange(256, dtype=np.uint8)
+    unit = u.astype(np.float32) / 255.0
+    full = unit * 2.0 - 1.0
+    u_dev = torch.from_numpy(u).to(dev)
+    got_full = dequantize_images_u8(u_dev).cpu().numpy()
+    got_unit = dequantize_images_u8_unit(u_dev).cpu().numpy()
+    np.testing.assert_array_equal(got_full.view(np.int32), full.view(np.int32))
+    np.testing.assert_array_equal(got_unit.view(np.int32), unit.view(np.int32))
+
+
 def gn_case(shape, residual, dev):
     """x (off-centre, as a conv output is), weight, bias and res (or None) on the card."""
     g = torch.Generator().manual_seed(shape[2])
@@ -390,3 +444,96 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with torch.inference_mode(), pytest.raises(RuntimeError, match="failed to launch"):
         refiner_op.idepthmap_refiner(wide, guidance.detach(), idepth)
     assert refiner_op.launches == before
+
+
+def synthetic_data():
+    """tests/synthetic_data.py by path: an installed package named ``tests`` may shadow
+    this directory."""
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_data", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "synthetic_data.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture
+def small_run(tmp_path):
+    """A 64x80 GTA-SfM tree (three requests) and a run dir with seeded weights."""
+    from multi_view_stereonet_tpu_torch.eval.streaming import WEIGHTS_FILE
+
+    data_dir, split = synthetic_data().make_gta_sfm_tree(
+        str(tmp_path / "gta"), num_sequences=1, frames=4, rows=64, cols=80)
+    weights_dir = tmp_path / "run" / "checkpoints" / "epoch0000"
+    weights_dir.mkdir(parents=True)
+    (tmp_path / "run" / "params.yaml").write_text(yaml.safe_dump(
+        {"size": [64, 80], "num_idepth_samples": 4}))
+    torch.save(random_state_dict(3), str(weights_dir / WEIGHTS_FILE))
+    return str(weights_dir), data_dir, split
+
+
+def test_eval_cli_on_the_card_writes_a_device_trace(dev, small_run, tmp_path):
+    """run_eval with no device runs on the card, through the kernels, and
+    ``--profile_dir`` writes a Chrome trace that holds the card's kernels."""
+    from multi_view_stereonet_tpu_torch.eval.test_cli import run_eval
+
+    weights_dir, data_dir, split = small_run
+    before = counts()
+    loss, avg = run_eval(weights_dir, data_dir, split, str(tmp_path / "out"), batch_size=2,
+                         decode_backend="pil", profile_dir=str(tmp_path / "trace"))
+    assert np.isfinite(loss) and avg["num_samples"] == 3
+    assert all(after > b for after, b in zip(counts(), before))
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    assert any("refiner_kernel" in n for n in names), sorted(names)[:20]
+
+
+def test_streaming_cli_on_the_card_over_the_u8_transport(dev, small_run, capsys):
+    from multi_view_stereonet_tpu_torch.eval.streaming import main
+
+    weights_dir, data_dir, split = small_run
+    served = []
+    for shard_id in (0, 1):
+        main([weights_dir, data_dir, split, "--batch_size", "2", "--workers", "1",
+              "--decode_backend", "pil", "--transfer_u8", "--fetch_f16",
+              "--shard_id", str(shard_id), "--num_shards", "2"])
+        out = capsys.readouterr().out
+        assert torch.cuda.get_device_name(0) in out
+        served.append(int(out.split()[0]))
+    assert served == [2, 1]
+
+
+def test_runner_on_the_card_yields_copies_out_of_a_pinned_ring(dev, small_run, monkeypatch):
+    """One step in flight: three batches read back through two pinned buffers, the
+    third rewriting the first's. The arrays yielded are copies that own their memory
+    and equal the forward's output read back alone."""
+    from multi_view_stereonet_tpu_torch.eval import streaming
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    weights_dir, data_dir, split = small_run
+    cfg = load_params_yaml(os.path.join(weights_dir, "..", "..", "params.yaml"))
+    runner = streaming.StreamingRunner(streaming.load_model(weights_dir, dev),
+                                       streaming.model_config_from_params(cfg))
+    dataset = streaming.make_dataset(data_dir, split, cfg, decode_backend="pil")
+    taken = []
+    take = streaming.ReadbackRing.take
+
+    def recording_take(self, step, shape, dtype):
+        buf = take(self, step, shape, dtype)
+        taken.append(buf)
+        return buf
+
+    monkeypatch.setattr(streaming.ReadbackRing, "take", recording_take)
+    monkeypatch.setattr(streaming, "IN_FLIGHT", 1)
+    served = list(runner.run(dataset, batch_size=1, workers=1))
+    assert len(served) == len(taken) == 3
+    assert all(buf.is_pinned() for buf in taken)
+    assert taken[2].data_ptr() == taken[0].data_ptr() != taken[1].data_ptr()
+    for i, (idepth, names) in enumerate(served):
+        assert type(idepth) is np.ndarray and idepth.flags.owndata
+        sample = dataset[i]
+        batch = {"left_image": sample["left_image"][None], "K": sample["K"][None],
+                 "right_images": np.stack(sample["right_images"])[None],
+                 "T_right_in_left": np.stack(sample["T_right_in_left"])[None]}
+        np.testing.assert_array_equal(idepth, runner.forward(batch).cpu().numpy())

@@ -311,6 +311,58 @@ def test_packed_weights_cached_until_a_parameter_changes():
     assert refiner_op.packed_weights(refiner)[0] is reloaded
 
 
+def _vector_to_parameters(refiner):
+    n = sum(p.numel() for p in refiner.parameters())
+    vec = torch.from_numpy(np.random.default_rng(5).normal(size=n).astype(np.float32))
+    torch.nn.utils.vector_to_parameters(vec, refiner.parameters())
+
+
+def _assign_data(refiner):
+    for p in refiner.parameters():
+        p.data = p.data * 0.5
+
+
+def _data_in_place_then_invalidate(refiner):
+    for p in refiner.parameters():
+        p.data.mul_(0.5)
+    refiner_op.invalidate_packed_weights(refiner)
+
+
+@pytest.mark.parametrize("write", [_vector_to_parameters, _assign_data,
+                                   lambda r: r.half().float(),
+                                   _data_in_place_then_invalidate],
+                         ids=["vector_to_parameters", "assign_data", "half_float",
+                              "data_mul_then_invalidate"])
+def test_packed_weights_follow_writes_that_keep_the_version(write):
+    """Writes that leave every parameter the same object at the same ``_version``: the
+    first three give new storage (the key's data_ptr sees it; a ``Module.to`` round trip
+    through float16, unlike one through float64, also changes the values), the last
+    writes through ``.data`` in place and is followed by ``invalidate_packed_weights``.
+    After each, the cached pack equals a fresh packing of the new weights."""
+    refiner, _, _, _ = refiner_case(35, 30, 40)
+    params = tuple(refiner.parameters())
+    old = refiner_op.packed_weights(refiner)[0].clone()
+    versions = [p._version for p in params]
+    write(refiner)
+    assert all(a is b for a, b in zip(params, refiner.parameters()))
+    assert [p._version for p in params] == versions
+    got = refiner_op.packed_weights(refiner)[0]
+    fresh = refiner_op._pack(refiner)[0]
+    assert not torch.equal(fresh, old)
+    assert torch.equal(got, fresh)
+
+
+def test_invalidate_packed_weights_of_every_refiner():
+    """With no argument every pack goes: two refiners both repack."""
+    a, _, _, _ = refiner_case(35, 30, 40)
+    b, _, _, _ = refiner_case(3, 16, 24)
+    packs = [refiner_op.packed_weights(r)[0] for r in (a, b)]
+    assert [refiner_op.packed_weights(r)[0] for r in (a, b)] == packs
+    refiner_op.invalidate_packed_weights()
+    again = [refiner_op.packed_weights(r)[0] for r in (a, b)]
+    assert all(x is not y and torch.equal(x, y) for x, y in zip(again, packs))
+
+
 def tf32_truncate(x):
     """What the tensor core reads of an f32 operand: its top 19 bits."""
     return (x.view(torch.int32) & -0x2000).view(torch.float32)

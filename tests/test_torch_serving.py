@@ -71,8 +71,8 @@ def test_serving_matches_jax_serving_forward(tree):
         batch = jax_collate([jax_dataset[i]])
         assert names == batch["left_filenames"]
         ref = np.asarray(jax_fn({k: jnp.asarray(batch[k]) for k in MODEL_KEYS}))
-        got = idepth.numpy()
-        assert got.shape == ref.shape == (1, ROWS, COLS)
+        got = idepth
+        assert type(got) is np.ndarray and got.shape == ref.shape == (1, ROWS, COLS)
         assert np.isfinite(got).all()
         span = float(ref.max() - ref.min())
         assert span > 0 and np.abs(got - ref).max() <= FORWARD_BAR * span
@@ -129,13 +129,33 @@ def test_runner_attributes_are_read_only():
 
 
 def test_serving_forward_rejects_uint8_images():
-    """The uint8 transport is not ported: u8 pixels must not be served as floats."""
+    """uint8 pixels must not be served as floats: they are dequantized on the device
+    (the u8 transport) and serve what their float32 images serve; an image type that is
+    neither is refused."""
     model, _ = weights(seed=0)
-    batch = {"left_image": torch.zeros(1, ROWS, COLS, 3, dtype=torch.uint8),
-             "right_images": torch.zeros(1, 1, ROWS, COLS, 3, dtype=torch.uint8),
-             "K": torch.eye(4)[None], "T_right_in_left": torch.eye(4)[None, None]}
-    with pytest.raises(TypeError, match="uint8 transport"):
-        serving_forward(model, batch, MultiViewStereoNetConfig(num_idepth_samples=D))
+    config = MultiViewStereoNetConfig(num_idepth_samples=D)
+    rng = np.random.default_rng(1)
+    left = rng.integers(0, 256, size=(1, ROWS, COLS, 3), dtype=np.uint8)
+    rights = rng.integers(0, 256, size=(1, 1, ROWS, COLS, 3), dtype=np.uint8)
+    T = np.eye(4, dtype=np.float32)[None, None].copy()
+    T[..., 0, 3] = 0.4
+    K = np.diag([0.9 * COLS, 0.9 * COLS, 1.0, 1.0]).astype(np.float32)[None]
+    K[0, 0, 2], K[0, 1, 2] = (COLS - 1) / 2, (ROWS - 1) / 2
+
+    def run(left, rights):
+        batch = {"left_image": torch.from_numpy(left), "right_images": torch.from_numpy(rights),
+                 "K": torch.from_numpy(K), "T_right_in_left": torch.from_numpy(T)}
+        with torch.no_grad():
+            return serving_forward(model, batch, config).numpy()
+
+    def normalized(u):
+        return (u.astype(np.float32) / 255.0) * 2.0 - 1.0
+
+    got = run(left, rights)
+    np.testing.assert_array_equal(got, run(normalized(left), normalized(rights)))
+    assert not np.array_equal(got, run(left.astype(np.float32), rights.astype(np.float32)))
+    with pytest.raises(TypeError, match="float32 or uint8"):
+        run(normalized(left).astype(np.float64), normalized(rights))
 
 
 def test_streaming_cli_serves_the_split(tree, tmp_path, capsys):
