@@ -54,13 +54,37 @@ Phases, each printing its results; any failure raises and exits non-zero:
    u8 with four decode threads and f32 with one, twice: the median time
    between consecutive results in the steady window (start-up and drain left
    out) as ms a request, and the window's depthmaps/s.
+3b. Backward of each kernel (its ``torch.autograd.Function``, which recomputes
+   the plain version) at phase 3's shapes against plain autograd on the card:
+   every input's gradient within 1e-4 of max|plain| (a gradient below 1e-4 of
+   the largest held to that floor), no launch in the backward; the device time
+   of one backward (torch.profiler, the sum of its kernels), of the plain
+   path's backward and, for K1 and K4, of ``F.grid_sample``'s and of
+   ``F.group_norm`` + ``F.leaky_relu``'s.
+7. Training at full width (the reference recipe: B = 8, V = 1, 480x640, D = 12,
+   filter and five refiners on, adam 1e-3, augmentation on, 4 loader workers)
+   through ``train_cli.train`` over the 96-request tree: 10 steps, validation
+   over 16 images and an epoch checkpoint; a second call resumes it for 2
+   steps (step count continued) and ``run_eval`` scores its checkpoint. Every
+   loss finite; launches 2 / 1 / 2 / 31 a forward (train steps and validation
+   batches), none from the backward; the CLI loop's ms a step (host clock
+   between steps, loader included) and the loader's ms a batch alone. Then from
+   one batch and the same seeded fan-in-scale weights, TF32 off: the kernel
+   path's loss within 1e-5 relative of the plain path's and every gradient
+   within docs/PARITY.md:218-232's bar; ms a train step (CUDA events, median
+   after 2 warm-up steps, kernel and plain path in turns), images/s, peak
+   memory (``max_memory_allocated``), the host and device time of the K3
+   weight repack that each optimizer step causes, and on each path the device
+   time of the forward alone and of one whole step (torch.profiler), with the
+   top device operations of a kernel-path step.
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
 sources, launches, errors, times ("ms" and "plain_ms" are device times of
 one call, "call_ms" and "plain_call_ms" a call's time with its host work),
-bounds and library times (launches are phase 4's), and the nvidia-smi line;
-the last line is {"ok": true, "device": {...}}.
+bounds and library times (launches are phase 4's, "train_launches" phase
+7's first ``train`` call's), each with a "backward" entry (phase 3b), and the
+nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -79,6 +103,12 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WARP_BAR = 1e-5
+BACKWARD_BAR = 1e-4  # times max(max|plain grad|, 1e-4 of the largest), phase 3b
+# Training against the plain path (docs/PARITY.md:218-232): per parameter, max|diff|
+# within 2.5e-3 of max|plain| and cosine > 0.999998; a leaf below 1e-4 of the
+# largest held to that floor; the loss within 1e-5 relative.
+GRAD_BAR, COS_BAR, GRAD_FLOOR, LOSS_BAR = 2.5e-3, 1 - 2e-6, 1e-4, 1e-5
+TRAIN_B, TRAIN_STEPS, RESUME_STEPS, VAL_IMAGES = 8, 10, 2, 16
 CHAIN_ATOL, CHAIN_RTOL = 2e-5, 2e-4  # also the idepthmap refiner's bar
 GN_BAR = 1e-5  # times max(1, max|plain|)
 SERVE_BAR = 2e-3  # fraction of the plain path's output range
@@ -142,6 +172,31 @@ def graph_ms(fn, reps=20) -> float:
         for _ in range(reps):
             fn()
     return median_ms(graph.replay, runs=7, warmup=1) / reps
+
+
+def device_ms(fn, reps=5, warmup=2) -> float:
+    """Device time of one call: the card's kernel times summed over ``reps`` calls under
+    torch.profiler, over reps (the gaps between kernels left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def worst_relative(got, ref):
+    """max over tensors of max|got - ref| / max(max|ref|, floor), the floor 1e-4 of the
+    largest max|ref|."""
+    floor = GRAD_FLOOR * max(r.abs().max().item() for r in ref)
+    return max((g - r).abs().max().item() / max(r.abs().max().item(), floor)
+               for g, r in zip(got, ref))
 
 
 def scene(n, seed):
@@ -363,6 +418,369 @@ def check_kernels(dev):
         if shape == (1, 32, H0, W0) and residual:
             results["gn_apply"].update(**t, bound_ms=b[0], bound_by=b[1])
     return results
+
+
+def check_backward(dev):
+    """Phase 3b: each kernel's backward (the plain version recomputed inside its
+    Function) against plain autograd at phase 3's shapes, with its device time, the plain
+    path's and (K1, K4) the library's. Returns {kernel: backward entry}."""
+    import torch.nn.functional as F
+
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.geometry import (
+        build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
+        incremental_homographies, normalize_baseline)
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner, IDepthmapRefiner
+    from multi_view_stereonet_tpu_torch.ops import homography_grid
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.ops.cuda import warp
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
+
+    g = torch.Generator().manual_seed(1)
+    results = {}
+
+    def geometry(n, seed):
+        K, T = scene(n, seed)
+        T, _ = normalize_baseline(T)
+        K_pyr = build_K_pyramid(K, pyramid_sizes(H0, W0, 5))
+        return K_pyr, T, create_idepth_samples(T, K_pyr[4], 30, 40, D)
+
+    def leaf(x):
+        return x.to(dev).requires_grad_()
+
+    def check(key, what, run, inputs, library=None, keep=False):
+        """run(impl) -> output; library() -> (output, inputs) of the one PyTorch call.
+        The JSON line keeps the times of the shape checked with ``keep``."""
+        outs = {impl: run(impl) for impl in ("kernel", "plain")}
+        cot = torch.randn(outs["plain"].shape, generator=g).to(dev)
+
+        def backward(impl):
+            return torch.autograd.grad(outs[impl], inputs, cot, retain_graph=True)
+        before = read_launches()
+        got, ref = backward("kernel"), backward("plain")
+        torch.cuda.synchronize()
+        if read_launches() != before:
+            raise AssertionError(f"{key} {what}: the backward launched a kernel")
+        err = worst_relative(got, ref)
+        entry = {"max_rel_err": err, "ms": device_ms(lambda: backward("kernel")),
+                 "plain_ms": device_ms(lambda: backward("plain")), "library_ms": None}
+        if library is not None:
+            lib_out, lib_inputs = library()
+            lib_cot = torch.randn(lib_out.shape, generator=g).to(dev)
+            entry["library_ms"] = device_ms(lambda: torch.autograd.grad(
+                lib_out, lib_inputs, lib_cot, retain_graph=True))
+        lib = ("" if entry["library_ms"] is None
+                else f", library {entry['library_ms']:.4f} ms")
+        log(f"{key} backward {what}: worst gradient error {err:.3e} of max|plain| (bar "
+            f"{BACKWARD_BAR:.0e}); device: through the kernel's Function {entry['ms']:.4f} "
+            f"ms, plain path {entry['plain_ms']:.4f} ms{lib}")
+        if not err <= BACKWARD_BAR:
+            raise AssertionError(f"{key} backward disagrees with plain autograd at {what}")
+        old = results.get(key)
+        if old is not None:
+            base = entry if keep else old
+            results[key] = {**base, "max_rel_err": max(old["max_rel_err"], err)}
+        else:
+            results[key] = entry
+
+    # K1 at the min-idepth warp (the JSON keeps its times) and the plane sweep.
+    for n, rows, cols, grid_of, what in (
+            (1, H0, W0, lambda K_pyr, T, s: homography_grid(
+                create_plane_sweep_homographies(T, K_pyr[0], s[:, :1])[:, 0], H0, W0),
+             "(1,480,640,3) min-idepth warp"),
+            (5, 30, 40, lambda K_pyr, T, s: homography_grid(
+                create_plane_sweep_homographies(T, K_pyr[4], s), 30, 40),
+             "(5,30,40,3)->(5,12,30,40,3) plane sweep")):
+        image = leaf(torch.rand(n, rows, cols, 3, generator=g) * 2 - 1)
+        grid = leaf(grid_of(*geometry(n, n)))
+
+        def library(image=image, grid=grid):
+            x = image.detach().permute(0, 3, 1, 2).contiguous().requires_grad_()
+            grid4 = grid.detach().reshape(n, -1, grid.shape[-2], 2).requires_grad_()
+            return F.grid_sample(x, grid4, mode="bilinear", padding_mode="border",
+                                 align_corners=False), (x, grid4)
+        check("K1", what, lambda impl: warp.grid_sample(image, grid, True, impl)[0],
+              (image, grid), library, keep=n == 1)
+
+    # K2 at N = 1 (the JSON keeps it) and N = 8, the training recipe's B*V.
+    refiner = FeatureRefiner(32)
+    prefix = "right_feature_extractor.refiner."
+    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
+                             if k.startswith(prefix)})
+    refiner = refiner.to(dev)
+    for n in (1, 8):
+        K_pyr, T, samples = geometry(n, 10 + n)
+        H_inc = incremental_homographies(create_plane_sweep_homographies(T, K_pyr[4], samples))
+        feats0 = leaf(torch.randn(n, 30, 40, 32, generator=g))
+        image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+        check("K2", f"N={n} 30x40x32 D={D}",
+              lambda impl: chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl),
+              (feats0, *refiner.parameters()), keep=n == 1)
+
+    # K3 at level 4 (N = 1, 8) and level 3 (N = 1, the JSON keeps it).
+    state = random_state_dict(4)
+    for n, h, w, name in ((1, 30, 40, "refiner4"), (8, 30, 40, "refiner4"),
+                          (1, 60, 80, "refiner3")):
+        module = IDepthmapRefiner(35)
+        module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                if k.startswith(name + ".")})
+        module = module.to(dev)
+        guidance = leaf(torch.rand(n, 35, h, w, generator=g) * 2 - 1)
+        idepth = leaf(torch.rand(n, h, w, generator=g) * 20)
+        check("K3", f"({n},35,{h},{w})",
+              lambda impl: refiner_op.idepthmap_refiner(module, guidance, idepth, impl),
+              (guidance, idepth, *module.parameters()), keep=h == 60)
+
+    # K4 at every GroupNorm shape of the serving forward; the JSON keeps the 480x640
+    # resblock's times.
+    weight = leaf(state["refiner0.res0.bn1.weight"].clone())
+    bias = leaf(state["refiner0.res0.bn1.bias"].clone())
+    for shape, residual, what in GN_SHAPES:
+        x = leaf(torch.randn(shape, generator=g) * 2 + 0.5)
+        res = leaf(torch.randn(shape, generator=g)) if residual else None
+
+        def library(x=x, res=res):
+            xs = x.detach().requires_grad_()
+            rs = None if res is None else res.detach().requires_grad_()
+            out = F.leaky_relu(F.group_norm(xs, 4, weight, bias, 1e-5), 0.2)
+            return (out if rs is None else out + rs), tuple(t for t in (xs, weight, bias, rs)
+                                                           if t is not None)
+        check("K4", f"{shape} {'+ res' if residual else 'no res'} ({what})",
+              lambda impl: gn_apply.group_norm_act(x, weight, bias, 4, res, impl),
+              tuple(t for t in (x, weight, bias, res) if t is not None), library,
+              keep=shape == (1, 32, H0, W0) and residual)
+    return results
+
+
+def train_phase(dev, inputs, smi):
+    """Phase 7: the training CLI at full width, resumed and evaluated; then one batch
+    through the kernel and plain paths: gradients, ms a step, memory, the repack and a
+    profile. Returns (train() launches, summary)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_view_stereonet_tpu_torch.checkpoint import native, random_state_dict
+    from multi_view_stereonet_tpu_torch.data.loader import collate
+    from multi_view_stereonet_tpu_torch.eval.test_cli import run_eval
+    from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.train import train_cli
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
+
+    data_dir, split = inputs["long"]
+    cfg = load_params_yaml(None)  # the recipe: B = 8, 480x640, D = 12, adam 1e-3, augment
+    cfg.update({"num_workers": 4, "num_val_images": VAL_IMAGES, "debug_image_freq": 0,
+                "plot_freq": 0})
+    if (cfg["batch_size"], tuple(cfg["size"]), cfg["num_idepth_samples"]) != (
+            TRAIN_B, (H0, W0), D) or not (cfg["augment"] and all(cfg["refiners"])):
+        raise AssertionError(f"the recipe's defaults moved: {cfg}")
+    out = os.path.join(inputs["root"], "train")
+    val_forwards = -(-VAL_IMAGES // TRAIN_B)
+
+    def run(max_steps, num_epochs, forwards):
+        """One train() call; its launches, seconds and the host time at the end of each
+        step (``stop_check`` runs once a step, after the step is queued)."""
+        stamps = []
+
+        def stamp():
+            stamps.append(time.perf_counter())
+            return False
+        zero_launches()
+        t0 = time.perf_counter()
+        train_cli.train(dict(cfg, num_epochs=num_epochs), data_dir, split, split, out,
+                        max_steps=max_steps, stop_check=stamp, device=dev)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        expected = expected_launches([(TRAIN_B, 1)] * forwards)
+        if launches != expected:
+            raise AssertionError(f"train: expected launches {expected}, got {launches}")
+        return launches, seconds, stamps
+
+    launches, seconds, stamps = run(TRAIN_STEPS, 1, TRAIN_STEPS + val_forwards)
+    # The loop reads each step's loss after queuing the next, so from the third step on
+    # the time between steps is the CLI's rate, loader included.
+    gaps = np.diff(stamps)[2:] * 1e3
+    cli_ms = float(np.median(gaps))
+    log(f"train: {TRAIN_STEPS} steps at B={TRAIN_B} V=1 {H0}x{W0} D={D} and validation over "
+        f"{VAL_IMAGES} images in {seconds:.1f} s (loader start-up, first calls and the "
+        f"checkpoint included); launches {launches}: per forward {TRAIN_STEPS} steps + "
+        f"{val_forwards} validation batches, none from the backward; the CLI loop "
+        f"{cli_ms:.3f} ms a step (median of steps 4-{TRAIN_STEPS}, host clock; "
+        f"{[round(g, 1) for g in gaps]}), {TRAIN_B * 1e3 / cli_ms:.2f} images/s ({smi})")
+    _, resume_seconds, _ = run(TRAIN_STEPS + RESUME_STEPS, 2, RESUME_STEPS + val_forwards)
+    with open(os.path.join(out, "losses.txt")) as f:
+        rows = [line.split() for line in f.read().splitlines()[1:]]
+    steps = [int(r[2]) for r in rows]
+    losses = [float(r[3]) for r in rows]
+    root = os.path.join(out, "checkpoints")
+    if (steps != list(range(1, TRAIN_STEPS + RESUME_STEPS + 1)) or not np.isfinite(losses).all()
+            or native.latest_epoch(root) != 1
+            or native.load_train_state(root, 1)["step"] != TRAIN_STEPS + RESUME_STEPS):
+        raise AssertionError(f"train: steps {steps}, losses {losses}")
+    with open(os.path.join(out, "validation.txt")) as f:
+        val_rows = f.read().splitlines()
+    log(f"train: resumed from epoch 0 for {RESUME_STEPS} steps in {resume_seconds:.1f} s; "
+        f"losses by step {[round(x, 3) for x in losses]}, all finite; validation.txt "
+        f"{val_rows}")
+    data_dir1, split1 = inputs["trees"][1]
+    eval_out = os.path.join(inputs["root"], "eval_trained")
+    eval_loss, avg = run_eval(os.path.join(root, "epoch0001"), data_dir1, split1, eval_out,
+                              batch_size=2, params_file=inputs["params_yaml"],
+                              decode_backend="pil", device=dev)
+    if not (np.isfinite(eval_loss) and os.path.exists(
+            os.path.join(eval_out, "avg_depth_metrics.txt"))):
+        raise AssertionError(f"run_eval of the trained checkpoint: loss {eval_loss}")
+    log(f"train: run_eval of checkpoints/epoch0001/stereo_network.pth over "
+        f"{avg['num_samples']} images: loss {eval_loss:.4f}, abs_rel {avg['abs_rel']:.4f}")
+
+    # The recipe's loader alone (augmentation on, 4 workers), one epoch: whether it keeps
+    # up with the step.
+    dataset = train_cli.make_dataset(cfg, data_dir, split, True, 0, np.random.default_rng(0))
+    loader_stamps = [time.perf_counter() for _ in train_cli.BatchLoader(
+        dataset, TRAIN_B, shuffle=True, seed=0, workers=cfg["num_workers"])]
+    loader_ms = float(np.median(np.diff(loader_stamps)[1:])) * 1e3
+    log(f"train: the loader alone, augmentation on, {cfg['num_workers']} workers: "
+        f"{loader_ms:.3f} ms a batch of {TRAIN_B} (median over an epoch of "
+        f"{len(loader_stamps)} batches, host clock), {TRAIN_B * 1e3 / loader_ms:.2f} images/s")
+
+    # One batch of the recipe, as the loader gives it, on the card.
+    batch = collate([dataset[i] for i in range(TRAIN_B)])
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+             if not k.endswith("filenames")}
+    state0 = random_state_dict(0)
+
+    def fresh(impl):
+        model = MultiViewStereoNet()
+        model.load_state_dict(state0)
+        model = model.to(dev)
+        config, loss_config, _, step = train_cli.build_train_step(cfg, 12, model, impl)
+        return model, config, loss_config, step
+
+    # Gradients, kernel path against plain, from the same weights and batch.
+    grads, loss_of = {}, {}
+    for impl in ("auto", "plain"):
+        model, config, loss_config, _ = fresh(impl)
+        zero_launches()
+        loss, _ = make_loss_fn(config, loss_config, impl=impl)(model, batch)
+        forward = read_launches()
+        loss.backward()
+        torch.cuda.synchronize()
+        expected = (expected_launches([(TRAIN_B, 1)]) if impl == "auto"
+                    else dict.fromkeys(forward, 0))
+        if not (forward == read_launches() == expected):
+            raise AssertionError(f"{impl}: forward launches {forward}, after the backward "
+                                 f"{read_launches()}, expected {expected}")
+        loss_of[impl] = loss.item()
+        grads[impl] = {k: p.grad for k, p in model.named_parameters()}
+        if impl == "auto":
+            log(f"train step launches: forward {forward}, backward none")
+    ref = grads["plain"]
+    floor = GRAD_FLOOR * max(r.abs().max().item() for r in ref.values())
+    worst, worst_key, min_cos = 0.0, None, 1.0
+    for k, r in ref.items():
+        a = grads["auto"][k]
+        err = (a - r).abs().max().item() / max(r.abs().max().item(), floor)
+        if err > worst:
+            worst, worst_key = err, k
+        if r.abs().max().item() > floor:
+            min_cos = min(min_cos, torch.nn.functional.cosine_similarity(
+                a.flatten().double(), r.flatten().double(), dim=0).item())
+    loss_gap = abs(loss_of["auto"] - loss_of["plain"]) / abs(loss_of["plain"])
+    log(f"train step kernel vs plain (TF32 off, same weights and batch): loss "
+        f"{loss_of['auto']:.6f} vs {loss_of['plain']:.6f} ({loss_gap:.2e} relative, bar "
+        f"{LOSS_BAR:.0e}); worst gradient {worst:.3e} of max|plain| at {worst_key} (bar "
+        f"{GRAD_BAR:.1e}), least cosine {min_cos:.9f} (bar {COS_BAR}), over {len(ref)} "
+        f"parameters")
+    if not (np.isfinite(loss_of["auto"]) and loss_gap <= LOSS_BAR and worst <= GRAD_BAR
+            and min_cos > COS_BAR):
+        raise AssertionError("the kernel path's training gradients miss the bar")
+    del grads
+
+    # ms a step: kernel and plain paths in turns, two warm-up steps each first.
+    steps_by = {impl: fresh(impl) for impl in ("auto", "plain")}
+    times = {"auto": [], "plain": []}
+    peak = {}
+    for impl, (model, _, _, step) in steps_by.items():
+        for _ in range(2):
+            loss, _ = step(model, batch)
+    for _ in range(2):
+        for impl, (model, _, _, step) in steps_by.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(4):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss, _ = step(model, batch)
+                end.record()
+                end.synchronize()
+                times[impl].append(start.elapsed_time(end))
+                if not np.isfinite(loss.item()):
+                    raise AssertionError(f"{impl}: a non-finite loss")
+            peak[impl] = max(peak.get(impl, 0), torch.cuda.max_memory_allocated())
+    ms = {impl: statistics.median(t) for impl, t in times.items()}
+    for impl in ("auto", "plain"):
+        log(f"train step {'kernel' if impl == 'auto' else 'plain'} path, B={TRAIN_B} V=1 "
+            f"{H0}x{W0} D={D}, adam: {ms[impl]:.3f} ms a step (median of "
+            f"{len(times[impl])}, CUDA events; {[round(t, 2) for t in times[impl]]}), "
+            f"{TRAIN_B * 1e3 / ms[impl]:.2f} images/s, peak memory "
+            f"{peak[impl] / 2**30:.3f} GiB ({smi})")
+
+    # The K3 repack each optimizer step causes (the weights' versions moved).
+    module = steps_by["auto"][0].refiner4
+    host, dev_ms = [], []
+    for _ in range(10):
+        with torch.no_grad():
+            module.conv0.bias.add_(0.0)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        refiner_op.packed_weights(module)
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+    repack = {"host_ms": statistics.median(host), "events_ms": statistics.median(dev_ms)}
+    log(f"K3 repack after a weight update: host {repack['host_ms']:.3f} ms, CUDA events "
+        f"{repack['events_ms']:.3f} ms (median of 10; two fused refiners a step)")
+
+    # Device time of the forward alone and of one whole step on each path (torch.profiler,
+    # kernels summed): what the backward and the optimizer step take, and on the kernel
+    # path what the recompute adds; the top device operations of one kernel-path step.
+    from torch.autograd import DeviceType
+    device = {}
+    for impl, (model, config, loss_config, step) in steps_by.items():
+        loss_fn = make_loss_fn(config, loss_config, impl=impl)
+        forward = device_ms(lambda: loss_fn(model, batch), reps=3, warmup=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(model, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        device[impl] = {"forward_ms": forward, "busy_ms": busy, "wall_ms": wall}
+        log(f"train step profile ({'kernel' if impl == 'auto' else 'plain'} path, one step): "
+            f"device busy {busy:.3f} ms of {wall:.3f} ms wall (profiler on), idle "
+            f"{max(0.0, 1 - busy / wall):.1%}; the forward alone {forward:.3f} ms device "
+            f"(mean of 3), the backward and the optimizer step {busy - forward:.3f} ms")
+        if impl == "auto":
+            log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    after = {impl: d["busy_ms"] - d["forward_ms"] for impl, d in device.items()}
+    log(f"train step backward + optimizer step, device: kernel path {after['auto']:.3f} ms, "
+        f"plain path {after['plain']:.3f} ms; the kernels' recompute adds "
+        f"{after['auto'] - after['plain']:.3f} ms, their forward saves "
+        f"{device['plain']['forward_ms'] - device['auto']['forward_ms']:.3f} ms ({smi})")
+    summary = {"ms": ms, "images_s": {k: TRAIN_B * 1e3 / v for k, v in ms.items()},
+               "cli_ms": cli_ms, "loader_ms": loader_ms,
+               "peak_gib": {k: v / 2**30 for k, v in peak.items()}, "repack": repack,
+               "device": device, "grad_err": worst, "loss_gap": loss_gap}
+    return launches, summary
 
 
 def synthetic_data():
@@ -719,32 +1137,50 @@ def main():
     log(f"build {', '.join(s + '.cu' for s in sources)} (parallel): "
         f"{time.perf_counter() - t0:.2f} s")
 
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return result
+
     with torch.inference_mode():
-        kernels = check_kernels(dev)
+        kernels = phase("3 (kernels)", check_kernels, dev)
+    backward = phase("3b (backward)", check_backward, dev)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = write_inputs(tmp)
-        launches, ms, worst = serve(dev, inputs)
+        launches, ms, worst = phase("4 (serving)", serve, dev, inputs)
         log(f"serving ms/frame B=1 V=1 480x640 D=12 ({smi}): kernels {ms['auto']:.3f}, "
             f"plain {ms['plain']:.3f}; worst serving error {worst:.3e} of range")
-        evaluate(dev, inputs, smi)
-        transport(dev, inputs, smi)
+        phase("5 (eval)", evaluate, dev, inputs, smi)
+        phase("6 (transport)", transport, dev, inputs, smi)
+        train_launches, trained = phase("7 (train)", train_phase, dev, inputs, smi)
+    log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
+        f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
+        f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
+        f"ms, {trained['images_s']['plain']:.2f} images/s, peak "
+        f"{trained['peak_gib']['plain']:.3f} GiB; the CLI loop {trained['cli_ms']:.3f} ms a "
+        f"step, the loader alone {trained['loader_ms']:.3f} ms a batch")
 
     pkg = "multi_view_stereonet_tpu_torch"
     report = {"kernels": [
         {"name": "grid_sample", "route": "cuda", "source": f"{pkg}/csrc/warp.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/warp_kernel.py:270",
-         "launches": launches["warp"], **kernels["warp"]},
+         "launches": launches["warp"], "train_launches": train_launches["warp"],
+         **kernels["warp"], "backward": backward["K1"]},
         {"name": "incremental_chain", "route": "cuda",
          "source": f"{pkg}/csrc/incremental_chain.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/incremental_chain.py:224",
-         "launches": launches["chain"], **kernels["chain"]},
+         "launches": launches["chain"], "train_launches": train_launches["chain"],
+         **kernels["chain"], "backward": backward["K2"]},
         {"name": "idepthmap_refiner", "route": "cuda",
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:213",
-         "launches": launches["refiner"], **kernels["refiner"]},
+         "launches": launches["refiner"], "train_launches": train_launches["refiner"],
+         **kernels["refiner"], "backward": backward["K3"]},
         {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
-         "launches": launches["gn_apply"], **kernels["gn_apply"]},
+         "launches": launches["gn_apply"], "train_launches": train_launches["gn_apply"],
+         **kernels["gn_apply"], "backward": backward["K4"]},
     ]}
     log(json.dumps(report))
     log(smi)

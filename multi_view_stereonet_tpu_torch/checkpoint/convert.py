@@ -10,7 +10,10 @@ OIHW / OIDHW). It is the exact inverse of the JAX package's
 fan-in scale: conv weights N(0, 1 / fan_in), biases N(0, 0.1^2),
 GroupNorm scale 1 + N(0, 0.1^2) and bias N(0, 0.1^2). The reference's
 N(0, 0.01) init makes the refiner deltas so small that a broken refiner
-could pass a comparison; these weights do not.
+could pass a comparison; these weights do not. ``init_params_numpy(seed,
+reference=True)`` draws the reference's init instead (the JAX package's
+``init_mvsnet``: conv weights N(0, 0.01^2), biases 0, GroupNorm scale 1 and
+bias 0), which training starts from; numpy's draws are not JAX's.
 """
 
 from __future__ import annotations
@@ -77,23 +80,25 @@ def state_dict_from_jax_params(params) -> dict:
             for k, v in sd.items()}
 
 
-def init_params_numpy(seed: int = 0) -> dict:
-    """Seeded fan-in-scale weights in the JAX pytree layout (numpy float32)."""
+def init_params_numpy(seed: int = 0, reference: bool = False) -> dict:
+    """Seeded fan-in-scale weights in the JAX pytree layout (numpy float32), or with
+    ``reference`` the reference's init."""
     rng = np.random.default_rng(seed)
+    spread = 0.0 if reference else 0.1
 
     def normal(shape, std):
         return (std * rng.standard_normal(shape)).astype(np.float32)
 
     def conv(kshape, cin, cout, bias=True):
         fan_in = int(np.prod(kshape)) * cin
-        p = {"w": normal(tuple(kshape) + (cin, cout), fan_in ** -0.5)}
+        p = {"w": normal(tuple(kshape) + (cin, cout), 0.01 if reference else fan_in ** -0.5)}
         if bias:
-            p["b"] = normal((cout,), 0.1)
+            p["b"] = normal((cout,), spread)
         return p
 
     def gn(c):
-        return {"scale": (1.0 + normal((c,), 0.1)).astype(np.float32),
-                "bias": normal((c,), 0.1)}
+        return {"scale": (1.0 + normal((c,), spread)).astype(np.float32),
+                "bias": normal((c,), spread)}
 
     def res(c, bias=True):
         return {"conv": conv((3, 3), c, c, bias), "gn": gn(c)}

@@ -17,7 +17,8 @@ from .homography import (
     create_plane_sweep_homographies,
     incremental_homographies,
 )
-from .projection import pixel_grid, disparity_to_idepth
+from .projection import (
+    backproject_idepthmap, disparity_to_idepth, idepth_to_disparity, pixel_grid)
 from .sampling import create_idepth_samples
 
 __all__ = [
@@ -31,6 +32,8 @@ __all__ = [
     "create_plane_sweep_homographies",
     "incremental_homographies",
     "pixel_grid",
+    "backproject_idepthmap",
     "disparity_to_idepth",
+    "idepth_to_disparity",
     "create_idepth_samples",
 ]

@@ -1,7 +1,7 @@
-"""Pixel grids and the epipolar disparity -> inverse-depth solve.
+"""Pixel grids, back-projection and the epipolar disparity <-> inverse-depth maps.
 
 Port of ``multi_view_stereonet_tpu/geometry/projection.py`` (the parts the
-serving path needs). Pixel convention: grid_sample-normalized coordinates
+serving path and the training validation need). Pixel convention: grid_sample-normalized coordinates
 put (-1, -1) at the top-left corner of the top-left pixel,
 x' = 2 (x + 0.5) / cols - 1.
 """
@@ -19,6 +19,42 @@ def pixel_grid(rows: int, cols: int, dtype=torch.float32, device=None) -> torch.
     x = torch.arange(cols, dtype=dtype, device=device)[None, :].expand(rows, cols)
     ones = torch.ones((rows, cols), dtype=dtype, device=device)
     return torch.stack([x, y, ones], dim=0)
+
+
+def backproject_idepthmap(K: torch.Tensor, idepthmap: torch.Tensor,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """Back-project an inverse depthmap into homogeneous points.
+
+    K: (B, 4, 4) or (B, 3, 3); idepthmap: (B, rows, cols). Returns (B, 4, rows*cols)
+    in xyzw, at depth 1 / (idepth + eps).
+    """
+    B, rows, cols = idepthmap.shape
+    depth = 1.0 / (idepthmap + eps)
+    Kinv3 = mat3_inverse(K[:, :3, :3])
+    pix = pixel_grid(rows, cols, idepthmap.dtype, idepthmap.device).reshape(3, -1)
+    xyz = (Kinv3 @ pix) * depth.reshape(B, 1, -1)
+    ones = torch.ones((B, 1, rows * cols), dtype=idepthmap.dtype, device=idepthmap.device)
+    return torch.cat([xyz, ones], dim=1)
+
+
+def idepth_to_disparity(K: torch.Tensor, T_right_in_left: torch.Tensor,
+                        left_idepthmap: torch.Tensor) -> torch.Tensor:
+    """Inverse depth -> general disparity: the distance in the right image between a
+    pixel's projection and its projection at infinite depth.
+
+    K, T_right_in_left: (B, 4, 4); left_idepthmap: (B, rows, cols) -> (B, rows, cols).
+    """
+    B, rows, cols = left_idepthmap.shape
+    pix = pixel_grid(rows, cols, left_idepthmap.dtype, left_idepthmap.device).reshape(3, -1)
+    Kinv = mat3_inverse(K[:, :3, :3])
+    T_left_in_right = se3_inverse(T_right_in_left)
+    KRKinv = K[:, :3, :3] @ (T_left_in_right[:, :3, :3] @ Kinv)
+    pix_inf = KRKinv @ pix
+    pix_inf = pix_inf / pix_inf[:, 2:3, :]
+    points = backproject_idepthmap(K, left_idepthmap)
+    right_pix = K[:, :3, :3] @ (T_left_in_right[:, :3, :] @ points)
+    diff = right_pix[:, :2, :] / right_pix[:, 2:3, :] - pix_inf[:, :2, :]
+    return torch.sqrt(torch.sum(diff ** 2, dim=1)).reshape(B, rows, cols)
 
 
 def disparity_to_idepth(K: torch.Tensor, T_right_in_left: torch.Tensor,

@@ -14,7 +14,8 @@ at the small levels (``fused_refiner_supported``: 4 and 3 at 480x640), and
 GroupNorm -> LeakyReLU (+ residual) everywhere else: the extractor's and
 the larger refiners' resblocks, those refiners' bn0 and the cost filter.
 ``impl`` ("auto" | "kernel" | "plain") reaches all four; see
-ops/cuda/build.py.
+ops/cuda/build.py. Under autograd each kernel's backward recomputes its plain
+version (ops/cuda/recompute.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..geometry import (
     create_idepth_samples,
@@ -50,6 +52,11 @@ class MultiViewStereoNetConfig:
     do_cost_volume_filter: bool = True
     do_refiners: Sequence[bool] = (True, True, True, True, True)
     num_levels: int = NUM_LEVELS
+    # Recompute each idepthmap refiner's activations in the backward instead of keeping
+    # them (torch.utils.checkpoint): the level-0 refiner's resblocks hold most of a
+    # training step's memory. Values are unchanged. Under it the recomputed forward
+    # goes through the kernels again, so their counters count it.
+    remat_refiners: bool = False
 
 
 class RightFeatureExtractor(nn.Module):
@@ -112,15 +119,22 @@ def incremental_right_features(net, T_right_in_left, K4, right_image4, idepth_sa
     return feature_volume, mask_volume
 
 
-def _refine_level(refiner, guidance, idepth_prior, fx, impl="auto"):
+def _refine_level(refiner, guidance, idepth_prior, fx, impl="auto", remat=False):
     """Run a refiner on fx-scaled idepth and scale back: a small level on the
-    card as one kernel, any other as the module (its resblock tails kernels)."""
+    card as one kernel, any other as the module (its resblock tails kernels).
+    ``remat`` recomputes the refiner in the backward (``remat_refiners``)."""
     scale = fx[:, None, None]
     n, _, h, w = guidance.shape
-    if use_kernel(impl, guidance) and fused_refiner_supported(h, w, n):
-        refined = idepthmap_refiner(refiner, guidance, idepth_prior * scale, impl)
+
+    def refine(guidance, idepth):
+        if use_kernel(impl, guidance) and fused_refiner_supported(h, w, n):
+            return idepthmap_refiner(refiner, guidance, idepth, impl)
+        return refiner(guidance, idepth, impl=impl)
+    if remat and torch.is_grad_enabled():
+        refined = torch.utils.checkpoint.checkpoint(refine, guidance, idepth_prior * scale,
+                                                    use_reentrant=False)
     else:
-        refined = refiner(guidance, idepth_prior * scale, impl=impl)
+        refined = refine(guidance, idepth_prior * scale)
     return refined / scale
 
 
@@ -178,7 +192,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
     if do_refiners[4]:
         guidance4 = torch.cat([_nchw(left_image_pyr[4]), left_feats4], dim=1)
         idepth4 = _refine_level(net.refiner4, guidance4.repeat_interleave(V, dim=0),
-                                idepth4_raw, K4_bv[:, 0, 0], impl)
+                                idepth4_raw, K4_bv[:, 0, 0], impl, config.remat_refiners)
         idepth4_raw = idepth4_raw / b_hw
         idepth4 = idepth4 / b_hw
     else:
@@ -208,7 +222,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
             if lvl > 0:
                 guidance = torch.cat([guidance, left_feature_pyr[lvl]], dim=1)
             idepth_lvl = _refine_level(getattr(net, f"refiner{lvl}"), guidance, prior,
-                                       K_pyr[lvl][:, 0, 0], impl)
+                                       K_pyr[lvl][:, 0, 0], impl, config.remat_refiners)
         else:
             idepth_lvl = prior
         idepthmap_pyr[lvl], raw_pyr[lvl], mask_pyr[lvl] = idepth_lvl, prior, mask_lvl

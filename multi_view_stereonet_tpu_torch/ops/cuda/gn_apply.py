@@ -8,7 +8,10 @@ Port of the TPU kernel ``multi_view_stereonet_tpu/ops/pallas/gn_apply.py``
 ``models/s2d.py`` ``gn_s2d_stats``: one call computes the statistics of x
 (a statistics pass over chunks of each (sample, group) row) and applies them
 (an apply pass). Layout NCHW or NCDHW (the port's modules' own), f32, eps
-1e-5 (the port's ``GroupNorm(C // 8)``). Forward only.
+1e-5 (the port's ``GroupNorm(C // 8)``). Under autograd the kernel runs in
+``_GroupNormAct``, whose backward recomputes ``group_norm_act_plain`` as the
+JAX ``_bwd`` (``gn_apply.py:120-126``) takes the VJP of ``_xla_reference``
+(see recompute.py).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import check_status, load_library, use_kernel
+from .recompute import needs_autograd, plain_vjp
 
 # Kernel launches since the last reset; only the kernel path counts, one per call.
 launches = 0
@@ -65,8 +69,8 @@ def _device_functions(device: int) -> tuple:
     return info
 
 
-def group_norm_act_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                          groups: int, res: torch.Tensor | None = None) -> torch.Tensor:
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+            res: torch.Tensor | None) -> torch.Tensor:
     """Launch csrc/gn_apply.cu (a statistics pass, then an apply pass) on CUDA
     tensors. A launch the card refuses raises."""
     global launches
@@ -83,8 +87,6 @@ def group_norm_act_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Ten
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, res "
                          f"{None if res is None else tuple(res.shape)}, weight "
                          f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, groups {groups}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("the CUDA GroupNorm kernel is forward only")
     if not x.is_contiguous():
         x = x.contiguous()
     if res is not None and not res.is_contiguous():
@@ -105,6 +107,31 @@ def group_norm_act_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Ten
     check_status("mvs_gn_act_f32", status)
     launches += 1
     return out
+
+
+class _GroupNormAct(torch.autograd.Function):
+    """K4 under autograd: the kernel forward; the backward recomputes the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, res, groups):
+        ctx.groups = groups
+        ctx.save_for_backward(x, weight, bias, res)
+        return _launch(x, weight, bias, groups, res)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(x, weight, bias, res):
+            return group_norm_act_plain(x, weight, bias, ctx.groups, res)
+        return (*plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:4], (grad,)), None)
+
+
+def group_norm_act_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                          groups: int, res: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel on CUDA tensors: launched directly, or through ``_GroupNormAct`` when
+    autograd records (grad mode on and an input requiring grad)."""
+    if needs_autograd(x, weight, bias, res):
+        return _GroupNormAct.apply(x, weight, bias, res, groups)
+    return _launch(x, weight, bias, groups, res)
 
 
 def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,

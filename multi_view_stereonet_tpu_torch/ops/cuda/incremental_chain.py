@@ -10,7 +10,10 @@ FeatureRefiner adds its delta.
 Layouts (the JAX package's): feats0 (N, h, w, 32), image_rest
 (N, D-1, h, w, 3), H_inc (N, D-1, 3, 3) -> (N, D, h, w, 32) with
 hypothesis 0 = feats0. The refiner is the port's ``FeatureRefiner``
-module (NCHW inside). Forward only.
+module (NCHW inside). Under autograd the kernel runs in ``_IncrementalChain``,
+which takes the refiner's weights as inputs and whose backward recomputes the
+plain loop, as the JAX ``_chain_bwd`` (``incremental_chain.py:357-368``)
+recomputes ``_incremental_scan`` (see recompute.py).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import ctypes
 import torch
 
 from .build import check_status, load_library, use_kernel
+from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .warp import grid_sample_plain
 from ..warp import homography_grid
 
@@ -71,8 +75,8 @@ def _taps(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0).reshape(9, weight.shape[1], weight.shape[0]).contiguous()
 
 
-def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
-                             H_inc: torch.Tensor, cluster: int = 0) -> torch.Tensor:
+def _launch(refiner, feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torch.Tensor,
+            cluster: int) -> torch.Tensor:
     """Launch csrc/incremental_chain.cu: one thread-block cluster per sample runs all D-1
     steps. ``cluster`` sets the blocks a sample (0: the kernel chooses, see
     ``cluster_size``); a size the card refuses raises."""
@@ -89,8 +93,6 @@ def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Te
             or image_rest.shape != (N, Dm1, h, w, 3) or H_inc.shape != (N, Dm1, 3, 3)):
         raise ValueError(f"bad shapes: feats0 {tuple(feats0.shape)}, image_rest "
                          f"{tuple(image_rest.shape)}, H_inc {tuple(H_inc.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("the CUDA incremental-chain kernel is forward only")
     res = refiner.res0
     vec = torch.stack([refiner.conv0.bias, refiner.bn0.weight, refiner.bn0.bias,
                        res.conv1.bias, res.bn1.weight, res.bn1.bias,
@@ -113,6 +115,38 @@ def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Te
     check_status("mvs_incremental_chain_f32", status)
     launches += 1
     return out
+
+
+class _IncrementalChain(torch.autograd.Function):
+    """K2 under autograd: the kernel forward, given the refiner's weights as inputs so
+    that autograd routes their gradients; the backward recomputes the plain loop with
+    those weights."""
+
+    @staticmethod
+    def forward(ctx, refiner, names, cluster, feats0, image_rest, H_inc, *params):
+        ctx.refiner, ctx.names = refiner, names
+        ctx.save_for_backward(feats0, image_rest, H_inc, *params)
+        return _launch(refiner, feats0, image_rest, H_inc, cluster)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(feats0, image_rest, H_inc, *params):
+            return incremental_chain_plain(bind_parameters(ctx.refiner, ctx.names, params),
+                                           feats0, image_rest, H_inc)
+        return (None, None, None,
+                *plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[3:], (grad,)))
+
+
+def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
+                             H_inc: torch.Tensor, cluster: int = 0) -> torch.Tensor:
+    """The kernel on CUDA tensors (``cluster`` as in ``_launch``): launched directly, or
+    through ``_IncrementalChain`` when autograd records."""
+    if torch.is_grad_enabled():
+        names, params = zip(*refiner.named_parameters())
+        if needs_autograd(feats0, image_rest, H_inc, *params):
+            return _IncrementalChain.apply(refiner, names, cluster, feats0, image_rest,
+                                           H_inc, *params)
+    return _launch(refiner, feats0, image_rest, H_inc, cluster)
 
 
 def incremental_chain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,

@@ -8,7 +8,12 @@ idepthmap (N, h, w), already fx-scaled by the caller -> ReLU(idepthmap + delta)
 (N, h, w). The refiner is the port's ``IDepthmapRefiner`` module; its weights are
 packed into the kernel's layout once and reused until a parameter changes
 (``packed_weights``; after an in-place write through ``.data``, which no key sees,
-call ``invalidate_packed_weights``). Forward only.
+call ``invalidate_packed_weights``). Under autograd the kernel runs in
+``_IdepthmapRefiner``, which takes every parameter of the refiner as an input and whose
+backward recomputes the module's plain version, as the JAX ``_fused_bwd``
+(``refiner_kernel.py:244-252``) recomputes ``idepthmap_refiner_s2d`` (see
+recompute.py). An optimizer step writes the weights in place, which bumps their
+versions: the next launch repacks them once.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import weakref
 import torch
 
 from .build import check_status, load_library, use_kernel
+from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .incremental_chain import _taps
 
 # Kernel launches since the last reset; only the kernel path counts.
@@ -170,8 +176,7 @@ def _barrier(device: torch.device, stream: int) -> torch.Tensor:
     return counter
 
 
-def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
-                             idepthmap: torch.Tensor) -> torch.Tensor:
+def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor) -> torch.Tensor:
     """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner.
 
     The weights come from ``packed_weights``: a caller that writes them in place
@@ -191,9 +196,6 @@ def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, idepthmap "
                          f"{tuple(idepthmap.shape)}, conv0 "
                          f"{tuple(refiner.conv0.weight.shape)}")
-    if torch.is_grad_enabled() and (guidance.requires_grad or idepthmap.requires_grad or any(
-            p.requires_grad for p in refiner.parameters())):
-        raise NotImplementedError("the CUDA idepthmap-refiner kernel is forward only")
     pack, dilations = packed_weights(refiner)
     dev = guidance.device
     if pack.device != dev:
@@ -212,6 +214,37 @@ def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
     check_status("mvs_idepthmap_refiner_f32", status)
     launches += 1
     return out
+
+
+class _IdepthmapRefiner(torch.autograd.Function):
+    """K3 under autograd: the kernel forward, given every parameter of the refiner as an
+    input so that autograd routes their gradients; the backward recomputes the module's
+    plain version with those weights."""
+
+    @staticmethod
+    def forward(ctx, refiner, names, guidance, idepthmap, *params):
+        ctx.refiner, ctx.names = refiner, names
+        ctx.save_for_backward(guidance, idepthmap, *params)
+        return _launch(refiner, guidance, idepthmap)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(guidance, idepthmap, *params):
+            return idepthmap_refiner_plain(bind_parameters(ctx.refiner, ctx.names, params),
+                                           guidance, idepthmap)
+        return (None, None,
+                *plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[2:], (grad,)))
+
+
+def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
+                             idepthmap: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors: launched directly, or through ``_IdepthmapRefiner``
+    when autograd records."""
+    if torch.is_grad_enabled():
+        names, params = zip(*refiner.named_parameters())
+        if needs_autograd(guidance, idepthmap, *params):
+            return _IdepthmapRefiner.apply(refiner, names, guidance, idepthmap, *params)
+    return _launch(refiner, guidance, idepthmap)
 
 
 def idepthmap_refiner(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,

@@ -7,8 +7,11 @@ image NHWC (B, H, W, C), grid (B, ..., 2) normalized (x, y); returns
 (sampled (B, ..., C), invalid (B, ...) bool), invalid marking samples
 outside [-1, 1] before the border clamp.
 
-Forward only: a CUDA input that requires grad raises (the scatter-add
-backward comes with training).
+Under autograd the kernel runs in ``_GridSample``, whose backward recomputes
+the plain version, as the JAX ``_pallas_grid_sample_bwd``
+(``warp_kernel.py:396-404``) takes the VJP of the XLA gather (see
+recompute.py). The training recipe never reaches it: neither the images nor
+the grids it samples carry a gradient.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import torch
 
 from .build import check_status, load_library, use_kernel
+from .recompute import needs_autograd, plain_vjp
 
 # Kernel launches since the last reset; only the kernel path counts.
 launches = 0
@@ -69,8 +73,7 @@ def _library():
     return lib
 
 
-def grid_sample_kernel(image: torch.Tensor, grid: torch.Tensor,
-                       zero_invalid: bool = False):
+def _launch(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool):
     """Launch csrc/warp.cu on CUDA tensors; same contract as the plain version."""
     global launches
     if not (image.is_cuda and grid.is_cuda and image.device == grid.device):
@@ -79,8 +82,6 @@ def grid_sample_kernel(image: torch.Tensor, grid: torch.Tensor,
         raise TypeError(f"grid_sample_kernel takes float32, got {image.dtype}, {grid.dtype}")
     if image.ndim != 4 or grid.shape[0] != image.shape[0] or grid.shape[-1] != 2:
         raise ValueError(f"bad shapes: image {tuple(image.shape)}, grid {tuple(grid.shape)}")
-    if torch.is_grad_enabled() and (image.requires_grad or grid.requires_grad):
-        raise NotImplementedError("the CUDA warp kernel is forward only")
     B, H, W, C = image.shape
     out_shape = grid.shape[:-1]
     M = grid[0, ..., 0].numel()
@@ -95,6 +96,36 @@ def grid_sample_kernel(image: torch.Tensor, grid: torch.Tensor,
     check_status("mvs_grid_sample_f32", status)
     launches += 1
     return out, invalid
+
+
+class _GridSample(torch.autograd.Function):
+    """K1 under autograd: the kernel forward; the backward recomputes the plain version.
+    The invalid mask carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, image, grid, zero_invalid):
+        ctx.zero_invalid = zero_invalid
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(image, grid)
+        out, invalid = _launch(image, grid, zero_invalid)
+        ctx.mark_non_differentiable(invalid)
+        return out, invalid
+
+    @staticmethod
+    def backward(ctx, grad, _grad_invalid):
+        def plain(image, grid):
+            return grid_sample_plain(image, grid, ctx.zero_invalid)
+        return (*plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], (grad, None)),
+                None)
+
+
+def grid_sample_kernel(image: torch.Tensor, grid: torch.Tensor,
+                       zero_invalid: bool = False):
+    """The kernel on CUDA tensors: launched directly, or through ``_GridSample`` when
+    autograd records."""
+    if needs_autograd(image, grid):
+        return _GridSample.apply(image, grid, zero_invalid)
+    return _launch(image, grid, zero_invalid)
 
 
 def grid_sample(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool = False,

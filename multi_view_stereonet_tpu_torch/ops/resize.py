@@ -56,7 +56,10 @@ _MATRICES = {"bilinear": _bilinear_matrix, "area": _area_matrix}
 
 @functools.lru_cache(maxsize=256)
 def _device_matrix(kind: str, out_size: int, in_size: int, device, dtype):
-    return torch.from_numpy(_MATRICES[kind](out_size, in_size)).to(device, dtype)
+    # Made outside inference mode even when first asked for inside it: an inference
+    # tensor in the cache could not be saved for a later training step's backward.
+    with torch.inference_mode(False):
+        return torch.from_numpy(_MATRICES[kind](out_size, in_size)).to(device, dtype)
 
 
 def _apply_separable(x: torch.Tensor, kind: str, out_size) -> torch.Tensor:

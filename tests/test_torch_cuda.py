@@ -357,6 +357,50 @@ def test_forward_kernels_match_plain_and_are_launched(dev):
         assert (a - b).abs().max().item() <= 2e-3 * span
 
 
+def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
+    """One loss and backward of the training recipe at 64x80 (B = 2, V = 1, D = 12) from
+    the same weights and batch, kernel path against plain: the loss within 1e-5
+    relative, every parameter's gradient within docs/PARITY.md:218-232's bar (2.5e-3 of
+    max|plain|, cosine > 0.999998; a leaf below 1e-4 of the largest held to that floor).
+    The forward launches 2 / 1 / 4 / 17, the backward nothing."""
+    from multi_view_stereonet_tpu_torch.losses import LossConfig
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
+
+    model = MultiViewStereoNet()
+    model.load_state_dict(random_state_dict(0))
+    model = model.to(dev)
+    g = torch.Generator().manual_seed(11)
+    B, H, W = 2, 64, 80
+    K, T = scene(B, H, W, seed=12)
+    depth = torch.rand(B, H, W, generator=g) * 8 + 2
+    depth[torch.rand(B, H, W, generator=g) < 0.1] = 0.0
+    batch = {"left_image": torch.rand(B, H, W, 3, generator=g) * 2 - 1,
+             "right_images": torch.rand(B, 1, H, W, 3, generator=g) * 2 - 1,
+             "K": K, "T_right_in_left": T.reshape(B, 1, 4, 4), "left_depthmap_true": depth}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    config = MultiViewStereoNetConfig(num_idepth_samples=12)
+    results = {}
+    for impl in ("auto", "plain"):
+        model.zero_grad(set_to_none=True)
+        before = counts()
+        loss, _ = make_loss_fn(config, LossConfig(), impl=impl)(model, batch)
+        forward = tuple(a - b for a, b in zip(counts(), before))
+        loss.backward()
+        torch.cuda.synchronize()
+        backward = tuple(a - b for a, b in zip(counts(), before))
+        assert forward == backward == ((2, 1, 4, 17) if impl == "auto" else (0, 0, 0, 0))
+        results[impl] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
+    (loss, got), (ref_loss, ref) = results["auto"], results["plain"]
+    assert np.isfinite(loss) and abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    floor = 1e-4 * max(v.abs().max().item() for v in ref.values())
+    for k, r in ref.items():
+        scale = max(r.abs().max().item(), floor)
+        assert (got[k] - r).abs().max().item() <= 2.5e-3 * scale, k
+        if r.abs().max().item() > floor:
+            cos = torch.nn.functional.cosine_similarity(got[k].flatten(), r.flatten(), dim=0)
+            assert cos.item() > 1 - 2e-6, (k, cos.item())
+
+
 def test_serving_forward_never_synchronizes(dev):
     """On a batch already on the card, the forward queues work and never
     waits for the device (no host copies, no .item())."""
@@ -409,40 +453,64 @@ def test_plain_paths_launch_nothing(dev):
     assert counts() == before
 
 
+def assert_grads_match_plain(fn, inputs, bar=1e-5):
+    """The kernel path's gradients (its Function's backward, a recompute of the plain
+    version) equal plain autograd's within ``bar`` * max(1, max|plain|), and the
+    backward launches no kernel."""
+    g = torch.Generator().manual_seed(9)
+    outs = {impl: fn(impl) for impl in ("kernel", "plain")}
+    cot = torch.randn(outs["plain"].shape, generator=g).to(outs["plain"].device)
+    assert outs["kernel"].grad_fn is not None
+    before = counts()
+    grads = {impl: torch.autograd.grad((out * cot).sum(), inputs)
+             for impl, out in outs.items()}
+    torch.cuda.synchronize()
+    assert counts() == before
+    for got, ref in zip(grads["kernel"], grads["plain"]):
+        tol = bar * max(1.0, ref.abs().max().item())
+        torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
-    image = torch.zeros(1, 4, 5, 3, device=dev, requires_grad=True)
-    grid = torch.zeros(1, 4, 5, 2, device=dev)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        warp.grid_sample(image, grid)
+    """And, for a tensor that requires grad, take the backward through the plain
+    version (once the forward only and raised)."""
+    g = torch.Generator().manual_seed(8)
+    image = (torch.rand(1, 4, 5, 3, generator=g) * 2 - 1).to(dev).requires_grad_()
+    grid = (torch.rand(1, 4, 5, 2, generator=g) * 2.2 - 1.1).to(dev).requires_grad_()
+    assert_grads_match_plain(lambda impl: warp.grid_sample(image, grid, True, impl)[0],
+                             [image, grid])
     with pytest.raises(TypeError, match="float32"):
         warp.grid_sample(image.detach().double(), grid)
 
-    x = torch.zeros(1, 32, 4, 8, device=dev, requires_grad=True)
-    w, b = torch.ones(32, device=dev), torch.zeros(32, device=dev)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        gn_apply.gn_apply_residual(x, x, w, b, 4)
+    x = torch.randn(1, 32, 4, 8, generator=g).to(dev).requires_grad_()
+    r = torch.randn(1, 32, 4, 8, generator=g).to(dev).requires_grad_()
+    w = (1 + 0.1 * torch.randn(32, generator=g)).to(dev).requires_grad_()
+    b = (0.1 * torch.randn(32, generator=g)).to(dev).requires_grad_()
+    assert_grads_match_plain(lambda impl: gn_apply.gn_apply_residual(x, r, w, b, 4, impl),
+                             [x, r, w, b])
     with pytest.raises(TypeError, match="float32"):
         gn_apply.gn_apply_residual(x.detach().double(), x.detach().double(), w, b, 4)
     with pytest.raises(ValueError, match="bad shapes"):
         gn_apply.gn_apply_residual(x.detach(), x.detach()[:, :16], w, b, 4)
 
     module = idepthmap_refiner_module(35, seed=0, dev=dev)
-    guidance = torch.zeros(1, 35, 6, 8, device=dev, requires_grad=True)
-    idepth = torch.zeros(1, 6, 8, device=dev)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        refiner_op.idepthmap_refiner(module, guidance, idepth)
+    guidance = (torch.rand(1, 35, 6, 8, generator=g) * 2 - 1).to(dev).requires_grad_()
+    idepth = (torch.rand(1, 6, 8, generator=g) * 20).to(dev).requires_grad_()
+    assert_grads_match_plain(
+        lambda impl: refiner_op.idepthmap_refiner(module, guidance, idepth, impl),
+        [guidance, idepth, *module.parameters()])
     with pytest.raises(TypeError, match="float32"):
         refiner_op.idepthmap_refiner(module.double(), guidance.detach().double(),
-                                     idepth.double())
+                                     idepth.detach().double())
     with pytest.raises(ValueError, match="bad shapes"):
         refiner_op.idepthmap_refiner(idepthmap_refiner_module(35, seed=0, dev=dev),
-                                     guidance.detach()[:, :3], idepth)
+                                     guidance.detach()[:, :3], idepth.detach())
     # A dilation wider than the kernel's staged halo (8) is refused at launch.
     wide = idepthmap_refiner_module(35, seed=0, dev=dev)
     wide.res3.conv1.dilation, wide.res3.conv1.padding = (16, 16), (16, 16)
     before = refiner_op.launches
     with torch.inference_mode(), pytest.raises(RuntimeError, match="failed to launch"):
-        refiner_op.idepthmap_refiner(wide, guidance.detach(), idepth)
+        refiner_op.idepthmap_refiner(wide, guidance.detach(), idepth.detach())
     assert refiner_op.launches == before
 
 

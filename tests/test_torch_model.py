@@ -169,22 +169,28 @@ def test_modules_match_jax(module):
 
 
 # Seeds whose random poses leave valid pixels at level 4 (a pose with none
-# gives NaN hypotheses on both sides, as the reference does).
-@pytest.mark.parametrize("seed,V,D,cvf,refiners", [
-    (0, 1, 4, True, (True,) * 5),
-    (1, 2, 6, True, (True,) * 5),
-    (2, 1, 4, True, (True, True, True, True, False)),   # refiner4 off: baseline^2 quirk
-    (3, 1, 6, False, (True,) * 5),                      # cost-volume filter off
+# gives NaN hypotheses on both sides, as the reference does). The B=1 cases keep
+# their ids; training runs B=8, hence the B=2 cases, and D 9 and 16.
+@pytest.mark.parametrize("seed,B,V,D,cvf,refiners", [
+    pytest.param(0, 1, 1, 4, True, (True,) * 5, id="0-1-4-True-refiners0"),
+    pytest.param(1, 1, 2, 6, True, (True,) * 5, id="1-2-6-True-refiners1"),
+    # refiner4 off: baseline^2 quirk
+    pytest.param(2, 1, 1, 4, True, (True, True, True, True, False), id="2-1-4-True-refiners2"),
+    pytest.param(3, 1, 1, 6, False, (True,) * 5, id="3-1-6-False-refiners3"),  # filter off
+    pytest.param(20, 2, 2, 4, True, (True,) * 5, id="B2-20-2-4-True"),
+    pytest.param(24, 1, 2, 9, False, (True,) * 5, id="B1-24-2-9-False"),
+    pytest.param(21, 2, 2, 16, True, (False, True, True, True, False), id="B2-21-2-16-ends-off"),
+    pytest.param(20, 2, 1, 9, True, (True,) * 5, id="B2-20-1-9-True"),
 ])
-def test_forward_matches_jax(seed, V, D, cvf, refiners):
+def test_forward_matches_jax(seed, B, V, D, cvf, refiners):
     model, params = weights(seed)
-    left, rights, K, T = nhwc_inputs(1, V, seed)
+    left, rights, K, T = nhwc_inputs(B, V, seed)
     ref = jax_model_forward(params, left, rights, K, T, JaxConfig(
         num_idepth_samples=D, do_cost_volume_filter=cvf, do_refiners=refiners,
         **JAX_PARITY))
     got = port_model_forward(model, left, rights, K, T, MultiViewStereoNetConfig(
         num_idepth_samples=D, do_cost_volume_filter=cvf, do_refiners=refiners))
-    assert got["left_idepthmap_mask_pyr"][4].shape == (1, D, 4, 5)
+    assert got["left_idepthmap_mask_pyr"][4].shape == (B, D, 4, 5)
     assert_forward_close(got, ref)
     if not refiners[4]:
         np.testing.assert_array_equal(got[KEYS[0]][4], got[KEYS[1]][4])
