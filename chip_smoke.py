@@ -25,7 +25,11 @@ Phases, each printing its results; any failure raises and exits non-zero:
    bound (the larger of the bytes read and written over 3.35 TB/s and the
    f32 operations over 67 TFLOP/s); for the grid sample also
    ``F.grid_sample``'s device time on the same data; for the chain the
-   device time with 16- and with 8-block clusters forced.
+   device time with 16- and with 8-block clusters forced. K1 also at the
+   two-view losses' shapes, (8, 480, 640, 1) and (8, 480, 640, 3) sampled at a
+   grid from ``project_idepthmap``, and at a grid holding NaN and +-inf: NaN
+   outputs exactly where the plain version has them, equal flags, all else
+   bit-equal.
 4. Serving: a synthetic 480x640 GTA-SfM tree, a params.yaml (D = 12, cost
    filter on, five refiners) and seeded fan-in-scale weights saved as
    stereo_network.pth are served through StreamingRunner: four requests at
@@ -60,7 +64,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    the largest held to that floor), no launch in the backward; the device time
    of one backward (torch.profiler, the sum of its kernels), of the plain
    path's backward and, for K1 and K4, of ``F.grid_sample``'s and of
-   ``F.group_norm`` + ``F.leaky_relu``'s.
+   ``F.group_norm`` + ``F.leaky_relu``'s. K1 also at the losses' shapes with image
+   and grid both leaves.
 7. Training at full width (the reference recipe: B = 8, V = 1, 480x640, D = 12,
    filter and five refiners on, adam 1e-3, augmentation on, 4 loader workers)
    through ``train_cli.train`` over the 96-request tree: 10 steps, validation
@@ -77,13 +82,28 @@ Phases, each printing its results; any failure raises and exits non-zero:
    weight repack that each optimizer step causes, and on each path the device
    time of the forward alone and of one whole step (torch.profiler), with the
    top device operations of a kernel-path step.
+8. The two-view recipe at full width (B = 8, 480x640, D = 12, filter and five
+   refiners on, adam 1e-3, augmentation on; estimate_right_idepthmap with
+   supervision / reconstruction / left-right factors 1.0 / 0.5 / 0.5, the JAX
+   package's all-loss case): ``train_cli.train`` over the 96-request tree for 4
+   steps, no validation (the JAX CLI's cannot run those losses), resumed for 1;
+   losses.txt finite with the reconstruction and left-right columns; launches
+   a step derived from the code (two forwards, and K1 12 + 20 + 10 times in the
+   occlusion masks, left-right and reconstruction losses), none from the
+   backward. Then one batch, kernel path against plain: the loss within 1e-5
+   relative and every gradient within phase 7's bar; ms a step (median of 6,
+   CUDA events, the paths in turns after 2 warm-up steps each), peak memory, and
+   a profile of one kernel-path step (device busy, the forward's device time, the
+   top device operations).
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
 sources, launches, errors, times ("ms" and "plain_ms" are device times of
 one call, "call_ms" and "plain_call_ms" a call's time with its host work),
 bounds and library times (launches are phase 4's, "train_launches" phase
-7's first ``train`` call's), each with a "backward" entry (phase 3b), and the
+7's first ``train`` call's, "two_view_launches" one phase-8 step's), each with
+a "backward" entry (phase 3b); K1's entry and its backward carry "loss_shapes",
+one entry each for one and three channels at the losses' shapes. Then the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -109,6 +129,11 @@ BACKWARD_BAR = 1e-4  # times max(max|plain grad|, 1e-4 of the largest), phase 3b
 # largest held to that floor; the loss within 1e-5 relative.
 GRAD_BAR, COS_BAR, GRAD_FLOOR, LOSS_BAR = 2.5e-3, 1 - 2e-6, 1e-4, 1e-5
 TRAIN_B, TRAIN_STEPS, RESUME_STEPS, VAL_IMAGES = 8, 10, 2, 16
+# Phase 8: the JAX package's all-loss case (tests/test_grad_parity.py:110-112).
+TWO_VIEW_FACTORS = {"supervision_factor": 1.0, "reconstruction_factor": 0.5,
+                    "left_right_factor": 0.5}
+TWO_VIEW_STEPS, TWO_VIEW_RESUME = 4, 1
+NUM_LEVELS = 5
 CHAIN_ATOL, CHAIN_RTOL = 2e-5, 2e-4  # also the idepthmap refiner's bar
 GN_BAR = 1e-5  # times max(1, max|plain|)
 SERVE_BAR = 2e-3  # fraction of the plain path's output range
@@ -220,6 +245,21 @@ def scene(n, seed):
             torch.from_numpy(np.stack(Ts).astype(np.float32)).cuda())
 
 
+def loss_grid(n, dev, g):
+    """The sampling grid of the two-view losses at 480x640: a tilted-plane idepth map per
+    sample (0.1-0.5, 1/m at a unit baseline) projected into the right camera by
+    ``project_idepthmap`` (n, 480, 640, 2); a share of it falls outside the image."""
+    from multi_view_stereonet_tpu_torch.geometry import normalize_baseline, project_idepthmap
+
+    K, T = scene(n, 20 + n)
+    T, _ = normalize_baseline(T)
+    y = torch.linspace(0, 1, H0)[:, None]
+    x = torch.linspace(0, 1, W0)[None, :]
+    a, b, c = (torch.rand(3, n, 1, 1, generator=g) * 0.2).unbind(0)
+    idepth = 0.1 + a + b * x + c * y
+    return project_idepthmap(K, T, idepth.to(dev))[0]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -278,14 +318,14 @@ def check_kernels(dev):
         samples = create_idepth_samples(T, K_pyr[4], 30, 40, D)
         return K_pyr, T, samples
 
-    def check_warp(image, grid, what):
+    def check_warp(image, grid, what, zero=True):
         """K1 vs plain; F.grid_sample on the same data, the NCHW copy made outside the
         timed span, is the one PyTorch call for the same function (less the mask)."""
-        got, inv = warp.grid_sample(image, grid, zero_invalid=True, impl="kernel")
-        ref, inv_ref = warp.grid_sample(image, grid, zero_invalid=True, impl="plain")
+        got, inv = warp.grid_sample(image, grid, zero_invalid=zero, impl="kernel")
+        ref, inv_ref = warp.grid_sample(image, grid, zero_invalid=zero, impl="plain")
         err = (got - ref).abs().max().item()
-        t = timings(lambda: warp.grid_sample(image, grid, True, impl="kernel"),
-                    lambda: warp.grid_sample(image, grid, True, impl="plain"))
+        t = timings(lambda: warp.grid_sample(image, grid, zero, impl="kernel"),
+                    lambda: warp.grid_sample(image, grid, zero, impl="plain"))
         x_nchw = image.permute(0, 3, 1, 2).contiguous()
         grid4 = grid.reshape(grid.shape[0], -1, grid.shape[-2], 2)
         t["library_ms"] = graph_ms(lambda: F.grid_sample(
@@ -313,6 +353,43 @@ def check_kernels(dev):
     image4 = (torch.rand(5, 30, 40, 3, generator=g) * 2 - 1).to(dev)
     err, _, _ = check_warp(image4, grid, "(5,30,40,3)->(5,12,30,40,3) plane sweep")
     results["warp"]["max_abs_err"] = max(results["warp"]["max_abs_err"], err)
+
+    # K1 where the two-view losses call it (phase 8): the grid projected from a B = 8
+    # 480x640 idepth map, sampling one channel (idepth maps, occlusion masks) and three
+    # (the reconstruction's right image). Each shape's times go into "loss_shapes".
+    grid = loss_grid(TRAIN_B, dev, g)
+    results["warp"]["loss_shapes"] = []
+    for C, what in ((1, "idepth and occlusion samples"), (3, "reconstruction")):
+        image = (torch.rand(TRAIN_B, H0, W0, C, generator=g) * 2 - 1).to(dev)
+        err, t, b = check_warp(image, grid, f"({TRAIN_B},{H0},{W0},{C}) {what}", zero=False)
+        results["warp"]["loss_shapes"].append({"shape": [TRAIN_B, H0, W0, C],
+                                               "max_abs_err": err, **t, "bound_ms": b[0],
+                                               "bound_by": b[1]})
+        results["warp"]["max_abs_err"] = max(results["warp"]["max_abs_err"], err)
+
+    # A NaN coordinate gives NaN in every channel where the plain version does (and
+    # the JAX gather), +-inf clamps to the border; the flags and all else agree bit for bit.
+    bad = grid.clone()
+    bad[0, :4, :8, 0] = float("nan")
+    bad[1, 5, :8, 1] = float("nan")
+    bad[2, 7, :4] = float("nan")
+    bad[3, 9, :4, 0], bad[3, 9, 4:8, 1] = float("inf"), -float("inf")
+    bad[4, 11, :4, 0], bad[4, 11, :4, 1] = float("nan"), 5.0
+    for C in (1, 3):
+        image = (torch.rand(TRAIN_B, H0, W0, C, generator=g) * 2 - 1).to(dev)
+        for zero_invalid in (False, True):
+            got, inv = warp.grid_sample(image, bad, zero_invalid, impl="kernel")
+            ref, inv_ref = warp.grid_sample(image, bad, zero_invalid, impl="plain")
+            nan_equal = torch.equal(torch.isnan(got), torch.isnan(ref))
+            rest_equal = torch.equal(torch.nan_to_num(got, nan=7.0),
+                                     torch.nan_to_num(ref, nan=7.0))
+            log(f"K1 NaN grid C={C} zero_invalid={zero_invalid}: NaN outputs "
+                f"{int(torch.isnan(got).sum())} (plain {int(torch.isnan(ref).sum())}), "
+                f"at the same places {nan_equal}; invalid flags equal "
+                f"{torch.equal(inv, inv_ref)}; all else bit-equal {rest_equal}")
+            if not (nan_equal and rest_equal and torch.equal(inv, inv_ref)
+                    and bool(torch.isnan(ref).any())):
+                raise AssertionError("K1 disagrees with its plain version at a NaN grid")
 
     # K2 at N = B*V = 1, 5 and 8, 30x40x32, D = 12, seeded fan-in-scale refiner; the
     # device time also with each cluster size forced. The JSON line keeps N = 1.
@@ -504,6 +581,22 @@ def check_backward(dev):
         check("K1", what, lambda impl: warp.grid_sample(image, grid, True, impl)[0],
               (image, grid), library, keep=n == 1)
 
+    # K1 where the two-view losses call it: one channel and three at 480x640, B = 8, the
+    # grid projected from idepth; image and grid both leaves.
+    grid0 = loss_grid(TRAIN_B, dev, g)
+    for C in (1, 3):
+        image = leaf(torch.rand(TRAIN_B, H0, W0, C, generator=g) * 2 - 1)
+        grid = grid0.detach().clone().requires_grad_()
+
+        def library(image=image, grid=grid):
+            x = image.detach().permute(0, 3, 1, 2).contiguous().requires_grad_()
+            grid4 = grid.detach().clone().requires_grad_()
+            return F.grid_sample(x, grid4, mode="bilinear", padding_mode="border",
+                                 align_corners=False), (x, grid4)
+        check(f"K1 C={C}", f"({TRAIN_B},{H0},{W0},{C}) loss samples, image and grid leaves",
+              lambda impl: warp.grid_sample(image, grid, False, impl)[0], (image, grid),
+              library)
+
     # K2 at N = 1 (the JSON keeps it) and N = 8, the training recipe's B*V.
     refiner = FeatureRefiner(32)
     prefix = "right_feature_extractor.refiner."
@@ -677,16 +770,7 @@ def train_phase(dev, inputs, smi):
         if impl == "auto":
             log(f"train step launches: forward {forward}, backward none")
     ref = grads["plain"]
-    floor = GRAD_FLOOR * max(r.abs().max().item() for r in ref.values())
-    worst, worst_key, min_cos = 0.0, None, 1.0
-    for k, r in ref.items():
-        a = grads["auto"][k]
-        err = (a - r).abs().max().item() / max(r.abs().max().item(), floor)
-        if err > worst:
-            worst, worst_key = err, k
-        if r.abs().max().item() > floor:
-            min_cos = min(min_cos, torch.nn.functional.cosine_similarity(
-                a.flatten().double(), r.flatten().double(), dim=0).item())
+    worst, worst_key, min_cos = compare_gradients(grads)
     loss_gap = abs(loss_of["auto"] - loss_of["plain"]) / abs(loss_of["plain"])
     log(f"train step kernel vs plain (TF32 off, same weights and batch): loss "
         f"{loss_of['auto']:.6f} vs {loss_of['plain']:.6f} ({loss_gap:.2e} relative, bar "
@@ -700,26 +784,7 @@ def train_phase(dev, inputs, smi):
 
     # ms a step: kernel and plain paths in turns, two warm-up steps each first.
     steps_by = {impl: fresh(impl) for impl in ("auto", "plain")}
-    times = {"auto": [], "plain": []}
-    peak = {}
-    for impl, (model, _, _, step) in steps_by.items():
-        for _ in range(2):
-            loss, _ = step(model, batch)
-    for _ in range(2):
-        for impl, (model, _, _, step) in steps_by.items():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(4):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                loss, _ = step(model, batch)
-                end.record()
-                end.synchronize()
-                times[impl].append(start.elapsed_time(end))
-                if not np.isfinite(loss.item()):
-                    raise AssertionError(f"{impl}: a non-finite loss")
-            peak[impl] = max(peak.get(impl, 0), torch.cuda.max_memory_allocated())
+    times, peak = time_steps(steps_by, batch)
     ms = {impl: statistics.median(t) for impl, t in times.items()}
     for impl in ("auto", "plain"):
         log(f"train step {'kernel' if impl == 'auto' else 'plain'} path, B={TRAIN_B} V=1 "
@@ -781,6 +846,200 @@ def train_phase(dev, inputs, smi):
                "peak_gib": {k: v / 2**30 for k, v in peak.items()}, "repack": repack,
                "device": device, "grad_err": worst, "loss_gap": loss_gap}
     return launches, summary
+
+
+def two_view_phase(dev, inputs, smi):
+    """Phase 8: the two-view recipe with every loss branch at full width, through
+    ``train_cli.train`` and resumed; then one batch through the kernel and plain paths:
+    launches, the loss and gradients, ms a step and memory. Returns (one step's
+    launches, summary)."""
+    from multi_view_stereonet_tpu_torch.checkpoint import native, random_state_dict
+    from multi_view_stereonet_tpu_torch.data.loader import collate
+    from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet
+    from multi_view_stereonet_tpu_torch.train import train_cli
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
+
+    data_dir, split = inputs["long"]
+    cfg = load_params_yaml(None)  # the recipe: B = 8, 480x640, D = 12, adam 1e-3, augment
+    cfg.update({"num_workers": 4, "debug_image_freq": 0, "plot_freq": 0,
+                "estimate_right_idepthmap": True, **TWO_VIEW_FACTORS})
+    out = os.path.join(inputs["root"], "train_two_view")
+
+    def run(max_steps, num_epochs, steps):
+        zero_launches()
+        t0 = time.perf_counter()
+        train_cli.train(dict(cfg, num_epochs=num_epochs), data_dir, split, "", out,
+                        max_steps=max_steps, device=dev)
+        seconds = time.perf_counter() - t0
+        launches, expected = read_launches(), two_view_launches(steps)
+        if launches != expected:
+            raise AssertionError(f"two-view train: expected launches {expected}, got "
+                                 f"{launches}")
+        return launches, seconds
+
+    launches, seconds = run(TWO_VIEW_STEPS, 1, TWO_VIEW_STEPS)
+    _, resume_seconds = run(TWO_VIEW_STEPS + TWO_VIEW_RESUME, 2, TWO_VIEW_RESUME)
+    with open(os.path.join(out, "losses.txt")) as f:
+        header, *rows = [line.split() for line in f.read().splitlines()]
+    steps = [int(r[2]) for r in rows]
+    values = np.array([[float(x) for x in r[3:]] for r in rows])
+    root = os.path.join(out, "checkpoints")
+    columns = {"loss", "supervised_loss", "reconstruction_loss", "left_right_loss"}
+    if (steps != list(range(1, TWO_VIEW_STEPS + TWO_VIEW_RESUME + 1))
+            or not columns <= set(header) or not np.isfinite(values).all()
+            or native.load_train_state(root, 1)["step"] != TWO_VIEW_STEPS + TWO_VIEW_RESUME):
+        raise AssertionError(f"two-view train: steps {steps}, header {header}, {values}")
+    col = {k: values[:, header.index(k) - 3] for k in sorted(columns)}
+    log(f"two-view train: {TWO_VIEW_STEPS} steps at B={TRAIN_B} {H0}x{W0} D={D} in "
+        f"{seconds:.1f} s, resumed for {TWO_VIEW_RESUME} in {resume_seconds:.1f} s "
+        f"(loader start-up, first calls and checkpoints included); launches {launches}; "
+        f"losses.txt has {len(header) - 3} columns, all finite: "
+        + "; ".join(f"{k} {[round(float(x), 4) for x in v]}" for k, v in col.items()))
+
+    # One batch of the recipe, as the loader gives it, adapted to the two-view step.
+    dataset = train_cli.make_dataset(cfg, data_dir, split, True, 0, np.random.default_rng(1))
+    batch = collate([dataset[i] for i in range(TRAIN_B)])
+    batch = train_cli.two_view_batch({k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+                                      if not k.endswith("filenames")})
+    state0 = random_state_dict(0)
+
+    def fresh(impl):
+        model = MultiViewStereoNet()
+        model.load_state_dict(state0)
+        model = model.to(dev)
+        config, loss_config, _, step = train_cli.build_train_step(cfg, 12, model, impl)
+        return model, config, loss_config, step
+
+    grads, loss_of, step_launches = {}, {}, None
+    for impl in ("auto", "plain"):
+        model, config, loss_config, _ = fresh(impl)
+        loss_fn = make_loss_fn(config, loss_config, multi_view=False,
+                               estimate_right_idepthmap=True, impl=impl)
+        zero_launches()
+        loss, loss_dict = loss_fn(model, batch)
+        forward = read_launches()
+        loss.backward()
+        torch.cuda.synchronize()
+        expected = two_view_launches(1) if impl == "auto" else dict.fromkeys(forward, 0)
+        if not (forward == read_launches() == expected):
+            raise AssertionError(f"two-view {impl}: forward launches {forward}, after the "
+                                 f"backward {read_launches()}, expected {expected}")
+        loss_of[impl] = {k: loss_dict[k].item() for k in ("supervised_loss", "left_right_loss",
+                                                          "reconstruction_loss")}
+        loss_of[impl]["loss"] = loss.item()
+        grads[impl] = {k: p.grad for k, p in model.named_parameters()}
+        if impl == "auto":
+            step_launches = forward
+            log(f"two-view step launches: {forward} (K1: 2 a forward, two forwards, and "
+                f"{loss_warp_launches(NUM_LEVELS)} in the losses), backward none")
+    worst, worst_key, min_cos = compare_gradients(grads)
+    loss_gap = abs(loss_of["auto"]["loss"] - loss_of["plain"]["loss"]) / abs(
+        loss_of["plain"]["loss"])
+    log(f"two-view step kernel vs plain (TF32 off, same weights and batch): losses "
+        f"{loss_of['auto']} vs {loss_of['plain']} ({loss_gap:.2e} relative, bar "
+        f"{LOSS_BAR:.0e}); worst gradient {worst:.3e} of max|plain| at {worst_key} (bar "
+        f"{GRAD_BAR:.1e}), least cosine {min_cos:.9f} (bar {COS_BAR}), over "
+        f"{len(grads['plain'])} parameters")
+    if not (np.isfinite(loss_of["auto"]["loss"]) and loss_gap <= LOSS_BAR
+            and worst <= GRAD_BAR and min_cos > COS_BAR):
+        raise AssertionError("the kernel path's two-view gradients miss the bar")
+    del grads
+
+    steps_by = {impl: fresh(impl) for impl in ("auto", "plain")}
+    times, peak = time_steps(steps_by, batch, per_round=3)
+    ms = {impl: statistics.median(t) for impl, t in times.items()}
+    for impl in ("auto", "plain"):
+        log(f"two-view step {'kernel' if impl == 'auto' else 'plain'} path, B={TRAIN_B} "
+            f"{H0}x{W0} D={D}, adam, every loss: {ms[impl]:.3f} ms a step (median of "
+            f"{len(times[impl])}, CUDA events; {[round(t, 2) for t in times[impl]]}), "
+            f"{TRAIN_B * 1e3 / ms[impl]:.2f} images/s, peak memory "
+            f"{peak[impl] / 2**30:.3f} GiB ({smi})")
+    # Device time of one kernel-path step (torch.profiler, kernels summed), of its
+    # forward (both forwards and the losses) alone, and the top device operations.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model, config, loss_config, step = steps_by["auto"]
+    loss_fn = make_loss_fn(config, loss_config, multi_view=False,
+                           estimate_right_idepthmap=True)
+    forward = device_ms(lambda: loss_fn(model, batch), reps=3, warmup=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"two-view step profile (kernel path, one step): device busy {busy:.3f} ms of "
+        f"{wall:.3f} ms wall (profiler on), idle {max(0.0, 1 - busy / wall):.1%}; the "
+        f"forward (two forwards and the losses) alone {forward:.3f} ms device (mean of 3), "
+        f"the backward and the optimizer step {busy - forward:.3f} ms ({smi})")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    summary = {"ms": ms, "peak_gib": {k: v / 2**30 for k, v in peak.items()},
+               "grad_err": worst, "loss_gap": loss_gap,
+               "device": {"forward_ms": forward, "busy_ms": busy, "wall_ms": wall}}
+    return step_launches, summary
+
+
+def loss_warp_launches(levels):
+    """K1 launches of ``compute_losses`` with the right view's outputs and every branch
+    on, over ``levels`` refined levels: occlusion masks 2 a level and 2 of the truth,
+    left-right consistency 4 a level, reconstruction 2 a level."""
+    return 2 * levels + 2 + 4 * levels + 2 * levels
+
+
+def two_view_launches(steps):
+    """Launches of ``steps`` two-view steps at the recipe: two forwards at (B, 1) a step,
+    and the losses' samples."""
+    total = expected_launches([(TRAIN_B, 1)] * 2 * steps)
+    total["warp"] += steps * loss_warp_launches(NUM_LEVELS)
+    return total
+
+
+def compare_gradients(grads):
+    """(worst, its parameter, least cosine) of grads["auto"] against grads["plain"] (dicts
+    of parameter gradients): per parameter max|diff| over max|plain|, a leaf below
+    GRAD_FLOOR of the largest held to that floor; the cosine above the floor."""
+    ref = grads["plain"]
+    floor = GRAD_FLOOR * max(r.abs().max().item() for r in ref.values())
+    worst, worst_key, min_cos = 0.0, None, 1.0
+    for k, r in ref.items():
+        a = grads["auto"][k]
+        err = (a - r).abs().max().item() / max(r.abs().max().item(), floor)
+        if err > worst:
+            worst, worst_key = err, k
+        if r.abs().max().item() > floor:
+            min_cos = min(min_cos, torch.nn.functional.cosine_similarity(
+                a.flatten().double(), r.flatten().double(), dim=0).item())
+    return worst, worst_key, min_cos
+
+
+def time_steps(steps_by, batch, rounds=2, per_round=4):
+    """Train steps on one batch, the paths of ``steps_by`` ({impl: (model, _, _, step)})
+    in turns after two warm-up steps each: (CUDA-event ms of each step by path, peak
+    memory by path). A non-finite loss raises."""
+    times = {impl: [] for impl in steps_by}
+    peak = {}
+    for impl, (model, _, _, step) in steps_by.items():
+        for _ in range(2):
+            loss, _ = step(model, batch)
+    for _ in range(rounds):
+        for impl, (model, _, _, step) in steps_by.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(per_round):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss, _ = step(model, batch)
+                end.record()
+                end.synchronize()
+                times[impl].append(start.elapsed_time(end))
+                if not np.isfinite(loss.item()):
+                    raise AssertionError(f"{impl}: a non-finite loss")
+            peak[impl] = max(peak.get(impl, 0), torch.cuda.max_memory_allocated())
+    return times, peak
 
 
 def synthetic_data():
@@ -1154,32 +1413,45 @@ def main():
         phase("5 (eval)", evaluate, dev, inputs, smi)
         phase("6 (transport)", transport, dev, inputs, smi)
         train_launches, trained = phase("7 (train)", train_phase, dev, inputs, smi)
+        two_view_step, two_view = phase("8 (two-view train)", two_view_phase, dev, inputs,
+                                        smi)
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
         f"ms, {trained['images_s']['plain']:.2f} images/s, peak "
         f"{trained['peak_gib']['plain']:.3f} GiB; the CLI loop {trained['cli_ms']:.3f} ms a "
         f"step, the loader alone {trained['loader_ms']:.3f} ms a batch")
+    log(f"two-view train B={TRAIN_B} {H0}x{W0} D={D}, every loss ({smi}): kernel path "
+        f"{two_view['ms']['auto']:.3f} ms a step, peak {two_view['peak_gib']['auto']:.3f} GiB; "
+        f"plain path {two_view['ms']['plain']:.3f} ms, peak "
+        f"{two_view['peak_gib']['plain']:.3f} GiB; launches a step {two_view_step}; kernel "
+        f"vs plain loss {two_view['loss_gap']:.2e}, worst gradient {two_view['grad_err']:.3e}")
 
     pkg = "multi_view_stereonet_tpu_torch"
     report = {"kernels": [
         {"name": "grid_sample", "route": "cuda", "source": f"{pkg}/csrc/warp.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/warp_kernel.py:270",
          "launches": launches["warp"], "train_launches": train_launches["warp"],
-         **kernels["warp"], "backward": backward["K1"]},
+         "two_view_launches": two_view_step["warp"],
+         **kernels["warp"],
+         "backward": {**backward["K1"], "loss_shapes": [backward["K1 C=1"],
+                                                        backward["K1 C=3"]]}},
         {"name": "incremental_chain", "route": "cuda",
          "source": f"{pkg}/csrc/incremental_chain.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/incremental_chain.py:224",
          "launches": launches["chain"], "train_launches": train_launches["chain"],
+         "two_view_launches": two_view_step["chain"],
          **kernels["chain"], "backward": backward["K2"]},
         {"name": "idepthmap_refiner", "route": "cuda",
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:213",
          "launches": launches["refiner"], "train_launches": train_launches["refiner"],
+         "two_view_launches": two_view_step["refiner"],
          **kernels["refiner"], "backward": backward["K3"]},
         {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
          "launches": launches["gn_apply"], "train_launches": train_launches["gn_apply"],
+         "two_view_launches": two_view_step["gn_apply"],
          **kernels["gn_apply"], "backward": backward["K4"]},
     ]}
     log(json.dumps(report))

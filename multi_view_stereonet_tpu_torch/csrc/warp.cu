@@ -8,7 +8,8 @@
 // align_corners=False) as multi_view_stereonet_tpu/ops/warp.py:26-79 writes it:
 //   ix = ((gx + 1) * W - 1) / 2, clamped to [0, W-1] BEFORE the floor;
 //   x1 = min(x0 + 1, W - 1); top = v00 (1-wx) + v01 wx, bot likewise,
-//   out = top (1-wy) + bot wy; invalid = |gx| > 1 or |gy| > 1 (pre-clamp).
+//   out = top (1-wy) + bot wy; invalid = |gx| > 1 or |gy| > 1 (pre-clamp);
+//   a NaN coordinate gives NaN in every channel (valid, unless the other one is out).
 //
 // What bounds it on this card: bytes, and at the serving shapes latency. Each output
 // sample reads its grid point, then four source pixels, and writes C floats and a
@@ -41,8 +42,19 @@ grid_sample_kernel(const float* __restrict__ image, const float* __restrict__ gr
   const float gy = __ldg(grid + 2 * i + 1);
   const bool inv = fabsf(gx) > 1.0f || fabsf(gy) > 1.0f;
 
-  const float ix = fminf(fmaxf(((gx + 1.0f) * W - 1.0f) * 0.5f, 0.0f), (float)(W - 1));
-  const float iy = fminf(fmaxf(((gy + 1.0f) * H - 1.0f) * 0.5f, 0.0f), (float)(H - 1));
+  const float ux = ((gx + 1.0f) * W - 1.0f) * 0.5f;
+  const float uy = ((gy + 1.0f) * H - 1.0f) * 0.5f;
+  float* o = out + i * C;
+  if (isnan(ux) || isnan(uy)) {
+    // fmaxf would clamp a NaN coordinate to 0 and sample pixel (0, 0); the plain
+    // version's clamp, and the XLA gather it follows, carry the NaN into every channel.
+    // The flag stays as computed above (|NaN| > 1 is false), as theirs does.
+    for (int k = 0; k < C; ++k) o[k] = zero_invalid && inv ? 0.0f : __int_as_float(0x7fc00000);
+    invalid[i] = inv;
+    return;
+  }
+  const float ix = fminf(fmaxf(ux, 0.0f), (float)(W - 1));
+  const float iy = fminf(fmaxf(uy, 0.0f), (float)(H - 1));
   const float x0f = floorf(ix);
   const float y0f = floorf(iy);
   const float wx = ix - x0f;
@@ -57,7 +69,6 @@ grid_sample_kernel(const float* __restrict__ image, const float* __restrict__ gr
   const float* p01 = img + ((int64_t)y0 * W + x1) * C;
   const float* p10 = img + ((int64_t)y1 * W + x0) * C;
   const float* p11 = img + ((int64_t)y1 * W + x1) * C;
-  float* o = out + i * C;
   const bool zero = zero_invalid && inv;
   if constexpr (CC > 0) {
     float a[CC], b[CC], c[CC], e[CC];

@@ -83,7 +83,7 @@ def _eval_step(model, batch, model_config, loss_config, impl):
     outputs = mvsnet_forward(model, inputs["left_image_pyr"], inputs["K_pyr"],
                              inputs["T_right_in_left"], inputs["right_image_pyr"],
                              model_config, impl)
-    loss, loss_dict, _ = compute_losses(inputs, outputs, loss_config)
+    loss, loss_dict, _ = compute_losses(inputs, outputs, loss_config, impl)
     idepth0 = outputs["left_idepthmap_pyr"][0] / inputs["baseline"][:, None, None]
     return loss, loss_dict, idepth0, inputs["baseline"]
 

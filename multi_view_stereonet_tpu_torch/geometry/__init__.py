@@ -18,7 +18,15 @@ from .homography import (
     incremental_homographies,
 )
 from .projection import (
-    backproject_idepthmap, disparity_to_idepth, idepth_to_disparity, pixel_grid)
+    pixel_grid,
+    normalize_pixel_coords,
+    backproject_idepthmap,
+    project_points,
+    disparity_to_idepth,
+    idepth_to_disparity,
+    project_idepthmap,
+    rectified_disparity_to_depth,
+)
 from .sampling import create_idepth_samples
 
 __all__ = [
@@ -32,8 +40,12 @@ __all__ = [
     "create_plane_sweep_homographies",
     "incremental_homographies",
     "pixel_grid",
+    "normalize_pixel_coords",
     "backproject_idepthmap",
+    "project_points",
     "disparity_to_idepth",
     "idepth_to_disparity",
+    "project_idepthmap",
+    "rectified_disparity_to_depth",
     "create_idepth_samples",
 ]

@@ -1,7 +1,6 @@
 """Pixel grids, back-projection and the epipolar disparity <-> inverse-depth maps.
 
-Port of ``multi_view_stereonet_tpu/geometry/projection.py`` (the parts the
-serving path and the training validation need). Pixel convention: grid_sample-normalized coordinates
+Port of ``multi_view_stereonet_tpu/geometry/projection.py``. Pixel convention: grid_sample-normalized coordinates
 put (-1, -1) at the top-left corner of the top-left pixel,
 x' = 2 (x + 0.5) / cols - 1.
 """
@@ -21,6 +20,13 @@ def pixel_grid(rows: int, cols: int, dtype=torch.float32, device=None) -> torch.
     return torch.stack([x, y, ones], dim=0)
 
 
+def normalize_pixel_coords(uv: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Pixel coordinates (..., 2), x then y, to grid_sample-normalized ones in [-1, 1]."""
+    x = 2.0 * (uv[..., 0] + 0.5) / cols - 1.0
+    y = 2.0 * (uv[..., 1] + 0.5) / rows - 1.0
+    return torch.stack([x, y], dim=-1)
+
+
 def backproject_idepthmap(K: torch.Tensor, idepthmap: torch.Tensor,
                           eps: float = 1e-6) -> torch.Tensor:
     """Back-project an inverse depthmap into homogeneous points.
@@ -35,6 +41,45 @@ def backproject_idepthmap(K: torch.Tensor, idepthmap: torch.Tensor,
     xyz = (Kinv3 @ pix) * depth.reshape(B, 1, -1)
     ones = torch.ones((B, 1, rows * cols), dtype=idepthmap.dtype, device=idepthmap.device)
     return torch.cat([xyz, ones], dim=1)
+
+
+def project_points(K: torch.Tensor, Tinv: torch.Tensor, image_size, points: torch.Tensor,
+                   eps: float = 1e-7) -> torch.Tensor:
+    """Project homogeneous points (B, 4, N) through K @ Tinv (both (B, 4, 4)) into an
+    image of ``image_size`` (rows, cols), N = rows * cols. Returns grid_sample-normalized
+    coordinates (B, rows, cols, 2)."""
+    rows, cols = image_size
+    P = (K @ Tinv)[:, :3, :]
+    cam = P @ points
+    uv = cam[:, :2, :] / (cam[:, 2:3, :] + eps)
+    uv = uv.reshape(uv.shape[0], 2, rows, cols).movedim(1, -1)
+    return normalize_pixel_coords(uv, rows, cols)
+
+
+def project_idepthmap(K: torch.Tensor, T_right_in_left: torch.Tensor,
+                      left_idepthmap: torch.Tensor, eps: float = 1e-6):
+    """Project a left inverse depthmap (B, rows, cols) into the right camera.
+
+    Returns (right pixels (B, rows, cols, 2) normalized, right idepths (B, rows, cols),
+    invalid (B, rows, cols): True where a pixel lands outside [-1, 1])."""
+    B, rows, cols = left_idepthmap.shape
+    T_left_in_right = se3_inverse(T_right_in_left)
+    points = backproject_idepthmap(K, left_idepthmap, eps)
+    right_pts = T_left_in_right[:, :3, :] @ points
+    right_idepths = (1.0 / (right_pts[:, 2, :] + eps)).reshape(B, rows, cols)
+    right_pixels = project_points(K, T_left_in_right, (rows, cols), points)
+    invalid = (right_pixels[..., 0].abs() > 1.0) | (right_pixels[..., 1].abs() > 1.0)
+    return right_pixels, right_idepths, invalid
+
+
+def rectified_disparity_to_depth(K: torch.Tensor, T_right_in_left: torch.Tensor,
+                                 left_disparity: torch.Tensor,
+                                 eps: float = 1e-7) -> torch.Tensor:
+    """Rectified disparity (B, rows, cols) to depth: fx * ||t|| / disparity."""
+    fx = K[:, 0, 0][:, None, None]
+    t = T_right_in_left[:, :3, 3]
+    baseline = torch.sqrt(torch.sum(t * t, dim=-1))[:, None, None]
+    return fx * baseline / (left_disparity + eps)
 
 
 def idepth_to_disparity(K: torch.Tensor, T_right_in_left: torch.Tensor,

@@ -11,6 +11,13 @@ import torch
 from ..ops import resize_bilinear
 
 
+def l1(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the gradient of ``jnp.abs``: +1 at x = 0, where ``torch.abs`` gives 0.
+    The tie is common in the losses: a predicted pixel equal to the image (both
+    saturated), an idepth map flat at 0."""
+    return torch.where(x >= 0, x, -x)
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of x over the elements where mask is True; an empty mask gives 0, not 0/0,
     so a batch with no valid truth cannot poison a step. Equal to the plain mean

@@ -10,8 +10,13 @@ outside [-1, 1] before the border clamp.
 Under autograd the kernel runs in ``_GridSample``, whose backward recomputes
 the plain version, as the JAX ``_pallas_grid_sample_bwd``
 (``warp_kernel.py:396-404``) takes the VJP of the XLA gather (see
-recompute.py). The training recipe never reaches it: neither the images nor
-the grids it samples carry a gradient.
+recompute.py). The multi-view recipe never reaches it, since the forward's images
+and grids carry no gradient; the two-view recipe's losses do (``losses/consistency.py``):
+there the sampled image (a right image, an idepth map) and the grid, projected from
+predicted idepth, both carry one, at one channel and at three.
+
+A NaN grid coordinate gives NaN in every channel, on both paths, as the JAX gather
+does; its invalid flag is computed as for any other coordinate (|NaN| > 1 is false).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Separable matrix resizes (bilinear and area) and the image pyramid.
+"""Separable matrix resizes (bilinear and area), the image pyramid and the same-size
+average pool.
 
 Port of ``multi_view_stereonet_tpu/ops/resize.py``. Each resize is two
 small matrix products with weight matrices built once in numpy per shape
@@ -17,6 +18,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=256)
@@ -94,3 +96,13 @@ def build_image_pyramid(image: torch.Tensor, num_levels: int) -> list:
 def upsample_mask(mask: torch.Tensor, out_size) -> torch.Tensor:
     """Bilinear-upsample a boolean (B, H, W[, C]) mask, re-threshold at 0.5."""
     return resize_bilinear(mask.to(torch.float32), out_size) > 0.5
+
+
+def avg_pool_same(x: torch.Tensor, patch: int) -> torch.Tensor:
+    """Same-size mean over ``patch`` x ``patch`` windows of NHWC or NHW input, the zero
+    padding counted in the mean (``avg_pool2d(x, patch, 1, patch // 2)`` with
+    count_include_pad=True, the reference's SSIM pooling). Differentiable."""
+    squeeze = x.ndim == 3
+    nchw = (x[:, None] if squeeze else x.permute(0, 3, 1, 2))
+    out = F.avg_pool2d(nchw, patch, stride=1, padding=patch // 2, count_include_pad=True)
+    return out[:, 0] if squeeze else out.permute(0, 2, 3, 1)

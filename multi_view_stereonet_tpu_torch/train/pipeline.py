@@ -1,16 +1,17 @@
-"""Batch unpacking for the multi-view forward.
+"""Batch unpacking for the forward: the two-view and the multi-view batch.
 
-Port of ``multi_view_stereonet_tpu/train/pipeline.py:71-114``. Tensors,
-on the batch's device: images NHWC (B, H, W, 3), right views
-(B, V, H, W, 3), K (B, 4, 4), T_right_in_left (B, V, 4, 4), optional
-depthmaps (B, H, W) and (B, V, H, W).
+Port of ``multi_view_stereonet_tpu/train/pipeline.py``. Tensors, on the batch's
+device: images NHWC (B, H, W, 3); the two-view batch has one right image (B, H, W, 3)
+and T_right_in_left (B, 4, 4), the multi-view batch right views (B, V, H, W, 3) and
+T_right_in_left (B, V, 4, 4); K (B, 4, 4); optional depthmaps (B, H, W) and, for the
+multi-view right views, (B, V, H, W).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..geometry import baseline_norm, build_K_pyramid, se3_inverse
+from ..geometry import baseline_norm, build_K_pyramid, normalize_baseline, se3_inverse
 from ..ops import build_image_pyramid
 
 
@@ -27,6 +28,30 @@ def _idepth_from_depth(depth: torch.Tensor) -> torch.Tensor:
     """1/depth where depth > 0, else depth."""
     pos = depth > 0
     return torch.where(pos, 1.0 / torch.where(pos, depth, torch.ones_like(depth)), depth)
+
+
+def unpack_batch(batch: dict, num_levels: int = 5) -> dict:
+    """Two-view unpack: the pose scaled to a unit baseline, both truth depthmaps divided
+    by that baseline, area pyramids of both images, the K pyramid. A batch with
+    left_depthmap_true must have right_depthmap_true too."""
+    left = batch["left_image"]
+    H, W = left.shape[1], left.shape[2]
+    T_right_in_left, baseline = normalize_baseline(batch["T_right_in_left"])
+    inputs = {
+        "T_right_in_left": T_right_in_left,
+        "T_left_in_right": se3_inverse(T_right_in_left),
+        "K_pyr": build_K_pyramid(batch["K"], pyramid_sizes(H, W, num_levels)),
+        "left_image_pyr": build_image_pyramid(left, num_levels),
+        "right_image_pyr": build_image_pyramid(batch["right_image"], num_levels),
+        "baseline": baseline,
+    }
+    if "left_depthmap_true" in batch:
+        b = baseline[:, None, None]
+        for side in ("left", "right"):
+            depth = batch[f"{side}_depthmap_true"] / b
+            inputs[f"{side}_depthmap_true"] = depth
+            inputs[f"{side}_idepthmap_true"] = _idepth_from_depth(depth)
+    return inputs
 
 
 def multi_view_unpack_batch(batch: dict, num_levels: int = 5) -> dict:

@@ -1,7 +1,9 @@
 """The training step: the loss, its backward and an update as optax computes it.
 
-Port of ``multi_view_stereonet_tpu/train/step.py`` for the multi-view recipe
-(the reference's params.yaml: adam, learning_rate 1e-3, scheduler_gamma 1.0).
+Port of ``multi_view_stereonet_tpu/train/step.py``: the multi-view recipe (the
+reference's params.yaml: adam, learning_rate 1e-3, scheduler_gamma 1.0) and the
+two-view one (``multi_view=False``, ``estimate_right_idepthmap``: a second forward with
+the roles of the images swapped feeds the right view's losses).
 The JAX package composes optax; the port holds each piece to what optax 0.2.6
 computes, not to torch's defaults:
 
@@ -16,10 +18,6 @@ computes, not to torch's defaults:
 - ``batches_per_step`` k > 1 (``optax.MultiSteps``): the gradients' running mean over
   k batches, one update on every k-th. The schedule counts applied updates only, so
   with k = 2 the rate decays every two epochs' worth of batches, as in the JAX CLI.
-
-The two-view recipe (``estimate_right_idepthmap``) and the stereo batch
-(``unpack_batch``) need the consistency and reconstruction losses, not ported yet
-(ROADMAP.md M8): asking for either raises.
 """
 
 from __future__ import annotations
@@ -32,9 +30,9 @@ import torch
 from ..losses import LossConfig, compute_losses
 from ..models import MultiViewStereoNetConfig, mvsnet_forward
 from ..ops.quantize import dequantize_images_u8, dequantize_images_u8_unit
-from .pipeline import multi_view_unpack_batch
+from .pipeline import multi_view_unpack_batch, unpack_batch
 
-IMAGE_KEYS = ("left_image", "right_images")
+IMAGE_KEYS = ("left_image", "right_images")  # the multi-view batch's; two-view: right_image
 OPTIMIZERS = ("adam", "rmsprop", "sgd")
 
 
@@ -144,7 +142,9 @@ def dequantize_batch(batch: dict, transfer_u8: str | None) -> dict:
     The mode and the images' dtype must agree: a float image under a u8 mode, or a u8
     image without one, raises."""
     batch = dict(batch)
-    for key in IMAGE_KEYS:
+    for key in (*IMAGE_KEYS, "right_image"):
+        if key not in batch:
+            continue
         if (batch[key].dtype == torch.uint8) != bool(transfer_u8):
             raise TypeError(f"{key} is {batch[key].dtype} but transfer_u8 is {transfer_u8!r}")
         if transfer_u8 == "unit":
@@ -160,22 +160,38 @@ def make_loss_fn(model_config: MultiViewStereoNetConfig, loss_config: LossConfig
                  multi_view: bool = True, estimate_right_idepthmap: bool = False,
                  transfer_u8: str | None = None, impl: str = "auto") -> Callable:
     """loss(model, batch) -> (loss, loss dict) over a batch dict of tensors on the
-    model's device (``multi_view_unpack_batch``'s keys, truth depthmaps included).
-    ``transfer_u8`` ("unit" | "full" | None): the images arrive as raw uint8 and the
-    float stages the host pipeline left out are applied on the device first."""
-    if estimate_right_idepthmap or not multi_view:
-        raise NotImplementedError(
-            "the two-view recipe (estimate_right_idepthmap) and the stereo batch "
-            "(unpack_batch) need the consistency and reconstruction losses, which come "
-            "with ROADMAP.md M8")
+    model's device: ``multi_view_unpack_batch``'s keys, or with ``multi_view=False``
+    ``unpack_batch``'s (one right_image, T_right_in_left (B, 4, 4)), truth depthmaps
+    included. With ``estimate_right_idepthmap`` (the two-view recipe, reference
+    multi_view_stereonet_utils.py:522-537; the JAX step ignores it on a multi-view
+    batch, and so does this one) a second forward takes the right image as its left,
+    the left pyramid as its one comparison view and T_left_in_right as its pose; its
+    pyramids become the right_idepthmap outputs. ``transfer_u8`` ("unit" | "full" |
+    None): the images arrive as raw uint8 and the float stages the host pipeline left
+    out are applied on the device first. ``impl`` reaches every kernel, the losses'
+    samples included: "plain" is plain all the way down."""
 
     def loss_fn(model, batch):
-        inputs = multi_view_unpack_batch(dequantize_batch(batch, transfer_u8),
-                                         model_config.num_levels)
-        outputs = mvsnet_forward(model, inputs["left_image_pyr"], inputs["K_pyr"],
-                                 inputs["T_right_in_left"], inputs["right_image_pyr"],
-                                 model_config, impl)
-        loss, loss_dict, _ = compute_losses(inputs, outputs, loss_config)
+        batch = dequantize_batch(batch, transfer_u8)
+        levels = model_config.num_levels
+        if multi_view:
+            inputs = multi_view_unpack_batch(batch, levels)
+            T, right_pyrs = inputs["T_right_in_left"], inputs["right_image_pyr"]
+        else:
+            inputs = unpack_batch(batch, levels)
+            T = inputs["T_right_in_left"][:, None]
+            right_pyrs = [p[:, None] for p in inputs["right_image_pyr"]]
+        outputs = mvsnet_forward(model, inputs["left_image_pyr"], inputs["K_pyr"], T,
+                                 right_pyrs, model_config, impl)
+        if estimate_right_idepthmap and not multi_view:
+            right_out = mvsnet_forward(
+                model, inputs["right_image_pyr"], inputs["K_pyr"],
+                inputs["T_left_in_right"][:, None],
+                [p[:, None] for p in inputs["left_image_pyr"]], model_config, impl)
+            outputs = dict(outputs)
+            for kind in ("", "_raw", "_mask"):
+                outputs[f"right_idepthmap{kind}_pyr"] = right_out[f"left_idepthmap{kind}_pyr"]
+        loss, loss_dict, _ = compute_losses(inputs, outputs, loss_config, impl)
         return loss, loss_dict
 
     return loss_fn

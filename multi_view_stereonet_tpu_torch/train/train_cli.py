@@ -1,7 +1,9 @@
 """Training CLI: the reference recipe on one CUDA card (or the CPU, when asked).
 
 Port of ``multi_view_stereonet_tpu/train/train_cli.py`` for one process:
-multi-view supervised training with per-epoch validation (EPE and outlier rates,
+multi-view supervised training, or the two-view recipe (``estimate_right_idepthmap``,
+with the reconstruction and left-right losses when their factors are set), with
+per-epoch validation (EPE and outlier rates,
 validation.txt), per-epoch checkpoints (``checkpoints/epochNNNN``) and resume from
 the latest, loss logs and plots, debug images, and a SIGTERM-safe stop. The
 multi-process launch (the JAX CLI's mesh, ``--coordinator``, ``--num_processes``,
@@ -99,6 +101,17 @@ def build_train_step(params_cfg, steps_per_epoch, model, impl="auto"):
     return model_config, loss_config, optimizer, step
 
 
+def two_view_batch(batch: dict) -> dict:
+    """The loader's V-axis batch as the two-view step takes it: its first comparison
+    view as right_image, with that view's depthmap and pose."""
+    batch = dict(batch)
+    batch["right_image"] = batch.pop("right_images")[:, 0]
+    if "right_depthmap_true" in batch:
+        batch["right_depthmap_true"] = batch["right_depthmap_true"][:, 0]
+    batch["T_right_in_left"] = batch["T_right_in_left"][:, 0]
+    return batch
+
+
 def _dequantize_by_dtype(batch):
     """uint8 images (the testing pipeline's u8 output, Normalize included) dequantized
     with x / 255 * 2 - 1; float32 images as they are."""
@@ -119,7 +132,7 @@ def make_val_step(model_config, loss_config, impl="auto"):
             outputs = mvsnet_forward(model, inputs["left_image_pyr"], inputs["K_pyr"],
                                      inputs["T_right_in_left"], inputs["right_image_pyr"],
                                      model_config, impl)
-            loss, _, _ = compute_losses(inputs, outputs, loss_config)
+            loss, _, _ = compute_losses(inputs, outputs, loss_config, impl)
             metrics = disparity_metrics(inputs["K_pyr"][0], inputs["T_right_in_left"][:, 0],
                                         outputs["left_idepthmap_pyr"][0],
                                         inputs["left_idepthmap_true"])
@@ -210,6 +223,13 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     ``<output_dir>/checkpoints``, or starts from ``previous_checkpoint_dir``'s weights,
     or from the reference's init drawn from ``seed``."""
     device = serving_device(device)
+    if val_split and (params_cfg["reconstruction_factor"] > 0
+                      or params_cfg["left_right_factor"] > 0):
+        raise ValueError(
+            "validation runs the multi-view forward, which has no right-view outputs, and "
+            "reconstruction_factor or left_right_factor > 0 needs them (the JAX CLI fails "
+            "there with a KeyError on 'left_occlusion_mask_pyr'): give no val_split, or "
+            "set both factors to 0")
     if int(params_cfg.get("mesh_view", 1)) != 1:
         raise NotImplementedError("mesh_view: the view-sharded mesh comes with multi-process "
                                   "training (ROADMAP.md M10)")
@@ -262,6 +282,7 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     # thread scheduling (data/transforms.py ThreadLocalRng).
     print(f"data loader workers: {workers} (run-to-run bit-reproducibility requires "
           "num_workers: 1)")
+    two_view = bool(params_cfg.get("estimate_right_idepthmap", False))
     u8_mode = (training_u8_dequantize_mode(params_cfg)
                if params_cfg.get("transfer_u8", False) else None)
     if u8_mode:
@@ -320,7 +341,8 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
                 tensors = _batch_tensors(batch, device)
                 entering = (_clone(model.state_dict()), _clone(optimizer.state_dict()),
                             step_count)
-                loss, loss_dict = train_step(model, tensors)
+                loss, loss_dict = train_step(model, two_view_batch(tensors) if two_view
+                                             else tensors)
                 step_count += 1
                 if queued is not None:
                     finish(queued)
@@ -332,6 +354,7 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
                     profile_dir = None
                 if (params_cfg["debug_image_freq"]
                         and step_count % params_cfg["debug_image_freq"] == 0):
+                    # From the V-axis batch, also in the two-view recipe.
                     _debug_images(model, model_config, tensors, names, u8_mode, impl, epoch,
                                   step_count, os.path.join(output_dir, "debug_images"))
                 if (max_steps and step_count >= max_steps) or stop_check():

@@ -6,11 +6,13 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Bars, with TF32 off: the grid sample within 1e-5 abs and equal invalid
-masks; the incremental chain (at the serving shapes and at N = 8, one step,
+masks (bit-equal at the losses' shapes, NaN where the plain version has NaN; its
+backward within 1e-4 of max|plain autograd|); the incremental chain (at the serving shapes and at N = 8, one step,
 a 4x5 and a 48x64 map, a pose with many invalid samples) and the idepthmap
 refiner within atol 2e-5 * max|plain|, rtol 2e-4, also after its weights are written
 (its packed weights followed); the GroupNorm kernel within 1e-5 * max(1, max|plain|);
-the whole forward within 0.2% of each level's output range. The u8 dequantize is
+the whole forward within 0.2% of each level's output range; the multi-view and
+the two-view training losses and gradients within docs/PARITY.md:218-232's bar. The u8 dequantize is
 bit-equal to the host pipeline for all 256 values.
 """
 
@@ -84,6 +86,61 @@ def test_grid_sample_kernel_matches_plain(dev, image_shape, grid_shape):
     assert warp.launches == before + 1
     assert (got - ref).abs().max().item() <= 1e-5
     assert torch.equal(inv, inv_ref)
+
+
+# The two-view losses' samples: one channel (idepth maps, occlusion masks) at a
+# pyramid level and at full size, three (the reconstruction); image and grid both leaves.
+@pytest.mark.parametrize("shape", [(2, 30, 40, 1), (2, 120, 160, 1), (2, 120, 160, 3)])
+def test_grid_sample_kernel_at_the_loss_shapes_forward_and_backward(dev, shape):
+    """K1 where the losses call it: the grid projected from an idepth map (as
+    ``project_idepthmap`` gives it, with samples outside the image), against its plain
+    version: the forward bit for bit with equal invalid masks, and the gradients of image
+    and grid through ``_GridSample`` within 1e-4 of max|plain autograd|, no launch in
+    the backward."""
+    from multi_view_stereonet_tpu_torch.geometry import project_idepthmap
+
+    B, H, W, C = shape
+    g = torch.Generator().manual_seed(C * H)
+    K, T = scene(B, H, W, seed=H)
+    idepth = torch.rand(B, H, W, generator=g) * 0.4 + 0.1
+    grid = project_idepthmap(K, T, idepth)[0].to(dev).requires_grad_()
+    image = (torch.rand(shape, generator=g) * 2 - 1).to(dev).requires_grad_()
+    cot = torch.randn(B, H, W, C, generator=g).to(dev)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        before = warp.launches
+        out, inv = warp.grid_sample(image, grid, impl=impl)
+        assert warp.launches == before + (impl == "kernel")
+        grads[impl] = (out.detach(), inv, torch.autograd.grad(out, (image, grid), cot))
+        torch.cuda.synchronize()
+        assert warp.launches == before + (impl == "kernel")
+    (out, inv, got), (ref, inv_ref, want) = grads["kernel"], grads["plain"]
+    assert torch.equal(out, ref) and torch.equal(inv, inv_ref)
+    assert 0 < inv.float().mean().item() < 1
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("zero_invalid", [False, True])
+def test_grid_sample_kernel_carries_nan_coordinates(dev, C, zero_invalid):
+    """A NaN in either coordinate gives NaN in every channel, exactly where the plain
+    version (and the JAX gather) does, with the same invalid flags; +-inf clamps to the
+    border as there; every other sample is bit-equal."""
+    g = torch.Generator().manual_seed(C)
+    image = (torch.rand(2, 16, 20, C, generator=g) * 2 - 1).to(dev)
+    grid = torch.rand(2, 6, 7, 2, generator=g) * 2.4 - 1.2
+    nan, inf = float("nan"), float("inf")
+    grid[0, 0, :6] = torch.tensor([[nan, 0.1], [0.2, nan], [nan, nan], [nan, 5.0],
+                                   [inf, 0.3], [-inf, -inf]])
+    grid[1, 3, 2:4] = torch.tensor([[0.5, -inf], [inf, nan]])
+    grid = grid.to(dev)
+    got, inv = warp.grid_sample(image, grid, zero_invalid, impl="kernel")
+    ref, inv_ref = warp.grid_sample(image, grid, zero_invalid, impl="plain")
+    assert torch.equal(inv, inv_ref)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.isnan(ref).any() and torch.isinf(grid).any()
+    assert torch.equal(torch.nan_to_num(got, nan=7.0), torch.nan_to_num(ref, nan=7.0))
 
 
 def chain_case(n, h, w, d, shift, seed, dev):
@@ -390,6 +447,12 @@ def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
         backward = tuple(a - b for a, b in zip(counts(), before))
         assert forward == backward == ((2, 1, 4, 17) if impl == "auto" else (0, 0, 0, 0))
         results[impl] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
+    assert_training_matches_plain(results)
+
+
+def assert_training_matches_plain(results):
+    """results[impl] = (loss, {name: grad}): the kernel path's loss within 1e-5 relative
+    of the plain path's and every gradient within docs/PARITY.md:218-232's bar."""
     (loss, got), (ref_loss, ref) = results["auto"], results["plain"]
     assert np.isfinite(loss) and abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
     floor = 1e-4 * max(v.abs().max().item() for v in ref.values())
@@ -399,6 +462,69 @@ def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
         if r.abs().max().item() > floor:
             cos = torch.nn.functional.cosine_similarity(got[k].flatten(), r.flatten(), dim=0)
             assert cos.item() > 1 - 2e-6, (k, cos.item())
+
+
+def rendered_pair(B=1, seed=11, rows=64, cols=80):
+    """A two-view batch (numpy, ``unpack_batch``'s keys), the scene of
+    ``tests/test_grad_parity.py``'s two-view case: a textured plane tilted by the normal
+    (0.35, 0.25, 1) at depth 8 seen from the left camera and from one 0.4 to the right
+    (0.03 down), images in [-1, 1], ~10% of each truth depthmap invalid (0). Sample b is
+    rendered from seed + b."""
+    data = synthetic_data()
+    samples = []
+    for b in range(B):
+        rng = np.random.default_rng(seed + b)
+        K3 = data._camera(rows, cols)
+        K3[0, 2] -= 0.5
+        K3[1, 2] -= 0.5
+        texture = data._smooth_texture(rng, rows, cols)
+        T_right = np.eye(4)
+        T_right[0, 3], T_right[1, 3] = 0.4, 0.03
+        K = np.eye(4, dtype=np.float32)
+        K[:3, :3] = K3
+        sample = {"K": K, "T_right_in_left": T_right.astype(np.float32)}
+        for side, T in (("left", np.eye(4)), ("right", T_right)):
+            image, depth = data._render_view(texture, K3, K3, rows, cols, T, 8.0,
+                                             plane_normal=(0.35, 0.25, 1.0))
+            depth = depth.astype(np.float32)
+            depth[rng.uniform(size=depth.shape) < 0.1] = 0.0
+            sample[f"{side}_image"] = image.astype(np.float32) / 127.5 - 1.0
+            sample[f"{side}_depthmap_true"] = depth
+        samples.append(sample)
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def test_two_view_loss_kernels_match_plain_and_the_backward_launches_nothing(dev):
+    """The two-view recipe with every loss branch (supervision 1, left-right and
+    reconstruction 0.5) at 64x80, B = 2, D = 12, on a rendered pair, kernel path against
+    ``impl="plain"`` from the same weights: the loss and gradients as above; K1 launches
+    2 a forward and 42 in the losses (occlusion 12, left-right 20, reconstruction 10),
+    the rest 1 / 4 / 17 a forward, the backward nothing."""
+    from multi_view_stereonet_tpu_torch.losses import LossConfig
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
+
+    model = MultiViewStereoNet()
+    model.load_state_dict(random_state_dict(0))
+    model = model.to(dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in rendered_pair(2).items()}
+    config = MultiViewStereoNetConfig(num_idepth_samples=12)
+    losses = LossConfig(supervision_factor=1.0, left_right_factor=0.5,
+                        reconstruction_factor=0.5)
+    results = {}
+    for impl in ("auto", "plain"):
+        model.zero_grad(set_to_none=True)
+        before = counts()
+        loss, loss_dict = make_loss_fn(config, losses, multi_view=False,
+                                       estimate_right_idepthmap=True, impl=impl)(model, batch)
+        forward = tuple(a - b for a, b in zip(counts(), before))
+        loss.backward()
+        torch.cuda.synchronize()
+        backward = tuple(a - b for a, b in zip(counts(), before))
+        assert forward == backward == ((2 * 2 + 42, 2, 8, 34) if impl == "auto"
+                                       else (0, 0, 0, 0))
+        assert loss_dict["left_right_loss"].item() > 0
+        results[impl] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
+    assert_training_matches_plain(results)
 
 
 def test_serving_forward_never_synchronizes(dev):

@@ -13,10 +13,13 @@
   leaves pixels with idepth near 0, whose depth 1/idepth magnifies f32
   rounding past 1e-4 in sq_rel; at seed 3 no pixel is near 0.
 - The pieces: the metrics (exact: numpy on both sides), the supervised losses
-  (1e-6 relative; ``compute_losses`` on one forward's outputs 1e-5), the
-  loss logs (identical text), the idepth images (identical bytes), timing.
+  (1e-6 relative; ``compute_losses`` on one forward's outputs 1e-5, and each
+  two-view branch on the two forwards of a rendered pair 1e-5, occlusion masks
+  equal up to ties), the loss logs (identical text), the idepth images (identical
+  bytes), timing.
 """
 
+import dataclasses
 import functools
 import os
 import random
@@ -26,6 +29,7 @@ import pytest
 import torch
 import yaml
 
+import jax
 import jax.numpy as jnp
 
 from multi_view_stereonet_tpu.checkpoint import convert_reference_state_dict
@@ -49,6 +53,8 @@ from multi_view_stereonet_tpu_torch.train import logging
 from multi_view_stereonet_tpu_torch.utils import timing, visualization
 
 from tests.synthetic_data import make_demon_tree, make_gta_sfm_tree
+from tests.test_torch_cuda import rendered_pair
+from tests.test_torch_losses import assert_masks_equal_but_ties
 from tests.test_torch_model import nhwc_inputs, port_model_forward, weights
 
 ROWS, COLS, D = 64, 80, 4
@@ -301,14 +307,72 @@ def test_compute_losses_matches_jax_on_a_forward():
         assert_rel(got, ref, 1e-5)
 
 
-@pytest.mark.parametrize("config,outputs", [
-    (LossConfig(reconstruction_factor=0.5), {}),
-    (LossConfig(left_right_factor=0.5), {}),
-    (LossConfig(), {"right_idepthmap_pyr": []}),
+@functools.lru_cache(maxsize=1)
+def two_view_forwards():
+    """(unpacked inputs, outputs) of the port's two-view forwards (the left one and the
+    one with the images swapped) on a rendered tilted-plane pair, B = 2, numpy."""
+    from multi_view_stereonet_tpu_torch.models import mvsnet_forward
+    from multi_view_stereonet_tpu_torch.train.pipeline import unpack_batch
+
+    model, _ = weights(seed=WEIGHTS_SEED)
+    config = MultiViewStereoNetConfig(num_idepth_samples=D)
+    batch = rendered_pair(2)
+    with torch.no_grad():
+        inputs = unpack_batch({k: torch.from_numpy(v) for k, v in batch.items()})
+        outputs = {}
+        for side, other, T in (("left", "right", "T_right_in_left"),
+                               ("right", "left", "T_left_in_right")):
+            out = mvsnet_forward(model, inputs[f"{side}_image_pyr"], inputs["K_pyr"],
+                                 inputs[T][:, None],
+                                 [p[:, None] for p in inputs[f"{other}_image_pyr"]], config)
+            for kind in ("", "_raw"):
+                outputs[f"{side}_idepthmap{kind}_pyr"] = out[f"left_idepthmap{kind}_pyr"]
+    numpy = lambda tree: {k: [x.numpy() for x in v] if isinstance(v, list) else v.numpy()
+                          for k, v in tree.items()}
+    return numpy(inputs), numpy(outputs)
+
+
+@pytest.mark.parametrize("config", [
+    LossConfig(reconstruction_factor=0.5),
+    LossConfig(left_right_factor=0.5),
+    LossConfig(),
 ], ids=["reconstruction", "left_right", "two_view"])
-def test_compute_losses_refuses_what_is_not_ported(config, outputs):
-    with pytest.raises(NotImplementedError, match="M8"):
-        compute_losses({}, outputs, config)
+def test_compute_losses_branch_matches_jax_on_two_forwards(config):
+    """One branch of the two-view recipe on the port's two forwards (given to both): the
+    loss, every entry of the loss dict (1e-5 relative) and every prediction (occlusion
+    masks equal up to ties, predicted images within 1e-5 of their range)."""
+    inputs, outputs = two_view_forwards()
+    jax_config = JaxLossConfig(**dataclasses.asdict(config))
+    tree = lambda d, f: {k: [f(x) for x in v] if isinstance(v, list) else f(v)
+                         for k, v in d.items()}
+    loss, loss_dict, preds = compute_losses(tree(inputs, torch.from_numpy),
+                                            tree(outputs, torch.from_numpy), config)
+    ref_loss, ref_dict, ref_preds = jax.jit(lambda i, o: jax_compute_losses(i, o, jax_config))(
+        tree(inputs, jnp.asarray), tree(outputs, jnp.asarray))
+    assert_rel(loss, ref_loss, 1e-5)
+    assert set(loss_dict) == set(ref_dict)
+    for k, v in ref_dict.items():
+        for got, ref in zip(loss_dict[k] if isinstance(v, list) else [loss_dict[k]],
+                            v if isinstance(v, list) else [v]):
+            assert_rel(got, ref, 1e-5)
+    if config.left_right_factor:
+        assert float(ref_dict["left_right_loss"]) > 0  # masks with support
+    assert set(preds) == set(ref_preds)
+    for k, v in ref_preds.items():
+        for lvl, (got, ref) in enumerate(zip(preds[k] if isinstance(v, list) else [preds[k]],
+                                             v if isinstance(v, list) else [v])):
+            if "image" in k:
+                np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=2e-5)
+                continue
+            side, other = ("left", "right") if k.startswith("left") else ("right", "left")
+            T = inputs["T_right_in_left" if side == "left" else "T_left_in_right"]
+            if k.endswith("_true"):
+                maps = [inputs[f"{s}_idepthmap_true"] for s in (side, other)]
+            else:
+                maps = [outputs[f"{s}_idepthmap_pyr"][lvl] for s in (side, other)]
+            assert_masks_equal_but_ties(got, ref, jnp.asarray(inputs["K_pyr"][lvl]),
+                                        jnp.asarray(T), *map(jnp.asarray, maps),
+                                        f"{k}[{lvl}]")
 
 
 def test_loss_logs_equal_jax(tmp_path):

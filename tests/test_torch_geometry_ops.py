@@ -212,3 +212,37 @@ def test_impl_routing_on_cpu():
         tchain.incremental_chain(None, image, torch.zeros(1, 2, 4, 5, 3), H, impl="kernel")
     out, inv = tops.grid_sample(image, grid, impl="plain")
     assert out.shape == (1, 4, 5, 32) and not inv.any()
+
+
+def test_projections_match_jax():
+    """normalize_pixel_coords, project_points, project_idepthmap (pixels, idepths and
+    the out-of-image mask) and rectified_disparity_to_depth at 64x80, B = 3."""
+    rng = np.random.default_rng(6)
+    K, T = Ks(3), poses(rng, 3, scale=0.3)
+    idepth = rng.uniform(0.1, 0.5, size=(3, 64, 80)).astype(np.float32)
+    uv = rng.uniform(-5, 85, size=(3, 64, 80, 2)).astype(np.float32)
+    assert_close(tgeo.normalize_pixel_coords(torch.from_numpy(uv), 64, 80),
+                 jgeo.normalize_pixel_coords(jnp.asarray(uv), 64, 80), what="normalize")
+
+    points = np.asarray(jgeo.backproject_idepthmap(jnp.asarray(K), jnp.asarray(idepth)))
+    Tinv = np.asarray(jgeo.se3_inverse(jnp.asarray(T)))
+    assert_close(tgeo.project_points(torch.from_numpy(K), torch.from_numpy(Tinv), (64, 80),
+                                     torch.from_numpy(points)),
+                 jgeo.project_points(jnp.asarray(K), jnp.asarray(Tinv), (64, 80),
+                                     jnp.asarray(points)), what="project_points")
+
+    pix, ids, inv = tgeo.project_idepthmap(torch.from_numpy(K), torch.from_numpy(T),
+                                           torch.from_numpy(idepth))
+    pix_j, ids_j, inv_j = jgeo.project_idepthmap(jnp.asarray(K), jnp.asarray(T),
+                                                 jnp.asarray(idepth))
+    assert_close(pix, pix_j, what="project_idepthmap pixels")
+    assert_close(ids, ids_j, what="project_idepthmap idepths")
+    assert 0 < inv.float().mean() < 1
+    _masks_equal_away_from_edge(inv, inv_j, pix_j)
+
+    disp = rng.uniform(0.5, 11, size=(3, 64, 80)).astype(np.float32)
+    assert_close(tgeo.rectified_disparity_to_depth(torch.from_numpy(K), torch.from_numpy(T),
+                                                   torch.from_numpy(disp)),
+                 jgeo.rectified_disparity_to_depth(jnp.asarray(K), jnp.asarray(T),
+                                                   jnp.asarray(disp)),
+                 what="rectified_disparity_to_depth")

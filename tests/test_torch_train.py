@@ -10,6 +10,10 @@
   ignores a constant shift) held to that floor instead; the loss within 1e-5
   relative. Cases at 64x80: B=2 V=2 D=4 and B=2 V=1 D=9, seed 20 (level-4 grids
   with valid pixels). The u8 transports give the f32 feed's loss bit for bit.
+- The slice as a whole, the two-view recipe with every loss branch
+  (``multi_view=False``, ``estimate_right_idepthmap``, supervision 1.0, left-right and
+  reconstruction 0.5) on a rendered tilted-plane pair, B=1 D=4, at the same bar; its
+  u8 transports bit for bit.
 - Each kernel's ``torch.autograd.Function`` on the CPU, its launch replaced by the
   plain forward: gradients equal plain autograd's within 1e-6, ``.grad`` lands and
   accumulates on every weight, and the backward launches nothing.
@@ -47,6 +51,7 @@ from multi_view_stereonet_tpu_torch.ops.cuda import warp
 from multi_view_stereonet_tpu_torch.train import step
 from multi_view_stereonet_tpu_torch.train.validation import disparity_metrics
 
+from tests.test_torch_cuda import rendered_pair
 from tests.test_torch_model import JAX_PARITY, nhwc_inputs, weights
 
 GRAD_BAR, COS_BAR, FLOOR = 2.5e-3, 1 - 2e-6, 1e-4
@@ -155,12 +160,68 @@ def test_a_training_step_after_an_inference_forward():
     assert all(p.grad is not None for p in model.parameters())
 
 
-def test_two_view_recipe_names_what_it_needs():
-    with pytest.raises(NotImplementedError, match="M8"):
-        step.make_loss_fn(MultiViewStereoNetConfig(), LossConfig(),
-                          estimate_right_idepthmap=True)
-    with pytest.raises(NotImplementedError, match="unpack_batch"):
-        step.make_loss_fn(MultiViewStereoNetConfig(), LossConfig(), multi_view=False)
+TWO_VIEW_FACTORS = dict(supervision_factor=1.0, left_right_factor=0.5, reconstruction_factor=0.5)
+
+
+def test_two_view_gradients_match_jax():
+    """The slice as a whole: the two-view recipe with every loss branch
+    (estimate_right_idepthmap, supervision 1.0, left-right and reconstruction 0.5, the
+    JAX package's all-loss case) on a rendered tilted-plane pair, B=1 64x80 D=4, seed 20
+    weights: the loss, every loss dict entry and every parameter's gradient against
+    ``jax.value_and_grad`` of the JAX ``make_loss_fn(multi_view=False,
+    estimate_right_idepthmap=True)``, at the docs/PARITY.md:218-232 bar."""
+    D = 4
+    model, params = weights(20)
+    batch = rendered_pair(1)
+    loss_fn = jax_step.make_loss_fn(JaxConfig(num_idepth_samples=D, **JAX_PARITY),
+                                    JaxLossConfig(**TWO_VIEW_FACTORS), multi_view=False,
+                                    estimate_right_idepthmap=True)
+    (ref_loss, ref_dict), ref = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    ref = {k: v.numpy() for k, v in state_dict_from_jax_params(
+        jax.tree.map(np.asarray, ref)).items()}
+
+    loss_fn = step.make_loss_fn(MultiViewStereoNetConfig(num_idepth_samples=D),
+                                LossConfig(**TWO_VIEW_FACTORS), multi_view=False,
+                                estimate_right_idepthmap=True)
+    loss, loss_dict = loss_fn(model, tensors(batch))
+    loss.backward()
+    got = {k: p.grad.numpy().copy() for k, p in model.named_parameters()}
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=LOSS_BAR)
+    assert set(loss_dict) == set(ref_dict)
+    assert len(loss_dict["supervised_losses"]) == 11  # 5 left, the raw, 5 right
+    assert len(loss_dict["reconstruction_losses"]) == 10
+    assert float(ref_dict["left_right_loss"]) > 0  # the occlusion masks leave support
+    for k, v in ref_dict.items():
+        np.testing.assert_allclose([x.item() for x in loss_dict[k]] if isinstance(v, list)
+                                   else loss_dict[k].item(), np.asarray(v), rtol=LOSS_BAR,
+                                   err_msg=k)
+    assert_grads_close(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["unit", "full"])
+def test_u8_transport_gives_the_f32_loss_in_the_two_view_recipe(mode):
+    """The two-view batch's left_image and right_image as uint8, dequantized in the step:
+    the loss of the host's float feed bit for bit, every branch on."""
+    model, _ = weights(20)
+    batch = rendered_pair(1)
+    rng = np.random.default_rng(6)
+    u8 = {k: rng.integers(0, 256, size=batch[k].shape, dtype=np.uint8)
+          for k in ("left_image", "right_image")}
+    f32 = {k: v.astype(np.float32) / 255.0 for k, v in u8.items()}
+    if mode == "full":
+        f32 = {k: v * 2.0 - 1.0 for k, v in f32.items()}
+    kw = dict(multi_view=False, estimate_right_idepthmap=True)
+    config = MultiViewStereoNetConfig(num_idepth_samples=4)
+    with torch.no_grad():
+        got, _ = step.make_loss_fn(config, LossConfig(**TWO_VIEW_FACTORS), transfer_u8=mode,
+                                   **kw)(model, tensors({**batch, **u8}))
+        ref, _ = step.make_loss_fn(config, LossConfig(**TWO_VIEW_FACTORS), **kw)(
+            model, tensors({**batch, **f32}))
+    assert torch.isfinite(ref) and got.item() == ref.item()
+    with pytest.raises(TypeError, match="transfer_u8"):
+        step.make_loss_fn(config, LossConfig(**TWO_VIEW_FACTORS), transfer_u8=mode, **kw)(
+            model, tensors(batch))
 
 
 def test_remat_refiners_gives_the_same_gradients():

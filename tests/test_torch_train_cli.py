@@ -11,7 +11,8 @@
 - Against the JAX ``train()``: the same tree, sgd, no augmentation, one loader
   worker, both runs started from one set of weights through
   ``previous_checkpoint_dir`` (msgpack for JAX, .pth for the port): losses.txt and
-  validation.txt have the same header and rows, values within 1e-4 relative.
+  validation.txt have the same header and rows, values within 1e-4 relative (the
+  two-view recipe: ``tests/test_torch_two_view_cli.py``).
 """
 
 import glob
@@ -193,7 +194,9 @@ def test_main_refuses_multi_process_flags_and_trains_on_the_cpu(gta, tmp_path):
     assert native.latest_epoch(str(tmp_path / "run" / "checkpoints")) == 0
 
 
-def test_losses_and_validation_match_the_jax_cli(gta, tmp_path):
+def compare_with_the_jax_cli(gta, tmp_path, val=True, **overrides):
+    """Both CLIs over the tree from one set of weights: losses.txt (and validation.txt)
+    with the same header and rows, values within REL_BAR."""
     data_dir, split = gta
     weights_dir = str(tmp_path / "weights")
     os.makedirs(weights_dir)
@@ -205,13 +208,16 @@ def test_losses_and_validation_match_the_jax_cli(gta, tmp_path):
                 "num_epochs": 1, "augment": False, "num_workers": 1, "optimizer": "sgd",
                 "learning_rate": 1e-3, "debug_image_freq": 0, "plot_freq": 0,
                 "decode_backend": "pil", "previous_checkpoint_dir": weights_dir,
-                "matmul_precision": "highest"}
+                "matmul_precision": "highest", **overrides}
     jax_cfg = jax_load_params_yaml(None)
     jax_cfg.update(settings)
-    jax_train(jax_cfg, data_dir, split, split, str(tmp_path / "jax"), max_steps=2)
-    train_cli.train(tiny_cfg(**settings), data_dir, split, split, str(tmp_path / "port"),
+    val_split = split if val else ""
+    jax_train(jax_cfg, data_dir, split, val_split, str(tmp_path / "jax"), max_steps=2)
+    train_cli.train(tiny_cfg(**settings), data_dir, split, val_split, str(tmp_path / "port"),
                     max_steps=2, device="cpu")
-    for name in ("losses.txt", "validation.txt"):
+    names = ("losses.txt", "validation.txt") if val else ("losses.txt",)
+    assert os.path.exists(tmp_path / "port" / "validation.txt") == val
+    for name in names:
         header, rows = read_rows(str(tmp_path / "port" / name))
         ref_header, ref_rows = read_rows(str(tmp_path / "jax" / name))
         assert header == ref_header and len(rows) == len(ref_rows) > 0
@@ -220,3 +226,8 @@ def test_losses_and_validation_match_the_jax_cli(gta, tmp_path):
             assert row[:lead] == ref[:lead]
             np.testing.assert_allclose(np.array(row[lead:], float), np.array(ref[lead:], float),
                                        rtol=REL_BAR, err_msg=name)
+    return read_rows(str(tmp_path / "port" / "losses.txt"))[0]
+
+
+def test_losses_and_validation_match_the_jax_cli(gta, tmp_path):
+    compare_with_the_jax_cli(gta, tmp_path)
