@@ -96,13 +96,31 @@ Phases, each printing its results; any failure raises and exits non-zero:
    a profile of one kernel-path step (device busy, the forward's device time, the
    top device operations).
 
+9. Weights and the serving artifact: the phase-4 weights written again as a
+   TorchScript archive with the reference's names (``tests/reference_archive.py``:
+   the right extractor's shared copies, one strided parameter); ``run_eval`` from
+   that ``stereo_network.pt`` writes the metric files of the ``.pth`` run, byte for
+   byte (runtime files aside). The export CLI, from the ``.pt`` directory, writes
+   the eval config's artifact (B = 1, V = 1, 480x640, D = 12, f32) and the
+   production contract's (``--batch 24 --u8 --fetch float16``). Each is loaded in a
+   fresh process (no weights, the network's modules not imported) and run once on
+   the inputs the live ``StreamingRunner`` served: bit-equal outputs (f16 as bits),
+   launches 2 / 1 / 2 / 31 at B = 1 and 2 / 1 / 0 / 45 at B = 24 (K3 takes
+   n <= 8), the four custom ops in the graph (three at B = 24). Then the
+   artifact's ms/frame against the live forward's, median of 20 after warm-up,
+   in turns artifact, live, live, artifact; each custom op's host time a call
+   against its launch code's called directly, as the eager forward does (the
+   dispatcher's cost, which the artifact pays).
+
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
 sources, launches, errors, times ("ms" and "plain_ms" are device times of
 one call, "call_ms" and "plain_call_ms" a call's time with its host work),
 bounds and library times (launches are phase 4's, "train_launches" phase
-7's first ``train`` call's, "two_view_launches" one phase-8 step's), each with
-a "backward" entry (phase 3b); K1's entry and its backward carry "loss_shapes",
+7's first ``train`` call's, "two_view_launches" one phase-8 step's,
+"artifact_launches" and "artifact_launches_b24" phase 9's artifacts' in their
+fresh processes; "op_call_us" and "direct_call_us" phase 9's dispatch costs), each
+with a "backward" entry (phase 3b); K1's entry and its backward carry "loss_shapes",
 one entry each for one and three channels at the losses' shapes. Then the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
@@ -146,6 +164,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 H0, W0, D = 480, 640, 12
 LONG = 96  # requests of the tree that phases 5 and 6 time
+ARTIFACT_KEYS = ("left_image", "right_images", "K", "T_right_in_left")
 # K4's shapes in the serving forward at B = 1, V = 1 (the filter also at V = 5).
 GN_SHAPES = (((2, 32, 30, 40), True, "extractor resblocks, N = B + B*V"),
              ((1, 32, 120, 160), True, "refiner 2 resblocks"),
@@ -1042,14 +1061,18 @@ def time_steps(steps_by, batch, rounds=2, per_round=4):
     return times, peak
 
 
-def synthetic_data():
-    """tests/synthetic_data.py, loaded by path: an installed package named ``tests`` may
-    shadow the repo's."""
+def tests_module(name):
+    """tests/<name>.py, loaded by path: an installed package named ``tests`` may shadow
+    the repo's."""
     spec = importlib.util.spec_from_file_location(
-        "synthetic_data", os.path.join(REPO, "tests", "synthetic_data.py"))
+        name, os.path.join(REPO, "tests", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def synthetic_data():
+    return tests_module("synthetic_data")
 
 
 def write_run(root, comparisons, seed):
@@ -1376,6 +1399,209 @@ def transport(dev, inputs, smi):
     return rates
 
 
+def stack_samples(samples):
+    """Dataset samples -> one batch of numpy arrays under the model's keys."""
+    return {"left_image": np.stack([s["left_image"] for s in samples]),
+            "right_images": np.stack([np.stack(s["right_images"]) for s in samples]),
+            "K": np.stack([s["K"] for s in samples]).astype(np.float32),
+            "T_right_in_left": np.stack([np.stack(s["T_right_in_left"])
+                                         for s in samples]).astype(np.float32)}
+
+
+def artifact_child(path, io_path, device):
+    """Phase 9's fresh process: load the artifact at ``path`` (no weights directory, the
+    network's modules never imported), run it once on ``device`` on the inputs saved at
+    ``io_path`` and print one JSON line: bit-equality with the live output saved there,
+    the launch counts of that run, the custom ops in the graph, whether ``models`` was
+    imported."""
+    sys.path.insert(0, REPO)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from multi_view_stereonet_tpu_torch.checkpoint.export import custom_ops, load_exported
+
+    t0 = time.perf_counter()
+    artifact = load_exported(path)
+    load_s = time.perf_counter() - t0
+    exported = torch.export.load(path)
+    constants = sorted(exported.constants.items(), key=lambda kv: -kv[1].nbytes)
+    io = np.load(io_path)
+    args = [torch.from_numpy(io[k]).to(device) for k in ARTIFACT_KEYS]
+    zero_launches()
+    with torch.inference_mode():
+        out = artifact(*args).cpu().numpy()
+    live = io["live"]
+    equal = (out.dtype == live.dtype and out.shape == live.shape
+             and out.tobytes() == live.tobytes())
+    print(json.dumps({"equal": bool(equal), "dtype": str(out.dtype),
+                      "launches": read_launches(), "ops": custom_ops(artifact),
+                      "models_imported": "multi_view_stereonet_tpu_torch.models" in sys.modules,
+                      "load_s": load_s,
+                      "weights_bytes": sum(t.nbytes for t in exported.state_dict.values()),
+                      "constants_bytes": sum(t.nbytes for _, t in constants),
+                      "largest_constants": [[k, list(t.shape)] for k, t in constants[:3]]}),
+          flush=True)
+
+
+def host_us(fn, calls=200) -> float:
+    """Host time of one call, in microseconds: ``calls`` calls after 20 warm-ups, the
+    host clock around the calls alone (the device keeps up: each kernel takes less)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def dispatch_costs(dev, model):
+    """Each kernel's call through its custom op (the artifact's route) and to its launch
+    code directly (the eager route, no dispatcher), host microseconds at a serving
+    shape, in turns op, direct, direct, op; medians."""
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.ops.cuda import warp
+
+    g = torch.Generator().manual_seed(9)
+
+    def rand(*shape):
+        return (torch.rand(shape, generator=g) * 2 - 1).to(dev)
+    fr = model.right_feature_extractor.refiner
+    res = fr.res0
+    vec = torch.stack([fr.conv0.bias, fr.bn0.weight, fr.bn0.bias, res.conv1.bias,
+                       res.bn1.weight, res.bn1.bias, fr.conv_final.bias])
+    pack, dilations = refiner_op.packed_weights(model.refiner4)
+    bn = model.left_feature_extractor.res0.bn1
+    H_inc = torch.eye(3).repeat(1, D - 1, 1, 1).to(dev)
+    cases = {
+        "warp": (warp._grid_sample_op, warp._grid_sample_launch,
+                 (rand(1, H0, W0, 3), rand(1, H0, W0, 2), True)),
+        "chain": (chain._incremental_chain_op, chain._incremental_chain_launch,
+                  (rand(1, 30, 40, 32), rand(1, D - 1, 30, 40, 3), H_inc,
+                   chain._taps(fr.conv0.weight), chain._taps(res.conv1.weight),
+                   chain._taps(fr.conv_final.weight), vec, 0)),
+        "refiner": (refiner_op._idepthmap_refiner_op, refiner_op._idepthmap_refiner_launch,
+                    (rand(1, 35, 30, 40), rand(1, 30, 40).abs(), pack, list(dilations))),
+        "gn_apply": (gn_apply._group_norm_act_op, gn_apply._group_norm_act_launch,
+                     (rand(2, 32, 30, 40), bn.weight, bn.bias, rand(2, 32, 30, 40), 4)),
+    }
+    costs = {}
+    with torch.inference_mode():
+        for name, (op, launch, args) in cases.items():
+            runs = {op: [], launch: []}
+            for fn in (op, launch, launch, op):
+                runs[fn].append(host_us(lambda: fn(*args)))
+            costs[name] = {"op_call_us": statistics.median(runs[op]),
+                           "direct_call_us": statistics.median(runs[launch])}
+    return costs
+
+
+def artifact_phase(dev, inputs, smi):
+    """Phase 9: the weights as the reference's TorchScript archive, and the serving
+    artifact (``checkpoint/export.py``) at B = 1 f32 and at B = 24 u8 / f16."""
+    from multi_view_stereonet_tpu_torch.checkpoint import export, load_exported
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.eval.streaming import (
+        StreamingRunner, load_model, make_dataset, model_config_from_params, serving_forward)
+    from multi_view_stereonet_tpu_torch.eval.test_cli import run_eval
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    root = inputs["root"]
+    pt_run = os.path.join(root, "run_pt")
+    pt_dir = os.path.join(pt_run, "checkpoints", "epoch0000")
+    os.makedirs(pt_dir)
+    with open(inputs["params_yaml"]) as src, open(os.path.join(pt_run, "params.yaml"),
+                                                  "w") as dst:
+        dst.write(src.read())
+    tests_module("reference_archive").write_reference_archive(
+        random_state_dict(0), os.path.join(pt_dir, "stereo_network.pt"))
+    data_dir, split = inputs["trees"][1]
+    outs = {}
+    for kind, weights_dir in (("pth", inputs["weights_dir"]), ("pt", pt_dir)):
+        outs[kind] = os.path.join(root, f"eval_weights_{kind}")
+        run_eval(weights_dir, data_dir, split, outs[kind], decode_backend="pil", device=dev)
+    files = sorted(os.listdir(outs["pth"]))
+    compared = [f for f in files if "runtime" not in f]
+    if sorted(os.listdir(outs["pt"])) != files or not compared:
+        raise AssertionError(f"run_eval from .pt wrote other files: {outs}")
+    for name in compared:
+        texts = [open(os.path.join(outs[k], name)).read() for k in ("pth", "pt")]
+        if texts[0] != texts[1]:
+            raise AssertionError(f"run_eval from .pt differs from .pth in {name}")
+    log(f"weights: run_eval from the reference-layout stereo_network.pt equal to the .pth "
+        f"run in {len(compared)} files ({', '.join(compared)})")
+
+    paths = {"b1": os.path.join(root, "serving_b1.pt2"),
+             "b24": os.path.join(root, "serving_b24_u8_f16.pt2")}
+    export_s = {}
+    for name, extra in (("b1", []), ("b24", ["--batch", "24", "--u8", "--fetch",
+                                             "float16"])):
+        t0 = time.perf_counter()
+        export.main([pt_dir, paths[name], "--size", str(H0), str(W0), "--device", str(dev),
+                     *extra])
+        export_s[name] = time.perf_counter() - t0
+
+    cfg = load_params_yaml(inputs["params_yaml"])
+    config = model_config_from_params(cfg)
+    model = load_model(inputs["weights_dir"], dev)
+    batches = {"b1": stack_samples([make_dataset(data_dir, split, cfg, "pil")[0]])}
+    long_u8 = make_dataset(*inputs["long"], cfg, "pil", u8_output=True)
+    batches["b24"] = stack_samples([long_u8[i] for i in range(24)])
+    fetch = {"b1": None, "b24": torch.float16}
+    live = {n: StreamingRunner(model, config, device=dev, fetch_dtype=fetch[n]).forward(
+        batches[n]).cpu().numpy() for n in paths}
+    expected = {"b1": expected_launches([(1, 1)]), "b24": expected_launches([(24, 1)])}
+    all_ops = ["mvs_torch::grid_sample", "mvs_torch::group_norm_act",
+               "mvs_torch::idepthmap_refiner", "mvs_torch::incremental_chain"]
+    children = {}
+    for name in paths:
+        io_path = os.path.join(root, f"artifact_io_{name}.npz")
+        np.savez(io_path, live=live[name], **batches[name])
+        code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                f"chip_smoke.artifact_child({paths[name]!r}, {io_path!r}, {str(dev)!r})")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"artifact {name} in a fresh process failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        child = children[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        ops = [op for op in all_ops if name == "b1" or "refiner" not in op]
+        log(f"artifact {name} ({os.path.getsize(paths[name])} bytes, exported in "
+            f"{export_s[name]:.1f} s) in a fresh process: loaded in {child['load_s']:.1f} s, "
+            f"{child['dtype']} output bit-equal to the live runner {child['equal']}, "
+            f"launches {child['launches']} (expected {expected[name]}), custom ops "
+            f"{child['ops']}, network modules imported {child['models_imported']}; "
+            f"{child['weights_bytes']} bytes of weights, {child['constants_bytes']} of "
+            f"constants, the largest {child['largest_constants']}")
+        if not (child["equal"] and child["launches"] == expected[name]
+                and child["ops"] == ops and not child["models_imported"]):
+            raise AssertionError(f"artifact {name} fails its contract: {child}")
+
+    with torch.inference_mode():
+        for name in paths:
+            artifact = load_exported(paths[name])
+            tensors = [torch.from_numpy(batches[name][k]).to(dev) for k in ARTIFACT_KEYS]
+            batch = dict(zip(ARTIFACT_KEYS, tensors))
+            calls = {"artifact": lambda: artifact(*tensors),
+                     "live": lambda: serving_forward(model, batch, config,
+                                                     fetch_dtype=fetch[name])}
+            runs = {"artifact": [], "live": []}
+            for turn in ("artifact", "live", "live", "artifact"):
+                runs[turn].append(median_ms(calls[turn]) / len(tensors[0]))
+            log(f"artifact {name}: ms/frame, median of 20 after warm-up, in turns "
+                f"artifact {runs['artifact'][0]:.3f}, live {runs['live'][0]:.3f}, live "
+                f"{runs['live'][1]:.3f}, artifact {runs['artifact'][1]:.3f} ({smi})")
+    costs = dispatch_costs(dev, model)
+    for name, c in costs.items():
+        log(f"dispatch {name}: a call through its custom op {c['op_call_us']:.1f} us of "
+            f"host, to its launch code directly {c['direct_call_us']:.1f} us ({smi})")
+    return {"launches": {n: c["launches"] for n, c in children.items()},
+            "dispatch": costs}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an "
@@ -1415,6 +1641,7 @@ def main():
         train_launches, trained = phase("7 (train)", train_phase, dev, inputs, smi)
         two_view_step, two_view = phase("8 (two-view train)", two_view_phase, dev, inputs,
                                         smi)
+        artifact = phase("9 (weights and artifact)", artifact_phase, dev, inputs, smi)
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
@@ -1433,6 +1660,9 @@ def main():
          "replaces": "multi_view_stereonet_tpu/ops/pallas/warp_kernel.py:270",
          "launches": launches["warp"], "train_launches": train_launches["warp"],
          "two_view_launches": two_view_step["warp"],
+         "artifact_launches": artifact["launches"]["b1"]["warp"],
+         "artifact_launches_b24": artifact["launches"]["b24"]["warp"],
+         **artifact["dispatch"]["warp"],
          **kernels["warp"],
          "backward": {**backward["K1"], "loss_shapes": [backward["K1 C=1"],
                                                         backward["K1 C=3"]]}},
@@ -1441,17 +1671,26 @@ def main():
          "replaces": "multi_view_stereonet_tpu/ops/pallas/incremental_chain.py:224",
          "launches": launches["chain"], "train_launches": train_launches["chain"],
          "two_view_launches": two_view_step["chain"],
+         "artifact_launches": artifact["launches"]["b1"]["chain"],
+         "artifact_launches_b24": artifact["launches"]["b24"]["chain"],
+         **artifact["dispatch"]["chain"],
          **kernels["chain"], "backward": backward["K2"]},
         {"name": "idepthmap_refiner", "route": "cuda",
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:213",
          "launches": launches["refiner"], "train_launches": train_launches["refiner"],
          "two_view_launches": two_view_step["refiner"],
+         "artifact_launches": artifact["launches"]["b1"]["refiner"],
+         "artifact_launches_b24": artifact["launches"]["b24"]["refiner"],
+         **artifact["dispatch"]["refiner"],
          **kernels["refiner"], "backward": backward["K3"]},
         {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
          "launches": launches["gn_apply"], "train_launches": train_launches["gn_apply"],
          "two_view_launches": two_view_step["gn_apply"],
+         "artifact_launches": artifact["launches"]["b1"]["gn_apply"],
+         "artifact_launches_b24": artifact["launches"]["b24"]["gn_apply"],
+         **artifact["dispatch"]["gn_apply"],
          **kernels["gn_apply"], "backward": backward["K4"]},
     ]}
     log(json.dumps(report))

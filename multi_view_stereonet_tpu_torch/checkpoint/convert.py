@@ -76,7 +76,7 @@ def state_dict_from_jax_params(params) -> dict:
         for i in range(DILATED_RES_BLOCKS):
             _res(sd, f"{pre}.res{i}", r[f"res{i}"])
         _conv(sd, f"{pre}.conv_final", r["conv_final"])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}
 
 
@@ -130,3 +130,20 @@ def init_params_numpy(seed: int = 0, reference: bool = False) -> dict:
 def random_state_dict(seed: int = 0) -> dict:
     """``state_dict_from_jax_params(init_params_numpy(seed))``."""
     return state_dict_from_jax_params(init_params_numpy(seed))
+
+
+def expected_shapes() -> dict:
+    """Every name of the port's state dict (the reference's names) with its shape."""
+    return {k: tuple(v.shape) for k, v in random_state_dict().items()}
+
+
+def check_state_dict(sd: dict, source: str) -> None:
+    """Raise a ValueError naming every missing or unexpected name and every wrong shape
+    of the state dict ``sd`` read from ``source``."""
+    shapes = expected_shapes()
+    faults = [f"missing {k}" for k in shapes if k not in sd]
+    faults += [f"unexpected {k}" for k in sd if k not in shapes]
+    faults += [f"{k}: shape {tuple(v.shape)}, expected {shapes[k]}" for k, v in sd.items()
+               if k in shapes and tuple(v.shape) != shapes[k]]
+    if faults:
+        raise ValueError(f"{source} do not fit the network: {'; '.join(faults)}")

@@ -13,6 +13,11 @@ orbax:
 
 Files are written under a temporary name and renamed, so a run stopped mid-write
 leaves no half-written checkpoint under the final name.
+
+``load_any_params`` reads the network's weights from whichever of three files a
+directory holds, in this order: the port's ``stereo_network.pth``, the JAX package's
+``stereo_network.msgpack`` (flax's msgpack, decoded by ``checkpoint/msgpack.py``) and
+the reference's TorchScript ``stereo_network.pt`` (``checkpoint/torchscript.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +27,13 @@ import re
 
 import torch
 
+from . import msgpack
+from .convert import check_state_dict, state_dict_from_jax_params
+from .torchscript import load_torchscript_state_dict
+
 PARAMS_FILE = "stereo_network.pth"
+MSGPACK_FILE = "stereo_network.msgpack"
+TORCHSCRIPT_FILE = "stereo_network.pt"
 STATE_FILE = "state.pth"
 
 
@@ -63,6 +74,38 @@ def load_params(directory_or_file: str) -> dict:
     if os.path.isdir(path):
         path = os.path.join(path, PARAMS_FILE)
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_msgpack_params(path: str) -> dict:
+    """The port's state dict from the JAX package's ``stereo_network.msgpack`` (its
+    ``save_params``). A missing name raises and names it."""
+    with open(path, "rb") as f:
+        params = msgpack.unpackb(f.read())
+    try:
+        sd = state_dict_from_jax_params(params)
+    except KeyError as e:
+        raise ValueError(f"{path} is not the JAX package's param tree: no {e}") from e
+    check_state_dict(sd, path)
+    return sd
+
+
+def load_any_params(weights_dir: str) -> dict:
+    """The network's state dict, on the CPU, from the first of ``stereo_network.pth``
+    (the port's), ``stereo_network.msgpack`` (the JAX package's) and
+    ``stereo_network.pt`` (the reference's TorchScript) that ``weights_dir`` holds."""
+    path = os.path.join(weights_dir, PARAMS_FILE)
+    if os.path.exists(path):
+        sd = load_params(path)
+        check_state_dict(sd, path)
+        return sd
+    path = os.path.join(weights_dir, MSGPACK_FILE)
+    if os.path.exists(path):
+        return load_msgpack_params(path)
+    path = os.path.join(weights_dir, TORCHSCRIPT_FILE)
+    if os.path.exists(path):
+        return load_torchscript_state_dict(path)
+    raise FileNotFoundError(f"no {PARAMS_FILE}, {MSGPACK_FILE} or {TORCHSCRIPT_FILE} "
+                            f"under {weights_dir}")
 
 
 def epoch_dir(root: str, epoch: int) -> str:

@@ -22,8 +22,10 @@ Usage (library):
     for idepthmaps, names in runner.run(dataset, batch_size=1):
         ...  # idepthmaps: (B, H, W) numpy array
 
-CLI (weights: ``<weights_dir>/stereo_network.pth``, a ``torch.save`` of the
-port's state dict; params: ``--params_yaml`` or ``<weights_dir>/../../params.yaml``):
+CLI (weights: ``<weights_dir>/stereo_network.pth``, the port's state dict, or the JAX
+package's ``stereo_network.msgpack``, or the reference's TorchScript
+``stereo_network.pt``, the first found (``checkpoint/native.py`` ``load_any_params``);
+params: ``--params_yaml`` or ``<weights_dir>/../../params.yaml``):
     python -m multi_view_stereonet_tpu_torch.eval.streaming \
         <weights_dir> <data_dir> <split> [--batch_size 8] [--transfer_u8] \
         [--fetch_f16] [--shard_id I --num_shards N] [--device cpu]
@@ -43,6 +45,7 @@ import time
 
 import torch
 
+from ..checkpoint.native import PARAMS_FILE as WEIGHTS_FILE, load_any_params
 from ..data import BatchLoader, DeMoNDataset, GTASfMMultiViewDataset, get_testing_transforms
 from ..models import MultiViewStereoNet, MultiViewStereoNetConfig, mvsnet_forward
 from ..ops.quantize import dequantize_images_u8
@@ -52,7 +55,6 @@ from ..train.pipeline import multi_view_unpack_batch
 
 MODEL_KEYS = ("left_image", "right_images", "K", "T_right_in_left")
 IMAGE_KEYS = ("left_image", "right_images")
-WEIGHTS_FILE = "stereo_network.pth"
 IN_FLIGHT = 2  # steps queued on the device ahead of the readback the caller waits on
 
 
@@ -197,14 +199,12 @@ def _host_result(host: torch.Tensor, done, names):
 
 
 def load_model(weights_dir: str, device) -> MultiViewStereoNet:
-    """The port's network with ``<weights_dir>/stereo_network.pth`` loaded, built outside
-    inference mode so that its parameters keep version counters (the refiner kernel's
-    weight pack is keyed on them)."""
-    path = os.path.join(weights_dir, WEIGHTS_FILE)
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no {WEIGHTS_FILE} under {weights_dir}: looked for {path}")
+    """The port's network with the weights of ``weights_dir`` loaded (``stereo_network.pth``,
+    ``.msgpack`` or ``.pt``: ``load_any_params``), built outside inference mode so that
+    its parameters keep version counters (the refiner kernel's weight pack is keyed on
+    them)."""
     model = MultiViewStereoNet()
-    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    model.load_state_dict(load_any_params(weights_dir))
     return model.to(device).eval()
 
 
@@ -235,7 +235,8 @@ def make_dataset(data_dir: str, split: str, cfg: dict, decode_backend: str = "au
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Batched streaming inference (PyTorch).")
-    parser.add_argument("weights_dir")
+    parser.add_argument("weights_dir", help="a directory holding stereo_network.pth, "
+                        ".msgpack or .pt (the first found)")
     parser.add_argument("data_dir")
     parser.add_argument("test_split")
     parser.add_argument("--batch_size", type=int, default=8)

@@ -7,8 +7,9 @@ depth_metrics.txt, runtime_metrics.txt, the avg_* files) and DeMoN
 per-scene-type breakdown, with batches larger than 1. Runs on the card
 unless the caller names another device.
 
-Weights: ``<weights_dir>/stereo_network.pth``, a ``torch.save`` of the
-port's state dict (``eval/streaming.py`` ``load_model``). Params:
+Weights: ``<weights_dir>/stereo_network.pth`` (the port's state dict), or the JAX
+package's ``stereo_network.msgpack``, or the reference's TorchScript
+``stereo_network.pt``, the first found (``eval/streaming.py`` ``load_model``). Params:
 ``--params_yaml`` or ``<weights_dir>/../../params.yaml``.
 
 Usage:
@@ -126,9 +127,10 @@ def run_eval(weights_dir, data_dir, test_split, output_dir="output", batch_size=
              save_images=False, params_file=None, roll_right_image_180=False,
              add_translation_noise=False, add_rotation_noise=False, decode_backend="auto",
              profile_dir=None, device="cuda", impl="auto"):
-    """Evaluate ``<weights_dir>/stereo_network.pth`` over a split on ``device``; write the
-    metric files to ``output_dir`` (which must not exist). Returns (mean loss over the
-    batches, averaged depth metrics).
+    """Evaluate the weights of ``weights_dir`` (``.pth``, ``.msgpack`` or ``.pt``, see
+    ``load_model``) over a split on ``device``; write the metric files to ``output_dir``
+    (which must not exist). Returns (mean loss over the batches, averaged depth
+    metrics).
 
     ``runtime_ms`` of an image is the wall time of its batch's forward, losses and one
     copy of their results to the host, over the batch size. Each new batch shape (the
@@ -247,7 +249,8 @@ def run_eval(weights_dir, data_dir, test_split, output_dir="output", batch_size=
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Run MultiViewStereoNet (PyTorch) inference over a split.")
-    parser.add_argument("weights_dir")
+    parser.add_argument("weights_dir", help="a directory holding stereo_network.pth, "
+                        ".msgpack or .pt (the first found)")
     parser.add_argument("data_dir")
     parser.add_argument("test_split")
     parser.add_argument("--save_images", action="store_true")

@@ -15,6 +15,15 @@ Routing (``use_kernel``) is by tensor device: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor the kernel. ``impl="plain"`` forces the
 plain version (the on-card comparison); ``impl="kernel"`` forces the
 kernel and raises for a CPU tensor.
+
+Each kernel's launch code (check the inputs, allocate the outputs, launch, count
+the launch) is also the CUDA body of a ``torch.library`` custom op of the
+namespace ``mvs_torch`` (``custom_op``), with a fake implementation that gives
+its output shapes, so that ``torch.export`` records the kernel in a graph
+(``checkpoint/export.py``) where it could not see a ctypes call. The wrappers
+call the op while ``torch.export`` traces (``tracing``), and the launch code
+directly otherwise: the dispatcher adds ~20 us of host a call (PERF.md), and
+the serving forward is bound by its host.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
@@ -36,6 +47,9 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 IMPLS = ("auto", "kernel", "plain")
+NAMESPACE = "mvs_torch"
+# The custom ops, "<NAMESPACE>::<name>" -> the csrc/<source>.cu each launches.
+OP_SOURCES: dict = {}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -119,3 +133,18 @@ def check_status(name: str, status: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status}")
+
+
+def tracing() -> bool:
+    """True while ``torch.export`` (or ``torch.compile``) traces: tensors are fake then,
+    so nothing made from them may be cached for a later eager call."""
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+
+
+def custom_op(name: str, source: str):
+    """``custom_op(name, source)(launch)``: the custom op ``mvs_torch::<name>`` whose
+    CUDA implementation is ``launch``, the launch code of ``csrc/<source>.cu``. Register
+    its fake implementation with ``register_fake`` on the result."""
+    qualname = f"{NAMESPACE}::{name}"
+    OP_SOURCES[qualname] = source
+    return torch.library.custom_op(qualname, mutates_args=(), device_types="cuda")

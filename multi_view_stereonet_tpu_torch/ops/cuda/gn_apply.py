@@ -22,7 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .build import check_status, load_library, use_kernel
+from .build import check_status, custom_op, load_library, tracing, use_kernel
 from .recompute import needs_autograd, plain_vjp
 
 # Kernel launches since the last reset; only the kernel path counts, one per call.
@@ -69,16 +69,13 @@ def _device_functions(device: int) -> tuple:
     return info
 
 
-def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
-            res: torch.Tensor | None) -> torch.Tensor:
-    """Launch csrc/gn_apply.cu (a statistics pass, then an apply pass) on CUDA
-    tensors. A launch the card refuses raises."""
-    global launches
+def _output(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            res: torch.Tensor | None, groups: int) -> torch.Tensor:
+    """Check the inputs' devices, types and shapes; allocate the (contiguous) output."""
     tensors = (x, weight, bias) if res is None else (x, weight, bias, res)
-    dev = x.get_device()  # -1 on the CPU
-    if dev < 0 or any(t.get_device() != dev for t in tensors):
+    if any(t.device != x.device for t in tensors):
         raise ValueError("group_norm_act_kernel needs x, weight, bias (and res) on one "
-                         "CUDA device")
+                         "device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("group_norm_act_kernel takes float32 tensors")
     C = x.shape[1] if x.ndim >= 3 else 0
@@ -87,15 +84,24 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: i
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, res "
                          f"{None if res is None else tuple(res.shape)}, weight "
                          f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, groups {groups}")
+    return x.new_empty(x.shape)
+
+
+def _group_norm_act_launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                           res: torch.Tensor | None, groups: int) -> torch.Tensor:
+    """Launch csrc/gn_apply.cu (a statistics pass, then an apply pass) on CUDA
+    tensors. A launch the card refuses raises."""
+    global launches
+    out = _output(x, weight, bias, res, groups)
     if not x.is_contiguous():
         x = x.contiguous()
     if res is not None and not res.is_contiguous():
         res = res.contiguous()
     if not (weight.is_contiguous() and bias.is_contiguous()):
         weight, bias = weight.contiguous(), bias.contiguous()
-    N, span = x.shape[0], math.prod(x.shape[2:])
+    dev = x.get_device()
+    N, C, span = x.shape[0], x.shape[1], math.prod(x.shape[2:])
     L = C // groups * span
-    out = torch.empty_like(x)
     ptrs = [x.data_ptr(), out.data_ptr()] + ([] if res is None else [res.data_ptr()])
     vec = 4 if span % 4 == 0 and not any(p % 16 for p in ptrs) else 1
     sms, fn = _device_functions(dev)
@@ -107,6 +113,25 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: i
     check_status("mvs_gn_act_f32", status)
     launches += 1
     return out
+
+
+_group_norm_act_op = custom_op("group_norm_act", "gn_apply")(_group_norm_act_launch)
+_group_norm_act_op.register_fake(_output)
+# On the CPU the op is the plain version, so that torch.library.opcheck runs there too;
+# the wrappers send CPU tensors to the plain version directly.
+_group_norm_act_op.register_kernel("cpu")(
+    lambda x, weight, bias, res, groups: group_norm_act_plain(x, weight, bias, groups, res))
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+            res: torch.Tensor | None) -> torch.Tensor:
+    """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
+    ``mvs_torch::group_norm_act`` (see build.py ``custom_op``)."""
+    if not x.is_cuda:
+        raise ValueError("group_norm_act_kernel needs x, weight, bias (and res) on one "
+                         "CUDA device")
+    return (_group_norm_act_op if tracing() else _group_norm_act_launch)(
+        x, weight, bias, res, groups)
 
 
 class _GroupNormAct(torch.autograd.Function):

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from .build import check_status, load_library, use_kernel
+from .build import check_status, custom_op, load_library, tracing, use_kernel
 from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .warp import grid_sample_plain
 from ..warp import homography_grid
@@ -75,46 +75,75 @@ def _taps(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0).reshape(9, weight.shape[1], weight.shape[0]).contiguous()
 
 
-def _launch(refiner, feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torch.Tensor,
-            cluster: int) -> torch.Tensor:
-    """Launch csrc/incremental_chain.cu: one thread-block cluster per sample runs all D-1
-    steps. ``cluster`` sets the blocks a sample (0: the kernel chooses, see
-    ``cluster_size``); a size the card refuses raises."""
-    global launches
-    tensors = (feats0, image_rest, H_inc) + tuple(refiner.parameters())
-    if not all(t.is_cuda and t.device == feats0.device for t in tensors):
-        raise ValueError("incremental_chain_kernel needs every tensor and weight "
-                         "on one CUDA device")
+def _output(feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torch.Tensor,
+            w0: torch.Tensor, wr: torch.Tensor, wf: torch.Tensor,
+            vec: torch.Tensor) -> torch.Tensor:
+    """Check the inputs' devices, types and shapes; allocate the (N, D, h, w, 32) output."""
+    tensors = (feats0, image_rest, H_inc, w0, wr, wf, vec)
+    if any(t.device != feats0.device for t in tensors):
+        raise ValueError("incremental_chain_kernel needs every tensor and weight on one "
+                         "device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("incremental_chain_kernel takes float32 tensors and weights")
     N, h, w, C = feats0.shape
     Dm1 = H_inc.shape[1]
-    if (C != 32 or refiner.conv0.weight.shape != (32, 35, 3, 3)
+    if (C != 32 or w0.shape != (9, 35, 32) or wr.shape != (9, 32, 32)
+            or wf.shape != (9, 32, 32) or vec.shape != (7, 32)
             or image_rest.shape != (N, Dm1, h, w, 3) or H_inc.shape != (N, Dm1, 3, 3)):
         raise ValueError(f"bad shapes: feats0 {tuple(feats0.shape)}, image_rest "
-                         f"{tuple(image_rest.shape)}, H_inc {tuple(H_inc.shape)}")
-    res = refiner.res0
-    vec = torch.stack([refiner.conv0.bias, refiner.bn0.weight, refiner.bn0.bias,
-                       res.conv1.bias, res.bn1.weight, res.bn1.bias,
-                       refiner.conv_final.bias]).contiguous()
-    w0 = _taps(refiner.conv0.weight)
-    wr = _taps(res.conv1.weight)
-    wf = _taps(refiner.conv_final.weight)
+                         f"{tuple(image_rest.shape)}, H_inc {tuple(H_inc.shape)}, conv0 "
+                         f"taps {tuple(w0.shape)}")
+    return feats0.new_empty((N, Dm1 + 1, h, w, C))
+
+
+def _incremental_chain_launch(feats0: torch.Tensor, image_rest: torch.Tensor,
+                              H_inc: torch.Tensor, w0: torch.Tensor, wr: torch.Tensor,
+                              wf: torch.Tensor, vec: torch.Tensor,
+                              cluster: int) -> torch.Tensor:
+    """Launch csrc/incremental_chain.cu: one thread-block cluster per sample runs all D-1
+    steps. The refiner's conv weights come as taps (``_taps``), its seven bias and
+    GroupNorm vectors stacked in ``vec``."""
+    global launches
+    out = _output(feats0, image_rest, H_inc, w0, wr, wf, vec)
+    N, h, w, C = feats0.shape
     feats0 = feats0.contiguous()
     if feats0.data_ptr() % 16:  # the kernel reads it as float4
         feats0 = feats0.clone()
-    image_rest = image_rest.contiguous()
-    H_inc = H_inc.contiguous()
-    out = torch.empty((N, Dm1 + 1, h, w, C), dtype=torch.float32, device=feats0.device)
+    image_rest, H_inc = image_rest.contiguous(), H_inc.contiguous()
+    w0, wr, wf, vec = w0.contiguous(), wr.contiguous(), wf.contiguous(), vec.contiguous()
     scratch = torch.empty((N, 3, h, w, C), dtype=torch.float32, device=feats0.device)
     stream = torch.cuda.current_stream(feats0.device).cuda_stream
     status = _library().mvs_incremental_chain_f32(
         feats0.data_ptr(), image_rest.data_ptr(), H_inc.data_ptr(), w0.data_ptr(),
         wr.data_ptr(), wf.data_ptr(), vec.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), N, Dm1, h, w, cluster, stream)
+        scratch.data_ptr(), N, H_inc.shape[1], h, w, cluster, stream)
     check_status("mvs_incremental_chain_f32", status)
     launches += 1
     return out
+
+
+_incremental_chain_op = custom_op("incremental_chain",
+                                  "incremental_chain")(_incremental_chain_launch)
+_incremental_chain_op.register_fake(
+    lambda feats0, image_rest, H_inc, w0, wr, wf, vec, cluster: _output(
+        feats0, image_rest, H_inc, w0, wr, wf, vec))
+
+
+def _launch(refiner, feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torch.Tensor,
+            cluster: int) -> torch.Tensor:
+    """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
+    ``mvs_torch::incremental_chain`` (see build.py ``custom_op``). ``cluster`` sets the blocks a sample (0: the kernel chooses, see ``cluster_size``); a
+    size the card refuses raises."""
+    if not feats0.is_cuda:
+        raise ValueError("incremental_chain_kernel needs every tensor and weight "
+                         "on one CUDA device")
+    res = refiner.res0
+    vec = torch.stack([refiner.conv0.bias, refiner.bn0.weight, refiner.bn0.bias,
+                       res.conv1.bias, res.bn1.weight, res.bn1.bias,
+                       refiner.conv_final.bias])
+    launch = _incremental_chain_op if tracing() else _incremental_chain_launch
+    return launch(feats0, image_rest, H_inc, _taps(refiner.conv0.weight),
+                  _taps(res.conv1.weight), _taps(refiner.conv_final.weight), vec, cluster)
 
 
 class _IncrementalChain(torch.autograd.Function):

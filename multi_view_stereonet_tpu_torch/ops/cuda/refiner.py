@@ -23,7 +23,7 @@ import weakref
 
 import torch
 
-from .build import check_status, load_library, use_kernel
+from .build import check_status, custom_op, load_library, tracing, use_kernel
 from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .incremental_chain import _taps
 
@@ -38,7 +38,7 @@ C = 32
 WF_COLS = 8        # the final conv's one output channel, padded to an n8 tile
 
 # refiner -> (parameters, their storages kept alive, each parameter's (data_ptr, version,
-# dtype, device) and the dilations, (packed weights, dilations as a ctypes array))
+# dtype, device) and the dilations, (packed weights, dilations))
 _packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 # (device index, stream) -> the grid-barrier counter of launches on that stream
 _barriers: dict = {}
@@ -119,8 +119,21 @@ def _pack(refiner):
             rows += [b.conv1.bias, b.bn1.weight, b.bn1.bias]
         pack = torch.cat([w0.reshape(-1), wr.reshape(-1), wf.reshape(-1),
                           torch.stack(rows).reshape(-1), refiner.conv_final.bias])
-    dilations = (ctypes.c_int * NUM_RES)(*(b.conv1.dilation[0] for b in blocks))
-    return pack, dilations
+    return pack, tuple(b.conv1.dilation[0] for b in blocks)
+
+
+def packed_floats(cin0: int) -> int:
+    """Floats of a pack for a conv0 of ``cin0`` input channels (``_pack``'s layout): the
+    three (hi, lo) weight images, the 21 bias and GroupNorm rows, the final bias."""
+    cin_pad = -(-cin0 // 4) * 4
+    return (2 * 9 * (cin_pad * C + NUM_RES * C * C + C * WF_COLS)
+            + (3 + 3 * NUM_RES) * C + 1)
+
+
+def _pack_key(params, refiner) -> tuple:
+    """Each parameter's (data_ptr, version, dtype, device), then the dilations."""
+    return tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params) + tuple(
+        getattr(refiner, f"res{i}").conv1.dilation[0] for i in range(NUM_RES))
 
 
 def packed_weights(refiner):
@@ -137,14 +150,20 @@ def packed_weights(refiner):
     ``torch.inference_mode`` keep no version counter, so they are packed at every call.
 
     A CUDA graph captured over the kernel keeps the pack's address: after a repack,
-    capture it again."""
+    capture it again. While ``torch.export`` traces, the parameters are fake tensors:
+    the pack last made for this refiner is used as it is (the exported graph holds it as
+    a constant) if the parameters it was made from are unchanged since, and the pack is
+    traced from the parameters otherwise; nothing is cached then."""
+    cached = _packs.get(refiner)
+    if tracing():
+        if cached is not None and cached[2] == _pack_key(cached[0], refiner):
+            return cached[3]
+        return _pack(refiner)
     params = tuple(refiner.parameters())
     try:
-        key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params) + tuple(
-            getattr(refiner, f"res{i}").conv1.dilation[0] for i in range(NUM_RES))
+        key = _pack_key(params, refiner)
     except RuntimeError:
         return _pack(refiner)
-    cached = _packs.get(refiner)
     if (cached is not None and cached[2] == key
             and all(a is b for a, b in zip(cached[0], params))):
         return cached[3]
@@ -176,44 +195,68 @@ def _barrier(device: torch.device, stream: int) -> torch.Tensor:
     return counter
 
 
-def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner.
-
-    The weights come from ``packed_weights``: a caller that writes them in place
-    through ``.data`` must call ``invalidate_packed_weights`` before the next launch."""
-    global launches
-    if not (guidance.is_cuda and idepthmap.device == guidance.device):
+def _output(guidance: torch.Tensor, idepthmap: torch.Tensor, pack: torch.Tensor,
+            dilations: list[int]) -> torch.Tensor:
+    """Check the inputs' devices, types and shapes; allocate the (N, h, w) output."""
+    if idepthmap.device != guidance.device or pack.device != guidance.device:
         raise ValueError("idepthmap_refiner_kernel needs every tensor and weight on one "
-                         "CUDA device")
-    if guidance.dtype != torch.float32 or idepthmap.dtype != torch.float32:
+                         "device")
+    if any(t.dtype != torch.float32 for t in (guidance, idepthmap, pack)):
         raise TypeError("idepthmap_refiner_kernel takes float32 tensors and weights")
     if guidance.ndim != 4:
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}")
     N, Cg, h, w = guidance.shape
     if (idepthmap.shape != (N, h, w) or Cg + 1 > MAX_CIN0
-            or refiner.conv0.weight.shape != (C, Cg + 1, 3, 3)
-            or refiner.conv_final.weight.shape != (1, C, 3, 3)):
+            or pack.shape != (packed_floats(Cg + 1),) or len(dilations) != NUM_RES):
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, idepthmap "
-                         f"{tuple(idepthmap.shape)}, conv0 "
-                         f"{tuple(refiner.conv0.weight.shape)}")
-    pack, dilations = packed_weights(refiner)
+                         f"{tuple(idepthmap.shape)}, pack {tuple(pack.shape)}, dilations "
+                         f"{list(dilations)}")
+    return guidance.new_empty((N, h, w))
+
+
+def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
+                              pack: torch.Tensor, dilations: list[int]) -> torch.Tensor:
+    """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner,
+    its weights packed by ``_pack``."""
+    global launches
+    out = _output(guidance, idepthmap, pack, dilations)
+    N, Cg, h, w = guidance.shape
     dev = guidance.device
-    if pack.device != dev:
-        raise ValueError("idepthmap_refiner_kernel needs every tensor and weight on one "
-                         "CUDA device")
     guidance = guidance.contiguous()
     idepthmap = idepthmap.contiguous()
     fn = _kernel_function()
-    out = torch.empty((N, h, w), dtype=torch.float32, device=dev)
     size = scratch_floats(N, h, w)
     scratch = torch.empty(size, dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    status = fn(guidance.data_ptr(), idepthmap.data_ptr(), pack.data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), size, _barrier(dev, stream).data_ptr(), N, Cg, h, w,
-                dilations, stream)
+    status = fn(guidance.data_ptr(), idepthmap.data_ptr(), pack.contiguous().data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), size, _barrier(dev, stream).data_ptr(),
+                N, Cg, h, w, (ctypes.c_int * NUM_RES)(*dilations), stream)
     check_status("mvs_idepthmap_refiner_f32", status)
     launches += 1
     return out
+
+
+_idepthmap_refiner_op = custom_op("idepthmap_refiner",
+                                  "idepthmap_refiner")(_idepthmap_refiner_launch)
+_idepthmap_refiner_op.register_fake(_output)
+
+
+def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
+    ``mvs_torch::idepthmap_refiner`` (see build.py ``custom_op``).
+
+    The weights come from ``packed_weights``: a caller that writes them in place
+    through ``.data`` must call ``invalidate_packed_weights`` before the next launch."""
+    if not guidance.is_cuda:
+        raise ValueError("idepthmap_refiner_kernel needs every tensor and weight on one "
+                         "CUDA device")
+    if (refiner.conv0.weight.shape != (C, guidance.shape[1] + 1, 3, 3)
+            or refiner.conv_final.weight.shape != (1, C, 3, 3)):
+        raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, conv0 "
+                         f"{tuple(refiner.conv0.weight.shape)}")
+    pack, dilations = packed_weights(refiner)
+    launch = _idepthmap_refiner_op if tracing() else _idepthmap_refiner_launch
+    return launch(guidance, idepthmap, pack, list(dilations))
 
 
 class _IdepthmapRefiner(torch.autograd.Function):

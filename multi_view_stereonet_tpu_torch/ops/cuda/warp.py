@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from .build import check_status, load_library, use_kernel
+from .build import check_status, custom_op, load_library, tracing, use_kernel
 from .recompute import needs_autograd, plain_vjp
 
 # Kernel launches since the last reset; only the kernel path counts.
@@ -78,22 +78,28 @@ def _library():
     return lib
 
 
-def _launch(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool):
-    """Launch csrc/warp.cu on CUDA tensors; same contract as the plain version."""
-    global launches
-    if not (image.is_cuda and grid.is_cuda and image.device == grid.device):
-        raise ValueError("grid_sample_kernel needs image and grid on one CUDA device")
+def _outputs(image: torch.Tensor, grid: torch.Tensor):
+    """Check the inputs' types and shapes; allocate (out, invalid)."""
+    if image.device != grid.device:
+        raise ValueError("grid_sample_kernel needs image and grid on one device")
     if image.dtype != torch.float32 or grid.dtype != torch.float32:
         raise TypeError(f"grid_sample_kernel takes float32, got {image.dtype}, {grid.dtype}")
     if image.ndim != 4 or grid.shape[0] != image.shape[0] or grid.shape[-1] != 2:
         raise ValueError(f"bad shapes: image {tuple(image.shape)}, grid {tuple(grid.shape)}")
-    B, H, W, C = image.shape
     out_shape = grid.shape[:-1]
+    return (image.new_empty(out_shape + (image.shape[3],)),
+            image.new_empty(out_shape, dtype=torch.bool))
+
+
+def _grid_sample_launch(image: torch.Tensor, grid: torch.Tensor,
+                        zero_invalid: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/warp.cu on CUDA tensors; same contract as the plain version."""
+    global launches
+    out, invalid = _outputs(image, grid)
+    B, H, W, C = image.shape
     M = grid[0, ..., 0].numel()
     image = image.contiguous()
     grid = grid.contiguous()
-    out = torch.empty(out_shape + (C,), dtype=torch.float32, device=image.device)
-    invalid = torch.empty(out_shape, dtype=torch.bool, device=image.device)
     stream = torch.cuda.current_stream(image.device).cuda_stream
     status = _library().mvs_grid_sample_f32(
         image.data_ptr(), grid.data_ptr(), out.data_ptr(), invalid.data_ptr(),
@@ -101,6 +107,21 @@ def _launch(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool):
     check_status("mvs_grid_sample_f32", status)
     launches += 1
     return out, invalid
+
+
+_grid_sample_op = custom_op("grid_sample", "warp")(_grid_sample_launch)
+_grid_sample_op.register_fake(lambda image, grid, zero_invalid: _outputs(image, grid))
+# On the CPU the op is the plain version, so that torch.library.opcheck runs there too;
+# the wrappers send CPU tensors to the plain version directly.
+_grid_sample_op.register_kernel("cpu")(grid_sample_plain)
+
+
+def _launch(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool):
+    """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
+    ``mvs_torch::grid_sample`` (see build.py ``custom_op``)."""
+    if not (image.is_cuda and grid.is_cuda):
+        raise ValueError("grid_sample_kernel needs image and grid on one CUDA device")
+    return (_grid_sample_op if tracing() else _grid_sample_launch)(image, grid, zero_invalid)
 
 
 class _GridSample(torch.autograd.Function):

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .cuda.build import tracing
+
 
 @functools.lru_cache(maxsize=256)
 def _bilinear_matrix(out_size: int, in_size: int) -> np.ndarray:
@@ -56,12 +58,25 @@ def _area_matrix(out_size: int, in_size: int) -> np.ndarray:
 _MATRICES = {"bilinear": _bilinear_matrix, "area": _area_matrix}
 
 
-@functools.lru_cache(maxsize=256)
+# (kind, out_size, in_size, device, dtype) -> the resize matrix on the device
+_device_matrices: dict = {}
+
+
 def _device_matrix(kind: str, out_size: int, in_size: int, device, dtype):
-    # Made outside inference mode even when first asked for inside it: an inference
-    # tensor in the cache could not be saved for a later training step's backward.
-    with torch.inference_mode(False):
-        return torch.from_numpy(_MATRICES[kind](out_size, in_size)).to(device, dtype)
+    """The resize matrix on ``device``, made once. While ``torch.export`` traces, a matrix
+    already made is used as it is (the exported graph holds it as a constant on the
+    device), and one not yet made is made anew and kept out of the cache: it is a fake
+    tensor then, which would break every later eager call."""
+    key = (kind, out_size, in_size, device, dtype)
+    matrix = _device_matrices.get(key)
+    if matrix is None:
+        # Made outside inference mode even when first asked for inside it: an inference
+        # tensor in the cache could not be saved for a later training step's backward.
+        with torch.inference_mode(False):
+            matrix = torch.from_numpy(_MATRICES[kind](out_size, in_size)).to(device, dtype)
+        if not tracing():
+            _device_matrices[key] = matrix
+    return matrix
 
 
 def _apply_separable(x: torch.Tensor, kind: str, out_size) -> torch.Tensor:

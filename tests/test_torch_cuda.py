@@ -13,7 +13,9 @@ refiner within atol 2e-5 * max|plain|, rtol 2e-4, also after its weights are wri
 (its packed weights followed); the GroupNorm kernel within 1e-5 * max(1, max|plain|);
 the whole forward within 0.2% of each level's output range; the multi-view and
 the two-view training losses and gradients within docs/PARITY.md:218-232's bar. The u8 dequantize is
-bit-equal to the host pipeline for all 256 values.
+bit-equal to the host pipeline for all 256 values. Each kernel's custom op passes
+``torch.library.opcheck``, and the serving artifact exported on the card holds all
+four and is bit-equal to the live forward.
 """
 
 import importlib.util
@@ -638,6 +640,74 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with torch.inference_mode(), pytest.raises(RuntimeError, match="failed to launch"):
         refiner_op.idepthmap_refiner(wide, guidance.detach(), idepth.detach())
     assert refiner_op.launches == before
+
+
+def _op_case(name, dev):
+    """Arguments of one custom op at a small shape, on the card."""
+    g = torch.Generator().manual_seed(11)
+
+    def rand(*shape):
+        return (torch.rand(shape, generator=g) * 2 - 1).to(dev)
+    if name == "grid_sample":
+        return rand(2, 6, 8, 3), rand(2, 4, 5, 7, 2) * 1.2, True
+    if name == "group_norm_act":
+        x = rand(2, 32, 5, 6)
+        return x, rand(32) + 1, rand(32), rand(2, 32, 5, 6), 4
+    if name == "incremental_chain":
+        refiner = FeatureRefiner(32).to(dev)
+        res = refiner.res0
+        vec = torch.stack([refiner.conv0.bias, refiner.bn0.weight, refiner.bn0.bias,
+                           res.conv1.bias, res.bn1.weight, res.bn1.bias,
+                           refiner.conv_final.bias]).detach()
+        taps = [chain._taps(w).detach() for w in (refiner.conv0.weight, res.conv1.weight,
+                                                  refiner.conv_final.weight)]
+        H_inc = torch.eye(3, device=dev).repeat(1, 3, 1, 1)
+        return (rand(1, 5, 6, 32), rand(1, 3, 5, 6, 3), H_inc, *taps, vec, 0)
+    module = idepthmap_refiner_module(35, seed=1, dev=dev)
+    pack, dilations = refiner_op.packed_weights(module)
+    return rand(2, 35, 6, 8), rand(2, 6, 8).abs() * 20, pack, list(dilations)
+
+
+@pytest.mark.parametrize("name", ["grid_sample", "incremental_chain", "idepthmap_refiner",
+                                  "group_norm_act"])
+def test_custom_ops_pass_opcheck_on_the_card(dev, name):
+    """Schema, fake implementation against the kernel's real outputs, and tracing."""
+    torch.library.opcheck(getattr(torch.ops.mvs_torch, name).default, _op_case(name, dev))
+
+
+def test_export_on_the_card_holds_the_four_kernels_and_serves_the_live_bits(dev, tmp_path):
+    """B = 1, V = 1, 64x80, D = 12: the artifact exported on the card holds the four
+    custom ops, launches 2 / 1 / 4 / 17 a forward (K3 at levels 4..1 at this size) and
+    is bit-equal to the live forward, which is bit-equal before and after the export."""
+    from multi_view_stereonet_tpu_torch.checkpoint.export import (
+        custom_ops, export_inference, load_exported, save_exported)
+    from multi_view_stereonet_tpu_torch.eval.streaming import serving_forward
+
+    model = MultiViewStereoNet()
+    model.load_state_dict(random_state_dict(0))
+    model = model.to(dev).eval()
+    config = MultiViewStereoNetConfig(num_idepth_samples=12)
+    g = torch.Generator().manual_seed(3)
+    K, T = scene(1, 64, 80, seed=4)
+    args = ((torch.rand(1, 64, 80, 3, generator=g) * 2 - 1).to(dev),
+            (torch.rand(1, 1, 64, 80, 3, generator=g) * 2 - 1).to(dev), K.to(dev),
+            T.reshape(1, 1, 4, 4).to(dev))
+    batch = dict(zip(("left_image", "right_images", "K", "T_right_in_left"), args))
+    with torch.inference_mode():
+        live = serving_forward(model, batch, config)
+    path = str(tmp_path / "serving.pt2")
+    save_exported(export_inference(model, config, 1, 1, (64, 80)), path)
+    artifact = load_exported(path)
+    assert custom_ops(artifact) == ["mvs_torch::grid_sample", "mvs_torch::group_norm_act",
+                                    "mvs_torch::idepthmap_refiner",
+                                    "mvs_torch::incremental_chain"]
+    with torch.inference_mode():
+        before = counts()
+        out = artifact(*args)
+        assert counts() == tuple(b + d for b, d in zip(before, (2, 1, 4, 17)))
+        again = serving_forward(model, batch, config)
+    assert torch.isfinite(live).all()
+    assert torch.equal(out, live) and torch.equal(again, live)
 
 
 def synthetic_data():

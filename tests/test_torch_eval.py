@@ -194,9 +194,10 @@ def test_eval_cli_main_writes_the_files(case_root, monkeypatch, capsys):
 
 
 def test_run_eval_needs_the_port_weights(tmp_path):
-    """Only the port's stereo_network.pth is read: a directory without it raises,
-    naming the file, and no output is written."""
-    with pytest.raises(FileNotFoundError, match=WEIGHTS_FILE):
+    """A directory without any weights file the port reads (stereo_network.pth,
+    .msgpack or .pt) raises, naming the three, and no output is written."""
+    with pytest.raises(FileNotFoundError,
+                       match=f"{WEIGHTS_FILE}.*stereo_network.msgpack.*stereo_network.pt"):
         test_cli.run_eval(str(tmp_path), str(tmp_path), "gta_sfm_test.txt",
                           str(tmp_path / "out"), device="cpu")
     assert not (tmp_path / "out").exists()
