@@ -110,7 +110,31 @@ Phases, each printing its results; any failure raises and exits non-zero:
    artifact's ms/frame against the live forward's, median of 20 after warm-up,
    in turns artifact, live, live, artifact; each custom op's host time a call
    against its launch code's called directly, as the eager forward does (the
-   dispatcher's cost, which the artifact pays).
+   dispatcher's cost, which the artifact pays), and the launch code's device guard
+   alone.
+10. Multi-process training on the card, every process started as a subprocess with a
+   time limit. (a) The train CLI as two processes over gloo on the one card
+   (``--coordinator``; NCCL takes no two ranks on one device) at the recipe's width
+   (global B = 8, four a process, 480x640, D = 12, adam) with augmentation off and one
+   loader thread, for 3 steps, then relaunched to resume for 2: one checkpoint
+   directory an epoch, and process 0's losses.txt against one process's
+   ``train_step`` on the two processes' batches concatenated in rank order
+   (``ShardedDataset`` 0 and 1, then ``BatchLoader``): within 1e-5 relative at step 1
+   (from the init), step 4 (from the CLI's checkpoint) and step 5 (one update after
+   it); steps 2 and 3, after adam's first updates from a zero second moment, which turn
+   the last bits of a near-zero gradient into a whole step of the rate, within 1e-3,
+   printed beside the drift of one process's kernel against its plain path. (d) The CLI
+   as two processes at
+   the recipe (augmentation on, 4 loader threads a process) for 10 steps: each
+   process's ms a step (host clock at its stop check, median of steps 4-9) beside
+   phase 7's single-process loop, its peak memory, and its launches a step (2 / 1 / 2 /
+   31 at four samples). (b) ``make_train_step`` on two processes against one: four
+   samples each of (a)'s first global batch from the CLI's init, and ``mesh_view`` 2 (a
+   view a process) at B = 2 V = 2; the loss identical on both, within 1e-5 of one
+   process's, and every gradient within phase 7's bar. (c)
+   NCCL at one process: join, a step through the mesh against one without, leave.
+   NCCL across cards and a launch on a card other than the current one need more than
+   one card: logged as not run.
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
@@ -119,7 +143,8 @@ one call, "call_ms" and "plain_call_ms" a call's time with its host work),
 bounds and library times (launches are phase 4's, "train_launches" phase
 7's first ``train`` call's, "two_view_launches" one phase-8 step's,
 "artifact_launches" and "artifact_launches_b24" phase 9's artifacts' in their
-fresh processes; "op_call_us" and "direct_call_us" phase 9's dispatch costs), each
+fresh processes; "op_call_us", "direct_call_us" and "guard_us" phase 9's dispatch
+costs; "multi_process_launches" a process's launches a step in phase 10 (d)), each
 with a "backward" entry (phase 3b); K1's entry and its backward carry "loss_shapes",
 one entry each for one and three channels at the losses' shapes. Then the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -151,6 +176,11 @@ TRAIN_B, TRAIN_STEPS, RESUME_STEPS, VAL_IMAGES = 8, 10, 2, 16
 TWO_VIEW_FACTORS = {"supervision_factor": 1.0, "reconstruction_factor": 0.5,
                     "left_right_factor": 0.5}
 TWO_VIEW_STEPS, TWO_VIEW_RESUME = 4, 1
+MP_PROCESSES, MP_STEPS, MP_RESUME = 2, 3, 2  # phase 10
+# Phase 10 (a): the loss after adam's first updates from the init, two processes against
+# one; a wrong or reordered batch moves it by more than 1e-2 (the losses of consecutive
+# steps differ by 10-70%).
+DRIFT_BAR = 1e-3
 NUM_LEVELS = 5
 CHAIN_ATOL, CHAIN_RTOL = 2e-5, 2e-4  # also the idepthmap refiner's bar
 GN_BAR = 1e-5  # times max(1, max|plain|)
@@ -1459,8 +1489,10 @@ def host_us(fn, calls=200) -> float:
 def dispatch_costs(dev, model):
     """Each kernel's call through its custom op (the artifact's route) and to its launch
     code directly (the eager route, no dispatcher), host microseconds at a serving
-    shape, in turns op, direct, direct, op; medians."""
-    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+    shape, in turns op, direct, direct, op; medians. And the launch code's device guard
+    alone (``build.launch_device`` where the tensors' card is current, as on every
+    eager call): "guard_us", median of three."""
+    from multi_view_stereonet_tpu_torch.ops.cuda import build, gn_apply
     from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
     from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
     from multi_view_stereonet_tpu_torch.ops.cuda import warp
@@ -1488,6 +1520,11 @@ def dispatch_costs(dev, model):
         "gn_apply": (gn_apply._group_norm_act_op, gn_apply._group_norm_act_launch,
                      (rand(2, 32, 30, 40), bn.weight, bn.bias, rand(2, 32, 30, 40), 4)),
     }
+    def guard():
+        with build.launch_device(dev):
+            pass
+
+    guard_us = statistics.median(host_us(guard) for _ in range(3))
     costs = {}
     with torch.inference_mode():
         for name, (op, launch, args) in cases.items():
@@ -1495,7 +1532,8 @@ def dispatch_costs(dev, model):
             for fn in (op, launch, launch, op):
                 runs[fn].append(host_us(lambda: fn(*args)))
             costs[name] = {"op_call_us": statistics.median(runs[op]),
-                           "direct_call_us": statistics.median(runs[launch])}
+                           "direct_call_us": statistics.median(runs[launch]),
+                           "guard_us": guard_us}
     return costs
 
 
@@ -1597,9 +1635,300 @@ def artifact_phase(dev, inputs, smi):
     costs = dispatch_costs(dev, model)
     for name, c in costs.items():
         log(f"dispatch {name}: a call through its custom op {c['op_call_us']:.1f} us of "
-            f"host, to its launch code directly {c['direct_call_us']:.1f} us ({smi})")
+            f"host, to its launch code directly {c['direct_call_us']:.1f} us, of which the "
+            f"device guard {c['guard_us']:.3f} us ({smi})")
     return {"launches": {n: c["launches"] for n, c in children.items()},
             "dispatch": costs}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn(spec: dict, n: int) -> list:
+    """Start ``n`` processes of ``child`` on ``spec``, ranks 0..n-1 of one group whose
+    store is on a free local port; collect them (``tests/_torch_distributed_worker.py``
+    ``wait``: all killed at the limit) and raise unless every one exits 0. Returns each
+    one's last stdout line as JSON, and its stdout."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+         f"chip_smoke.child({json.dumps(dict(spec, rank=r, n=n, port=port))!r})"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+    results = tests_module("_torch_distributed_worker").wait(procs, timeout=600)
+    for r, (rc, out, err) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"{spec['kind']} process {r} of {n} exited {rc}:\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+    return [(json.loads(out.strip().splitlines()[-1]), out) for _, out, _ in results]
+
+
+def child(spec_json: str):
+    """Phase 10's processes. "train": ``train_cli.main`` as rank ``rank`` of ``n`` on
+    the card, the host clock stamped at each step's stop check; prints its launches,
+    stamps and peak memory. "nccl": joins a group of one over NCCL, one train step
+    through the mesh (its gradients all-reduced over NCCL) and one without, on the same
+    batch and weights, then leaves; prints the backend, both losses and the worst
+    gradient gap."""
+    spec = json.loads(spec_json)
+    sys.path.insert(0, REPO)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if spec["kind"] == "train":
+        from multi_view_stereonet_tpu_torch.train import train_cli
+
+        stamps = []
+
+        class StampedStop(train_cli.GracefulStop):
+            def __call__(self):
+                stamps.append(time.perf_counter())
+                return super().__call__()
+
+        train_cli.GracefulStop = StampedStop
+        zero_launches()
+        train_cli.main(spec["argv"] + ["--coordinator", f"localhost:{spec['port']}",
+                                       "--num_processes", str(spec["n"]),
+                                       "--process_id", str(spec["rank"])])
+        print(json.dumps({"launches": read_launches(), "stamps": stamps,
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "device": torch.cuda.current_device()}), flush=True)
+        return
+    import torch.distributed as dist
+
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet
+    from multi_view_stereonet_tpu_torch.parallel import join, make_process_mesh, shutdown
+    from multi_view_stereonet_tpu_torch.train import train_cli
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    t0 = time.perf_counter()
+    dev = join(f"localhost:{spec['port']}", 1, 0)
+    backend = dist.get_backend()
+    mesh = make_process_mesh()
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in np.load(spec["batch"]).items()}
+    cfg = dict(load_params_yaml(None), optimizer="sgd", learning_rate=0.0)
+    losses, grads = [], {}
+    for name, m in (("auto", mesh), ("plain", None)):  # compare_gradients' names
+        model = MultiViewStereoNet()
+        model.load_state_dict(random_state_dict(0))
+        model = model.to(dev)
+        _, _, _, step = train_cli.build_train_step(cfg, 1, model, mesh=m)
+        loss, _ = step(model, batch)
+        losses.append(loss.item())
+        grads[name] = {k: p.grad for k, p in model.named_parameters()}
+    shutdown()
+    print(json.dumps({"backend": backend, "device": str(dev), "init_s": init_s,
+                      "loss": losses, "grad_err": compare_gradients(grads)[0],
+                      "initialized_after": dist.is_initialized()}), flush=True)
+
+
+def multi_process_phase(dev, inputs, smi, cli_ms):
+    """Phase 10: training as two processes on the card over gloo (the train CLI at the
+    recipe's width, held to one process's steps on the concatenated per-process
+    batches, resumed; then timed at the recipe), the data- and view-sharded steps'
+    gradients, and the NCCL route at a world size of one. Every part runs; any that
+    fails its check fails the phase at the end. Returns a summary."""
+    import yaml
+
+    from multi_view_stereonet_tpu_torch.checkpoint import (
+        init_params_numpy, native, random_state_dict, state_dict_from_jax_params)
+    from multi_view_stereonet_tpu_torch.data.loader import collate
+    from multi_view_stereonet_tpu_torch.losses import LossConfig
+    from multi_view_stereonet_tpu_torch.models import (
+        MultiViewStereoNet, MultiViewStereoNetConfig)
+    from multi_view_stereonet_tpu_torch.parallel import ShardedDataset
+    from multi_view_stereonet_tpu_torch.train import train_cli
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
+
+    root = inputs["root"]
+    data_dir, split = inputs["long"]
+    local = TRAIN_B // MP_PROCESSES
+    failures = []
+
+    def argv(cfg, name, out):
+        path = os.path.join(root, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return ["--config", path, "--data_dir", data_dir, "--train_split", split,
+                "--output_dir", out]
+
+    # (a) The recipe's width for the comparison: no augmentation, one loader thread.
+    cfg = load_params_yaml(None)
+    cfg.update({"num_workers": 1, "augment": False, "debug_image_freq": 0, "plot_freq": 0,
+                "print_freq": 1, "num_epochs": 1})
+    out = os.path.join(root, "train_mp")
+    args = argv(cfg, "train_mp", out)
+    t0 = time.perf_counter()
+    spawn({"kind": "train", "argv": args + ["--max_steps", str(MP_STEPS)]}, MP_PROCESSES)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = spawn({"kind": "train", "argv": args + [
+        "--max_steps", str(MP_STEPS + MP_RESUME), "--max_epochs", "2"]}, MP_PROCESSES)
+    resume_s = time.perf_counter() - t0
+    ckpt_root = os.path.join(out, "checkpoints")
+    with open(os.path.join(out, "losses.txt")) as f:
+        rows = [line.split() for line in f.read().splitlines()[1:]]
+    state = native.load_train_state(ckpt_root, 1)
+    if (sorted(os.listdir(ckpt_root)) != ["epoch0000", "epoch0001"]
+            or f"resumed from epoch 0 (step {MP_STEPS})" not in resumed[0][1]
+            or [int(r[2]) for r in rows] != list(range(1, MP_STEPS + MP_RESUME + 1))
+            or state["step"] != MP_STEPS + MP_RESUME
+            or any(k.startswith("module.") for k in state["model"])):
+        raise AssertionError(f"two-process train: checkpoints {os.listdir(ckpt_root)}, "
+                             f"losses.txt steps {[r[2] for r in rows]}, state step "
+                             f"{state['step']}")
+
+    # One process's train_step on the per-process batches concatenated in rank order,
+    # on the kernel path and on the plain path. Step 1 starts from the init, step 4 from
+    # the CLI's epoch-0 checkpoint (weights and adam's state), step 5 one update after
+    # it: held to LOSS_BAR. Steps 2 and 3 follow adam's first updates from a zero second
+    # moment, which move every weight by about the rate whatever the size of its
+    # gradient, so a gradient element near zero whose last bits differ moves the other
+    # way: their drift is printed beside that between one process's kernel and plain
+    # paths and held only to DRIFT_BAR, which a wrong batch would exceed. The step-1
+    # gradients themselves are held to phase 7's bar in (b).
+    init = state_dict_from_jax_params(init_params_numpy(cfg["seed"], reference=True))
+
+    def concatenated(epoch, steps):
+        loaders = []
+        for r in range(MP_PROCESSES):
+            dataset = train_cli.make_dataset(cfg, data_dir, split, True, 0,
+                                             np.random.default_rng(cfg["seed"]))
+            loader = train_cli.BatchLoader(ShardedDataset(dataset, r, MP_PROCESSES), local,
+                                           shuffle=cfg["shuffle"], seed=cfg["seed"],
+                                           workers=1)
+            loader.set_epoch(epoch)
+            loaders.append(loader)
+        return [{k: np.concatenate([p[k] for p in parts]) for k in parts[0]
+                 if not k.endswith("filenames")}
+                for _, parts in zip(range(steps), zip(*loaders))]
+
+    batches = concatenated(0, MP_STEPS) + concatenated(1, MP_RESUME)
+    ref = {}
+    for impl in ("auto", "plain"):
+        model = MultiViewStereoNet()
+        model.load_state_dict(init)
+        model = model.to(dev).train()
+        _, _, optimizer, step = train_cli.build_train_step(cfg, 1, model, impl)
+        ref[impl] = []
+        for k, batch in enumerate(batches):
+            if k == MP_STEPS:  # the relaunch resumes from the CLI's checkpoint
+                saved = native.load_train_state(ckpt_root, 0)
+                model.load_state_dict(saved["model"])
+                optimizer.load_state_dict(saved["optimizer"])
+            lossf, host_dict = train_cli._losses_to_host(*step(model, {
+                key: torch.from_numpy(v).to(dev) for key, v in batch.items()}))
+            ref[impl].append([lossf] + [x for v in host_dict.values()
+                                        for x in (v if isinstance(v, list) else [v])])
+    got = np.array([row[3:] for row in rows], float)
+    want, plain = np.array(ref["auto"]), np.array(ref["plain"])
+    gaps = np.max(np.abs(got - want) / np.abs(want), axis=1).tolist()
+    plain_gaps = (np.abs(want[:, 0] - plain[:, 0]) / np.abs(plain[:, 0])).tolist()
+    held = (0, MP_STEPS, MP_STEPS + 1)
+    log(f"two processes (gloo, one card), the train CLI at B={TRAIN_B} ({local} a process) "
+        f"{H0}x{W0} D={D}, adam, no augmentation: {MP_STEPS} steps in {first_s:.1f} s, "
+        f"resumed for {MP_RESUME} in {resume_s:.1f} s (start-up included); one checkpoint "
+        f"an epoch {sorted(os.listdir(ckpt_root))}; process 0's losses.txt against one "
+        f"process's train_step on the concatenated batches, worst relative gap by step "
+        f"{[f'{g:.2e}' for g in gaps]} (steps {[k + 1 for k in held]} held to "
+        f"{LOSS_BAR:.0e}, the others to {DRIFT_BAR:.0e}); one process's kernel against "
+        f"plain path, loss by step {[f'{g:.2e}' for g in plain_gaps]}; losses "
+        f"{[round(float(r[3]), 4) for r in rows]}")
+    if any(g > (LOSS_BAR if k in held else DRIFT_BAR) for k, g in enumerate(gaps)):
+        failures.append(f"two-process losses.txt against one process: {gaps}")
+
+    # (d) At the recipe, as phase 7 runs it (augmentation on, 4 loader threads a
+    # process), timed by each process's host clock at its stop check.
+    recipe = load_params_yaml(None)
+    recipe.update({"num_workers": 4, "debug_image_freq": 0, "plot_freq": 0,
+                   "num_epochs": 1})
+    timed = spawn({"kind": "train", "argv": argv(recipe, "train_mp_recipe", os.path.join(
+        root, "train_mp_recipe")) + ["--max_steps", str(TRAIN_STEPS)]}, MP_PROCESSES)
+    per_step = expected_launches([(local, 1)])
+    if any(t[0]["launches"] != {k: TRAIN_STEPS * v for k, v in per_step.items()}
+           for t in timed):
+        failures.append(f"two-process launches {[t[0]['launches'] for t in timed]} in "
+                        f"{TRAIN_STEPS} steps, expected {per_step} a step")
+    ms = [float(np.median(np.diff(t[0]["stamps"][:-1])[2:] * 1e3)) for t in timed]
+    peak = [t[0]["peak"] / 2**30 for t in timed]
+    log(f"two processes at the recipe (B={TRAIN_B}, {local} a process, augmentation on, 4 "
+        f"loader threads a process): the CLI loop {ms[0]:.3f} / {ms[1]:.3f} ms a step "
+        f"(process 0 / 1, median of steps 4-{TRAIN_STEPS - 1}, host clock; "
+        f"{[round(float(g) * 1e3, 1) for g in np.diff(timed[0][0]['stamps'][:-1])]}), "
+        f"{TRAIN_B * 1e3 / max(ms):.2f} images/s; one process (phase 7) {cli_ms:.3f} ms a "
+        f"step; peak memory {peak[0]:.3f} / {peak[1]:.3f} GiB a process; launches a "
+        f"process-step {per_step} ({smi})")
+
+    # (b) Against one process on the card: a data-sharded step on (a)'s first global
+    # batch from the CLI's init, and mesh_view 2 (a view a process) on the V = 2 tree.
+    tree, tree_split = inputs["trees"][2]
+    dataset = train_cli.make_dataset(cfg, tree, tree_split, True, 0, np.random.default_rng(0))
+    cases = {"data": (batches[0], init, 1),
+             "view": ({k: v for k, v in collate([dataset[i] for i in range(len(dataset))]
+                                                 ).items() if not k.endswith("filenames")},
+                      random_state_dict(0), 2)}
+    job = {"mode": "step", "device": "cuda", "out": root, "cases": {}}
+    for name, (batch, weights, view) in cases.items():
+        np.savez(os.path.join(root, f"mp_{name}.npz"), **batch)
+        torch.save(weights, os.path.join(root, f"mp_{name}.pth"))
+        job["cases"][name] = {"weights": os.path.join(root, f"mp_{name}.pth"),
+                              "batch": os.path.join(root, f"mp_{name}.npz"),
+                              "two_view": False, "D": D, "factors": {}, "mesh_view": view}
+    worker = tests_module("_torch_distributed_worker")
+    results = worker.wait(worker.start(job, root, "mp_steps"), timeout=600)
+    for r, (rc, _, err) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"step process {r} exited {rc}:\n{err[-4000:]}")
+    sharded = {}
+    for name, (batch, weights, view) in cases.items():
+        model = MultiViewStereoNet()
+        model.load_state_dict(weights)
+        model = model.to(dev)
+        loss, _ = make_loss_fn(MultiViewStereoNetConfig(num_idepth_samples=D), LossConfig())(
+            model, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        loss.backward()
+        grads = {"plain": {k: p.grad for k, p in model.named_parameters()}}
+        r0, r1 = (np.load(os.path.join(root, f"{name}_rank{r}.npz")) for r in (0, 1))
+        grads["auto"] = {k: torch.from_numpy(r0[f"grad/{k}"]).to(dev) for k in grads["plain"]}
+        worst, worst_key, min_cos = compare_gradients(grads)
+        gap = abs(float(r0["loss"]) - loss.item()) / abs(loss.item())
+        sharded[name] = {"loss_gap": gap, "grad_err": worst}
+        B, V = batch["right_images"].shape[:2]
+        log(f"two processes, {'a view each' if view > 1 else f'{B // 2} samples each'}"
+            f" (mesh_view {view}), B={B} V={V} {H0}x{W0} D={D}, against one process: loss "
+            f"{float(r0['loss']):.6f}, equal on both {bool(r0['loss'] == r1['loss'])}, "
+            f"{gap:.2e} relative (bar {LOSS_BAR:.0e}); worst gradient {worst:.3e} of "
+            f"max|one process| at {worst_key} (bar {GRAD_BAR:.1e}), least cosine "
+            f"{min_cos:.9f} (bar {COS_BAR})")
+        if not (r0["loss"] == r1["loss"] and gap <= LOSS_BAR and worst <= GRAD_BAR
+                and min_cos > COS_BAR):
+            failures.append(f"the {name}-sharded step against one process: {sharded[name]}")
+
+    # (c) The NCCL route at a world size of one.
+    (nccl, _), = spawn({"kind": "nccl", "batch": os.path.join(root, "mp_view.npz")}, 1)
+    log(f"NCCL at one process: backend {nccl['backend']} on {nccl['device']}, joined and "
+        f"meshed in {nccl['init_s']:.2f} s; a step through the mesh (its gradients "
+        f"all-reduced over NCCL) loss {nccl['loss'][0]:.6f} against {nccl['loss'][1]:.6f} "
+        f"without, worst gradient gap {nccl['grad_err']:.3e} of max|without| (bar "
+        f"{GRAD_BAR:.1e}); left the group {not nccl['initialized_after']}")
+    if not (nccl["backend"] == "nccl" and not nccl["initialized_after"]
+            and abs(nccl["loss"][0] - nccl["loss"][1]) <= LOSS_BAR * abs(nccl["loss"][1])
+            and nccl["grad_err"] <= GRAD_BAR):
+        failures.append(f"the NCCL route: {nccl}")
+    log(f"not run on this machine ({torch.cuda.device_count()} card): NCCL across several "
+        "cards, and a kernel launched on its tensors' card while another is current "
+        "(tests/test_torch_cuda.py::test_kernels_launch_on_their_tensors_card_when_another"
+        "_is_current skips below two cards)")
+    if failures:
+        raise AssertionError("phase 10: " + "; ".join(failures))
+    return {"per_step": per_step, "ms": ms, "peak_gib": peak, "loss_gaps": gaps,
+            "sharded": sharded}
 
 
 def main():
@@ -1642,6 +1971,8 @@ def main():
         two_view_step, two_view = phase("8 (two-view train)", two_view_phase, dev, inputs,
                                         smi)
         artifact = phase("9 (weights and artifact)", artifact_phase, dev, inputs, smi)
+        multi = phase("10 (multi-process training)", multi_process_phase, dev, inputs, smi,
+                      trained["cli_ms"])
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
@@ -1663,6 +1994,7 @@ def main():
          "artifact_launches": artifact["launches"]["b1"]["warp"],
          "artifact_launches_b24": artifact["launches"]["b24"]["warp"],
          **artifact["dispatch"]["warp"],
+         "multi_process_launches": multi["per_step"]["warp"],
          **kernels["warp"],
          "backward": {**backward["K1"], "loss_shapes": [backward["K1 C=1"],
                                                         backward["K1 C=3"]]}},
@@ -1674,6 +2006,7 @@ def main():
          "artifact_launches": artifact["launches"]["b1"]["chain"],
          "artifact_launches_b24": artifact["launches"]["b24"]["chain"],
          **artifact["dispatch"]["chain"],
+         "multi_process_launches": multi["per_step"]["chain"],
          **kernels["chain"], "backward": backward["K2"]},
         {"name": "idepthmap_refiner", "route": "cuda",
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
@@ -1683,6 +2016,7 @@ def main():
          "artifact_launches": artifact["launches"]["b1"]["refiner"],
          "artifact_launches_b24": artifact["launches"]["b24"]["refiner"],
          **artifact["dispatch"]["refiner"],
+         "multi_process_launches": multi["per_step"]["refiner"],
          **kernels["refiner"], "backward": backward["K3"]},
         {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
@@ -1691,6 +2025,7 @@ def main():
          "artifact_launches": artifact["launches"]["b1"]["gn_apply"],
          "artifact_launches_b24": artifact["launches"]["b24"]["gn_apply"],
          **artifact["dispatch"]["gn_apply"],
+         "multi_process_launches": multi["per_step"]["gn_apply"],
          **kernels["gn_apply"], "backward": backward["K4"]},
     ]}
     log(json.dumps(report))

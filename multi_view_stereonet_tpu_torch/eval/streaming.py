@@ -270,7 +270,9 @@ def main(argv=None):
     dataset = make_dataset(args.data_dir, args.test_split, cfg, args.decode_backend,
                            u8_output=args.transfer_u8)
     if args.num_shards > 1:
-        dataset = ShardedDataset(dataset, args.shard_id, args.num_shards)
+        # Every sample: the shards run no collective, so none need equal lengths.
+        dataset = ShardedDataset(dataset, args.shard_id, args.num_shards,
+                                 drop_ragged_tail=False)
     device = serving_device(args.device)
     runner = StreamingRunner(load_model(args.weights_dir, device),
                              model_config_from_params(cfg), device=device,

@@ -17,16 +17,7 @@ from ..geometry.projection import backproject_idepthmap, project_points
 from ..ops import resize_bilinear
 from ..ops.cuda.warp import grid_sample
 from .photometric import reconstruction_photometric_loss
-from .supervised import l1
-
-
-def _masked_mean_or_zero(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of x where mask is True; 0 for an empty mask. The reference's boolean-index
-    mean gives NaN there (losses.py:136-138), and the pixels unoccluded in both views can
-    rightly be none."""
-    m = mask.to(x.dtype)
-    count = m.sum()
-    return torch.where(count > 0, (x * m).sum() / count.clamp_min(1.0), 0.0)
+from .supervised import l1, masked_mean
 
 
 def predict_image_from_idepth(K, T_right_in_left, left_idepthmap, right_image,
@@ -93,14 +84,16 @@ def left_right_idepthmap_consistency_losses(
         r_occ_samp, _ = grid_sample(right_occ[..., None].to(torch.float32), l2r_pix,
                                     impl=impl)
         r_unocc = ~left_occ & ~(r_occ_samp[..., 0] > 0)
-        right_loss = _masked_mean_or_zero(l1(l2r_id - r_samp[..., 0]), r_unocc)
+        # 0 where no pixel is unoccluded in both views, which can rightly happen: the
+        # reference's boolean-index mean gives NaN there (losses.py:136-138).
+        right_loss = masked_mean(l1(l2r_id - r_samp[..., 0]), r_unocc)
 
         r2l_pix, r2l_id, _ = project_idepthmap(K, T_left_in_right, right)
         l_samp, _ = grid_sample(left[..., None], r2l_pix, impl=impl)
         l_occ_samp, _ = grid_sample(left_occ[..., None].to(torch.float32), r2l_pix,
                                     impl=impl)
         l_unocc = ~right_occ & ~(l_occ_samp[..., 0] > 0)
-        left_loss = _masked_mean_or_zero(l1(r2l_id - l_samp[..., 0]), l_unocc)
+        left_loss = masked_mean(l1(r2l_id - l_samp[..., 0]), l_unocc)
 
         loss = loss + right_loss + left_loss
     return loss

@@ -9,6 +9,7 @@ import torch
 
 from ..ops import avg_pool_same
 from ..ops.gradients import forward_gradx, forward_grady, gaussian_blur
+from ..parallel.mesh import batch_mean
 from .supervised import l1, masked_mean
 
 
@@ -53,4 +54,5 @@ def smoothness_loss(image: torch.Tensor, output: torch.Tensor, alpha: float) -> 
     image_smooth = gaussian_blur(image, 5, 1.0)
     wx = torch.exp(-alpha * l1(forward_gradx(image_smooth)).mean(dim=-1, keepdim=True))
     wy = torch.exp(-alpha * l1(forward_grady(image_smooth)).mean(dim=-1, keepdim=True))
-    return (l1(forward_gradx(output)) * wx).mean() + (l1(forward_grady(output)) * wy).mean()
+    return (batch_mean(l1(forward_gradx(output)) * wx)
+            + batch_mean(l1(forward_grady(output)) * wy))

@@ -10,6 +10,7 @@ import torch
 
 from ..ops import avg_pool_same
 from ..ops.gradients import central_gradx, central_grady
+from ..parallel.mesh import batch_mean
 
 
 def _znorm(features: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -30,7 +31,7 @@ def corner_loss(features: torch.Tensor, patch_size: int) -> torch.Tensor:
     gx2 = avg_pool_same(gx * gx, patch_size)
     gy2 = avg_pool_same(gy * gy, patch_size)
     gxy = avg_pool_same(gx * gy, patch_size)
-    return torch.exp(-0.1 * (gx2 * gy2 - gxy * gxy).mean())
+    return torch.exp(-0.1 * batch_mean(gx2 * gy2 - gxy * gxy))
 
 
 def gradient_matching_loss(image: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
@@ -44,4 +45,4 @@ def gradient_matching_loss(image: torch.Tensor, features: torch.Tensor) -> torch
     z = _znorm(features)
     gx_f = central_gradx(z).mean(dim=-1)
     gy_f = central_grady(z).mean(dim=-1)
-    return torch.exp(-(gxn * gx_f + gyn * gy_f).mean())
+    return torch.exp(-batch_mean(gxn * gx_f + gyn * gy_f))

@@ -1,7 +1,8 @@
 """Supervised inverse-depth losses.
 
 Port of ``multi_view_stereonet_tpu/losses/supervised.py``. Tensors on any
-device; nothing here reads a value back to the host.
+device; nothing here reads a value back to the host. Every mean over the batch is
+over the global batch inside a data-parallel step (``parallel.mesh.batch_sums``).
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import resize_bilinear
+from ..parallel.mesh import batch_mean, batch_sums
 
 
 def l1(x: torch.Tensor) -> torch.Tensor:
@@ -21,10 +23,11 @@ def l1(x: torch.Tensor) -> torch.Tensor:
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of x over the elements where mask is True; an empty mask gives 0, not 0/0,
     so a batch with no valid truth cannot poison a step. Equal to the plain mean
-    whenever the mask is not empty."""
+    whenever the mask is not empty. In a data-parallel step the sum and the count are
+    the global batch's, and so is the empty-mask rule."""
     m = mask.to(x.dtype)
-    count = m.sum()
-    return torch.where(count > 0, (x * m).sum() / count.clamp_min(1.0), 0.0)
+    total, count = batch_sums((x * m).sum(), m.sum())
+    return torch.where(count > 0, total / count.clamp_min(1.0), 0.0)
 
 
 def pseudo_huber_loss(truth: torch.Tensor, pred: torch.Tensor, scale: float = 2.0,
@@ -33,7 +36,7 @@ def pseudo_huber_loss(truth: torch.Tensor, pred: torch.Tensor, scale: float = 2.
     (reference utils/losses.py:11-18, scale 2)."""
     elem = torch.sqrt(torch.square((pred - truth) / scale) + 1.0) - 1.0
     if mask is None:
-        return elem.mean()
+        return batch_mean(elem)
     return masked_mean(elem, mask)
 
 

@@ -37,6 +37,7 @@ from ..ops import homography_warp_auto, plane_sweep_warp, resize_bilinear, upsam
 from ..ops.cuda.build import use_kernel
 from ..ops.cuda.incremental_chain import incremental_chain
 from ..ops.cuda.refiner import fused_refiner_supported, idepthmap_refiner
+from ..parallel.mesh import view_mean
 from .cost_volume import CostVolumeFilter, extract_idepthmap
 from .feature_network import FeatureNetwork
 from .refiners import FeatureRefiner, IDepthmapRefiner
@@ -201,9 +202,10 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
         idepth4_raw = idepth4_raw / (b_hw * b_hw)
         idepth4 = idepth4_raw
 
-    idepth4_raw = idepth4_raw.reshape(B, V, h4, w4).mean(dim=1)
-    idepth4 = idepth4.reshape(B, V, h4, w4).mean(dim=1)
-    mask4 = right_mask_vol.reshape(B, V, D, h4, w4).float().mean(dim=1) > 0.5
+    # Over the view group's every view where a step shards them (parallel/mesh.py).
+    idepth4_raw = view_mean(idepth4_raw.reshape(B, V, h4, w4))
+    idepth4 = view_mean(idepth4.reshape(B, V, h4, w4))
+    mask4 = view_mean(right_mask_vol.reshape(B, V, D, h4, w4).float()) > 0.5
 
     # ---- Levels 3..0: upsample and guided refinement ----
     idepthmap_pyr = [None] * NUM_LEVELS

@@ -28,6 +28,7 @@ the serving forward is bound by its host.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -127,6 +128,16 @@ def load_libraries(*names: str) -> list:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     return load_libraries(name)[0]
+
+
+def launch_device(device: torch.device):
+    """The context of a ctypes launch on ``device``'s tensors: that card made current
+    where it is not. The kernels launch through the runtime on the thread's current
+    card (and set their attributes there), whatever card their tensors are on, so a
+    process whose tensors are on another card would fail at launch."""
+    if device.index == torch._C._cuda_getDevice():  # cheaper than current_device()
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_status(name: str, status: int) -> None:

@@ -22,7 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .build import check_status, custom_op, load_library, tracing, use_kernel
+from .build import (
+    check_status, custom_op, launch_device, load_library, tracing, use_kernel)
 from .recompute import needs_autograd, plain_vjp
 
 # Kernel launches since the last reset; only the kernel path counts, one per call.
@@ -107,9 +108,10 @@ def _group_norm_act_launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Te
     sms, fn = _device_functions(dev)
     chunk, chunks = chunking(N * groups, L, BLOCKS_PER_SM * sms)
     partials = torch.empty((N * groups, chunks, 2), dtype=torch.float64, device=x.device)
-    status = fn(x.data_ptr(), None if res is None else res.data_ptr(), weight.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), partials.data_ptr(), N, C, groups, span,
-                chunk, chunks, vec, EPS, torch._C._cuda_getCurrentRawStream(dev))
+    with launch_device(x.device):
+        status = fn(x.data_ptr(), None if res is None else res.data_ptr(), weight.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), partials.data_ptr(), N, C, groups, span,
+                    chunk, chunks, vec, EPS, torch._C._cuda_getCurrentRawStream(dev))
     check_status("mvs_gn_act_f32", status)
     launches += 1
     return out

@@ -22,7 +22,8 @@ import ctypes
 
 import torch
 
-from .build import check_status, custom_op, load_library, tracing, use_kernel
+from .build import (
+    check_status, custom_op, launch_device, load_library, tracing, use_kernel)
 from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .warp import grid_sample_plain
 from ..warp import homography_grid
@@ -113,10 +114,11 @@ def _incremental_chain_launch(feats0: torch.Tensor, image_rest: torch.Tensor,
     w0, wr, wf, vec = w0.contiguous(), wr.contiguous(), wf.contiguous(), vec.contiguous()
     scratch = torch.empty((N, 3, h, w, C), dtype=torch.float32, device=feats0.device)
     stream = torch.cuda.current_stream(feats0.device).cuda_stream
-    status = _library().mvs_incremental_chain_f32(
-        feats0.data_ptr(), image_rest.data_ptr(), H_inc.data_ptr(), w0.data_ptr(),
-        wr.data_ptr(), wf.data_ptr(), vec.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), N, H_inc.shape[1], h, w, cluster, stream)
+    with launch_device(feats0.device):
+        status = _library().mvs_incremental_chain_f32(
+            feats0.data_ptr(), image_rest.data_ptr(), H_inc.data_ptr(), w0.data_ptr(),
+            wr.data_ptr(), wf.data_ptr(), vec.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), N, H_inc.shape[1], h, w, cluster, stream)
     check_status("mvs_incremental_chain_f32", status)
     launches += 1
     return out

@@ -23,7 +23,8 @@ import weakref
 
 import torch
 
-from .build import check_status, custom_op, load_library, tracing, use_kernel
+from .build import (
+    check_status, custom_op, launch_device, load_library, tracing, use_kernel)
 from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .incremental_chain import _taps
 
@@ -228,9 +229,11 @@ def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
     size = scratch_floats(N, h, w)
     scratch = torch.empty(size, dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    status = fn(guidance.data_ptr(), idepthmap.data_ptr(), pack.contiguous().data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), size, _barrier(dev, stream).data_ptr(),
-                N, Cg, h, w, (ctypes.c_int * NUM_RES)(*dilations), stream)
+    with launch_device(dev):
+        status = fn(guidance.data_ptr(), idepthmap.data_ptr(), pack.contiguous().data_ptr(),
+                    out.data_ptr(), scratch.data_ptr(), size,
+                    _barrier(dev, stream).data_ptr(), N, Cg, h, w,
+                    (ctypes.c_int * NUM_RES)(*dilations), stream)
     check_status("mvs_idepthmap_refiner_f32", status)
     launches += 1
     return out

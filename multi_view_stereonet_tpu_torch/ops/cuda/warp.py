@@ -25,7 +25,8 @@ import ctypes
 
 import torch
 
-from .build import check_status, custom_op, load_library, tracing, use_kernel
+from .build import (
+    check_status, custom_op, launch_device, load_library, tracing, use_kernel)
 from .recompute import needs_autograd, plain_vjp
 
 # Kernel launches since the last reset; only the kernel path counts.
@@ -101,9 +102,10 @@ def _grid_sample_launch(image: torch.Tensor, grid: torch.Tensor,
     image = image.contiguous()
     grid = grid.contiguous()
     stream = torch.cuda.current_stream(image.device).cuda_stream
-    status = _library().mvs_grid_sample_f32(
-        image.data_ptr(), grid.data_ptr(), out.data_ptr(), invalid.data_ptr(),
-        B, H, W, C, M, int(zero_invalid), stream)
+    with launch_device(image.device):
+        status = _library().mvs_grid_sample_f32(
+            image.data_ptr(), grid.data_ptr(), out.data_ptr(), invalid.data_ptr(),
+            B, H, W, C, M, int(zero_invalid), stream)
     check_status("mvs_grid_sample_f32", status)
     launches += 1
     return out, invalid

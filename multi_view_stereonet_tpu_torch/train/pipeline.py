@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry import baseline_norm, build_K_pyramid, normalize_baseline, se3_inverse
+from ..parallel.mesh import local_views
 from ..ops import build_image_pyramid
 
 
@@ -61,8 +62,11 @@ def multi_view_unpack_batch(batch: dict, num_levels: int = 5) -> dict:
     B, V = rights.shape[0], rights.shape[1]
     H, W = left.shape[1], left.shape[2]
 
-    T = batch["T_right_in_left"].clone()  # (B, V, 4, 4)
+    # (B, V, 4, 4), every view's also where a step shards the views: the first one's
+    # baseline scales them all, then this rank keeps its own (parallel/mesh.py).
+    T = batch["T_right_in_left"]
     baseline = baseline_norm(T[:, 0])  # (B,)
+    T = local_views(T).clone()
     T[..., :3, 3] = T[..., :3, 3] / baseline[:, None, None]
 
     left_pyr = build_image_pyramid(left, num_levels)

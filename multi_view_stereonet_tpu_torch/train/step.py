@@ -30,6 +30,7 @@ import torch
 from ..losses import LossConfig, compute_losses
 from ..models import MultiViewStereoNetConfig, mvsnet_forward
 from ..ops.quantize import dequantize_images_u8, dequantize_images_u8_unit
+from ..parallel.mesh import ProcessMesh, reducing_over
 from .pipeline import multi_view_unpack_batch, unpack_batch
 
 IMAGE_KEYS = ("left_image", "right_images")  # the multi-view batch's; two-view: right_image
@@ -200,16 +201,29 @@ def make_loss_fn(model_config: MultiViewStereoNetConfig, loss_config: LossConfig
 def make_train_step(model_config: MultiViewStereoNetConfig, loss_config: LossConfig,
                     optimizer: ScheduledOptimizer, multi_view: bool = True,
                     estimate_right_idepthmap: bool = False, transfer_u8: str | None = None,
-                    impl: str = "auto") -> Callable:
+                    impl: str = "auto", mesh: ProcessMesh | None = None) -> Callable:
     """step(model, batch) -> (loss, loss dict): the loss, its backward and one
-    ``optimizer.step()``, queued on the device; the loss stays there."""
+    ``optimizer.step()``, queued on the device; the loss stays there.
+
+    With a multi-process ``mesh`` the batch is this rank's shard (``mesh.shard_batch``
+    of its data shard's samples): the forward reduces over the mesh, so the loss and
+    loss dict are the global batch's on every rank, and the gradients are averaged
+    over the ranks before the update, which makes them the global batch's (see
+    ``parallel/mesh.py``). With ``batches_per_step`` k > 1 each mini-step's gradients
+    are averaged, and their running mean is that of the averages."""
     loss_fn = make_loss_fn(model_config, loss_config, multi_view, estimate_right_idepthmap,
                            transfer_u8, impl)
 
     def train_step(model, batch):
         optimizer.zero_grad()
-        loss, loss_dict = loss_fn(model, batch)
+        if mesh is None:
+            loss, loss_dict = loss_fn(model, batch)
+        else:
+            with reducing_over(mesh):
+                loss, loss_dict = loss_fn(model, batch)
         loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(optimizer.params)
         optimizer.step()
         return loss.detach(), {k: [x.detach() for x in v] if isinstance(v, list)
                                else v.detach() for k, v in loss_dict.items()}

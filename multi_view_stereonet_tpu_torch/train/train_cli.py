@@ -1,23 +1,39 @@
-"""Training CLI: the reference recipe on one CUDA card (or the CPU, when asked).
+"""Training CLI: the reference recipe on CUDA cards (or the CPU, when asked).
 
-Port of ``multi_view_stereonet_tpu/train/train_cli.py`` for one process:
-multi-view supervised training, or the two-view recipe (``estimate_right_idepthmap``,
-with the reconstruction and left-right losses when their factors are set), with
-per-epoch validation (EPE and outlier rates,
-validation.txt), per-epoch checkpoints (``checkpoints/epochNNNN``) and resume from
-the latest, loss logs and plots, debug images, and a SIGTERM-safe stop. The
-multi-process launch (the JAX CLI's mesh, ``--coordinator``, ``--num_processes``,
-``--process_id``) is not ported yet (ROADMAP.md M10) and is refused.
+Port of ``multi_view_stereonet_tpu/train/train_cli.py``: multi-view supervised
+training, or the two-view recipe (``estimate_right_idepthmap``, with the
+reconstruction and left-right losses when their factors are set), with per-epoch
+validation (EPE and outlier rates, validation.txt), per-epoch checkpoints
+(``checkpoints/epochNNNN``) and resume from the latest, loss logs and plots, debug
+images, and a SIGTERM-safe stop.
 
-The host never waits on the card for a step: the loss stays on the device, and each
-step's loss and loss dict are read (checked finite, logged) only after the next step
-is queued. A non-finite loss dumps the last train state whose loss was checked
+Several processes train as one (``--coordinator host:port --num_processes N
+--process_id i``, or the ``MVS_COORDINATOR_ADDRESS`` / ``MVS_NUM_PROCESSES`` /
+``MVS_PROCESS_ID`` environment variables), one process per card, as the JAX CLI's
+processes train on one global mesh (``parallel/``). ``batch_size`` stays the global
+batch: each data shard loads ``batch_size / data`` samples of its strided shard of the
+split, and with ``mesh_view`` v > 1 each group of v processes shares those samples
+and splits their comparison views. Every rank holds the global batch's loss, which
+the delayed finiteness check reads on every rank, and the global gradient. Process 0
+alone writes losses.txt, plots, debug images, validation and checkpoints (the bare
+module's ``state_dict``, as a single process writes them); validation and debug
+images run there without the mesh, over every view.
+
+The host never waits on the card for a step (but at each gloo all-reduce of a CUDA
+tensor, which goes through the host): the loss stays on the device, and each step's
+loss and loss dict are read (checked finite, logged) only after the next step is
+queued. A non-finite loss dumps the last train state whose loss was checked
 finite as ``checkpoints/epochNNNN-nanabort`` and exits with code 3.
 
 Usage:
   python -m multi_view_stereonet_tpu_torch.train.train_cli \\
       --config params.yaml --data_dir <dir> --train_split <file> \\
-      [--val_split <file>] --output_dir <run_dir> [--max_steps N] [--device cpu]
+      [--val_split <file>] --output_dir <run_dir> [--max_steps N] [--device cpu] \\
+      [--coordinator host:port --num_processes N --process_id i]
+
+With several processes, start one per card with the same arguments and its own
+``--process_id``; the backend is NCCL where each has a card of its own, gloo where
+they share one or run on the CPU.
 
 ``main`` runs in float32 with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False); a library caller of ``train``
@@ -47,6 +63,8 @@ from ..eval.streaming import serving_device, to_device
 from ..losses import LossConfig, compute_losses
 from ..models import MultiViewStereoNet, MultiViewStereoNetConfig, mvsnet_forward
 from ..ops.quantize import dequantize_images_u8
+from ..parallel import (
+    ShardedDataset, initialize, is_main_process, make_process_mesh, shutdown)
 from ..utils.timing import count_parameters, profile_trace, set_seeds
 from .config import load_params_yaml
 from .logging import log_debug_images, log_losses, log_validation_metrics, plot_losses
@@ -80,8 +98,9 @@ def model_config_from_params(params_cfg) -> MultiViewStereoNetConfig:
         remat_refiners=params_cfg.get("remat_refiners", False))
 
 
-def build_train_step(params_cfg, steps_per_epoch, model, impl="auto"):
-    """(model config, loss config, optimizer over ``model``'s parameters, train step)."""
+def build_train_step(params_cfg, steps_per_epoch, model, impl="auto", mesh=None):
+    """(model config, loss config, optimizer over ``model``'s parameters, train step);
+    the step reduces over ``mesh`` (``parallel/mesh.py``) when one is given."""
     model_config = model_config_from_params(params_cfg)
     loss_config = LossConfig(
         supervision_factor=params_cfg["supervision_factor"],
@@ -97,7 +116,8 @@ def build_train_step(params_cfg, steps_per_epoch, model, impl="auto"):
     u8_mode = (training_u8_dequantize_mode(params_cfg)
                if params_cfg.get("transfer_u8", False) else None)
     step = make_train_step(model_config, loss_config, optimizer, multi_view=not two_view,
-                           estimate_right_idepthmap=two_view, transfer_u8=u8_mode, impl=impl)
+                           estimate_right_idepthmap=two_view, transfer_u8=u8_mode, impl=impl,
+                           mesh=mesh)
     return model_config, loss_config, optimizer, step
 
 
@@ -221,7 +241,8 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     """Train on ``device`` (the card unless it names another; with no card it raises)
     and return the model. Resumes from the latest epoch checkpoint under
     ``<output_dir>/checkpoints``, or starts from ``previous_checkpoint_dir``'s weights,
-    or from the reference's init drawn from ``seed``."""
+    or from the reference's init drawn from ``seed``. In a process group
+    (``parallel.initialize``) every process calls it, and they train as one."""
     device = serving_device(device)
     if val_split and (params_cfg["reconstruction_factor"] > 0
                       or params_cfg["left_right_factor"] > 0):
@@ -230,23 +251,36 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
             "reconstruction_factor or left_right_factor > 0 needs them (the JAX CLI fails "
             "there with a KeyError on 'left_occlusion_mask_pyr'): give no val_split, or "
             "set both factors to 0")
-    if int(params_cfg.get("mesh_view", 1)) != 1:
-        raise NotImplementedError("mesh_view: the view-sharded mesh comes with multi-process "
-                                  "training (ROADMAP.md M10)")
+    two_view = bool(params_cfg.get("estimate_right_idepthmap", False))
+    workers = params_cfg.get("num_workers", 4)
+    mesh_view = int(params_cfg.get("mesh_view", 1))
+    if mesh_view > 1 and two_view:
+        raise ValueError("mesh_view > 1 shards the comparison views, and the two-view "
+                         "recipe has one")
+    if mesh_view > 1 and params_cfg["augment"] and workers > 1:
+        raise ValueError(
+            "mesh_view > 1 with augmentation needs num_workers: 1: the processes of a view "
+            "group each load the same samples, and with more loader threads a sample's "
+            "augmentation draws depend on thread scheduling, so they would differ")
+    mesh = make_process_mesh(view=mesh_view)
+    is_main = is_main_process()
+    log = print if is_main else (lambda *args, **kwargs: None)
     os.makedirs(output_dir, exist_ok=True)
     seed = params_cfg["seed"]
     set_seeds(seed)
     rng = np.random.default_rng(seed)
     batch_size = params_cfg["batch_size"]
-    workers = params_cfg.get("num_workers", 4)
+    local_batch = mesh.local_batch_size(batch_size)
 
     dataset = make_dataset(params_cfg, data_dir, train_split, True,
                            params_cfg["num_train_images"], rng)
-    loader = BatchLoader(dataset, batch_size, shuffle=params_cfg["shuffle"], seed=seed,
+    if mesh.data > 1:
+        dataset = ShardedDataset(dataset, mesh.data_index, mesh.data)
+    loader = BatchLoader(dataset, local_batch, shuffle=params_cfg["shuffle"], seed=seed,
                          workers=workers)
     steps_per_epoch = max(len(loader), 1)
     val_loader = None
-    if val_split:
+    if val_split and is_main:
         val_dataset = make_dataset(params_cfg, data_dir, val_split, False,
                                    params_cfg["num_val_images"])
         val_loader = BatchLoader(val_dataset, batch_size, shuffle=False, drop_last=False,
@@ -256,7 +290,7 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     model.load_state_dict(state_dict_from_jax_params(init_params_numpy(seed, reference=True)))
     model = model.to(device).train()
     model_config, loss_config, optimizer, train_step = build_train_step(
-        params_cfg, steps_per_epoch, model, impl)
+        params_cfg, steps_per_epoch, model, impl, mesh if mesh.distributed else None)
     val_step = make_val_step(model_config, loss_config, impl) if val_loader else None
 
     # Weights are loaded with load_state_dict, which writes each parameter in place
@@ -266,54 +300,65 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     ckpt_root = os.path.join(output_dir, "checkpoints")
     prev = params_cfg.get("previous_checkpoint_dir", "")
     latest = ckpt.latest_epoch(ckpt_root)
+    # Every process loads the same state.
     if prev:
         model.load_state_dict(ckpt.load_params(prev))
-        print(f"resumed params from {prev}")
+        log(f"resumed params from {prev}")
     elif latest is not None:
         state = ckpt.load_train_state(ckpt_root, latest)
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
         start_epoch, step_count = latest + 1, state["step"]
-        print(f"resumed from epoch {latest} (step {step_count})")
+        log(f"resumed from epoch {latest} (step {step_count})")
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"model parameters: {count_parameters(model)}; training on {name}")
+    log(f"model parameters: {count_parameters(model)}; training on {name}"
+        + (f", {mesh.data} data x {mesh.view} view processes" if mesh.distributed else ""))
     # With workers > 1 the pairing of augmentation draws and samples depends on
     # thread scheduling (data/transforms.py ThreadLocalRng).
-    print(f"data loader workers: {workers} (run-to-run bit-reproducibility requires "
-          "num_workers: 1)")
-    two_view = bool(params_cfg.get("estimate_right_idepthmap", False))
+    log(f"data loader workers: {workers} (run-to-run bit-reproducibility requires "
+        "num_workers: 1)")
     u8_mode = (training_u8_dequantize_mode(params_cfg)
                if params_cfg.get("transfer_u8", False) else None)
     if u8_mode:
-        print(f"image transport: uint8 (on-device dequantize mode '{u8_mode}'); numerics "
-              "bit-identical to the f32 feed")
+        log(f"image transport: uint8 (on-device dequantize mode '{u8_mode}'); numerics "
+            "bit-identical to the f32 feed")
 
     loss_file = os.path.join(output_dir, "losses.txt")
     val_file = os.path.join(output_dir, "validation.txt")
     num_epochs = max_epochs if max_epochs is not None else params_cfg["num_epochs"]
     profiling = contextlib.ExitStack()
+    if not is_main:
+        profile_dir = None
     if profile_dir:
         profiling.enter_context(profile_trace(profile_dir))
     graceful = None
     if stop_check is None:
         graceful = stop_check = GracefulStop()
 
+    def stop() -> bool:
+        """Whether any process was asked to stop: all leave the loop together."""
+        return mesh.any(stop_check())
+
     # ``good`` is the last (model, optimizer, step) state whose loss was checked finite;
     # ``pending`` the state that entered the step whose loss is queued but not read.
+    # Process 0 alone keeps them: it alone dumps.
     good = pending = None
 
     def abort_if_nonfinite(lossf, epoch):
         """A non-finite loss dumps the last state checked finite (the live one has
         already taken the bad update) under a "-nanabort" tag, which resume never
-        takes, and exits with code 3."""
+        takes, and exits with code 3. The loss is the global batch's, so every process
+        exits here at the same step; process 0 dumps."""
         if math.isfinite(lossf):
             return
-        dump = good or pending or (_clone(model.state_dict()), _clone(optimizer.state_dict()),
-                                   step_count)
-        path = ckpt.save_train_state(ckpt_root, epoch, *dump, suffix="-nanabort")
-        print(f"FATAL: non-finite loss {lossf} at step {step_count}; last verified-good "
-              f"state (step {dump[2]}) dumped to {path}", file=sys.stderr, flush=True)
+        if is_main:
+            dump = good or pending or (_clone(model.state_dict()),
+                                       _clone(optimizer.state_dict()), step_count)
+            path = ckpt.save_train_state(ckpt_root, epoch, *dump, suffix="-nanabort")
+            print(f"FATAL: non-finite loss {lossf} at step {step_count}; last "
+                  f"verified-good state (step {dump[2]}) dumped to {path}", file=sys.stderr,
+                  flush=True)
         raise SystemExit(3)
 
     def finish(record):
@@ -323,10 +368,10 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
         lossf, host_dict = _losses_to_host(loss, loss_dict)
         abort_if_nonfinite(lossf, epoch)
         good = pending
-        if step % params_cfg["print_freq"] == 0:
+        if is_main and step % params_cfg["print_freq"] == 0:
             print(f"epoch {epoch} batch {batch_idx} step {step} loss {lossf:.4f}")
             log_losses(epoch, batch_idx, step, lossf, host_dict, loss_file)
-        if params_cfg["plot_freq"] and step % params_cfg["plot_freq"] == 0:
+        if is_main and params_cfg["plot_freq"] and step % params_cfg["plot_freq"] == 0:
             plot_losses(loss_file, os.path.join(output_dir, "plots"))
 
     try:
@@ -338,9 +383,9 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
             queued = None
             for batch_idx, batch in enumerate(loader):
                 names = batch["left_filenames"]
-                tensors = _batch_tensors(batch, device)
-                entering = (_clone(model.state_dict()), _clone(optimizer.state_dict()),
-                            step_count)
+                tensors = _batch_tensors(mesh.shard_batch(batch), device)
+                entering = ((_clone(model.state_dict()), _clone(optimizer.state_dict()),
+                             step_count) if is_main else None)
                 loss, loss_dict = train_step(model, two_view_batch(tensors) if two_view
                                              else tensors)
                 step_count += 1
@@ -352,18 +397,19 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
                         torch.cuda.synchronize(device)
                     profiling.close()
                     profile_dir = None
-                if (params_cfg["debug_image_freq"]
+                if (is_main and params_cfg["debug_image_freq"]
                         and step_count % params_cfg["debug_image_freq"] == 0):
-                    # From the V-axis batch, also in the two-view recipe.
-                    _debug_images(model, model_config, tensors, names, u8_mode, impl, epoch,
+                    # From the V-axis batch, every view, also in the two-view recipe.
+                    full = tensors if mesh.view == 1 else _batch_tensors(batch, device)
+                    _debug_images(model, model_config, full, names, u8_mode, impl, epoch,
                                   step_count, os.path.join(output_dir, "debug_images"))
-                if (max_steps and step_count >= max_steps) or stop_check():
+                if (max_steps and step_count >= max_steps) or stop():
                     break
             # The epoch's last step is read before its state is saved as a checkpoint.
             if queued is not None:
                 finish(queued)
 
-            stopping = stop_check()
+            stopping = stop()
             t_train = time.time() - t_epoch
             t_val = 0.0
             if val_loader is not None and not stopping:
@@ -378,12 +424,14 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
                           "everywhere; no recovery gradient). Check scene/idepth statistics "
                           "vs the hypothesis sweep range, or lower the learning rate.",
                           flush=True)
-            t0 = time.time()
-            path = ckpt.save_train_state(ckpt_root, epoch, model, optimizer.state_dict(),
-                                         step_count)
-            tag = "preempted at" if stopping else "done in"
-            print(f"epoch {epoch} {tag} {time.time() - t_epoch:.1f}s (train {t_train:.1f}s, "
-                  f"val {t_val:.1f}s, ckpt {time.time() - t0:.1f}s); checkpoint: {path}")
+            if is_main:
+                t0 = time.time()
+                path = ckpt.save_train_state(ckpt_root, epoch, model,
+                                             optimizer.state_dict(), step_count)
+                tag = "preempted at" if stopping else "done in"
+                print(f"epoch {epoch} {tag} {time.time() - t_epoch:.1f}s (train "
+                      f"{t_train:.1f}s, val {t_val:.1f}s, ckpt {time.time() - t0:.1f}s); "
+                      f"checkpoint: {path}")
             if stopping or (max_steps and step_count >= max_steps):
                 break
     finally:
@@ -422,22 +470,31 @@ def main(argv=None):
     parser.add_argument("--max_epochs", type=int, default=None)
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler Chrome trace of the first steps here")
-    parser.add_argument("--device", default="cuda")
-    # The JAX CLI's multi-process launch; refused until it is ported (ROADMAP.md M10).
-    for flag in ("--coordinator", "--num_processes", "--process_id"):
-        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--device", default="cuda",
+                        help="'cpu' trains on the CPU (over gloo with several processes); "
+                             "else each process takes a card of its own where it can")
+    # Several processes, one per card. The defaults come from the
+    # MVS_COORDINATOR_ADDRESS / MVS_NUM_PROCESSES / MVS_PROCESS_ID environment
+    # variables; with neither, the run is one process.
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of process 0 for a multi-process run")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     args = parser.parse_args(argv)
-    given = [f for f in ("coordinator", "num_processes", "process_id")
-             if getattr(args, f) is not None]
-    if given:
-        parser.error(f"--{given[0]}: multi-process training is not ported yet "
-                     "(ROADMAP.md M10); the port trains in one process")
+    if (args.num_processes is not None and args.process_id is not None
+            and not 0 <= args.process_id < args.num_processes):
+        parser.error(f"--process_id {args.process_id} must be in "
+                     f"[0, --num_processes {args.num_processes})")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    train(load_params_yaml(args.config), args.data_dir, args.train_split, args.val_split,
-          args.output_dir, args.max_steps, args.max_epochs, profile_dir=args.profile_dir,
-          device=args.device)
+    initialize(args.coordinator, args.num_processes, args.process_id, device=args.device)
+    try:
+        train(load_params_yaml(args.config), args.data_dir, args.train_split,
+              args.val_split, args.output_dir, args.max_steps, args.max_epochs,
+              profile_dir=args.profile_dir, device=args.device)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

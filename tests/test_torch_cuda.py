@@ -15,7 +15,9 @@ the whole forward within 0.2% of each level's output range; the multi-view and
 the two-view training losses and gradients within docs/PARITY.md:218-232's bar. The u8 dequantize is
 bit-equal to the host pipeline for all 256 values. Each kernel's custom op passes
 ``torch.library.opcheck``, and the serving artifact exported on the card holds all
-four and is bit-equal to the live forward.
+four and is bit-equal to the live forward. Two processes on the card over gloo give one
+process's training step (``tests/_torch_distributed_worker.py``); with two cards, each
+kernel launches on its tensors' card while another is current.
 """
 
 import importlib.util
@@ -464,6 +466,92 @@ def assert_training_matches_plain(results):
         if r.abs().max().item() > floor:
             cos = torch.nn.functional.cosine_similarity(got[k].flatten(), r.flatten(), dim=0)
             assert cos.item() > 1 - 2e-6, (k, cos.item())
+
+
+def distributed_worker():
+    """tests/_torch_distributed_worker.py by path (see ``synthetic_data``)."""
+    spec = importlib.util.spec_from_file_location(
+        "_torch_distributed_worker", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                  "_torch_distributed_worker.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_two_processes_on_the_card_match_one(dev, tmp_path):
+    """Two processes on one card over gloo (NCCL takes no two ranks on one device), each
+    its half of a global B = 4 at V = 2, 64x80, D = 12, through ``make_train_step`` with
+    a mesh; then ``mesh_view`` 2 (one view a process): the loss identical on both and,
+    with every gradient, within the bar of one process's step on the global batch."""
+    from multi_view_stereonet_tpu_torch.losses import LossConfig
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
+
+    worker = distributed_worker()
+    B, V, H, W = 4, 2, 64, 80
+    rng = np.random.default_rng(13)
+    K, T = scene(B * V, H, W, seed=13)
+    depth = rng.uniform(2.0, 10.0, size=(B, H, W)).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < np.array([0.6, 0.05, 0.05, 0.05])[:, None, None]] = 0
+    batch = {"left_image": rng.uniform(-1, 1, (B, H, W, 3)).astype(np.float32),
+             "right_images": rng.uniform(-1, 1, (B, V, H, W, 3)).astype(np.float32),
+             "K": K[:B].numpy(), "T_right_in_left": T.reshape(B, V, 4, 4).numpy(),
+             "left_depthmap_true": depth}
+    np.savez(tmp_path / "batch.npz", **batch)
+    torch.save(random_state_dict(0), tmp_path / "weights.pth")
+    case = {"weights": str(tmp_path / "weights.pth"), "batch": str(tmp_path / "batch.npz"),
+            "two_view": False, "D": 12, "factors": {}}
+    job = {"mode": "step", "device": "cuda", "out": str(tmp_path),
+           "cases": {"data": dict(case, mesh_view=1), "view": dict(case, mesh_view=2)}}
+    results = worker.wait(worker.start(job, str(tmp_path), "card"))
+    for rc, out, err in results:
+        assert rc == 0 and "RESULT ok" in out, err[-3000:]
+    assert "2 processes over gloo" in results[0][1]
+
+    model = MultiViewStereoNet()
+    model.load_state_dict(random_state_dict(0))
+    model = model.to(dev)
+    loss, _ = make_loss_fn(MultiViewStereoNetConfig(num_idepth_samples=12), LossConfig())(
+        model, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    loss.backward()
+    ref = (loss.item(), {k: p.grad for k, p in model.named_parameters()})
+    for name in ("data", "view"):
+        r0, r1 = (np.load(tmp_path / f"{name}_rank{r}.npz") for r in (0, 1))
+        assert r0["loss"] == r1["loss"], name
+        got = {k: torch.from_numpy(r0[f"grad/{k}"]).to(dev) for k in ref[1]}
+        assert_training_matches_plain({"auto": (float(r0["loss"]), got), "plain": ref})
+
+
+def test_kernels_launch_on_their_tensors_card_when_another_is_current(dev):
+    """With card 0 current, each kernel on tensors of card 1 launches there and matches
+    its plain version (the wrappers make the tensors' card current for the launch)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards, this machine has {torch.cuda.device_count()}")
+    other = torch.device("cuda", 1)
+    g = torch.Generator().manual_seed(3)
+    image = (torch.rand(2, 64, 80, 3, generator=g) * 2 - 1).to(other)
+    grid = (torch.rand(2, 64, 80, 2, generator=g) * 2.2 - 1.1).to(other)
+    module = idepthmap_refiner_module(35, seed=1, dev=other)
+    guidance = (torch.rand(2, 35, 30, 40, generator=g) * 2 - 1).to(other)
+    idepth = (torch.rand(2, 30, 40, generator=g) * 20).to(other)
+    x, weight, bias, res = gn_case((2, 32, 30, 40), True, other)
+    refiner, feats0, image_rest, H_inc = chain_case(2, 30, 40, 12, 0.0, seed=2, dev=other)
+    calls = {
+        "K1": lambda impl: warp.grid_sample(image, grid, True, impl=impl)[0],
+        "K2": lambda impl: chain.incremental_chain(refiner, feats0, image_rest, H_inc,
+                                                   impl=impl),
+        "K3": lambda impl: refiner_op.idepthmap_refiner(module, guidance, idepth, impl),
+        "K4": lambda impl: gn_apply.group_norm_act(x, weight, bias, 4, res, impl),
+    }
+    with torch.cuda.device(0), torch.inference_mode():
+        for name, call in calls.items():
+            before = counts()
+            got = call("auto")
+            assert counts() != before, name  # the kernel, not the plain version
+            ref = call("plain")
+            torch.cuda.synchronize(other)
+            assert got.device == other and torch.cuda.current_device() == 0, name
+            assert torch.allclose(got, ref, atol=2e-5 * max(1.0, ref.abs().max().item()),
+                                  rtol=2e-4), name
 
 
 def rendered_pair(B=1, seed=11, rows=64, cols=80):

@@ -126,16 +126,18 @@ def test_pooling_gradients_and_blurs_match_jax(name):
 
 
 def test_masked_mean_or_zero_on_an_empty_mask():
+    """The consistency losses' masked mean (the port's one ``masked_mean``) against the
+    JAX module's ``_masked_mean_or_zero``."""
     x = tt(np.random.default_rng(2).uniform(size=(2, 5, 6)).astype(np.float32)).requires_grad_()
     empty = torch.zeros(2, 5, 6, dtype=torch.bool)
-    out = tconsistency._masked_mean_or_zero(x, empty)
+    out = tconsistency.masked_mean(x, empty)
     out.backward()
     ref = jconsistency._masked_mean_or_zero(jnp.asarray(x.detach().numpy()),
                                             jnp.zeros((2, 5, 6), bool))
     assert out.item() == float(ref) == 0.0
     assert torch.equal(x.grad, torch.zeros_like(x))
     full = torch.ones_like(empty)
-    assert_loss_close(tconsistency._masked_mean_or_zero(x, full), x.detach().mean().numpy())
+    assert_loss_close(tconsistency.masked_mean(x, full), x.detach().mean().numpy())
 
 
 def _photometric_case(name, rng):

@@ -7,7 +7,8 @@
   written and a relaunch resumes from it.
 - A NaN batch: the "-nanabort" dump of the last state whose loss was checked finite,
   never taken for an epoch checkpoint, and exit code 3.
-- The DeMoN tree, and the refused multi-process flags.
+- The DeMoN tree; the multi-process flags reaching ``parallel.initialize``, a bad
+  process_id refused, and a one-process run that joins no group.
 - Against the JAX ``train()``: the same tree, sgd, no augmentation, one loader
   worker, both runs started from one set of weights through
   ``previous_checkpoint_dir`` (msgpack for JAX, .pth for the port): losses.txt and
@@ -181,16 +182,35 @@ def test_demon_tree_trains_and_validates(tmp_path):
     assert np.isfinite(float(rows[0][header.index("loss")]))
 
 
-def test_main_refuses_multi_process_flags_and_trains_on_the_cpu(gta, tmp_path):
+def test_main_refuses_multi_process_flags_and_trains_on_the_cpu(gta, tmp_path, monkeypatch):
+    """The multi-process flags reach ``parallel.initialize``; a process_id outside the
+    group is refused (exit 2). With one process named the run is a single process: it
+    joins no process group, launches no collective, and trains on the CPU."""
     data_dir, split = gta
     config = tmp_path / "params.yaml"
     config.write_text(yaml.safe_dump(tiny_cfg()))
     args = ["--config", str(config), "--data_dir", data_dir, "--train_split", split,
-            "--output_dir", str(tmp_path / "run"), "--max_steps", "1"]
+            "--output_dir", str(tmp_path / "run"), "--max_steps", "1", "--device", "cpu"]
+    flags = ["--coordinator", "localhost:1234", "--num_processes"]
     with pytest.raises(SystemExit) as exc:
-        train_cli.main(args + ["--coordinator", "localhost:1234"])
+        train_cli.main(args + flags + ["2", "--process_id", "2"])
     assert exc.value.code == 2
-    train_cli.main(args + ["--device", "cpu"])
+
+    calls, initialize = [], train_cli.initialize
+
+    def recording_initialize(*a, **kw):
+        joined = initialize(*a, **kw)
+        calls.append((a, kw, joined))
+        return joined
+
+    def no_collective(*a, **kw):
+        raise AssertionError("a single process launched a collective")
+
+    monkeypatch.setattr(train_cli, "initialize", recording_initialize)
+    monkeypatch.setattr(torch.distributed, "all_reduce", no_collective)
+    train_cli.main(args + flags + ["1", "--process_id", "0"])
+    assert calls == [(("localhost:1234", 1, 0), {"device": "cpu"}, False)]
+    assert not torch.distributed.is_initialized()
     assert native.latest_epoch(str(tmp_path / "run" / "checkpoints")) == 0
 
 

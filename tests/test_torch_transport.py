@@ -192,8 +192,10 @@ def test_run_reads_back_through_the_ring(tree, monkeypatch):
 
 @pytest.mark.parametrize("process_count", [3, 4])
 def test_sharded_dataset_covers_every_sample_once(process_count):
+    """Without ``drop_ragged_tail``, as the streaming CLI's fleet shards take it."""
     samples = list(range(10))
-    shards = [ShardedDataset(samples, i, process_count) for i in range(process_count)]
+    shards = [ShardedDataset(samples, i, process_count, drop_ragged_tail=False)
+              for i in range(process_count)]
     seen = sorted(s for shard in shards for s in (shard[j] for j in range(len(shard))))
     assert seen == samples
     for i, shard in enumerate(shards):
