@@ -135,6 +135,25 @@ Phases, each printing its results; any failure raises and exits non-zero:
    NCCL at one process: join, a step through the mesh against one without, leave.
    NCCL across cards and a launch on a card other than the current one need more than
    one card: logged as not run.
+11. The bf16 serving forward (``compute_dtype: bfloat16``). (a) Each kernel's bf16
+   variant at phase 3's serving shapes against its plain version at bf16: K1's bf16
+   output (f32 image in) bit-equal to the f32 kernel's output rounded; K4 (x and res
+   bf16, the conv's bias as xbias) within one bf16 ulp of the f32 GroupNorm value plus
+   one of the plain result at every element; K2 (N = 1 and 8, D = 12) within 5% of
+   max|plain| and 2% of the f32 chain's max; K3 (level 4 at N = 1, 2, level 3) within
+   1% of max|plain|, and after a bf16 launch the f32 launch equal to a cold-cache f32
+   launch (the pack is kept per storage dtype); each one's device time (``graph_ms``) beside the f32 kernel's and
+   its bound at bf16 bytes (operations at the bf16 tensor-core peak). (b) The V = 1 and
+   V = 2 trees served through StreamingRunner at bf16 from zeroed counts: launches 2 /
+   1 / 2 / 31 a forward, outputs f32 and finite; on each tree's first request, per
+   pyramid level, max and mean |bf16 - f32| within 3% and 0.5% of the f32 level's
+   range, and the bf16 kernel path within 2% of the bf16 plain path. (c) ms/frame at
+   bf16 and f32 in turns (f32, bf16, bf16, f32) at B = 1 and 8, device-busy ms a
+   forward (torch.profiler) and peak memory, recorded and claimed for nothing. (d) The
+   eval CLI with ``compute_dtype: bfloat16`` in params.yaml over the V = 1 tree beside
+   f32 (files written, abs_rel of both), and ``export --dtype bfloat16`` at B = 1 run
+   in a fresh process bit-equal to the live runner at bf16, launches 2 / 1 / 2 / 31.
+   A bar missed fails the phase after every measurement is printed.
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
@@ -145,8 +164,10 @@ bounds and library times (launches are phase 4's, "train_launches" phase
 "artifact_launches" and "artifact_launches_b24" phase 9's artifacts' in their
 fresh processes; "op_call_us", "direct_call_us" and "guard_us" phase 9's dispatch
 costs; "multi_process_launches" a process's launches a step in phase 10 (d)), each
-with a "backward" entry (phase 3b); K1's entry and its backward carry "loss_shapes",
-one entry each for one and three channels at the losses' shapes. Then the
+with a "backward" entry (phase 3b) and a "bf16" entry (phase 11: its error, device
+times, the f32 kernel's, its bound at bf16, the bar it met and its launches in phase
+11 (b)); K1's entry and its backward carry "loss_shapes", one entry each for one and
+three channels at the losses' shapes. Then the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -192,6 +213,24 @@ RATIOS = ("a1", "a2", "a3")
 # cores (dense), at the full 700 W power limit.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores (the bf16 kernels' convs)
+# Phase 11 (bf16 serving): K3 at bf16 within 1% of max|plain|. K2 within 5% of max|plain|
+# at bf16 and within 2% of max|plain| of the f32 chain: the kernel rounds as the Pallas
+# kernel does (the warp in f32) and the plain loop as the scan (the warp at bf16), and the
+# eleven steps compound the difference (2.4% of max|plain| emulated on the CPU; the JAX
+# scan at bf16 lies 2.4% from the f32 chain itself). The bf16 forward against the f32
+# forward, per level, mean within 0.5% and max within 3% of the range (the range the JAX
+# package's bf16 forward reads, docs/PARITY.md:157-160); the bf16 kernel path within 1%
+# of the range of the bf16 plain path, widened to 2% (the chain's rounding difference
+# reaches the soft-argmin: 0.90% measured at V=2). K4 at bf16 within one bf16 ulp of the
+# GroupNorm's output and one of the result at each element: kernel and plain version
+# differ only where the f32 GroupNorm value rounds to another bf16, and LeakyReLU's
+# product and the residual's sum carry that difference on (a residual that cancels the
+# branch makes it many ulps of the result).
+BF16_KERNEL_BAR = 1e-2
+BF16_CHAIN_BAR, BF16_CHAIN_F32_BAR = 5e-2, 2e-2
+BF16_FORWARD_MEAN, BF16_FORWARD_MAX = 5e-3, 3e-2
+BF16_PATH_BAR = 2e-2
 H0, W0, D = 480, 640, 12
 LONG = 96  # requests of the tree that phases 5 and 6 time
 ARTIFACT_KEYS = ("left_image", "right_images", "K", "T_right_in_left")
@@ -313,11 +352,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(read_write_bytes, flops):
-    """The least time (ms) the card could take: bytes over its memory rate or f32
-    operations over its peak, the larger, and which of the two it is."""
+def bound(read_write_bytes, flops, peak_flops=PEAK_F32_FLOPS):
+    """The least time (ms) the card could take: bytes over its memory rate or operations
+    over their type's peak (f32 by default), the larger, and which of the two it is."""
     by_bytes = read_write_bytes / PEAK_BYTES_S * 1e3
-    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    by_ops = flops / peak_flops * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -1641,6 +1680,391 @@ def artifact_phase(dev, inputs, smi):
             "dispatch": costs}
 
 
+def bf16_ulp(t):
+    """One bf16 ulp at each element of ``t`` (bf16 values as f32): 2^(e - 7) for |t| in
+    [2^e, 2^(e+1)), the smallest normal's for 0."""
+    mag = t.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_kernels_bf16(dev, f32_kernels, failures):
+    """Phase 11 (a): each kernel's bf16 variant at phase 3's serving shapes against its
+    plain version at bf16, with its device time beside the f32 kernel's (phase 3) and its
+    bound at bf16 bytes. A bar missed is appended to ``failures``."""
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.geometry import (
+        build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
+        incremental_homographies, normalize_baseline)
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner, IDepthmapRefiner
+    from multi_view_stereonet_tpu_torch.ops import homography_grid
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.ops.cuda import warp
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(11)
+    results = {}
+
+    def geometry(n, seed):
+        K, T = scene(n, seed)
+        T, _ = normalize_baseline(T)
+        K_pyr = build_K_pyramid(K, pyramid_sizes(H0, W0, 5))
+        return K_pyr, T, create_idepth_samples(T, K_pyr[4], 30, 40, D)
+
+    def entry(err, t, b, bar, f32_name):
+        return {"max_abs_err": err, **t, "f32_ms": f32_kernels[f32_name]["ms"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "bar": bar}
+
+    # K1 at the min-idepth warp, f32 image in, bf16 out: bit-equal to the f32 kernel's
+    # output rounded (the plain version's too, up to its 1e-5 f32 bar).
+    K_pyr, T, samples = geometry(1, 1)
+    H_min = create_plane_sweep_homographies(T, K_pyr[0], samples[:, :1])[:, 0]
+    image = (torch.rand(1, H0, W0, 3, generator=g) * 2 - 1).to(dev)
+    grid = homography_grid(H_min, H0, W0)
+    got, inv = warp.grid_sample(image, grid, True, impl="kernel", out_dtype=bf16)
+    f32, inv32 = warp.grid_sample(image, grid, True, impl="kernel")
+    ref, _ = warp.grid_sample(image, grid, True, impl="plain", out_dtype=bf16)
+    equal = got.dtype == bf16 and torch.equal(got, f32.to(bf16)) and torch.equal(inv, inv32)
+    err = (got.float() - ref.float()).abs().max().item()
+    t = {"ms": graph_ms(lambda: warp.grid_sample(image, grid, True, impl="kernel",
+                                                 out_dtype=bf16)),
+         "plain_ms": graph_ms(lambda: warp.grid_sample(image, grid, True, impl="plain",
+                                                       out_dtype=bf16))}
+    b = bound(nbytes(image, grid, got, inv), got.numel() // 3 * (20 + 7 * 3))
+    log(f"K1 grid_sample bf16 out (1,480,640,3) min-idepth warp: bit-equal to the f32 "
+        f"kernel rounded {equal}; max|kernel - plain at bf16| {err:.3e}; device kernel "
+        f"{t['ms']:.4f} ms (f32 out {f32_kernels['warp']['ms']:.4f}), plain "
+        f"{t['plain_ms']:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+    if not equal:
+        failures.append("K1's bf16 output is not its f32 output rounded")
+    results["warp"] = entry(err, t, b, "bit-equal to the f32 kernel rounded", "warp")
+
+    # K2 at N = 1 and 8, 30x40x32, D = 12: feats0 and the carry bf16.
+    refiner = FeatureRefiner(32)
+    prefix = "right_feature_extractor.refiner."
+    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
+                             if k.startswith(prefix)})
+    refiner = refiner.to(dev).eval()
+    for n in (1, 8):
+        K_pyr, T, samples = geometry(n, 10 + n)
+        H_inc = incremental_homographies(create_plane_sweep_homographies(T, K_pyr[4], samples))
+        feats0 = torch.randn(n, 30, 40, 32, generator=g).to(dev).to(bf16)
+        image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+
+        def kernel():
+            return chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="kernel")
+
+        def plain():
+            return chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
+        got, ref = kernel(), plain()
+        ref32 = chain.incremental_chain(refiner, feats0.float(), image_rest, H_inc,
+                                        impl="plain")
+        scale = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        err32 = (got.float() - ref32).abs().max().item()
+        plain_err32 = (ref.float() - ref32).abs().max().item()
+        scale32 = ref32.abs().max().item()
+        ok = (got.dtype == bf16 and bool(torch.isfinite(got).all())
+              and err <= BF16_CHAIN_BAR * scale and err32 <= BF16_CHAIN_F32_BAR * scale32)
+        t = {"ms": graph_ms(kernel), "plain_ms": graph_ms(plain)}
+        b = bound(nbytes(feats0, image_rest.to(bf16), H_inc, got, *refiner.parameters()),
+                  (D - 1) * (conv_flops(refiner, n * 30 * 40) + 20 * got[:, 0].numel()),
+                  PEAK_BF16_FLOPS)
+        log(f"K2 incremental_chain bf16 N={n} 30x40x32 D={D}: max_abs_err {err:.3e} "
+            f"({err / scale:.4f} of max|plain| {scale:.3f}, bar {BF16_CHAIN_BAR}); against "
+            f"the f32 chain {err32 / scale32:.4f} of its max (bar {BF16_CHAIN_F32_BAR}; the "
+            f"plain bf16 loop's {plain_err32 / scale32:.4f}), within bars {ok}; device kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+        if not ok:
+            failures.append(f"K2 at bf16 off its plain version or the f32 chain at N={n}")
+        if n == 1:
+            results["chain"] = entry(err, t, b, f"{BF16_CHAIN_BAR} * max|plain|, "
+                                     f"{BF16_CHAIN_F32_BAR} * max|f32 plain|", "chain")
+        else:
+            results["chain"]["max_abs_err"] = max(results["chain"]["max_abs_err"], err)
+
+    # K3 at level 4 (N = 1, 2) and level 3 (N = 1): guidance bf16, idepth f32; the error
+    # also against the largest delta, which is what the bf16 path rounds.
+    state = random_state_dict(4)
+    for n, h, w, name in ((1, 30, 40, "refiner4"), (2, 30, 40, "refiner4"),
+                          (1, 60, 80, "refiner3")):
+        with torch.inference_mode(False):
+            module = IDepthmapRefiner(35)
+            module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                    if k.startswith(name + ".")})
+            module = module.to(dev).eval()
+        guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev).to(bf16)
+        idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+        got = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="kernel")
+        ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+        scale = ref.abs().max().item()
+        delta = (ref - idepth).abs().max().item()
+        err = (got - ref).abs().max().item()
+        ok = got.dtype == torch.float32 and bool(torch.isfinite(got).all()) and (
+            err <= BF16_KERNEL_BAR * scale)
+        t = {"ms": graph_ms(lambda: refiner_op.idepthmap_refiner(module, guidance, idepth,
+                                                                 impl="kernel")),
+             "plain_ms": graph_ms(lambda: refiner_op.idepthmap_refiner(
+                 module, guidance, idepth, impl="plain"))}
+        b = bound(nbytes(guidance, idepth, got, *module.parameters()),
+                  conv_flops(module, n * h * w) + 7 * 10 * 32 * n * h * w, PEAK_BF16_FLOPS)
+        log(f"K3 idepthmap_refiner bf16 ({n},35,{h},{w}): max_abs_err {err:.3e}, max|plain| "
+            f"{scale:.3f} (bar {BF16_KERNEL_BAR:.0e} * max|plain|), max|delta| {delta:.3f} "
+            f"(error {err / max(delta, 1e-30):.3e} of it), within bar {ok}; device kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+        if not ok:
+            failures.append(f"K3 at bf16 disagrees with its plain version at ({n},35,{h},{w})")
+        if n == 1 and h == 30:
+            # The pack is kept per storage dtype: after a bf16 launch the f32 kernel gets
+            # the f32 pack, and gives what it gives from a cold cache.
+            refiner_op.invalidate_packed_weights(module)
+            cold = refiner_op.idepthmap_refiner(module, guidance.float(), idepth, impl="kernel")
+            refiner_op.idepthmap_refiner(module, guidance, idepth, impl="kernel")
+            after = refiner_op.idepthmap_refiner(module, guidance.float(), idepth,
+                                                 impl="kernel")
+            log(f"K3 pack after a bf16 launch: the f32 launch equals a cold-cache f32 "
+                f"launch {torch.equal(after, cold)}, differs from the bf16 one "
+                f"{not torch.equal(got, cold)}")
+            if not (torch.equal(after, cold) and not torch.equal(got, cold)):
+                failures.append("K3's bf16 pack reached the f32 kernel")
+        if name == "refiner3":
+            results["refiner"] = entry(max(err, results.get("refiner", {}).get(
+                "max_abs_err", 0.0)), t, b, f"{BF16_KERNEL_BAR} * max|plain|", "refiner")
+        else:
+            results.setdefault("refiner", {"max_abs_err": 0.0})
+            results["refiner"]["max_abs_err"] = max(results["refiner"]["max_abs_err"], err)
+
+    # K4 at every GroupNorm shape of the serving forward: within one bf16 ulp of the f32
+    # GroupNorm value and one of the plain result at every element (BF16_KERNEL_BAR's
+    # note).
+    weight = state["refiner0.res0.bn1.weight"].to(dev)
+    bias = state["refiner0.res0.bn1.bias"].to(dev)
+    # At bf16 the conv that writes x leaves its bias to the GroupNorm (xbias).
+    xbias = state["refiner0.res0.conv1.bias"].to(dev)
+    worst_ulps = worst_err = 0.0
+    for shape, residual, what in GN_SHAPES:
+        x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev).to(bf16)
+        res = torch.randn(shape, generator=g).to(dev).to(bf16) if residual else None
+
+        def kernel():
+            return gn_apply.group_norm_act(x, weight, bias, 4, res, impl="kernel",
+                                           xbias=xbias)
+
+        def plain():
+            return gn_apply.group_norm_act(x, weight, bias, 4, res, impl="plain",
+                                           xbias=xbias)
+        got, ref = kernel().float(), plain().float()
+        y = torch.nn.functional.group_norm(
+            x.float() + xbias.reshape((-1,) + (1,) * (x.ndim - 2)), 4, weight, bias,
+            gn_apply.EPS)
+        ulps = ((got - ref).abs() / (bf16_ulp(y) + bf16_ulp(ref))).max().item()
+        worst_ulps = max(worst_ulps, ulps)
+        err = (got - ref).abs().max().item()
+        worst_err = max(worst_err, err)
+        log(f"K4 group_norm_act bf16 {shape} {'+ res' if residual else 'no res'} ({what}): "
+            f"max_abs_err {err:.3e}, worst {ulps:.2f} of (ulp(GroupNorm) + ulp(result)) "
+            f"(bar 1), elements off "
+            f"{(got != ref).float().mean().item():.2e}")
+        if not (ulps <= 1.0 and bool(torch.isfinite(got).all())):
+            failures.append(f"K4 at bf16 disagrees with its plain version at {shape}")
+        if shape == (1, 32, H0, W0) and residual:
+            t = {"ms": graph_ms(kernel), "plain_ms": graph_ms(plain)}
+            b = bound(nbytes(x, kernel(), weight, bias, xbias, res), 11 * x.numel())
+            log(f"K4 bf16 {shape} + res: device kernel {t['ms']:.4f} ms (f32 "
+                f"{f32_kernels['gn_apply']['ms']:.4f}), plain {t['plain_ms']:.4f} ms; bound "
+                f"{b[0]:.4f} ms ({b[1]})")
+            results["gn_apply"] = entry(err, t, b, "ulp(GroupNorm value) + ulp(plain) per "
+                                        "element", "gn_apply")
+    results["gn_apply"].update(max_abs_err=worst_err, worst_ulps=worst_ulps)
+    return results
+
+
+def forward_levels(model, tensors, config, impl="auto"):
+    """The serving forward's refined pyramid, level 0 first, metric (each level over the
+    baseline, as ``serving_forward`` scales level 0)."""
+    from multi_view_stereonet_tpu_torch.models import mvsnet_forward
+    from multi_view_stereonet_tpu_torch.train.pipeline import multi_view_unpack_batch
+
+    inputs = multi_view_unpack_batch(tensors, NUM_LEVELS)
+    out = mvsnet_forward(model, inputs["left_image_pyr"], inputs["K_pyr"],
+                         inputs["T_right_in_left"], inputs["right_image_pyr"], config, impl)
+    scale = inputs["baseline"][:, None, None]
+    return [lvl / scale for lvl in out["left_idepthmap_pyr"]]
+
+
+def level_deviation(got, ref):
+    """Per level: (max, mean) of |got - ref| over ref's range."""
+    out = []
+    for g, r in zip(got, ref):
+        span = (r.max() - r.min()).item()
+        d = (g.float() - r).abs()
+        out.append((d.max().item() / span, d.mean().item() / span))
+    return out
+
+
+def bf16_phase(dev, inputs, smi, f32_kernels):
+    """Phase 11: the bf16 serving forward (compute_dtype bfloat16): (a) each kernel's bf16
+    variant against its plain version, (b) the forward against the f32 forward and the
+    kernel path against the plain path, with the launches, (c) timings, (d) the eval CLI
+    and the exported artifact at bf16."""
+    import dataclasses
+
+    import yaml
+
+    from multi_view_stereonet_tpu_torch.checkpoint import export
+    from multi_view_stereonet_tpu_torch.eval.streaming import (
+        MODEL_KEYS, StreamingRunner, load_model, make_dataset, model_config_from_params)
+    from multi_view_stereonet_tpu_torch.eval.test_cli import run_eval
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    failures = []  # bars missed, raised together at the end of the phase
+    with torch.inference_mode():
+        kernels = check_kernels_bf16(dev, f32_kernels, failures)
+
+    cfg = load_params_yaml(inputs["params_yaml"])
+    f32_config = model_config_from_params(cfg)
+    config = dataclasses.replace(f32_config, compute_dtype="bfloat16")
+    model = load_model(inputs["weights_dir"], dev)
+    datasets = {v: make_dataset(data_dir, split, cfg, decode_backend="pil")
+                for v, (data_dir, split) in inputs["trees"].items()}
+
+    # (b) Served through StreamingRunner at bf16, launches counted from zero.
+    zero_launches()
+    served = []
+    runner = StreamingRunner(model, config, device=dev)
+    for v in (1, 2):
+        for idepth, names in runner.run(datasets[v], batch_size=1, workers=1):
+            served.append((v, idepth, names))
+    launches = read_launches()
+    expected = expected_launches([(1, v) for v, _, _ in served])
+    log(f"bf16 serving: {len(served)} forwards through StreamingRunner, launches "
+        f"{launches} (expected {expected})")
+    if launches != expected:
+        failures.append(f"bf16 serving: expected launches {expected}, got {launches}")
+    for v, got, names in served:
+        if not (got.shape == (1, H0, W0) and got.dtype == np.float32
+                and np.isfinite(got).all()):
+            failures.append(f"bf16 serving {names}: {got.dtype} {got.shape}")
+
+    # Per level against the f32 forward, and the kernel path against the plain path at
+    # bf16, on the first request of each tree.
+    deviation = {}
+    worst_path = 0.0
+    with torch.inference_mode():
+        for v in (1, 2):
+            batch = stack_samples([datasets[v][0]])
+            tensors = {k: torch.as_tensor(batch[k]).to(dev) for k in MODEL_KEYS}
+            ref = forward_levels(model, tensors, f32_config)
+            got = forward_levels(model, tensors, config)
+            plain = forward_levels(model, tensors, config, impl="plain")
+            dev_levels = level_deviation(got, ref)
+            path = [m for m, _ in level_deviation(got, plain)]
+            worst_path = max(worst_path, max(path))
+            deviation[f"V={v}"] = dev_levels
+            log(f"bf16 forward B=1 V={v} {H0}x{W0} D={D} against f32, per level 0-4 "
+                f"(max, mean) % of range: "
+                + "; ".join(f"L{i} {100 * m:.3f}, {100 * a:.4f}"
+                            for i, (m, a) in enumerate(dev_levels))
+                + f"; kernel vs plain path at bf16, max % of range per level: "
+                + ", ".join(f"{100 * p:.4f}" for p in path))
+            if not all(out.dtype == torch.float32 for out in got):
+                failures.append("the bf16 forward's outputs are not float32")
+            if any(m > BF16_FORWARD_MAX or a > BF16_FORWARD_MEAN for m, a in dev_levels):
+                failures.append(f"bf16 forward V={v} off the f32 forward: {dev_levels}")
+            if max(path) > BF16_PATH_BAR:
+                failures.append(f"bf16 kernel path off the plain path at V={v}: {path}")
+
+    # (c) ms/frame at bf16 and f32 in turns (f32, bf16, bf16, f32) at B = 1 and 8, the
+    # device time a forward (torch.profiler), peak memory. Recorded, claimed for nothing.
+    timing = {}
+    with torch.inference_mode():
+        sample = stack_samples([datasets[1][0]])
+        for B in (1, 8):
+            tensors = {k: torch.as_tensor(np.repeat(sample[k], B, axis=0)).to(dev)
+                       for k in MODEL_KEYS}
+            configs = {"f32": f32_config, "bf16": config}
+
+            def call(name):
+                return lambda: forward_levels(model, tensors, configs[name])
+            runs = {"f32": [], "bf16": []}
+            for name in ("f32", "bf16", "bf16", "f32"):
+                runs[name].append(median_ms(call(name)) / B)
+            busy, peak = {}, {}
+            for name in ("f32", "bf16"):
+                busy[name] = device_ms(call(name))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                call(name)()
+                torch.cuda.synchronize()
+                peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            timing[f"B={B}"] = {"ms_frame": runs, "device_ms": busy, "peak_gib": peak}
+            log(f"bf16 vs f32 forward B={B} V=1 {H0}x{W0} D={D} ({smi}): ms/frame in turns "
+                f"f32 {runs['f32'][0]:.3f}, bf16 {runs['bf16'][0]:.3f}, bf16 "
+                f"{runs['bf16'][1]:.3f}, f32 {runs['f32'][1]:.3f}; device-busy ms a forward "
+                f"f32 {busy['f32']:.3f}, bf16 {busy['bf16']:.3f}; peak memory f32 "
+                f"{peak['f32']:.3f} GiB, bf16 {peak['bf16']:.3f} GiB")
+
+    # (d) The eval CLI with compute_dtype bfloat16 in params.yaml, beside f32 on the same
+    # weights and tree.
+    run_dir = os.path.join(inputs["root"], "run_bf16")
+    weights_dir = os.path.join(run_dir, "checkpoints", "epoch0000")
+    os.makedirs(weights_dir)
+    with open(inputs["params_yaml"]) as f:
+        params = yaml.safe_load(f)
+    with open(os.path.join(run_dir, "params.yaml"), "w") as f:
+        yaml.safe_dump({**params, "compute_dtype": "bfloat16"}, f)
+    from multi_view_stereonet_tpu_torch.eval.streaming import WEIGHTS_FILE
+    with open(os.path.join(inputs["weights_dir"], WEIGHTS_FILE), "rb") as src, \
+            open(os.path.join(weights_dir, WEIGHTS_FILE), "wb") as dst:
+        dst.write(src.read())
+    data_dir, split = inputs["trees"][1]
+    abs_rel = {}
+    for name, wdir in (("f32", inputs["weights_dir"]), ("bf16", weights_dir)):
+        out = os.path.join(inputs["root"], f"eval_dtype_{name}")
+        zero_launches()
+        loss, avg = run_eval(wdir, data_dir, split, out, batch_size=1, decode_backend="pil",
+                             device=dev)
+        files = set(os.listdir(out))
+        needed = {"losses.txt", "depth_metrics.txt", "runtime_metrics.txt",
+                  "avg_losses.txt", "avg_depth_metrics.txt", "avg_runtime_metrics.txt"}
+        if not needed <= files or not np.isfinite(loss):
+            failures.append(f"eval at {name}: files {sorted(files)}, loss {loss}")
+        abs_rel[name] = avg["abs_rel"]
+        log(f"eval CLI gta_sfm V=1 at {name}: loss {loss:.4f}, abs_rel {avg['abs_rel']:.4f}, "
+            f"launches {read_launches()}")
+
+    # The artifact: export --dtype bfloat16 at B = 1, served in a fresh process.
+    path = os.path.join(inputs["root"], "serving_b1_bf16.pt2")
+    export.main([inputs["weights_dir"], path, "--size", str(H0), str(W0), "--device",
+                 str(dev), "--dtype", "bfloat16"])
+    batch = stack_samples([datasets[1][0]])
+    live = StreamingRunner(model, config, device=dev).forward(batch).cpu().numpy()
+    io_path = os.path.join(inputs["root"], "artifact_io_bf16.npz")
+    np.savez(io_path, live=live, **batch)
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            f"chip_smoke.artifact_child({path!r}, {io_path!r}, {str(dev)!r})")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the bf16 artifact in a fresh process failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    expected = expected_launches([(1, 1)])
+    log(f"artifact bf16 B=1 ({os.path.getsize(path)} bytes) in a fresh process: "
+        f"{child['dtype']} output bit-equal to the live runner at bf16 {child['equal']}, "
+        f"launches {child['launches']} (expected {expected}), custom ops {child['ops']}")
+    if not (child["equal"] and child["launches"] == expected and len(child["ops"]) == 4
+            and not child["models_imported"]):
+        failures.append(f"the bf16 artifact fails its contract: {child}")
+    if failures:
+        raise AssertionError("phase 11: " + "; ".join(failures))
+    return {"kernels": kernels, "launches": launches, "deviation": deviation,
+            "path_max": worst_path, "timing": timing, "abs_rel": abs_rel,
+            "artifact_launches": child["launches"]}
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -1973,12 +2397,23 @@ def main():
         artifact = phase("9 (weights and artifact)", artifact_phase, dev, inputs, smi)
         multi = phase("10 (multi-process training)", multi_process_phase, dev, inputs, smi,
                       trained["cli_ms"])
+        bf16 = phase("11 (bf16 serving)", bf16_phase, dev, inputs, smi, kernels)
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
         f"ms, {trained['images_s']['plain']:.2f} images/s, peak "
         f"{trained['peak_gib']['plain']:.3f} GiB; the CLI loop {trained['cli_ms']:.3f} ms a "
         f"step, the loader alone {trained['loader_ms']:.3f} ms a batch")
+    b1, b8 = bf16["timing"]["B=1"], bf16["timing"]["B=8"]
+    log(f"bf16 serving B=1 V=1 {H0}x{W0} D={D} ({smi}): ms/frame bf16 "
+        f"{statistics.median(b1['ms_frame']['bf16']):.3f} vs f32 "
+        f"{statistics.median(b1['ms_frame']['f32']):.3f} (B=8: "
+        f"{statistics.median(b8['ms_frame']['bf16']):.3f} vs "
+        f"{statistics.median(b8['ms_frame']['f32']):.3f}); worst level deviation from f32 "
+        f"(max, mean) % of range "
+        f"{100 * max(m for d in bf16['deviation'].values() for m, _ in d):.3f}, "
+        f"{100 * max(a for d in bf16['deviation'].values() for _, a in d):.4f}; eval "
+        f"abs_rel bf16 {bf16['abs_rel']['bf16']:.4f} vs f32 {bf16['abs_rel']['f32']:.4f}")
     log(f"two-view train B={TRAIN_B} {H0}x{W0} D={D}, every loss ({smi}): kernel path "
         f"{two_view['ms']['auto']:.3f} ms a step, peak {two_view['peak_gib']['auto']:.3f} GiB; "
         f"plain path {two_view['ms']['plain']:.3f} ms, peak "
@@ -1995,7 +2430,8 @@ def main():
          "artifact_launches_b24": artifact["launches"]["b24"]["warp"],
          **artifact["dispatch"]["warp"],
          "multi_process_launches": multi["per_step"]["warp"],
-         **kernels["warp"],
+         **kernels["warp"], "bf16": {**bf16["kernels"]["warp"],
+                                     "launches": bf16["launches"]["warp"]},
          "backward": {**backward["K1"], "loss_shapes": [backward["K1 C=1"],
                                                         backward["K1 C=3"]]}},
         {"name": "incremental_chain", "route": "cuda",
@@ -2007,7 +2443,9 @@ def main():
          "artifact_launches_b24": artifact["launches"]["b24"]["chain"],
          **artifact["dispatch"]["chain"],
          "multi_process_launches": multi["per_step"]["chain"],
-         **kernels["chain"], "backward": backward["K2"]},
+         **kernels["chain"], "bf16": {**bf16["kernels"]["chain"],
+                                      "launches": bf16["launches"]["chain"]},
+         "backward": backward["K2"]},
         {"name": "idepthmap_refiner", "route": "cuda",
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:213",
@@ -2017,7 +2455,9 @@ def main():
          "artifact_launches_b24": artifact["launches"]["b24"]["refiner"],
          **artifact["dispatch"]["refiner"],
          "multi_process_launches": multi["per_step"]["refiner"],
-         **kernels["refiner"], "backward": backward["K3"]},
+         **kernels["refiner"], "bf16": {**bf16["kernels"]["refiner"],
+                                        "launches": bf16["launches"]["refiner"]},
+         "backward": backward["K3"]},
         {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
          "launches": launches["gn_apply"], "train_launches": train_launches["gn_apply"],
@@ -2026,7 +2466,9 @@ def main():
          "artifact_launches_b24": artifact["launches"]["b24"]["gn_apply"],
          **artifact["dispatch"]["gn_apply"],
          "multi_process_launches": multi["per_step"]["gn_apply"],
-         **kernels["gn_apply"], "backward": backward["K4"]},
+         **kernels["gn_apply"], "bf16": {**bf16["kernels"]["gn_apply"],
+                                         "launches": bf16["launches"]["gn_apply"]},
+         "backward": backward["K4"]},
     ]}
     log(json.dumps(report))
     log(smi)

@@ -19,7 +19,11 @@ one artifact per serving configuration.
 CLI:
   python -m multi_view_stereonet_tpu_torch.checkpoint.export \\
       <weights_dir> <out.pt2> [--size 480 640] [--batch 1] [--views 1] [--u8]
-      [--fetch float16] [--dtype float32] [--device cuda]
+      [--fetch float16] [--dtype float32|bfloat16] [--device cuda]
+
+``--dtype bfloat16`` exports the bf16 serving forward (``compute_dtype``); the
+custom ops' fakes give the dtypes their kernels write, and the artifact is
+bit-equal to the live runner at bf16.
 
 ``weights_dir`` holds ``stereo_network.pth``, ``.msgpack`` or ``.pt`` (``load_any_params``).
 """
@@ -137,8 +141,8 @@ def main(argv=None):
     ap.add_argument("--size", type=int, nargs=2, default=(480, 640))
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--views", type=int, default=1)
-    ap.add_argument("--dtype", default="float32",
-                    help="compute dtype: float32 (bfloat16 waits for the opt-in fast modes)")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the forward's compute_dtype")
     ap.add_argument("--u8", action="store_true",
                     help="uint8 image inputs, dequantized on the device (the serving "
                          "transport)")
@@ -146,16 +150,14 @@ def main(argv=None):
                     help="cast the output to this dtype on the device (e.g. float16)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.dtype != "float32":
-        ap.error(f"--dtype {args.dtype}: the port computes in float32 only; bfloat16 waits "
-                 "for the opt-in fast modes")
 
     from ..eval.streaming import load_model, serving_device
     from ..models import MultiViewStereoNetConfig
 
     device = serving_device(args.device)
     model = load_model(args.weights_dir, device)
-    exported = export_inference(model, MultiViewStereoNetConfig(), batch_size=args.batch,
+    exported = export_inference(model, MultiViewStereoNetConfig(compute_dtype=args.dtype),
+                                batch_size=args.batch,
                                 views=args.views, size=tuple(args.size), input_u8=args.u8,
                                 fetch_dtype=getattr(torch, args.fetch) if args.fetch else None)
     save_exported(exported, args.out_path)

@@ -24,7 +24,18 @@
 //              x (from L2 at the forward's sizes) and res once as float4s and writes out
 //              once.
 // The TPU version tiled rows of an s2d layout for the 128-lane VPU; none of that is needed.
+//
+// x, res and out are f32 or bf16 (the storage type T; gamma, beta and the statistics stay
+// f32). At bf16 the tail follows the Pallas kernel (gn_apply.py:37-52): the apply in f32,
+// rounded to bf16; the sign test on the f32 value; LeakyReLU at bf16 (the slope rounded
+// to bf16, the product rounded); the residual added at bf16 (a rounded sum). The
+// statistics pass reads bf16 and sums in f64 as the f32 pass does. A bf16 call moves half
+// the bytes. An optional per-channel f32 ``xbias`` (the bias of the conv that wrote x) is
+// added to x in f32 before the statistics and the apply, so a bf16 conv's bias add costs no
+// pass of its own and is not rounded before the GroupNorm (as the Pallas kernels add it in
+// f32, and as XLA computes the JAX layers' bias add there).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +44,37 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr float SLOPE = 0.2f;
+constexpr float SLOPE_BF16 = 0.2001953125f;  // 0.2 rounded to bf16
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Four consecutive elements (16 bytes of f32, 8 of bf16) as floats, and back.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -42,24 +84,32 @@ __device__ __forceinline__ double warp_sum(double v) {
 
 // Chunk c of row r covers elements [c * chunk, min(L, (c + 1) * chunk)) of the row; chunk
 // is a multiple of VEC, and rows start 16-byte aligned when VEC == 4.
-template <int VEC>
+template <int VEC, typename T>
 __global__ void __launch_bounds__(THREADS)
-gn_stats_kernel(const float* __restrict__ x, double2* __restrict__ partials, int64_t L,
-                int64_t chunk, int chunks) {
+gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ xbias,
+                double2* __restrict__ partials, int64_t L, int64_t chunk, int chunks, int64_t S,
+                int C, int G) {
   __shared__ double red[2][WARPS];
   const int row = blockIdx.y;
   const int64_t begin = (int64_t)blockIdx.x * chunk;
   const int64_t end = begin + chunk < L ? begin + chunk : L;
-  const float* xr = x + (int64_t)row * L;
+  const T* xr = x + (int64_t)row * L;
+  const int c0 = (row % G) * (C / G);
   double s = 0.0, ss = 0.0;
   for (int64_t i = begin + (int64_t)threadIdx.x * VEC; i < end; i += (int64_t)THREADS * VEC) {
     if constexpr (VEC == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(xr + i);
+      float4 v = load4(xr + i);
+      if (xbias != nullptr) {
+        const float xb = xbias[c0 + (int)(i / S)];
+        v = make_float4(v.x + xb, v.y + xb, v.z + xb, v.w + xb);
+      }
       const double a = v.x, b = v.y, c = v.z, d = v.w;
       s += (a + b) + (c + d);
       ss += (a * a + b * b) + (c * c + d * d);
     } else {
-      const double a = xr[i];
+      float v = to_float(xr[i]);
+      if (xbias != nullptr) v += xbias[c0 + (int)(i / S)];
+      const double a = v;
       s += a;
       ss += a * a;
     }
@@ -82,17 +132,27 @@ gn_stats_kernel(const float* __restrict__ x, double2* __restrict__ partials, int
   }
 }
 
-__device__ __forceinline__ float tail(float v, float mu, float rs, float g, float b, float r) {
+// The tail of one element at storage type T (``res`` tells whether r is a residual).
+template <typename T>
+__device__ __forceinline__ float tail(float v, float mu, float rs, float g, float b, float r,
+                                      bool res) {
   const float y = (v - mu) * rs * g + b;
-  return (y >= 0.0f ? y : SLOPE * y) + r;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    return (y >= 0.0f ? y : SLOPE * y) + r;
+  } else {
+    float o = round_bf16(y);
+    if (!(y >= 0.0f)) o = round_bf16(SLOPE_BF16 * o);
+    return res ? round_bf16(o + r) : o;
+  }
 }
 
-// res == nullptr: no residual.
-template <int VEC>
+// res == nullptr: no residual; xbias == nullptr: none.
+template <int VEC, typename T>
 __global__ void __launch_bounds__(THREADS)
-gn_apply_kernel(const float* __restrict__ x, const float* __restrict__ res,
-                const float* __restrict__ gamma, const float* __restrict__ beta,
-                const double2* __restrict__ partials, float* __restrict__ out, int64_t L,
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ xbias,
+                const T* __restrict__ res, const float* __restrict__ gamma,
+                const float* __restrict__ beta,
+                const double2* __restrict__ partials, T* __restrict__ out, int64_t L,
                 int64_t chunk, int chunks, int64_t S, int C, int G, float eps) {
   __shared__ float stat[2];
   const int row = blockIdx.y;
@@ -114,6 +174,7 @@ gn_apply_kernel(const float* __restrict__ x, const float* __restrict__ res,
   }
   __syncthreads();
   const float mu = stat[0], rs = stat[1];
+  const bool has_res = res != nullptr;
   const int c0 = (row % G) * (C / G);
   const int64_t base = (int64_t)row * L;
   const int64_t begin = (int64_t)blockIdx.x * chunk;
@@ -122,50 +183,79 @@ gn_apply_kernel(const float* __restrict__ x, const float* __restrict__ res,
     const int c = c0 + (int)(i / S);  // a float4 never straddles channels: S % 4 == 0
     const float g = gamma[c], b = beta[c];
     if constexpr (VEC == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(x + base + i);
-      const float4 r = res == nullptr ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                      : *reinterpret_cast<const float4*>(res + base + i);
-      *reinterpret_cast<float4*>(out + base + i) =
-          make_float4(tail(v.x, mu, rs, g, b, r.x), tail(v.y, mu, rs, g, b, r.y),
-                      tail(v.z, mu, rs, g, b, r.z), tail(v.w, mu, rs, g, b, r.w));
+      float4 v = load4(x + base + i);
+      if (xbias != nullptr) {
+        const float xb = xbias[c];
+        v = make_float4(v.x + xb, v.y + xb, v.z + xb, v.w + xb);
+      }
+      const float4 r = has_res ? load4(res + base + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      store4(out + base + i,
+             make_float4(tail<T>(v.x, mu, rs, g, b, r.x, has_res),
+                         tail<T>(v.y, mu, rs, g, b, r.y, has_res),
+                         tail<T>(v.z, mu, rs, g, b, r.z, has_res),
+                         tail<T>(v.w, mu, rs, g, b, r.w, has_res)));
     } else {
-      out[base + i] = tail(x[base + i], mu, rs, g, b, res == nullptr ? 0.0f : res[base + i]);
+      float v = to_float(x[base + i]);
+      if (xbias != nullptr) v += xbias[c];
+      store1(out + base + i, tail<T>(v, mu, rs, g, b,
+                                  has_res ? to_float(res[base + i]) : 0.0f, has_res));
     }
   }
 }
 
-template <int VEC>
-int launch(const float* x, const float* res, const float* gamma, const float* beta,
-           float* out, double2* partials, int rows, int64_t L, int64_t chunk, int chunks,
-           int64_t S, int C, int G, float eps, cudaStream_t stream) {
+template <int VEC, typename T>
+int launch_vec(const T* x, const float* xbias, const T* res, const float* gamma,
+               const float* beta, T* out, double2* partials, int rows, int64_t L,
+               int64_t chunk, int chunks, int64_t S, int C, int G, float eps,
+               cudaStream_t stream) {
   const dim3 grid(chunks, rows);
-  gn_stats_kernel<VEC><<<grid, THREADS, 0, stream>>>(x, partials, L, chunk, chunks);
+  gn_stats_kernel<VEC, T><<<grid, THREADS, 0, stream>>>(x, xbias, partials, L, chunk, chunks,
+                                                        S, C, G);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gn_apply_kernel<VEC><<<grid, THREADS, 0, stream>>>(x, res, gamma, beta, partials, out, L,
-                                                     chunk, chunks, S, C, G, eps);
+  gn_apply_kernel<VEC, T><<<grid, THREADS, 0, stream>>>(x, xbias, res, gamma, beta, partials,
+                                                        out, L, chunk, chunks, S, C, G, eps);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x, out (N, C, S) f32 contiguous, res the same or null (no residual); gamma, beta (C,);
-// partials (N * G, chunks) of (sum, sum of squares) f64 scratch. Each (sample, group) row
-// of L = (C / G) * S floats is cut into ``chunks`` chunks of ``chunk`` elements (a
-// multiple of 4 when vec == 4). vec == 4 needs S % 4 == 0 and 16-byte aligned x, res and
-// out. Returns the launches' cudaError_t (0 on success; a refused launch's error is
-// cleared, so none is left pending).
-extern "C" int mvs_gn_act_f32(const float* x, const float* res, const float* gamma,
-                              const float* beta, float* out, double* partials, int N, int C,
-                              int G, int64_t S, int64_t chunk, int chunks, int vec, float eps,
-                              cudaStream_t stream) {
+template <typename T>
+int launch(const T* x, const float* xbias, const T* res, const float* gamma,
+           const float* beta, T* out, double* partials, int N, int C, int G, int64_t S,
+           int64_t chunk, int chunks, int vec, float eps, cudaStream_t stream) {
   if (N == 0 || S == 0) return 0;
   const int rows = N * G;
   const int64_t L = (int64_t)(C / G) * S;
   double2* p = reinterpret_cast<double2*>(partials);
   if (vec == 4)
-    return launch<4>(x, res, gamma, beta, out, p, rows, L, chunk, chunks, S, C, G, eps,
-                     stream);
-  return launch<1>(x, res, gamma, beta, out, p, rows, L, chunk, chunks, S, C, G, eps,
-                   stream);
+    return launch_vec<4>(x, xbias, res, gamma, beta, out, p, rows, L, chunk, chunks, S, C, G,
+                         eps, stream);
+  return launch_vec<1>(x, xbias, res, gamma, beta, out, p, rows, L, chunk, chunks, S, C, G,
+                       eps, stream);
+}
+
+}  // namespace
+
+// x, out (N, C, S) f32 contiguous, res the same or null (no residual); gamma, beta (C,);
+// xbias (C,) f32 or null;
+// partials (N * G, chunks) of (sum, sum of squares) f64 scratch. Each (sample, group) row
+// of L = (C / G) * S elements is cut into ``chunks`` chunks of ``chunk`` elements (a
+// multiple of 4 when vec == 4). vec == 4 needs S % 4 == 0 and x, res and out aligned to
+// four elements. Returns the launches' cudaError_t (0 on success; a refused launch's
+// error is cleared, so none is left pending).
+extern "C" int mvs_gn_act_f32(const float* x, const float* xbias, const float* res,
+                              const float* gamma, const float* beta, float* out,
+                              double* partials, int N, int C, int G, int64_t S, int64_t chunk,
+                              int chunks, int vec, float eps, cudaStream_t stream) {
+  return launch(x, xbias, res, gamma, beta, out, partials, N, C, G, S, chunk, chunks, vec, eps,
+                stream);
+}
+
+// The same with x, res and out bf16.
+extern "C" int mvs_gn_act_bf16(const __nv_bfloat16* x, const float* xbias,
+                               const __nv_bfloat16* res, const float* gamma, const float* beta,
+                               __nv_bfloat16* out, double* partials, int N, int C, int G,
+                               int64_t S, int64_t chunk, int chunks, int vec, float eps,
+                               cudaStream_t stream) {
+  return launch(x, xbias, res, gamma, beta, out, partials, N, C, G, S, chunk, chunks, vec, eps,
+                stream);
 }

@@ -47,7 +47,19 @@
 // fragment loads fall on distinct banks); a layer's copy into one of two shared-memory
 // buffers is one bulk copy by the tensor memory accelerator, issued while the layer before
 // runs its convs.
+//
+// The guidance, and so the activations, are f32 or bf16 (the storage type T; the idepth
+// map, the output, T_k, the statistics and all sums stay f32). At bf16 the kernel follows
+// the Pallas kernel's rounding points (refiner_kernel.py:95-116,165-224): the staged
+// input is [guidance, idepth rounded to bf16]; conv + bias and the GroupNorm statistics
+// are f32; h_0 = bf16(LeakyReLU(GN_0)), h_k = bf16(h_{k-1} + bf16(LeakyReLU(GN_k))); the
+// final conv's delta stays f32 and is added to the f32 idepth. The convs take bf16
+// operands on the tensor cores' native bf16 mma.sync (m16n8k16, f32 accumulate), one
+// product where 3xTF32 takes three; the wrapper packs the weights rounded to bf16 (as
+// (w, 0) pairs in the same image). Tile and weights keep their f32 layout in shared
+// memory, holding bf16 values.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,7 +107,7 @@ constexpr size_t SMEM_BYTES = sizeof(uint64_t) * 2 + sizeof(double) * DRED_DOUBL
 static_assert(SMEM_BYTES <= 232448, "more than a block's shared memory");
 
 struct Args {
-  const float* guidance;  // (N, cg, h, w)
+  const void* guidance;   // (N, cg, h, w), of the storage type
   const float* idepth;    // (N, h, w)
   const float* wpack;     // w0 (9, cin_pad, 32, 2), wr (6, 9, 32, 32, 2), wf (9, 32, 8, 2), vec
   float* out;             // (N, h, w)
@@ -112,6 +124,32 @@ __device__ __forceinline__ float leaky(float v) { return v >= 0.0f ? v : SLOPE *
 
 __device__ __forceinline__ float4 ldcg4(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
+}
+
+// Storage type T: f32 or bf16. rnd<T> rounds a value to what T holds.
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (sizeof(T) == sizeof(float)) return v;
+  else return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// Two bf16-valued floats as the bf16x2 register of an mma fragment, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b, m16n8k16, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // All blocks of the grid arrive before any leaves. Block 0 adds 2^31 - (nblocks - 1) and
@@ -265,10 +303,11 @@ __device__ __forceinline__ int run_start(const Args& a, int mm, int d, int* n) {
   return (mm - *n * a.tps) * MTILE - d;
 }
 
-// Stage 0's tile: [guidance, idepth, 0 ...], cin_pad floats a position. Thread t <
-// 18 quads owns run position t % 18 and channel quad t / 18 (a warp reads consecutive
-// floats of a channel plane) in every kernel row and m-tile of the pass, and loads them
-// all before it stores any.
+// Stage 0's tile: [guidance, idepth, 0 ...], cin_pad floats a position, the idepth
+// rounded to T. Thread t < 18 quads owns run position t % 18 and channel quad t / 18 (a
+// warp reads consecutive floats of a channel plane) in every kernel row and m-tile of the
+// pass, and loads them all before it stores any.
+template <typename T>
 __device__ void stage_input(const Args& a, int m, int mt, float* tile) {
   const int L = MTILE + 2;
   const int e = threadIdx.x % L, j = threadIdx.x / L;
@@ -279,20 +318,25 @@ __device__ void stage_input(const Args& a, int m, int mt, float* tile) {
     const bool on = slot < mt;
     int n = 0, q1 = 0;
     if (on) q1 = run_start(a, m + slot, 1, &n) + e;
-    const float* planes[4];
+    const T* guide[4];
+    const float* idep[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int c = 4 * j + k;
-      planes[k] = c < a.cg    ? a.guidance + ((int64_t)n * a.cg + c) * a.P
-                  : c == a.cg ? a.idepth + (int64_t)n * a.P
-                              : nullptr;
+      guide[k] = c < a.cg ? static_cast<const T*>(a.guidance) + ((int64_t)n * a.cg + c) * a.P
+                          : nullptr;
+      idep[k] = c == a.cg ? a.idepth + (int64_t)n * a.P : nullptr;
     }
 #pragma unroll
     for (int kh = 0; kh < 3; ++kh) {
       const int q = q1 + (kh - 1) * a.w;
       const bool in = on && q >= 0 && q < a.P;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[slot][kh][k] = in && planes[k] ? __ldg(planes[k] + q) : 0.0f;
+      for (int k = 0; k < 4; ++k)
+        v[slot][kh][k] = !in      ? 0.0f
+                         : guide[k] ? ldg1(guide[k] + q)
+                         : idep[k]  ? rnd<T>(__ldg(idep[k] + q))
+                                    : 0.0f;
     }
   }
 #pragma unroll
@@ -311,8 +355,9 @@ __device__ void stage_input(const Args& a, int m, int mt, float* tile) {
 // e in [d, d + 16)) are also written to hcur when it is given. Thread t < 8 (16 + 2d)
 // owns run position e = t / 8 and channel quad j = t % 8 (a position's 128 bytes from 8
 // lanes) in every kernel row and m-tile of the pass; it issues all its loads before the
-// statistics are reduced, so that the two L2 round trips overlap. Every thread calls it.
-template <bool RESIDUAL>
+// statistics are reduced, so that the two L2 round trips overlap. At bf16 the branch and
+// the sum are each rounded. Every thread calls it.
+template <bool RESIDUAL, typename T>
 __device__ void stage_h(const Args& a, int l, int m, int mt, int d, float* tile, double* dred,
                         float* tmp, float* stat, int& cur_n, float& reg, const float* gamma,
                         const float* beta, const float* hprev, const float* tprev, float* hcur) {
@@ -350,10 +395,10 @@ __device__ void stage_h(const Args& a, int l, int m, int mt, int d, float* tile,
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (off[slot][kh] >= 0) {
         const float4 t = tv[slot][kh], h = hv[slot][kh];
-        v = make_float4(h.x + leaky((t.x - mu) * rs * ga.x + be.x),
-                        h.y + leaky((t.y - mu) * rs * ga.y + be.y),
-                        h.z + leaky((t.z - mu) * rs * ga.z + be.z),
-                        h.w + leaky((t.w - mu) * rs * ga.w + be.w));
+        v = make_float4(rnd<T>(h.x + rnd<T>(leaky((t.x - mu) * rs * ga.x + be.x))),
+                        rnd<T>(h.y + rnd<T>(leaky((t.y - mu) * rs * ga.y + be.y))),
+                        rnd<T>(h.z + rnd<T>(leaky((t.z - mu) * rs * ga.z + be.z))),
+                        rnd<T>(h.w + rnd<T>(leaky((t.w - mu) * rs * ga.w + be.w))));
         if (hcur != nullptr && kh == 1 && e >= d && e < d + MTILE)
           *reinterpret_cast<float4*>(hcur + off[slot][kh]) = v;
       }
@@ -403,8 +448,11 @@ __device__ __forceinline__ float2 wpair(const float* wk, int row, int oc) {
 // channels 0 .. 8 NJ - 1), ROWS input channels a tap (0: `rows`, a multiple of 4, at run
 // time), dilation d. A warp takes one m-tile slot and a share of the taps (tap part,
 // part + ks, ...). The shares go through `red`; warp part j of a slot then sums n8 tile
-// j's shares in a fixed order and runs epi(slot, j, sums). Every thread calls it.
-template <int ROWS, int NJ, int LDW, typename Epi>
+// j's shares in a fixed order and runs epi(slot, j, sums). Every thread calls it. BF16:
+// bf16 m16n8k16 steps, lane (gq, tq) of the step over channels k .. k + 15 holding
+// channels k + 4 tq .. k + 4 tq + 3 of A and B (the fragments' k order; lanes past
+// `rows` hold zeros), from the hi halves of the (w, 0) weight pairs.
+template <int ROWS, int NJ, int LDW, bool BF16, typename Epi>
 __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, const float* zrow,
                                           const float* wt, int rows_rt, int m, int mt, int d,
                                           float* red, Epi&& epi) {
@@ -431,35 +479,61 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
       const float* ta = xa + dx >= 0 && xa + dx < a.w ? row : zrow + tq;
       const float* tb = xb + dx >= 0 && xb + dx < a.w ? row + 8 * CS : zrow + tq;
       const float* wk = wt + 2 * tap * rows * LDW;
-      int k = 0;
+      if constexpr (BF16) {
+        for (int k = 0; k < rows; k += 16) {
+          const int c0 = k + 4 * tq;
+          const bool on = c0 < rows;
+          const float* sa = ta - tq + c0;
+          const float* sb = tb - tq + c0;
+          uint32_t av[4] = {0u, 0u, 0u, 0u};
+          if (on) {
+            av[0] = pack_bf16(sa[0], sa[1]);
+            av[1] = pack_bf16(sb[0], sb[1]);
+            av[2] = pack_bf16(sa[2], sa[3]);
+            av[3] = pack_bf16(sb[2], sb[3]);
+          }
 #pragma unroll
-      for (; k + 8 <= rows; k += 8) {
-        uint32_t ah[4], al[4];
-        split(ta[k], ah[0], al[0]);
-        split(tb[k], ah[1], al[1]);
-        split(ta[k + 4], ah[2], al[2]);
-        split(tb[k + 4], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float2 b0 = wpair<LDW>(wk, k + tq, 8 * j + gq);
-          const float2 b1 = wpair<LDW>(wk, k + tq + 4, 8 * j + gq);
-          const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
-          const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
-          mma_k8(acc[j], al, bh);
-          mma_k8(acc[j], ah, bl);
-          mma_k8(acc[j], ah, bh);
+          for (int j = 0; j < NJ; ++j) {
+            uint32_t bv[2] = {0u, 0u};
+            if (on) {
+              const int oc = 8 * j + gq;
+              bv[0] = pack_bf16(wpair<LDW>(wk, c0, oc).x, wpair<LDW>(wk, c0 + 1, oc).x);
+              bv[1] = pack_bf16(wpair<LDW>(wk, c0 + 2, oc).x, wpair<LDW>(wk, c0 + 3, oc).x);
+            }
+            mma_bf16(acc[j], av, bv);
+          }
         }
-      }
-      if (k < rows) {  // conv0's last four channels
-        uint32_t ah[2], al[2];
-        split(ta[k], ah[0], al[0]);
-        split(tb[k], ah[1], al[1]);
+      } else {
+        int k = 0;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float2 b = wpair<LDW>(wk, k + tq, 8 * j + gq);
-          mma_k4(acc[j], al, __float_as_uint(b.x));
-          mma_k4(acc[j], ah, __float_as_uint(b.y));
-          mma_k4(acc[j], ah, __float_as_uint(b.x));
+        for (; k + 8 <= rows; k += 8) {
+          uint32_t ah[4], al[4];
+          split(ta[k], ah[0], al[0]);
+          split(tb[k], ah[1], al[1]);
+          split(ta[k + 4], ah[2], al[2]);
+          split(tb[k + 4], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const float2 b0 = wpair<LDW>(wk, k + tq, 8 * j + gq);
+            const float2 b1 = wpair<LDW>(wk, k + tq + 4, 8 * j + gq);
+            const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
+            const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
+            mma_k8(acc[j], al, bh);
+            mma_k8(acc[j], ah, bl);
+            mma_k8(acc[j], ah, bh);
+          }
+        }
+        if (k < rows) {  // conv0's last four channels
+          uint32_t ah[2], al[2];
+          split(ta[k], ah[0], al[0]);
+          split(tb[k], ah[1], al[1]);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const float2 b = wpair<LDW>(wk, k + tq, 8 * j + gq);
+            mma_k4(acc[j], al, __float_as_uint(b.x));
+            mma_k4(acc[j], ah, __float_as_uint(b.y));
+            mma_k4(acc[j], ah, __float_as_uint(b.x));
+          }
         }
       }
     }
@@ -486,7 +560,9 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
+  constexpr bool BF16 = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   uint64_t* wbar = reinterpret_cast<uint64_t*>(smem4);  // the weight buffers' mbarriers
   double* dred = reinterpret_cast<double*>(wbar + 2);
@@ -561,10 +637,11 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
       const int mt = min(MT_MAX, m_end - m);
       __syncthreads();  // the last pass's tile and sums are read
       if (s == 0) {
-        stage_input(a, m, mt, tile);
+        stage_input<T>(a, m, mt, tile);
         weights_ready(m);
-        conv_pass<0, GROUPS, C>(a, tile, zrow, wt, a.cin_pad, m, mt, 1, red,
-                                [&](int slot, int g, float (&v)[4]) { epi_gn(m, slot, g, v); });
+        conv_pass<0, GROUPS, C, BF16>(
+            a, tile, zrow, wt, a.cin_pad, m, mt, 1, red,
+            [&](int slot, int g, float (&v)[4]) { epi_gn(m, slot, g, v); });
         continue;
       }
       // Stages 1..7: the tile is h_{s-1}, applied on load from T_{s-1} (and h_{s-2}).
@@ -575,18 +652,20 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
       float* hcur = s < LAYERS - 1 ? a.hbuf + (l & 1) * NPC : nullptr;
       const int d = s < LAYERS - 1 ? a.dil[s - 1] : 1;
       if (s == 1)
-        stage_h<false>(a, l, m, mt, d, tile, dred, tmp, stat, cur_n, reg, gamma, beta, nullptr,
-                       tprev, hcur);
+        stage_h<false, T>(a, l, m, mt, d, tile, dred, tmp, stat, cur_n, reg, gamma, beta,
+                          nullptr, tprev, hcur);
       else
-        stage_h<true>(a, l, m, mt, d, tile, dred, tmp, stat, cur_n, reg, gamma, beta,
-                      a.hbuf + ((l - 1) & 1) * NPC, tprev, hcur);
+        stage_h<true, T>(a, l, m, mt, d, tile, dred, tmp, stat, cur_n, reg, gamma, beta,
+                         a.hbuf + ((l - 1) & 1) * NPC, tprev, hcur);
       weights_ready(m);
       if (s < LAYERS - 1) {
-        conv_pass<C, GROUPS, C>(a, tile, zrow, wt, C, m, mt, d, red,
-                                [&](int slot, int g, float (&v)[4]) { epi_gn(m, slot, g, v); });
+        conv_pass<C, GROUPS, C, BF16>(
+            a, tile, zrow, wt, C, m, mt, d, red,
+            [&](int slot, int g, float (&v)[4]) { epi_gn(m, slot, g, v); });
       } else {  // out = ReLU(idepth + conv_final(h_6) + bf): column 0 of the n8 tile
         const float bf = vec[3 * C * NGN];
-        conv_pass<C, 1, WF_COLS>(a, tile, zrow, wt, C, m, mt, 1, red, [&](int slot, int, float (&v)[4]) {
+        conv_pass<C, 1, WF_COLS, BF16>(a, tile, zrow, wt, C, m, mt, 1, red,
+                                       [&](int slot, int, float (&v)[4]) {
           if (tq != 0) return;
           const int mm = m + slot, n = mm / a.tps;
           const int pa = (mm - n * a.tps) * MTILE + gq, pb = pa + 8;
@@ -605,8 +684,6 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
   }
 }
 
-int max_blocks[MAX_DEVICES] = {0};
-
 // Floats of scratch a launch for N samples of an h x w map needs: h and T, double-
 // buffered, then the f64 (sum, sum of squares) partials of every GroupNorm layer.
 long long needed_scratch(int N, int h, int w) {
@@ -614,24 +691,11 @@ long long needed_scratch(int N, int h, int w) {
   return 4LL * N * P * C + 4LL * NGN * M * GROUPS;
 }
 
-}  // namespace
-
-// guidance (N, cg, h, w), idepth (N, h, w): f32, contiguous, cg + 1 <= 36.
-// wpack (f32, 16-byte aligned): each weight w as a (hi, lo) pair (see split) in
-// [tap][ci][oc] order with oc swizzled as wpair reads it: w0 (9, cin_pad, 32) with
-// cin_pad = cg + 1 rounded up to 4, zero rows past cg; wr (6, 9, 32, 32); wf (9, 32, 8),
-// column 0 the final conv; then 7 x (conv bias, GN gamma, GN beta) x 32 for conv0 and
-// res0..5, then bf (673 floats).
-// out (N, h, w); scratch: scratch_floats f32, 16-byte aligned, at least needed_scratch.
-// barrier: one uint32 that no launch on another stream uses, 0 before its first launch
-// (a launch leaves it ready for the next). dil: the six resblock dilations (host array),
-// 1 to 8. Returns a cudaError_t code: cudaErrorInvalidValue for an argument it does not
-// take, cudaErrorCooperativeLaunchTooLarge if the grid cannot be resident.
-extern "C" int mvs_idepthmap_refiner_f32(const float* guidance, const float* idepth,
-                                         const float* wpack, float* out, float* scratch,
-                                         long long scratch_floats, unsigned int* barrier,
-                                         int N, int cg, int h, int w, const int* dil,
-                                         cudaStream_t stream) {
+template <typename T>
+int launch(const T* guidance, const float* idepth, const float* wpack, float* out,
+           float* scratch, long long scratch_floats, unsigned int* barrier, int N, int cg,
+           int h, int w, const int* dil, cudaStream_t stream) {
+  static int max_blocks[MAX_DEVICES] = {0};  // resident blocks of this instantiation
   if (N == 0 || h == 0 || w == 0) return 0;
   if (cg < 0 || cg + 1 > MAX_CIN0 || scratch_floats < needed_scratch(N, h, w))
     return (int)cudaErrorInvalidValue;
@@ -645,11 +709,11 @@ extern "C" int mvs_idepthmap_refiner_f32(const float* guidance, const float* ide
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (max_blocks[dev] == 0) {
-    err = cudaFuncSetAttribute(refiner_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(refiner_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, refiner_kernel, THREADS,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, refiner_kernel<T>, THREADS,
                                                         SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -677,11 +741,43 @@ extern "C" int mvs_idepthmap_refiner_f32(const float* guidance, const float* ide
   a.partials = reinterpret_cast<double2*>(scratch + 4 * npc);
   const int grid = (a.M + a.mpb - 1) / a.mpb;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)refiner_kernel, dim3(grid), dim3(THREADS),
+  err = cudaLaunchCooperativeKernel((const void*)refiner_kernel<T>, dim3(grid), dim3(THREADS),
                                     args, SMEM_BYTES, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// guidance (N, cg, h, w), idepth (N, h, w): f32, contiguous, cg + 1 <= 36.
+// wpack (f32, 16-byte aligned): each weight w as a (hi, lo) pair (see split) in
+// [tap][ci][oc] order with oc swizzled as wpair reads it: w0 (9, cin_pad, 32) with
+// cin_pad = cg + 1 rounded up to 4, zero rows past cg; wr (6, 9, 32, 32); wf (9, 32, 8),
+// column 0 the final conv; then 7 x (conv bias, GN gamma, GN beta) x 32 for conv0 and
+// res0..5, then bf (673 floats).
+// out (N, h, w); scratch: scratch_floats f32, 16-byte aligned, at least needed_scratch.
+// barrier: one uint32 that no launch on another stream uses, 0 before its first launch
+// (a launch leaves it ready for the next). dil: the six resblock dilations (host array),
+// 1 to 8. Returns a cudaError_t code: cudaErrorInvalidValue for an argument it does not
+// take, cudaErrorCooperativeLaunchTooLarge if the grid cannot be resident.
+extern "C" int mvs_idepthmap_refiner_f32(const float* guidance, const float* idepth,
+                                         const float* wpack, float* out, float* scratch,
+                                         long long scratch_floats, unsigned int* barrier,
+                                         int N, int cg, int h, int w, const int* dil,
+                                         cudaStream_t stream) {
+  return launch(guidance, idepth, wpack, out, scratch, scratch_floats, barrier, N, cg, h, w,
+                dil, stream);
+}
+
+// The same with bf16 guidance; wpack holds each weight as (w rounded to bf16, 0).
+extern "C" int mvs_idepthmap_refiner_bf16(const __nv_bfloat16* guidance, const float* idepth,
+                                          const float* wpack, float* out, float* scratch,
+                                          long long scratch_floats, unsigned int* barrier,
+                                          int N, int cg, int h, int w, const int* dil,
+                                          cudaStream_t stream) {
+  return launch(guidance, idepth, wpack, out, scratch, scratch_floats, barrier, N, cg, h, w,
+                dil, stream);
 }

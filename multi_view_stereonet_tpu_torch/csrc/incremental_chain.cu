@@ -48,8 +48,19 @@
 // at a time. The tile holds 36 floats a position (conv0: warped 0..31, image 32..34, zero
 // 35; conv0's weights are reordered to match), and the weights are XOR-swizzled by row,
 // so the A and B fragment loads fall on distinct banks.
+//
+// The storage type T of feats0, the image guidance, the carry and the output is f32 or
+// bf16 (scratch, sums and statistics stay f32). At bf16 the kernel follows the Pallas
+// kernel's rounding points (incremental_chain.py:82-174): the warp blends the bf16 carry in
+// f32 and rounds once; conv + bias, the GroupNorm statistics and LeakyReLU are f32 and the
+// result is rounded (h, and the resblock's branch before the residual sum, itself rounded);
+// the step's output is warped + delta in f32, rounded. The convs take bf16 operands (the
+// weights rounded as they are loaded) on the tensor cores' native bf16 mma.sync
+// (m16n8k16, f32 accumulate), one product where 3xTF32 takes three. The staged tile and
+// the weights keep their f32 layout in shared memory, holding bf16 values.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,6 +105,55 @@ __device__ __forceinline__ float4 ldcg4(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
 }
 
+// Storage type T: f32 or bf16. rnd<T> rounds a value to what T holds; load4 / ldcg4 read
+// four consecutive elements as floats.
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (sizeof(T) == sizeof(float)) return v;
+  else return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<T>(v.x), rnd<T>(v.y), rnd<T>(v.z), rnd<T>(v.w));
+}
+
+__device__ __forceinline__ float4 bf16x4(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 ldcg4(const __nv_bfloat16* p) {
+  return bf16x4(__ldcg(reinterpret_cast<const uint2*>(p)));
+}
+
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Two bf16-valued floats as the bf16x2 register of an mma fragment, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b, m16n8k16, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // 3xTF32: x = hi + lo, hi = x rounded to TF32 (10 mantissa bits, round half away from
 // zero, done on the integer bits: the conversion instruction has a fraction of the ALU
 // rate), lo = x - hi exactly; the tensor core reads lo to TF32 by dropping its low 13
@@ -130,9 +190,12 @@ __device__ __forceinline__ int wslot(int row, int oc) { return row * C + (oc ^ (
 // floats, ROWS input channels used (32, or 36 for conv0: four k8 steps and one k4);
 // weights [tap][ROWS][C], swizzled (wslot). As a GEMM: pixels x (tap, ci) times (tap, ci)
 // x oc. A warp takes 16 pixels x 16 output channels (two GroupNorm groups, fixed for the
-// warp) at a time, in 3xTF32. Calls epi(ty, tx, g, c, v0, v1) for output channels
-// 8g + c, 8g + c + 1 of each of the tile's th x tw pixels.
-template <int ROWS, typename Epi>
+// warp) at a time, in 3xTF32, or (BF16) in bf16 m16n8k16 steps: lane (gq, tq) of a step
+// over channels k .. k + 15 holds channels k + 4 tq .. k + 4 tq + 3 of its two pixels
+// and of its output channel's weights (the fragments' k order, the same for A and B).
+// Calls epi(ty, tx, g, c, v0, v1) for output channels 8g + c, 8g + c + 1 of each of the
+// tile's th x tw pixels.
+template <int ROWS, bool BF16, typename Epi>
 __device__ __forceinline__ void conv_tile(const float* tile, const float* wt, int th, int tw,
                                           Epi&& epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -155,35 +218,63 @@ __device__ __forceinline__ void conv_tile(const float* tile, const float* wt, in
       for (int kw = 0; kw < 3; ++kw) {
         const int toff = (kh * tpw + kw) * CS;
         const float* wk = wt + (kh * 3 + kw) * ROWS * C;
+        if constexpr (BF16) {
+          // ROWS is 32, or 36 for conv0, whose last step holds rows 32..35 in lane tq = 0.
 #pragma unroll
-        for (int s8 = 0; s8 < C / 8; ++s8) {
-          uint32_t ah[4], al[4];
-          split(ra[toff + 8 * s8], ah[0], al[0]);
-          split(rb[toff + 8 * s8], ah[1], al[1]);
-          split(ra[toff + 8 * s8 + 4], ah[2], al[2]);
-          split(rb[toff + 8 * s8 + 4], ah[3], al[3]);
+          for (int k = 0; k < ROWS; k += 16) {
+            const int c0 = k + 4 * tq;
+            const bool on = c0 < ROWS;
+            const float* xa = ra - tq + toff + c0;
+            const float* xb = rb - tq + toff + c0;
+            uint32_t a[4] = {0u, 0u, 0u, 0u};
+            if (on) {
+              a[0] = pack_bf16(xa[0], xa[1]);
+              a[1] = pack_bf16(xb[0], xb[1]);
+              a[2] = pack_bf16(xa[2], xa[3]);
+              a[3] = pack_bf16(xb[2], xb[3]);
+            }
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int n = 16 * npair + 8 * j + gq;
-            uint32_t bh[2], bl[2];
-            split(wk[wslot(8 * s8 + tq, n)], bh[0], bl[0]);
-            split(wk[wslot(8 * s8 + tq + 4, n)], bh[1], bl[1]);
-            mma_k8(acc[j], al, bh);
-            mma_k8(acc[j], ah, bl);
-            mma_k8(acc[j], ah, bh);
+            for (int j = 0; j < 2; ++j) {
+              const int n = 16 * npair + 8 * j + gq;
+              uint32_t b[2] = {0u, 0u};
+              if (on) {
+                b[0] = pack_bf16(wk[wslot(c0, n)], wk[wslot(c0 + 1, n)]);
+                b[1] = pack_bf16(wk[wslot(c0 + 2, n)], wk[wslot(c0 + 3, n)]);
+              }
+              mma_bf16(acc[j], a, b);
+            }
           }
-        }
-        if constexpr (ROWS > C) {  // conv0's image rows 32..34 and the zero row 35
-          uint32_t ah[2], al[2];
-          split(ra[toff + C], ah[0], al[0]);
-          split(rb[toff + C], ah[1], al[1]);
+        } else {
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            uint32_t bh, bl;
-            split(wk[wslot(C + tq, 16 * npair + 8 * j + gq)], bh, bl);
-            mma_k4(acc[j], al, bh);
-            mma_k4(acc[j], ah, bl);
-            mma_k4(acc[j], ah, bh);
+          for (int s8 = 0; s8 < C / 8; ++s8) {
+            uint32_t ah[4], al[4];
+            split(ra[toff + 8 * s8], ah[0], al[0]);
+            split(rb[toff + 8 * s8], ah[1], al[1]);
+            split(ra[toff + 8 * s8 + 4], ah[2], al[2]);
+            split(rb[toff + 8 * s8 + 4], ah[3], al[3]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int n = 16 * npair + 8 * j + gq;
+              uint32_t bh[2], bl[2];
+              split(wk[wslot(8 * s8 + tq, n)], bh[0], bl[0]);
+              split(wk[wslot(8 * s8 + tq + 4, n)], bh[1], bl[1]);
+              mma_k8(acc[j], al, bh);
+              mma_k8(acc[j], ah, bl);
+              mma_k8(acc[j], ah, bh);
+            }
+          }
+          if constexpr (ROWS > C) {  // conv0's image rows 32..34 and the zero row 35
+            uint32_t ah[2], al[2];
+            split(ra[toff + C], ah[0], al[0]);
+            split(rb[toff + C], ah[1], al[1]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              uint32_t bh, bl;
+              split(wk[wslot(C + tq, 16 * npair + 8 * j + gq)], bh, bl);
+              mma_k4(acc[j], al, bh);
+              mma_k4(acc[j], ah, bl);
+              mma_k4(acc[j], ah, bh);
+            }
           }
         }
       }
@@ -348,12 +439,14 @@ __device__ __forceinline__ void cluster_stats(int cs, const double* slot, float*
   __syncthreads();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-chain_kernel(const float* __restrict__ feats0, const float* __restrict__ image,
+chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
              const float* __restrict__ H_inc, const float* __restrict__ w0_g,
              const float* __restrict__ wr_g, const float* __restrict__ wf_g,
-             const float* __restrict__ vec_g, float* out, float* scratch, int Dm1, int h,
+             const float* __restrict__ vec_g, T* out, float* scratch, int Dm1, int h,
              int wd, int rows_per_block, int tile_rows, int tile_cols) {
+  constexpr bool BF16 = sizeof(T) == 2;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   double* part = reinterpret_cast<double*>(smem4);  // [2][MAX_CLUSTER][GROUPS][2]
@@ -389,29 +482,33 @@ chain_kernel(const float* __restrict__ feats0, const float* __restrict__ image,
     const int ci = row < C ? row + CIMG : (row < C0 ? row - C : -1);
     *reinterpret_cast<float4*>(w0 + tap * CS * C + wslot(row, oc)) =
         ci < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
-               : __ldg(reinterpret_cast<const float4*>(w0_g + (tap * C0 + ci) * C + oc));
+               : rnd4<T>(__ldg(reinterpret_cast<const float4*>(w0_g + (tap * C0 + ci) * C +
+                                                               oc)));
   }
 #pragma unroll 4
   for (int i = tid; i < WR_FLOATS / 4; i += THREADS) {
     const int oc = 4 * (i % (C / 4)), row = i / (C / 4);  // row = tap * C + ci
     const int at = (row / C) * C * C + wslot(row % C, oc);
-    *reinterpret_cast<float4*>(wr + at) = __ldg(reinterpret_cast<const float4*>(wr_g) + i);
-    *reinterpret_cast<float4*>(wf + at) = __ldg(reinterpret_cast<const float4*>(wf_g) + i);
+    *reinterpret_cast<float4*>(wr + at) =
+        rnd4<T>(__ldg(reinterpret_cast<const float4*>(wr_g) + i));
+    *reinterpret_cast<float4*>(wf + at) =
+        rnd4<T>(__ldg(reinterpret_cast<const float4*>(wf_g) + i));
   }
   for (int i = tid; i < VEC_FLOATS; i += THREADS) vec[i] = vec_g[i];
 
-  float* out_n = out + (int64_t)n * D * P * C;
-  const float* f0 = feats0 + (int64_t)n * P * C;
-  for (int i = r0 * wd * (C / 4) + tid; i < r1 * wd * (C / 4); i += THREADS)
-    reinterpret_cast<float4*>(out_n)[i] = reinterpret_cast<const float4*>(f0)[i];
+  T* out_n = out + (int64_t)n * D * P * C;
+  const T* f0 = feats0 + (int64_t)n * P * C;
+  constexpr int PX16 = C * (int)sizeof(T) / 16;  // 16-byte units a pixel
+  for (int i = r0 * wd * PX16 + tid; i < r1 * wd * PX16; i += THREADS)
+    reinterpret_cast<uint4*>(out_n)[i] = reinterpret_cast<const uint4*>(f0)[i];
   float* warped = scratch + (int64_t)n * 3 * P * C;
   float* raw_h = warped + P * C;
   float* raw_r = raw_h + P * C;
 
   for (int d = 0; d < Dm1; ++d) {
-    const float* carry = d == 0 ? f0 : out_n + (int64_t)d * P * C;
-    float* next = out_n + (int64_t)(d + 1) * P * C;
-    const float* img = image + ((int64_t)n * Dm1 + d) * P * CIMG;
+    const T* carry = d == 0 ? f0 : out_n + (int64_t)d * P * C;
+    T* next = out_n + (int64_t)(d + 1) * P * C;
+    const T* img = image + ((int64_t)n * Dm1 + d) * P * CIMG;
     const float* Hm = H_inc + ((int64_t)n * Dm1 + d) * 9;
     float Hr[9];
 #pragma unroll
@@ -437,8 +534,8 @@ chain_kernel(const float* __restrict__ feats0, const float* __restrict__ image,
           wx[u] = wy[u] = 0.0f;
           if (i < items && y >= 0 && y < h && x >= 0 && x < wd) {
             if (j == 8) {
-              const float* im = img + (y * wd + x) * CIMG;
-              a[u] = make_float4(__ldg(im), __ldg(im + 1), __ldg(im + 2), 0.0f);
+              const T* im = img + (y * wd + x) * CIMG;
+              a[u] = make_float4(ldg1(im), ldg1(im + 1), ldg1(im + 2), 0.0f);
             } else {
               const Tap t = warp_tap(Hr, x, y, h, wd);
               if (t.ok) {
@@ -459,15 +556,16 @@ chain_kernel(const float* __restrict__ feats0, const float* __restrict__ image,
           const int pos = i / 9, j = i % 9;
           const int ty = pos / tpw, tx = pos % tpw;
           const int y = y0 - 1 + ty, x = x0 - 1 + tx;
-          // The image item passes a[u] through; invalid or outside samples blend to 0.
-          const float4 v = j == 8 ? a[u] : blend(a[u], b[u], c[u], e[u], wx[u], wy[u]);
+          // The image item passes a[u] through; invalid or outside samples blend to 0. The
+          // blend is rounded once to the storage type.
+          const float4 v = j == 8 ? a[u] : rnd4<T>(blend(a[u], b[u], c[u], e[u], wx[u], wy[u]));
           reinterpret_cast<float4*>(tile + pos * CS)[j] = v;
           if (j < 8 && ty >= 1 && ty <= th && tx >= 1 && tx <= tw)  // own pixel: kept for C
             reinterpret_cast<float4*>(warped + (y * wd + x) * C)[j] = v;
         }
       }
       __syncthreads();
-      conv_tile<CS>(tile, w0, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+      conv_tile<CS, BF16>(tile, w0, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
         const float o0 = v0 + b0[oc], o1 = v1 + b0[oc + 1];
         s[g & 1] += o0 + o1;
@@ -486,10 +584,10 @@ chain_kernel(const float* __restrict__ feats0, const float* __restrict__ image,
       const float* src[1] = {raw_h};
       __syncthreads();
       stage_tile(src, tile, y0, x0, th, tw, h, wd, [&](const float4 (&v)[1], int j) {
-        return gn_leaky4(v[0], stat0, g0, be0, j);
+        return rnd4<T>(gn_leaky4(v[0], stat0, g0, be0, j));
       });
       __syncthreads();
-      conv_tile<C>(tile, wr, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+      conv_tile<C, BF16>(tile, wr, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
         const float o0 = v0 + br[oc], o1 = v1 + br[oc + 1];
         s[g & 1] += o0 + o1;
@@ -507,17 +605,16 @@ chain_kernel(const float* __restrict__ feats0, const float* __restrict__ image,
       const float* src[2] = {raw_h, raw_r};
       __syncthreads();
       stage_tile(src, tile, y0, x0, th, tw, h, wd, [&](const float4 (&v)[2], int j) {
-        const float4 hv = gn_leaky4(v[0], stat0, g0, be0, j);
-        const float4 rv = gn_leaky4(v[1], statr, gr, ber, j);
-        return make_float4(hv.x + rv.x, hv.y + rv.y, hv.z + rv.z, hv.w + rv.w);
+        const float4 hv = rnd4<T>(gn_leaky4(v[0], stat0, g0, be0, j));
+        const float4 rv = rnd4<T>(gn_leaky4(v[1], statr, gr, ber, j));
+        return rnd4<T>(make_float4(hv.x + rv.x, hv.y + rv.y, hv.z + rv.z, hv.w + rv.w));
       });
       __syncthreads();
-      conv_tile<C>(tile, wf, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+      conv_tile<C, BF16>(tile, wf, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
         const int off = ((y0 + ty) * wd + x0 + tx) * C + oc;
         const float2 a = __ldcg(reinterpret_cast<const float2*>(warped + off));
-        *reinterpret_cast<float2*>(next + off) =
-            make_float2(a.x + (v0 + bf[oc]), a.y + (v1 + bf[oc + 1]));
+        store2(next + off, a.x + (v0 + bf[oc]), a.y + (v1 + bf[oc + 1]));
       });
     });
     // next is complete over the map for the next step's warp; no block leaves while
@@ -557,45 +654,48 @@ cudaLaunchConfig_t launch_config(int blocks, int cluster, cudaStream_t stream,
 
 constexpr int MAX_DEVICES = 64;
 constexpr int CANDIDATES[2] = {16, 8};
-int g_active[MAX_DEVICES][2];  // resident clusters of each candidate size, +1 (0: unknown)
 
-// Sets the kernel's attributes and reads how many clusters of 16 and of 8 blocks the
-// current device holds at once (once a device).
+// Sets the attributes of the kernel for storage type T and reads how many clusters of 16
+// and of 8 blocks the current device holds at once (once a device and type).
+template <typename T>
 int resident_clusters(int (&active)[2]) {
+  static int cache[MAX_DEVICES][2];  // resident clusters of each candidate size, +1 (0: unknown)
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev < MAX_DEVICES && g_active[dev][0] > 0) {
-    active[0] = g_active[dev][0] - 1;
-    active[1] = g_active[dev][1] - 1;
+  if (dev < MAX_DEVICES && cache[dev][0] > 0) {
+    active[0] = cache[dev][0] - 1;
+    active[1] = cache[dev][1] - 1;
     return 0;
   }
-  err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  err = cudaFuncSetAttribute(chain_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
   if (err != cudaSuccess) return (int)err;
   for (int k = 0; k < 2; ++k) {
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = launch_config(CANDIDATES[k], CANDIDATES[k], 0, &attr);
-    err = cudaOccupancyMaxActiveClusters(&active[k], chain_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&active[k], chain_kernel<T>, &cfg);
     if (err != cudaSuccess) {
       cudaGetLastError();
       active[k] = 0;  // this size does not run here; the other may
     }
   }
   if (dev < MAX_DEVICES) {
-    g_active[dev][0] = active[0] + 1;
-    g_active[dev][1] = active[1] + 1;
+    cache[dev][0] = active[0] + 1;
+    cache[dev][1] = active[1] + 1;
   }
   return 0;
 }
 
 // The cluster size for N samples of an h x w map: the fewest waves of clusters times
 // warp rounds a stage (plus one for the stage's fixed cost), ties to the larger cluster.
+template <typename T>
 int choose_cluster(int N, int h, int w, int* cluster) {
   int active[2];
-  const int err = resident_clusters(active);
+  const int err = resident_clusters<T>(active);
   if (err != 0) return err;
   long best_cost = -1;
   *cluster = 0;
@@ -613,12 +713,37 @@ int choose_cluster(int N, int h, int w, int* cluster) {
   return *cluster > 0 ? 0 : (int)cudaErrorLaunchOutOfResources;
 }
 
+template <typename T>
+int launch(const T* feats0, const T* image, const float* H_inc, const float* w0,
+           const float* wr, const float* wf, const float* vec, T* out, float* scratch, int N,
+           int Dm1, int h, int w, int cluster, cudaStream_t stream) {
+  if (N == 0) return 0;
+  int active[2];
+  int err = resident_clusters<T>(active);  // also sets the kernel's attributes
+  if (err != 0) return err;
+  if (cluster <= 0) {
+    err = choose_cluster<T>(N, h, w, &cluster);
+    if (err != 0) return err;
+  }
+  const Plan p = plan_for(cluster, h, w);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(N * cluster, cluster, stream, &attr);
+  cudaError_t status = cudaLaunchKernelEx(&cfg, chain_kernel<T>, feats0, image, H_inc, w0,
+                                          wr, wf, vec, out, scratch, Dm1, h, w,
+                                          p.rows_per_block, p.tile_rows, p.tile_cols);
+  if (status != cudaSuccess) {
+    cudaGetLastError();
+    return (int)status;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The cluster size a launch for N samples of an h x w map takes, into *cluster.
-// Returns a CUDA error code (0 on success).
+// The cluster size a launch of the f32 kernel for N samples of an h x w map takes, into
+// *cluster. Returns a CUDA error code (0 on success).
 extern "C" int mvs_incremental_chain_cluster(int N, int h, int w, int* cluster) {
-  return choose_cluster(N, h, w, cluster);
+  return choose_cluster<float>(N, h, w, cluster);
 }
 
 // feats0 (N, P, 32), image (N, D-1, P, 3), H_inc (N, D-1, 9): f32, contiguous, P = h*w;
@@ -633,23 +758,17 @@ extern "C" int mvs_incremental_chain_f32(const float* feats0, const float* image
                                          const float* vec, float* out, float* scratch,
                                          int N, int Dm1, int h, int w, int cluster,
                                          cudaStream_t stream) {
-  if (N == 0) return 0;
-  int active[2];
-  int err = resident_clusters(active);  // also sets the kernel's attributes
-  if (err != 0) return err;
-  if (cluster <= 0) {
-    err = choose_cluster(N, h, w, &cluster);
-    if (err != 0) return err;
-  }
-  const Plan p = plan_for(cluster, h, w);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(N * cluster, cluster, stream, &attr);
-  cudaError_t status = cudaLaunchKernelEx(&cfg, chain_kernel, feats0, image, H_inc, w0, wr,
-                                          wf, vec, out, scratch, Dm1, h, w,
-                                          p.rows_per_block, p.tile_rows, p.tile_cols);
-  if (status != cudaSuccess) {
-    cudaGetLastError();
-    return (int)status;
-  }
-  return (int)cudaGetLastError();
+  return launch(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N, Dm1, h, w, cluster,
+                stream);
+}
+
+// The same with feats0, image and out bf16 (H_inc, the weights, vec and scratch f32).
+extern "C" int mvs_incremental_chain_bf16(const __nv_bfloat16* feats0,
+                                          const __nv_bfloat16* image, const float* H_inc,
+                                          const float* w0, const float* wr, const float* wf,
+                                          const float* vec, __nv_bfloat16* out,
+                                          float* scratch, int N, int Dm1, int h, int w,
+                                          int cluster, cudaStream_t stream) {
+  return launch(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N, Dm1, h, w, cluster,
+                stream);
 }

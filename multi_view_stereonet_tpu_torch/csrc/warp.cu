@@ -21,17 +21,26 @@
 // lost to F.grid_sample on the device at the plane sweep; this one takes the batch
 // index from blockIdx.y, and for C = 3 (both warps of the serving path) issues all
 // twelve tap reads before any arithmetic.
+//
+// The output is f32 or bf16 (the JAX warp's out_dtype, warp_kernel.py:224-273): the
+// interpolation is f32 either way and the bf16 output is the f32 one rounded once to
+// nearest even, so it is the f32 kernel's output rounded, bit for bit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // CC: the channel count when it is known at compile time (3), else 0 (runtime C).
-template <int CC>
+// T: the output's storage type.
+template <int CC, typename T>
 __global__ void __launch_bounds__(256)
 grid_sample_kernel(const float* __restrict__ image, const float* __restrict__ grid,
-                   float* __restrict__ out, bool* __restrict__ invalid, int H, int W,
+                   T* __restrict__ out, bool* __restrict__ invalid, int H, int W,
                    int C_rt, int64_t M, int zero_invalid) {
   const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
@@ -44,12 +53,13 @@ grid_sample_kernel(const float* __restrict__ image, const float* __restrict__ gr
 
   const float ux = ((gx + 1.0f) * W - 1.0f) * 0.5f;
   const float uy = ((gy + 1.0f) * H - 1.0f) * 0.5f;
-  float* o = out + i * C;
+  T* o = out + i * C;
   if (isnan(ux) || isnan(uy)) {
     // fmaxf would clamp a NaN coordinate to 0 and sample pixel (0, 0); the plain
     // version's clamp, and the XLA gather it follows, carry the NaN into every channel.
     // The flag stays as computed above (|NaN| > 1 is false), as theirs does.
-    for (int k = 0; k < C; ++k) o[k] = zero_invalid && inv ? 0.0f : __int_as_float(0x7fc00000);
+    for (int k = 0; k < C; ++k)
+      store(o + k, zero_invalid && inv ? 0.0f : __int_as_float(0x7fc00000));
     invalid[i] = inv;
     return;
   }
@@ -83,33 +93,45 @@ grid_sample_kernel(const float* __restrict__ image, const float* __restrict__ gr
     for (int k = 0; k < CC; ++k) {
       const float top = a[k] * (1.0f - wx) + b[k] * wx;
       const float bot = c[k] * (1.0f - wx) + e[k] * wx;
-      o[k] = zero ? 0.0f : top * (1.0f - wy) + bot * wy;
+      store(o + k, zero ? 0.0f : top * (1.0f - wy) + bot * wy);
     }
   } else {
     for (int k = 0; k < C; ++k) {
       const float top = p00[k] * (1.0f - wx) + p01[k] * wx;
       const float bot = p10[k] * (1.0f - wx) + p11[k] * wx;
-      o[k] = zero ? 0.0f : top * (1.0f - wy) + bot * wy;
+      store(o + k, zero ? 0.0f : top * (1.0f - wy) + bot * wy);
     }
   }
   invalid[i] = inv;
 }
 
-}  // namespace
-
-// image (B, H, W, C) f32, grid (B, M, 2) f32 -> out (B, M, C) f32,
-// invalid (B, M) bool. All contiguous; B <= 65535. Returns cudaGetLastError().
-extern "C" int mvs_grid_sample_f32(const float* image, const float* grid, float* out,
-                                   bool* invalid, int B, int H, int W, int C, int64_t M,
-                                   int zero_invalid, cudaStream_t stream) {
+template <typename T>
+int launch(const float* image, const float* grid, T* out, bool* invalid, int B, int H, int W,
+           int C, int64_t M, int zero_invalid, cudaStream_t stream) {
   if ((int64_t)B * M == 0) return 0;
   const int threads = 256;
   const dim3 blocks((unsigned)((M + threads - 1) / threads), (unsigned)B);
   if (C == 3)
-    grid_sample_kernel<3><<<blocks, threads, 0, stream>>>(image, grid, out, invalid, H, W,
-                                                          C, M, zero_invalid);
+    grid_sample_kernel<3, T><<<blocks, threads, 0, stream>>>(image, grid, out, invalid, H, W,
+                                                             C, M, zero_invalid);
   else
-    grid_sample_kernel<0><<<blocks, threads, 0, stream>>>(image, grid, out, invalid, H, W,
-                                                          C, M, zero_invalid);
+    grid_sample_kernel<0, T><<<blocks, threads, 0, stream>>>(image, grid, out, invalid, H, W,
+                                                             C, M, zero_invalid);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// image (B, H, W, C) f32, grid (B, M, 2) f32 -> out (B, M, C) f32 (or bf16, below),
+// invalid (B, M) bool. All contiguous; B <= 65535. Returns cudaGetLastError().
+extern "C" int mvs_grid_sample_f32(const float* image, const float* grid, float* out,
+                                   bool* invalid, int B, int H, int W, int C, int64_t M,
+                                   int zero_invalid, cudaStream_t stream) {
+  return launch(image, grid, out, invalid, B, H, W, C, M, zero_invalid, stream);
+}
+
+extern "C" int mvs_grid_sample_bf16(const float* image, const float* grid, __nv_bfloat16* out,
+                                    bool* invalid, int B, int H, int W, int C, int64_t M,
+                                    int zero_invalid, cudaStream_t stream) {
+  return launch(image, grid, out, invalid, B, H, W, C, M, zero_invalid, stream);
 }

@@ -9,6 +9,7 @@ from .mvsnet import (
     incremental_right_features,
     min_idepth_warp,
     mvsnet_forward,
+    resolve_dtypes,
 )
 from .refiners import FeatureRefiner, IDepthmapRefiner
 
@@ -22,6 +23,7 @@ __all__ = [
     "incremental_right_features",
     "min_idepth_warp",
     "mvsnet_forward",
+    "resolve_dtypes",
     "FeatureRefiner",
     "IDepthmapRefiner",
 ]

@@ -1,7 +1,9 @@
 """3-D cost-volume filter and the soft-argmin idepth extraction.
 
 Port of ``multi_view_stereonet_tpu/models/cost_volume.py:18-34, 54-67``.
-The filter takes NCDHW (B, C, D, H, W), PyTorch's Conv3d layout.
+The filter takes NCDHW (B, C, D, H, W), PyTorch's Conv3d layout, and runs at
+its input's dtype; its output, the soft-argmin's input, is f32 (the last conv's
+bias added in f32), and so is the soft-argmin.
 """
 
 from __future__ import annotations
@@ -9,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import conv3d, group_norm, group_norm_leaky
+from .layers import conv, conv3d, conv_group_norm_leaky, group_norm
 
 
 class CostVolumeFilter(nn.Module):
@@ -23,13 +25,13 @@ class CostVolumeFilter(nn.Module):
         self.conv4 = conv3d(channels, 1)
 
     def forward(self, volume, impl: str = "auto"):
-        """volume (B, C, D, H, W) -> filtered cost (B, D, H, W); ``impl`` reaches the
+        """volume (B, C, D, H, W) -> filtered cost (B, D, H, W), f32; ``impl`` reaches the
         GroupNorms (ops/cuda/build.py)."""
         x = volume
         for i in range(4):
-            x = group_norm_leaky(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(x),
-                                 impl=impl)
-        return self.conv4(x)[:, 0]
+            x = conv_group_norm_leaky(getattr(self, f"conv{i}"), getattr(self, f"bn{i}"), x,
+                                      impl=impl)
+        return conv(self.conv4, x, torch.float32)[:, 0]
 
 
 def extract_idepthmap(cost_volume: torch.Tensor, idepth_samples: torch.Tensor,

@@ -2,14 +2,15 @@
 
 Port of the plain path of ``multi_view_stereonet_tpu/models/
 feature_network.py:65-94``: four 5x5 stride-2 convs (3->32->32->32->32,
-no bias), six residual blocks (no bias), a 3x3 conv_final (bias). NCHW.
+no bias), six residual blocks (no bias), a 3x3 conv_final (bias). NCHW,
+at the input's dtype (the forward's frontend dtype).
 """
 
 from __future__ import annotations
 
 import torch.nn as nn
 
-from .layers import ResnetBlock, conv2d
+from .layers import ResnetBlock, conv, conv2d
 
 CHANNELS = (3, 32, 32, 32, 32)
 NUM_RES_BLOCKS = 6
@@ -27,14 +28,14 @@ class FeatureNetwork(nn.Module):
         self.conv_final = conv2d(chans[-1], chans[-1], 3)
 
     def forward(self, x, impl: str = "auto"):
-        """x (B, 3, H, W) -> [x, conv0, conv1, conv2, features], NCHW."""
+        """x (B, 3, H, W) -> [x, conv0, conv1, conv2, features], NCHW, at x's dtype."""
         pyramid = [x]
         h = x
         for i in range(3):
-            h = getattr(self, f"conv{i}")(h)
+            h = conv(getattr(self, f"conv{i}"), h)
             pyramid.append(h)
-        h = self.conv3(h)
+        h = conv(self.conv3, h)
         for i in range(NUM_RES_BLOCKS):
             h = getattr(self, f"res{i}")(h, impl=impl)
-        pyramid.append(self.conv_final(h))
+        pyramid.append(conv(self.conv_final, h))
         return pyramid

@@ -4,16 +4,25 @@ Port of ``multi_view_stereonet_tpu/models/layers.py:25-154``. Modules take
 NCHW (or NCDHW) tensors, PyTorch's own layout; the model converts from the
 JAX package's NHWC at its boundary. Module and parameter names follow the
 reference network, so a state dict maps one to one onto its checkpoints.
+
+A layer runs at its input's dtype, as the JAX layers do: a conv below f32 casts
+its f32 weight at the call and rounds its output to that dtype (``conv``),
+GroupNorm takes its statistics in f32 and writes its input's dtype. Where a
+conv's output goes straight into f32 arithmetic (a GroupNorm, the refiner's
+residual, the soft-argmin) its bias is added there in f32, unrounded, as the
+Pallas kernels add it and as XLA computes the JAX layers' ``conv + b``; where
+the conv's output is stored, the bias is added at its dtype. The casts are
+explicit, not ``torch.autocast``, whose per-op lists would move the rounding
+points away from the JAX package's.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.cuda.gn_apply import group_norm_act
 
-LEAKY_SLOPE = 0.2
 GN_EPS = 1e-5
 
 
@@ -34,14 +43,39 @@ def group_norm(channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(channels // 8, channels, eps=GN_EPS)
 
 
-def leaky_relu(x):
-    return F.leaky_relu(x, LEAKY_SLOPE)
+def _conv_unbiased(module, x: torch.Tensor) -> torch.Tensor:
+    """``module``'s conv without its bias at x's dtype: the weight cast to it, the
+    output rounded to it (f32 accumulation)."""
+    return module._conv_forward(x, module.weight.to(x.dtype), None)
+
+
+def conv(module, x: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``module`` (a Conv2d or Conv3d) on ``x`` at x's dtype. At the weights' f32 it is
+    the module itself; below it, as the JAX ``conv2d`` / ``conv3d``
+    (``multi_view_stereonet_tpu/models/layers.py:43-57,76-86``): the weight cast to x's
+    dtype and the conv's output rounded to it (f32 accumulation); then the bias added
+    at ``out_dtype`` (x's by default; the output is cast to it first)."""
+    if x.dtype == module.weight.dtype and out_dtype in (None, x.dtype):
+        return module(x)
+    y = _conv_unbiased(module, x).to(out_dtype or x.dtype)
+    if module.bias is None:
+        return y
+    return y + module.bias.to(y.dtype).reshape((-1,) + (1,) * (y.ndim - 2))
 
 
 def group_norm_leaky(bn: nn.GroupNorm, x, res=None, impl: str = "auto"):
     """leaky_relu(bn(x), 0.2) (+ res), NCHW or NCDHW: ``ops.cuda.gn_apply``'s kernel for
     CUDA tensors; ``impl`` as in ops/cuda/build.py."""
     return group_norm_act(x, bn.weight, bn.bias, bn.num_groups, res, impl)
+
+
+def conv_group_norm_leaky(module, bn: nn.GroupNorm, x, res=None, impl: str = "auto"):
+    """leaky_relu(bn(module(x)), 0.2) (+ res) at x's dtype: below f32 the conv's output
+    rounded without its bias, which the GroupNorm adds in f32 (``gn_apply``'s xbias)."""
+    if x.dtype == module.weight.dtype:
+        return group_norm_leaky(bn, module(x), res, impl)
+    return group_norm_act(_conv_unbiased(module, x), bn.weight, bn.bias, bn.num_groups, res,
+                          impl, xbias=module.bias)
 
 
 class ResnetBlock(nn.Module):
@@ -53,5 +87,5 @@ class ResnetBlock(nn.Module):
         self.bn1 = group_norm(channels)
 
     def forward(self, x, impl: str = "auto"):
-        """The tail (GroupNorm, LeakyReLU, + x) is ``group_norm_leaky``."""
-        return group_norm_leaky(self.bn1, self.conv1(x), x, impl)
+        """The tail (GroupNorm, LeakyReLU, + x) is ``group_norm_leaky``; at x's dtype."""
+        return conv_group_norm_leaky(self.conv1, self.bn1, x, x, impl)

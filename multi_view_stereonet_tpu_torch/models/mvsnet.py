@@ -16,6 +16,15 @@ the larger refiners' resblocks, those refiners' bn0 and the cost filter.
 ``impl`` ("auto" | "kernel" | "plain") reaches all four; see
 ops/cuda/build.py. Under autograd each kernel's backward recomputes its plain
 version (ops/cuda/recompute.py).
+
+``compute_dtype`` / ``refiner_dtype`` / ``frontend_dtype`` ("float32" or
+"bfloat16") select the storage dtype of the activations, as the JAX forward
+(``multi_view_stereonet_tpu/models/mvsnet.py:404-581``) resolves and casts them off
+the TPU (``resolve_dtypes``): the min-idepth warp writes and the extractor runs at
+the frontend dtype, the incremental chain, the cost and its filter at the
+extractor's output dtype, the refiners' convs at the refiner dtype. Geometry,
+the soft-argmin, the refiners' residual adds and every output stay float32.
+float32 everywhere is the default, and at it no value is cast.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from .refiners import FeatureRefiner, IDepthmapRefiner
 
 NUM_LEVELS = 5
 FEATURE_CHANNELS = 32
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +68,30 @@ class MultiViewStereoNetConfig:
     # training step's memory. Values are unchanged. Under it the recomputed forward
     # goes through the kernels again, so their counters count it.
     remat_refiners: bool = False
+    # Storage dtype of the activations ("float32" or "bfloat16"); the convs accumulate
+    # in f32 and the weights stay f32 in the state dict.
+    compute_dtype: str = "float32"
+    # The idepthmap refiners' and the frontend's (min-idepth warp output, extractor)
+    # dtypes; "auto" follows compute_dtype, the JAX rule off the TPU (its TPU-only bf16
+    # "auto" is not ported).
+    refiner_dtype: str = "auto"
+    frontend_dtype: str = "auto"
+
+
+def resolve_dtypes(config: MultiViewStereoNetConfig) -> tuple:
+    """(compute, refiner, frontend) torch dtypes of ``config``: an explicit name is
+    taken as it is, "auto" (refiner and frontend only) is compute_dtype."""
+    def dtype(name, field):
+        if name not in DTYPES:
+            raise ValueError(f"{field} must be one of {tuple(DTYPES)}"
+                             f"{'' if field == 'compute_dtype' else ' or auto'}, got {name!r}")
+        return DTYPES[name]
+    cdt = dtype(config.compute_dtype, "compute_dtype")
+    rdt = cdt if config.refiner_dtype == "auto" else dtype(config.refiner_dtype,
+                                                           "refiner_dtype")
+    fdt = cdt if config.frontend_dtype == "auto" else dtype(config.frontend_dtype,
+                                                            "frontend_dtype")
+    return cdt, rdt, fdt
 
 
 class RightFeatureExtractor(nn.Module):
@@ -92,12 +126,13 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
-def min_idepth_warp(T_right_in_left, K0, right_image0, idepth_samples, impl="auto"):
+def min_idepth_warp(T_right_in_left, K0, right_image0, idepth_samples, impl="auto",
+                    out_dtype=None):
     """Full-res right image (N, H, W, 3) warped at the min-idepth hypothesis,
-    invalid samples zeroed."""
+    invalid samples zeroed; interpolated in f32 and written at ``out_dtype``."""
     H_min = create_plane_sweep_homographies(T_right_in_left, K0, idepth_samples[:, :1])
     warped0, _ = homography_warp_auto(right_image0, H_min[:, 0], zero_invalid=True,
-                                      impl=impl)
+                                      impl=impl, out_dtype=out_dtype)
     return warped0
 
 
@@ -107,9 +142,9 @@ def incremental_right_features(net, T_right_in_left, K4, right_image4, idepth_sa
 
     T_right_in_left, K4: (N, 4, 4); right_image4: (N, h4, w4, 3);
     idepth_samples: (N, D); feats0: (N, h4, w4, C), the extractor's
-    features of the min-idepth warp. Returns (volume (N, D, h4, w4, C),
-    invalid mask (N, D, h4, w4)), invalid voxels zeroed by the global
-    sweep mask.
+    features of the min-idepth warp. Returns (volume (N, D, h4, w4, C) at
+    feats0's dtype, invalid mask (N, D, h4, w4)), invalid voxels zeroed by
+    the global sweep mask.
     """
     H_fam = create_plane_sweep_homographies(T_right_in_left, K4, idepth_samples)
     image_volume, mask_volume = plane_sweep_warp(right_image4, H_fam, impl=impl)
@@ -120,17 +155,20 @@ def incremental_right_features(net, T_right_in_left, K4, right_image4, idepth_sa
     return feature_volume, mask_volume
 
 
-def _refine_level(refiner, guidance, idepth_prior, fx, impl="auto", remat=False):
+def _refine_level(refiner, guidance, idepth_prior, fx, impl="auto", remat=False,
+                  dtype=torch.float32):
     """Run a refiner on fx-scaled idepth and scale back: a small level on the
     card as one kernel, any other as the module (its resblock tails kernels).
-    ``remat`` recomputes the refiner in the backward (``remat_refiners``)."""
+    The convs run at ``dtype``, the residual add in the prior's f32. ``remat``
+    recomputes the refiner in the backward (``remat_refiners``)."""
     scale = fx[:, None, None]
     n, _, h, w = guidance.shape
+    guidance = guidance.to(dtype)
 
     def refine(guidance, idepth):
         if use_kernel(impl, guidance) and fused_refiner_supported(h, w, n):
             return idepthmap_refiner(refiner, guidance, idepth, impl)
-        return refiner(guidance, idepth, impl=impl)
+        return refiner(guidance, idepth, impl=impl, dtype=dtype)
     if remat and torch.is_grad_enabled():
         refined = torch.utils.checkpoint.checkpoint(refine, guidance, idepth_prior * scale,
                                                     use_reentrant=False)
@@ -156,6 +194,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
         raise ValueError(f"the network has {NUM_LEVELS} pyramid levels")
     D = config.num_idepth_samples
     do_refiners = tuple(config.do_refiners)
+    cdt, rdt, fdt = resolve_dtypes(config)
     B, V = T_right_in_lefts.shape[0], T_right_in_lefts.shape[1]
     h4, w4 = left_image_pyr[4].shape[1], left_image_pyr[4].shape[2]
 
@@ -167,11 +206,12 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
     right4_bv = right_image_pyrs[4].reshape((B * V,) + right_image_pyrs[4].shape[2:])
 
     idepth_samples = create_idepth_samples(T_bv, K4_bv, h4, w4, D)  # (B*V, D)
-    warped0 = min_idepth_warp(T_bv, K0_bv, right0_bv, idepth_samples, impl)
+    warped0 = min_idepth_warp(T_bv, K0_bv, right0_bv, idepth_samples, impl, out_dtype=fdt)
 
-    # Left and min-idepth right features from one extractor call (B + B*V).
+    # Left and min-idepth right features from one extractor call (B + B*V), at the
+    # frontend dtype; the chain, the cost and its filter then run at the features'.
     stacked_pyr = net.left_feature_extractor(
-        _nchw(torch.cat([left_image_pyr[0], warped0], dim=0)), impl=impl)
+        _nchw(torch.cat([left_image_pyr[0].to(fdt), warped0], dim=0)), impl=impl)
     left_feature_pyr = [lvl[:B] for lvl in stacked_pyr]
     right_feats0 = stacked_pyr[-1][B:].permute(0, 2, 3, 1).contiguous()
     left_feats4 = left_feature_pyr[-1]  # (B, C, h4, w4)
@@ -186,14 +226,15 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
         cost_volume = net.volume_filter4(cost.permute(0, 4, 1, 2, 3), impl=impl)
     else:
         cost_volume = torch.sqrt(torch.sum(cost.float() ** 2, dim=-1))
-    idepth4_raw = extract_idepthmap(cost_volume, idepth_samples)  # (B*V, h4, w4)
+    idepth4_raw = extract_idepthmap(cost_volume, idepth_samples)  # (B*V, h4, w4), f32
 
     # Un-normalize by the per-view baseline, then average over views.
     b_hw = baseline[:, None, None]
     if do_refiners[4]:
-        guidance4 = torch.cat([_nchw(left_image_pyr[4]), left_feats4], dim=1)
+        guidance4 = torch.cat([_nchw(left_image_pyr[4]).to(rdt), left_feats4.to(rdt)], dim=1)
         idepth4 = _refine_level(net.refiner4, guidance4.repeat_interleave(V, dim=0),
-                                idepth4_raw, K4_bv[:, 0, 0], impl, config.remat_refiners)
+                                idepth4_raw, K4_bv[:, 0, 0], impl, config.remat_refiners,
+                                rdt)
         idepth4_raw = idepth4_raw / b_hw
         idepth4 = idepth4 / b_hw
     else:
@@ -220,11 +261,16 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
         # The mask volume upsampled with D as the channel axis.
         mask_lvl = upsample_mask(prev_mask.permute(0, 2, 3, 1), out_size).permute(0, 3, 1, 2)
         if do_refiners[lvl]:
-            guidance = _nchw(left_image_pyr[lvl])
+            # The image at compute_dtype, and the features beside it at the promotion of
+            # the two, as jnp.concatenate promotes; the refiner casts to its own dtype.
+            guidance = _nchw(left_image_pyr[lvl]).to(cdt)
             if lvl > 0:
-                guidance = torch.cat([guidance, left_feature_pyr[lvl]], dim=1)
+                feats = left_feature_pyr[lvl]
+                dt = torch.promote_types(cdt, feats.dtype)
+                guidance = torch.cat([guidance.to(dt), feats.to(dt)], dim=1)
             idepth_lvl = _refine_level(getattr(net, f"refiner{lvl}"), guidance, prior,
-                                       K_pyr[lvl][:, 0, 0], impl, config.remat_refiners)
+                                       K_pyr[lvl][:, 0, 0], impl, config.remat_refiners,
+                                       rdt)
         else:
             idepth_lvl = prior
         idepthmap_pyr[lvl], raw_pyr[lvl], mask_pyr[lvl] = idepth_lvl, prior, mask_lvl

@@ -10,7 +10,14 @@ FeatureRefiner adds its delta.
 Layouts (the JAX package's): feats0 (N, h, w, 32), image_rest
 (N, D-1, h, w, 3), H_inc (N, D-1, 3, 3) -> (N, D, h, w, 32) with
 hypothesis 0 = feats0. The refiner is the port's ``FeatureRefiner``
-module (NCHW inside). Under autograd the kernel runs in ``_IncrementalChain``,
+module (NCHW inside). The chain runs at feats0's dtype, f32 or bf16, and
+image_rest is cast to it (``_incremental_scan``: ``image_i.astype(warped.dtype)``).
+At bf16 the plain loop is the scan at bf16 (its warp interpolates at bf16, as
+the JAX ``grid_sample`` does), and the kernel follows the Pallas kernel's
+rounding points (``incremental_chain.py:82-174``): the warp interpolates the bf16
+carry in f32 and rounds once, each GroupNorm + LeakyReLU rounds its f32 result,
+the residual and the step's output are rounded sums; the convs take bf16
+operands and accumulate in f32. Under autograd the kernel runs in ``_IncrementalChain``,
 which takes the refiner's weights as inputs and whose backward recomputes the
 plain loop, as the JAX ``_chain_bwd`` (``incremental_chain.py:357-368``)
 recomputes ``_incremental_scan`` (see recompute.py).
@@ -34,27 +41,34 @@ launches = 0
 
 def incremental_chain_plain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
                             H_inc: torch.Tensor) -> torch.Tensor:
-    """Python loop over the hypotheses, in the order of ``_incremental_scan``; the
-    refiner runs on its plain version too, so this path launches no kernel."""
+    """Python loop over the hypotheses, in the order of ``_incremental_scan``, at
+    feats0's dtype; the refiner runs on its plain version too, so this path launches
+    no kernel."""
     h, w = feats0.shape[1], feats0.shape[2]
     feats = feats0
     volume = [feats0]
     for d in range(H_inc.shape[1]):
         grid = homography_grid(H_inc[:, d], h, w)
         warped, _ = grid_sample_plain(feats, grid, zero_invalid=True)
-        image = image_rest[:, d].permute(0, 3, 1, 2)
+        image = image_rest[:, d].permute(0, 3, 1, 2).to(feats0.dtype)
         refined = refiner(image, warped.permute(0, 3, 1, 2), impl="plain")
         feats = refined.permute(0, 2, 3, 1).contiguous()
         volume.append(feats)
     return torch.stack(volume, dim=1)
 
 
+# The storage dtypes the kernel takes, and each one's entry in csrc/incremental_chain.cu.
+ENTRIES = {torch.float32: "mvs_incremental_chain_f32",
+           torch.bfloat16: "mvs_incremental_chain_bf16"}
+
+
 def _library():
     lib = load_library("incremental_chain")
-    fn = lib.mvs_incremental_chain_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.mvs_incremental_chain_f32.argtypes is None:
+        for name in ENTRIES.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         query = lib.mvs_incremental_chain_cluster
         query.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         query.restype = ctypes.c_int
@@ -79,13 +93,16 @@ def _taps(weight: torch.Tensor) -> torch.Tensor:
 def _output(feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torch.Tensor,
             w0: torch.Tensor, wr: torch.Tensor, wf: torch.Tensor,
             vec: torch.Tensor) -> torch.Tensor:
-    """Check the inputs' devices, types and shapes; allocate the (N, D, h, w, 32) output."""
+    """Check the inputs' devices, types and shapes; allocate the (N, D, h, w, 32) output
+    at feats0's dtype."""
     tensors = (feats0, image_rest, H_inc, w0, wr, wf, vec)
     if any(t.device != feats0.device for t in tensors):
         raise ValueError("incremental_chain_kernel needs every tensor and weight on one "
                          "device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("incremental_chain_kernel takes float32 tensors and weights")
+    if (feats0.dtype not in ENTRIES or image_rest.dtype != feats0.dtype
+            or any(t.dtype != torch.float32 for t in tensors[2:])):
+        raise TypeError("incremental_chain_kernel takes feats0 and image_rest of one dtype, "
+                        "float32 or bfloat16, and float32 homographies and weights")
     N, h, w, C = feats0.shape
     Dm1 = H_inc.shape[1]
     if (C != 32 or w0.shape != (9, 35, 32) or wr.shape != (9, 32, 32)
@@ -102,8 +119,9 @@ def _incremental_chain_launch(feats0: torch.Tensor, image_rest: torch.Tensor,
                               wf: torch.Tensor, vec: torch.Tensor,
                               cluster: int) -> torch.Tensor:
     """Launch csrc/incremental_chain.cu: one thread-block cluster per sample runs all D-1
-    steps. The refiner's conv weights come as taps (``_taps``), its seven bias and
-    GroupNorm vectors stacked in ``vec``."""
+    steps, at feats0's dtype. The refiner's conv weights come as f32 taps (``_taps``;
+    the bf16 kernel rounds them to bf16 as it loads them), its seven bias and GroupNorm
+    vectors stacked in ``vec``."""
     global launches
     out = _output(feats0, image_rest, H_inc, w0, wr, wf, vec)
     N, h, w, C = feats0.shape
@@ -115,11 +133,11 @@ def _incremental_chain_launch(feats0: torch.Tensor, image_rest: torch.Tensor,
     scratch = torch.empty((N, 3, h, w, C), dtype=torch.float32, device=feats0.device)
     stream = torch.cuda.current_stream(feats0.device).cuda_stream
     with launch_device(feats0.device):
-        status = _library().mvs_incremental_chain_f32(
+        status = getattr(_library(), ENTRIES[feats0.dtype])(
             feats0.data_ptr(), image_rest.data_ptr(), H_inc.data_ptr(), w0.data_ptr(),
             wr.data_ptr(), wf.data_ptr(), vec.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), N, H_inc.shape[1], h, w, cluster, stream)
-    check_status("mvs_incremental_chain_f32", status)
+    check_status(ENTRIES[feats0.dtype], status)
     launches += 1
     return out
 
@@ -144,7 +162,7 @@ def _launch(refiner, feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torc
                        res.conv1.bias, res.bn1.weight, res.bn1.bias,
                        refiner.conv_final.bias])
     launch = _incremental_chain_op if tracing() else _incremental_chain_launch
-    return launch(feats0, image_rest, H_inc, _taps(refiner.conv0.weight),
+    return launch(feats0, image_rest.to(feats0.dtype), H_inc, _taps(refiner.conv0.weight),
                   _taps(res.conv1.weight), _taps(refiner.conv_final.weight), vec, cluster)
 
 
@@ -182,7 +200,8 @@ def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Te
 
 def incremental_chain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
                       H_inc: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """The chain: the kernel for CUDA tensors, the plain loop otherwise (see build.py)."""
+    """The chain at feats0's dtype: the kernel for CUDA tensors, the plain loop otherwise
+    (see build.py)."""
     if use_kernel(impl, feats0):
         return incremental_chain_kernel(refiner, feats0, image_rest, H_inc)
     return incremental_chain_plain(refiner, feats0, image_rest, H_inc)

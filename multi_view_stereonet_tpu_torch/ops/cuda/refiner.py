@@ -5,8 +5,14 @@ Port of the TPU kernel ``multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py``
 (``idepthmap_refiner_fused``), whose semantics are ``models/refiners.py``
 ``idepthmap_refiner``. Layouts are the port's modules': guidance (N, Cg, h, w),
 idepthmap (N, h, w), already fx-scaled by the caller -> ReLU(idepthmap + delta)
-(N, h, w). The refiner is the port's ``IDepthmapRefiner`` module; its weights are
-packed into the kernel's layout once and reused until a parameter changes
+(N, h, w). The convs run at the guidance's dtype, f32 or bf16; the idepthmap and
+the output are f32. At bf16 the kernel follows the Pallas kernel's rounding
+(``refiner_kernel.py:95-116,165-224``): each conv takes bf16 operands and
+accumulates in f32, each GroupNorm + LeakyReLU rounds its f32 result to bf16 and
+the residual is a rounded sum; the final conv's delta stays f32 and is added to
+the f32 idepthmap. The refiner is the port's ``IDepthmapRefiner`` module; its
+weights are packed into the kernel's layout once a storage dtype and reused until
+a parameter changes
 (``packed_weights``; after an in-place write through ``.data``, which no key sees,
 call ``invalidate_packed_weights``). Under autograd the kernel runs in
 ``_IdepthmapRefiner``, which takes every parameter of the refiner as an input and whose
@@ -38,12 +44,17 @@ M_TILE = 16        # pixels a kernel m-tile, csrc/idepthmap_refiner.cu's MTILE
 C = 32
 WF_COLS = 8        # the final conv's one output channel, padded to an n8 tile
 
-# refiner -> (parameters, their storages kept alive, each parameter's (data_ptr, version,
-# dtype, device) and the dilations, (packed weights, dilations))
+# The guidance (storage) dtypes the kernel takes, and each one's entry in
+# csrc/idepthmap_refiner.cu.
+ENTRIES = {torch.float32: "mvs_idepthmap_refiner_f32",
+           torch.bfloat16: "mvs_idepthmap_refiner_bf16"}
+
+# refiner -> {storage dtype: (parameters, their storages kept alive, the key
+# (``_pack_key``), (packed weights, dilations))}
 _packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 # (device index, stream) -> the grid-barrier counter of launches on that stream
 _barriers: dict = {}
-_fn = None  # the kernel's ctypes entry, loaded on first use
+_fns: dict = {}  # storage dtype -> the kernel's ctypes entry, loaded on first use
 
 
 def fused_refiner_supported(h: int, w: int, n: int) -> bool:
@@ -58,20 +69,21 @@ def fused_refiner_supported(h: int, w: int, n: int) -> bool:
 
 def idepthmap_refiner_plain(refiner, guidance: torch.Tensor,
                             idepthmap: torch.Tensor) -> torch.Tensor:
-    """The module itself, every piece on its plain PyTorch version."""
-    return refiner(guidance, idepthmap, impl="plain")
+    """The module itself at the guidance's dtype, every piece on its plain PyTorch
+    version."""
+    return refiner(guidance, idepthmap, impl="plain", dtype=guidance.dtype)
 
 
-def _kernel_function():
-    """The ctypes entry of csrc/idepthmap_refiner.cu (built on first use)."""
-    global _fn
-    if _fn is None:
-        fn = load_library("idepthmap_refiner").mvs_idepthmap_refiner_f32
+def _kernel_function(dtype: torch.dtype):
+    """The ctypes entry of csrc/idepthmap_refiner.cu for ``dtype`` (built on first use)."""
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(load_library("idepthmap_refiner"), ENTRIES[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
                        + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def scratch_floats(n: int, h: int, w: int) -> int:
@@ -89,19 +101,26 @@ def tf32_split(x: torch.Tensor):
     return hi, x - hi
 
 
-def pair_image(w: torch.Tensor) -> torch.Tensor:
+def pair_image(w: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., rows, cols) weights, cols 32 or 8 -> (..., rows, cols, 2) (hi, lo) pairs with
     the column of row r at col ^ s(r): s = 4 (r % 4) for 32 columns, 4 ((r // 2) % 2) for 8,
-    as csrc/idepthmap_refiner.cu's wpair reads them (distinct banks for a half-warp)."""
+    as csrc/idepthmap_refiner.cu's wpair reads them (distinct banks for a half-warp). For
+    the bf16 kernel the pair is (w rounded to bf16, 0)."""
     r = torch.arange(w.shape[-2], device=w.device)[:, None]
     s = (r & 3) << 2 if w.shape[-1] == C else ((r >> 1) & 1) << 2
     col = torch.arange(w.shape[-1], device=w.device)[None, :] ^ s
-    hi, lo = tf32_split(w.gather(-1, col.expand(w.shape)))
+    w = w.gather(-1, col.expand(w.shape))
+    if dtype == torch.float32:
+        hi, lo = tf32_split(w)
+    else:
+        hi = w.to(dtype).float()
+        lo = torch.zeros_like(hi)
     return torch.stack([hi, lo], dim=-1)
 
 
-def _pack(refiner):
-    """(packed weights, dilations) in the layout csrc/idepthmap_refiner.cu reads."""
+def _pack(refiner, dtype: torch.dtype = torch.float32):
+    """(packed weights, dilations) in the layout csrc/idepthmap_refiner.cu reads, for the
+    kernel of storage ``dtype``."""
     blocks = [getattr(refiner, f"res{i}") for i in range(NUM_RES)]
     params = tuple(refiner.parameters())
     if len({p.device for p in params}) != 1:
@@ -111,10 +130,10 @@ def _pack(refiner):
     with torch.no_grad():
         w0 = _taps(refiner.conv0.weight)
         cin_pad = -(-w0.shape[1] // 4) * 4
-        w0 = pair_image(torch.nn.functional.pad(w0, (0, 0, 0, cin_pad - w0.shape[1])))
-        wr = pair_image(torch.stack([_taps(b.conv1.weight) for b in blocks]))
+        w0 = pair_image(torch.nn.functional.pad(w0, (0, 0, 0, cin_pad - w0.shape[1])), dtype)
+        wr = pair_image(torch.stack([_taps(b.conv1.weight) for b in blocks]), dtype)
         wf = pair_image(torch.nn.functional.pad(_taps(refiner.conv_final.weight),
-                                                (0, WF_COLS - 1)))
+                                                (0, WF_COLS - 1)), dtype)
         rows = [refiner.conv0.bias, refiner.bn0.weight, refiner.bn0.bias]
         for b in blocks:
             rows += [b.conv1.bias, b.bn1.weight, b.bn1.bias]
@@ -131,14 +150,16 @@ def packed_floats(cin0: int) -> int:
             + (3 + 3 * NUM_RES) * C + 1)
 
 
-def _pack_key(params, refiner) -> tuple:
-    """Each parameter's (data_ptr, version, dtype, device), then the dilations."""
-    return tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params) + tuple(
-        getattr(refiner, f"res{i}").conv1.dilation[0] for i in range(NUM_RES))
+def _pack_key(params, refiner, dtype: torch.dtype = torch.float32) -> tuple:
+    """The storage dtype the pack is for (the parameters stay f32 at every one), each
+    parameter's (data_ptr, version, dtype, device), then the dilations."""
+    return ((dtype,) + tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
+            + tuple(getattr(refiner, f"res{i}").conv1.dilation[0] for i in range(NUM_RES)))
 
 
-def packed_weights(refiner):
-    """The refiner's weights packed for the kernel, (pack, dilations).
+def packed_weights(refiner, dtype: torch.dtype = torch.float32):
+    """The refiner's weights packed for the kernel of storage ``dtype``, (pack,
+    dilations); one pack is kept a storage dtype.
 
     Packed on first use and reused while every parameter is the same tensor, on the
     same storage (``data_ptr``) at the same ``_version``, dtype and device, and the
@@ -155,21 +176,22 @@ def packed_weights(refiner):
     the pack last made for this refiner is used as it is (the exported graph holds it as
     a constant) if the parameters it was made from are unchanged since, and the pack is
     traced from the parameters otherwise; nothing is cached then."""
-    cached = _packs.get(refiner)
+    cached = _packs.get(refiner, {}).get(dtype)
     if tracing():
-        if cached is not None and cached[2] == _pack_key(cached[0], refiner):
+        if cached is not None and cached[2] == _pack_key(cached[0], refiner, dtype):
             return cached[3]
-        return _pack(refiner)
+        return _pack(refiner, dtype)
     params = tuple(refiner.parameters())
     try:
-        key = _pack_key(params, refiner)
+        key = _pack_key(params, refiner, dtype)
     except RuntimeError:
-        return _pack(refiner)
+        return _pack(refiner, dtype)
     if (cached is not None and cached[2] == key
             and all(a is b for a, b in zip(cached[0], params))):
         return cached[3]
-    packed = _pack(refiner)
-    _packs[refiner] = (params, tuple(p.detach() for p in params), key, packed)
+    packed = _pack(refiner, dtype)
+    _packs.setdefault(refiner, {})[dtype] = (params, tuple(p.detach() for p in params),
+                                             key, packed)
     return packed
 
 
@@ -198,12 +220,14 @@ def _barrier(device: torch.device, stream: int) -> torch.Tensor:
 
 def _output(guidance: torch.Tensor, idepthmap: torch.Tensor, pack: torch.Tensor,
             dilations: list[int]) -> torch.Tensor:
-    """Check the inputs' devices, types and shapes; allocate the (N, h, w) output."""
+    """Check the inputs' devices, types and shapes; allocate the (N, h, w) f32 output."""
     if idepthmap.device != guidance.device or pack.device != guidance.device:
         raise ValueError("idepthmap_refiner_kernel needs every tensor and weight on one "
                          "device")
-    if any(t.dtype != torch.float32 for t in (guidance, idepthmap, pack)):
-        raise TypeError("idepthmap_refiner_kernel takes float32 tensors and weights")
+    if (guidance.dtype not in ENTRIES or idepthmap.dtype != torch.float32
+            or pack.dtype != torch.float32):
+        raise TypeError("idepthmap_refiner_kernel takes float32 or bfloat16 guidance and "
+                        "float32 idepthmap and weights")
     if guidance.ndim != 4:
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}")
     N, Cg, h, w = guidance.shape
@@ -212,20 +236,20 @@ def _output(guidance: torch.Tensor, idepthmap: torch.Tensor, pack: torch.Tensor,
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, idepthmap "
                          f"{tuple(idepthmap.shape)}, pack {tuple(pack.shape)}, dilations "
                          f"{list(dilations)}")
-    return guidance.new_empty((N, h, w))
+    return idepthmap.new_empty((N, h, w))
 
 
 def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
                               pack: torch.Tensor, dilations: list[int]) -> torch.Tensor:
-    """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner,
-    its weights packed by ``_pack``."""
+    """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner at
+    the guidance's dtype, its weights packed by ``_pack`` for that dtype."""
     global launches
     out = _output(guidance, idepthmap, pack, dilations)
     N, Cg, h, w = guidance.shape
     dev = guidance.device
     guidance = guidance.contiguous()
     idepthmap = idepthmap.contiguous()
-    fn = _kernel_function()
+    fn = _kernel_function(guidance.dtype)
     size = scratch_floats(N, h, w)
     scratch = torch.empty(size, dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -234,7 +258,7 @@ def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
                     out.data_ptr(), scratch.data_ptr(), size,
                     _barrier(dev, stream).data_ptr(), N, Cg, h, w,
                     (ctypes.c_int * NUM_RES)(*dilations), stream)
-    check_status("mvs_idepthmap_refiner_f32", status)
+    check_status(ENTRIES[guidance.dtype], status)
     launches += 1
     return out
 
@@ -257,7 +281,7 @@ def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor) -> torch.T
             or refiner.conv_final.weight.shape != (1, C, 3, 3)):
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, conv0 "
                          f"{tuple(refiner.conv0.weight.shape)}")
-    pack, dilations = packed_weights(refiner)
+    pack, dilations = packed_weights(refiner, guidance.dtype)
     launch = _idepthmap_refiner_op if tracing() else _idepthmap_refiner_launch
     return launch(guidance, idepthmap, pack, list(dilations))
 
@@ -295,8 +319,8 @@ def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
 
 def idepthmap_refiner(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
                       impl: str = "auto") -> torch.Tensor:
-    """ReLU(idepthmap + refiner delta): the kernel for CUDA tensors, the module's
-    plain version otherwise (see build.py). After writing the refiner's weights in place
+    """ReLU(idepthmap + refiner delta), the convs at the guidance's dtype: the kernel for
+    CUDA tensors, the module's plain version otherwise (see build.py). After writing the refiner's weights in place
     through ``.data``, call ``invalidate_packed_weights``."""
     if use_kernel(impl, guidance):
         return idepthmap_refiner_kernel(refiner, guidance, idepthmap)

@@ -17,6 +17,13 @@ predicted idepth, both carry one, at one channel and at three.
 
 A NaN grid coordinate gives NaN in every channel, on both paths, as the JAX gather
 does; its invalid flag is computed as for any other coordinate (|NaN| > 1 is false).
+
+``out_dtype`` (bf16) writes the f32 interpolation rounded once, as the JAX
+``homography_warp_auto(out_dtype=)`` and the Pallas kernel's output write
+(``warp_kernel.py:224-273``) do: the kernel's bf16 output is its f32 output
+rounded. The kernel takes an f32 image; the plain version also samples a bf16
+one, interpolating at the image's dtype as the JAX ``grid_sample`` does
+(``ops/warp.py:71-74``), which the incremental chain's plain loop needs.
 """
 
 from __future__ import annotations
@@ -34,8 +41,9 @@ launches = 0
 
 
 def grid_sample_plain(image: torch.Tensor, grid: torch.Tensor,
-                      zero_invalid: bool = False):
-    """Gather version, in the arithmetic order of the JAX ``grid_sample``."""
+                      zero_invalid: bool = False, out_dtype: torch.dtype | None = None):
+    """Gather version, in the arithmetic order of the JAX ``grid_sample``; the
+    weights and the blend at the image's dtype, the result cast to ``out_dtype``."""
     B, H, W, C = image.shape
     out_shape = grid.shape[:-1]
     gx = grid[..., 0].reshape(B, -1)
@@ -46,8 +54,8 @@ def grid_sample_plain(image: torch.Tensor, grid: torch.Tensor,
     iy = torch.clamp(((gy + 1.0) * H - 1.0) * 0.5, 0.0, H - 1.0)
     x0f = torch.floor(ix)
     y0f = torch.floor(iy)
-    wx = (ix - x0f)[..., None]
-    wy = (iy - y0f)[..., None]
+    wx = (ix - x0f)[..., None].to(image.dtype)
+    wy = (iy - y0f)[..., None].to(image.dtype)
     # The index clamp only matters for a NaN coordinate (a degenerate
     # homography), which must not become an out-of-range gather.
     x0 = x0f.long().clamp(0, W - 1)
@@ -64,66 +72,79 @@ def grid_sample_plain(image: torch.Tensor, grid: torch.Tensor,
     top = gather(y0, x0) * (1.0 - wx) + gather(y0, x1) * wx
     bot = gather(y1, x0) * (1.0 - wx) + gather(y1, x1) * wx
     out = top * (1.0 - wy) + bot * wy
+    if out_dtype is not None:
+        out = out.to(out_dtype)
     if zero_invalid:
         out = out.masked_fill(invalid[..., None], 0.0)
     return out.reshape(*out_shape, C), invalid.reshape(out_shape)
 
 
-def _library():
-    lib = load_library("warp")
-    fn = lib.mvs_grid_sample_f32
+# The output dtypes the kernel writes, and each one's entry in csrc/warp.cu.
+ENTRIES = {torch.float32: "mvs_grid_sample_f32", torch.bfloat16: "mvs_grid_sample_bf16"}
+
+
+def _entry(out_dtype: torch.dtype):
+    fn = getattr(load_library("warp"), ENTRIES[out_dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _outputs(image: torch.Tensor, grid: torch.Tensor):
+def _outputs(image: torch.Tensor, grid: torch.Tensor,
+             out_dtype: torch.dtype = torch.float32):
     """Check the inputs' types and shapes; allocate (out, invalid)."""
     if image.device != grid.device:
         raise ValueError("grid_sample_kernel needs image and grid on one device")
     if image.dtype != torch.float32 or grid.dtype != torch.float32:
         raise TypeError(f"grid_sample_kernel takes float32, got {image.dtype}, {grid.dtype}")
+    if out_dtype not in ENTRIES:
+        raise TypeError(f"grid_sample_kernel writes float32 or bfloat16, not {out_dtype}")
     if image.ndim != 4 or grid.shape[0] != image.shape[0] or grid.shape[-1] != 2:
         raise ValueError(f"bad shapes: image {tuple(image.shape)}, grid {tuple(grid.shape)}")
     out_shape = grid.shape[:-1]
-    return (image.new_empty(out_shape + (image.shape[3],)),
+    return (image.new_empty(out_shape + (image.shape[3],), dtype=out_dtype),
             image.new_empty(out_shape, dtype=torch.bool))
 
 
-def _grid_sample_launch(image: torch.Tensor, grid: torch.Tensor,
-                        zero_invalid: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def _grid_sample_launch(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/warp.cu on CUDA tensors; same contract as the plain version."""
     global launches
-    out, invalid = _outputs(image, grid)
+    out, invalid = _outputs(image, grid, out_dtype)
     B, H, W, C = image.shape
     M = grid[0, ..., 0].numel()
     image = image.contiguous()
     grid = grid.contiguous()
     stream = torch.cuda.current_stream(image.device).cuda_stream
     with launch_device(image.device):
-        status = _library().mvs_grid_sample_f32(
+        status = _entry(out_dtype)(
             image.data_ptr(), grid.data_ptr(), out.data_ptr(), invalid.data_ptr(),
             B, H, W, C, M, int(zero_invalid), stream)
-    check_status("mvs_grid_sample_f32", status)
+    check_status(ENTRIES[out_dtype], status)
     launches += 1
     return out, invalid
 
 
 _grid_sample_op = custom_op("grid_sample", "warp")(_grid_sample_launch)
-_grid_sample_op.register_fake(lambda image, grid, zero_invalid: _outputs(image, grid))
+_grid_sample_op.register_fake(
+    lambda image, grid, zero_invalid, out_dtype=torch.float32: _outputs(image, grid,
+                                                                        out_dtype))
 # On the CPU the op is the plain version, so that torch.library.opcheck runs there too;
 # the wrappers send CPU tensors to the plain version directly.
 _grid_sample_op.register_kernel("cpu")(grid_sample_plain)
 
 
-def _launch(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool):
+def _launch(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool,
+            out_dtype: torch.dtype):
     """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
     ``mvs_torch::grid_sample`` (see build.py ``custom_op``)."""
     if not (image.is_cuda and grid.is_cuda):
         raise ValueError("grid_sample_kernel needs image and grid on one CUDA device")
-    return (_grid_sample_op if tracing() else _grid_sample_launch)(image, grid, zero_invalid)
+    return (_grid_sample_op if tracing() else _grid_sample_launch)(image, grid, zero_invalid,
+                                                                    out_dtype)
 
 
 class _GridSample(torch.autograd.Function):
@@ -131,34 +152,36 @@ class _GridSample(torch.autograd.Function):
     The invalid mask carries no gradient."""
 
     @staticmethod
-    def forward(ctx, image, grid, zero_invalid):
-        ctx.zero_invalid = zero_invalid
+    def forward(ctx, image, grid, zero_invalid, out_dtype):
+        ctx.zero_invalid, ctx.out_dtype = zero_invalid, out_dtype
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(image, grid)
-        out, invalid = _launch(image, grid, zero_invalid)
+        out, invalid = _launch(image, grid, zero_invalid, out_dtype)
         ctx.mark_non_differentiable(invalid)
         return out, invalid
 
     @staticmethod
     def backward(ctx, grad, _grad_invalid):
         def plain(image, grid):
-            return grid_sample_plain(image, grid, ctx.zero_invalid)
+            return grid_sample_plain(image, grid, ctx.zero_invalid, ctx.out_dtype)
         return (*plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], (grad, None)),
-                None)
+                None, None)
 
 
 def grid_sample_kernel(image: torch.Tensor, grid: torch.Tensor,
-                       zero_invalid: bool = False):
+                       zero_invalid: bool = False, out_dtype: torch.dtype | None = None):
     """The kernel on CUDA tensors: launched directly, or through ``_GridSample`` when
     autograd records."""
+    out_dtype = out_dtype or image.dtype
     if needs_autograd(image, grid):
-        return _GridSample.apply(image, grid, zero_invalid)
-    return _launch(image, grid, zero_invalid)
+        return _GridSample.apply(image, grid, zero_invalid, out_dtype)
+    return _launch(image, grid, zero_invalid, out_dtype)
 
 
 def grid_sample(image: torch.Tensor, grid: torch.Tensor, zero_invalid: bool = False,
-                impl: str = "auto"):
-    """Bilinear border-clamped sample; the kernel for CUDA tensors (see build.py)."""
+                impl: str = "auto", out_dtype: torch.dtype | None = None):
+    """Bilinear border-clamped sample, written at ``out_dtype`` (the image's by
+    default); the kernel for CUDA tensors (see build.py)."""
     if use_kernel(impl, image):
-        return grid_sample_kernel(image, grid, zero_invalid)
-    return grid_sample_plain(image, grid, zero_invalid)
+        return grid_sample_kernel(image, grid, zero_invalid, out_dtype)
+    return grid_sample_plain(image, grid, zero_invalid, out_dtype)

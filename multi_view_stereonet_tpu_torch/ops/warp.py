@@ -32,14 +32,17 @@ def homography_warp(image: torch.Tensor, H: torch.Tensor, impl: str = "auto"):
 
 
 def homography_warp_auto(image: torch.Tensor, H: torch.Tensor,
-                         zero_invalid: bool = False, impl: str = "auto"):
-    """``homography_warp`` with invalid samples optionally zeroed.
+                         zero_invalid: bool = False, impl: str = "auto",
+                         out_dtype: torch.dtype | None = None):
+    """``homography_warp`` with invalid samples optionally zeroed, written at
+    ``out_dtype`` (interpolation in the image's f32, one rounding at the write).
 
     The JAX package routes this warp to its Pallas band kernel on the TPU;
     here the grid sample itself routes by device.
     """
     grid = homography_grid(H, image.shape[1], image.shape[2])
-    return grid_sample(image, grid, zero_invalid=zero_invalid, impl=impl)
+    return grid_sample(image, grid, zero_invalid=zero_invalid, impl=impl,
+                       out_dtype=out_dtype)
 
 
 def plane_sweep_warp(image: torch.Tensor, H_family: torch.Tensor,

@@ -17,7 +17,11 @@ bit-equal to the host pipeline for all 256 values. Each kernel's custom op passe
 ``torch.library.opcheck``, and the serving artifact exported on the card holds all
 four and is bit-equal to the live forward. Two processes on the card over gloo give one
 process's training step (``tests/_torch_distributed_worker.py``); with two cards, each
-kernel launches on its tensors' card while another is current.
+kernel launches on its tensors' card while another is current. At bf16: the grid
+sample's bf16 output is its f32 output rounded, the GroupNorm kernel is within a
+rounding of the GroupNorm value of its plain version, the chain within 5% of max|plain|
+(2% of the f32 chain), the refiner within 1% of max|plain|, K3's bf16 pack is never
+served to the f32 kernel, and the bf16 forward launches all four.
 """
 
 import importlib.util
@@ -889,3 +893,128 @@ def test_runner_on_the_card_yields_copies_out_of_a_pinned_ring(dev, small_run, m
                  "right_images": np.stack(sample["right_images"])[None],
                  "T_right_in_left": np.stack(sample["T_right_in_left"])[None]}
         np.testing.assert_array_equal(idepth, runner.forward(batch).cpu().numpy())
+
+
+# ---- the bf16 kernels (compute_dtype bfloat16) ----
+
+BF16 = torch.bfloat16
+
+
+def bf16_ulp(t):
+    mag = t.abs().clamp_min(torch.finfo(BF16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def test_bf16_grid_sample_is_the_f32_kernel_rounded(dev):
+    g = torch.Generator().manual_seed(3)
+    image = (torch.rand(2, 64, 80, 3, generator=g) * 2 - 1).to(dev)
+    grid = (torch.rand(2, 64, 80, 2, generator=g) * 2.2 - 1.1).to(dev)
+    before = warp.launches
+    got, inv = warp.grid_sample(image, grid, True, out_dtype=BF16)
+    f32, inv32 = warp.grid_sample(image, grid, True)
+    assert warp.launches == before + 2
+    assert got.dtype == BF16 and torch.equal(got, f32.to(BF16)) and torch.equal(inv, inv32)
+    with pytest.raises(TypeError, match="float32"):
+        warp.grid_sample(image.to(BF16), grid, impl="kernel")
+
+
+@pytest.mark.parametrize("shape,residual", [((2, 32, 30, 40), True), ((1, 32, 96, 128), True),
+                                            ((1, 32, 96, 128), False),
+                                            ((2, 32, 12, 30, 40), False)])
+def test_bf16_gn_kernel_within_a_rounding_of_plain(dev, shape, residual):
+    """Within one bf16 ulp of the f32 GroupNorm value and one of the plain result at
+    each element (the rounding of the GroupNorm value is the one that can differ), with
+    a conv bias given to the GroupNorm (xbias)."""
+    g = torch.Generator().manual_seed(len(shape))
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev).to(BF16)
+    res = torch.randn(shape, generator=g).to(dev).to(BF16) if residual else None
+    weight = (1 + 0.1 * torch.randn(32, generator=g)).to(dev)
+    bias = (0.1 * torch.randn(32, generator=g)).to(dev)
+    xbias = (0.3 * torch.randn(32, generator=g)).to(dev)
+    before = gn_apply.launches
+    got = gn_apply.group_norm_act(x, weight, bias, 4, res, xbias=xbias).float()
+    ref = gn_apply.group_norm_act(x, weight, bias, 4, res, impl="plain", xbias=xbias).float()
+    assert gn_apply.launches == before + 1
+    y = torch.nn.functional.group_norm(
+        x.float() + xbias.reshape((-1,) + (1,) * (x.ndim - 2)), 4, weight, bias, 1e-5)
+    assert torch.all((got - ref).abs() <= bf16_ulp(y) + bf16_ulp(ref))
+    assert (got == ref).float().mean().item() > 0.999
+
+
+@pytest.mark.parametrize("n,d", [(1, 12), (8, 12), (2, 2)])
+def test_bf16_chain_kernel_against_plain_and_f32(dev, n, d):
+    """Within 5% of max|plain| of the plain loop at bf16 (the scan's bf16 warp against
+    the kernel's f32 one, compounded over the steps) and within 2% of the f32 chain."""
+    refiner, feats0, image_rest, H_inc = chain_case(n, 30, 40, d, 0.0, seed=n + d, dev=dev)
+    with torch.inference_mode():
+        before = chain.launches
+        got = chain.incremental_chain(refiner, feats0.to(BF16), image_rest, H_inc)
+        ref = chain.incremental_chain(refiner, feats0.to(BF16), image_rest, H_inc,
+                                      impl="plain").float()
+        ref32 = chain.incremental_chain(refiner, feats0.to(BF16).float(), image_rest, H_inc,
+                                        impl="plain")
+    assert chain.launches == before + 1
+    assert got.dtype == BF16 and got.shape == (n, d, 30, 40, 32)
+    got = got.float()
+    assert (got - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+    assert (got - ref32).abs().max().item() <= 2e-2 * ref32.abs().max().item()
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 30, 40), (2, 30, 40), (1, 60, 80)])
+def test_bf16_refiner_kernel_matches_plain(dev, n, h, w):
+    module = idepthmap_refiner_module(35, seed=n, dev=dev)
+    g = torch.Generator().manual_seed(h)
+    guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev).to(BF16)
+    idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+    with torch.inference_mode():
+        before = refiner_op.launches
+        got = refiner_op.idepthmap_refiner(module, guidance, idepth)
+        ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+    assert refiner_op.launches == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    assert (ref - torch.relu(idepth)).abs().mean().item() > 0.01
+
+
+def test_bf16_pack_is_not_served_to_the_f32_kernel(dev):
+    """After a bf16 launch, an f32 launch gets the f32 pack: its output is the one an
+    f32 launch gives from a cold cache, and differs from the bf16 launch's."""
+    module = idepthmap_refiner_module(35, seed=5, dev=dev)
+    g = torch.Generator().manual_seed(5)
+    guidance = (torch.rand(1, 35, 30, 40, generator=g) * 2 - 1).to(dev)
+    idepth = (torch.rand(1, 30, 40, generator=g) * 20).to(dev)
+    with torch.inference_mode():
+        refiner_op.invalidate_packed_weights(module)
+        cold = refiner_op.idepthmap_refiner(module, guidance, idepth)
+        low = refiner_op.idepthmap_refiner(module, guidance.to(BF16), idepth)
+        after = refiner_op.idepthmap_refiner(module, guidance, idepth)
+    assert torch.equal(after, cold) and not torch.equal(low, cold)
+
+
+def test_bf16_forward_launches_each_kernel_at_bf16(dev):
+    """The bf16 forward launches K1-K4 (the f32 forward's counts at 64x80), no cast back
+    to f32 on the way: its outputs are f32 and within 3% of the f32 forward's range."""
+    model = MultiViewStereoNet()
+    model.load_state_dict(random_state_dict(0))
+    model = model.to(dev).eval()
+    g = torch.Generator().manual_seed(1)
+    B, V, H, W = 1, 2, 64, 80
+    left = (torch.rand(B, H, W, 3, generator=g) * 2 - 1).to(dev)
+    rights = (torch.rand(B * V, H, W, 3, generator=g) * 2 - 1).to(dev)
+    K, T = scene(B * V, H, W, seed=2)
+    left_pyr = build_image_pyramid(left, 5)
+    right_pyrs = [r.reshape(B, V, *r.shape[1:]) for r in build_image_pyramid(rights, 5)]
+    K_pyr = build_K_pyramid(K[:B].to(dev), [(p.shape[1], p.shape[2]) for p in left_pyr])
+    T = T.reshape(B, V, 4, 4).to(dev)
+    config = MultiViewStereoNetConfig(num_idepth_samples=12, compute_dtype="bfloat16")
+    with torch.inference_mode():
+        before = counts()
+        got = mvsnet_forward(model, left_pyr, K_pyr, T, right_pyrs, config)
+        assert counts() == tuple(b + d for b, d in zip(before, (2, 1, 4, 17)))
+        ref = mvsnet_forward(model, left_pyr, K_pyr, T, right_pyrs,
+                             MultiViewStereoNetConfig(num_idepth_samples=12))
+    for lvl in range(5):
+        a, b = got["left_idepthmap_pyr"][lvl], ref["left_idepthmap_pyr"][lvl]
+        span = (b.max() - b.min()).item()
+        assert a.dtype == torch.float32 and torch.isfinite(a).all() and span > 0
+        assert (a - b).abs().max().item() <= 3e-2 * span

@@ -360,8 +360,8 @@ def _check_function(run_kernel, run_plain, leaves, weights_, calls):
 
 def test_gn_function_recomputes_the_plain_version(monkeypatch):
     calls = _plain_launch(monkeypatch, gn_apply,
-                          lambda x, w, b, groups, res: gn_apply.group_norm_act_plain(
-                              x, w, b, groups, res))
+                          lambda x, w, b, groups, res, xbias: gn_apply.group_norm_act_plain(
+                              x, w, b, groups, res, xbias))
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 32, 4, 6, generator=g, requires_grad=True)
     res = torch.randn(2, 32, 4, 6, generator=g, requires_grad=True)
