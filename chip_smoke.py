@@ -62,7 +62,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    the plain version) at phase 3's shapes against plain autograd on the card:
    every input's gradient within 1e-4 of max|plain| (a gradient below 1e-4 of
    the largest held to that floor), no launch in the backward; the device time
-   of one backward (torch.profiler, the sum of its kernels), of the plain
+   of one backward (torch.profiler, the sum of its kernels; ``profile_kernels``
+   keeps two sessions that agree on the count of kernel events), of the plain
    path's backward and, for K1 and K4, of ``F.grid_sample``'s and of
    ``F.group_norm`` + ``F.leaky_relu``'s. K1 also at the losses' shapes with image
    and grid both leaves.
@@ -123,7 +124,11 @@ Phases, each printing its results; any failure raises and exits non-zero:
    (from the init), step 4 (from the CLI's checkpoint) and step 5 (one update after
    it); steps 2 and 3, after adam's first updates from a zero second moment, which turn
    the last bits of a near-zero gradient into a whole step of the rate, within 1e-3,
-   printed beside the drift of one process's kernel against its plain path. (d) The CLI
+   printed beside the drift of one process's kernel against its plain path. At every
+   step, from the weights the two processes entered it with (each CLI process records
+   them and the gradient it applies: ``record_steps``), one process's loss on the same
+   global batch within 1e-5 relative of losses.txt and its gradient against the applied
+   one within phase 7's bar: no adam drift in between. (d) The CLI
    as two processes at
    the recipe (augmentation on, 4 loader threads a process) for 10 steps: each
    process's ms a step (host clock at its stop check, median of steps 4-9) beside
@@ -154,6 +159,27 @@ Phases, each printing its results; any failure raises and exits non-zero:
    f32 (files written, abs_rel of both), and ``export --dtype bfloat16`` at B = 1 run
    in a fresh process bit-equal to the live runner at bf16, launches 2 / 1 / 2 / 31.
    A bar missed fails the phase after every measurement is printed.
+12. Training at ``compute_dtype: bfloat16``. (a), run right after phase 3b (later in a
+   long run torch.profiler was seen to miss most of a backward's kernel events): each
+   kernel's ``autograd.Function`` at bf16 under gradients at phase 3b's shapes (K1 f32 image and grid, bf16 out; K2 bf16
+   feats0; K3 bf16 guidance, f32 idepth; K4 bf16 x and res, the conv's bias as an f32
+   xbias) against plain autograd at bf16 within phase 3b's bar, with cuDNN and PyTorch
+   deterministic for the comparison; every gradient at its input's dtype; the device
+   times of the Function's backward, plain autograd's and the library call's (K1
+   ``F.grid_sample``, K4 ``F.group_norm`` at bf16 + ``leaky_relu`` + add). (b) The
+   recipe at bf16 through ``train_cli.train``: 3 steps, validation over 8 images, a
+   checkpoint, a resume for 1 under ``remat_refiners``: losses finite, launches 2 / 1 /
+   2 / 31 a forward (and the remat's recompute: K3 2, K4 21 a step), the weights and the
+   checkpoint f32; the two-view recipe with every loss at bf16 for 2 steps, its launches
+   as phase 8's. (c) One batch, kernel path against plain path at bf16: launches, the
+   loss within 1e-4 relative and the flat gradient within 1e-2 relative L2 (bars from
+   the phase's first chip run); with ``remat_refiners`` against without, the loss within
+   1e-5 and the flat gradient within 1e-2; then ms a step, images/s and peak
+   memory at f32 and bf16 on both paths in turns, device busy a kernel-path step at
+   each dtype (torch.profiler), the K3 bf16 repack's host time. (d) The train CLI as two
+   processes over gloo at bf16 for 2 steps against one process's steps on the
+   concatenated batches: step 1 within 1e-4, step 2 within 1e-3. A bar missed fails the
+   phase after every measurement is printed.
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
@@ -164,9 +190,10 @@ bounds and library times (launches are phase 4's, "train_launches" phase
 "artifact_launches" and "artifact_launches_b24" phase 9's artifacts' in their
 fresh processes; "op_call_us", "direct_call_us" and "guard_us" phase 9's dispatch
 costs; "multi_process_launches" a process's launches a step in phase 10 (d)), each
-with a "backward" entry (phase 3b) and a "bf16" entry (phase 11: its error, device
+with a "backward" entry (phase 3b), a "bf16" entry (phase 11: its error, device
 times, the f32 kernel's, its bound at bf16, the bar it met and its launches in phase
-11 (b)); K1's entry and its backward carry "loss_shapes", one entry each for one and
+11 (b)), a "bf16_backward" entry (phase 12 (a), as "backward" at bf16) and
+"bf16_train_launches" (a bf16 train step's, phase 12 (c)); K1's entry and its backward carry "loss_shapes", one entry each for one and
 three channels at the losses' shapes. Then the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
@@ -211,6 +238,7 @@ EVAL_REL_BAR, EVAL_DELTA_BAR = 1e-4, 1e-3
 RATIOS = ("a1", "a2", "a3")
 # The bound's peaks: NVIDIA H100 SXM data sheet, HBM3 rate and f32 outside the tensor
 # cores (dense), at the full 700 W power limit.
+PROFILE_SESSIONS = 8  # the most torch.profiler sessions a reading takes
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores (the bf16 kernels' convs)
@@ -231,6 +259,16 @@ BF16_KERNEL_BAR = 1e-2
 BF16_CHAIN_BAR, BF16_CHAIN_F32_BAR = 5e-2, 2e-2
 BF16_FORWARD_MEAN, BF16_FORWARD_MAX = 5e-3, 3e-2
 BF16_PATH_BAR = 2e-2
+# Phase 12 (bf16 training), bars set from the first chip run of the phase (NVIDIA H100
+# 80GB HBM3, 700.00 W). The kernel path against the plain path at bf16 on one batch: the
+# loss within 1e-4 relative (measured 1.17e-5) and the flat gradient within 1e-2
+# relative L2 (measured 3.14e-3; K2's forward rounds the warp in f32, its plain loop at
+# bf16). Two processes against one at bf16: step 1, from the init, within 1e-4
+# (measured 2.94e-6: the per-sample convs at B = 4 and 8 round differently); step 2,
+# after adam's first update, within DRIFT_BAR (measured 2.69e-4).
+BF16_TRAIN_LOSS_BAR, BF16_TRAIN_GRAD_BAR = 1e-4, 1e-2
+BF16_MP_BAR = 1e-4
+BF16_TRAIN_STEPS, BF16_VAL_IMAGES, BF16_MP_STEPS, BF16_TWO_VIEW_STEPS = 3, 8, 2, 2
 H0, W0, D = 480, 640, 12
 LONG = 96  # requests of the tree that phases 5 and 6 time
 ARTIFACT_KEYS = ("left_image", "right_images", "K", "T_right_in_left")
@@ -287,21 +325,49 @@ def graph_ms(fn, reps=20) -> float:
     return median_ms(graph.replay, runs=7, warmup=1) / reps
 
 
-def device_ms(fn, reps=5, warmup=2) -> float:
-    """Device time of one call: the card's kernel times summed over ``reps`` calls under
-    torch.profiler, over reps (the gaps between kernels left out)."""
+def profile_kernels(fn, reps):
+    """(device ms, wall ms, the profile) of one call of ``fn``: the card's kernel times
+    summed under torch.profiler over ``reps`` calls a session, over reps (the gaps
+    between kernels left out). Each session counts its device events, because a count
+    moves (seen on the H100 machine): a session can miss some or all of its events
+    (sporadic, 1-100% of them), and a session can hold one to six more than the others
+    of its reading. So a session with no event is not kept, and a reading stands once
+    two sessions agree on their count: the mean of those two. (Two sessions that miss
+    the same number of events would pass; none was seen.) Raises after
+    PROFILE_SESSIONS sessions without two that agree."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    counts, seen = [], {}
+    for _ in range(PROFILE_SESSIONS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        counts.append(len(times))
+        if not times:
+            continue
+        seen.setdefault(len(times), []).append((sum(times) / 1e3 / reps, wall, prof))
+        if len(seen[len(times)]) == 2:
+            if len(set(counts)) > 1:
+                log(f"torch.profiler: kernel events by session {counts}; kept the two at "
+                    f"{len(times)}")
+            (busy_a, wall_a, _), (busy_b, wall_b, prof) = seen[len(times)]
+            return (busy_a + busy_b) / 2, (wall_a + wall_b) / 2, prof
+    raise AssertionError(f"torch.profiler: no two of {PROFILE_SESSIONS} sessions agreed on "
+                         f"the kernel events of {reps} calls; by session {counts}")
+
+
+def device_ms(fn, reps=5, warmup=2) -> float:
+    """Device time of one call (``profile_kernels``) after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    return profile_kernels(fn, reps)[0]
 
 
 def worst_relative(got, ref):
@@ -585,10 +651,16 @@ def check_kernels(dev):
     return results
 
 
-def check_backward(dev):
+def check_backward(dev, dtype=torch.float32):
     """Phase 3b: each kernel's backward (the plain version recomputed inside its
     Function) against plain autograd at phase 3's shapes, with its device time, the plain
-    path's and (K1, K4) the library's. Returns {kernel: backward entry}."""
+    path's and (K1, K4) the library's. Returns {kernel: backward entry}. With ``dtype``
+    bf16 (phase 12 (a)) each kernel takes its bf16 inputs as the bf16 forward gives them
+    (K1 an f32 image and grid, bf16 out; K2 bf16 feats0; K3 bf16 guidance, f32 idepth;
+    K4 bf16 x and res and the conv's bias as an f32 xbias), every gradient must come back
+    at its input's dtype, and the two backwards are compared with cuDNN and PyTorch
+    deterministic (a bf16 scatter-add's order moves its result by whole bf16 ulps); the
+    losses' K1 stays f32 at bf16 training and is not run again."""
     import torch.nn.functional as F
 
     from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
@@ -605,6 +677,8 @@ def check_backward(dev):
 
     g = torch.Generator().manual_seed(1)
     results = {}
+    bf16 = dtype == torch.bfloat16
+    tag = " bf16" if bf16 else ""
 
     def geometry(n, seed):
         K, T = scene(n, seed)
@@ -619,15 +693,21 @@ def check_backward(dev):
         """run(impl) -> output; library() -> (output, inputs) of the one PyTorch call.
         The JSON line keeps the times of the shape checked with ``keep``."""
         outs = {impl: run(impl) for impl in ("kernel", "plain")}
-        cot = torch.randn(outs["plain"].shape, generator=g).to(dev)
+        cot = torch.randn(outs["plain"].shape, generator=g).to(dev, outs["plain"].dtype)
 
         def backward(impl):
             return torch.autograd.grad(outs[impl], inputs, cot, retain_graph=True)
         before = read_launches()
-        got, ref = backward("kernel"), backward("plain")
-        torch.cuda.synchronize()
+        with deterministic(bf16):
+            got, ref = backward("kernel"), backward("plain")
+            torch.cuda.synchronize()
         if read_launches() != before:
-            raise AssertionError(f"{key} {what}: the backward launched a kernel")
+            raise AssertionError(f"{key}{tag} {what}: the backward launched a kernel")
+        dtypes = [t.dtype for t in got]
+        if dtypes != [t.dtype for t in inputs] or outs["kernel"].dtype != outs["plain"].dtype:
+            raise AssertionError(f"{key}{tag} {what}: output {outs['kernel'].dtype}, "
+                                 f"gradients {dtypes} for inputs "
+                                 f"{[t.dtype for t in inputs]}")
         err = worst_relative(got, ref)
         entry = {"max_rel_err": err, "ms": device_ms(lambda: backward("kernel")),
                  "plain_ms": device_ms(lambda: backward("plain")), "library_ms": None}
@@ -638,11 +718,13 @@ def check_backward(dev):
                 lib_out, lib_inputs, lib_cot, retain_graph=True))
         lib = ("" if entry["library_ms"] is None
                 else f", library {entry['library_ms']:.4f} ms")
-        log(f"{key} backward {what}: worst gradient error {err:.3e} of max|plain| (bar "
-            f"{BACKWARD_BAR:.0e}); device: through the kernel's Function {entry['ms']:.4f} "
-            f"ms, plain path {entry['plain_ms']:.4f} ms{lib}")
+        log(f"{key}{tag} backward {what}: worst gradient error {err:.3e} of max|plain| "
+            f"(bar {BACKWARD_BAR:.0e}); gradients {[str(d)[6:] for d in dtypes]}; device: "
+            f"through the kernel's Function {entry['ms']:.4f} ms, plain path "
+            f"{entry['plain_ms']:.4f} ms{lib}")
         if not err <= BACKWARD_BAR:
-            raise AssertionError(f"{key} backward disagrees with plain autograd at {what}")
+            raise AssertionError(f"{key}{tag} backward disagrees with plain autograd at "
+                                 f"{what}")
         old = results.get(key)
         if old is not None:
             base = entry if keep else old
@@ -665,14 +747,15 @@ def check_backward(dev):
             x = image.detach().permute(0, 3, 1, 2).contiguous().requires_grad_()
             grid4 = grid.detach().reshape(n, -1, grid.shape[-2], 2).requires_grad_()
             return F.grid_sample(x, grid4, mode="bilinear", padding_mode="border",
-                                 align_corners=False), (x, grid4)
-        check("K1", what, lambda impl: warp.grid_sample(image, grid, True, impl)[0],
+                                 align_corners=False).to(dtype), (x, grid4)
+        check("K1", what, lambda impl: warp.grid_sample(image, grid, True, impl,
+                                                        out_dtype=dtype)[0],
               (image, grid), library, keep=n == 1)
 
     # K1 where the two-view losses call it: one channel and three at 480x640, B = 8, the
     # grid projected from idepth; image and grid both leaves.
     grid0 = loss_grid(TRAIN_B, dev, g)
-    for C in (1, 3):
+    for C in () if bf16 else (1, 3):
         image = leaf(torch.rand(TRAIN_B, H0, W0, C, generator=g) * 2 - 1)
         grid = grid0.detach().clone().requires_grad_()
 
@@ -694,7 +777,7 @@ def check_backward(dev):
     for n in (1, 8):
         K_pyr, T, samples = geometry(n, 10 + n)
         H_inc = incremental_homographies(create_plane_sweep_homographies(T, K_pyr[4], samples))
-        feats0 = leaf(torch.randn(n, 30, 40, 32, generator=g))
+        feats0 = leaf(torch.randn(n, 30, 40, 32, generator=g).to(dtype))
         image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
         check("K2", f"N={n} 30x40x32 D={D}",
               lambda impl: chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl),
@@ -708,7 +791,7 @@ def check_backward(dev):
         module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
                                 if k.startswith(name + ".")})
         module = module.to(dev)
-        guidance = leaf(torch.rand(n, 35, h, w, generator=g) * 2 - 1)
+        guidance = leaf((torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dtype))
         idepth = leaf(torch.rand(n, h, w, generator=g) * 20)
         check("K3", f"({n},35,{h},{w})",
               lambda impl: refiner_op.idepthmap_refiner(module, guidance, idepth, impl),
@@ -718,29 +801,49 @@ def check_backward(dev):
     # resblock's times.
     weight = leaf(state["refiner0.res0.bn1.weight"].clone())
     bias = leaf(state["refiner0.res0.bn1.bias"].clone())
+    xbias = leaf(state["refiner0.res0.conv1.bias"].clone()) if bf16 else None
     for shape, residual, what in GN_SHAPES:
-        x = leaf(torch.randn(shape, generator=g) * 2 + 0.5)
-        res = leaf(torch.randn(shape, generator=g)) if residual else None
+        x = leaf((torch.randn(shape, generator=g) * 2 + 0.5).to(dtype))
+        res = leaf(torch.randn(shape, generator=g).to(dtype)) if residual else None
 
         def library(x=x, res=res):
+            # The one library GroupNorm at x's dtype (its statistics in f32), no xbias.
             xs = x.detach().requires_grad_()
             rs = None if res is None else res.detach().requires_grad_()
-            out = F.leaky_relu(F.group_norm(xs, 4, weight, bias, 1e-5), 0.2)
+            out = F.leaky_relu(F.group_norm(xs, 4, weight.to(dtype), bias.to(dtype), 1e-5),
+                               0.2)
             return (out if rs is None else out + rs), tuple(t for t in (xs, weight, bias, rs)
                                                            if t is not None)
         check("K4", f"{shape} {'+ res' if residual else 'no res'} ({what})",
-              lambda impl: gn_apply.group_norm_act(x, weight, bias, 4, res, impl),
-              tuple(t for t in (x, weight, bias, res) if t is not None), library,
+              lambda impl: gn_apply.group_norm_act(x, weight, bias, 4, res, impl, xbias),
+              tuple(t for t in (x, weight, bias, res, xbias) if t is not None), library,
               keep=shape == (1, 32, H0, W0) and residual)
     return results
+
+
+def deterministic(on):
+    """Within it, with ``on``, cuDNN and PyTorch run their deterministic algorithms (a
+    warning where an operation has none)."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    if on:
+        stack.enter_context(torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True, allow_tf32=False))
+        previous = (torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        stack.callback(torch.use_deterministic_algorithms, previous[0],
+                       warn_only=previous[1])
+    return stack
+
+
 
 
 def train_phase(dev, inputs, smi):
     """Phase 7: the training CLI at full width, resumed and evaluated; then one batch
     through the kernel and plain paths: gradients, ms a step, memory, the repack and a
     profile. Returns (train() launches, summary)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from multi_view_stereonet_tpu_torch.checkpoint import native, random_state_dict
     from multi_view_stereonet_tpu_torch.data.loader import collate
     from multi_view_stereonet_tpu_torch.eval.test_cli import run_eval
@@ -904,21 +1007,13 @@ def train_phase(dev, inputs, smi):
     # Device time of the forward alone and of one whole step on each path (torch.profiler,
     # kernels summed): what the backward and the optimizer step take, and on the kernel
     # path what the recompute adds; the top device operations of one kernel-path step.
-    from torch.autograd import DeviceType
     device = {}
     for impl, (model, config, loss_config, step) in steps_by.items():
         loss_fn = make_loss_fn(config, loss_config, impl=impl)
         forward = device_ms(lambda: loss_fn(model, batch), reps=3, warmup=1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(model, batch)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3
+        busy, wall, prof = profile_kernels(lambda: step(model, batch), 1)
         device[impl] = {"forward_ms": forward, "busy_ms": busy, "wall_ms": wall}
-        log(f"train step profile ({'kernel' if impl == 'auto' else 'plain'} path, one step): "
+        log(f"train step profile ({'kernel' if impl == 'auto' else 'plain'} path, a step): "
             f"device busy {busy:.3f} ms of {wall:.3f} ms wall (profiler on), idle "
             f"{max(0.0, 1 - busy / wall):.1%}; the forward alone {forward:.3f} ms device "
             f"(mean of 3), the backward and the optimizer step {busy - forward:.3f} ms")
@@ -1045,21 +1140,12 @@ def two_view_phase(dev, inputs, smi):
             f"{peak[impl] / 2**30:.3f} GiB ({smi})")
     # Device time of one kernel-path step (torch.profiler, kernels summed), of its
     # forward (both forwards and the losses) alone, and the top device operations.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     model, config, loss_config, step = steps_by["auto"]
     loss_fn = make_loss_fn(config, loss_config, multi_view=False,
                            estimate_right_idepthmap=True)
     forward = device_ms(lambda: loss_fn(model, batch), reps=3, warmup=1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(model, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
-    log(f"two-view step profile (kernel path, one step): device busy {busy:.3f} ms of "
+    busy, wall, prof = profile_kernels(lambda: step(model, batch), 1)
+    log(f"two-view step profile (kernel path, a step): device busy {busy:.3f} ms of "
         f"{wall:.3f} ms wall (profiler on), idle {max(0.0, 1 - busy / wall):.1%}; the "
         f"forward (two forwards and the losses) alone {forward:.3f} ms device (mean of 3), "
         f"the backward and the optimizer step {busy - forward:.3f} ms ({smi})")
@@ -1185,6 +1271,17 @@ def expected_launches(forwards):
         total["refiner"] += fused
         total["gn_apply"] += 31 + 7 * (2 - fused)
     return total
+
+
+def remat_launches(B):
+    """The launches that ``remat_refiners`` adds to a train step at (B, 1): its backward
+    recomputes each refiner through its kernels, K3 for those ``expected_launches``
+    fuses and 7 GroupNorm launches (bn0 + 6 resblocks) for each of the others."""
+    from multi_view_stereonet_tpu_torch.ops.cuda.refiner import fused_refiner_supported
+
+    fused = (fused_refiner_supported(H0 // 16, W0 // 16, B)
+             + fused_refiner_supported(H0 // 8, W0 // 8, B))
+    return {"warp": 0, "chain": 0, "refiner": fused, "gn_apply": 7 * (NUM_LEVELS - fused)}
 
 
 def write_inputs(root):
@@ -2065,6 +2162,242 @@ def bf16_phase(dev, inputs, smi, f32_kernels):
             "artifact_launches": child["launches"]}
 
 
+def bf16_train_phase(dev, inputs, smi, f32_train, backward):
+    """Phase 12: training at compute_dtype bfloat16. (a) Each kernel's Function at bf16
+    under gradients against plain autograd at bf16 (``check_backward``); (b) the recipe
+    through ``train_cli.train`` with validation and a resume under ``remat_refiners``,
+    and the two-view recipe; (c) one batch, kernel path against plain path at bf16 and
+    with remat against without, and the step's numbers against f32; (d) two processes
+    over gloo against one. Every part runs; a bar missed fails the phase at the end.
+    ``backward``: (a)'s result, which ``main`` reads early in the process."""
+    import dataclasses
+
+    import yaml
+
+    from multi_view_stereonet_tpu_torch.checkpoint import (
+        init_params_numpy, native, random_state_dict, state_dict_from_jax_params)
+    from multi_view_stereonet_tpu_torch.data.loader import collate
+    from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.parallel import ShardedDataset
+    from multi_view_stereonet_tpu_torch.train import train_cli
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
+
+    failures = []
+    bf16 = torch.bfloat16
+
+    # (b) The recipe at bf16 through train(): steps, validation, a checkpoint, a resume.
+    root = inputs["root"]
+    data_dir, split = inputs["long"]
+    cfg = load_params_yaml(None)
+    cfg.update({"num_workers": 4, "num_val_images": BF16_VAL_IMAGES, "debug_image_freq": 0,
+                "plot_freq": 0, "compute_dtype": "bfloat16"})
+    out = os.path.join(root, "train_bf16")
+    val_forwards = -(-BF16_VAL_IMAGES // TRAIN_B)
+    counts = []
+    # The resumed step runs with remat_refiners, whose backward recomputes each refiner
+    # through its kernels again.
+    for max_steps, epochs, steps, remat in ((BF16_TRAIN_STEPS, 1, BF16_TRAIN_STEPS, False),
+                                            (BF16_TRAIN_STEPS + 1, 2, 1, True)):
+        zero_launches()
+        t0 = time.perf_counter()
+        model = train_cli.train(dict(cfg, num_epochs=epochs, remat_refiners=remat), data_dir,
+                                split, split, out, max_steps=max_steps, device=dev)
+        expected = expected_launches([(TRAIN_B, 1)] * (steps + val_forwards))
+        if remat:
+            expected = {k: v + steps * remat_launches(TRAIN_B)[k] for k, v in expected.items()}
+        counts.append((read_launches(), expected, time.perf_counter() - t0))
+    with open(os.path.join(out, "losses.txt")) as f:
+        rows = [line.split() for line in f.read().splitlines()[1:]]
+    with open(os.path.join(out, "validation.txt")) as f:
+        val_rows = [line.split() for line in f.read().splitlines()[1:]]
+    state = native.load_train_state(os.path.join(out, "checkpoints"), 1)
+    losses = [float(r[3]) for r in rows]
+    f32_weights = (all(p.dtype == torch.float32 for p in model.parameters())
+                   and all(v.dtype == torch.float32 for v in state["model"].values()))
+    log(f"bf16 train: {BF16_TRAIN_STEPS} steps at B={TRAIN_B} V=1 {H0}x{W0} D={D} with "
+        f"validation over {BF16_VAL_IMAGES} images in {counts[0][2]:.1f} s, resumed for 1 "
+        f"with remat_refiners in {counts[1][2]:.1f} s; launches {[c[0] for c in counts]} (expected "
+        f"{[c[1] for c in counts]}); losses by step {[round(x, 4) for x in losses]}; "
+        f"validation {val_rows}; state step {state['step']}; weights and checkpoint f32 "
+        f"{f32_weights}")
+    if not ([int(r[2]) for r in rows] == list(range(1, BF16_TRAIN_STEPS + 2))
+            and np.isfinite(losses).all() and len(val_rows) == 2
+            and all(np.isfinite(float(x)) for r in val_rows for x in r[1:])
+            and state["step"] == BF16_TRAIN_STEPS + 1 and f32_weights
+            and all(got == want for got, want, _ in counts)):
+        failures.append("bf16 train(): steps, losses, validation, checkpoint or launches")
+    del model, state
+
+    # The two-view recipe with every loss at bf16 (no validation: the JAX CLI's cannot
+    # run those losses); the losses' K1 samples f32 images and idepth maps.
+    tv_out = os.path.join(root, "train_two_view_bf16")
+    zero_launches()
+    train_cli.train(dict(cfg, num_epochs=1, estimate_right_idepthmap=True, **TWO_VIEW_FACTORS),
+                    data_dir, split, "", tv_out, max_steps=BF16_TWO_VIEW_STEPS, device=dev)
+    tv_launches, tv_expected = read_launches(), two_view_launches(BF16_TWO_VIEW_STEPS)
+    with open(os.path.join(tv_out, "losses.txt")) as f:
+        tv_header, *tv_rows = [line.split() for line in f.read().splitlines()]
+    tv_values = np.array([[float(x) for x in r[3:]] for r in tv_rows])
+    log(f"bf16 two-view train, every loss: {len(tv_rows)} steps, launches {tv_launches} "
+        f"(expected {tv_expected}); losses.txt columns {tv_header[3:]}, all finite "
+        f"{bool(np.isfinite(tv_values).all())}; losses {tv_values[:, 0].round(4).tolist()}")
+    if not (len(tv_rows) == BF16_TWO_VIEW_STEPS and np.isfinite(tv_values).all()
+            and {"reconstruction_loss", "left_right_loss"} <= set(tv_header)
+            and tv_launches == tv_expected):
+        failures.append("bf16 two-view train(): steps, losses or launches")
+
+    # (c) One batch of the recipe: the kernel path against the plain path at bf16, then
+    # each path's step at bf16 and f32 in turns.
+    dataset = train_cli.make_dataset(cfg, data_dir, split, True, 0, np.random.default_rng(0))
+    batch = collate([dataset[i] for i in range(TRAIN_B)])
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+             if not k.endswith("filenames")}
+    state0 = random_state_dict(0)
+
+    def fresh(impl, dtype):
+        model = MultiViewStereoNet()
+        model.load_state_dict(state0)
+        model = model.to(dev)
+        config, loss_config, _, step = train_cli.build_train_step(
+            dict(cfg, compute_dtype=dtype), 12, model, impl)
+        return model, config, loss_config, step
+
+    grads, loss_of = {}, {}
+    for impl in ("auto", "plain"):
+        model, config, loss_config, _ = fresh(impl, "bfloat16")
+        zero_launches()
+        loss, _ = make_loss_fn(config, loss_config, impl=impl)(model, batch)
+        forward = read_launches()
+        loss.backward()
+        torch.cuda.synchronize()
+        expected = (expected_launches([(TRAIN_B, 1)]) if impl == "auto"
+                    else dict.fromkeys(forward, 0))
+        if not (forward == read_launches() == expected):
+            failures.append(f"bf16 step {impl}: forward launches {forward}, after the "
+                            f"backward {read_launches()}, expected {expected}")
+        if loss.dtype != torch.float32 or any(p.grad.dtype != torch.float32
+                                              for p in model.parameters()):
+            failures.append(f"bf16 step {impl}: loss {loss.dtype}, gradients not all f32")
+        loss_of[impl] = loss.item()
+        grads[impl] = {k: p.grad for k, p in model.named_parameters()}
+        if impl == "auto":  # and with remat_refiners, the same weights and batch
+            step_launches = forward
+            model.zero_grad(set_to_none=True)
+            loss, _ = make_loss_fn(dataclasses.replace(config, remat_refiners=True),
+                                   loss_config)(model, batch)
+            loss.backward()
+            loss_of["remat"] = loss.item()
+            grads["remat"] = {k: p.grad for k, p in model.named_parameters()}
+    worst, worst_key, min_cos = compare_gradients(grads)
+    flat = {impl: torch.cat([grads[impl][k].flatten() for k in sorted(grads[impl])])
+            for impl in grads}
+    flat_gap = ((flat["auto"] - flat["plain"]).norm() / flat["plain"].norm()).item()
+    loss_gap = abs(loss_of["auto"] - loss_of["plain"]) / abs(loss_of["plain"])
+    remat_gap = ((flat["remat"] - flat["auto"]).norm() / flat["auto"].norm()).item()
+    remat_loss_gap = abs(loss_of["remat"] - loss_of["auto"]) / abs(loss_of["auto"])
+    log(f"bf16 train step with remat_refiners against without (kernel path): loss "
+        f"{remat_loss_gap:.2e} relative (bar {LOSS_BAR:.0e}), flat gradient {remat_gap:.3e} "
+        f"relative L2 (bar {BF16_TRAIN_GRAD_BAR:.0e})")
+    if not (remat_loss_gap <= LOSS_BAR and remat_gap <= BF16_TRAIN_GRAD_BAR):
+        failures.append(f"bf16 remat against no remat: loss {remat_loss_gap}, flat {remat_gap}")
+    log(f"bf16 train step kernel vs plain path (same weights and batch): launches "
+        f"{step_launches} a step, the backward none; loss {loss_of['auto']:.6f} vs "
+        f"{loss_of['plain']:.6f} ({loss_gap:.2e} relative, bar {BF16_TRAIN_LOSS_BAR:.0e}); "
+        f"flat gradient {flat_gap:.3e} relative L2 (bar {BF16_TRAIN_GRAD_BAR:.0e}); worst "
+        f"leaf {worst:.3e} of max|plain| at {worst_key}, least cosine {min_cos:.6f}")
+    if not (np.isfinite(loss_of["auto"]) and loss_gap <= BF16_TRAIN_LOSS_BAR
+            and flat_gap <= BF16_TRAIN_GRAD_BAR):
+        failures.append(f"bf16 kernel path against plain: loss {loss_gap}, flat {flat_gap}")
+    del grads, flat
+
+    steps_by = {f"{impl} {name}": fresh(impl, dtype) for impl in ("auto", "plain")
+                for name, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
+    times, peak = time_steps(steps_by, batch, per_round=3)
+    ms = {k: statistics.median(t) for k, t in times.items()}
+    for k in steps_by:
+        log(f"train step {k}, B={TRAIN_B} V=1 {H0}x{W0} D={D}, adam: {ms[k]:.3f} ms a step "
+            f"(median of {len(times[k])}, CUDA events, the four in turns; "
+            f"{[round(t, 2) for t in times[k]]}), {TRAIN_B * 1e3 / ms[k]:.2f} images/s, "
+            f"peak memory {peak[k] / 2**30:.3f} GiB ({smi})")
+    busy = {}
+    for k in ("auto f32", "auto bf16"):
+        model, _, _, step = steps_by[k]
+        busy[k] = profile_kernels(lambda: step(model, batch), 1)[0]
+    module = steps_by["auto bf16"][0].refiner4
+    host = []
+    for _ in range(10):
+        with torch.no_grad():
+            module.conv0.bias.add_(0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refiner_op.packed_weights(module, bf16)
+        host.append((time.perf_counter() - t0) * 1e3)
+    repack_ms = statistics.median(host)
+    f32_busy, f32_peak = f32_train["device"]["auto"]["busy_ms"], f32_train["peak_gib"]["auto"]
+    log(f"bf16 train step, kernel path: device busy {busy['auto bf16']:.3f} ms a step against "
+        f"f32 {busy['auto f32']:.3f} in this call (phase 7: {f32_busy:.3f}); peak "
+        f"{peak['auto bf16'] / 2**30:.3f} GiB against f32 {peak['auto f32'] / 2**30:.3f} "
+        f"(phase 7: {f32_peak:.3f}); the K3 bf16 repack after an update {repack_ms:.3f} ms "
+        f"of host (median of 10, two fused refiners a step) ({smi})")
+    del steps_by
+
+    # (d) Two processes over gloo at bf16 (the recipe's width, no augmentation, one loader
+    # thread), against one process's steps on the concatenated per-process batches.
+    mp_cfg = load_params_yaml(None)
+    mp_cfg.update({"num_workers": 1, "augment": False, "debug_image_freq": 0, "plot_freq": 0,
+                   "print_freq": 1, "num_epochs": 1, "compute_dtype": "bfloat16"})
+    mp_out = os.path.join(root, "train_mp_bf16")
+    path = os.path.join(root, "train_mp_bf16.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(mp_cfg, f)
+    t0 = time.perf_counter()
+    spawn({"kind": "train", "argv": ["--config", path, "--data_dir", data_dir,
+                                     "--train_split", split, "--output_dir", mp_out,
+                                     "--max_steps", str(BF16_MP_STEPS)]}, MP_PROCESSES)
+    mp_s = time.perf_counter() - t0
+    with open(os.path.join(mp_out, "losses.txt")) as f:
+        mp_rows = [line.split() for line in f.read().splitlines()[1:]]
+    local = TRAIN_B // MP_PROCESSES
+    loaders = []
+    for r in range(MP_PROCESSES):
+        shard = ShardedDataset(train_cli.make_dataset(mp_cfg, data_dir, split, True, 0,
+                                                      np.random.default_rng(mp_cfg["seed"])),
+                               r, MP_PROCESSES)
+        loaders.append(train_cli.BatchLoader(shard, local, shuffle=mp_cfg["shuffle"],
+                                             seed=mp_cfg["seed"], workers=1))
+        loaders[-1].set_epoch(0)
+    model = MultiViewStereoNet()
+    model.load_state_dict(state_dict_from_jax_params(init_params_numpy(mp_cfg["seed"],
+                                                                       reference=True)))
+    model = model.to(dev).train()
+    _, _, _, step = train_cli.build_train_step(mp_cfg, 1, model)
+    one = []
+    for _, parts in zip(range(BF16_MP_STEPS), zip(*loaders)):
+        loss, _ = step(model, {k: torch.from_numpy(np.concatenate([p[k] for p in parts]))
+                               .to(dev) for k in parts[0] if not k.endswith("filenames")})
+        one.append(loss.item())
+    two = [float(r[3]) for r in mp_rows]
+    mp_gaps = [abs(a - b) / abs(b) for a, b in zip(two, one)]
+    log(f"bf16 two processes (gloo, one card), the train CLI at B={TRAIN_B} ({local} a "
+        f"process) {H0}x{W0} D={D}, adam, no augmentation: {BF16_MP_STEPS} steps in "
+        f"{mp_s:.1f} s (start-up included); losses {two} against one process's {one} on the "
+        f"concatenated batches, relative gap by step {[f'{g:.2e}' for g in mp_gaps]} (step 1, "
+        f"from the init, bar {BF16_MP_BAR:.0e}; step 2, after adam's first update, "
+        f"{DRIFT_BAR:.0e})")
+    if not (len(two) == BF16_MP_STEPS and np.isfinite(two).all()
+            and mp_gaps[0] <= BF16_MP_BAR and max(mp_gaps[1:]) <= DRIFT_BAR):
+        failures.append(f"bf16 two processes against one: {mp_gaps}")
+    if failures:
+        raise AssertionError("phase 12: " + "; ".join(failures))
+    return {"backward": backward, "launches": step_launches, "ms": ms,
+            "images_s": {k: TRAIN_B * 1e3 / v for k, v in ms.items()},
+            "peak_gib": {k: v / 2**30 for k, v in peak.items()}, "busy_ms": busy,
+            "repack_host_ms": repack_ms, "loss_gap": loss_gap, "grad_gap": flat_gap,
+            "mp_gaps": mp_gaps}
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -2091,10 +2424,36 @@ def spawn(spec: dict, n: int) -> list:
     return [(json.loads(out.strip().splitlines()[-1]), out) for _, out, _ in results]
 
 
+def record_steps(train_cli, out, rank):
+    """Make every train step that ``train_cli`` builds save, on rank 0, the weights that
+    enter it and the gradient it applies (after the all-reduce), as
+    ``<out>/step<k>.pt``, k counting this process's steps from 0."""
+    build = train_cli.build_train_step
+
+    def recording_build(*args, **kwargs):
+        built = build(*args, **kwargs)
+        step, count = built[3], [0]
+
+        def recording_step(model, batch):
+            weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            result = step(model, batch)
+            if rank == 0:
+                torch.save({"weights": weights,
+                            "grads": {k: p.grad.detach().cpu().clone()
+                                      for k, p in model.named_parameters()}},
+                           os.path.join(out, f"step{count[0]}.pt"))
+            count[0] += 1
+            return result
+        return (*built[:3], recording_step)
+    os.makedirs(out, exist_ok=True)
+    train_cli.build_train_step = recording_build
+
+
 def child(spec_json: str):
-    """Phase 10's processes. "train": ``train_cli.main`` as rank ``rank`` of ``n`` on
-    the card, the host clock stamped at each step's stop check; prints its launches,
-    stamps and peak memory. "nccl": joins a group of one over NCCL, one train step
+    """Phase 10's and 12's processes. "train": ``train_cli.main`` as rank ``rank`` of
+    ``n`` on the card, the host clock stamped at each step's stop check (with
+    ``record``, each step's weights and gradient saved there: ``record_steps``); prints
+    its launches, stamps and peak memory. "nccl": joins a group of one over NCCL, one train step
     through the mesh (its gradients all-reduced over NCCL) and one without, on the same
     batch and weights, then leaves; prints the backend, both losses and the worst
     gradient gap."""
@@ -2113,6 +2472,8 @@ def child(spec_json: str):
                 return super().__call__()
 
         train_cli.GracefulStop = StampedStop
+        if spec.get("record"):
+            record_steps(train_cli, spec["record"], spec["rank"])
         zero_launches()
         train_cli.main(spec["argv"] + ["--coordinator", f"localhost:{spec['port']}",
                                        "--num_processes", str(spec["n"]),
@@ -2188,12 +2549,15 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
                 "print_freq": 1, "num_epochs": 1})
     out = os.path.join(root, "train_mp")
     args = argv(cfg, "train_mp", out)
+    records = [os.path.join(root, f"train_mp_steps{i}") for i in (0, 1)]
     t0 = time.perf_counter()
-    spawn({"kind": "train", "argv": args + ["--max_steps", str(MP_STEPS)]}, MP_PROCESSES)
+    spawn({"kind": "train", "argv": args + ["--max_steps", str(MP_STEPS)],
+           "record": records[0]}, MP_PROCESSES)
     first_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     resumed = spawn({"kind": "train", "argv": args + [
-        "--max_steps", str(MP_STEPS + MP_RESUME), "--max_epochs", "2"]}, MP_PROCESSES)
+        "--max_steps", str(MP_STEPS + MP_RESUME), "--max_epochs", "2"],
+        "record": records[1]}, MP_PROCESSES)
     resume_s = time.perf_counter() - t0
     ckpt_root = os.path.join(out, "checkpoints")
     with open(os.path.join(out, "losses.txt")) as f:
@@ -2266,6 +2630,35 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
         f"{[round(float(r[3]), 4) for r in rows]}")
     if any(g > (LOSS_BAR if k in held else DRIFT_BAR) for k, g in enumerate(gaps)):
         failures.append(f"two-process losses.txt against one process: {gaps}")
+
+    # At every step, from the weights the two processes held as they entered it (process
+    # 0's record), one process's loss and gradient on the same global batch, against the
+    # gradient the two processes applied: phase 7's bar, with no adam drift in between.
+    recorded = [torch.load(os.path.join(records[k >= MP_STEPS],
+                                        f"step{k - MP_STEPS * (k >= MP_STEPS)}.pt"),
+                           weights_only=True) for k in range(len(batches))]
+    model = MultiViewStereoNet().to(dev)
+    loss_fn = make_loss_fn(MultiViewStereoNetConfig(num_idepth_samples=D), LossConfig())
+    step_grads = []
+    for k, (batch, rec) in enumerate(zip(batches, recorded)):
+        model.load_state_dict(rec["weights"])
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, {key: torch.from_numpy(v).to(dev) for key, v in batch.items()})
+        loss.backward()
+        worst, worst_key, min_cos = compare_gradients({
+            "plain": {n: p.grad for n, p in model.named_parameters()},
+            "auto": {n: g.to(dev) for n, g in rec["grads"].items()}})
+        loss_gap = abs(float(rows[k][3]) - loss.item()) / abs(loss.item())
+        step_grads.append(worst)
+        log(f"two processes, step {k + 1}: from the weights they entered it with, one "
+            f"process's loss {loss.item():.6f} against losses.txt {float(rows[k][3]):.6f} "
+            f"({loss_gap:.2e}); the two processes' gradient against one process's, worst "
+            f"{worst:.3e} of max|one process| at {worst_key} (bar {GRAD_BAR:.1e}), least "
+            f"cosine {min_cos:.9f} (bar {COS_BAR})")
+        if not (worst <= GRAD_BAR and min_cos > COS_BAR and loss_gap <= LOSS_BAR):
+            failures.append(f"two-process gradient at step {k + 1}: worst {worst}, cosine "
+                            f"{min_cos}, loss gap {loss_gap}")
+    del model, recorded
 
     # (d) At the recipe, as phase 7 runs it (augmentation on, 4 loader threads a
     # process), timed by each process's host clock at its stop check.
@@ -2352,7 +2745,7 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
     if failures:
         raise AssertionError("phase 10: " + "; ".join(failures))
     return {"per_step": per_step, "ms": ms, "peak_gib": peak, "loss_gaps": gaps,
-            "sharded": sharded}
+            "step_grad_errs": step_grads, "sharded": sharded}
 
 
 def main():
@@ -2384,6 +2777,9 @@ def main():
     with torch.inference_mode():
         kernels = phase("3 (kernels)", check_kernels, dev)
     backward = phase("3b (backward)", check_backward, dev)
+    # Phase 12 (a) runs here, early in the process like 3b: later in a long run,
+    # torch.profiler was seen to miss most of a backward's kernel events.
+    backward_bf16 = phase("12 (a) (backward at bf16)", check_backward, dev, torch.bfloat16)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = write_inputs(tmp)
         launches, ms, worst = phase("4 (serving)", serve, dev, inputs)
@@ -2398,6 +2794,8 @@ def main():
         multi = phase("10 (multi-process training)", multi_process_phase, dev, inputs, smi,
                       trained["cli_ms"])
         bf16 = phase("11 (bf16 serving)", bf16_phase, dev, inputs, smi, kernels)
+        bf16_train = phase("12 (bf16 training)", bf16_train_phase, dev, inputs, smi, trained,
+                           backward_bf16)
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
@@ -2420,6 +2818,15 @@ def main():
         f"{two_view['peak_gib']['plain']:.3f} GiB; launches a step {two_view_step}; kernel "
         f"vs plain loss {two_view['loss_gap']:.2e}, worst gradient {two_view['grad_err']:.3e}")
 
+    ms12, peak12 = bf16_train["ms"], bf16_train["peak_gib"]
+    log(f"bf16 train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
+        f"{ms12['auto bf16']:.3f} ms a step ({bf16_train['images_s']['auto bf16']:.2f} "
+        f"images/s) against f32 {ms12['auto f32']:.3f}, plain path {ms12['plain bf16']:.3f} "
+        f"against {ms12['plain f32']:.3f}; peak {peak12['auto bf16']:.3f} GiB against "
+        f"{peak12['auto f32']:.3f}; device busy {bf16_train['busy_ms']['auto bf16']:.3f} ms "
+        f"a step against {bf16_train['busy_ms']['auto f32']:.3f}; kernel vs plain at bf16: "
+        f"loss {bf16_train['loss_gap']:.2e}, flat gradient {bf16_train['grad_gap']:.3e}")
+
     pkg = "multi_view_stereonet_tpu_torch"
     report = {"kernels": [
         {"name": "grid_sample", "route": "cuda", "source": f"{pkg}/csrc/warp.cu",
@@ -2432,6 +2839,8 @@ def main():
          "multi_process_launches": multi["per_step"]["warp"],
          **kernels["warp"], "bf16": {**bf16["kernels"]["warp"],
                                      "launches": bf16["launches"]["warp"]},
+         "bf16_train_launches": bf16_train["launches"]["warp"],
+         "bf16_backward": bf16_train["backward"]["K1"],
          "backward": {**backward["K1"], "loss_shapes": [backward["K1 C=1"],
                                                         backward["K1 C=3"]]}},
         {"name": "incremental_chain", "route": "cuda",
@@ -2445,6 +2854,8 @@ def main():
          "multi_process_launches": multi["per_step"]["chain"],
          **kernels["chain"], "bf16": {**bf16["kernels"]["chain"],
                                       "launches": bf16["launches"]["chain"]},
+         "bf16_train_launches": bf16_train["launches"]["chain"],
+         "bf16_backward": bf16_train["backward"]["K2"],
          "backward": backward["K2"]},
         {"name": "idepthmap_refiner", "route": "cuda",
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
@@ -2457,6 +2868,8 @@ def main():
          "multi_process_launches": multi["per_step"]["refiner"],
          **kernels["refiner"], "bf16": {**bf16["kernels"]["refiner"],
                                         "launches": bf16["launches"]["refiner"]},
+         "bf16_train_launches": bf16_train["launches"]["refiner"],
+         "bf16_backward": bf16_train["backward"]["K3"],
          "backward": backward["K3"]},
         {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
@@ -2468,6 +2881,8 @@ def main():
          "multi_process_launches": multi["per_step"]["gn_apply"],
          **kernels["gn_apply"], "bf16": {**bf16["kernels"]["gn_apply"],
                                          "launches": bf16["launches"]["gn_apply"]},
+         "bf16_train_launches": bf16_train["launches"]["gn_apply"],
+         "bf16_backward": bf16_train["backward"]["K4"],
          "backward": backward["K4"]},
     ]}
     log(json.dumps(report))

@@ -30,9 +30,9 @@ params: ``--params_yaml`` or ``<weights_dir>/../../params.yaml``):
         <weights_dir> <data_dir> <split> [--batch_size 8] [--transfer_u8] \
         [--fetch_f16] [--bf16] [--shard_id I --num_shards N] [--device cpu]
 
-The forward's dtypes come from params.yaml (``compute_dtype``, ``refiner_dtype``,
-``frontend_dtype``; float32 by default); ``--bf16`` sets ``compute_dtype`` to
-bfloat16, as the JAX CLI's does. The float32 run has TF32 off: ``main`` sets
+The forward's dtype comes from ``--bf16`` alone (``compute_dtype`` bfloat16, else
+float32), as the JAX CLI sets it: the CLI reads no dtype key of params.yaml. The
+float32 run has TF32 off: ``main`` sets
 ``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False``; a library caller sets
 them as it needs.
@@ -212,16 +212,16 @@ def load_model(weights_dir: str, device) -> MultiViewStereoNet:
 
 
 def model_config_from_params(cfg: dict) -> MultiViewStereoNetConfig:
-    """The forward's knobs from a loaded params.yaml (``load_params_yaml``), the dtypes
-    included (float32 and "auto" where the file has none)."""
+    """The forward's knobs from a loaded params.yaml (``load_params_yaml``) as the JAX
+    eval CLI reads them (``multi_view_stereonet_tpu/eval/test_cli.py:121-128``): the
+    shapes and ``compute_dtype`` (float32 where the file has none); ``refiner_dtype``
+    and ``frontend_dtype`` stay "auto", which follows it."""
     return MultiViewStereoNetConfig(
         num_idepth_samples=cfg["num_idepth_samples"],
         do_cost_volume_filter=cfg["cost_volume_filter"],
         do_refiners=tuple(cfg["refiners"]),
         num_levels=cfg["num_levels"],
         compute_dtype=cfg.get("compute_dtype", "float32"),
-        refiner_dtype=cfg.get("refiner_dtype", "auto"),
-        frontend_dtype=cfg.get("frontend_dtype", "auto"),
     )
 
 
@@ -248,8 +248,8 @@ def main(argv=None):
     parser.add_argument("test_split")
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--bf16", action="store_true",
-                        help="compute_dtype bfloat16 (the refiner and frontend dtypes "
-                             "follow it unless params.yaml sets them)")
+                        help="compute_dtype bfloat16 (else float32, whatever params.yaml "
+                             "says)")
     parser.add_argument("--fetch_f16", action="store_true",
                         help="cast idepthmaps to float16 on the device before readback "
                              "(halves device-to-host bytes)")
@@ -284,9 +284,8 @@ def main(argv=None):
         dataset = ShardedDataset(dataset, args.shard_id, args.num_shards,
                                  drop_ragged_tail=False)
     device = serving_device(args.device)
-    model_config = model_config_from_params(cfg)
-    if args.bf16:
-        model_config = dataclasses.replace(model_config, compute_dtype="bfloat16")
+    model_config = dataclasses.replace(model_config_from_params(cfg),
+                                       compute_dtype="bfloat16" if args.bf16 else "float32")
     runner = StreamingRunner(load_model(args.weights_dir, device), model_config,
                              device=device,
                              fetch_dtype=torch.float16 if args.fetch_f16 else None)

@@ -10,9 +10,9 @@ unless the caller names another device.
 Weights: ``<weights_dir>/stereo_network.pth`` (the port's state dict), or the JAX
 package's ``stereo_network.msgpack``, or the reference's TorchScript
 ``stereo_network.pt``, the first found (``eval/streaming.py`` ``load_model``). Params:
-``--params_yaml`` or ``<weights_dir>/../../params.yaml``; its ``compute_dtype``,
-``refiner_dtype`` and ``frontend_dtype`` set the forward's dtypes (float32 by
-default), as the JAX CLI reads them.
+``--params_yaml`` or ``<weights_dir>/../../params.yaml``; its ``compute_dtype`` sets
+the forward's dtype (float32 by default), as the JAX CLI reads it; the refiner and
+frontend dtypes follow it.
 
 Usage:
   python -m multi_view_stereonet_tpu_torch.eval.test_cli \\

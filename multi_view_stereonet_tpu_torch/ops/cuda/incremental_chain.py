@@ -169,7 +169,11 @@ def _launch(refiner, feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torc
 class _IncrementalChain(torch.autograd.Function):
     """K2 under autograd: the kernel forward, given the refiner's weights as inputs so
     that autograd routes their gradients; the backward recomputes the plain loop with
-    those weights."""
+    those weights. At bf16 the two round at different points: the kernel warps in f32
+    as the Pallas kernel does, the recompute warps at bf16 as the JAX scan does. So the
+    gradient is that of the scan at the saved inputs, not of the kernel's own forward,
+    exactly as the JAX custom VJP (``incremental_chain.py:351-371``) differentiates
+    ``_incremental_scan`` under the Pallas forward."""
 
     @staticmethod
     def forward(ctx, refiner, names, cluster, feats0, image_rest, H_inc, *params):

@@ -35,16 +35,20 @@ With several processes, start one per card with the same arguments and its own
 ``--process_id``; the backend is NCCL where each has a card of its own, gloo where
 they share one or run on the CPU.
 
-``main`` runs in float32 with TF32 off (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32`` False); a library caller of ``train``
-sets them as it needs. A params.yaml whose ``compute_dtype`` (or refiner or frontend
-dtype) is not float32 is refused up front: bf16 training is not ported yet.
+``compute_dtype: bfloat16`` in params.yaml trains with bf16 activations, as the JAX
+CLI does: each layer casts its f32 weights to its input's dtype, and the parameters,
+the optimizer's state, the loss and the gradients stay f32. The CLI reads
+``compute_dtype`` alone of the dtype keys, as the JAX CLI does; the refiner and
+frontend dtypes follow it. ``main`` keeps TF32 off (``torch.backends.cudnn.allow_tf32``
+and ``torch.backends.cuda.matmul.allow_tf32`` False); a library caller of ``train``
+sets them as it needs.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import math
 import os
 import signal
@@ -60,6 +64,7 @@ from ..checkpoint import native as ckpt
 from ..data import (
     BatchLoader, DeMoNDataset, GTASfMMultiViewDataset, get_testing_transforms,
     get_training_transforms, training_u8_dequantize_mode)
+from ..eval.streaming import model_config_from_params as eval_model_config
 from ..eval.streaming import serving_device, to_device
 from ..losses import LossConfig, compute_losses
 from ..models import (
@@ -92,23 +97,13 @@ def make_dataset(params, data_dir, split_file, training, num_images=0, rng=None)
 
 
 def model_config_from_params(params_cfg) -> MultiViewStereoNetConfig:
-    """The forward's knobs from a loaded params.yaml, the dtypes included. Training runs
-    in float32 only: a dtype that resolves to anything else raises."""
-    config = MultiViewStereoNetConfig(
-        num_idepth_samples=params_cfg["num_idepth_samples"],
-        do_cost_volume_filter=params_cfg["cost_volume_filter"],
-        do_refiners=tuple(params_cfg["refiners"]),
-        num_levels=params_cfg["num_levels"],
-        remat_refiners=params_cfg.get("remat_refiners", False),
-        compute_dtype=params_cfg.get("compute_dtype", "float32"),
-        refiner_dtype=params_cfg.get("refiner_dtype", "auto"),
-        frontend_dtype=params_cfg.get("frontend_dtype", "auto"))
-    if any(dt != torch.float32 for dt in resolve_dtypes(config)):
-        raise ValueError(
-            f"compute_dtype {config.compute_dtype!r}, refiner_dtype {config.refiner_dtype!r}, "
-            f"frontend_dtype {config.frontend_dtype!r}: the port trains in float32 only; "
-            "bfloat16 training (the K1-K4 Functions at bf16) waits for ROADMAP Queue 1 "
-            "item 2. bfloat16 serves (eval and streaming CLIs, export --dtype bfloat16)")
+    """The forward's knobs from a loaded params.yaml as the JAX train CLI reads them
+    (``multi_view_stereonet_tpu/train/train_cli.py:92-100``): the shapes,
+    ``compute_dtype`` (the refiner and frontend dtypes follow it) and
+    ``remat_refiners``. A dtype name that ``resolve_dtypes`` does not know raises."""
+    config = dataclasses.replace(eval_model_config(params_cfg),
+                                 remat_refiners=params_cfg.get("remat_refiners", False))
+    resolve_dtypes(config)
     return config
 
 
@@ -258,7 +253,7 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     or from the reference's init drawn from ``seed``. In a process group
     (``parallel.initialize``) every process calls it, and they train as one."""
     device = serving_device(device)
-    model_config_from_params(params_cfg)  # refuses a dtype the port does not train at
+    model_config_from_params(params_cfg)  # an unknown dtype name raises here
     if val_split and (params_cfg["reconstruction_factor"] > 0
                       or params_cfg["left_right_factor"] > 0):
         raise ValueError(

@@ -12,7 +12,8 @@ Usage: python tests/_torch_distributed_worker.py <job.json> <process_id> <num_pr
 The job is a JSON object with ``mode``:
 - "step": on ``device`` ("cpu" by default; "cuda": every process on the card), for
   each of ``cases`` (``weights``: a state dict saved with torch.save; ``batch``: the
-  GLOBAL batch as an .npz; ``mesh_view``; ``two_view``; ``D``; ``factors``), this
+  GLOBAL batch as an .npz; ``mesh_view``; ``two_view``; ``D``; ``factors``; ``dtype``,
+  the compute dtype, "float32" where absent), this
   rank's data shard of the batch (samples in rank order, as the JAX package's
   ``global_batch`` concatenates them) and its views go through one ``make_train_step``
   (sgd at rate 0, so the weights stay and ``.grad`` holds the averaged gradient);
@@ -84,7 +85,8 @@ def run_steps(job, pid):
         shard = mesh.shard_batch({k: v[lo:lo + n] for k, v in batch.items()})
         shard = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                  for k, v in shard.items()}
-        config = MultiViewStereoNetConfig(num_idepth_samples=case["D"])
+        config = MultiViewStereoNetConfig(num_idepth_samples=case["D"],
+                                          compute_dtype=case.get("dtype", "float32"))
         loss_config = LossConfig(**case["factors"])
         kw = dict(multi_view=not case["two_view"], estimate_right_idepthmap=case["two_view"])
         optimizer = step.make_optimizer(step.OptimizerConfig(optimizer="sgd",

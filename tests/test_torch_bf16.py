@@ -4,9 +4,10 @@
 ``_forward_impl`` resolves them off the TPU, and every module, each kernel's plain
 version and the whole forward run at bf16 against the JAX functions at bf16 (JAX at
 ``JAX_PARITY``, as tests/test_torch_model.py runs it; inputs and weights from numpy
-seeds). Then the CLIs: the dtypes of params.yaml reach the eval CLI's config,
-``--bf16`` the streaming CLI's, ``export --dtype bfloat16`` round-trips bit-equal to
-``serving_forward`` at bf16, and the train CLI refuses bf16 up front.
+seeds). Then the CLIs: params.yaml's ``compute_dtype`` reaches the eval CLI's config,
+``--bf16`` alone the streaming CLI's, ``export --dtype bfloat16`` round-trips bit-equal
+to ``serving_forward`` at bf16, and the train CLI takes bf16 and refuses a dtype name
+it does not know (bf16 training itself: tests/test_torch_bf16_train.py).
 
 Bars:
 - modules and the kernels' plain versions: max|got - ref| <= 2^-7 * max|ref| (one
@@ -340,7 +341,8 @@ def test_streaming_cli_bf16_flag_sets_compute_dtype(run_tree, monkeypatch, capsy
     for path, flags in ((f32_params, []), (f32_params, ["--bf16"]), (params, [])):
         streaming.main([weights_dir, data_dir, split, "--params_yaml", path, "--device",
                         "cpu", *flags])
-    assert [c.compute_dtype for c in configs] == ["float32", "bfloat16", "bfloat16"]
+    # The JAX streaming CLI sets the dtype from --bf16 alone, not from params.yaml.
+    assert [c.compute_dtype for c in configs] == ["float32", "bfloat16", "float32"]
     assert configs[0] == dataclasses.replace(configs[1], compute_dtype="float32")
 
 
@@ -412,19 +414,29 @@ def test_export_fakes_give_the_dtypes_the_kernels_write():
             assert tuple(o.dtype for o in out) == dtypes, op
 
 
-def test_train_cli_refuses_bf16_up_front(tmp_path):
+def test_train_cli_takes_bf16_and_refuses_an_unknown_dtype(tmp_path):
+    """The train CLI reads compute_dtype, as the JAX train CLI does, and trains at it;
+    refiner_dtype and frontend_dtype stay "auto" whatever params.yaml says; a dtype
+    name it does not know raises before any file is written."""
     from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
 
+    base = load_params_yaml(None)
     for key in ("compute_dtype", "refiner_dtype", "frontend_dtype"):
-        cfg = {**load_params_yaml(None), key: "bfloat16"}
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 2"):
+        config = train_cli.model_config_from_params({**base, key: "bfloat16"})
+        want = (BF16,) * 3 if key == "compute_dtype" else (torch.float32,) * 3
+        assert resolve_dtypes(config) == want, key
+    config = train_cli.model_config_from_params({**base, "compute_dtype": "bfloat16",
+                                                 "remat_refiners": True})
+    assert config.remat_refiners and (config.refiner_dtype, config.frontend_dtype) == (
+        "auto", "auto")
+    for name in ("bf16", "float16"):
+        cfg = {**base, "compute_dtype": name}
+        with pytest.raises(ValueError, match="compute_dtype must be one of"):
             train_cli.model_config_from_params(cfg)
-        with pytest.raises(ValueError, match="trains in float32 only"):
+        with pytest.raises(ValueError, match="compute_dtype must be one of"):
             train_cli.train(cfg, str(tmp_path / "no_data"), "no_split.txt", "",
                             str(tmp_path / "run"), device="cpu")
         assert not (tmp_path / "run").exists()
-    cfg = {**load_params_yaml(None), "compute_dtype": "float32", "refiner_dtype": "auto"}
-    assert resolve_dtypes(train_cli.model_config_from_params(cfg)) == (torch.float32,) * 3
 
 
 # ---- K3's weight pack and the recompute at bf16 ----

@@ -5,8 +5,10 @@ single-process step on the global batch.
 - ``ShardedDataset`` and ``local_shard_indices`` against the JAX package's, with and
   without ``drop_ragged_tail``, over several sample and process counts.
 - ``make_train_step`` with a mesh, global B = 4 at V = 2: data parallel (2 samples a
-  process), and ``mesh_view`` 2 (data 1, one view a process); and the two-view recipe
-  with every loss (factors 1.0 / 0.5 / 0.5), global B = 2. Against ``jax.value_and_grad``
+  process), ``mesh_view`` 2 (data 1, one view a process), and the 2 x 2 ``(data, view)``
+  grid of four processes (the data groups strided, ranks {0, 2} and {1, 3}; every
+  gradient through both all-reduces); and the two-view recipe with every loss (factors
+  1.0 / 0.5 / 0.5), global B = 2. Against ``jax.value_and_grad``
   of the JAX ``make_loss_fn`` on the global batch, with the weights carried across by
   ``state_dict_from_jax_params``, at ``tests/test_torch_train.py``'s bars
   (docs/PARITY.md:218-232): the loss identical on both processes and within 1e-5
@@ -14,6 +16,11 @@ single-process step on the global batch.
   the others' 5%, so the processes hold very different valid counts: the mean of the
   two per-process losses, which plain data parallelism would give, misses JAX's by
   more than the bar.
+- Data parallel and ``mesh_view`` 2 at ``compute_dtype: bfloat16``: the two processes'
+  loss and gradients against one process's bf16 step on the global batch (the port's;
+  JAX's bf16 step is held to the port's in tests/test_torch_bf16_train.py): the loss
+  within 1e-5 relative (measured: equal), the flat gradient within 1e-2 relative L2
+  (measured 2.1e-3 and 2.3e-3), and the loss identical on both processes.
 - The train CLI as two processes (``--coordinator``, sgd, no augmentation, one loader
   worker, global B = 4): process 0's losses.txt against the JAX train step on the
   per-process batches concatenated in process order, as the JAX package's
@@ -46,7 +53,7 @@ from multi_view_stereonet_tpu.train import step as jax_step
 from multi_view_stereonet_tpu_torch.checkpoint import (
     init_params_numpy, native, state_dict_from_jax_params)
 from multi_view_stereonet_tpu_torch.eval.test_cli import run_eval
-from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet
+from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet, MultiViewStereoNetConfig
 from multi_view_stereonet_tpu_torch.parallel import (
     ProcessMesh, ShardedDataset, local_shard_indices, make_process_mesh)
 from multi_view_stereonet_tpu_torch.train import train_cli
@@ -56,10 +63,12 @@ from tests.synthetic_data import make_gta_sfm_tree
 from tests.test_torch_cuda import rendered_pair
 from tests.test_torch_model import JAX_PARITY, weights
 from tests.test_torch_train import (
-    LOSS_BAR, TWO_VIEW_FACTORS, assert_grads_close, jax_loss_and_grads, make_batch)
+    LOSS_BAR, TWO_VIEW_FACTORS, assert_grads_close, jax_loss_and_grads, make_batch,
+    port_loss_and_grads)
 from tests.test_torch_train_cli import REL_BAR, read_rows, tiny_cfg
 
 D = 4
+BF16_GRAD_BAR = 1e-2  # flat relative L2, bf16 data parallel against one process
 INVALID = (0.6, 0.05, 0.05, 0.05)  # the share of each sample's truth set to 0
 
 
@@ -99,8 +108,9 @@ def test_sharded_dataset_matches_jax(n, count, drop):
 
 @pytest.fixture(scope="module")
 def step_results(tmp_path_factory):
-    """Both processes' results of each case, and the JAX references, computed while
-    the workers run: {case: ([rank 0, rank 1], (JAX loss, JAX loss dict, grads))}."""
+    """Both processes' results of each case, and the references, computed while the
+    workers run: {case: ([rank 0, rank 1], (JAX loss, JAX loss dict, grads))}; the bf16
+    cases' reference is one process's step at bf16, (loss, grads)."""
     tmp = str(tmp_path_factory.mktemp("steps"))
     model, params = weights(20)
     torch.save(model.state_dict(), os.path.join(tmp, "weights.pth"))
@@ -116,8 +126,12 @@ def step_results(tmp_path_factory):
                 "batch": os.path.join(tmp, f"{batch}.npz"), "two_view": two_view, "D": D,
                 "factors": TWO_VIEW_FACTORS if two_view else {}}
     cases = {"data": case("multi_view", 1, False), "view": case("multi_view", 2, False),
-             "two_view": case("two_view", 1, True)}
+             "two_view": case("two_view", 1, True),
+             "data_bf16": dict(case("multi_view", 1, False), dtype="bfloat16"),
+             "view_bf16": dict(case("multi_view", 2, False), dtype="bfloat16")}
     procs = start({"mode": "step", "out": tmp, "cases": cases}, tmp, "steps")
+    procs += start({"mode": "step", "out": tmp, "cases": {"grid": case("multi_view", 2, False)}},
+                   tmp, "grid", n=4)
     try:
         ref_loss, ref_grads = jax_loss_and_grads(params, batches["multi_view"], D)
         loss_fn = jax_step.make_loss_fn(JaxConfig(num_idepth_samples=D, **JAX_PARITY),
@@ -128,25 +142,31 @@ def step_results(tmp_path_factory):
         two_view_ref = (float(loss), jax.tree.map(np.asarray, loss_dict),
                         {k: v.numpy() for k, v in state_dict_from_jax_params(
                             jax.tree.map(np.asarray, grads)).items()})
+        bf16_ref = port_loss_and_grads(model, batches["multi_view"], MultiViewStereoNetConfig(
+            num_idepth_samples=D, compute_dtype="bfloat16"))
     finally:
         results = wait(procs)
     for rc, out, err in results:
         assert rc == 0 and "RESULT ok" in out, err[-3000:]
     ranks = {name: [dict(np.load(os.path.join(tmp, f"{name}_rank{r}.npz"))) for r in (0, 1)]
              for name in cases}
+    ranks["grid"] = [dict(np.load(os.path.join(tmp, f"grid_rank{r}.npz"))) for r in range(4)]
     multi_view_ref = (ref_loss, None, ref_grads)
     return {"data": (ranks["data"], multi_view_ref), "view": (ranks["view"], multi_view_ref),
-            "two_view": (ranks["two_view"], two_view_ref)}
+            "grid": (ranks["grid"], multi_view_ref),
+            "two_view": (ranks["two_view"], two_view_ref),
+            **{name: (ranks[name], bf16_ref) for name in ("data_bf16", "view_bf16")}}
 
 
 def check_step(ranks, ref, data_parallel):
     ref_loss, ref_dict, ref_grads = ref
-    r0, r1 = ranks
-    assert r0["loss"] == r1["loss"]  # every process holds the global loss
+    r0, r1 = ranks[:2]
+    assert all(r["loss"] == r0["loss"] for r in ranks)  # every process: the global loss
     np.testing.assert_allclose(float(r0["loss"]), ref_loss, rtol=LOSS_BAR)
     grads = {k[len("grad/"):]: v for k, v in r0.items() if k.startswith("grad/")}
     for k, v in grads.items():
-        np.testing.assert_array_equal(v, r1[f"grad/{k}"], err_msg=k)
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(v, r[f"grad/{k}"], err_msg=k)
     assert_grads_close(grads, ref_grads)
     for k, v in (ref_dict or {}).items():
         np.testing.assert_allclose(r0[f"dict/{k}"], np.asarray(v), rtol=LOSS_BAR, err_msg=k)
@@ -165,6 +185,28 @@ def test_view_sharded_step_matches_jax(step_results):
     """mesh_view 2, data 1: each process one of the two comparison views of all four
     samples; the level-4 means over V all-reduced within the forward."""
     check_step(*step_results["view"], data_parallel=False)
+
+
+def test_data_view_grid_of_four_processes_matches_jax(step_results):
+    """mesh_view 2 over four processes: data 2 x view 2, each process one view of two
+    samples; the loss's masked means summed over the strided data groups, the level-4
+    means over V within each view group, the gradients averaged over all four."""
+    check_step(*step_results["grid"], data_parallel=False)
+
+
+@pytest.mark.parametrize("case", ["data_bf16", "view_bf16"])
+def test_step_at_bf16_matches_one_process(step_results, case):
+    """Data parallel, and mesh_view 2, at compute_dtype bfloat16, against one
+    process's step at bf16 on the global batch."""
+    ranks, (loss, ref) = step_results[case]
+    r0, r1 = ranks
+    assert r0["loss"] == r1["loss"] and np.isfinite(loss)
+    np.testing.assert_allclose(float(r0["loss"]), loss, rtol=LOSS_BAR)
+    got = np.concatenate([r0[f"grad/{k}"].ravel() for k in sorted(ref)])
+    want = np.concatenate([ref[k].ravel() for k in sorted(ref)])
+    assert all(r0[f"grad/{k}"].dtype == np.float32 for k in ref)
+    gap = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert gap <= BF16_GRAD_BAR, gap
 
 
 def test_two_view_recipe_data_parallel_matches_jax(step_results):
