@@ -180,6 +180,27 @@ Phases, each printing its results; any failure raises and exits non-zero:
    processes over gloo at bf16 for 2 steps against one process's steps on the
    concatenated batches: step 1 within 1e-4, step 2 within 1e-3. A bar missed fails the
    phase after every measurement is printed.
+13. The matmul-precision ladder (``matmul_precision: high``: cuDNN's convs at TF32, K2
+   and K3 in their 1xTF32 variants). (a) Each 1xTF32 variant at phase 3's serving
+   shapes against its TF32-rounding plain version (K2 within 1e-3, K3 within 3e-4 of
+   max|plain|), its error against the 3xTF32 kernel, the 3xTF32 kernel unchanged after
+   it, device times (``graph_ms``) of both variants and of the plain version, the bound
+   at TF32 (the convs' operations at the 494.7 TFLOP/s TF32 tensor-core peak). (b) The
+   forward at "high" against "highest" at B = 1 and 8, per level max within 1% and mean
+   within 0.2% of the range; the kernel path within 0.5% of the plain path at "high";
+   launches 2 / 1 / 2 / 31, of them 1xTF32 chain 1 and refiner 2; each stage alone at
+   "high" (its deviation, its 1xTF32 launches); ms/frame in turns, device busy a
+   forward, peak memory. (c) At "default" and "highest" the runner's output bit-equal
+   with the caller's cuDNN TF32 flag on and off, and to phase 4's; the flag the caller's
+   again after the call. (d) Training at "high", the recipe's batch with the caller's
+   flag on: kernel path against plain path (loss within 1e-4, flat gradient within 1e-2
+   relative L2), a spy on every conv's flags (the model's at TF32, cuBLAS's off) and on
+   the losses'; ms a step, images/s, device busy and peak memory against "highest" in
+   turns, and the device time of cuDNN's FFT kernels in a step at each; ``train()`` with
+   ``matmul_precision: high`` for 2 steps (losses finite, checkpoint f32, launches).
+   (e) The artifact exported at "high" run in a fresh process with the flag off, and at
+   "highest" with the flag on: each bit-equal to the live forward at its precision, the
+   flag restored. A bar missed fails the phase after every measurement is printed.
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
@@ -193,8 +214,12 @@ costs; "multi_process_launches" a process's launches a step in phase 10 (d)), ea
 with a "backward" entry (phase 3b), a "bf16" entry (phase 11: its error, device
 times, the f32 kernel's, its bound at bf16, the bar it met and its launches in phase
 11 (b)), a "bf16_backward" entry (phase 12 (a), as "backward" at bf16) and
-"bf16_train_launches" (a bf16 train step's, phase 12 (c)); K1's entry and its backward carry "loss_shapes", one entry each for one and
-three channels at the losses' shapes. Then the
+"bf16_train_launches" (a bf16 train step's, phase 12 (c)); K2's and K3's a "tf32" entry
+(phase 13: the 1xTF32 variant's error against its plain version and, as a share of
+max|plain|, against the 3xTF32 kernel, its device time beside the 3xTF32 kernel's in
+the same call, its plain version's, its bound at TF32, the bar it met, its launches in
+a forward at "high" and in a train step at "high"); K1's entry and its backward carry
+"loss_shapes", one entry each for one and three channels at the losses' shapes. Then the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -242,6 +267,7 @@ PROFILE_SESSIONS = 8  # the most torch.profiler sessions a reading takes
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores (the bf16 kernels' convs)
+PEAK_TF32_FLOPS = 494.7e12  # TF32 on the tensor cores, dense (the 1xTF32 kernels' convs)
 # Phase 11 (bf16 serving): K3 at bf16 within 1% of max|plain|. K2 within 5% of max|plain|
 # at bf16 and within 2% of max|plain| of the f32 chain: the kernel rounds as the Pallas
 # kernel does (the warp in f32) and the plain loop as the scan (the warp at bf16), and the
@@ -269,6 +295,23 @@ BF16_PATH_BAR = 2e-2
 BF16_TRAIN_LOSS_BAR, BF16_TRAIN_GRAD_BAR = 1e-4, 1e-2
 BF16_MP_BAR = 1e-4
 BF16_TRAIN_STEPS, BF16_VAL_IMAGES, BF16_MP_STEPS, BF16_TWO_VIEW_STEPS = 3, 8, 2, 2
+# Phase 13 (matmul_precision "high": cuDNN's TF32, K2 and K3 1xTF32), bars written before
+# the phase's first chip run, one moved after it. K3's 1xTF32 kernel within 3e-4 of
+# max|plain| of its TF32-rounding plain version: both round each conv operand to TF32,
+# but their f32 sums run in another order, and a sum that lands by a tie rounds the other
+# way as the next layer stages it (2^-11 of that value), which seven GroupNorm layers
+# carry on (the first run read 0.79-1.06e-4 of max|plain| against a bar of 1e-4; the
+# 3xTF32 kernel, 3e-7). K2's within 1e-3 (eleven steps compound the same). The forward
+# at "high" against "highest", per level, max within 1% and mean within 0.2% of the
+# range (phase 11 read 0.62-0.86% and 0.15-0.17% for bf16); the kernel path within 0.5%
+# of the range of the plain path at "high" (the plain path's convs round their operands
+# to TF32 inside cuDNN). Training at "high", kernel path against plain path: phase 12's
+# bars.
+TF32_K3_BAR, TF32_K2_BAR = 3e-4, 1e-3
+TF32_FORWARD_MAX, TF32_FORWARD_MEAN = 1e-2, 2e-3
+TF32_PATH_BAR = 5e-3
+TF32_TRAIN_LOSS_BAR, TF32_TRAIN_GRAD_BAR = 1e-4, 1e-2
+TF32_TRAIN_STEPS = 2
 H0, W0, D = 480, 640, 12
 LONG = 96  # requests of the tree that phases 5 and 6 time
 ARTIFACT_KEYS = ("left_image", "right_images", "K", "T_right_in_left")
@@ -1371,7 +1414,7 @@ def serve(dev, inputs):
     with torch.inference_mode():
         ms = {impl: median_ms(lambda: serving_forward(model, tensors, config, impl))
               for impl in ("auto", "plain")}
-    return launches, ms, worst
+    return launches, ms, worst, served
 
 
 def read_table(path):
@@ -1574,14 +1617,15 @@ def stack_samples(samples):
                                          for s in samples]).astype(np.float32)}
 
 
-def artifact_child(path, io_path, device):
+def artifact_child(path, io_path, device, ambient_tf32=False):
     """Phase 9's fresh process: load the artifact at ``path`` (no weights directory, the
     network's modules never imported), run it once on ``device`` on the inputs saved at
-    ``io_path`` and print one JSON line: bit-equality with the live output saved there,
-    the launch counts of that run, the custom ops in the graph, whether ``models`` was
-    imported."""
+    ``io_path`` with cuDNN's TF32 flag set to ``ambient_tf32`` (phase 13) and print one
+    JSON line: bit-equality with the live output saved there, the launch counts of that
+    run, the custom ops in the graph, whether ``models`` was imported, the precision
+    mode the artifact runs at and the TF32 flags after the call."""
     sys.path.insert(0, REPO)
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = ambient_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     from multi_view_stereonet_tpu_torch.checkpoint.export import custom_ops, load_exported
 
@@ -1593,13 +1637,17 @@ def artifact_child(path, io_path, device):
     io = np.load(io_path)
     args = [torch.from_numpy(io[k]).to(device) for k in ARTIFACT_KEYS]
     zero_launches()
+    zero_tf32_launches()
     with torch.inference_mode():
         out = artifact(*args).cpu().numpy()
+    flags_after = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
     live = io["live"]
     equal = (out.dtype == live.dtype and out.shape == live.shape
              and out.tobytes() == live.tobytes())
     print(json.dumps({"equal": bool(equal), "dtype": str(out.dtype),
-                      "launches": read_launches(), "ops": custom_ops(artifact),
+                      "launches": read_launches(), "tf32_launches": tf32_launches(),
+                      "mode": artifact.mvs_precision, "flags_after": flags_after,
+                      "ops": custom_ops(artifact),
                       "models_imported": "multi_view_stereonet_tpu_torch.models" in sys.modules,
                       "load_s": load_s,
                       "weights_bytes": sum(t.nbytes for t in exported.state_dict.values()),
@@ -2398,6 +2446,446 @@ def bf16_train_phase(dev, inputs, smi, f32_train, backward):
             "mp_gaps": mp_gaps}
 
 
+def bound_tf32(read_write_bytes, conv_ops, other_ops):
+    """``bound`` of a 1xTF32 kernel: its convs' operations at the TF32 tensor-core peak,
+    the rest at f32's, against its bytes."""
+    by_bytes = read_write_bytes / PEAK_BYTES_S * 1e3
+    by_ops = (conv_ops / PEAK_TF32_FLOPS + other_ops / PEAK_F32_FLOPS) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_kernels_tf32(dev, failures):
+    """Phase 13 (a): K2's and K3's 1xTF32 variants at phase 3's serving shapes against
+    their TF32-rounding plain versions, each one's error against the f32 (3xTF32) kernel,
+    the device times (``graph_ms``) of both kernels and of the plain version in this
+    call, and the bound at TF32. After a 1xTF32 launch the 3xTF32 kernel must give what
+    it gave before it (K3 keeps a weight pack a variant)."""
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.geometry import (
+        build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
+        incremental_homographies, normalize_baseline)
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner, IDepthmapRefiner
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
+
+    g = torch.Generator().manual_seed(13)
+    results = {}
+
+    def measure(name, shape, tf32, f32, plain, scale_bar, b, keep):
+        exact = f32()
+        got, ref = tf32(), plain()
+        again = f32()
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        err_f32 = (got - exact).abs().max().item()
+        t = {"ms": graph_ms(tf32), "f32_ms": graph_ms(f32)}
+        if keep:
+            t["plain_ms"] = graph_ms(plain)
+        ok = (bool(torch.isfinite(got).all()) and err <= scale_bar * scale
+              and torch.equal(again, exact))
+        log(f"{name} 1xTF32 {shape}: max_abs_err {err:.3e} against its TF32-rounding plain "
+            f"version, max|plain| {scale:.3f} (bar {scale_bar:.0e}*max|plain|), within bar "
+            f"{ok}; against the 3xTF32 kernel {err_f32:.3e} ({err_f32 / scale:.3e} of "
+            f"max|plain|); the 3xTF32 kernel unchanged after it {torch.equal(again, exact)}; "
+            f"device: 1xTF32 {t['ms']:.4f} ms, 3xTF32 {t['f32_ms']:.4f} ms"
+            + (f", plain TF32 {t['plain_ms']:.4f} ms" if keep else "")
+            + f"; bound at TF32 {b[0]:.4f} ms ({b[1]})")
+        if not ok:
+            failures.append(f"{name} 1xTF32 at {shape}: {err} of {scale}")
+        return err, err_f32 / scale, t
+
+    refiner = FeatureRefiner(32)
+    prefix = "right_feature_extractor.refiner."
+    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
+                             if k.startswith(prefix)})
+    refiner = refiner.to(dev).eval()
+    results["chain"] = {"max_abs_err": 0.0, "err_vs_f32": 0.0, "bar": TF32_K2_BAR}
+    for n in (1, 5, 8):
+        K, T = scene(n, 10 + n)
+        T, _ = normalize_baseline(T)
+        K4 = build_K_pyramid(K, pyramid_sizes(H0, W0, 5))[4]
+        H_inc = incremental_homographies(create_plane_sweep_homographies(
+            T, K4, create_idepth_samples(T, K4, 30, 40, D)))
+        feats0 = torch.randn(n, 30, 40, 32, generator=g).to(dev)
+        image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+        out = torch.empty(n, D, 30, 40, 32)
+        b = bound_tf32(nbytes(feats0, image_rest, H_inc, out, *refiner.parameters()),
+                       (D - 1) * conv_flops(refiner, n * 30 * 40),
+                       (D - 1) * 20 * n * 30 * 40 * 32)
+        err, rel, t = measure(
+            "K2 incremental_chain", f"N={n} 30x40x32 D={D}",
+            lambda: chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc,
+                                                   tf32=True),
+            lambda: chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc),
+            lambda: chain.incremental_chain_tf32_plain(refiner, feats0, image_rest, H_inc),
+            TF32_K2_BAR, b, n == 1)
+        entry = results["chain"]
+        entry.update(max_abs_err=max(entry["max_abs_err"], err),
+                     err_vs_f32=max(entry["err_vs_f32"], rel))
+        if n == 1:
+            entry.update(**t, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+    state = random_state_dict(4)
+    results["refiner"] = {"max_abs_err": 0.0, "err_vs_f32": 0.0, "bar": TF32_K3_BAR,
+                          "library_ms": None}
+    for n, h, w, name in ((1, 30, 40, "refiner4"), (2, 30, 40, "refiner4"),
+                          (5, 30, 40, "refiner4"), (8, 30, 40, "refiner4"),
+                          (1, 60, 80, "refiner3")):
+        with torch.inference_mode(False):  # parameters with version counters, as served
+            module = IDepthmapRefiner(35)
+            module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                    if k.startswith(name + ".")})
+            module = module.to(dev).eval()
+        guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev)
+        idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+        b = bound_tf32(nbytes(guidance, idepth, idepth, *module.parameters()),
+                       conv_flops(module, n * h * w), 7 * 10 * 32 * n * h * w)
+        keep = (n, h) == (1, 60)
+        err, rel, t = measure(
+            "K3 idepthmap_refiner", f"({n},35,{h},{w})",
+            lambda: refiner_op.idepthmap_refiner_kernel(module, guidance, idepth, tf32=True),
+            lambda: refiner_op.idepthmap_refiner_kernel(module, guidance, idepth),
+            lambda: refiner_op.idepthmap_refiner_tf32_plain(module, guidance, idepth),
+            TF32_K3_BAR, b, keep)
+        entry = results["refiner"]
+        entry.update(max_abs_err=max(entry["max_abs_err"], err),
+                     err_vs_f32=max(entry["err_vs_f32"], rel))
+        if keep:  # the level-3 times, where it does the most work, as phase 3 keeps
+            entry.update(**t, bound_ms=b[0], bound_by=b[1])
+    return results
+
+
+def tf32_launches():
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    return {"chain": chain.tf32_launches, "refiner": refiner_op.tf32_launches}
+
+
+def zero_tf32_launches():
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    chain.tf32_launches = refiner_op.tf32_launches = 0
+
+
+class ConvSpy:
+    """Records, at every conv the port runs (``ops.precision``'s forward and backward
+    calls), (kind, depthwise, cuDNN TF32 flag, cuBLAS TF32 flag); the losses' blurs are
+    the only depthwise (grouped) convs."""
+
+    def __init__(self):
+        from multi_view_stereonet_tpu_torch.ops import precision
+        self.precision, self.calls = precision, []
+        self.saved = (precision._conv, precision._conv_backward)
+
+    def _record(self, kind, groups):
+        self.calls.append((kind, groups > 1, torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32))
+
+    def __enter__(self):
+        conv, backward = self.saved
+
+        def conv_spy(x, weight, bias, stride, padding, dilation, groups):
+            self._record("forward", groups)
+            return conv(x, weight, bias, stride, padding, dilation, groups)
+
+        def backward_spy(grad, x, weight, bias_shape, stride, padding, dilation, groups,
+                         mask):
+            self._record("backward", groups)
+            return backward(grad, x, weight, bias_shape, stride, padding, dilation, groups,
+                            mask)
+        self.precision._conv, self.precision._conv_backward = conv_spy, backward_spy
+        return self
+
+    def __exit__(self, *exc):
+        self.precision._conv, self.precision._conv_backward = self.saved
+        return False
+
+    def summary(self):
+        """{(kind, "loss" or "model"): set of (cuDNN flag, cuBLAS flag) seen}."""
+        out = {}
+        for kind, depthwise, cudnn, cublas in self.calls:
+            out.setdefault((kind, "loss" if depthwise else "model"), set()).add((cudnn, cublas))
+        return out
+
+
+def fft_share(prof):
+    """(device ms, kernel count) of the cuDNN FFT kernels (a name holding "fft") in a
+    profile."""
+    from torch.autograd import DeviceType
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "fft" in e.name.lower()]
+    return sum(times) / 1e3, len(times)
+
+
+def precision_phase(dev, inputs, smi, served):
+    """Phase 13: the matmul-precision ladder. (a) K2's and K3's 1xTF32 variants against
+    their TF32-rounding plain versions; (b) the forward at "high" against "highest" per
+    level, the kernel path against the plain path at "high", each stage override alone,
+    launches, and the timings in turns; (c) at "default" and "highest" the output bit-equal
+    whatever the caller's cuDNN TF32 flag, and to phase 4's, and the flag restored; (d)
+    training at "high": kernel path against plain path, a spy on every conv's flags, the
+    step against "highest" in turns, cuDNN's FFT weight-gradient kernels, and
+    ``train()`` with ``matmul_precision: high``; (e) the artifact exported at "high" and at
+    "highest", each run in a fresh process whose flag is the other way. ``served``: phase
+    4's outputs. Every part runs; a bar missed fails the phase at the end."""
+    import dataclasses
+
+    from multi_view_stereonet_tpu_torch.checkpoint import export, native, random_state_dict
+    from multi_view_stereonet_tpu_torch.data.loader import collate
+    from multi_view_stereonet_tpu_torch.eval.streaming import (
+        MODEL_KEYS, StreamingRunner, load_model, make_dataset, model_config_from_params)
+    from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet
+    from multi_view_stereonet_tpu_torch.models.mvsnet import STAGES
+    from multi_view_stereonet_tpu_torch.train import train_cli
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
+
+    failures = []
+    with torch.inference_mode():
+        kernels = check_kernels_tf32(dev, failures)
+
+    cfg = load_params_yaml(inputs["params_yaml"])
+    base = model_config_from_params(cfg)
+    configs = {p: dataclasses.replace(base, matmul_precision=p)
+               for p in ("default", "high", "highest")}
+    model = load_model(inputs["weights_dir"], dev)
+    data_dir, split = inputs["trees"][1]
+    dataset = make_dataset(data_dir, split, cfg, decode_backend="pil")
+    sample = stack_samples([dataset[0]])
+
+    # (b) The forward at "high" against "highest", per level; launches at "high".
+    deviation, timing = {}, {}
+    with torch.inference_mode():
+        tensors = {k: torch.as_tensor(sample[k]).to(dev) for k in MODEL_KEYS}
+        ref = forward_levels(model, tensors, configs["highest"])
+        zero_launches()
+        zero_tf32_launches()
+        got = forward_levels(model, tensors, configs["high"])
+        launches, launches_tf32 = read_launches(), tf32_launches()
+        plain = forward_levels(model, tensors, configs["high"], impl="plain")
+        expected = expected_launches([(1, 1)])
+        log(f"forward at high B=1 V=1: launches {launches} (expected {expected}), of them "
+            f"1xTF32 {launches_tf32} (expected chain 1, refiner 2)")
+        if launches != expected or launches_tf32 != {"chain": 1, "refiner": 2}:
+            failures.append(f"launches at high: {launches}, 1xTF32 {launches_tf32}")
+        path = [m for m, _ in level_deviation(got, plain)]
+        deviation["B=1"] = level_deviation(got, ref)
+        log(f"forward at high B=1 V=1 {H0}x{W0} D={D} against highest, per level 0-4 (max, "
+            f"mean) % of range: " + "; ".join(f"L{i} {100 * m:.3f}, {100 * a:.4f}"
+                                              for i, (m, a) in enumerate(deviation["B=1"]))
+            + "; kernel vs plain path at high, max % of range per level: "
+            + ", ".join(f"{100 * p:.4f}" for p in path)
+            + f" (bar {100 * TF32_PATH_BAR:.1f})")
+        if max(path) > TF32_PATH_BAR:
+            failures.append(f"kernel path off the plain path at high: {path}")
+        tensors8 = {k: torch.as_tensor(np.repeat(sample[k], TRAIN_B, axis=0)).to(dev)
+                    for k in MODEL_KEYS}
+        deviation[f"B={TRAIN_B}"] = level_deviation(
+            forward_levels(model, tensors8, configs["high"]),
+            forward_levels(model, tensors8, configs["highest"]))
+        log(f"forward at high B={TRAIN_B} V=1 against highest, per level (max, mean) % of "
+            "range: " + "; ".join(f"L{i} {100 * m:.3f}, {100 * a:.4f}" for i, (m, a)
+                                  in enumerate(deviation[f"B={TRAIN_B}"])))
+        for key, levels in deviation.items():
+            if any(m > TF32_FORWARD_MAX or a > TF32_FORWARD_MEAN for m, a in levels):
+                failures.append(f"forward at high {key} off highest: {levels}")
+
+        # Each stage alone at "high" over "highest": the deviation it brings, and which
+        # 1xTF32 kernel it launches.
+        stages = {}
+        for stage in STAGES:
+            config = dataclasses.replace(configs["highest"],
+                                         stage_precision=((stage, "high"),))
+            zero_tf32_launches()
+            levels = level_deviation(forward_levels(model, tensors, config), ref)
+            stages[stage] = levels
+            want = {"chain": int(stage == "chain"), "refiner": 2 * (stage == "refiners")}
+            log(f"stage {stage} alone at high (the rest highest) B=1: per level max % of "
+                f"range " + ", ".join(f"{100 * m:.4f}" for m, _ in levels)
+                + f"; 1xTF32 launches {tf32_launches()} (expected {want})")
+            if tf32_launches() != want or (stage == "warp" and max(m for m, _ in levels)):
+                failures.append(f"stage {stage} at high: launches {tf32_launches()}, "
+                                f"levels {levels}")
+
+        # ms/frame at "high" and "highest" in turns, device busy a forward, peak memory.
+        for B, batch in ((1, tensors), (TRAIN_B, tensors8)):
+            def call(name):
+                return lambda: forward_levels(model, batch, configs[name])
+            runs = {"highest": [], "high": []}
+            for name in ("highest", "high", "high", "highest"):
+                runs[name].append(median_ms(call(name)) / B)
+            busy, peak = {}, {}
+            for name in ("highest", "high"):
+                busy[name] = device_ms(call(name))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                call(name)()
+                torch.cuda.synchronize()
+                peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            timing[f"B={B}"] = {"ms_frame": runs, "device_ms": busy, "peak_gib": peak}
+            log(f"forward high vs highest B={B} V=1 {H0}x{W0} D={D} ({smi}): ms/frame in "
+                f"turns highest {runs['highest'][0]:.3f}, high {runs['high'][0]:.3f}, high "
+                f"{runs['high'][1]:.3f}, highest {runs['highest'][1]:.3f}; device-busy ms a "
+                f"forward highest {busy['highest']:.3f}, high {busy['high']:.3f}; peak "
+                f"memory highest {peak['highest']:.3f} GiB, high {peak['high']:.3f} GiB")
+
+    # (c) The config decides: at "default" and "highest" the runner's output is bit-equal
+    # whatever the caller's cuDNN TF32 flag, and to phase 4's; the flag is the caller's
+    # again after the call.
+    phase4 = next(out for v, out, _ in served if v == 1)
+    for name in ("default", "highest"):
+        outs, after = {}, {}
+        for ambient in (True, False):
+            torch.backends.cudnn.allow_tf32 = ambient
+            outs[ambient] = StreamingRunner(model, configs[name], device=dev).forward(
+                sample).cpu().numpy()
+            after[ambient] = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        same = outs[True].tobytes() == outs[False].tobytes()
+        same4 = outs[False].tobytes() == phase4.tobytes()
+        log(f"at {name}: the output with the caller's cuDNN TF32 flag on bit-equal to off "
+            f"{same}, to phase 4's {same4}; the flag after the call {after} (set True, "
+            "False)")
+        if not (same and same4 and after == {True: True, False: False}):
+            failures.append(f"{name}: not decided by the config ({same}, {same4}, {after})")
+
+    # (d) Training at "high" on one batch of the recipe: kernel path against plain path,
+    # every conv's flags; then the step against "highest" in turns.
+    train_cfg = load_params_yaml(None)
+    train_cfg.update({"num_workers": 4, "debug_image_freq": 0, "plot_freq": 0})
+    long_dir, long_split = inputs["long"]
+    train_set = train_cli.make_dataset(train_cfg, long_dir, long_split, True, 0,
+                                       np.random.default_rng(0))
+    batch = collate([train_set[i] for i in range(TRAIN_B)])
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+             if not k.endswith("filenames")}
+    state0 = random_state_dict(0)
+
+    def fresh(impl, precision):
+        net = MultiViewStereoNet()
+        net.load_state_dict(state0)
+        net = net.to(dev)
+        config, loss_config, _, step = train_cli.build_train_step(
+            dict(train_cfg, matmul_precision=precision), 12, net, impl)
+        return net, config, loss_config, step
+
+    grads, loss_of, spies = {}, {}, {}
+    torch.backends.cudnn.allow_tf32 = True  # the caller's flag: the step must not use it
+    for impl in ("auto", "plain"):
+        net, config, loss_config, _ = fresh(impl, "high")
+        zero_launches()
+        zero_tf32_launches()
+        with ConvSpy() as spy:
+            loss, _ = make_loss_fn(config, loss_config, impl=impl)(net, batch)
+            loss.backward()
+            torch.cuda.synchronize()
+        spies[impl] = spy.summary()
+        loss_of[impl] = loss.item()
+        grads[impl] = {k: p.grad for k, p in net.named_parameters()}
+        if impl == "auto":
+            step_launches, step_tf32 = read_launches(), tf32_launches()
+    torch.backends.cudnn.allow_tf32 = False
+    flat = {impl: torch.cat([grads[impl][k].flatten() for k in sorted(grads[impl])])
+            for impl in grads}
+    flat_gap = ((flat["auto"] - flat["plain"]).norm() / flat["plain"].norm()).item()
+    loss_gap = abs(loss_of["auto"] - loss_of["plain"]) / abs(loss_of["plain"])
+    worst, worst_key, min_cos = compare_gradients(grads)
+    want = {("forward", "model"): {(True, False)}, ("backward", "model"): {(True, False)},
+            ("forward", "loss"): {(False, False)}, ("backward", "loss"): {(False, False)}}
+    log(f"train step at high, kernel vs plain path (B={TRAIN_B}, the caller's cuDNN flag "
+        f"on): launches {step_launches} a step, 1xTF32 {step_tf32}; loss "
+        f"{loss_of['auto']:.6f} vs {loss_of['plain']:.6f} ({loss_gap:.2e} relative, bar "
+        f"{TF32_TRAIN_LOSS_BAR:.0e}); flat gradient {flat_gap:.3e} relative L2 (bar "
+        f"{TF32_TRAIN_GRAD_BAR:.0e}); worst leaf {worst:.3e} at {worst_key}, least cosine "
+        f"{min_cos:.6f}; conv flags (cuDNN TF32, cuBLAS TF32) seen: "
+        f"{ {impl: {' '.join(k): sorted(v) for k, v in s.items()} for impl, s in spies.items()} }")
+    if not (np.isfinite(loss_of["auto"]) and loss_gap <= TF32_TRAIN_LOSS_BAR
+            and flat_gap <= TF32_TRAIN_GRAD_BAR):
+        failures.append(f"train at high, kernel against plain: loss {loss_gap}, flat {flat_gap}")
+    # Every conv seen at its stage's flags; the model's forward and backward both seen
+    # (the recipe's supervised losses may blur nothing that needs a gradient).
+    if step_tf32 != {"chain": 1, "refiner": 2} or any(
+            not {("forward", "model"), ("backward", "model")} <= set(s)
+            or any(v != want[k] for k, v in s.items()) for s in spies.values()):
+        failures.append(f"train at high: 1xTF32 launches {step_tf32}, conv flags {spies}")
+    del grads, flat
+
+    steps_by = {p: fresh("auto", p) for p in ("highest", "high")}
+    times, peak = time_steps(steps_by, batch, per_round=3)
+    ms = {k: statistics.median(t) for k, t in times.items()}
+    busy, fft = {}, {}
+    for p, (net, _, _, step) in steps_by.items():
+        busy[p], _, prof = profile_kernels(lambda: step(net, batch), 1)
+        fft[p] = fft_share(prof)
+    for p in steps_by:
+        log(f"train step at {p}, B={TRAIN_B} V=1 {H0}x{W0} D={D}, adam, kernel path: "
+            f"{ms[p]:.3f} ms a step (median of {len(times[p])}, in turns; "
+            f"{[round(t, 2) for t in times[p]]}), {TRAIN_B * 1e3 / ms[p]:.2f} images/s, "
+            f"device busy {busy[p]:.3f} ms, peak memory {peak[p] / 2**30:.3f} GiB; cuDNN FFT "
+            f"kernels {fft[p][1]} taking {fft[p][0]:.3f} ms of device ({smi})")
+    del steps_by
+
+    # train() with matmul_precision: high in its params: 2 steps, a checkpoint.
+    out = os.path.join(inputs["root"], "train_high")
+    zero_launches()
+    zero_tf32_launches()
+    trained = train_cli.train(dict(train_cfg, num_epochs=1, matmul_precision="high"),
+                              long_dir, long_split, "", out, max_steps=TF32_TRAIN_STEPS,
+                              device=dev)
+    cli_launches, cli_tf32 = read_launches(), tf32_launches()
+    with open(os.path.join(out, "losses.txt")) as f:
+        rows = [line.split() for line in f.read().splitlines()[1:]]
+    losses = [float(r[3]) for r in rows]
+    ckpt = native.load_train_state(os.path.join(out, "checkpoints"), 0)
+    f32_weights = (all(p.dtype == torch.float32 for p in trained.parameters())
+                   and all(v.dtype == torch.float32 for v in ckpt["model"].values()))
+    expected = expected_launches([(TRAIN_B, 1)] * TF32_TRAIN_STEPS)
+    log(f"train() with matmul_precision high: {len(rows)} steps, losses {losses}, launches "
+        f"{cli_launches} (expected {expected}), 1xTF32 {cli_tf32}; checkpoint step "
+        f"{ckpt['step']}, weights and checkpoint f32 {f32_weights}")
+    if not (len(rows) == TF32_TRAIN_STEPS and np.isfinite(losses).all() and f32_weights
+            and ckpt["step"] == TF32_TRAIN_STEPS and cli_launches == expected
+            and cli_tf32 == {"chain": TF32_TRAIN_STEPS, "refiner": 2 * TF32_TRAIN_STEPS}):
+        failures.append("train() at high: steps, losses, launches or checkpoint")
+    del trained, ckpt
+
+    # (e) The artifact at "high" served in a fresh process with the flag off, and at
+    # "highest" in one with the flag on: each bit-equal to the live forward at its
+    # precision.
+    artifacts = {}
+    for name, ambient in (("high", False), ("highest", True)):
+        path = os.path.join(inputs["root"], f"serving_b1_{name}.pt2")
+        export.save_exported(export.export_inference(model, configs[name], size=(H0, W0)),
+                             path)
+        live = StreamingRunner(model, configs[name], device=dev).forward(sample).cpu().numpy()
+        io_path = os.path.join(inputs["root"], f"artifact_io_{name}.npz")
+        np.savez(io_path, live=live, **sample)
+        code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                f"chip_smoke.artifact_child({path!r}, {io_path!r}, {str(dev)!r}, {ambient})")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the {name} artifact in a fresh process failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        artifacts[name] = child
+        log(f"artifact at {name} B=1 in a fresh process with the cuDNN TF32 flag "
+            f"{'on' if ambient else 'off'}: mode {child['mode']}, bit-equal to the live "
+            f"forward at {name} {child['equal']}, launches {child['launches']}, 1xTF32 "
+            f"{child['tf32_launches']}, the flag after the call {child['flags_after']}")
+        want_tf32 = {"chain": 1, "refiner": 2} if name == "high" else {"chain": 0, "refiner": 0}
+        if not (child["equal"] and child["tf32_launches"] == want_tf32
+                and child["flags_after"] == [ambient, False]):
+            failures.append(f"the {name} artifact: {child}")
+    if failures:
+        raise AssertionError("phase 13: " + "; ".join(failures))
+    return {"kernels": kernels, "launches": launches_tf32, "deviation": deviation,
+            "stages": stages, "timing": timing, "train_ms": ms, "train_busy": busy,
+            "train_peak_gib": {k: v / 2**30 for k, v in peak.items()}, "fft": fft,
+            "train_launches": step_tf32, "loss_gap": loss_gap, "grad_gap": flat_gap}
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -2782,7 +3270,7 @@ def main():
     backward_bf16 = phase("12 (a) (backward at bf16)", check_backward, dev, torch.bfloat16)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = write_inputs(tmp)
-        launches, ms, worst = phase("4 (serving)", serve, dev, inputs)
+        launches, ms, worst, served = phase("4 (serving)", serve, dev, inputs)
         log(f"serving ms/frame B=1 V=1 480x640 D=12 ({smi}): kernels {ms['auto']:.3f}, "
             f"plain {ms['plain']:.3f}; worst serving error {worst:.3e} of range")
         phase("5 (eval)", evaluate, dev, inputs, smi)
@@ -2796,6 +3284,7 @@ def main():
         bf16 = phase("11 (bf16 serving)", bf16_phase, dev, inputs, smi, kernels)
         bf16_train = phase("12 (bf16 training)", bf16_train_phase, dev, inputs, smi, trained,
                            backward_bf16)
+        tf32 = phase("13 (matmul precision)", precision_phase, dev, inputs, smi, served)
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
@@ -2856,6 +3345,8 @@ def main():
                                       "launches": bf16["launches"]["chain"]},
          "bf16_train_launches": bf16_train["launches"]["chain"],
          "bf16_backward": bf16_train["backward"]["K2"],
+         "tf32": {**tf32["kernels"]["chain"], "launches": tf32["launches"]["chain"],
+                  "train_launches": tf32["train_launches"]["chain"]},
          "backward": backward["K2"]},
         {"name": "idepthmap_refiner", "route": "cuda",
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
@@ -2870,6 +3361,8 @@ def main():
                                         "launches": bf16["launches"]["refiner"]},
          "bf16_train_launches": bf16_train["launches"]["refiner"],
          "bf16_backward": bf16_train["backward"]["K3"],
+         "tf32": {**tf32["kernels"]["refiner"], "launches": tf32["launches"]["refiner"],
+                  "train_launches": tf32["train_launches"]["refiner"]},
          "backward": backward["K3"]},
         {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",

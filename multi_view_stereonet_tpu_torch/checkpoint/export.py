@@ -6,7 +6,12 @@ JAX package a ``jax.export`` blob. Here the artifact is ``torch.export`` of THE 
 ``serving_forward`` (``eval/streaming.py``), the function the live ``StreamingRunner``
 calls, with the u8 gate and the fetch cast inside, the weights stored beside the graph.
 It is run eagerly as its aten graph, so it computes what the live forward computes, bit
-for bit, under the same TF32 flags (set them off for f32 results).
+for bit. ``torch.export`` records no process flags, so the artifact records the precision
+it was exported at (``matmul_precision``, resolved to an ``ops.precision`` mode) in a
+file of its own, and ``load_exported`` runs every call in that mode's scope: a fresh
+process gets the exported precision whatever its TF32 flags, and gets its own flags
+back after each call. One flag around the call holds one precision, so a
+``stage_precision`` override that differs from ``matmul_precision`` is refused.
 
 An artifact is specialized to the device it was exported on, as the JAX package's is to
 its backend: exported on a card, its graph holds the four hand-written kernels as the
@@ -23,7 +28,11 @@ CLI:
 
 ``--dtype bfloat16`` exports the bf16 serving forward (``compute_dtype``); the
 custom ops' fakes give the dtypes their kernels write, and the artifact is
-bit-equal to the live runner at bf16.
+bit-equal to the live runner at bf16. The CLI exports at ``matmul_precision`` "default"
+(exact f32), as it reads no precision; ``export_inference`` takes any config.
+
+The custom ops' schemas carry the precision (``tf32``, false by default); an artifact
+exported before they did is not known to load: export it again.
 
 ``weights_dir`` holds ``stereo_network.pth``, ``.msgpack`` or ``.pt`` (``load_any_params``).
 """
@@ -36,6 +45,7 @@ import os
 import torch
 
 FETCH_DTYPES = ("float16", "bfloat16", "float32")
+PRECISION_FILE = "mvs_torch_precision"  # the artifact's extra file naming its mode
 
 
 class ServingModule(torch.nn.Module):
@@ -83,12 +93,24 @@ def export_inference(model, config, batch_size: int = 1, views: int = 1,
                      size=(480, 640), input_u8: bool = False, fetch_dtype=None):
     """``torch.export`` of the serving forward at static shapes, on the model's device,
     under ``torch.no_grad()``. ``input_u8`` takes uint8 images (the serving transport,
-    dequantized inside); ``fetch_dtype`` (e.g. ``torch.float16``) casts the output.
+    dequantized inside); ``fetch_dtype`` (e.g. ``torch.float16``) casts the output. The
+    result carries its precision mode as ``mvs_precision`` (``save_exported`` writes it);
+    a ``stage_precision`` override that resolves to another mode than
+    ``matmul_precision`` raises ValueError before anything is traced.
 
     One eager forward runs first, so that what the forward keeps on the device (the
     resize matrices, K3's packed weights) is made for real: the exported graph then
     holds those tensors as constants, which it neither copies nor recomputes at a call,
     and they are the live path's own, bit for bit."""
+    from ..models import resolve_precision
+
+    ambient, modes = resolve_precision(config)
+    if any(mode != ambient for mode in modes.values()):
+        raise ValueError(
+            f"stage_precision {config.stage_precision!r} sets another precision than "
+            f"matmul_precision {config.matmul_precision!r} in a stage; an artifact runs "
+            "under one precision, so it is not exported (ROADMAP Queue 1, "
+            "\"stage_precision in the serving artifact\")")
     serving = make_serving_fn(model.eval(), config, fetch_dtype)
     args = _example_inputs(batch_size, views, size, input_u8,
                            next(model.parameters()).device)
@@ -97,11 +119,33 @@ def export_inference(model, config, batch_size: int = 1, views: int = 1,
         exported = torch.export.export(serving, args, strict=False)
     # Not kept in the artifact: the B=24 example images alone are 44 MB.
     exported.example_inputs = None
+    exported.mvs_precision = ambient
     return exported
 
 
 def save_exported(exported, path: str) -> None:
-    torch.export.save(exported, path)
+    """Write ``exported`` to ``path`` with its precision mode (exact, "ieee", for a program
+    that names none)."""
+    torch.export.save(exported, path,
+                      extra_files={PRECISION_FILE: getattr(exported, "mvs_precision", "ieee")})
+
+
+def _run_at(module, mode: str):
+    """Hook ``module`` so that each call runs in ``ops.precision.scope(mode)``, the scope
+    closed after the call also where it raises; records the mode as ``mvs_precision``."""
+    from ..ops.precision import scope
+
+    open_scopes = []
+
+    def enter(_module, _args):
+        open_scopes.append(scope(mode).__enter__())
+
+    def leave(_module, _args, _out):
+        open_scopes.pop().__exit__(None, None, None)
+    module.register_forward_pre_hook(enter)
+    module.register_forward_hook(leave, always_call=True)
+    module.mvs_precision = mode
+    return module
 
 
 def custom_ops(exported) -> list:
@@ -115,12 +159,19 @@ def custom_ops(exported) -> list:
 
 def load_exported(path: str):
     """The artifact at ``path`` as a module to call with (left_image, right_images, K,
-    T_right_in_left); its weights need no gradient. The port's custom ops are registered
-    first, and the kernels of those in the graph built: where they cannot be (no card, no
-    nvcc), this raises."""
+    T_right_in_left), each call at the precision it was exported at (``mode``; exact for
+    an artifact that records none) and the caller's TF32 flags restored after it; its
+    weights need no gradient. The port's custom ops are registered first, and the
+    kernels of those in the graph built: where they cannot be (no card, no nvcc), this
+    raises."""
+    from ..ops import precision
     from ..ops.cuda import build, gn_apply, incremental_chain, refiner, warp  # noqa: F401
 
-    exported = torch.export.load(path)
+    extra = {PRECISION_FILE: ""}
+    exported = torch.export.load(path, extra_files=extra)
+    mode = extra[PRECISION_FILE] or "ieee"
+    if mode not in precision.MODES:
+        raise ValueError(f"{path} records an unknown precision mode {mode!r}")
     ops = custom_ops(exported)
     if ops:
         if not torch.cuda.is_available():
@@ -130,7 +181,7 @@ def load_exported(path: str):
     module = exported.module()
     for p in module.parameters():
         p.requires_grad_(False)
-    return module
+    return _run_at(module, mode)
 
 
 def main(argv=None):

@@ -58,6 +58,12 @@
 // product where 3xTF32 takes three; the wrapper packs the weights rounded to bf16 (as
 // (w, 0) pairs in the same image). Tile and weights keep their f32 layout in shared
 // memory, holding bf16 values.
+//
+// At f32 guidance a second variant (TF32, the 1xTF32 entry) takes one product a k-step,
+// a_hi b_hi: each conv operand rounded to TF32 as split rounds it, the products summed in
+// f32; the wrapper packs its weights as (hi, 0) pairs. It is the forward's "tf32"
+// precision (matmul_precision "high"), the cuDNN convs' TF32 counterpart; everything but
+// the convs' operands stays f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -451,8 +457,9 @@ __device__ __forceinline__ float2 wpair(const float* wk, int row, int oc) {
 // j's shares in a fixed order and runs epi(slot, j, sums). Every thread calls it. BF16:
 // bf16 m16n8k16 steps, lane (gq, tq) of the step over channels k .. k + 15 holding
 // channels k + 4 tq .. k + 4 tq + 3 of A and B (the fragments' k order; lanes past
-// `rows` hold zeros), from the hi halves of the (w, 0) weight pairs.
-template <int ROWS, int NJ, int LDW, bool BF16, typename Epi>
+// `rows` hold zeros), from the hi halves of the (w, 0) weight pairs. Otherwise in 3xTF32,
+// or in 1xTF32 (TF32): the one product a_hi b_hi, from the hi halves of (hi, 0) pairs.
+template <int ROWS, int NJ, int LDW, bool BF16, bool TF32, typename Epi>
 __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, const float* zrow,
                                           const float* wt, int rows_rt, int m, int mt, int d,
                                           float* red, Epi&& epi) {
@@ -518,8 +525,10 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
             const float2 b1 = wpair<LDW>(wk, k + tq + 4, 8 * j + gq);
             const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
             const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
-            mma_k8(acc[j], al, bh);
-            mma_k8(acc[j], ah, bl);
+            if constexpr (!TF32) {
+              mma_k8(acc[j], al, bh);
+              mma_k8(acc[j], ah, bl);
+            }
             mma_k8(acc[j], ah, bh);
           }
         }
@@ -530,8 +539,10 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
             const float2 b = wpair<LDW>(wk, k + tq, 8 * j + gq);
-            mma_k4(acc[j], al, __float_as_uint(b.x));
-            mma_k4(acc[j], ah, __float_as_uint(b.y));
+            if constexpr (!TF32) {
+              mma_k4(acc[j], al, __float_as_uint(b.x));
+              mma_k4(acc[j], ah, __float_as_uint(b.y));
+            }
             mma_k4(acc[j], ah, __float_as_uint(b.x));
           }
         }
@@ -560,7 +571,7 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
   }
 }
 
-template <typename T>
+template <typename T, bool TF32>
 __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
   constexpr bool BF16 = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
@@ -639,7 +650,7 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
       if (s == 0) {
         stage_input<T>(a, m, mt, tile);
         weights_ready(m);
-        conv_pass<0, GROUPS, C, BF16>(
+        conv_pass<0, GROUPS, C, BF16, TF32>(
             a, tile, zrow, wt, a.cin_pad, m, mt, 1, red,
             [&](int slot, int g, float (&v)[4]) { epi_gn(m, slot, g, v); });
         continue;
@@ -659,13 +670,13 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
                          a.hbuf + ((l - 1) & 1) * NPC, tprev, hcur);
       weights_ready(m);
       if (s < LAYERS - 1) {
-        conv_pass<C, GROUPS, C, BF16>(
+        conv_pass<C, GROUPS, C, BF16, TF32>(
             a, tile, zrow, wt, C, m, mt, d, red,
             [&](int slot, int g, float (&v)[4]) { epi_gn(m, slot, g, v); });
       } else {  // out = ReLU(idepth + conv_final(h_6) + bf): column 0 of the n8 tile
         const float bf = vec[3 * C * NGN];
-        conv_pass<C, 1, WF_COLS, BF16>(a, tile, zrow, wt, C, m, mt, 1, red,
-                                       [&](int slot, int, float (&v)[4]) {
+        conv_pass<C, 1, WF_COLS, BF16, TF32>(a, tile, zrow, wt, C, m, mt, 1, red,
+                                             [&](int slot, int, float (&v)[4]) {
           if (tq != 0) return;
           const int mm = m + slot, n = mm / a.tps;
           const int pa = (mm - n * a.tps) * MTILE + gq, pb = pa + 8;
@@ -691,7 +702,7 @@ long long needed_scratch(int N, int h, int w) {
   return 4LL * N * P * C + 4LL * NGN * M * GROUPS;
 }
 
-template <typename T>
+template <typename T, bool TF32>
 int launch(const T* guidance, const float* idepth, const float* wpack, float* out,
            float* scratch, long long scratch_floats, unsigned int* barrier, int N, int cg,
            int h, int w, const int* dil, cudaStream_t stream) {
@@ -709,12 +720,12 @@ int launch(const T* guidance, const float* idepth, const float* wpack, float* ou
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (max_blocks[dev] == 0) {
-    err = cudaFuncSetAttribute(refiner_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SMEM_BYTES);
+    err = cudaFuncSetAttribute(refiner_kernel<T, TF32>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, refiner_kernel<T>, THREADS,
-                                                        SMEM_BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, refiner_kernel<T, TF32>,
+                                                        THREADS, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
@@ -741,8 +752,8 @@ int launch(const T* guidance, const float* idepth, const float* wpack, float* ou
   a.partials = reinterpret_cast<double2*>(scratch + 4 * npc);
   const int grid = (a.M + a.mpb - 1) / a.mpb;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)refiner_kernel<T>, dim3(grid), dim3(THREADS),
-                                    args, SMEM_BYTES, stream);
+  err = cudaLaunchCooperativeKernel((const void*)refiner_kernel<T, TF32>, dim3(grid),
+                                    dim3(THREADS), args, SMEM_BYTES, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -768,8 +779,18 @@ extern "C" int mvs_idepthmap_refiner_f32(const float* guidance, const float* ide
                                          long long scratch_floats, unsigned int* barrier,
                                          int N, int cg, int h, int w, const int* dil,
                                          cudaStream_t stream) {
-  return launch(guidance, idepth, wpack, out, scratch, scratch_floats, barrier, N, cg, h, w,
-                dil, stream);
+  return launch<float, false>(guidance, idepth, wpack, out, scratch, scratch_floats, barrier,
+                              N, cg, h, w, dil, stream);
+}
+
+// The same in 1xTF32; wpack holds each weight as (w rounded to TF32, 0).
+extern "C" int mvs_idepthmap_refiner_tf32(const float* guidance, const float* idepth,
+                                          const float* wpack, float* out, float* scratch,
+                                          long long scratch_floats, unsigned int* barrier,
+                                          int N, int cg, int h, int w, const int* dil,
+                                          cudaStream_t stream) {
+  return launch<float, true>(guidance, idepth, wpack, out, scratch, scratch_floats, barrier,
+                             N, cg, h, w, dil, stream);
 }
 
 // The same with bf16 guidance; wpack holds each weight as (w rounded to bf16, 0).
@@ -778,6 +799,6 @@ extern "C" int mvs_idepthmap_refiner_bf16(const __nv_bfloat16* guidance, const f
                                           long long scratch_floats, unsigned int* barrier,
                                           int N, int cg, int h, int w, const int* dil,
                                           cudaStream_t stream) {
-  return launch(guidance, idepth, wpack, out, scratch, scratch_floats, barrier, N, cg, h, w,
-                dil, stream);
+  return launch<__nv_bfloat16, false>(guidance, idepth, wpack, out, scratch, scratch_floats,
+                                      barrier, N, cg, h, w, dil, stream);
 }

@@ -58,6 +58,11 @@
 // weights rounded as they are loaded) on the tensor cores' native bf16 mma.sync
 // (m16n8k16, f32 accumulate), one product where 3xTF32 takes three. The staged tile and
 // the weights keep their f32 layout in shared memory, holding bf16 values.
+//
+// At f32 storage a second variant (TF32, the 1xTF32 entry) takes one product a k-step,
+// a_hi b_hi: each conv operand rounded to TF32 as split rounds it, the products summed in
+// f32. It is the forward's "tf32" precision (matmul_precision "high"), the cuDNN convs'
+// TF32 counterpart; everything but the convs' operands stays f32.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -190,12 +195,12 @@ __device__ __forceinline__ int wslot(int row, int oc) { return row * C + (oc ^ (
 // floats, ROWS input channels used (32, or 36 for conv0: four k8 steps and one k4);
 // weights [tap][ROWS][C], swizzled (wslot). As a GEMM: pixels x (tap, ci) times (tap, ci)
 // x oc. A warp takes 16 pixels x 16 output channels (two GroupNorm groups, fixed for the
-// warp) at a time, in 3xTF32, or (BF16) in bf16 m16n8k16 steps: lane (gq, tq) of a step
+// warp) at a time, in 3xTF32, in 1xTF32 (TF32: the hi parts alone), or (BF16) in bf16 m16n8k16 steps: lane (gq, tq) of a step
 // over channels k .. k + 15 holds channels k + 4 tq .. k + 4 tq + 3 of its two pixels
 // and of its output channel's weights (the fragments' k order, the same for A and B).
 // Calls epi(ty, tx, g, c, v0, v1) for output channels 8g + c, 8g + c + 1 of each of the
 // tile's th x tw pixels.
-template <int ROWS, bool BF16, typename Epi>
+template <int ROWS, bool BF16, bool TF32, typename Epi>
 __device__ __forceinline__ void conv_tile(const float* tile, const float* wt, int th, int tw,
                                           Epi&& epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -258,8 +263,10 @@ __device__ __forceinline__ void conv_tile(const float* tile, const float* wt, in
               uint32_t bh[2], bl[2];
               split(wk[wslot(8 * s8 + tq, n)], bh[0], bl[0]);
               split(wk[wslot(8 * s8 + tq + 4, n)], bh[1], bl[1]);
-              mma_k8(acc[j], al, bh);
-              mma_k8(acc[j], ah, bl);
+              if constexpr (!TF32) {
+                mma_k8(acc[j], al, bh);
+                mma_k8(acc[j], ah, bl);
+              }
               mma_k8(acc[j], ah, bh);
             }
           }
@@ -271,8 +278,10 @@ __device__ __forceinline__ void conv_tile(const float* tile, const float* wt, in
             for (int j = 0; j < 2; ++j) {
               uint32_t bh, bl;
               split(wk[wslot(C + tq, 16 * npair + 8 * j + gq)], bh, bl);
-              mma_k4(acc[j], al, bh);
-              mma_k4(acc[j], ah, bl);
+              if constexpr (!TF32) {
+                mma_k4(acc[j], al, bh);
+                mma_k4(acc[j], ah, bl);
+              }
               mma_k4(acc[j], ah, bh);
             }
           }
@@ -439,7 +448,7 @@ __device__ __forceinline__ void cluster_stats(int cs, const double* slot, float*
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool TF32>
 __global__ void __launch_bounds__(THREADS, 1)
 chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
              const float* __restrict__ H_inc, const float* __restrict__ w0_g,
@@ -565,7 +574,7 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
         }
       }
       __syncthreads();
-      conv_tile<CS, BF16>(tile, w0, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+      conv_tile<CS, BF16, TF32>(tile, w0, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
         const float o0 = v0 + b0[oc], o1 = v1 + b0[oc + 1];
         s[g & 1] += o0 + o1;
@@ -587,7 +596,7 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
         return rnd4<T>(gn_leaky4(v[0], stat0, g0, be0, j));
       });
       __syncthreads();
-      conv_tile<C, BF16>(tile, wr, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+      conv_tile<C, BF16, TF32>(tile, wr, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
         const float o0 = v0 + br[oc], o1 = v1 + br[oc + 1];
         s[g & 1] += o0 + o1;
@@ -610,7 +619,7 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
         return rnd4<T>(make_float4(hv.x + rv.x, hv.y + rv.y, hv.z + rv.z, hv.w + rv.w));
       });
       __syncthreads();
-      conv_tile<C, BF16>(tile, wf, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+      conv_tile<C, BF16, TF32>(tile, wf, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
         const int off = ((y0 + ty) * wd + x0 + tx) * C + oc;
         const float2 a = __ldcg(reinterpret_cast<const float2*>(warped + off));
@@ -655,9 +664,10 @@ cudaLaunchConfig_t launch_config(int blocks, int cluster, cudaStream_t stream,
 constexpr int MAX_DEVICES = 64;
 constexpr int CANDIDATES[2] = {16, 8};
 
-// Sets the attributes of the kernel for storage type T and reads how many clusters of 16
-// and of 8 blocks the current device holds at once (once a device and type).
-template <typename T>
+// Sets the attributes of the kernel for storage type T (and variant TF32) and reads how
+// many clusters of 16 and of 8 blocks the current device holds at once (once a device
+// and kernel).
+template <typename T, bool TF32>
 int resident_clusters(int (&active)[2]) {
   static int cache[MAX_DEVICES][2];  // resident clusters of each candidate size, +1 (0: unknown)
   int dev = 0;
@@ -668,16 +678,16 @@ int resident_clusters(int (&active)[2]) {
     active[1] = cache[dev][1] - 1;
     return 0;
   }
-  err = cudaFuncSetAttribute(chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM_BYTES);
+  err = cudaFuncSetAttribute(chain_kernel<T, TF32>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(chain_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
+  err = cudaFuncSetAttribute(chain_kernel<T, TF32>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   for (int k = 0; k < 2; ++k) {
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = launch_config(CANDIDATES[k], CANDIDATES[k], 0, &attr);
-    err = cudaOccupancyMaxActiveClusters(&active[k], chain_kernel<T>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&active[k], chain_kernel<T, TF32>, &cfg);
     if (err != cudaSuccess) {
       cudaGetLastError();
       active[k] = 0;  // this size does not run here; the other may
@@ -692,10 +702,10 @@ int resident_clusters(int (&active)[2]) {
 
 // The cluster size for N samples of an h x w map: the fewest waves of clusters times
 // warp rounds a stage (plus one for the stage's fixed cost), ties to the larger cluster.
-template <typename T>
+template <typename T, bool TF32>
 int choose_cluster(int N, int h, int w, int* cluster) {
   int active[2];
-  const int err = resident_clusters<T>(active);
+  const int err = resident_clusters<T, TF32>(active);
   if (err != 0) return err;
   long best_cost = -1;
   *cluster = 0;
@@ -713,23 +723,23 @@ int choose_cluster(int N, int h, int w, int* cluster) {
   return *cluster > 0 ? 0 : (int)cudaErrorLaunchOutOfResources;
 }
 
-template <typename T>
+template <typename T, bool TF32>
 int launch(const T* feats0, const T* image, const float* H_inc, const float* w0,
            const float* wr, const float* wf, const float* vec, T* out, float* scratch, int N,
            int Dm1, int h, int w, int cluster, cudaStream_t stream) {
   if (N == 0) return 0;
   int active[2];
-  int err = resident_clusters<T>(active);  // also sets the kernel's attributes
+  int err = resident_clusters<T, TF32>(active);  // also sets the kernel's attributes
   if (err != 0) return err;
   if (cluster <= 0) {
-    err = choose_cluster<T>(N, h, w, &cluster);
+    err = choose_cluster<T, TF32>(N, h, w, &cluster);
     if (err != 0) return err;
   }
   const Plan p = plan_for(cluster, h, w);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(N * cluster, cluster, stream, &attr);
-  cudaError_t status = cudaLaunchKernelEx(&cfg, chain_kernel<T>, feats0, image, H_inc, w0,
-                                          wr, wf, vec, out, scratch, Dm1, h, w,
+  cudaError_t status = cudaLaunchKernelEx(&cfg, chain_kernel<T, TF32>, feats0, image, H_inc,
+                                          w0, wr, wf, vec, out, scratch, Dm1, h, w,
                                           p.rows_per_block, p.tile_rows, p.tile_cols);
   if (status != cudaSuccess) {
     cudaGetLastError();
@@ -743,7 +753,7 @@ int launch(const T* feats0, const T* image, const float* H_inc, const float* w0,
 // The cluster size a launch of the f32 kernel for N samples of an h x w map takes, into
 // *cluster. Returns a CUDA error code (0 on success).
 extern "C" int mvs_incremental_chain_cluster(int N, int h, int w, int* cluster) {
-  return choose_cluster<float>(N, h, w, cluster);
+  return choose_cluster<float, false>(N, h, w, cluster);
 }
 
 // feats0 (N, P, 32), image (N, D-1, P, 3), H_inc (N, D-1, 9): f32, contiguous, P = h*w;
@@ -758,8 +768,19 @@ extern "C" int mvs_incremental_chain_f32(const float* feats0, const float* image
                                          const float* vec, float* out, float* scratch,
                                          int N, int Dm1, int h, int w, int cluster,
                                          cudaStream_t stream) {
-  return launch(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N, Dm1, h, w, cluster,
-                stream);
+  return launch<float, false>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N, Dm1, h,
+                              w, cluster, stream);
+}
+
+// The same in 1xTF32: each conv operand rounded to TF32, one product a k-step.
+extern "C" int mvs_incremental_chain_tf32(const float* feats0, const float* image,
+                                          const float* H_inc, const float* w0,
+                                          const float* wr, const float* wf,
+                                          const float* vec, float* out, float* scratch,
+                                          int N, int Dm1, int h, int w, int cluster,
+                                          cudaStream_t stream) {
+  return launch<float, true>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N, Dm1, h,
+                             w, cluster, stream);
 }
 
 // The same with feats0, image and out bf16 (H_inc, the weights, vec and scratch f32).
@@ -769,6 +790,6 @@ extern "C" int mvs_incremental_chain_bf16(const __nv_bfloat16* feats0,
                                           const float* vec, __nv_bfloat16* out,
                                           float* scratch, int N, int Dm1, int h, int w,
                                           int cluster, cudaStream_t stream) {
-  return launch(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N, Dm1, h, w, cluster,
-                stream);
+  return launch<__nv_bfloat16, false>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N,
+                                      Dm1, h, w, cluster, stream);
 }

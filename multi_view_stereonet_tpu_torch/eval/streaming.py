@@ -31,11 +31,13 @@ params: ``--params_yaml`` or ``<weights_dir>/../../params.yaml``):
         [--fetch_f16] [--bf16] [--shard_id I --num_shards N] [--device cpu]
 
 The forward's dtype comes from ``--bf16`` alone (``compute_dtype`` bfloat16, else
-float32), as the JAX CLI sets it: the CLI reads no dtype key of params.yaml. The
-float32 run has TF32 off: ``main`` sets
-``torch.backends.cudnn.allow_tf32 = False`` and
-``torch.backends.cuda.matmul.allow_tf32 = False``; a library caller sets
-them as it needs.
+float32), as the JAX CLI sets it: the CLI reads no dtype key of params.yaml, and no
+``matmul_precision`` either (the JAX CLI reads none), so it serves at "default", exact
+f32. The precision comes from the config, whatever the caller's TF32 flags: the
+forward sets them stage by stage and restores the caller's (``models/mvsnet.py``
+``resolve_precision``), so a ``StreamingRunner`` built from Python computes what the
+CLI computes. ``main`` also keeps them off (``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` False).
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ import torch
 
 from ..checkpoint.native import PARAMS_FILE as WEIGHTS_FILE, load_any_params
 from ..data import BatchLoader, DeMoNDataset, GTASfMMultiViewDataset, get_testing_transforms
-from ..models import MultiViewStereoNet, MultiViewStereoNetConfig, mvsnet_forward
+from ..models import (
+    MultiViewStereoNet, MultiViewStereoNetConfig, mvsnet_forward, resolve_precision)
 from ..ops.quantize import dequantize_images_u8
 from ..parallel import ShardedDataset
 from ..train.config import load_params_yaml
@@ -214,15 +217,21 @@ def load_model(weights_dir: str, device) -> MultiViewStereoNet:
 def model_config_from_params(cfg: dict) -> MultiViewStereoNetConfig:
     """The forward's knobs from a loaded params.yaml (``load_params_yaml``) as the JAX
     eval CLI reads them (``multi_view_stereonet_tpu/eval/test_cli.py:121-128``): the
-    shapes and ``compute_dtype`` (float32 where the file has none); ``refiner_dtype``
-    and ``frontend_dtype`` stay "auto", which follows it."""
-    return MultiViewStereoNetConfig(
+    shapes, ``compute_dtype`` (float32 where the file has none) and
+    ``matmul_precision`` ("default" where it has none); ``refiner_dtype`` and
+    ``frontend_dtype`` stay "auto", which follows compute_dtype. A precision name that
+    ``resolve_precision`` does not know raises ValueError, as the JAX forward raises
+    for it."""
+    config = MultiViewStereoNetConfig(
         num_idepth_samples=cfg["num_idepth_samples"],
         do_cost_volume_filter=cfg["cost_volume_filter"],
         do_refiners=tuple(cfg["refiners"]),
         num_levels=cfg["num_levels"],
         compute_dtype=cfg.get("compute_dtype", "float32"),
+        matmul_precision=cfg.get("matmul_precision", "default"),
     )
+    resolve_precision(config)
+    return config
 
 
 def make_dataset(data_dir: str, split: str, cfg: dict, decode_backend: str = "auto",
@@ -285,7 +294,8 @@ def main(argv=None):
                                  drop_ragged_tail=False)
     device = serving_device(args.device)
     model_config = dataclasses.replace(model_config_from_params(cfg),
-                                       compute_dtype="bfloat16" if args.bf16 else "float32")
+                                       compute_dtype="bfloat16" if args.bf16 else "float32",
+                                       matmul_precision="default")
     runner = StreamingRunner(load_model(args.weights_dir, device), model_config,
                              device=device,
                              fetch_dtype=torch.float16 if args.fetch_f16 else None)

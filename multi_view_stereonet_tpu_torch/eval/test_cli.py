@@ -11,17 +11,20 @@ Weights: ``<weights_dir>/stereo_network.pth`` (the port's state dict), or the JA
 package's ``stereo_network.msgpack``, or the reference's TorchScript
 ``stereo_network.pt``, the first found (``eval/streaming.py`` ``load_model``). Params:
 ``--params_yaml`` or ``<weights_dir>/../../params.yaml``; its ``compute_dtype`` sets
-the forward's dtype (float32 by default), as the JAX CLI reads it; the refiner and
-frontend dtypes follow it.
+the forward's dtype (float32 by default) and its ``matmul_precision`` the convs'
+precision ("default", exact f32, by default; "high" runs them at TF32), as the JAX CLI
+reads them; the refiner and frontend dtypes follow compute_dtype.
 
 Usage:
   python -m multi_view_stereonet_tpu_torch.eval.test_cli \\
       <weights_dir> <data_dir> <test_split> [--save_images] \\
       [--output_dir output] [--batch_size 1] [--device cpu]
 
-``main`` runs in float32 with TF32 off (``torch.backends.cudnn.allow_tf32``
-and ``torch.backends.cuda.matmul.allow_tf32`` False); a library caller of
-``run_eval`` sets them as it needs.
+The precision comes from the config: the forward sets the TF32 flags stage by stage
+(``models/mvsnet.py`` ``resolve_precision``) and restores the caller's, so ``run_eval``
+computes the same whatever flags its caller set. ``main`` also keeps them off
+(``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``
+False) for the losses, which run outside the forward.
 """
 
 from __future__ import annotations

@@ -10,6 +10,7 @@ from .mvsnet import (
     min_idepth_warp,
     mvsnet_forward,
     resolve_dtypes,
+    resolve_precision,
 )
 from .refiners import FeatureRefiner, IDepthmapRefiner
 
@@ -24,6 +25,7 @@ __all__ = [
     "min_idepth_warp",
     "mvsnet_forward",
     "resolve_dtypes",
+    "resolve_precision",
     "FeatureRefiner",
     "IDepthmapRefiner",
 ]

@@ -14,6 +14,10 @@ Pallas kernels add it and as XLA computes the JAX layers' ``conv + b``; where
 the conv's output is stored, the bias is added at its dtype. The casts are
 explicit, not ``torch.autocast``, whose per-op lists would move the rounding
 points away from the JAX package's.
+
+Every conv goes through ``ops.precision.convolution``: at the precision of the stage
+scope it runs in (``ops/precision.py``), its backward too, and at the caller's flags
+outside every scope.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.cuda.gn_apply import group_norm_act
+from ..ops.precision import convolution
 
 GN_EPS = 1e-5
 
@@ -43,20 +48,26 @@ def group_norm(channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(channels // 8, channels, eps=GN_EPS)
 
 
+def _conv(module, x: torch.Tensor, weight, bias) -> torch.Tensor:
+    """``module``'s conv of x with ``weight`` and ``bias``, at the scope's precision."""
+    return convolution(x, weight, bias, module.stride, module.padding, module.dilation,
+                       module.groups)
+
+
 def _conv_unbiased(module, x: torch.Tensor) -> torch.Tensor:
     """``module``'s conv without its bias at x's dtype: the weight cast to it, the
     output rounded to it (f32 accumulation)."""
-    return module._conv_forward(x, module.weight.to(x.dtype), None)
+    return _conv(module, x, module.weight.to(x.dtype), None)
 
 
 def conv(module, x: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``module`` (a Conv2d or Conv3d) on ``x`` at x's dtype. At the weights' f32 it is
-    the module itself; below it, as the JAX ``conv2d`` / ``conv3d``
+    the module's own conv; below it, as the JAX ``conv2d`` / ``conv3d``
     (``multi_view_stereonet_tpu/models/layers.py:43-57,76-86``): the weight cast to x's
     dtype and the conv's output rounded to it (f32 accumulation); then the bias added
     at ``out_dtype`` (x's by default; the output is cast to it first)."""
     if x.dtype == module.weight.dtype and out_dtype in (None, x.dtype):
-        return module(x)
+        return _conv(module, x, module.weight, module.bias)
     y = _conv_unbiased(module, x).to(out_dtype or x.dtype)
     if module.bias is None:
         return y
@@ -73,7 +84,7 @@ def conv_group_norm_leaky(module, bn: nn.GroupNorm, x, res=None, impl: str = "au
     """leaky_relu(bn(module(x)), 0.2) (+ res) at x's dtype: below f32 the conv's output
     rounded without its bias, which the GroupNorm adds in f32 (``gn_apply``'s xbias)."""
     if x.dtype == module.weight.dtype:
-        return group_norm_leaky(bn, module(x), res, impl)
+        return group_norm_leaky(bn, _conv(module, x, module.weight, module.bias), res, impl)
     return group_norm_act(_conv_unbiased(module, x), bn.weight, bn.bias, bn.num_groups, res,
                           impl, xbias=module.bias)
 

@@ -25,6 +25,11 @@ the frontend dtype, the incremental chain, the cost and its filter at the
 extractor's output dtype, the refiners' convs at the refiner dtype. Geometry,
 the soft-argmin, the refiners' residual adds and every output stay float32.
 float32 everywhere is the default, and at it no value is cast.
+
+``matmul_precision`` and ``stage_precision`` set the convs' precision stage by stage,
+as the JAX forward scopes ``jax.default_matmul_precision`` (``mvsnet.py:390-500``);
+``resolve_precision`` maps the JAX names onto this card (exact f32 or TF32), and each
+stage runs in an ``ops.precision.scope``.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..ops import homography_warp_auto, plane_sweep_warp, resize_bilinear, upsam
 from ..ops.cuda.build import use_kernel
 from ..ops.cuda.incremental_chain import incremental_chain
 from ..ops.cuda.refiner import fused_refiner_supported, idepthmap_refiner
+from ..ops.precision import scope
 from ..parallel.mesh import view_mean
 from .cost_volume import CostVolumeFilter, extract_idepthmap
 from .feature_network import FeatureNetwork
@@ -54,6 +60,11 @@ from .refiners import FeatureRefiner, IDepthmapRefiner
 NUM_LEVELS = 5
 FEATURE_CHANNELS = 32
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The JAX precision names (``jax.default_matmul_precision``'s, with its aliases) -> the
+# mode of ops/precision.py they run at on this card (``resolve_precision``).
+PRECISIONS = {"default": "ieee", "bfloat16": "ieee", "highest": "ieee", "float32": "ieee",
+              "high": "tf32", "tensorfloat32": "tf32"}
+STAGES = ("extractor", "chain", "cost", "refiners", "warp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +87,12 @@ class MultiViewStereoNetConfig:
     # "auto" is not ported).
     refiner_dtype: str = "auto"
     frontend_dtype: str = "auto"
+    # The convs' matmul precision, a JAX name ("default" | "high" | "highest", or the
+    # aliases "bfloat16" | "tensorfloat32" | "float32"); see resolve_precision.
+    matmul_precision: str = "default"
+    # Per-stage overrides of matmul_precision: (stage, precision) pairs, stages in
+    # STAGES, e.g. (("refiners", "highest"),).
+    stage_precision: tuple = ()
 
 
 def resolve_dtypes(config: MultiViewStereoNetConfig) -> tuple:
@@ -92,6 +109,46 @@ def resolve_dtypes(config: MultiViewStereoNetConfig) -> tuple:
     fdt = cdt if config.frontend_dtype == "auto" else dtype(config.frontend_dtype,
                                                             "frontend_dtype")
     return cdt, rdt, fdt
+
+
+def resolve_precision(config: MultiViewStereoNetConfig) -> tuple:
+    """(ambient mode, {stage: mode}) of ``config``: the ``ops.precision`` mode the forward
+    runs outside its stages and in each of ``STAGES``. A stage's override replaces the
+    ambient precision there, as ``prec(stage)`` does in the JAX forward
+    (``mvsnet.py:412-415``); an empty override is none, as there.
+
+    The JAX names resolve as JAX computes them off the TPU, where "default" is exact (a
+    TF32 fast mode is opt-in):
+
+    ========================  ====  ==============================================
+    JAX precision             mode  on the card
+    ========================  ====  ==============================================
+    "highest" / "float32"     ieee  exact f32: cuDNN's TF32 off, K2 and K3 3xTF32
+    "default" / "bfloat16"    ieee  the same as "highest" (JAX on the CPU: exact)
+    "high" / "tensorfloat32"  tf32  cuDNN's convs at TF32, K2 and K3 1xTF32
+    ========================  ====  ==============================================
+
+    The stages: "extractor" the feature network; "chain" the plane sweep and K2 (or its
+    plain loop's convs); "cost" the cost filter's conv3ds; "refiners" K3 at the small
+    levels and the refiner modules' convs elsewhere; "warp" the min-idepth warp, K1,
+    which interpolates without a matmul and so is exact at every precision (the override
+    is accepted and changes nothing, as in JAX off the TPU). At bf16 storage K2 and K3
+    take their bf16 path and the convs take bf16 operands at every precision, as the
+    JAX convs do. cuBLAS's TF32 stays off at every mode: the resizes, the soft-argmin
+    and the homographies are exact, as the JAX package pins them. An unknown precision
+    raises ValueError, as ``jax.default_matmul_precision`` does; so does an unknown
+    stage, which the JAX forward ignores."""
+    def mode(name, field):
+        if name not in PRECISIONS:
+            raise ValueError(f"{field} must be one of {tuple(PRECISIONS)}, got {name!r}")
+        return PRECISIONS[name]
+    ambient = mode(config.matmul_precision, "matmul_precision")
+    overrides = dict(config.stage_precision)
+    unknown = sorted(set(overrides) - set(STAGES), key=str)
+    if unknown:
+        raise ValueError(f"stage_precision stages must be in {STAGES}, got {unknown}")
+    return ambient, {stage: mode(overrides[stage], f"stage_precision[{stage!r}]")
+                     if overrides.get(stage) else ambient for stage in STAGES}
 
 
 class RightFeatureExtractor(nn.Module):
@@ -156,19 +213,21 @@ def incremental_right_features(net, T_right_in_left, K4, right_image4, idepth_sa
 
 
 def _refine_level(refiner, guidance, idepth_prior, fx, impl="auto", remat=False,
-                  dtype=torch.float32):
+                  dtype=torch.float32, mode="ieee"):
     """Run a refiner on fx-scaled idepth and scale back: a small level on the
     card as one kernel, any other as the module (its resblock tails kernels).
-    The convs run at ``dtype``, the residual add in the prior's f32. ``remat``
-    recomputes the refiner in the backward (``remat_refiners``)."""
+    The convs run at ``dtype`` and at the precision ``mode`` (the "refiners" stage's),
+    the residual add in the prior's f32. ``remat`` recomputes the refiner in the
+    backward (``remat_refiners``), at ``mode`` again."""
     scale = fx[:, None, None]
     n, _, h, w = guidance.shape
     guidance = guidance.to(dtype)
 
     def refine(guidance, idepth):
-        if use_kernel(impl, guidance) and fused_refiner_supported(h, w, n):
-            return idepthmap_refiner(refiner, guidance, idepth, impl)
-        return refiner(guidance, idepth, impl=impl, dtype=dtype)
+        with scope(mode):
+            if use_kernel(impl, guidance) and fused_refiner_supported(h, w, n):
+                return idepthmap_refiner(refiner, guidance, idepth, impl)
+            return refiner(guidance, idepth, impl=impl, dtype=dtype)
     if remat and torch.is_grad_enabled():
         refined = torch.utils.checkpoint.checkpoint(refine, guidance, idepth_prior * scale,
                                                     use_reentrant=False)
@@ -189,9 +248,20 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
       left_idepthmap_pyr      [(B, h, w)] refined estimates
       left_idepthmap_raw_pyr  [(B, h, w)] pre-refiner priors
       left_idepthmap_mask_pyr [(B, D, h, w)] invalid masks
+
+    Runs at the config's precision (``resolve_precision``), whatever the caller's TF32
+    flags, and leaves them as it found them.
     """
     if len(left_image_pyr) != NUM_LEVELS or config.num_levels != NUM_LEVELS:
         raise ValueError(f"the network has {NUM_LEVELS} pyramid levels")
+    ambient, modes = resolve_precision(config)
+    with scope(ambient):
+        return _forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyrs,
+                        config, impl, modes)
+
+
+def _forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyrs, config,
+             impl, modes):
     D = config.num_idepth_samples
     do_refiners = tuple(config.do_refiners)
     cdt, rdt, fdt = resolve_dtypes(config)
@@ -210,20 +280,23 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
 
     # Left and min-idepth right features from one extractor call (B + B*V), at the
     # frontend dtype; the chain, the cost and its filter then run at the features'.
-    stacked_pyr = net.left_feature_extractor(
-        _nchw(torch.cat([left_image_pyr[0].to(fdt), warped0], dim=0)), impl=impl)
+    with scope(modes["extractor"]):
+        stacked_pyr = net.left_feature_extractor(
+            _nchw(torch.cat([left_image_pyr[0].to(fdt), warped0], dim=0)), impl=impl)
     left_feature_pyr = [lvl[:B] for lvl in stacked_pyr]
     right_feats0 = stacked_pyr[-1][B:].permute(0, 2, 3, 1).contiguous()
     left_feats4 = left_feature_pyr[-1]  # (B, C, h4, w4)
 
-    right_feat_vol, right_mask_vol = incremental_right_features(
-        net, T_bv, K4_bv, right4_bv, idepth_samples, right_feats0, impl)
+    with scope(modes["chain"]):
+        right_feat_vol, right_mask_vol = incremental_right_features(
+            net, T_bv, K4_bv, right4_bv, idepth_samples, right_feats0, impl)
 
     # Cost |left - right|, invalid voxels zeroed.
     left_vol = left_feats4.permute(0, 2, 3, 1).repeat_interleave(V, dim=0)[:, None]
     cost = (left_vol - right_feat_vol).abs().masked_fill(right_mask_vol[..., None], 0.0)
     if config.do_cost_volume_filter:
-        cost_volume = net.volume_filter4(cost.permute(0, 4, 1, 2, 3), impl=impl)
+        with scope(modes["cost"]):
+            cost_volume = net.volume_filter4(cost.permute(0, 4, 1, 2, 3), impl=impl)
     else:
         cost_volume = torch.sqrt(torch.sum(cost.float() ** 2, dim=-1))
     idepth4_raw = extract_idepthmap(cost_volume, idepth_samples)  # (B*V, h4, w4), f32
@@ -234,7 +307,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
         guidance4 = torch.cat([_nchw(left_image_pyr[4]).to(rdt), left_feats4.to(rdt)], dim=1)
         idepth4 = _refine_level(net.refiner4, guidance4.repeat_interleave(V, dim=0),
                                 idepth4_raw, K4_bv[:, 0, 0], impl, config.remat_refiners,
-                                rdt)
+                                rdt, modes["refiners"])
         idepth4_raw = idepth4_raw / b_hw
         idepth4 = idepth4 / b_hw
     else:
@@ -270,7 +343,7 @@ def mvsnet_forward(net, left_image_pyr, K_pyr, T_right_in_lefts, right_image_pyr
                 guidance = torch.cat([guidance.to(dt), feats.to(dt)], dim=1)
             idepth_lvl = _refine_level(getattr(net, f"refiner{lvl}"), guidance, prior,
                                        K_pyr[lvl][:, 0, 0], impl, config.remat_refiners,
-                                       rdt)
+                                       rdt, modes["refiners"])
         else:
             idepth_lvl = prior
         idepthmap_pyr[lvl], raw_pyr[lvl], mask_pyr[lvl] = idepth_lvl, prior, mask_lvl

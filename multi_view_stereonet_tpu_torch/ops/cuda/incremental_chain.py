@@ -21,6 +21,12 @@ operands and accumulate in f32. Under autograd the kernel runs in ``_Incremental
 which takes the refiner's weights as inputs and whose backward recomputes the
 plain loop, as the JAX ``_chain_bwd`` (``incremental_chain.py:357-368``)
 recomputes ``_incremental_scan`` (see recompute.py).
+
+At f32 storage the kernel has two variants: 3xTF32 (exact f32, the default) and 1xTF32
+(``tf32``: one product of the TF32-rounded operands), which ``incremental_chain`` takes
+inside a "tf32" precision scope (``ops/precision.py``; the "chain" stage at
+``matmul_precision: high``). Its plain version is ``incremental_chain_tf32_plain``: the
+loop with each conv operand rounded to TF32 as the kernel rounds it, then exact.
 """
 
 from __future__ import annotations
@@ -29,14 +35,17 @@ import ctypes
 
 import torch
 
+from .. import precision
 from .build import (
     check_status, custom_op, launch_device, load_library, tracing, use_kernel)
 from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .warp import grid_sample_plain
 from ..warp import homography_grid
 
-# Kernel launches since the last reset; only the kernel path counts.
+# Kernel launches since the last reset; only the kernel path counts. tf32_launches
+# counts those of the 1xTF32 variant among them.
 launches = 0
+tf32_launches = 0
 
 
 def incremental_chain_plain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
@@ -57,15 +66,32 @@ def incremental_chain_plain(refiner, feats0: torch.Tensor, image_rest: torch.Ten
     return torch.stack(volume, dim=1)
 
 
-# The storage dtypes the kernel takes, and each one's entry in csrc/incremental_chain.cu.
+def incremental_chain_tf32_plain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
+                                 H_inc: torch.Tensor) -> torch.Tensor:
+    """The plain version of the 1xTF32 kernel: ``incremental_chain_plain`` with each conv
+    operand (the staged input, the weights) rounded to TF32 as the kernel's ``split``
+    rounds it, then computed in f32 (``precision.scope("tf32_round")``)."""
+    with precision.scope("tf32_round"):
+        return incremental_chain_plain(refiner, feats0, image_rest, H_inc)
+
+
+# The storage dtypes the kernel takes, and each one's entry in csrc/incremental_chain.cu;
+# TF32_ENTRY is the f32 storage's 1xTF32 variant.
 ENTRIES = {torch.float32: "mvs_incremental_chain_f32",
            torch.bfloat16: "mvs_incremental_chain_bf16"}
+TF32_ENTRY = "mvs_incremental_chain_tf32"
+
+
+def _entry(dtype: torch.dtype, tf32: bool) -> str:
+    """The kernel entry for storage ``dtype``: 1xTF32 where ``tf32`` and the storage is
+    f32; bf16 storage takes its bf16 variant at every precision."""
+    return TF32_ENTRY if tf32 and dtype == torch.float32 else ENTRIES[dtype]
 
 
 def _library():
     lib = load_library("incremental_chain")
     if lib.mvs_incremental_chain_f32.argtypes is None:
-        for name in ENTRIES.values():
+        for name in (*ENTRIES.values(), TF32_ENTRY):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -117,12 +143,12 @@ def _output(feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torch.Tensor,
 def _incremental_chain_launch(feats0: torch.Tensor, image_rest: torch.Tensor,
                               H_inc: torch.Tensor, w0: torch.Tensor, wr: torch.Tensor,
                               wf: torch.Tensor, vec: torch.Tensor,
-                              cluster: int) -> torch.Tensor:
+                              cluster: int, tf32: bool = False) -> torch.Tensor:
     """Launch csrc/incremental_chain.cu: one thread-block cluster per sample runs all D-1
-    steps, at feats0's dtype. The refiner's conv weights come as f32 taps (``_taps``;
-    the bf16 kernel rounds them to bf16 as it loads them), its seven bias and GroupNorm
-    vectors stacked in ``vec``."""
-    global launches
+    steps, at feats0's dtype (f32 storage: 1xTF32 where ``tf32``, else 3xTF32). The
+    refiner's conv weights come as f32 taps (``_taps``; the bf16 kernel rounds them to
+    bf16 as it loads them), its seven bias and GroupNorm vectors stacked in ``vec``."""
+    global launches, tf32_launches
     out = _output(feats0, image_rest, H_inc, w0, wr, wf, vec)
     N, h, w, C = feats0.shape
     feats0 = feats0.contiguous()
@@ -132,25 +158,27 @@ def _incremental_chain_launch(feats0: torch.Tensor, image_rest: torch.Tensor,
     w0, wr, wf, vec = w0.contiguous(), wr.contiguous(), wf.contiguous(), vec.contiguous()
     scratch = torch.empty((N, 3, h, w, C), dtype=torch.float32, device=feats0.device)
     stream = torch.cuda.current_stream(feats0.device).cuda_stream
+    entry = _entry(feats0.dtype, tf32)
     with launch_device(feats0.device):
-        status = getattr(_library(), ENTRIES[feats0.dtype])(
+        status = getattr(_library(), entry)(
             feats0.data_ptr(), image_rest.data_ptr(), H_inc.data_ptr(), w0.data_ptr(),
             wr.data_ptr(), wf.data_ptr(), vec.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), N, H_inc.shape[1], h, w, cluster, stream)
-    check_status(ENTRIES[feats0.dtype], status)
+    check_status(entry, status)
     launches += 1
+    tf32_launches += entry == TF32_ENTRY
     return out
 
 
 _incremental_chain_op = custom_op("incremental_chain",
                                   "incremental_chain")(_incremental_chain_launch)
 _incremental_chain_op.register_fake(
-    lambda feats0, image_rest, H_inc, w0, wr, wf, vec, cluster: _output(
+    lambda feats0, image_rest, H_inc, w0, wr, wf, vec, cluster, tf32=False: _output(
         feats0, image_rest, H_inc, w0, wr, wf, vec))
 
 
 def _launch(refiner, feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torch.Tensor,
-            cluster: int) -> torch.Tensor:
+            cluster: int, tf32: bool) -> torch.Tensor:
     """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
     ``mvs_torch::incremental_chain`` (see build.py ``custom_op``). ``cluster`` sets the blocks a sample (0: the kernel chooses, see ``cluster_size``); a
     size the card refuses raises."""
@@ -163,7 +191,8 @@ def _launch(refiner, feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torc
                        refiner.conv_final.bias])
     launch = _incremental_chain_op if tracing() else _incremental_chain_launch
     return launch(feats0, image_rest.to(feats0.dtype), H_inc, _taps(refiner.conv0.weight),
-                  _taps(res.conv1.weight), _taps(refiner.conv_final.weight), vec, cluster)
+                  _taps(res.conv1.weight), _taps(refiner.conv_final.weight), vec, cluster,
+                  tf32)
 
 
 class _IncrementalChain(torch.autograd.Function):
@@ -173,39 +202,45 @@ class _IncrementalChain(torch.autograd.Function):
     as the Pallas kernel does, the recompute warps at bf16 as the JAX scan does. So the
     gradient is that of the scan at the saved inputs, not of the kernel's own forward,
     exactly as the JAX custom VJP (``incremental_chain.py:351-371``) differentiates
-    ``_incremental_scan`` under the Pallas forward."""
+    ``_incremental_scan`` under the Pallas forward. The recompute's convs run at the
+    forward's precision: under cuDNN's TF32 after the 1xTF32 variant, exact otherwise."""
 
     @staticmethod
-    def forward(ctx, refiner, names, cluster, feats0, image_rest, H_inc, *params):
-        ctx.refiner, ctx.names = refiner, names
+    def forward(ctx, refiner, names, cluster, tf32, feats0, image_rest, H_inc, *params):
+        ctx.refiner, ctx.names, ctx.tf32 = refiner, names, tf32
         ctx.save_for_backward(feats0, image_rest, H_inc, *params)
-        return _launch(refiner, feats0, image_rest, H_inc, cluster)
+        return _launch(refiner, feats0, image_rest, H_inc, cluster, tf32)
 
     @staticmethod
     def backward(ctx, grad):
         def plain(feats0, image_rest, H_inc, *params):
             return incremental_chain_plain(bind_parameters(ctx.refiner, ctx.names, params),
                                            feats0, image_rest, H_inc)
-        return (None, None, None,
-                *plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[3:], (grad,)))
+        with precision.scope("tf32" if ctx.tf32 else "ieee"):
+            return (None, None, None, None,
+                    *plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[4:], (grad,)))
 
 
 def incremental_chain_kernel(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
-                             H_inc: torch.Tensor, cluster: int = 0) -> torch.Tensor:
-    """The kernel on CUDA tensors (``cluster`` as in ``_launch``): launched directly, or
-    through ``_IncrementalChain`` when autograd records."""
+                             H_inc: torch.Tensor, cluster: int = 0,
+                             tf32: bool = False) -> torch.Tensor:
+    """The kernel on CUDA tensors (``cluster`` as in ``_launch``; ``tf32``: the 1xTF32
+    variant at f32 storage): launched directly, or through ``_IncrementalChain`` when
+    autograd records."""
     if torch.is_grad_enabled():
         names, params = zip(*refiner.named_parameters())
         if needs_autograd(feats0, image_rest, H_inc, *params):
-            return _IncrementalChain.apply(refiner, names, cluster, feats0, image_rest,
+            return _IncrementalChain.apply(refiner, names, cluster, tf32, feats0, image_rest,
                                            H_inc, *params)
-    return _launch(refiner, feats0, image_rest, H_inc, cluster)
+    return _launch(refiner, feats0, image_rest, H_inc, cluster, tf32)
 
 
 def incremental_chain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
                       H_inc: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """The chain at feats0's dtype: the kernel for CUDA tensors, the plain loop otherwise
-    (see build.py)."""
+    """The chain at feats0's dtype and at the open precision scope's mode: the kernel for
+    CUDA tensors (1xTF32 in a "tf32" scope), the plain loop otherwise, its convs at the
+    scope's mode (see build.py and ops/precision.py)."""
     if use_kernel(impl, feats0):
-        return incremental_chain_kernel(refiner, feats0, image_rest, H_inc)
+        return incremental_chain_kernel(refiner, feats0, image_rest, H_inc,
+                                        tf32=precision.current() == "tf32")
     return incremental_chain_plain(refiner, feats0, image_rest, H_inc)

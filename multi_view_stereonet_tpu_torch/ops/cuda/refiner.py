@@ -20,6 +20,13 @@ backward recomputes the module's plain version, as the JAX ``_fused_bwd``
 (``refiner_kernel.py:244-252``) recomputes ``idepthmap_refiner_s2d`` (see
 recompute.py). An optimizer step writes the weights in place, which bumps their
 versions: the next launch repacks them once.
+
+At f32 guidance the kernel has two variants: 3xTF32 (exact f32, the default) and 1xTF32
+(``tf32``), which ``idepthmap_refiner`` takes inside a "tf32" precision scope
+(``ops/precision.py``; the "refiners" stage at ``matmul_precision: high``). Each has its
+own pack, (hi, lo) or (hi, 0) pairs, kept apart by the pack's key. Its plain version is
+``idepthmap_refiner_tf32_plain``: the module with each conv operand rounded to TF32 as
+the kernel rounds it, then exact.
 """
 
 from __future__ import annotations
@@ -29,13 +36,16 @@ import weakref
 
 import torch
 
+from .. import precision
 from .build import (
     check_status, custom_op, launch_device, load_library, tracing, use_kernel)
 from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .incremental_chain import _taps
 
-# Kernel launches since the last reset; only the kernel path counts.
+# Kernel launches since the last reset; only the kernel path counts. tf32_launches
+# counts those of the 1xTF32 variant among them.
 launches = 0
+tf32_launches = 0
 
 MAX_CIN0 = 36      # conv0 input channels the kernel's shared memory holds
 NUM_RES = 6
@@ -45,16 +55,17 @@ C = 32
 WF_COLS = 8        # the final conv's one output channel, padded to an n8 tile
 
 # The guidance (storage) dtypes the kernel takes, and each one's entry in
-# csrc/idepthmap_refiner.cu.
+# csrc/idepthmap_refiner.cu; TF32_ENTRY is the f32 guidance's 1xTF32 variant.
 ENTRIES = {torch.float32: "mvs_idepthmap_refiner_f32",
            torch.bfloat16: "mvs_idepthmap_refiner_bf16"}
+TF32_ENTRY = "mvs_idepthmap_refiner_tf32"
 
-# refiner -> {storage dtype: (parameters, their storages kept alive, the key
+# refiner -> {(storage dtype, tf32): (parameters, their storages kept alive, the key
 # (``_pack_key``), (packed weights, dilations))}
 _packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 # (device index, stream) -> the grid-barrier counter of launches on that stream
 _barriers: dict = {}
-_fns: dict = {}  # storage dtype -> the kernel's ctypes entry, loaded on first use
+_fns: dict = {}  # entry name -> the kernel's ctypes entry, loaded on first use
 
 
 def fused_refiner_supported(h: int, w: int, n: int) -> bool:
@@ -74,15 +85,36 @@ def idepthmap_refiner_plain(refiner, guidance: torch.Tensor,
     return refiner(guidance, idepthmap, impl="plain", dtype=guidance.dtype)
 
 
-def _kernel_function(dtype: torch.dtype):
-    """The ctypes entry of csrc/idepthmap_refiner.cu for ``dtype`` (built on first use)."""
-    fn = _fns.get(dtype)
+def idepthmap_refiner_tf32_plain(refiner, guidance: torch.Tensor,
+                                 idepthmap: torch.Tensor) -> torch.Tensor:
+    """The plain version of the 1xTF32 kernel: ``idepthmap_refiner_plain`` with each conv
+    operand (the staged input, the weights) rounded to TF32 as the kernel's ``split``
+    rounds it, then computed in f32 (``precision.scope("tf32_round")``)."""
+    with precision.scope("tf32_round"):
+        return idepthmap_refiner_plain(refiner, guidance, idepthmap)
+
+
+def _variant(dtype: torch.dtype, tf32: bool) -> tuple:
+    """(storage dtype, 1xTF32?): bf16 guidance takes its bf16 variant at every
+    precision, so ``tf32`` holds only at f32."""
+    return dtype, bool(tf32) and dtype == torch.float32
+
+
+def _entry(dtype: torch.dtype, tf32: bool) -> str:
+    return TF32_ENTRY if _variant(dtype, tf32)[1] else ENTRIES[dtype]
+
+
+def _kernel_function(dtype: torch.dtype, tf32: bool = False):
+    """The ctypes entry of csrc/idepthmap_refiner.cu for ``dtype`` and ``tf32`` (built on
+    first use)."""
+    name = _entry(dtype, tf32)
+    fn = _fns.get(name)
     if fn is None:
-        fn = getattr(load_library("idepthmap_refiner"), ENTRIES[dtype])
+        fn = getattr(load_library("idepthmap_refiner"), name)
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
                        + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+        _fns[name] = fn
     return fn
 
 
@@ -96,31 +128,34 @@ def scratch_floats(n: int, h: int, w: int) -> int:
 def tf32_split(x: torch.Tensor):
     """(hi, lo) as the kernel splits an operand for 3xTF32: hi is x rounded to TF32 (10
     mantissa bits, half away from zero) on its integer bits, lo = x - hi exactly."""
-    bits = x.contiguous().view(torch.int32)
-    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = precision.tf32_bits(x)
     return hi, x - hi
 
 
-def pair_image(w: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def pair_image(w: torch.Tensor, dtype: torch.dtype = torch.float32,
+               tf32: bool = False) -> torch.Tensor:
     """(..., rows, cols) weights, cols 32 or 8 -> (..., rows, cols, 2) (hi, lo) pairs with
     the column of row r at col ^ s(r): s = 4 (r % 4) for 32 columns, 4 ((r // 2) % 2) for 8,
     as csrc/idepthmap_refiner.cu's wpair reads them (distinct banks for a half-warp). For
-    the bf16 kernel the pair is (w rounded to bf16, 0)."""
+    the 1xTF32 kernel (f32, ``tf32``) the pair is (hi, 0); for the bf16 kernel (w rounded
+    to bf16, 0)."""
     r = torch.arange(w.shape[-2], device=w.device)[:, None]
     s = (r & 3) << 2 if w.shape[-1] == C else ((r >> 1) & 1) << 2
     col = torch.arange(w.shape[-1], device=w.device)[None, :] ^ s
     w = w.gather(-1, col.expand(w.shape))
     if dtype == torch.float32:
         hi, lo = tf32_split(w)
+        if tf32:
+            lo = torch.zeros_like(hi)
     else:
         hi = w.to(dtype).float()
         lo = torch.zeros_like(hi)
     return torch.stack([hi, lo], dim=-1)
 
 
-def _pack(refiner, dtype: torch.dtype = torch.float32):
+def _pack(refiner, dtype: torch.dtype = torch.float32, tf32: bool = False):
     """(packed weights, dilations) in the layout csrc/idepthmap_refiner.cu reads, for the
-    kernel of storage ``dtype``."""
+    kernel of storage ``dtype`` (f32: its 1xTF32 variant where ``tf32``)."""
     blocks = [getattr(refiner, f"res{i}") for i in range(NUM_RES)]
     params = tuple(refiner.parameters())
     if len({p.device for p in params}) != 1:
@@ -130,10 +165,11 @@ def _pack(refiner, dtype: torch.dtype = torch.float32):
     with torch.no_grad():
         w0 = _taps(refiner.conv0.weight)
         cin_pad = -(-w0.shape[1] // 4) * 4
-        w0 = pair_image(torch.nn.functional.pad(w0, (0, 0, 0, cin_pad - w0.shape[1])), dtype)
-        wr = pair_image(torch.stack([_taps(b.conv1.weight) for b in blocks]), dtype)
+        w0 = pair_image(torch.nn.functional.pad(w0, (0, 0, 0, cin_pad - w0.shape[1])), dtype,
+                        tf32)
+        wr = pair_image(torch.stack([_taps(b.conv1.weight) for b in blocks]), dtype, tf32)
         wf = pair_image(torch.nn.functional.pad(_taps(refiner.conv_final.weight),
-                                                (0, WF_COLS - 1)), dtype)
+                                                (0, WF_COLS - 1)), dtype, tf32)
         rows = [refiner.conv0.bias, refiner.bn0.weight, refiner.bn0.bias]
         for b in blocks:
             rows += [b.conv1.bias, b.bn1.weight, b.bn1.bias]
@@ -150,16 +186,20 @@ def packed_floats(cin0: int) -> int:
             + (3 + 3 * NUM_RES) * C + 1)
 
 
-def _pack_key(params, refiner, dtype: torch.dtype = torch.float32) -> tuple:
-    """The storage dtype the pack is for (the parameters stay f32 at every one), each
-    parameter's (data_ptr, version, dtype, device), then the dilations."""
-    return ((dtype,) + tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
+def _pack_key(params, refiner, dtype: torch.dtype = torch.float32,
+              tf32: bool = False) -> tuple:
+    """The variant the pack is for (``_variant``: storage dtype and 1xTF32; the parameters
+    stay f32 at every one), each parameter's (data_ptr, version, dtype, device), then the
+    dilations."""
+    return (_variant(dtype, tf32)
+            + tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
             + tuple(getattr(refiner, f"res{i}").conv1.dilation[0] for i in range(NUM_RES)))
 
 
-def packed_weights(refiner, dtype: torch.dtype = torch.float32):
-    """The refiner's weights packed for the kernel of storage ``dtype``, (pack,
-    dilations); one pack is kept a storage dtype.
+def packed_weights(refiner, dtype: torch.dtype = torch.float32, tf32: bool = False):
+    """The refiner's weights packed for the kernel of storage ``dtype`` (f32: its 1xTF32
+    variant where ``tf32``), (pack, dilations); one pack is kept a variant, so a 3xTF32
+    pack is never served to the 1xTF32 kernel nor the reverse.
 
     Packed on first use and reused while every parameter is the same tensor, on the
     same storage (``data_ptr``) at the same ``_version``, dtype and device, and the
@@ -176,22 +216,23 @@ def packed_weights(refiner, dtype: torch.dtype = torch.float32):
     the pack last made for this refiner is used as it is (the exported graph holds it as
     a constant) if the parameters it was made from are unchanged since, and the pack is
     traced from the parameters otherwise; nothing is cached then."""
-    cached = _packs.get(refiner, {}).get(dtype)
+    variant = _variant(dtype, tf32)
+    cached = _packs.get(refiner, {}).get(variant)
     if tracing():
-        if cached is not None and cached[2] == _pack_key(cached[0], refiner, dtype):
+        if cached is not None and cached[2] == _pack_key(cached[0], refiner, *variant):
             return cached[3]
-        return _pack(refiner, dtype)
+        return _pack(refiner, *variant)
     params = tuple(refiner.parameters())
     try:
-        key = _pack_key(params, refiner, dtype)
+        key = _pack_key(params, refiner, *variant)
     except RuntimeError:
-        return _pack(refiner, dtype)
+        return _pack(refiner, *variant)
     if (cached is not None and cached[2] == key
             and all(a is b for a, b in zip(cached[0], params))):
         return cached[3]
-    packed = _pack(refiner, dtype)
-    _packs.setdefault(refiner, {})[dtype] = (params, tuple(p.detach() for p in params),
-                                             key, packed)
+    packed = _pack(refiner, *variant)
+    _packs.setdefault(refiner, {})[variant] = (params, tuple(p.detach() for p in params),
+                                               key, packed)
     return packed
 
 
@@ -219,7 +260,7 @@ def _barrier(device: torch.device, stream: int) -> torch.Tensor:
 
 
 def _output(guidance: torch.Tensor, idepthmap: torch.Tensor, pack: torch.Tensor,
-            dilations: list[int]) -> torch.Tensor:
+            dilations: list[int], tf32: bool = False) -> torch.Tensor:
     """Check the inputs' devices, types and shapes; allocate the (N, h, w) f32 output."""
     if idepthmap.device != guidance.device or pack.device != guidance.device:
         raise ValueError("idepthmap_refiner_kernel needs every tensor and weight on one "
@@ -240,16 +281,18 @@ def _output(guidance: torch.Tensor, idepthmap: torch.Tensor, pack: torch.Tensor,
 
 
 def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
-                              pack: torch.Tensor, dilations: list[int]) -> torch.Tensor:
+                              pack: torch.Tensor, dilations: list[int],
+                              tf32: bool = False) -> torch.Tensor:
     """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner at
-    the guidance's dtype, its weights packed by ``_pack`` for that dtype."""
-    global launches
+    the guidance's dtype (f32: 1xTF32 where ``tf32``, else 3xTF32), its weights packed by
+    ``_pack`` for that variant."""
+    global launches, tf32_launches
     out = _output(guidance, idepthmap, pack, dilations)
     N, Cg, h, w = guidance.shape
     dev = guidance.device
     guidance = guidance.contiguous()
     idepthmap = idepthmap.contiguous()
-    fn = _kernel_function(guidance.dtype)
+    fn = _kernel_function(guidance.dtype, tf32)
     size = scratch_floats(N, h, w)
     scratch = torch.empty(size, dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -258,8 +301,10 @@ def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
                     out.data_ptr(), scratch.data_ptr(), size,
                     _barrier(dev, stream).data_ptr(), N, Cg, h, w,
                     (ctypes.c_int * NUM_RES)(*dilations), stream)
-    check_status(ENTRIES[guidance.dtype], status)
+    entry = _entry(guidance.dtype, tf32)
+    check_status(entry, status)
     launches += 1
+    tf32_launches += entry == TF32_ENTRY
     return out
 
 
@@ -268,7 +313,8 @@ _idepthmap_refiner_op = custom_op("idepthmap_refiner",
 _idepthmap_refiner_op.register_fake(_output)
 
 
-def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor) -> torch.Tensor:
+def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
+            tf32: bool) -> torch.Tensor:
     """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
     ``mvs_torch::idepthmap_refiner`` (see build.py ``custom_op``).
 
@@ -281,47 +327,51 @@ def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor) -> torch.T
             or refiner.conv_final.weight.shape != (1, C, 3, 3)):
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, conv0 "
                          f"{tuple(refiner.conv0.weight.shape)}")
-    pack, dilations = packed_weights(refiner, guidance.dtype)
+    pack, dilations = packed_weights(refiner, guidance.dtype, tf32)
     launch = _idepthmap_refiner_op if tracing() else _idepthmap_refiner_launch
-    return launch(guidance, idepthmap, pack, list(dilations))
+    return launch(guidance, idepthmap, pack, list(dilations), _variant(guidance.dtype, tf32)[1])
 
 
 class _IdepthmapRefiner(torch.autograd.Function):
     """K3 under autograd: the kernel forward, given every parameter of the refiner as an
     input so that autograd routes their gradients; the backward recomputes the module's
-    plain version with those weights."""
+    plain version with those weights, its convs at the forward's precision (under cuDNN's
+    TF32 after the 1xTF32 variant, exact otherwise)."""
 
     @staticmethod
-    def forward(ctx, refiner, names, guidance, idepthmap, *params):
-        ctx.refiner, ctx.names = refiner, names
+    def forward(ctx, refiner, names, tf32, guidance, idepthmap, *params):
+        ctx.refiner, ctx.names, ctx.tf32 = refiner, names, tf32
         ctx.save_for_backward(guidance, idepthmap, *params)
-        return _launch(refiner, guidance, idepthmap)
+        return _launch(refiner, guidance, idepthmap, tf32)
 
     @staticmethod
     def backward(ctx, grad):
         def plain(guidance, idepthmap, *params):
             return idepthmap_refiner_plain(bind_parameters(ctx.refiner, ctx.names, params),
                                            guidance, idepthmap)
-        return (None, None,
-                *plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[2:], (grad,)))
+        with precision.scope("tf32" if ctx.tf32 else "ieee"):
+            return (None, None, None,
+                    *plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[3:], (grad,)))
 
 
-def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor,
-                             idepthmap: torch.Tensor) -> torch.Tensor:
-    """The kernel on CUDA tensors: launched directly, or through ``_IdepthmapRefiner``
-    when autograd records."""
+def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
+                             tf32: bool = False) -> torch.Tensor:
+    """The kernel on CUDA tensors (``tf32``: the 1xTF32 variant at f32 guidance):
+    launched directly, or through ``_IdepthmapRefiner`` when autograd records."""
     if torch.is_grad_enabled():
         names, params = zip(*refiner.named_parameters())
         if needs_autograd(guidance, idepthmap, *params):
-            return _IdepthmapRefiner.apply(refiner, names, guidance, idepthmap, *params)
-    return _launch(refiner, guidance, idepthmap)
+            return _IdepthmapRefiner.apply(refiner, names, tf32, guidance, idepthmap, *params)
+    return _launch(refiner, guidance, idepthmap, tf32)
 
 
 def idepthmap_refiner(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
                       impl: str = "auto") -> torch.Tensor:
-    """ReLU(idepthmap + refiner delta), the convs at the guidance's dtype: the kernel for
-    CUDA tensors, the module's plain version otherwise (see build.py). After writing the refiner's weights in place
-    through ``.data``, call ``invalidate_packed_weights``."""
+    """ReLU(idepthmap + refiner delta), the convs at the guidance's dtype and at the open
+    precision scope's mode: the kernel for CUDA tensors (1xTF32 in a "tf32" scope), the
+    module's plain version otherwise (see build.py and ops/precision.py). After writing
+    the refiner's weights in place through ``.data``, call ``invalidate_packed_weights``."""
     if use_kernel(impl, guidance):
-        return idepthmap_refiner_kernel(refiner, guidance, idepthmap)
+        return idepthmap_refiner_kernel(refiner, guidance, idepthmap,
+                                        tf32=precision.current() == "tf32")
     return idepthmap_refiner_plain(refiner, guidance, idepthmap)

@@ -4,7 +4,8 @@ Port of ``multi_view_stereonet_tpu/ops/gradients.py``. The gradients pad by
 replicating the edge. The reference's GaussianBlur is a depthwise conv built with
 ``padding_mode="border"``, a mode torch never implemented for convs: torch 1.5 took
 any unknown mode as zero padding, so the blur here is a zero-padded depthwise conv,
-as in the JAX package.
+as in the JAX package. The blur's conv runs at the open precision scope's mode
+(``ops/precision.py``; the train step's losses: exact), its gradient too.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from .precision import convolution
 
 
 def forward_gradx(image: torch.Tensor) -> torch.Tensor:
@@ -55,7 +57,8 @@ def gaussian_blur(image: torch.Tensor, kernel_size: int = 5,
     C = image.shape[-1]
     k = torch.from_numpy(_gaussian_kernel(kernel_size, sigma)).to(image.device, image.dtype)
     w = k.expand(C, 1, kernel_size, kernel_size)
-    out = F.conv2d(image.permute(0, 3, 1, 2), w, padding=kernel_size // 2, groups=C)
+    pad = kernel_size // 2
+    out = convolution(image.permute(0, 3, 1, 2), w, None, (1, 1), (pad, pad), (1, 1), C)
     return out.permute(0, 2, 3, 1)
 
 

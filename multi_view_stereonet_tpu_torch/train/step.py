@@ -18,6 +18,10 @@ computes, not to torch's defaults:
 - ``batches_per_step`` k > 1 (``optax.MultiSteps``): the gradients' running mean over
   k batches, one update on every k-th. The schedule counts applied updates only, so
   with k = 2 the rate decays every two epochs' worth of batches, as in the JAX CLI.
+
+The forward runs at the config's ``matmul_precision`` stage by stage, its convs'
+gradients too; the losses, the rest of the backward and the update run exact
+(``ops.precision.scope("ieee")``), as the JAX step scopes only the forward.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from ..losses import LossConfig, compute_losses
 from ..models import MultiViewStereoNetConfig, mvsnet_forward
+from ..ops.precision import scope
 from ..ops.quantize import dequantize_images_u8, dequantize_images_u8_unit
 from ..parallel.mesh import ProcessMesh, reducing_over
 from .pipeline import multi_view_unpack_batch, unpack_batch
@@ -192,7 +197,8 @@ def make_loss_fn(model_config: MultiViewStereoNetConfig, loss_config: LossConfig
             outputs = dict(outputs)
             for kind in ("", "_raw", "_mask"):
                 outputs[f"right_idepthmap{kind}_pyr"] = right_out[f"left_idepthmap{kind}_pyr"]
-        loss, loss_dict, _ = compute_losses(inputs, outputs, loss_config, impl)
+        with scope("ieee"):  # the losses' blurs exact, their gradients too
+            loss, loss_dict, _ = compute_losses(inputs, outputs, loss_config, impl)
         return loss, loss_dict
 
     return loss_fn
@@ -216,15 +222,16 @@ def make_train_step(model_config: MultiViewStereoNetConfig, loss_config: LossCon
 
     def train_step(model, batch):
         optimizer.zero_grad()
-        if mesh is None:
-            loss, loss_dict = loss_fn(model, batch)
-        else:
-            with reducing_over(mesh):
+        with scope("ieee"):  # exact outside the forward's stages, whatever the caller's flags
+            if mesh is None:
                 loss, loss_dict = loss_fn(model, batch)
-        loss.backward()
-        if mesh is not None:
-            mesh.average_gradients(optimizer.params)
-        optimizer.step()
+            else:
+                with reducing_over(mesh):
+                    loss, loss_dict = loss_fn(model, batch)
+            loss.backward()
+            if mesh is not None:
+                mesh.average_gradients(optimizer.params)
+            optimizer.step()
         return loss.detach(), {k: [x.detach() for x in v] if isinstance(v, list)
                                else v.detach() for k, v in loss_dict.items()}
 

@@ -39,9 +39,13 @@ they share one or run on the CPU.
 CLI does: each layer casts its f32 weights to its input's dtype, and the parameters,
 the optimizer's state, the loss and the gradients stay f32. The CLI reads
 ``compute_dtype`` alone of the dtype keys, as the JAX CLI does; the refiner and
-frontend dtypes follow it. ``main`` keeps TF32 off (``torch.backends.cudnn.allow_tf32``
-and ``torch.backends.cuda.matmul.allow_tf32`` False); a library caller of ``train``
-sets them as it needs.
+frontend dtypes follow it. ``matmul_precision: high`` trains with the forward's convs
+and their gradients at TF32 (cuDNN's TF32, K2 and K3 1xTF32), the losses and the
+optimizer exact; "default" (the default) and "highest" are exact f32. The precision
+comes from the config: the forward and the step set the TF32 flags themselves and
+restore the caller's, so ``train`` computes the same whatever flags its caller set.
+``main`` also keeps them off (``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` False).
 """
 
 from __future__ import annotations
@@ -99,8 +103,9 @@ def make_dataset(params, data_dir, split_file, training, num_images=0, rng=None)
 def model_config_from_params(params_cfg) -> MultiViewStereoNetConfig:
     """The forward's knobs from a loaded params.yaml as the JAX train CLI reads them
     (``multi_view_stereonet_tpu/train/train_cli.py:92-100``): the shapes,
-    ``compute_dtype`` (the refiner and frontend dtypes follow it) and
-    ``remat_refiners``. A dtype name that ``resolve_dtypes`` does not know raises."""
+    ``compute_dtype`` (the refiner and frontend dtypes follow it),
+    ``matmul_precision`` and ``remat_refiners``. A dtype or precision name that
+    ``resolve_dtypes`` or ``resolve_precision`` does not know raises."""
     config = dataclasses.replace(eval_model_config(params_cfg),
                                  remat_refiners=params_cfg.get("remat_refiners", False))
     resolve_dtypes(config)
@@ -253,7 +258,7 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     or from the reference's init drawn from ``seed``. In a process group
     (``parallel.initialize``) every process calls it, and they train as one."""
     device = serving_device(device)
-    model_config_from_params(params_cfg)  # an unknown dtype name raises here
+    model_config_from_params(params_cfg)  # an unknown dtype or precision name raises here
     if val_split and (params_cfg["reconstruction_factor"] > 0
                       or params_cfg["left_right_factor"] > 0):
         raise ValueError(

@@ -10,7 +10,8 @@ change, parent, ... (``--pairs`` of each):
 - the serving forward at B = 1, V = 1, 480x640, D = 12 (cost filter and five
   refiners on, seeded fan-in-scale weights, random images, a synthetic
   camera): ms per frame, median of 3 x 30 forwards after 5 warm-ups (CUDA
-  events around each 30);
+  events around each 30), and the SHA-256 of its output's bytes, so that the
+  two trees' outputs are compared bit for bit;
 - the incremental-chain kernel (K2) alone at N = 1 and 5, 30x40x32, D = 12:
   device time of one call, 20 calls replayed from a CUDA graph, median of 7;
 - the idepthmap-refiner kernel (K3) alone at (N, 35, h, w) = (1, 35, 30, 40),
@@ -25,6 +26,7 @@ limit, and with ``--out FILE`` writes it all there as JSON.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -106,6 +108,8 @@ def measure(tree: str) -> dict:
         torch.cuda.synchronize()
         result["ms_per_frame"] = statistics.median(
             timed(lambda: serving_forward(model, batch, config), 30) for _ in range(3))
+        result["output_sha256"] = hashlib.sha256(
+            serving_forward(model, batch, config).cpu().numpy().tobytes()).hexdigest()
 
         prefix = "right_feature_extractor.refiner."
         refiner = FeatureRefiner(32)
@@ -176,6 +180,10 @@ def main():
                           for key in ("ms_per_frame", "k2_device_ms_n1", "k2_device_ms_n5",
                                       *K3_KEYS)}
         print(f"{label} medians: {summary[label]}", flush=True)
+    digests = {label: {r["output_sha256"] for r in runs if r["label"] == label}
+               for label in trees}
+    print(f"serving outputs by tree (SHA-256): {digests}; bit-equal across runs and trees "
+          f"{len(set().union(*digests.values())) == 1}", flush=True)
 
     profiles = []
     for label in ("parent", "change", "change", "parent"):

@@ -21,7 +21,10 @@ kernel launches on its tensors' card while another is current. At bf16: the grid
 sample's bf16 output is its f32 output rounded, the GroupNorm kernel is within a
 rounding of the GroupNorm value of its plain version, the chain within 5% of max|plain|
 (2% of the f32 chain), the refiner within 1% of max|plain|, K3's bf16 pack is never
-served to the f32 kernel, and the bf16 forward launches all four.
+served to the f32 kernel, and the bf16 forward launches all four. The 1xTF32 variants
+(``matmul_precision: high``): the chain within 1e-3 and the refiner within 3e-4 of
+max|plain| of their TF32-rounding plain versions, the 3xTF32 kernel unchanged after a
+1xTF32 launch, and a forward at "high" launching both.
 """
 
 import importlib.util
@@ -212,6 +215,73 @@ def test_chain_cluster_size_and_refused_launch(dev):
         ref = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
     torch.cuda.synchronize()
     assert torch.allclose(got, ref, atol=2e-5 * ref.abs().max().item(), rtol=2e-4)
+
+
+# K2's 1xTF32 variant at the serving shapes, one step, and a map of two column tiles.
+@pytest.mark.parametrize("n,h,w,d", [(1, 30, 40, 12), (8, 30, 40, 12), (2, 30, 40, 2),
+                                     (1, 20, 72, 6)])
+def test_chain_tf32_kernel_matches_its_plain_version(dev, n, h, w, d):
+    refiner, feats0, image_rest, H_inc = chain_case(n, h, w, d, 0.0, seed=n + d, dev=dev)
+    with torch.inference_mode():
+        exact = chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc)
+        before = (chain.launches, chain.tf32_launches)
+        got = chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc, tf32=True)
+        assert (chain.launches, chain.tf32_launches) == (before[0] + 1, before[1] + 1)
+        ref = chain.incremental_chain_tf32_plain(refiner, feats0, image_rest, H_inc)
+        again = chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc)
+    torch.cuda.synchronize()
+    assert got.shape == (n, d, h, w, 32) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+    assert torch.equal(again, exact) and not torch.equal(got, exact)
+
+
+# K3's 1xTF32 variant at the serving shapes, the image-only refiner and an odd map.
+@pytest.mark.parametrize("n,cg,h,w", [(1, 35, 30, 40), (8, 35, 30, 40), (1, 35, 60, 80),
+                                      (2, 3, 16, 24), (2, 35, 7, 13)])
+def test_refiner_tf32_kernel_matches_its_plain_version(dev, n, cg, h, w):
+    module = idepthmap_refiner_module(cg, seed=n, dev=dev)
+    g = torch.Generator().manual_seed(h)
+    guidance = (torch.rand(n, cg, h, w, generator=g) * 2 - 1).to(dev)
+    idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+    with torch.inference_mode():
+        exact = refiner_op.idepthmap_refiner_kernel(module, guidance, idepth)
+        before = (refiner_op.launches, refiner_op.tf32_launches)
+        got = refiner_op.idepthmap_refiner_kernel(module, guidance, idepth, tf32=True)
+        assert (refiner_op.launches, refiner_op.tf32_launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+        ref = refiner_op.idepthmap_refiner_tf32_plain(module, guidance, idepth)
+        again = refiner_op.idepthmap_refiner_kernel(module, guidance, idepth)
+    torch.cuda.synchronize()
+    assert got.shape == (n, h, w) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 3e-4 * ref.abs().max().item()
+    assert torch.equal(again, exact) and not torch.equal(got, exact)
+
+
+def test_forward_at_high_launches_the_tf32_variants(dev):
+    """A forward at matmul_precision "high" launches K2's and K3's 1xTF32 variants and
+    lies within 1% of each level's range of the forward at "highest"; the caller's
+    cuDNN flag (off here) is off again after it."""
+    model = MultiViewStereoNet()
+    model.load_state_dict(random_state_dict(0))
+    model = model.to(dev).eval()
+    K, T = scene(1, 480, 640, 3)
+    K_pyr = build_K_pyramid(K.to(dev), [(480 >> i, 640 >> i) for i in range(5)])
+    g = torch.Generator().manual_seed(3)
+    left = build_image_pyramid((torch.rand(1, 480, 640, 3, generator=g) * 2 - 1).to(dev), 5)
+    right = build_image_pyramid((torch.rand(1, 480, 640, 3, generator=g) * 2 - 1).to(dev), 5)
+    rights = [r[:, None] for r in right]
+    out = {}
+    with torch.inference_mode():
+        for name in ("highest", "high"):
+            before = (chain.tf32_launches, refiner_op.tf32_launches)
+            out[name] = mvsnet_forward(model, left, K_pyr, T.to(dev)[:, None], rights,
+                                       MultiViewStereoNetConfig(matmul_precision=name))
+            tf32 = (chain.tf32_launches - before[0], refiner_op.tf32_launches - before[1])
+            assert tf32 == ((0, 0) if name == "highest" else (1, 2))
+            assert not torch.backends.cudnn.allow_tf32
+    for got, ref in zip(out["high"]["left_idepthmap_pyr"], out["highest"]["left_idepthmap_pyr"]):
+        span = (ref.max() - ref.min()).item()
+        assert (got - ref).abs().max().item() <= 1e-2 * span
 
 
 def idepthmap_refiner_module(cg, seed, dev):

@@ -389,7 +389,7 @@ def _sub_state(prefix, seed=3):
 
 def test_chain_function_routes_the_refiner_weights(monkeypatch):
     calls = _plain_launch(monkeypatch, chain,
-                          lambda refiner, f, i, h, cluster: chain.incremental_chain_plain(
+                          lambda refiner, f, i, h, cluster, tf32: chain.incremental_chain_plain(
                               refiner, f, i, h))
     refiner = FeatureRefiner(32)
     refiner.load_state_dict(_sub_state("right_feature_extractor.refiner."))
@@ -406,7 +406,7 @@ def test_chain_function_routes_the_refiner_weights(monkeypatch):
 
 def test_refiner_function_routes_the_refiner_weights(monkeypatch):
     calls = _plain_launch(monkeypatch, refiner_op,
-                          lambda refiner, gd, i: refiner_op.idepthmap_refiner_plain(
+                          lambda refiner, gd, i, tf32: refiner_op.idepthmap_refiner_plain(
                               refiner, gd, i))
     module = IDepthmapRefiner(35)
     module.load_state_dict(_sub_state("refiner3."))
