@@ -62,8 +62,9 @@ Phases, each printing its results; any failure raises and exits non-zero:
    the plain version) at phase 3's shapes against plain autograd on the card:
    every input's gradient within 1e-4 of max|plain| (a gradient below 1e-4 of
    the largest held to that floor), no launch in the backward; the device time
-   of one backward (torch.profiler, the sum of its kernels; ``profile_kernels``
-   keeps two sessions that agree on the count of kernel events), of the plain
+   of one backward (torch.profiler, the sum of its kernels over two calls a session
+   after one warm-up; ``profile_kernels`` keeps two sessions that agree on the count
+   of kernel events), of the plain
    path's backward and, for K1 and K4, of ``F.grid_sample``'s and of
    ``F.group_norm`` + ``F.leaky_relu``'s. K1 also at the losses' shapes with image
    and grid both leaves.
@@ -126,7 +127,7 @@ Phases, each printing its results; any failure raises and exits non-zero:
    the last bits of a near-zero gradient into a whole step of the rate, within 1e-3,
    printed beside the drift of one process's kernel against its plain path. At every
    step, from the weights the two processes entered it with (each CLI process records
-   them and the gradient it applies: ``record_steps``), one process's loss on the same
+   them and the gradient it applies: ``record_training``), one process's loss on the same
    global batch within 1e-5 relative of losses.txt and its gradient against the applied
    one within phase 7's bar: no adam drift in between. (d) The CLI
    as two processes at
@@ -139,7 +140,15 @@ Phases, each printing its results; any failure raises and exits non-zero:
    process's, and every gradient within phase 7's bar. (c)
    NCCL at one process: join, a step through the mesh against one without, leave.
    NCCL across cards and a launch on a card other than the current one need more than
-   one card: logged as not run.
+   one card: logged as not run. (e) One loader a view group: the train CLI as two
+   processes at ``mesh_view`` 2 on an 80-request V = 2 tree at the recipe (B = 8,
+   augmentation on), five runs in one spawn: 3 steps at 4 loader threads recording what
+   each step trained on (``record_training``), where process 1 decodes no sample and
+   every step's tensors on each process hash (SHA-256) to its share of the batch process
+   0 loaded, and where, from the weights the two entered each step with, one process's
+   loss on that batch is within 1e-5 relative and its gradient within phase 7's bar of
+   theirs; then the CLI loop's ms a step (median of steps 4-9), at 1, 4, 4 and 1 loader
+   threads in turn, with launches 2 / 1 / 2 / 31 a process-step.
 11. The bf16 serving forward (``compute_dtype: bfloat16``). (a) Each kernel's bf16
    variant at phase 3's serving shapes against its plain version at bf16: K1's bf16
    output (f32 image in) bit-equal to the f32 kernel's output rounded; K4 (x and res
@@ -200,7 +209,12 @@ Phases, each printing its results; any failure raises and exits non-zero:
    ``matmul_precision: high`` for 2 steps (losses finite, checkpoint f32, launches).
    (e) The artifact exported at "high" run in a fresh process with the flag off, and at
    "highest" with the flag on: each bit-equal to the live forward at its precision, the
-   flag restored. A bar missed fails the phase after every measurement is printed.
+   flag restored. Then ``stage_precision: (("refiners", "high"),)`` at "highest", run in
+   a fresh process with the flag off and in one with it on: bit-equal to the live forward
+   at that config, the conv op ``mvs_torch::convolution`` in the graph, a spy on every
+   conv (``conv_flags``) reading cuDNN's TF32 flag on at the refiners' convs and off at
+   every other, K3 at 1xTF32 and K2 at 3xTF32, the flag restored. A bar missed fails the
+   phase after every measurement is printed.
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
@@ -240,6 +254,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 WARP_BAR = 1e-5
 BACKWARD_BAR = 1e-4  # times max(max|plain grad|, 1e-4 of the largest), phase 3b
+BACKWARD_REPS = 2  # calls a profiler session of a backward's device time (3b, 12 (a))
 # Training against the plain path (docs/PARITY.md:218-232): per parameter, max|diff|
 # within 2.5e-3 of max|plain| and cosine > 0.999998; a leaf below 1e-4 of the
 # largest held to that floor; the loss within 1e-5 relative.
@@ -250,6 +265,9 @@ TWO_VIEW_FACTORS = {"supervision_factor": 1.0, "reconstruction_factor": 0.5,
                     "left_right_factor": 0.5}
 TWO_VIEW_STEPS, TWO_VIEW_RESUME = 4, 1
 MP_PROCESSES, MP_STEPS, MP_RESUME = 2, 3, 2  # phase 10
+# Phase 10 (e): steps of the recorded run at mesh_view 2, steps of each timed run, and
+# the loader threads of the timed runs in turn.
+VIEW_RECORD_STEPS, VIEW_STEPS, VIEW_TURNS = 3, 10, (1, 4, 4, 1)
 # Phase 10 (a): the loss after adam's first updates from the init, two processes against
 # one; a wrong or reordered batch moves it by more than 1e-2 (the losses of consecutive
 # steps differ by 10-70%).
@@ -752,13 +770,15 @@ def check_backward(dev, dtype=torch.float32):
                                  f"gradients {dtypes} for inputs "
                                  f"{[t.dtype for t in inputs]}")
         err = worst_relative(got, ref)
-        entry = {"max_rel_err": err, "ms": device_ms(lambda: backward("kernel")),
-                 "plain_ms": device_ms(lambda: backward("plain")), "library_ms": None}
+        entry = {"max_rel_err": err,
+                 "ms": device_ms(lambda: backward("kernel"), BACKWARD_REPS, 1),
+                 "plain_ms": device_ms(lambda: backward("plain"), BACKWARD_REPS, 1),
+                 "library_ms": None}
         if library is not None:
             lib_out, lib_inputs = library()
             lib_cot = torch.randn(lib_out.shape, generator=g).to(dev)
             entry["library_ms"] = device_ms(lambda: torch.autograd.grad(
-                lib_out, lib_inputs, lib_cot, retain_graph=True))
+                lib_out, lib_inputs, lib_cot, retain_graph=True), BACKWARD_REPS, 1)
         lib = ("" if entry["library_ms"] is None
                 else f", library {entry['library_ms']:.4f} ms")
         log(f"{key}{tag} backward {what}: worst gradient error {err:.3e} of max|plain| "
@@ -1617,13 +1637,56 @@ def stack_samples(samples):
                                          for s in samples]).astype(np.float32)}
 
 
-def artifact_child(path, io_path, device, ambient_tf32=False):
+def conv_flags(module, args) -> dict:
+    """Call ``module`` (a loaded artifact) once on ``args`` and return the cuDNN TF32
+    flags seen at its convs: {"<kind> <module>": sorted flags}, the kind "aten" for the
+    graph's aten convs (seen by a dispatch mode) and "op" for those of
+    ``mvs_torch::convolution`` (seen where its body calls ``ops.precision._conv``), the
+    module the model's top-level one whose weight the conv takes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from multi_view_stereonet_tpu_torch.ops import precision
+
+    owner = {p.data_ptr(): name.split(".")[1] for name, p in module.named_parameters()}
+    seen = {}
+
+    def note(kind, weight):
+        seen.setdefault(f"{kind} {owner.get(weight.data_ptr(), 'other')}", set()).add(
+            torch.backends.cudnn.allow_tf32)
+
+    # Under inference mode the mode sees conv2d / conv3d whole; otherwise the
+    # convolution they decompose to.
+    aten = torch.ops.aten
+    convs = (aten.convolution, aten.conv2d, aten.conv3d)
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket in convs:
+                note("aten", args[1])
+            return func(*args, **(kwargs or {}))
+
+    conv = precision._conv
+
+    def op_conv(x, weight, *rest):
+        note("op", weight)
+        return conv(x, weight, *rest)
+    precision._conv = op_conv
+    try:
+        with Spy():
+            module(*args)
+    finally:
+        precision._conv = conv
+    return {k: sorted(v) for k, v in sorted(seen.items())}
+
+
+def artifact_child(path, io_path, device, ambient_tf32=False, spy=False):
     """Phase 9's fresh process: load the artifact at ``path`` (no weights directory, the
     network's modules never imported), run it once on ``device`` on the inputs saved at
     ``io_path`` with cuDNN's TF32 flag set to ``ambient_tf32`` (phase 13) and print one
     JSON line: bit-equality with the live output saved there, the launch counts of that
     run, the custom ops in the graph, whether ``models`` was imported, the precision
-    mode the artifact runs at and the TF32 flags after the call."""
+    mode the artifact runs at and the TF32 flags after the call; with ``spy``, also the
+    flags at each conv of a second call (``conv_flags``)."""
     sys.path.insert(0, REPO)
     torch.backends.cudnn.allow_tf32 = ambient_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1641,13 +1704,17 @@ def artifact_child(path, io_path, device, ambient_tf32=False):
     with torch.inference_mode():
         out = artifact(*args).cpu().numpy()
     flags_after = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+    launches, launches_tf32 = read_launches(), tf32_launches()
+    if spy:
+        with torch.inference_mode():
+            flags = conv_flags(artifact, args)
     live = io["live"]
     equal = (out.dtype == live.dtype and out.shape == live.shape
              and out.tobytes() == live.tobytes())
     print(json.dumps({"equal": bool(equal), "dtype": str(out.dtype),
-                      "launches": read_launches(), "tf32_launches": tf32_launches(),
+                      "launches": launches, "tf32_launches": launches_tf32,
                       "mode": artifact.mvs_precision, "flags_after": flags_after,
-                      "ops": custom_ops(artifact),
+                      "ops": custom_ops(artifact), "conv_flags": flags if spy else None,
                       "models_imported": "multi_view_stereonet_tpu_torch.models" in sys.modules,
                       "load_s": load_s,
                       "weights_bytes": sum(t.nbytes for t in exported.state_dict.values()),
@@ -2852,32 +2919,51 @@ def precision_phase(dev, inputs, smi, served):
 
     # (e) The artifact at "high" served in a fresh process with the flag off, and at
     # "highest" in one with the flag on: each bit-equal to the live forward at its
-    # precision.
+    # precision. Then ("refiners", "high") at "highest", in a fresh process with the flag
+    # off and in one with it on: bit-equal to the live forward at that config, the
+    # refiners' convs the conv op under cuDNN's TF32 flag and every other conv without it
+    # (a spy on every conv: ``conv_flags``), K3 at 1xTF32 and K2 not.
     artifacts = {}
-    for name, ambient in (("high", False), ("highest", True)):
+    override = dataclasses.replace(configs["highest"], stage_precision=(("refiners", "high"),))
+    for name, config, ambients, want_tf32 in (
+            ("high", configs["high"], (False,), {"chain": 1, "refiner": 2}),
+            ("highest", configs["highest"], (True,), {"chain": 0, "refiner": 0}),
+            ("refiners_high", override, (False, True), {"chain": 0, "refiner": 2})):
         path = os.path.join(inputs["root"], f"serving_b1_{name}.pt2")
-        export.save_exported(export.export_inference(model, configs[name], size=(H0, W0)),
-                             path)
-        live = StreamingRunner(model, configs[name], device=dev).forward(sample).cpu().numpy()
+        export.save_exported(export.export_inference(model, config, size=(H0, W0)), path)
+        live = StreamingRunner(model, config, device=dev).forward(sample).cpu().numpy()
         io_path = os.path.join(inputs["root"], f"artifact_io_{name}.npz")
         np.savez(io_path, live=live, **sample)
-        code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
-                f"chip_smoke.artifact_child({path!r}, {io_path!r}, {str(dev)!r}, {ambient})")
-        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                              text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"the {name} artifact in a fresh process failed:\n"
-                                 f"{proc.stderr[-3000:]}")
-        child = json.loads(proc.stdout.strip().splitlines()[-1])
-        artifacts[name] = child
-        log(f"artifact at {name} B=1 in a fresh process with the cuDNN TF32 flag "
-            f"{'on' if ambient else 'off'}: mode {child['mode']}, bit-equal to the live "
-            f"forward at {name} {child['equal']}, launches {child['launches']}, 1xTF32 "
-            f"{child['tf32_launches']}, the flag after the call {child['flags_after']}")
-        want_tf32 = {"chain": 1, "refiner": 2} if name == "high" else {"chain": 0, "refiner": 0}
-        if not (child["equal"] and child["tf32_launches"] == want_tf32
-                and child["flags_after"] == [ambient, False]):
-            failures.append(f"the {name} artifact: {child}")
+        spy = config is override
+        for ambient in ambients:
+            code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                    f"chip_smoke.artifact_child({path!r}, {io_path!r}, {str(dev)!r}, "
+                    f"{ambient}, spy={spy})")
+            proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                                  text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"the {name} artifact in a fresh process failed:\n"
+                                     f"{proc.stderr[-3000:]}")
+            child = json.loads(proc.stdout.strip().splitlines()[-1])
+            artifacts[name, ambient] = child
+            log(f"artifact at {name} B=1 in a fresh process with the cuDNN TF32 flag "
+                f"{'on' if ambient else 'off'}: mode {child['mode']}, bit-equal to the live "
+                f"forward at {name} {child['equal']}, launches {child['launches']}, 1xTF32 "
+                f"{child['tf32_launches']}, the flag after the call {child['flags_after']}"
+                + (f"; custom ops {child['ops']}; cuDNN's TF32 flag at each conv, by kind "
+                   f"and module, {child['conv_flags']}" if spy else ""))
+            # The refiners' convs all ops with the flag on, every other an aten conv with
+            # it off.
+            flags = child["conv_flags"] or {}
+            staged = {k: [k.startswith("op refiner")] for k in flags
+                      if k.startswith("op refiner") or (k.startswith("aten ")
+                                                        and " refiner" not in k)}
+            held = not spy or ("mvs_torch::convolution" in child["ops"]
+                               and any(k.startswith("op ") for k in flags)
+                               and flags == staged)
+            if not (child["equal"] and child["tf32_launches"] == want_tf32
+                    and child["flags_after"] == [ambient, False] and held):
+                failures.append(f"the {name} artifact: {child}")
     if failures:
         raise AssertionError("phase 13: " + "; ".join(failures))
     return {"kernels": kernels, "launches": launches_tf32, "deviation": deviation,
@@ -2895,10 +2981,17 @@ def free_port() -> int:
 
 def spawn(spec: dict, n: int) -> list:
     """Start ``n`` processes of ``child`` on ``spec``, ranks 0..n-1 of one group whose
-    store is on a free local port; collect them (``tests/_torch_distributed_worker.py``
-    ``wait``: all killed at the limit) and raise unless every one exits 0. Returns each
-    one's last stdout line as JSON, and its stdout."""
+    store is on a free local port (each round's its own); collect them
+    (``tests/_torch_distributed_worker.py`` ``wait``: all killed at the limit) and raise
+    unless every one exits 0. Returns each one's last stdout line as JSON, and its
+    stdout."""
     port = free_port()
+    if "rounds" in spec:
+        ports = {port}
+        while len(ports) <= len(spec["rounds"]):
+            ports.add(free_port())
+        spec = dict(spec, rounds=[dict(run, port=p) for run, p in
+                                  zip(spec["rounds"], sorted(ports - {port}))])
     procs = [subprocess.Popen(
         [sys.executable, "-c", f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
          f"chip_smoke.child({json.dumps(dict(spec, rank=r, n=n, port=port))!r})"],
@@ -2912,39 +3005,19 @@ def spawn(spec: dict, n: int) -> list:
     return [(json.loads(out.strip().splitlines()[-1]), out) for _, out, _ in results]
 
 
-def record_steps(train_cli, out, rank):
-    """Make every train step that ``train_cli`` builds save, on rank 0, the weights that
-    enter it and the gradient it applies (after the all-reduce), as
-    ``<out>/step<k>.pt``, k counting this process's steps from 0."""
-    build = train_cli.build_train_step
-
-    def recording_build(*args, **kwargs):
-        built = build(*args, **kwargs)
-        step, count = built[3], [0]
-
-        def recording_step(model, batch):
-            weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-            result = step(model, batch)
-            if rank == 0:
-                torch.save({"weights": weights,
-                            "grads": {k: p.grad.detach().cpu().clone()
-                                      for k, p in model.named_parameters()}},
-                           os.path.join(out, f"step{count[0]}.pt"))
-            count[0] += 1
-            return result
-        return (*built[:3], recording_step)
-    os.makedirs(out, exist_ok=True)
-    train_cli.build_train_step = recording_build
-
-
 def child(spec_json: str):
     """Phase 10's and 12's processes. "train": ``train_cli.main`` as rank ``rank`` of
     ``n`` on the card, the host clock stamped at each step's stop check (with
-    ``record``, each step's weights and gradient saved there: ``record_steps``); prints
-    its launches, stamps and peak memory. "nccl": joins a group of one over NCCL, one train step
+    ``record``, what each step trained on saved there:
+    ``tests/_torch_distributed_worker.py`` ``record_training``); prints its launches,
+    stamps and peak memory; with ``rounds`` (each an ``argv``, a ``port`` and optionally
+    a ``record``), one such run a round in this process, in turn, and a list of their
+    results. "nccl": joins a group of one over NCCL, one train step
     through the mesh (its gradients all-reduced over NCCL) and one without, on the same
     batch and weights, then leaves; prints the backend, both losses and the worst
     gradient gap."""
+    import contextlib
+
     spec = json.loads(spec_json)
     sys.path.insert(0, REPO)
     torch.backends.cudnn.allow_tf32 = False
@@ -2952,6 +3025,7 @@ def child(spec_json: str):
     if spec["kind"] == "train":
         from multi_view_stereonet_tpu_torch.train import train_cli
 
+        worker = tests_module("_torch_distributed_worker")
         stamps = []
 
         class StampedStop(train_cli.GracefulStop):
@@ -2960,15 +3034,20 @@ def child(spec_json: str):
                 return super().__call__()
 
         train_cli.GracefulStop = StampedStop
-        if spec.get("record"):
-            record_steps(train_cli, spec["record"], spec["rank"])
-        zero_launches()
-        train_cli.main(spec["argv"] + ["--coordinator", f"localhost:{spec['port']}",
-                                       "--num_processes", str(spec["n"]),
-                                       "--process_id", str(spec["rank"])])
-        print(json.dumps({"launches": read_launches(), "stamps": stamps,
-                          "peak": torch.cuda.max_memory_allocated(),
-                          "device": torch.cuda.current_device()}), flush=True)
+        results = []
+        for run in spec.get("rounds", [spec]):
+            stamps.clear()
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            with (worker.record_training(train_cli, run["record"], spec["rank"])
+                  if run.get("record") else contextlib.nullcontext()):
+                train_cli.main(run["argv"] + ["--coordinator", f"localhost:{run['port']}",
+                                              "--num_processes", str(spec["n"]),
+                                              "--process_id", str(spec["rank"])])
+            results.append({"launches": read_launches(), "stamps": list(stamps),
+                            "peak": torch.cuda.max_memory_allocated(),
+                            "device": torch.cuda.current_device()})
+        print(json.dumps(results if "rounds" in spec else results[0]), flush=True)
         return
     import torch.distributed as dist
 
@@ -3000,6 +3079,103 @@ def child(spec_json: str):
                       "initialized_after": dist.is_initialized()}), flush=True)
 
 
+def view_group_phase(dev, root, smi, loss_fn, failures) -> dict:
+    """Phase 10 (e), one loader a view group: two processes at mesh_view 2 on a V = 2
+    tree at the recipe (B = 8, augmentation on), in one spawn: a run at 4 loader
+    threads recording what each step trained on, held to one process's ``loss_fn`` on
+    the batch the leader loaded; then the CLI loop timed at 1 and 4 threads in turns. A
+    check missed is appended to ``failures``. Returns the times, checks and peaks."""
+    import yaml
+
+    from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet
+    from multi_view_stereonet_tpu_torch.parallel import ProcessMesh
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    worker = tests_module("_torch_distributed_worker")
+    view_dir, view_split = synthetic_data().make_gta_sfm_tree(
+        os.path.join(root, "long_v2"), num_sequences=1, frames=VIEW_STEPS * TRAIN_B + 2,
+        rows=H0, cols=W0, seed=5, comparisons=2)
+    view_cfg = load_params_yaml(None)
+    view_cfg.update({"mesh_view": 2, "debug_image_freq": 0, "plot_freq": 0,
+                     "num_epochs": 1, "print_freq": 1})
+    record = os.path.join(root, "view_record")
+
+    def view_run(name, workers, steps):
+        path = os.path.join(root, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(dict(view_cfg, num_workers=workers), f)
+        return {"argv": ["--config", path, "--data_dir", view_dir, "--train_split",
+                         view_split, "--output_dir", os.path.join(root, name),
+                         "--max_steps", str(steps)]}
+    rounds = [dict(view_run("view_record", 4, VIEW_RECORD_STEPS), record=record)] + [
+        view_run(f"view_turn{i}", w, VIEW_STEPS) for i, w in enumerate(VIEW_TURNS)]
+    t0 = time.perf_counter()
+    view = spawn({"kind": "train", "rounds": rounds}, MP_PROCESSES)
+    view_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(MP_PROCESSES):
+        with open(os.path.join(record, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    loaded_by_others = [f for f in os.listdir(record)
+                        if f.startswith("loaded") and not f.endswith("_rank0.npz")]
+    log(f"mesh_view 2, two processes at the recipe on a V=2 tree (B={TRAIN_B}, "
+        f"augmentation on, 4 loader threads), one loader a view group: {VIEW_RECORD_STEPS} "
+        f"recorded steps and {len(VIEW_TURNS)} timed runs in {view_s:.1f} s; samples "
+        f"decoded by process {[r['decoded'] for r in ranks]}; batches saved by another "
+        f"process than the leader {loaded_by_others}")
+    if ranks[1]["decoded"] or loaded_by_others or ranks[0]["decoded"] < (
+            VIEW_RECORD_STEPS * TRAIN_B):
+        failures.append(f"one loader a view group: decoded {[r['decoded'] for r in ranks]}")
+    view_mesh = [ProcessMesh(view=2, view_index=r) for r in range(MP_PROCESSES)]
+    model = MultiViewStereoNet().to(dev)
+    view_checks = []
+    for k in range(VIEW_RECORD_STEPS):
+        loaded = dict(np.load(os.path.join(record, f"loaded{k}_rank0.npz")))
+        same = [rank["digests"][k] == {key: worker.digest(v) for key, v in
+                                       view_mesh[r].shard_batch(loaded).items()}
+                for r, rank in enumerate(ranks)]
+        rec = torch.load(os.path.join(record, f"step{k}.pt"), weights_only=True)
+        model.load_state_dict(rec["weights"])
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, {key: torch.from_numpy(v).to(dev)
+                                  for key, v in loaded.items()})
+        loss.backward()
+        worst, worst_key, min_cos = compare_gradients({
+            "plain": {n: p.grad for n, p in model.named_parameters()},
+            "auto": {n: g.to(dev) for n, g in rec["grads"].items()}})
+        loss_gap = abs(rec["loss"] - loss.item()) / abs(loss.item())
+        view_checks.append({"digests_equal": same, "loss_gap": loss_gap, "grad_err": worst})
+        B, V = loaded["right_images"].shape[:2]
+        log(f"mesh_view 2, step {k + 1}: each process trained on its share of the leader's "
+            f"B={B} V={V} batch (SHA-256 of every tensor) {same}; from the weights they "
+            f"entered it with, one process's loss on that batch {loss.item():.6f} against "
+            f"theirs {rec['loss']:.6f} ({loss_gap:.2e}, bar {LOSS_BAR:.0e}); their gradient "
+            f"against one process's, worst {worst:.3e} of max|one process| at {worst_key} "
+            f"(bar {GRAD_BAR:.1e}), least cosine {min_cos:.9f} (bar {COS_BAR})")
+        if not (all(same) and loss_gap <= LOSS_BAR and worst <= GRAD_BAR
+                and min_cos > COS_BAR):
+            failures.append(f"mesh_view 2 step {k + 1}: {view_checks[-1]}")
+    del model
+    per_view_step = expected_launches([(TRAIN_B, 1)])
+    view_ms = {w: [] for w in sorted(set(VIEW_TURNS))}
+    for w, runs in zip(VIEW_TURNS, zip(*(result[1:] for result, _ in view))):
+        view_ms[w].append([float(np.median(np.diff(run["stamps"][:-1])[2:] * 1e3))
+                           for run in runs])
+        if any(run["launches"] != {k: VIEW_STEPS * v for k, v in per_view_step.items()}
+               for run in runs):
+            failures.append(f"mesh_view 2 launches {[run['launches'] for run in runs]} in "
+                            f"{VIEW_STEPS} steps, expected {per_view_step} a step")
+    view_peak = [result[2]["peak"] / 2**30 for result, _ in view]
+    log(f"mesh_view 2 at the recipe (B={TRAIN_B} V=2, a view a process, augmentation on), "
+        f"the CLI loop ms a step by process (median of steps 4-{VIEW_STEPS - 1}, host "
+        f"clock), in turns {list(VIEW_TURNS)} loader threads: "
+        + "; ".join(f"{w} threads {[[round(m, 3) for m in run] for run in runs]}"
+                    for w, runs in view_ms.items())
+        + f"; peak memory {[round(p, 3) for p in view_peak]} GiB a process at 4 threads; "
+        f"launches a process-step {per_view_step} ({smi})")
+    return {"ms": view_ms, "checks": view_checks, "peak_gib": view_peak}
+
+
 def multi_process_phase(dev, inputs, smi, cli_ms):
     """Phase 10: training as two processes on the card over gloo (the train CLI at the
     recipe's width, held to one process's steps on the concatenated per-process
@@ -3022,6 +3198,7 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
     root = inputs["root"]
     data_dir, split = inputs["long"]
     local = TRAIN_B // MP_PROCESSES
+    worker = tests_module("_torch_distributed_worker")
     failures = []
 
     def argv(cfg, name, out):
@@ -3185,7 +3362,6 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
         job["cases"][name] = {"weights": os.path.join(root, f"mp_{name}.pth"),
                               "batch": os.path.join(root, f"mp_{name}.npz"),
                               "two_view": False, "D": D, "factors": {}, "mesh_view": view}
-    worker = tests_module("_torch_distributed_worker")
     results = worker.wait(worker.start(job, root, "mp_steps"), timeout=600)
     for r, (rc, _, err) in enumerate(results):
         if rc != 0:
@@ -3215,6 +3391,9 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
                 and min_cos > COS_BAR):
             failures.append(f"the {name}-sharded step against one process: {sharded[name]}")
 
+    # (e) One loader a view group.
+    view = view_group_phase(dev, root, smi, loss_fn, failures)
+
     # (c) The NCCL route at a world size of one.
     (nccl, _), = spawn({"kind": "nccl", "batch": os.path.join(root, "mp_view.npz")}, 1)
     log(f"NCCL at one process: backend {nccl['backend']} on {nccl['device']}, joined and "
@@ -3233,7 +3412,8 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
     if failures:
         raise AssertionError("phase 10: " + "; ".join(failures))
     return {"per_step": per_step, "ms": ms, "peak_gib": peak, "loss_gaps": gaps,
-            "step_grad_errs": step_grads, "sharded": sharded}
+            "step_grad_errs": step_grads, "sharded": sharded,
+            "view_feed": view}
 
 
 def main():

@@ -10,16 +10,19 @@ for bit. ``torch.export`` records no process flags, so the artifact records the 
 it was exported at (``matmul_precision``, resolved to an ``ops.precision`` mode) in a
 file of its own, and ``load_exported`` runs every call in that mode's scope: a fresh
 process gets the exported precision whatever its TF32 flags, and gets its own flags
-back after each call. One flag around the call holds one precision, so a
-``stage_precision`` override that differs from ``matmul_precision`` is refused.
+back after each call. A ``stage_precision`` override that sets another mode in a stage
+is held in the graph itself: each of that stage's convs is the custom op
+``mvs_torch::convolution`` with its mode (``ops/precision.py``), and K2 and K3 carry
+theirs as an argument; an artifact without such an override has no conv op.
 
 An artifact is specialized to the device it was exported on, as the JAX package's is to
 its backend: exported on a card, its graph holds the four hand-written kernels as the
 custom ops ``mvs_torch::grid_sample``, ``incremental_chain``, ``idepthmap_refiner`` and
 ``group_norm_act`` (``ops/cuda/build.py`` ``custom_op``); exported on the CPU, their
 plain versions. ``load_exported`` registers the ops and builds their kernels without
-importing the network's modules, and raises where they cannot be built. Shapes are static:
-one artifact per serving configuration.
+importing the network's modules, and raises where they cannot be built; the conv op
+names no kernel and needs no card. Shapes are static: one artifact per serving
+configuration.
 
 CLI:
   python -m multi_view_stereonet_tpu_torch.checkpoint.export \\
@@ -29,7 +32,8 @@ CLI:
 ``--dtype bfloat16`` exports the bf16 serving forward (``compute_dtype``); the
 custom ops' fakes give the dtypes their kernels write, and the artifact is
 bit-equal to the live runner at bf16. The CLI exports at ``matmul_precision`` "default"
-(exact f32), as it reads no precision; ``export_inference`` takes any config.
+(exact f32), as it reads no precision; ``export_inference`` takes any config,
+``stage_precision`` included.
 
 The custom ops' schemas carry the precision (``tf32``, false by default); an artifact
 exported before they did is not known to load: export it again.
@@ -94,29 +98,25 @@ def export_inference(model, config, batch_size: int = 1, views: int = 1,
     """``torch.export`` of the serving forward at static shapes, on the model's device,
     under ``torch.no_grad()``. ``input_u8`` takes uint8 images (the serving transport,
     dequantized inside); ``fetch_dtype`` (e.g. ``torch.float16``) casts the output. The
-    result carries its precision mode as ``mvs_precision`` (``save_exported`` writes it);
-    a ``stage_precision`` override that resolves to another mode than
-    ``matmul_precision`` raises ValueError before anything is traced.
+    result carries its ambient precision mode, ``matmul_precision``'s, as
+    ``mvs_precision`` (``save_exported`` writes it); a stage that ``stage_precision``
+    sets to another mode has its convs recorded with it (``ops.precision.exporting``).
 
     One eager forward runs first, so that what the forward keeps on the device (the
     resize matrices, K3's packed weights) is made for real: the exported graph then
     holds those tensors as constants, which it neither copies nor recomputes at a call,
     and they are the live path's own, bit for bit."""
     from ..models import resolve_precision
+    from ..ops.precision import exporting
 
-    ambient, modes = resolve_precision(config)
-    if any(mode != ambient for mode in modes.values()):
-        raise ValueError(
-            f"stage_precision {config.stage_precision!r} sets another precision than "
-            f"matmul_precision {config.matmul_precision!r} in a stage; an artifact runs "
-            "under one precision, so it is not exported (ROADMAP Queue 1, "
-            "\"stage_precision in the serving artifact\")")
+    ambient, _ = resolve_precision(config)
     serving = make_serving_fn(model.eval(), config, fetch_dtype)
     args = _example_inputs(batch_size, views, size, input_u8,
                            next(model.parameters()).device)
     with torch.no_grad():
         serving(*args)
-        exported = torch.export.export(serving, args, strict=False)
+        with exporting(ambient):
+            exported = torch.export.export(serving, args, strict=False)
     # Not kept in the artifact: the B=24 example images alone are 44 MB.
     exported.example_inputs = None
     exported.mvs_precision = ambient
@@ -160,10 +160,10 @@ def custom_ops(exported) -> list:
 def load_exported(path: str):
     """The artifact at ``path`` as a module to call with (left_image, right_images, K,
     T_right_in_left), each call at the precision it was exported at (``mode``; exact for
-    an artifact that records none) and the caller's TF32 flags restored after it; its
-    weights need no gradient. The port's custom ops are registered first, and the
-    kernels of those in the graph built: where they cannot be (no card, no nvcc), this
-    raises."""
+    an artifact that records none; a recorded conv at its own) and the caller's TF32
+    flags restored after it; its weights need no gradient. The port's custom ops are
+    registered first, and the kernels of those in the graph built: where they cannot be
+    (no card, no nvcc), this raises."""
     from ..ops import precision
     from ..ops.cuda import build, gn_apply, incremental_chain, refiner, warp  # noqa: F401
 
@@ -172,12 +172,12 @@ def load_exported(path: str):
     mode = extra[PRECISION_FILE] or "ieee"
     if mode not in precision.MODES:
         raise ValueError(f"{path} records an unknown precision mode {mode!r}")
-    ops = custom_ops(exported)
-    if ops:
+    kernels = [op for op in custom_ops(exported) if op in build.OP_SOURCES]
+    if kernels:
         if not torch.cuda.is_available():
-            raise RuntimeError(f"{path} was exported on a card ({', '.join(ops)}) and this "
-                               "process has none")
-        build.load_libraries(*sorted({build.OP_SOURCES[op] for op in ops}))
+            raise RuntimeError(f"{path} was exported on a card ({', '.join(kernels)}) and "
+                               "this process has none")
+        build.load_libraries(*sorted({build.OP_SOURCES[op] for op in kernels}))
     module = exported.module()
     for p in module.parameters():
         p.requires_grad_(False)

@@ -23,6 +23,13 @@ Autograd runs a conv's backward after the scope has closed, so ``convolution``
 carries its scope's mode into its backward (``_Convolution``) when autograd records:
 its weight and input gradients are computed at the forward's precision, as JAX's
 transposed dots keep theirs. Outside every scope a conv runs at the caller's flags.
+
+``torch.export`` records no flag, so a serving artifact runs under one scope, its
+ambient mode (``checkpoint/export.py``). While ``exporting(ambient)`` traces, a conv
+whose scope's mode is another goes into the graph as the custom op
+``mvs_torch::convolution``, which carries its mode (``tf32``) and runs in that scope;
+every other conv stays an aten convolution. The eager path never calls the op: the
+dispatcher costs ~20 us of host a call (PERF.md).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 MODES = ("ieee", "tf32", "tf32_round")
 
 _mode = None  # the innermost open scope's mode, None outside every scope
+_artifact_mode = None  # the ambient mode of the artifact ``exporting`` traces
 
 
 def current():
@@ -67,6 +75,29 @@ class scope:
         return False
 
 
+class exporting:
+    """``with exporting(ambient):`` around ``torch.export`` of a program that will run
+    in ``scope(ambient)``: the convs at another mode are recorded with it (see the
+    module docstring)."""
+
+    __slots__ = ("mode", "saved")
+
+    def __init__(self, mode: str):
+        if mode not in MODES:
+            raise ValueError(f"precision mode must be one of {MODES}, got {mode!r}")
+        self.mode = mode
+
+    def __enter__(self):
+        global _artifact_mode
+        self.saved, _artifact_mode = _artifact_mode, self.mode
+        return self
+
+    def __exit__(self, *exc):
+        global _artifact_mode
+        _artifact_mode = self.saved
+        return False
+
+
 def tf32_bits(x: torch.Tensor) -> torch.Tensor:
     """f32 ``x`` rounded to TF32 (10 mantissa bits, half away from zero) on its integer
     bits, as the kernels' ``split`` computes its high part: no gradient."""
@@ -86,6 +117,22 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
 def _conv(x, weight, bias, stride, padding, dilation, groups):
     fn = F.conv2d if weight.ndim == 4 else F.conv3d
     return fn(x, weight, bias, stride, padding, dilation, groups)
+
+
+@torch.library.custom_op("mvs_torch::convolution", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _recorded_convolution(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                          stride: list[int], padding: list[int], dilation: list[int],
+                          groups: int, tf32: bool) -> torch.Tensor:
+    """A conv in ``scope("tf32" if tf32 else "ieee")``: an artifact's conv whose mode is
+    not the artifact's ambient one."""
+    with scope("tf32" if tf32 else "ieee"):
+        return _conv(x, weight, bias, stride, padding, dilation, groups)
+
+
+@_recorded_convolution.register_fake
+def _(x, weight, bias, stride, padding, dilation, groups, tf32):
+    return _conv(x, weight, bias, stride, padding, dilation, groups)
 
 
 def _conv_backward(grad, x, weight, bias_shape, stride, padding, dilation, groups, mask):
@@ -120,12 +167,16 @@ class _Convolution(torch.autograd.Function):
 def convolution(x, weight, bias, stride, padding, dilation, groups=1):
     """``F.conv2d`` / ``F.conv3d`` (by the weight's rank) at the open scope's mode: its
     backward at that mode too when autograd records; "tf32_round" rounds x and the
-    weight first and is then exact. Outside every scope, the plain call."""
+    weight first and is then exact; while ``exporting`` another mode, the custom op
+    that records it. Outside every scope, the plain call."""
     mode = _mode
     if mode is None:
         return _conv(x, weight, bias, stride, padding, dilation, groups)
     if mode == "tf32_round":
         x, weight, mode = round_tf32(x), round_tf32(weight), "ieee"
+    if _artifact_mode not in (None, mode) and torch.compiler.is_exporting():
+        return _recorded_convolution(x, weight, bias, list(stride), list(padding),
+                                     list(dilation), groups, mode == "tf32")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, weight, bias)):
         return _Convolution.apply(mode, x, weight, bias, stride, padding, dilation, groups)

@@ -6,9 +6,10 @@ from .distributed import (
     ShardedDataset, initialize, is_main_process, join, local_shard_indices, process_count,
     process_index, shutdown)
 from .mesh import (
-    ProcessMesh, batch_mean, batch_sums, make_process_mesh, reducing_over, view_mean)
+    ProcessMesh, ViewGroupFeed, batch_mean, batch_sums, make_process_mesh, reducing_over,
+    view_mean)
 
 __all__ = ["ShardedDataset", "initialize", "is_main_process", "join",
            "local_shard_indices", "process_count", "process_index", "shutdown",
            "ProcessMesh", "batch_mean", "batch_sums", "make_process_mesh", "reducing_over",
-           "view_mean"]
+           "view_mean", "ViewGroupFeed"]

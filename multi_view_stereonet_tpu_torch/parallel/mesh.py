@@ -8,10 +8,11 @@ port's processes each hold a shard, and the collectives are explicit:
 
 - rank ``r`` is data shard ``r // view`` and view shard ``r % view``: a view group
   is ``view`` consecutive ranks on one host (the JAX rule that ``view`` divides the
-  per-process device count). Every rank of a view group loads the same samples and
-  keeps its ``V / view`` comparison views (``shard_batch``, and ``local_views`` for
-  the poses, which the unpack first scales by the first view's baseline, as the JAX
-  unpack of the global batch does).
+  per-process device count). The group's first rank loads its samples and hands
+  each rank its ``V / view`` comparison views (:class:`ViewGroupFeed`), as one JAX
+  process loads a batch and shards its views over its devices; ``local_views``
+  shards the poses, which the unpack first scales by the first view's baseline, as
+  the JAX unpack of the global batch does.
 - Inside ``reducing_over(mesh)`` (the train step's forward), :func:`batch_sums` all-reduces
   the losses' numerators and counts over the data group, so that each masked mean
   is over the global batch, its empty-mask rule decided on the global count; and
@@ -25,7 +26,8 @@ port's processes each hold a shard, and the collectives are explicit:
   duplicate alike.
 
 Outside ``reducing_over``, and for a single process, nothing is reduced and no
-collective is launched: the single-process code paths are unchanged.
+collective is launched: the single-process code paths are unchanged. Nor does
+:class:`ViewGroupFeed` launch one where ``view`` is 1.
 """
 
 from __future__ import annotations
@@ -89,8 +91,9 @@ class ProcessMesh:
                              f"mesh_view {self.view})")
         return batch_size // self.data
 
-    def views(self, x):
-        """This rank's ``V / view`` comparison views of ``x`` (B, V, ...)."""
+    def views(self, x, index: int | None = None):
+        """The ``V / view`` comparison views of ``x`` (B, V, ...) of view shard ``index``
+        (this rank's where it is None)."""
         if self.view == 1:
             return x
         V = x.shape[1]
@@ -98,7 +101,8 @@ class ProcessMesh:
             raise ValueError(f"{V} comparison views are not divisible by mesh_view "
                              f"{self.view}")
         n = V // self.view
-        return x[:, self.view_index * n:(self.view_index + 1) * n]
+        index = self.view_index if index is None else index
+        return x[:, index * n:(index + 1) * n]
 
     def shard_batch(self, batch: dict) -> dict:
         """The batch with this rank's comparison views of its images and depthmaps.
@@ -158,6 +162,90 @@ def make_process_mesh(view: int = 1) -> ProcessMesh:
                        data_group=None if data_groups is None else data_groups[v],
                        view_group=None if view_groups is None else view_groups[d],
                        control_group=control)
+
+
+class ViewGroupFeed:
+    """The batches of one loader a view group, each rank's share on its device.
+
+    Iterating yields ``(batch, tensors)``: ``tensors`` the share this rank trains on,
+    on ``device``, filenames left out; ``batch`` the loader's batch itself (every view,
+    filenames in) on the rank that loaded it, None on the others.
+
+    With ``mesh.view`` 1 every rank iterates its own ``loader`` and nothing crosses.
+    Otherwise the group's leader (``view_index`` 0) alone iterates it, decoding and
+    augmenting each batch once with all its threads, as the JAX CLI's one process
+    loads a batch for all its devices. What crosses, from the leader to each rank of
+    its group: the keys every rank needs whole (the left image, ``K``,
+    ``T_right_in_left``, the left depthmap where the split has one), broadcast; and
+    that rank's ``V / view`` slice of ``right_images`` and ``right_depthmap_true``,
+    scattered; the images at the loader's dtype (uint8 under ``transfer_u8``). Why:
+    each rank loading the same samples itself would pair them with other augmentation
+    draws at more than one loader thread (``data/transforms.py`` ``ThreadLocalRng``),
+    and would decode every batch once a rank on the same host. Over NCCL (a card a
+    process) the leader copies the batch to its card and sends card to card, so the
+    other ranks make no host-to-device copy; over gloo (a card shared, or the CPU)
+    host tensors cross. The other ranks decode nothing and take ``len(loader)``
+    batches, which the dataset's length gives, so every rank takes the same steps;
+    the first batch of each pass also sends the keys' names, shapes and dtypes."""
+
+    def __init__(self, mesh: ProcessMesh, loader, device):
+        self.mesh, self.loader, self.device = mesh, loader, torch.device(device)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        from ..eval.streaming import to_device  # eval/ imports this package
+
+        mesh = self.mesh
+        if mesh.view_group is None:
+            for batch in self.loader:
+                yield batch, to_device(_arrays(batch), self.device)
+            return
+        group, leader = mesh.view_group, mesh.data_index * mesh.view
+        on_card = dist.get_backend(group) == "nccl"
+        spec = [None]  # [(key, shape, dtype)], sent with the first batch
+        if mesh.view_index == 0:
+            for batch in self.loader:
+                whole = {k: torch.as_tensor(v) for k, v in _arrays(batch).items()}
+                if on_card:
+                    whole = to_device(whole, self.device)
+                if spec[0] is None:
+                    spec[0] = [(k, tuple(t.shape), t.dtype) for k, t in whole.items()]
+                    dist.broadcast_object_list(spec, src=leader, group=group)
+                mine = {}
+                for k, t in whole.items():
+                    if k in _SHARDED_KEYS:
+                        parts = [mesh.views(t, i).contiguous() for i in range(mesh.view)]
+                        mine[k] = torch.empty_like(parts[0])
+                        dist.scatter(mine[k], parts, src=leader, group=group)
+                    else:
+                        dist.broadcast(t, src=leader, group=group)
+                        mine[k] = t
+                yield batch, mine if on_card else to_device(mine, self.device)
+            return
+        carrier = self.device if on_card else torch.device("cpu")
+        for _ in range(len(self.loader)):
+            if spec[0] is None:
+                dist.broadcast_object_list(spec, src=leader, group=group)
+            mine = {}
+            for k, shape, dtype in spec[0]:
+                if k in _SHARDED_KEYS:
+                    shape = (shape[0], shape[1] // mesh.view, *shape[2:])
+                mine[k] = torch.empty(shape, dtype=dtype, device=carrier)
+                if k in _SHARDED_KEYS:
+                    dist.scatter(mine[k], src=leader, group=group)
+                else:
+                    dist.broadcast(mine[k], src=leader, group=group)
+            yield None, mine if on_card else to_device(mine, self.device)
+
+
+def _arrays(batch: dict) -> dict:
+    """A loader batch's arrays: every key but the filenames."""
+    return {k: v for k, v in batch.items() if not k.endswith("filenames")}
 
 
 @contextlib.contextmanager

@@ -7,7 +7,9 @@ Port of ``multi_view_stereonet_tpu/train/logging.py``:
 - loss plots with summed-area-table smoothing (reference :76-158), matplotlib
   imported only when a plot is drawn;
 - colormapped idepth debug images and HTML training galleries (reference
-  :245-404). Inputs are numpy arrays (or anything ``np.asarray`` takes).
+  :245-404), and occlusion masks as grayscale images (reference :272-289). Inputs
+  are numpy arrays (or anything ``np.asarray`` takes); the masks also tensors on any
+  device.
 """
 
 from __future__ import annotations
@@ -194,3 +196,23 @@ def log_debug_images(epoch, step, batch_idx, inputs, outputs, output_dir):
         Image.fromarray(np.uint8(rgb[..., :3] * 255)).save(
             os.path.join(lvl_dir, f"{image_id}_{epoch:04d}.jpg"))
         image_gallery.create_training_gallery(lvl_dir)
+
+
+def _mask_image(mask):
+    """A boolean mask (a tensor on any device or an array; unit axes squeezed) as an 8-bit
+    grayscale image: 255 where set."""
+    from PIL import Image
+
+    if hasattr(mask, "detach"):
+        mask = mask.detach().cpu()
+    return Image.fromarray(np.asarray(mask).squeeze().astype(np.uint8) * 255, "L")
+
+
+def log_debug_occlusion_mask(epoch, step, image_id, mask, truth, output_dir):
+    """A boolean occlusion mask as ``<image_id>_<epoch>.jpg`` and, when ``truth`` is given,
+    the true mask as ``<image_id>_true.jpg`` (reference
+    multi_view_stereonet_utils.py:272-289)."""
+    os.makedirs(output_dir, exist_ok=True)
+    _mask_image(mask).save(os.path.join(output_dir, f"{image_id}_{epoch:04d}.jpg"))
+    if truth is not None:
+        _mask_image(truth).save(os.path.join(output_dir, f"{image_id}_true.jpg"))

@@ -12,8 +12,9 @@ Several processes train as one (``--coordinator host:port --num_processes N
 ``MVS_PROCESS_ID`` environment variables), one process per card, as the JAX CLI's
 processes train on one global mesh (``parallel/``). ``batch_size`` stays the global
 batch: each data shard loads ``batch_size / data`` samples of its strided shard of the
-split, and with ``mesh_view`` v > 1 each group of v processes shares those samples
-and splits their comparison views. Every rank holds the global batch's loss, which
+split, and with ``mesh_view`` v > 1 the first process of each group of v loads those
+samples and hands each process of the group its share of their comparison views
+(``parallel.ViewGroupFeed``), at any ``num_workers``. Every rank holds the global batch's loss, which
 the delayed finiteness check reads on every rank, and the global gradient. Process 0
 alone writes losses.txt, plots, debug images, validation and checkpoints (the bare
 module's ``state_dict``, as a single process writes them); validation and debug
@@ -75,7 +76,8 @@ from ..models import (
     MultiViewStereoNet, MultiViewStereoNetConfig, mvsnet_forward, resolve_dtypes)
 from ..ops.quantize import dequantize_images_u8
 from ..parallel import (
-    ShardedDataset, initialize, is_main_process, make_process_mesh, shutdown)
+    ShardedDataset, ViewGroupFeed, initialize, is_main_process, make_process_mesh,
+    shutdown)
 from ..utils.timing import count_parameters, profile_trace, set_seeds
 from .config import load_params_yaml
 from .logging import log_debug_images, log_losses, log_validation_metrics, plot_losses
@@ -272,11 +274,6 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     if mesh_view > 1 and two_view:
         raise ValueError("mesh_view > 1 shards the comparison views, and the two-view "
                          "recipe has one")
-    if mesh_view > 1 and params_cfg["augment"] and workers > 1:
-        raise ValueError(
-            "mesh_view > 1 with augmentation needs num_workers: 1: the processes of a view "
-            "group each load the same samples, and with more loader threads a sample's "
-            "augmentation draws depend on thread scheduling, so they would differ")
     mesh = make_process_mesh(view=mesh_view)
     is_main = is_main_process()
     log = print if is_main else (lambda *args, **kwargs: None)
@@ -291,8 +288,10 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
                            params_cfg["num_train_images"], rng)
     if mesh.data > 1:
         dataset = ShardedDataset(dataset, mesh.data_index, mesh.data)
+    # A view group's leader alone iterates it; the others take their shares from it.
     loader = BatchLoader(dataset, local_batch, shuffle=params_cfg["shuffle"], seed=seed,
                          workers=workers)
+    feed = ViewGroupFeed(mesh, loader, device)
     steps_per_epoch = max(len(loader), 1)
     val_loader = None
     if val_split and is_main:
@@ -330,7 +329,8 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
     log(f"model parameters: {count_parameters(model)}; training on {name}"
         + (f", {mesh.data} data x {mesh.view} view processes" if mesh.distributed else ""))
     # With workers > 1 the pairing of augmentation draws and samples depends on
-    # thread scheduling (data/transforms.py ThreadLocalRng).
+    # thread scheduling (data/transforms.py ThreadLocalRng); a view group still trains
+    # on one draw, its leader's.
     log(f"data loader workers: {workers} (run-to-run bit-reproducibility requires "
         "num_workers: 1)")
     u8_mode = (training_u8_dequantize_mode(params_cfg)
@@ -394,11 +394,9 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
             t_epoch = time.time()
             # The shuffle order is a function of the epoch, so a resumed run follows the
             # uninterrupted one.
-            loader.set_epoch(epoch)
+            feed.set_epoch(epoch)
             queued = None
-            for batch_idx, batch in enumerate(loader):
-                names = batch["left_filenames"]
-                tensors = _batch_tensors(mesh.shard_batch(batch), device)
+            for batch_idx, (batch, tensors) in enumerate(feed):
                 entering = ((_clone(model.state_dict()), _clone(optimizer.state_dict()),
                              step_count) if is_main else None)
                 loss, loss_dict = train_step(model, two_view_batch(tensors) if two_view
@@ -414,10 +412,12 @@ def train(params_cfg, data_dir, train_split, val_split, output_dir, max_steps=0,
                     profile_dir = None
                 if (is_main and params_cfg["debug_image_freq"]
                         and step_count % params_cfg["debug_image_freq"] == 0):
-                    # From the V-axis batch, every view, also in the two-view recipe.
+                    # From the V-axis batch, every view, also in the two-view recipe;
+                    # process 0 leads its view group, so it holds the loader's batch.
                     full = tensors if mesh.view == 1 else _batch_tensors(batch, device)
-                    _debug_images(model, model_config, full, names, u8_mode, impl, epoch,
-                                  step_count, os.path.join(output_dir, "debug_images"))
+                    _debug_images(model, model_config, full, batch["left_filenames"],
+                                  u8_mode, impl, epoch, step_count,
+                                  os.path.join(output_dir, "debug_images"))
                 if (max_steps and step_count >= max_steps) or stop():
                     break
             # The epoch's last step is read before its state is saved as a checkpoint.

@@ -22,14 +22,18 @@ The job is a JSON object with ``mode``:
   ``<out>/<case>_rank<r>.npz``: loss, local_loss, the loss dict's entries and every
   gradient.
 - "cli": ``train_cli.main(argv)`` on the CPU, with ``poison_rank`` (optional): that
-  rank's training batches from the second on hold NaN images.
+  rank's training batches from the second on hold NaN images; and ``record``
+  (optional): a directory where ``record_training`` writes what each step trained on.
 """
 
+import contextlib
+import hashlib
 import json
 import os
 import socket
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -107,6 +111,82 @@ def run_steps(job, pid):
         np.savez(os.path.join(job["out"], f"{name}_rank{pid}.npz"), **out)
 
 
+def digest(x) -> str:
+    """SHA-256 of an array's or a tensor's dtype, shape and bytes."""
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    x = np.ascontiguousarray(x)
+    return hashlib.sha256(f"{x.dtype} {x.shape} ".encode() + x.tobytes()).hexdigest()
+
+
+class _Counting:
+    """A dataset that counts the samples taken from it (from any thread)."""
+
+    def __init__(self, dataset):
+        self.dataset, self.taken, self._lock = dataset, 0, threading.Lock()
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        with self._lock:
+            self.taken += 1
+        return self.dataset[idx]
+
+
+@contextlib.contextmanager
+def record_training(train_cli, out, rank):
+    """Within it, ``train_cli.train`` records, at each step k counted from 0 in this
+    process: the SHA-256 of each tensor the step trains on (``digest``); on rank 0, the
+    weights entering the step, the gradient it applies (after the all-reduce) and its
+    loss (``<out>/step<k>.pt``); and on a rank that loaded the step's batch (every rank
+    at ``mesh_view`` 1, a view group's leader otherwise), that batch without its
+    filenames (``<out>/loaded<k>_rank<r>.npz``). On leaving, it writes
+    ``<out>/rank<r>.json``: the digests by step and the samples this rank's loader
+    decoded; and restores ``train_cli``."""
+    build, feed_class = train_cli.build_train_step, train_cli.ViewGroupFeed
+    digests, datasets = [], []
+
+    def recording_build(*args, **kwargs):
+        built = build(*args, **kwargs)
+        step = built[3]
+
+        def recording_step(model, batch):
+            k = len(digests)
+            digests.append({key: digest(v) for key, v in batch.items()})
+            weights = {key: v.detach().cpu().clone() for key, v in model.state_dict().items()}
+            loss, loss_dict = step(model, batch)
+            if rank == 0:
+                torch.save({"weights": weights, "loss": loss.item(),
+                            "grads": {key: p.grad.detach().cpu().clone()
+                                      for key, p in model.named_parameters()}},
+                           os.path.join(out, f"step{k}.pt"))
+            return loss, loss_dict
+        return (*built[:3], recording_step)
+
+    class RecordingFeed(feed_class):
+        def __init__(self, mesh, loader, device):
+            loader.dataset = _Counting(loader.dataset)
+            datasets.append(loader.dataset)
+            super().__init__(mesh, loader, device)
+
+        def __iter__(self):
+            for batch, tensors in super().__iter__():
+                if batch is not None:
+                    np.savez(os.path.join(out, f"loaded{len(digests)}_rank{rank}.npz"),
+                             **{key: v for key, v in batch.items()
+                                if not key.endswith("filenames")})
+                yield batch, tensors
+
+    os.makedirs(out, exist_ok=True)
+    train_cli.build_train_step, train_cli.ViewGroupFeed = recording_build, RecordingFeed
+    try:
+        yield
+    finally:
+        train_cli.build_train_step, train_cli.ViewGroupFeed = build, feed_class
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump({"digests": digests, "decoded": sum(d.taken for d in datasets)}, f)
+
+
 def run_cli(job, pid):
     from multi_view_stereonet_tpu_torch.train import train_cli
 
@@ -120,7 +200,9 @@ def run_cli(job, pid):
                     yield batch
 
         train_cli.BatchLoader = PoisonedLoader
-    train_cli.main(job["argv"])
+    with (record_training(train_cli, job["record"], pid) if job.get("record")
+          else contextlib.nullcontext()):
+        train_cli.main(job["argv"])
 
 
 def main():

@@ -175,6 +175,7 @@ def python_files(target):
 
 @pytest.mark.parametrize("target", ["chip_smoke.py", "scripts/profile_torch_serving.py",
                                     "scripts/compare_torch_trees.py",
+                                    "scripts/compare_torch_view_feed.py",
                                     "scripts/refiner_variants.py",
                                     "multi_view_stereonet_tpu_torch"])
 def test_imports_nothing_of_jax_or_the_jax_package(target):

@@ -27,14 +27,21 @@ single-process step on the global batch.
   ``global_batch`` does, for two steps and a third after a relaunch resumes; one
   checkpoint directory an epoch, which the single-process eval CLI scores.
 - A NaN in one process's batch: both exit with code 3, process 0 alone dumps.
+- One loader a view group: the train CLI as two processes at ``mesh_view`` 2 with
+  augmentation and two loader threads (global B = 4 at V = 2, two steps), each step
+  recorded (``record_training``): at every step both ranks train on process 0's loaded
+  batch, the left image, K, the poses and the left truth equal and each rank's views
+  its slice; process 1 decodes no sample; process 0's debug images come from the whole
+  batch; the first step's loss and gradient within the bars above of the JAX
+  ``make_loss_fn`` on the batch process 0 loaded.
 - The refusals: a batch not divisible by the data size, views not divisible by
-  ``mesh_view``, ``mesh_view`` without the processes, with the two-view recipe, and
-  with augmentation over several loader threads.
+  ``mesh_view``, ``mesh_view`` without the processes, and with the two-view recipe.
 
 Every worker has a time limit and the process group a finite timeout, so a deadlock
 fails its test instead of hanging the run.
 """
 
+import json
 import os
 
 import numpy as np
@@ -58,7 +65,7 @@ from multi_view_stereonet_tpu_torch.parallel import (
     ProcessMesh, ShardedDataset, local_shard_indices, make_process_mesh)
 from multi_view_stereonet_tpu_torch.train import train_cli
 
-from tests._torch_distributed_worker import start, wait
+from tests._torch_distributed_worker import digest, start, wait
 from tests.synthetic_data import make_gta_sfm_tree
 from tests.test_torch_cuda import rendered_pair
 from tests.test_torch_model import JAX_PARITY, weights
@@ -310,6 +317,65 @@ def test_a_nan_in_one_process_ends_both_with_exit_3(tree, tmp_path):
     assert state["step"] == 0
 
 
+# ---- one loader a view group ----
+
+
+@pytest.fixture(scope="module")
+def view_group_run(tmp_path_factory):
+    """(record dir, run dir, seed, each rank's rank<r>.json) of the train CLI as two
+    processes at mesh_view 2, augmentation on, two loader threads, over eight samples
+    at V = 2: two steps of a global batch of 4."""
+    root = tmp_path_factory.mktemp("view_group")
+    data_dir, split = make_gta_sfm_tree(str(root / "gta"), rows=32, cols=48, frames=10,
+                                        num_sequences=1, comparisons=2)
+    cfg = tiny_cfg(batch_size=4, mesh_view=2, augment=True, num_workers=2,
+                   debug_image_freq=2)
+    config = root / "params.yaml"
+    config.write_text(yaml.safe_dump(cfg))
+    out, record = str(root / "run"), str(root / "record")
+    argv = ["--config", str(config), "--data_dir", data_dir, "--train_split", split,
+            "--output_dir", out, "--max_steps", "2"]
+    for rc, _, err in wait(start({"mode": "cli", "argv": argv, "record": record},
+                                 str(root), "view_group")):
+        assert rc == 0, err[-3000:]
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(record, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return record, out, cfg["seed"], ranks
+
+
+def test_a_view_group_trains_on_its_leaders_batch(view_group_run):
+    record, out, _, ranks = view_group_run
+    assert [len(r["digests"]) for r in ranks] == [2, 2]
+    for k in range(2):
+        assert not os.path.exists(os.path.join(record, f"loaded{k}_rank1.npz"))
+        loaded = dict(np.load(os.path.join(record, f"loaded{k}_rank0.npz")))
+        assert loaded["right_images"].shape[:2] == (4, 2)
+        for r, rank in enumerate(ranks):
+            share = ProcessMesh(view=2, view_index=r).shard_batch(loaded)
+            assert rank["digests"][k] == {key: digest(v) for key, v in share.items()}, (k, r)
+    assert ranks[0]["digests"][0] != ranks[0]["digests"][1]
+    assert os.listdir(os.path.join(out, "debug_images"))
+
+
+def test_only_the_view_groups_leader_decodes(view_group_run):
+    _, _, _, ranks = view_group_run
+    assert [r["decoded"] for r in ranks] == [8, 0]
+
+
+def test_a_view_groups_first_step_matches_jax(view_group_run):
+    """The loss and gradient the two processes applied at step 1, from the CLI's init,
+    against JAX's on the batch process 0 loaded."""
+    record, _, seed, _ = view_group_run
+    batch = dict(np.load(os.path.join(record, "loaded0_rank0.npz")))
+    step0 = torch.load(os.path.join(record, "step0.pt"), weights_only=True)
+    params = jax.tree.map(jnp.asarray, init_params_numpy(seed, reference=True))
+    ref_loss, ref_grads = jax_loss_and_grads(params, batch, D)
+    np.testing.assert_allclose(step0["loss"], ref_loss, rtol=LOSS_BAR)
+    assert_grads_close({k: v.numpy() for k, v in step0["grads"].items()}, ref_grads)
+
+
 # ---- refusals ----
 
 
@@ -318,7 +384,7 @@ def _train(tmp_path, **overrides):
                     str(tmp_path / "run"), device="cpu")
 
 
-@pytest.mark.parametrize("case", ["batch", "views", "one_process", "two_view", "augment"])
+@pytest.mark.parametrize("case", ["batch", "views", "one_process", "two_view"])
 def test_refusals(case, tmp_path):
     with pytest.raises(ValueError) as exc:
         if case == "batch":
@@ -327,10 +393,7 @@ def test_refusals(case, tmp_path):
             ProcessMesh(view=2).shard_batch({"right_images": np.zeros((1, 3, 4, 4, 3))})
         elif case == "one_process":
             make_process_mesh(view=2)
-        elif case == "two_view":
-            _train(tmp_path, mesh_view=2, estimate_right_idepthmap=True)
         else:
-            _train(tmp_path, mesh_view=2, augment=True, num_workers=2)
+            _train(tmp_path, mesh_view=2, estimate_right_idepthmap=True)
     assert {"batch": "divisible by the mesh's data size", "views": "not divisible by mesh_view",
-            "one_process": "this run has one", "two_view": "two-view",
-            "augment": "num_workers: 1"}[case] in str(exc.value)
+            "one_process": "this run has one", "two_view": "two-view"}[case] in str(exc.value)

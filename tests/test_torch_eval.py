@@ -15,8 +15,8 @@
 - The pieces: the metrics (exact: numpy on both sides), the supervised losses
   (1e-6 relative; ``compute_losses`` on one forward's outputs 1e-5, and each
   two-view branch on the two forwards of a rendered pair 1e-5, occlusion masks
-  equal up to ties), the loss logs (identical text), the idepth images (identical
-  bytes), timing.
+  equal up to ties), the loss logs (identical text), the idepth images and the
+  occlusion-mask images (identical bytes), timing.
 """
 
 import dataclasses
@@ -408,6 +408,24 @@ def test_idepth_images_equal_jax(tmp_path):
     pyramid = [rng.uniform(size=(16 >> i, 20 >> i, 3)).astype(np.float32) for i in range(3)]
     np.testing.assert_array_equal(visualization.pyramid_collage(pyramid),
                                   jax_visualization.pyramid_collage(pyramid))
+
+
+@pytest.mark.parametrize("truth", [True, False])
+def test_occlusion_mask_images_equal_jax(truth, tmp_path):
+    """The same mask and truth, the port's as tensors with a unit batch axis, the JAX
+    function's as arrays: the same file names and bytes."""
+    rng = np.random.default_rng(9)
+    mask = rng.uniform(size=(ROWS, COLS)) < 0.3
+    true = (rng.uniform(size=(ROWS, COLS)) < 0.3) if truth else None
+    logging.log_debug_occlusion_mask(
+        3, 7, 1234, torch.from_numpy(mask)[None],
+        None if true is None else torch.from_numpy(true)[None], str(tmp_path / "port"))
+    jax_logging.log_debug_occlusion_mask(3, 7, 1234, mask, true, str(tmp_path / "jax"))
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == ["1234_0003.jpg"] + (["1234_true.jpg"] if truth else [])
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
 
 
 def test_timing_helpers(tmp_path):

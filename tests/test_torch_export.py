@@ -13,8 +13,10 @@ At the JAX package's export test's size (``tests/test_export.py``: B = 1, V = 2,
 - a fresh process runs the artifact with no weights and without importing the port's
   ``models``;
 - an artifact holding the port's custom ops refuses to load where they cannot build.
-The custom ops: ``torch.library.opcheck`` for the two with a CPU version (K1, K4), and
-each op's fake implementation against its plain version's output shapes and dtypes.
+The custom ops: ``torch.library.opcheck`` for the two kernels with a CPU version (K1,
+K4) and for the conv op of ``stage_precision`` artifacts (``ops/precision.py``), and
+each kernel op's fake implementation against its plain version's output shapes and
+dtypes.
 """
 
 import os
@@ -258,7 +260,8 @@ def _gn_case(shape, residual):
             torch.randn(shape, generator=g) if residual else None, C // 8)
 
 
-@pytest.mark.parametrize("case", ["k1_image", "k1_sweep", "k4_res", "k4_5d"])
+@pytest.mark.parametrize("case", ["k1_image", "k1_sweep", "k4_res", "k4_5d", "conv_tf32",
+                                  "conv3d"])
 def test_opcheck_on_the_cpu(case):
     g = torch.Generator().manual_seed(1)
     args = {"k1_image": lambda: (torch.randn(2, 6, 8, 3, generator=g),
@@ -266,9 +269,17 @@ def test_opcheck_on_the_cpu(case):
             "k1_sweep": lambda: (torch.randn(1, 6, 8, 3, generator=g),
                                  torch.rand(1, 4, 6, 8, 2, generator=g) * 2.4 - 1.2, False),
             "k4_res": lambda: _gn_case((2, 32, 4, 6), True),
-            "k4_5d": lambda: _gn_case((1, 32, 3, 4, 5), False)}[case]()
-    op = (torch.ops.mvs_torch.grid_sample if case.startswith("k1")
-          else torch.ops.mvs_torch.group_norm_act).default
+            "k4_5d": lambda: _gn_case((1, 32, 3, 4, 5), False),
+            # A dilated, strided refiner-like conv with its bias; the cost filter's conv3d.
+            "conv_tf32": lambda: (torch.randn(2, 35, 9, 11, generator=g),
+                                  torch.randn(32, 35, 3, 3, generator=g),
+                                  torch.randn(32, generator=g), [2, 1], [2, 2], [2, 2], 1,
+                                  True),
+            "conv3d": lambda: (torch.randn(1, 4, 5, 6, 7, generator=g),
+                               torch.randn(4, 4, 3, 3, 3, generator=g), None, [1, 1, 1],
+                               [1, 1, 1], [1, 1, 1], 1, False)}[case]()
+    op = {"k1": torch.ops.mvs_torch.grid_sample, "k4": torch.ops.mvs_torch.group_norm_act,
+          "co": torch.ops.mvs_torch.convolution}[case[:2]].default
     torch.library.opcheck(op, args)
 
 

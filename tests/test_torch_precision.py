@@ -21,7 +21,9 @@ CPU, against the JAX package.
   from zero on the low 13 bits (an independent numpy version), they equal the f32 plain
   versions bit for bit where every conv operand is already a TF32 value, and elsewhere
   differ from them by no more than TF32's bound.
-- K3's pack per precision, and the artifact's precision record.
+- K3's pack per precision, and the artifact's precision record; a ``stage_precision``
+  override held in the artifact (its convs as ``mvs_torch::convolution`` with their
+  mode, bit-equal to the live forward), and no conv op without one.
 """
 
 import os
@@ -578,14 +580,78 @@ def test_the_artifact_records_and_applies_its_precision(tmp_path, monkeypatch):
     assert torch.equal(out, live)
 
 
-def test_the_artifact_refuses_a_stage_override_it_cannot_hold(tmp_path):
+def conv_nodes(exported) -> list:
+    """(target, the model's top-level module whose weight it takes, its tf32 argument
+    or None) of each conv in an exported graph."""
+    params = exported.graph_signature.inputs_to_parameters
+    return [(str(n.target), params[n.args[1].name].split(".")[1],
+             n.args[7] if "mvs_torch" in str(n.target) else None)
+            for n in exported.graph.nodes
+            if n.op == "call_function" and "conv" in str(n.target)]
+
+
+def test_the_artifact_holds_a_stage_override(tmp_path, monkeypatch):
+    """("refiners", "high") at "highest": exactly the refiners' convs are the conv op
+    with tf32 True, every other conv an aten conv; loaded where no card is, it runs at
+    the ambient mode "ieee" with the refiners' convs under cuDNN's TF32 flag (a spy on
+    every conv), gives the caller's flag back, and is bit-equal to the live forward
+    with the caller's flag on and off."""
+    import chip_smoke
+
     model = streaming.MultiViewStereoNet()
     model.load_state_dict(random_state_dict(3))
     config = MultiViewStereoNetConfig(num_idepth_samples=4, matmul_precision="highest",
                                       stage_precision=(("refiners", "high"),))
-    with pytest.raises(ValueError, match="stage_precision in the serving artifact"):
-        export.export_inference(model, config, size=SIZE)
-    # An override that resolves to the ambient mode changes nothing and is exported.
+    exported = export.export_inference(model, config, size=SIZE)
+    assert exported.mvs_precision == "ieee"
+    assert export.custom_ops(exported) == ["mvs_torch::convolution"]
+    nodes = conv_nodes(exported)
+    refiners = {f"refiner{lvl}" for lvl in range(5)}
+    assert {owner for _, owner, _ in nodes} == refiners | {
+        "left_feature_extractor", "right_feature_extractor", "volume_filter4"}
+    for target, owner, tf32 in nodes:
+        if owner in refiners:
+            assert (target, tf32) == ("mvs_torch.convolution.default", True), owner
+        else:
+            assert target.startswith("aten.conv"), (target, owner)
+    path = str(tmp_path / "override.pt2")
+    export.save_exported(exported, path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loaded = export.load_exported(path)
+    args = export._example_inputs(1, 1, SIZE, False, "cpu")
+    with torch.no_grad():
+        live = export.make_serving_fn(model, config)(*args)
+    for ambient in (False, True):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", ambient)
+        assert torch.equal(loaded(*args), live)
+        assert torch.backends.cudnn.allow_tf32 == ambient
+        flags = chip_smoke.conv_flags(loaded, args)
+        assert flags == {f"{'op' if owner in refiners else 'aten'} {owner}": [owner in refiners]
+                         for _, owner, _ in nodes}
+
+
+def test_an_artifact_without_a_stage_override_keeps_its_graph(monkeypatch):
+    """No conv op where every stage is at the ambient mode: an override to that mode
+    exports the graph, node for node, of the default config traced without
+    ``ops.precision.exporting``."""
+    model = streaming.MultiViewStereoNet()
+    model.load_state_dict(random_state_dict(3))
     same = MultiViewStereoNetConfig(num_idepth_samples=4, matmul_precision="default",
                                     stage_precision=(("refiners", "highest"),))
-    assert export.export_inference(model, same, size=SIZE).mvs_precision == "ieee"
+    exported = export.export_inference(model, same, size=SIZE)
+    assert exported.mvs_precision == "ieee" and export.custom_ops(exported) == []
+
+    class Untouched:
+        def __init__(self, mode):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    monkeypatch.setattr(precision, "exporting", Untouched)
+    plain = export.export_inference(model, MultiViewStereoNetConfig(num_idepth_samples=4),
+                                    size=SIZE)
+    assert ([(n.op, str(n.target)) for n in exported.graph.nodes]
+            == [(n.op, str(n.target)) for n in plain.graph.nodes])
