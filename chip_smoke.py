@@ -215,6 +215,18 @@ Phases, each printing its results; any failure raises and exits non-zero:
    conv (``conv_flags``) reading cuDNN's TF32 flag on at the refiners' convs and off at
    every other, K3 at 1xTF32 and K2 at 3xTF32, the flag restored. A bar missed fails the
    phase after every measurement is printed.
+14. Replicas: ``StreamingRunner`` with the card named twice, two replicas each on a
+   stream of its own. (a) K3's cooperative grid queued on two streams at once: ms a
+   launch of a CUDA graph of launches on one stream and of one split over two parallel
+   branches, in turns (do two grids share the card or run one at a time?), outputs
+   bit-equal to a launch alone. (b) The V = 1 tree's four requests and
+   its first again at batch 2 (two split steps, then the tail whole on replica 0)
+   bit-equal to one replica at batch 1 over f32 and u8, the f16 fetch the f32 output
+   cast, the launches of five B = 1 forwards, one K3 barrier counter a replica stream,
+   the caller's cuDNN TF32 flag unchanged (off, then on). (c) The LONG tree at B = 8 on
+   one replica and on two, in turns: depthmaps/s with the readback and peak memory.
+   Every wait on the card has a deadline (``Deadline``): a hang ends the run with exit
+   code 1.
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
@@ -224,7 +236,8 @@ bounds and library times (launches are phase 4's, "train_launches" phase
 7's first ``train`` call's, "two_view_launches" one phase-8 step's,
 "artifact_launches" and "artifact_launches_b24" phase 9's artifacts' in their
 fresh processes; "op_call_us", "direct_call_us" and "guard_us" phase 9's dispatch
-costs; "multi_process_launches" a process's launches a step in phase 10 (d)), each
+costs; "multi_process_launches" a process's launches a step in phase 10 (d);
+"replica_launches" two replicas' over phase 14 (b)'s five requests), each
 with a "backward" entry (phase 3b), a "bf16" entry (phase 11: its error, device
 times, the f32 kernel's, its bound at bf16, the bar it met and its launches in phase
 11 (b)), a "bf16_backward" entry (phase 12 (a), as "backward" at bf16) and
@@ -246,6 +259,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -331,7 +345,9 @@ TF32_PATH_BAR = 5e-3
 TF32_TRAIN_LOSS_BAR, TF32_TRAIN_GRAD_BAR = 1e-4, 1e-2
 TF32_TRAIN_STEPS = 2
 H0, W0, D = 480, 640, 12
-LONG = 96  # requests of the tree that phases 5 and 6 time
+LONG = 96  # requests of the tree that phases 5, 6 and 14 time
+REPLICA_DEADLINE = 120.0  # seconds any wait on the card in phase 14 may take
+REPLICA_PROBE_CALLS = 100  # K3 launches a stream in phase 14 (a)
 ARTIFACT_KEYS = ("left_image", "right_images", "K", "T_right_in_left")
 # K4's shapes in the serving forward at B = 1, V = 1 (the filter also at V = 5).
 GN_SHAPES = (((2, 32, 30, 40), True, "extractor resblocks, N = B + B*V"),
@@ -3416,6 +3432,216 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
             "view_feed": view}
 
 
+class Deadline:
+    """``with Deadline(what):`` ends the process with exit code 1, after printing what
+    did not finish, if its body runs past ``seconds``: a wait on the card that never
+    returns (two cooperative grids each waiting at a grid barrier for the other's SMs)
+    fails the run instead of hanging it. ``os._exit``: a normal exit frees the card's
+    memory, which waits for the hung card."""
+
+    def __init__(self, what, seconds=REPLICA_DEADLINE):
+        self.what, self.seconds = what, seconds
+
+    def __enter__(self):
+        self.timer = threading.Timer(self.seconds, self.expire)
+        self.timer.daemon = True
+        self.timer.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.cancel()
+        return False
+
+    def expire(self):
+        log(f"phase 14: {self.what} did not finish within {self.seconds:.0f} s; the card "
+            "hangs")
+        os._exit(1)
+
+
+class Cycled:
+    """``n`` requests: ``dataset``'s, taken again from its first once they run out."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i % len(self.dataset)]
+
+
+def cooperative_grids(dev, smi, failures):
+    """Phase 14 (a): K3, a cooperative launch of up to one block a SM, queued on two
+    streams at once, as two replicas on one card queue it. Per shape, two CUDA graphs of
+    2 x REPLICA_PROBE_CALLS launches, all on one stream or split over two parallel
+    branches (each stream with its own barrier counter, made by an eager launch first),
+    replayed in turns (one, two, two, one) with every wait under a deadline: ms a launch
+    of each, device time alone (a launch dispatched from the host takes longer than
+    one's device time, so a host-timed run would compare host costs); two / one near 1
+    says the grids run one at a time, near 0.5 that they share the card. Each branch's
+    last output bit-equal to a launch alone."""
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.models import IDepthmapRefiner
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+
+    state = random_state_dict(4)
+    with torch.inference_mode(False):
+        module = IDepthmapRefiner(35)
+        module.load_state_dict({k[len("refiner4."):]: v for k, v in state.items()
+                                if k.startswith("refiner4.")})
+        module = module.to(dev).eval()
+    g = torch.Generator().manual_seed(14)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    calls = 2 * REPLICA_PROBE_CALLS
+    ratios = {}
+    for n in (1, 8):
+        guidance = (torch.rand(n, 35, 30, 40, generator=g) * 2 - 1).to(dev)
+        idepth = (torch.rand(n, 30, 40, generator=g) * 20).to(dev)
+
+        def launch():
+            return refiner_op.idepthmap_refiner(module, guidance, idepth, impl="kernel")
+        with torch.inference_mode():
+            ref = launch()
+            for s in streams:
+                s.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(s):
+                    launch()
+            with Deadline(f"K3 at n={n} on each stream"):
+                torch.cuda.synchronize(dev)
+            graphs = {}
+            for k in (1, 2):
+                graph, last = torch.cuda.CUDAGraph(), {}
+                with torch.cuda.graph(graph, stream=streams[0]):
+                    if k == 2:
+                        streams[1].wait_stream(streams[0])
+                    for c in range(calls):
+                        with torch.cuda.stream(streams[c % k]):
+                            last[c % k] = launch()
+                    if k == 2:
+                        streams[0].wait_stream(streams[1])
+                graphs[k] = graph, last
+            times = {1: [], 2: []}
+            for k in (1, 2, 2, 1):
+                graph, last = graphs[k]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graph.replay()
+                end.record()
+                with Deadline(f"{calls} K3 launches at n={n} on {k} stream(s)"):
+                    end.synchronize()
+                times[k].append(start.elapsed_time(end) / calls)
+                if not all(torch.equal(o, ref) for o in last.values()):
+                    failures.append(f"K3 at n={n} on {k} stream(s) differs from a launch "
+                                    "alone")
+            del graphs
+        one, two = statistics.median(times[1]), statistics.median(times[2])
+        ratios[n] = two / one
+        log(f"replicas (a): K3 (n={n},35,30,40), {calls} launches in a CUDA graph: one "
+            f"stream {', '.join(f'{t:.4f}' for t in times[1])} ms a launch, two parallel "
+            f"branches {', '.join(f'{t:.4f}' for t in times[2])}; two / one "
+            f"{ratios[n]:.3f} (near 1: the grids run one at a time; near 0.5: they share "
+            f"the card); outputs bit-equal to a launch alone ({smi})")
+    return ratios
+
+
+def replica_phase(dev, inputs, smi):
+    """Phase 14: the runner over two replicas on the one card (the card named twice).
+    (a) ``cooperative_grids``. (b) The V = 1 tree's four requests and its first again,
+    at batch 2 (two split steps, then the tail whole on replica 0), against one replica
+    at batch 1, whose forwards see the same batches: bit-equal over f32 and u8, the f16
+    fetch the f32 output cast; the launches of five B = 1 forwards; one K3 barrier
+    counter a replica stream; the caller's cuDNN TF32 flag unchanged, off and on. (c) The
+    LONG tree at B = 8, one replica and two on the card in turns (one, two, two, one):
+    depthmaps/s with the readback in the steady window and over the run, and peak
+    memory. Every wait on the card is under a ``Deadline``; a bar missed fails the phase
+    after every measurement is printed. Returns the launches of (b)'s f32 run and the
+    rates."""
+    from multi_view_stereonet_tpu_torch.eval.streaming import (
+        IN_FLIGHT, StreamingRunner, load_model, make_dataset, model_config_from_params)
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    failures = []
+    ratios = cooperative_grids(dev, smi, failures)
+
+    cfg = load_params_yaml(inputs["params_yaml"])
+    config = model_config_from_params(cfg)
+    model = load_model(inputs["weights_dir"], dev)
+    data_dir, split = inputs["trees"][1]
+    datasets = {u8: Cycled(make_dataset(data_dir, split, cfg, "pil", u8_output=u8), 5)
+                for u8 in (False, True)}
+
+    def serve_all(runner, u8, batch_size):
+        with Deadline(f"the runner on {len(runner.devices)} replica(s) at batch "
+                      f"{batch_size}"):
+            served = list(runner.run(datasets[u8], batch_size=batch_size, workers=1))
+        return (np.concatenate([d for d, _ in served]),
+                [n for _, names in served for n in names])
+
+    one, names = serve_all(StreamingRunner(model, config, device=dev), False, 1)
+    launches = None
+    for u8, fetch, flag in ((False, None, False), (True, None, True),
+                            (False, torch.float16, False)):
+        torch.backends.cudnn.allow_tf32 = flag
+        runner = StreamingRunner(model, config, devices=[dev, dev], fetch_dtype=fetch)
+        zero_launches()
+        got, got_names = serve_all(runner, u8, 2)
+        if launches is None:
+            launches = read_launches()
+        after = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        ref = one if fetch is None else one.astype(np.float16)
+        same = (got.dtype == ref.dtype and got.shape == ref.shape
+                and np.array_equal(got.view(np.uint8), ref.view(np.uint8)))
+        keys = {(dev.index, r.stream.cuda_stream) for r in runner._replicas}
+        counters = len(keys) == 2 and keys <= set(refiner_op._barriers)
+        what = "f16 fetch" if fetch is not None else "u8" if u8 else "f32"
+        log(f"replicas (b): the card named twice, {what}, caller's cuDNN TF32 {flag}: "
+            f"{len(got_names)} requests at batch 2 (split, split, the tail whole) "
+            f"{'equal to the f32 output cast of' if fetch else 'bit-equal to'} one replica "
+            f"at batch 1: {same}; names in order {got_names == names}; a K3 barrier counter "
+            f"a replica stream: {counters}; the flag after the run {after}")
+        if not (same and got_names == names and counters and after is flag
+                and np.isfinite(got.astype(np.float32)).all()):
+            failures.append(f"two replicas, {what}: same {same}, counters {counters}, "
+                            f"flag {after}")
+    expected = expected_launches([(1, 1)] * len(names))
+    log(f"replicas (b): launches of the f32 run {launches} (expected {expected}: five "
+        "B=1 forwards)")
+    if launches != expected:
+        failures.append(f"two replicas launched {launches}, expected {expected}")
+
+    long_data = make_dataset(*inputs["long"], cfg, "pil")
+    rates = {1: [], 2: []}
+    for k in (1, 2, 2, 1):
+        runner = StreamingRunner(model, config, devices=[dev] * k)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        stamps, count = [], 0
+        t0 = time.perf_counter()
+        with Deadline(f"the LONG tree at B=8 on {k} replica(s)"):
+            for _, batch_names in runner.run(long_data, batch_size=8):
+                stamps.append(time.perf_counter())
+                count += len(batch_names)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        window = np.array(stamps[IN_FLIGHT + 2:len(stamps) - IN_FLIGHT])
+        if count != LONG or len(window) < 4:
+            failures.append(f"the LONG tree on {k} replica(s): {count} results")
+            continue
+        steady = 8 * (len(window) - 1) / float(window[-1] - window[0])
+        whole = count / (stamps[-1] - t0)
+        rates[k].append({"steady": steady, "whole": whole, "peak_gib": peak})
+        log(f"replicas (c): {k} replica(s) on the card, B=8 V=1 {H0}x{W0} D={D}: "
+            f"{steady:.2f} depthmaps/s with the readback over {len(window) - 1} steady "
+            f"steps, {whole:.2f} over the run of {LONG} (loader start-up included), host "
+            f"decode with 4 threads; peak memory {peak:.3f} GiB ({smi})")
+    if failures:
+        raise AssertionError("phase 14: " + "; ".join(failures))
+    return {"launches": launches, "k3_two_over_one": ratios, "rates": rates}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an "
@@ -3465,6 +3691,7 @@ def main():
         bf16_train = phase("12 (bf16 training)", bf16_train_phase, dev, inputs, smi, trained,
                            backward_bf16)
         tf32 = phase("13 (matmul precision)", precision_phase, dev, inputs, smi, served)
+        replicas = phase("14 (replicas)", replica_phase, dev, inputs, smi)
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
@@ -3506,6 +3733,7 @@ def main():
          "artifact_launches_b24": artifact["launches"]["b24"]["warp"],
          **artifact["dispatch"]["warp"],
          "multi_process_launches": multi["per_step"]["warp"],
+         "replica_launches": replicas["launches"]["warp"],
          **kernels["warp"], "bf16": {**bf16["kernels"]["warp"],
                                      "launches": bf16["launches"]["warp"]},
          "bf16_train_launches": bf16_train["launches"]["warp"],
@@ -3521,6 +3749,7 @@ def main():
          "artifact_launches_b24": artifact["launches"]["b24"]["chain"],
          **artifact["dispatch"]["chain"],
          "multi_process_launches": multi["per_step"]["chain"],
+         "replica_launches": replicas["launches"]["chain"],
          **kernels["chain"], "bf16": {**bf16["kernels"]["chain"],
                                       "launches": bf16["launches"]["chain"]},
          "bf16_train_launches": bf16_train["launches"]["chain"],
@@ -3537,6 +3766,7 @@ def main():
          "artifact_launches_b24": artifact["launches"]["b24"]["refiner"],
          **artifact["dispatch"]["refiner"],
          "multi_process_launches": multi["per_step"]["refiner"],
+         "replica_launches": replicas["launches"]["refiner"],
          **kernels["refiner"], "bf16": {**bf16["kernels"]["refiner"],
                                         "launches": bf16["launches"]["refiner"]},
          "bf16_train_launches": bf16_train["launches"]["refiner"],
@@ -3552,6 +3782,7 @@ def main():
          "artifact_launches_b24": artifact["launches"]["b24"]["gn_apply"],
          **artifact["dispatch"]["gn_apply"],
          "multi_process_launches": multi["per_step"]["gn_apply"],
+         "replica_launches": replicas["launches"]["gn_apply"],
          **kernels["gn_apply"], "bf16": {**bf16["kernels"]["gn_apply"],
                                          "launches": bf16["launches"]["gn_apply"]},
          "bf16_train_launches": bf16_train["launches"]["gn_apply"],

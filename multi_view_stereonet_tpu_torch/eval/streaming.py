@@ -1,14 +1,22 @@
-"""Batched streaming inference on one device.
+"""Batched streaming inference, each batch split by samples over the devices.
 
-Port of ``multi_view_stereonet_tpu/eval/streaming.py`` for one device (the
-mesh is not ported; fleet sharding is ``--shard_id/--num_shards``). A
-host-side loader thread keeps decoded batches ahead. Each batch is copied to
-the card from pinned host memory without blocking, the forward is queued,
-and its output is copied back into one of a ring of ``IN_FLIGHT + 1`` pinned
-host buffers; two steps stay in flight, so decode, the host-to-device copy,
-the forward and the readback of consecutive batches overlap. ``run`` yields
-numpy arrays of their own (copies out of the ring), so a caller may keep
-them: the page-locked memory stays the ring's.
+Port of ``multi_view_stereonet_tpu/eval/streaming.py``. The JAX runner shards each batch
+over the ``data`` axis of a mesh of every device (``make_mesh``) and replicates a batch
+that does not divide by the device count; here ``StreamingRunner`` keeps one replica of
+the model a device (every card the process sees by default) and serves rows
+``[i*b/n, (i+1)*b/n)`` of a batch of b on replica i of n, or the whole batch on replica
+0 where n does not divide b (the trailing partial batch): the JAX devices compute such
+a batch whole, each the same, so replica 0 alone computes what they compute. Fleet
+sharding across processes is ``--shard_id/--num_shards``.
+
+A host-side loader thread keeps decoded batches ahead. One host thread dispatches every
+replica in turn, as the JAX runner's one host loop does: each replica's rows are copied
+to its card from pinned host memory without blocking, its forward is queued, and its
+output is copied back into its rows of one of a ring of ``IN_FLIGHT + 1`` pinned host
+buffers; two steps stay in flight, so decode, the host-to-device copies, the forwards
+and the readbacks of consecutive batches overlap. ``run`` yields numpy arrays of their
+own (copies out of the ring), so a caller may keep them: the page-locked memory stays
+the ring's.
 
 The transport follows the dataset's image dtype. A dataset that emits uint8
 pixels (``make_dataset(..., u8_output=True)``, the CLI's ``--transfer_u8``)
@@ -18,8 +26,8 @@ ships 4x fewer bytes, dequantized on the card bit-exactly
 the readback.
 
 Usage (library):
-    runner = StreamingRunner(model, MultiViewStereoNetConfig())  # on the card
-    for idepthmaps, names in runner.run(dataset, batch_size=1):
+    runner = StreamingRunner(model, MultiViewStereoNetConfig())  # every card
+    for idepthmaps, names in runner.run(dataset, batch_size=8):
         ...  # idepthmaps: (B, H, W) numpy array
 
 CLI (weights: ``<weights_dir>/stereo_network.pth``, the port's state dict, or the JAX
@@ -28,7 +36,10 @@ package's ``stereo_network.msgpack``, or the reference's TorchScript
 params: ``--params_yaml`` or ``<weights_dir>/../../params.yaml``):
     python -m multi_view_stereonet_tpu_torch.eval.streaming \
         <weights_dir> <data_dir> <split> [--batch_size 8] [--transfer_u8] \
-        [--fetch_f16] [--bf16] [--shard_id I --num_shards N] [--device cpu]
+        [--fetch_f16] [--bf16] [--shard_id I --num_shards N] [--device cuda:0 | cpu]
+
+``--device cuda`` (the default) serves on every card the process sees, ``cuda:<i>`` on
+that card alone, ``cpu`` on the CPU; the last line names the devices that served.
 
 The forward's dtype comes from ``--bf16`` alone (``compute_dtype`` bfloat16, else
 float32), as the JAX CLI sets it: the CLI reads no dtype key of params.yaml, and no
@@ -44,9 +55,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import copy
 import dataclasses
 import os
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -124,22 +138,80 @@ class ReadbackRing:
         return buf
 
 
+class Replica(NamedTuple):
+    """One copy of the served model: its device, and the stream its work is queued on
+    (None: the device's current stream)."""
+    model: MultiViewStereoNet
+    device: torch.device
+    stream: "torch.cuda.Stream | None"
+
+
+def serving_devices(device=None, devices=None) -> tuple:
+    """The devices a runner serves on, one replica each: ``device`` alone, or each of
+    ``devices`` in order, or (neither given) every card the process sees, as the JAX
+    runner's default mesh takes every device. No card raises (``serving_device``); so do
+    both arguments given and an empty ``devices``."""
+    if device is not None and devices is not None:
+        raise ValueError("pass device or devices, not both")
+    if devices is None:
+        if device is not None:
+            return (serving_device(device),)
+        serving_device()  # raises where the process has no card
+        return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    devices = tuple(serving_device(d) for d in devices)
+    if not devices:
+        raise ValueError("devices is empty: name at least one device")
+    return devices
+
+
 class StreamingRunner:
-    """Serves one model on one device: the card unless ``device`` names another. The
-    model, config, device, impl and fetch dtype are fixed at construction and
-    read-only: build a new runner to change them."""
+    """Serves one model over one or more devices, one replica a device: ``device`` alone,
+    or each of ``devices`` in order, or every card the process sees (neither given). The
+    model, config, devices, impl and fetch dtype are fixed at construction and read-only:
+    build a new runner to change them.
+
+    Replica 0 is the caller's model, moved to the first device; the others are copies of
+    it, built outside ``torch.inference_mode`` as ``load_model`` builds its model (K3's
+    weight pack is keyed on each parameter's version counter) and each packed for K3 on
+    its own. A device named twice holds two replicas: that drives the split on a host
+    with one card, as ``--xla_force_host_platform_device_count`` gives the JAX runner
+    several devices on one host (``tests/conftest.py``).
+
+    With more than one replica, each replica's work on a card is queued on a stream of
+    its own, made here: its host-to-device copy, its forward and its readback, and the
+    event the readback is waited on. Each stream first waits for what the host thread's
+    current stream holds on that card. K3's grid-barrier counter is kept per (card,
+    stream), so two replicas on one card never share one; their K3 grids, cooperative
+    launches of up to one block a SM, run one at a time (a cooperative grid starts once
+    every block of it is resident; ``chip_smoke.py`` phase 14 (a)), so neither waits at a
+    grid barrier for SMs the other holds. One host thread dispatches
+    every replica in turn: the precision scope (``ops/precision.py``), the kernels'
+    launch counters and K3's occupancy cache are the process's, not a thread's.
+
+    Replicas compute what one model computes on their rows. Bit for bit where their
+    forwards see the batches one replica's would: K3 serves a refiner only at n <= 8
+    (``ops/cuda/refiner.py`` ``fused_refiner_supported``), so a batch of 16 on one replica
+    runs refiners 4 and 3 as modules and split over two runs both through K3, which agrees
+    with the modules within the kernel's bar, not bit for bit."""
 
     def __init__(self, model: MultiViewStereoNet, model_config: MultiViewStereoNetConfig,
-                 device=None, impl: str = "auto", fetch_dtype=None):
-        self._device = serving_device(device)
-        self._model = model.to(self._device).eval()
+                 device=None, impl: str = "auto", fetch_dtype=None, *, devices=None):
+        devices = serving_devices(device, devices)
+        streams = len(devices) > 1
+        replicas = []
+        with torch.inference_mode(False):
+            for i, d in enumerate(devices):
+                served = (model if i == 0 else copy.deepcopy(replicas[0].model)).to(d).eval()
+                stream = torch.cuda.Stream(d) if streams and d.type == "cuda" else None
+                replicas.append(Replica(served, d, stream))
+        self._replicas = tuple(replicas)
         self._model_config = model_config
         self._impl = impl
         self._fetch_dtype = fetch_dtype
 
     @property
     def model(self):
-        return self._model
+        return self._replicas[0].model
 
     @property
     def model_config(self):
@@ -147,7 +219,11 @@ class StreamingRunner:
 
     @property
     def device(self):
-        return self._device
+        return self._replicas[0].device
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(r.device for r in self._replicas)
 
     @property
     def impl(self):
@@ -157,40 +233,71 @@ class StreamingRunner:
     def fetch_dtype(self):
         return self._fetch_dtype
 
-    def forward(self, batch: dict) -> torch.Tensor:
-        """One batch (numpy arrays under MODEL_KEYS; float32 or uint8 images) ->
-        (B, H, W) on the device, queued."""
-        arrays = {k: batch[k] for k in MODEL_KEYS}
-        with torch.inference_mode():
-            return serving_forward(self._model, to_device(arrays, self._device),
-                                   self._model_config, self._impl, self._fetch_dtype)
+    def _shares(self, n: int) -> list:
+        """(replica index, rows) of a batch of ``n`` samples, as the JAX runner splits it:
+        an equal run of rows a replica where the replicas divide ``n``, else every row on
+        replica 0."""
+        k = len(self._replicas)
+        if k > 1 and n % k == 0:
+            b = n // k
+            return [(i, slice(i * b, (i + 1) * b)) for i in range(k)]
+        return [(0, slice(0, n))]
 
-    def _readback(self, out: torch.Tensor, ring: ReadbackRing, step: int):
-        """Queue the copy of ``out`` into the ring's slot for ``step``: (host tensor,
-        event recorded after the copy, or None on the CPU)."""
-        host = ring.take(step, out.shape, out.dtype)
-        host.copy_(out, non_blocking=True)
-        if self._device.type != "cuda":
-            return host, None
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+    def forward(self, batch: dict):
+        """One batch (numpy arrays under MODEL_KEYS; float32 or uint8 images), queued.
+        One replica: its (B, H, W) output on the device. Several: a list of the outputs
+        of the replicas that served it, in sample order (one entry for a batch served
+        whole by replica 0), each on its replica's device and queued on its stream;
+        synchronize that stream before reading one from another."""
+        outs = [out for _, _, out in self._dispatch(batch)]
+        return outs[0] if len(self._replicas) == 1 else outs
+
+    def _dispatch(self, batch: dict) -> list:
+        """Queue each replica's share of ``batch``: [(replica, rows, output)]."""
+        arrays = {k: batch[k] for k in MODEL_KEYS}
+        shares = self._shares(len(arrays["left_image"]))
+        queued = []
+        for i, rows in shares:
+            replica = self._replicas[i]
+            share = arrays if len(shares) == 1 else {k: v[rows] for k, v in arrays.items()}
+            with _on(replica), torch.inference_mode():
+                out = serving_forward(replica.model, to_device(share, replica.device),
+                                      self._model_config, self._impl, self._fetch_dtype)
+            queued.append((replica, rows, out))
+        return queued
+
+    def _readback(self, queued: list, ring: ReadbackRing, step: int):
+        """Queue the copy of each replica's output into its rows of the ring's slot for
+        ``step``: (host tensor, the events recorded after the copies, none on the CPU)."""
+        outs = [out for _, _, out in queued]
+        host = ring.take(step, (sum(len(o) for o in outs), *outs[0].shape[1:]),
+                         outs[0].dtype)
+        events = []
+        for replica, rows, out in queued:
+            with _on(replica, wait=False):
+                host[rows].copy_(out, non_blocking=True)
+                if replica.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(replica.device))
+                    events.append(done)
+        return host, events
 
     def run(self, dataset, batch_size=8, prefetch=4, workers=4):
-        """Yields (idepthmaps (B, H, W) np.ndarray, left filenames).
+        """Yields (idepthmaps (B, H, W) np.ndarray, left filenames), in sample order.
 
         The loader stays ``prefetch`` batches ahead with ``workers`` decode threads.
         Device work and the copies are queued without blocking; a step's output is
         yielded once ``IN_FLIGHT`` later steps are queued behind it (or the data ends),
-        after the event recorded behind its readback has completed, as a copy: its ring
-        slot is written again ``IN_FLIGHT + 1`` steps later.
+        after every event recorded behind its readbacks has completed, as a copy: its
+        ring slot is written again ``IN_FLIGHT + 1`` steps later.
         """
         loader = BatchLoader(dataset, batch_size, shuffle=False, prefetch=prefetch,
                              drop_last=False, workers=workers)
-        ring = ReadbackRing(IN_FLIGHT + 1, pin_memory=self._device.type == "cuda")
+        ring = ReadbackRing(IN_FLIGHT + 1,
+                            pin_memory=any(d.type == "cuda" for d in self.devices))
         pending = collections.deque()
         for step, batch in enumerate(loader):
-            pending.append((*self._readback(self.forward(batch), ring, step),
+            pending.append((*self._readback(self._dispatch(batch), ring, step),
                             batch["left_filenames"]))
             if len(pending) > IN_FLIGHT:
                 yield _host_result(*pending.popleft())
@@ -198,8 +305,18 @@ class StreamingRunner:
             yield _host_result(*pending.popleft())
 
 
-def _host_result(host: torch.Tensor, done, names):
-    if done is not None:
+def _on(replica: Replica, wait: bool = True):
+    """The context that queues work on ``replica``'s stream (after what the current
+    stream of its card holds, where ``wait``), or nothing where it has none."""
+    if replica.stream is None:
+        return contextlib.nullcontext()
+    if wait:
+        replica.stream.wait_stream(torch.cuda.current_stream(replica.device))
+    return torch.cuda.stream(replica.stream)
+
+
+def _host_result(host: torch.Tensor, events, names):
+    for done in events:
         done.synchronize()
     return host.numpy().copy(), names
 
@@ -274,7 +391,9 @@ def main(argv=None):
     # independent processes, each taking a strided shard of the split.
     parser.add_argument("--shard_id", type=int, default=0)
     parser.add_argument("--num_shards", type=int, default=1)
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda: every card the process sees, each batch split over "
+                             "them by samples; cuda:<i>: that card; cpu")
     args = parser.parse_args(argv)
     if not 0 <= args.shard_id < args.num_shards:
         parser.error(f"--shard_id {args.shard_id} must be in "
@@ -292,12 +411,13 @@ def main(argv=None):
         # Every sample: the shards run no collective, so none need equal lengths.
         dataset = ShardedDataset(dataset, args.shard_id, args.num_shards,
                                  drop_ragged_tail=False)
-    device = serving_device(args.device)
+    # "cuda" is every card, as the JAX CLI's runner takes every device; "cuda:<i>" one.
+    devices = serving_devices(devices=None if args.device == "cuda" else [args.device])
     model_config = dataclasses.replace(model_config_from_params(cfg),
                                        compute_dtype="bfloat16" if args.bf16 else "float32",
                                        matmul_precision="default")
-    runner = StreamingRunner(load_model(args.weights_dir, device), model_config,
-                             device=device,
+    runner = StreamingRunner(load_model(args.weights_dir, devices[0]), model_config,
+                             devices=devices,
                              fetch_dtype=torch.float16 if args.fetch_f16 else None)
 
     t0 = time.perf_counter()
@@ -305,10 +425,14 @@ def main(argv=None):
     for idepths, names in runner.run(dataset, args.batch_size, workers=args.workers):
         count += len(names)
     dt = time.perf_counter() - t0
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"{count} depthmaps in {dt:.2f}s -> {count / dt:.1f} depthmaps/sec on {name}, "
-          "read back to the host")
+    print(f"{count} depthmaps in {dt:.2f}s -> {count / dt:.1f} depthmaps/sec on "
+          f"{describe_devices(devices)}, read back to the host")
 
+
+def describe_devices(devices) -> str:
+    """'2 × NVIDIA H100 80GB HBM3': the count and each kind of device."""
+    names = [torch.cuda.get_device_name(d) if d.type == "cuda" else d.type for d in devices]
+    return ", ".join(f"{names.count(n)} × {n}" for n in dict.fromkeys(names))
 
 if __name__ == "__main__":
     main()

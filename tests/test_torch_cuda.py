@@ -17,7 +17,11 @@ bit-equal to the host pipeline for all 256 values. Each kernel's custom op passe
 ``torch.library.opcheck``, and the serving artifact exported on the card holds all
 four and is bit-equal to the live forward. Two processes on the card over gloo give one
 process's training step (``tests/_torch_distributed_worker.py``); with two cards, each
-kernel launches on its tensors' card while another is current. At bf16: the grid
+kernel launches on its tensors' card while another is current. The streaming runner with
+the card named twice (two replicas, a stream and a K3 barrier counter each) is bit-equal
+to one replica at the same per-forward batches over the f32 and u8 transports; with two
+cards, one replica a card is bit-equal to one card, and a runner on card 1 alone reads
+back what card 0 serves while card 0 is current. At bf16: the grid
 sample's bf16 output is its f32 output rounded, the GroupNorm kernel is within a
 rounding of the GroupNorm value of its plain version, the chain within 5% of max|plain|
 (2% of the f32 chain), the refiner within 1% of max|plain|, K3's bf16 pack is never
@@ -963,6 +967,70 @@ def test_runner_on_the_card_yields_copies_out_of_a_pinned_ring(dev, small_run, m
                  "right_images": np.stack(sample["right_images"])[None],
                  "T_right_in_left": np.stack(sample["T_right_in_left"])[None]}
         np.testing.assert_array_equal(idepth, runner.forward(batch).cpu().numpy())
+
+
+def serve_replicas(runner, dataset, batch_size):
+    """(depthmaps in sample order, names, launches of each kernel in the run)."""
+    before = counts()
+    served = list(runner.run(dataset, batch_size=batch_size, workers=1))
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    return (np.concatenate([d for d, _ in served]), [n for _, ns in served for n in ns],
+            launched)
+
+
+def replica_runs(small_run, devices, u8):
+    """One replica on ``devices[0]`` at batch 1, and one replica a device at batch 2: the
+    same forwards of one request over the three-request tree (1, 1, then the tail's 1
+    on replica 0)."""
+    from multi_view_stereonet_tpu_torch.eval import streaming
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    weights_dir, data_dir, split = small_run
+    cfg = load_params_yaml(os.path.join(weights_dir, "..", "..", "params.yaml"))
+    config = streaming.model_config_from_params(cfg)
+    model = streaming.load_model(weights_dir, devices[0])
+    dataset = streaming.make_dataset(data_dir, split, cfg, decode_backend="pil",
+                                     u8_output=u8)
+    one = serve_replicas(streaming.StreamingRunner(model, config, device=devices[0]),
+                         dataset, 1)
+    runner = streaming.StreamingRunner(model, config, devices=devices)
+    return one, serve_replicas(runner, dataset, 2), runner, dataset
+
+
+@pytest.mark.parametrize("u8", [False, True])
+def test_two_replicas_on_one_card_are_bit_equal_to_one(dev, small_run, u8):
+    """The card named twice: two replicas, each on a stream of its own with a K3 barrier
+    counter of its own, bit-equal to one replica at the same per-forward batches over the
+    f32 and u8 transports, launching what its forwards launch."""
+    flag = torch.backends.cudnn.allow_tf32
+    one, two, runner, _ = replica_runs(small_run, [dev, dev], u8)
+    np.testing.assert_array_equal(two[0].view(np.int32), one[0].view(np.int32))
+    assert two[1] == one[1] and two[2] == one[2] and all(n > 0 for n in two[2])
+    streams = [r.stream for r in runner._replicas]
+    assert None not in streams and streams[0] != streams[1]
+    index = torch.cuda.current_device()
+    assert {(index, s.cuda_stream) for s in streams} <= set(refiner_op._barriers)
+    assert torch.backends.cudnn.allow_tf32 is flag
+
+
+def test_replicas_on_two_cards_are_bit_equal_to_one_card(dev, small_run):
+    """One replica on each of two cards against one on card 0 at the same per-forward
+    batches, bit for bit; the second card's K3 ran on its own barrier counter, and a
+    runner on card 1 alone, with card 0 current, reads back what card 0 serves."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards, this machine has {torch.cuda.device_count()}")
+    from multi_view_stereonet_tpu_torch.eval import streaming
+
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    one, two, runner, dataset = replica_runs(small_run, cards, u8=False)
+    np.testing.assert_array_equal(two[0].view(np.int32), one[0].view(np.int32))
+    assert two[1] == one[1] and two[2] == one[2]
+    assert (1, runner._replicas[1].stream.cuda_stream) in refiner_op._barriers
+    model = streaming.load_model(small_run[0], "cpu")
+    with torch.cuda.device(0):
+        alone = serve_replicas(streaming.StreamingRunner(model, runner.model_config,
+                                                         device=cards[1]), dataset, 1)
+    np.testing.assert_array_equal(alone[0].view(np.int32), one[0].view(np.int32))
 
 
 # ---- the bf16 kernels (compute_dtype bfloat16) ----
