@@ -142,22 +142,25 @@ Phases, each printing its results; any failure raises and exits non-zero:
    NCCL across cards and a launch on a card other than the current one need more than
    one card: logged as not run. (e) One loader a view group: the train CLI as two
    processes at ``mesh_view`` 2 on an 80-request V = 2 tree at the recipe (B = 8,
-   augmentation on), five runs in one spawn: 3 steps at 4 loader threads recording what
+   augmentation on), three runs in one spawn: 3 steps at 4 loader threads recording what
    each step trained on (``record_training``), where process 1 decodes no sample and
    every step's tensors on each process hash (SHA-256) to its share of the batch process
    0 loaded, and where, from the weights the two entered each step with, one process's
    loss on that batch is within 1e-5 relative and its gradient within phase 7's bar of
-   theirs; then the CLI loop's ms a step (median of steps 4-9), at 1, 4, 4 and 1 loader
+   theirs; then the CLI loop's ms a step (median of steps 4-9), at 1 and 4 loader
    threads in turn, with launches 2 / 1 / 2 / 31 a process-step.
 11. The bf16 serving forward (``compute_dtype: bfloat16``). (a) Each kernel's bf16
    variant at phase 3's serving shapes against its plain version at bf16: K1's bf16
    output (f32 image in) bit-equal to the f32 kernel's output rounded; K4 (x and res
    bf16, the conv's bias as xbias) within one bf16 ulp of the f32 GroupNorm value plus
-   one of the plain result at every element; K2 (N = 1 and 8, D = 12) within 5% of
+   one of the plain result plus the f32 floor (``GN_F32_FLOOR``) at every element, also
+   at phase 15's shapes; K2 (N = 1 and 8, D = 12) within 5% of
    max|plain| and 2% of the f32 chain's max; K3 (level 4 at N = 1, 2, level 3) within
    1% of max|plain|, and after a bf16 launch the f32 launch equal to a cold-cache f32
-   launch (the pack is kept per storage dtype); each one's device time (``graph_ms``) beside the f32 kernel's and
-   its bound at bf16 bytes (operations at the bf16 tensor-core peak). (b) The V = 1 and
+   launch (the pack is kept per storage dtype); K2 and K3 also at phase 15's shapes
+   (N = 4, 6x8x32; (4, 35, h, w) for refiners 4-1) with the same bars; each one's device
+   time (``graph_ms``) at the serving shapes beside the f32 kernel's and its bound at
+   bf16 bytes (operations at the bf16 tensor-core peak). (b) The V = 1 and
    V = 2 trees served through StreamingRunner at bf16 from zeroed counts: launches 2 /
    1 / 2 / 31 a forward, outputs f32 and finite; on each tree's first request, per
    pyramid level, max and mean |bf16 - f32| within 3% and 0.5% of the f32 level's
@@ -192,7 +195,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
 13. The matmul-precision ladder (``matmul_precision: high``: cuDNN's convs at TF32, K2
    and K3 in their 1xTF32 variants). (a) Each 1xTF32 variant at phase 3's serving
    shapes against its TF32-rounding plain version (K2 within 1e-3, K3 within 3e-4 of
-   max|plain|), its error against the 3xTF32 kernel, the 3xTF32 kernel unchanged after
+   max|plain|), and at phase 15's shapes (N = 4, 6x8x32; (4, 35, h, w) for refiners
+   4-1), its error against the 3xTF32 kernel, the 3xTF32 kernel unchanged after
    it, device times (``graph_ms``) of both variants and of the plain version, the bound
    at TF32 (the convs' operations at the 494.7 TFLOP/s TF32 tensor-core peak). (b) The
    forward at "high" against "highest" at B = 1 and 8, per level max within 1% and mean
@@ -227,6 +231,20 @@ Phases, each printing its results; any failure raises and exits non-zero:
    one replica and on two, in turns: depthmaps/s with the readback and peak memory.
    Every wait on the card has a deadline (``Deadline``): a hang ends the run with exit
    code 1.
+15. Convergence and the ladder (``convergence_phase``). (a) The convergence module
+   (``train/convergence.py``, ``scripts/run_convergence_torch.py``'s) on Run A's tree and
+   recipe (96x128 layered_track, 2 sequences x 10 frames, batch 4) for 3 epochs with a
+   resume after 2: epochs and steps continued, losses finite, launches those of its
+   forwards at 96x128 (K3 takes refiners 4-1). (b) The ladder (``eval/accuracy.py``) over
+   Run A's committed weights (``docs/convergence_torch/layered_track``) on the held-out
+   split, every config: those at "highest"'s modes bit-equal to it, and "highest"'s
+   abs_rel and EPE within 1e-3 relative of the CPU's plain path's (``ladder_cpu.json``).
+
+Phase 3 also holds K2 (N = 4, 6x8x32, the chosen cluster and 16 and 8 forced), K3
+((4, 35, h, w) for refiners 4-1) and K4 (``CONV_GN_SHAPES``) at phase 15's shapes
+against their plain versions, with phase 3's bars; phase 11 (a) their bf16 variants and
+phase 13 (a) K2's and K3's 1xTF32 variants, which phase 15's "bf16" and "high" configs
+reach there, with those phases' bars.
 
 Every time and rate printed names the card and its power limit. Before the
 last line it prints one JSON line with the kernels' names,
@@ -237,7 +255,8 @@ bounds and library times (launches are phase 4's, "train_launches" phase
 "artifact_launches" and "artifact_launches_b24" phase 9's artifacts' in their
 fresh processes; "op_call_us", "direct_call_us" and "guard_us" phase 9's dispatch
 costs; "multi_process_launches" a process's launches a step in phase 10 (d);
-"replica_launches" two replicas' over phase 14 (b)'s five requests), each
+"replica_launches" two replicas' over phase 14 (b)'s five requests;
+"convergence_launches" phase 15 (a)'s), each
 with a "backward" entry (phase 3b), a "bf16" entry (phase 11: its error, device
 times, the f32 kernel's, its bound at bf16, the bar it met and its launches in phase
 11 (b)), a "bf16_backward" entry (phase 12 (a), as "backward" at bf16) and
@@ -254,6 +273,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -281,7 +301,7 @@ TWO_VIEW_STEPS, TWO_VIEW_RESUME = 4, 1
 MP_PROCESSES, MP_STEPS, MP_RESUME = 2, 3, 2  # phase 10
 # Phase 10 (e): steps of the recorded run at mesh_view 2, steps of each timed run, and
 # the loader threads of the timed runs in turn.
-VIEW_RECORD_STEPS, VIEW_STEPS, VIEW_TURNS = 3, 10, (1, 4, 4, 1)
+VIEW_RECORD_STEPS, VIEW_STEPS, VIEW_TURNS = 3, 10, (1, 4)
 # Phase 10 (a): the loss after adam's first updates from the init, two processes against
 # one; a wrong or reordered batch moves it by more than 1e-2 (the losses of consecutive
 # steps differ by 10-70%).
@@ -296,6 +316,7 @@ RATIOS = ("a1", "a2", "a3")
 # The bound's peaks: NVIDIA H100 SXM data sheet, HBM3 rate and f32 outside the tensor
 # cores (dense), at the full 700 W power limit.
 PROFILE_SESSIONS = 8  # the most torch.profiler sessions a reading takes
+PROFILE_SLACK = 8  # kernel events by which two sessions of one reading may differ
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores (the bf16 kernels' convs)
@@ -309,11 +330,17 @@ PEAK_TF32_FLOPS = 494.7e12  # TF32 on the tensor cores, dense (the 1xTF32 kernel
 # package's bf16 forward reads, docs/PARITY.md:157-160); the bf16 kernel path within 1%
 # of the range of the bf16 plain path, widened to 2% (the chain's rounding difference
 # reaches the soft-argmin: 0.90% measured at V=2). K4 at bf16 within one bf16 ulp of the
-# GroupNorm's output and one of the result at each element: kernel and plain version
-# differ only where the f32 GroupNorm value rounds to another bf16, and LeakyReLU's
-# product and the residual's sum carry that difference on (a residual that cancels the
-# branch makes it many ulps of the result).
+# GroupNorm's output and one of the result at each element, plus GN_F32_FLOOR of
+# |x_hat * gamma| + |beta|: kernel and plain version differ only where their f32
+# GroupNorm values round to different bf16s, and LeakyReLU's product and the residual's
+# sum carry that difference on (a residual that cancels the branch makes it many ulps of
+# the result). The two f32 values y = x_hat * gamma + beta (the kernel's from f64
+# statistics, the plain version's from F.group_norm's f32 ones) differ by their own
+# roundings, a few 2^-24 of those terms: where y nearly cancels that is more than a bf16
+# ulp of y. Phase 11 logs, at each shape, the worst element without the floor (its y and
+# its terms) and how often kernel and plain each give the bf16 tail of the f64 value.
 BF16_KERNEL_BAR = 1e-2
+GN_F32_FLOOR = 2.0 ** -21
 BF16_CHAIN_BAR, BF16_CHAIN_F32_BAR = 5e-2, 2e-2
 BF16_FORWARD_MEAN, BF16_FORWARD_MAX = 5e-3, 3e-2
 BF16_PATH_BAR = 2e-2
@@ -357,6 +384,17 @@ GN_SHAPES = (((2, 32, 30, 40), True, "extractor resblocks, N = B + B*V"),
              ((1, 32, H0, W0), False, "refiner 0 bn0"),
              ((1, 32, D, 30, 40), False, "cost filter, N = B*V = 1"),
              ((5, 32, D, 30, 40), False, "cost filter, N = B*V = 5"))
+# Phase 15's convergence recipe (Run A of docs/convergence_torch: 96x128, B = 4, V = 1),
+# its epochs and its resume, and the bar of its "highest" abs_rel against the CPU's.
+CONV_SIZE, CONV_B, CONV_EPOCHS_FIRST, CONV_EPOCHS_TOTAL = (96, 128), 4, 2, 3
+CONV_TAG, CONV_SEQUENCES, CONV_FRAMES, CONV_TREE_SEED = "layered_track", 2, 10, 7
+CONV_ABS_REL_BAR = 1e-3
+# K4's shapes in a training step of that recipe: the extractor's resblocks (N = B + B*V),
+# refiner 0's resblocks and bn0 (refiners 4-1 go to K3), the cost filter (N = B*V).
+CONV_GN_SHAPES = (((2 * CONV_B, 32, 6, 8), True, "96x128: extractor resblocks"),
+                  ((CONV_B, 32) + CONV_SIZE, True, "96x128: refiner 0 resblocks"),
+                  ((CONV_B, 32) + CONV_SIZE, False, "96x128: refiner 0 bn0"),
+                  ((CONV_B, 32, D, 6, 8), False, "96x128: cost filter"))
 
 
 def log(*args):
@@ -408,14 +446,15 @@ def profile_kernels(fn, reps):
     between kernels left out). Each session counts its device events, because a count
     moves (seen on the H100 machine): a session can miss some or all of its events
     (sporadic, 1-100% of them), and a session can hold one to six more than the others
-    of its reading. So a session with no event is not kept, and a reading stands once
-    two sessions agree on their count: the mean of those two. (Two sessions that miss
-    the same number of events would pass; none was seen.) Raises after
-    PROFILE_SESSIONS sessions without two that agree."""
+    of its reading, or drift by one a session (a B=8 step read 26067, 26066, 26065 ...
+    26061). So a session with no event is not kept, and a reading stands once two
+    sessions agree on their count within PROFILE_SLACK events: the mean of those two.
+    (Two sessions that miss the same number of events would pass; none was seen.) Raises
+    after PROFILE_SESSIONS sessions without two that agree."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    counts, seen = [], {}
+    counts, kept = [], []
     for _ in range(PROFILE_SESSIONS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -429,13 +468,14 @@ def profile_kernels(fn, reps):
         counts.append(len(times))
         if not times:
             continue
-        seen.setdefault(len(times), []).append((sum(times) / 1e3 / reps, wall, prof))
-        if len(seen[len(times)]) == 2:
+        session = (len(times), sum(times) / 1e3 / reps, wall)
+        match = next((k for k in kept if abs(k[0] - session[0]) <= PROFILE_SLACK), None)
+        if match is not None:
             if len(set(counts)) > 1:
                 log(f"torch.profiler: kernel events by session {counts}; kept the two at "
-                    f"{len(times)}")
-            (busy_a, wall_a, _), (busy_b, wall_b, prof) = seen[len(times)]
-            return (busy_a + busy_b) / 2, (wall_a + wall_b) / 2, prof
+                    f"{match[0]} and {session[0]}")
+            return (match[1] + session[1]) / 2, (match[2] + session[2]) / 2, prof
+        kept.append(session)
     raise AssertionError(f"torch.profiler: no two of {PROFILE_SESSIONS} sessions agreed on "
                          f"the kernel events of {reps} calls; by session {counts}")
 
@@ -474,6 +514,44 @@ def scene(n, seed):
         Ts.append(T)
     return (torch.from_numpy(np.repeat(K[None], n, 0)).cuda(),
             torch.from_numpy(np.stack(Ts).astype(np.float32)).cuda())
+
+
+def conv_shape_inputs(dev, g, seed, dtype=torch.float32):
+    """K2's and K3's inputs at phase 15's shapes (96x128, N = B = 4), f32 or ``dtype``
+    where the kernel stores it: (level-4 chain inputs (feats0, image_rest, H_inc),
+    [(refiner name, guidance, idepth) for refiners 4-1])."""
+    from multi_view_stereonet_tpu_torch.geometry import (
+        build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
+        incremental_homographies, normalize_baseline)
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
+
+    K, T = scene(CONV_B, seed)
+    T, _ = normalize_baseline(T)
+    sizes = pyramid_sizes(*CONV_SIZE, NUM_LEVELS)
+    K_pyr = build_K_pyramid(build_K_pyramid(K, [(H0, W0), CONV_SIZE])[1], sizes)
+    H_inc = incremental_homographies(create_plane_sweep_homographies(
+        T, K_pyr[4], create_idepth_samples(T, K_pyr[4], *sizes[4], D)))
+    h4, w4 = sizes[4]
+    feats0 = torch.randn(CONV_B, h4, w4, 32, generator=g).to(dev).to(dtype)
+    image_rest = (torch.rand(CONV_B, D - 1, h4, w4, 3, generator=g) * 2 - 1).to(dev)
+    refiners = []
+    for lvl in (4, 3, 2, 1):
+        h, w = sizes[lvl]
+        guidance = (torch.rand(CONV_B, 35, h, w, generator=g) * 2 - 1).to(dev).to(dtype)
+        refiners.append((f"refiner{lvl}", guidance,
+                         (torch.rand(CONV_B, h, w, generator=g) * 20).to(dev)))
+    return (feats0, image_rest, H_inc), refiners
+
+
+def refiner_module(state, name, dev):
+    """An ``IDepthmapRefiner`` holding ``state``'s weights of refiner ``name``, with
+    version counters (made outside inference mode), as served."""
+    from multi_view_stereonet_tpu_torch.models import IDepthmapRefiner
+    with torch.inference_mode(False):
+        module = IDepthmapRefiner(35)
+        module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                if k.startswith(name + ".")})
+        return module.to(dev).eval()
 
 
 def loss_grid(n, dev, g):
@@ -542,11 +620,14 @@ def check_kernels(dev):
     g = torch.Generator().manual_seed(0)
     results = {}
 
-    def geometry(n, seed):
+    def geometry(n, seed, rows=H0, cols=W0):
         K, T = scene(n, seed)
         T, _ = normalize_baseline(T)
-        K_pyr = build_K_pyramid(K, pyramid_sizes(H0, W0, 5))
-        samples = create_idepth_samples(T, K_pyr[4], 30, 40, D)
+        if (rows, cols) != (H0, W0):
+            K = build_K_pyramid(K, [(H0, W0), (rows, cols)])[1]
+        sizes = pyramid_sizes(rows, cols, 5)
+        K_pyr = build_K_pyramid(K, sizes)
+        samples = create_idepth_samples(T, K_pyr[4], *sizes[4], D)
         return K_pyr, T, samples
 
     def check_warp(image, grid, what, zero=True):
@@ -664,6 +745,29 @@ def check_kernels(dev):
         else:
             results["chain"]["max_abs_err"] = max(results["chain"]["max_abs_err"], err)
 
+    # K2 at the convergence recipe's level 4 (phase 15: 96x128, B = 4): N = 4, 6x8x32,
+    # where a sample's cluster has more blocks than the map has rows.
+    h4, w4 = CONV_SIZE[0] // 16, CONV_SIZE[1] // 16
+    n = CONV_B
+    K_pyr, T, samples = geometry(n, 30, *CONV_SIZE)
+    H_inc = incremental_homographies(create_plane_sweep_homographies(T, K_pyr[4], samples))
+    feats0 = torch.randn(n, h4, w4, 32, generator=g).to(dev)
+    image_rest = (torch.rand(n, D - 1, h4, w4, 3, generator=g) * 2 - 1).to(dev)
+    ref = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
+    scale = ref.abs().max().item()
+    for c in (0, 16, 8):
+        got = chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc, c)
+        err = (got - ref).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, ref, atol=CHAIN_ATOL * scale, rtol=CHAIN_RTOL)
+        log(f"K2 incremental_chain N={n} {h4}x{w4}x32 D={D}, cluster "
+            f"{c or chain.cluster_size(n, h4, w4)} blocks a sample"
+            f"{' (chosen)' if c == 0 else ' (forced)'}: max_abs_err {err:.3e}, max|plain| "
+            f"{scale:.3f}, within bar {ok}")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version at N={n} {h4}x{w4}")
+        results["chain"]["max_abs_err"] = max(results["chain"]["max_abs_err"], err)
+
     # K3 at the refiners of level 4 (N = B*V = 1, 2, 5 and 8: the B=1 V=1, V=2, V=5 and
     # B=8 cells) and level 3 (N = 1); the JSON line keeps the level-3 times, where it
     # does the most work.
@@ -699,12 +803,39 @@ def check_kernels(dev):
         results["refiner"].update(max_abs_err=max(results["refiner"]["max_abs_err"], err),
                                   **t, bound_ms=b[0], bound_by=b[1])
 
+    # K3 at the convergence recipe's levels 4-1 (96x128, n = B = 4), where
+    # ``fused_refiner_supported`` takes four refiners: maps of 6x8 up to 48x64.
+    for lvl in (4, 3, 2, 1):
+        h, w = CONV_SIZE[0] >> lvl, CONV_SIZE[1] >> lvl
+        name = f"refiner{lvl}"
+        with torch.inference_mode(False):
+            module = IDepthmapRefiner(35)
+            module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                    if k.startswith(name + ".")})
+            module = module.to(dev).eval()
+        guidance = (torch.rand(CONV_B, 35, h, w, generator=g) * 2 - 1).to(dev)
+        idepth = (torch.rand(CONV_B, h, w, generator=g) * 20).to(dev)
+        got = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="kernel")
+        ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, ref, atol=CHAIN_ATOL * scale, rtol=CHAIN_RTOL)
+        device_kernel = graph_ms(lambda: refiner_op.idepthmap_refiner(
+            module, guidance, idepth, impl="kernel"))
+        log(f"K3 idepthmap_refiner ({CONV_B},35,{h},{w}) ({name} at "
+            f"{CONV_SIZE[0]}x{CONV_SIZE[1]}): max_abs_err {err:.3e}, max|plain| {scale:.3f}, "
+            f"within bar {ok}; device: kernel {device_kernel:.4f} ms")
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version at ({CONV_B},35,{h},{w})")
+        results["refiner"]["max_abs_err"] = max(results["refiner"]["max_abs_err"], err)
+
     # K4 at every GroupNorm shape of the serving forward, held against the plain
     # version; the JSON line keeps the 480x640 resblock's times.
     weight = state["refiner0.res0.bn1.weight"].to(dev)
     bias = state["refiner0.res0.bn1.bias"].to(dev)
     results["gn_apply"] = {"max_abs_err": 0.0, "library_ms": None}
-    for shape, residual, what in GN_SHAPES:
+    for shape, residual, what in GN_SHAPES + CONV_GN_SHAPES:
         x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev)
         res = torch.randn(shape, generator=g).to(dev) if residual else None
 
@@ -1334,21 +1465,24 @@ def read_launches():
     return {name: module.launches for name, module in kernel_modules().items()}
 
 
-def expected_launches(forwards):
-    """Launches of 480x640 forwards at these (B, V), all refiners on: 2 grid samples and
-    1 chain each; K3 for refiner 4 (n = B*V) and refiner 3 (n = B) where
-    ``fused_refiner_supported`` takes them, and 7 GroupNorm launches (bn0 + 6
-    resblocks) for each of those it does not; 31 GroupNorm launches otherwise."""
+def expected_launches(forwards, rows=H0, cols=W0):
+    """Launches of forwards at these (B, V) and size, all refiners on: 2 grid samples and
+    1 chain each; K3 for each refiner that ``fused_refiner_supported`` takes (refiner 4
+    at n = B*V, the others at n = B: levels 4 and 3 at 480x640, 4-1 at 96x128), and
+    GroupNorm launches for the extractor's six resblocks, the cost filter's four and 7
+    (bn0 + 6 resblocks) for each refiner it does not take: 31 at 480x640."""
     from multi_view_stereonet_tpu_torch.ops.cuda.refiner import fused_refiner_supported
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
 
+    sizes = pyramid_sizes(rows, cols, NUM_LEVELS)
     total = {"warp": 0, "chain": 0, "refiner": 0, "gn_apply": 0}
     for B, V in forwards:
-        fused = (fused_refiner_supported(H0 // 16, W0 // 16, B * V)
-                 + fused_refiner_supported(H0 // 8, W0 // 8, B))
+        fused = sum(fused_refiner_supported(*sizes[lvl], B * V if lvl == 4 else B)
+                    for lvl in range(NUM_LEVELS))
         total["warp"] += 2
         total["chain"] += 1
         total["refiner"] += fused
-        total["gn_apply"] += 31 + 7 * (2 - fused)
+        total["gn_apply"] += 6 + 4 + 7 * (NUM_LEVELS - fused)
     return total
 
 
@@ -2064,15 +2198,51 @@ def check_kernels_bf16(dev, f32_kernels, failures):
             results.setdefault("refiner", {"max_abs_err": 0.0})
             results["refiner"]["max_abs_err"] = max(results["refiner"]["max_abs_err"], err)
 
-    # K4 at every GroupNorm shape of the serving forward: within one bf16 ulp of the f32
-    # GroupNorm value and one of the plain result at every element (BF16_KERNEL_BAR's
-    # note).
+    # K2 and K3 at bf16 also at phase 15's shapes (96x128, B = 4), which its ladder's
+    # bf16 config reaches: the same bars, no times.
+    (feats0, image_rest, H_inc), conv_refiners = conv_shape_inputs(dev, g, 31, bf16)
+    got = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="kernel")
+    ref = chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl="plain")
+    ref32 = chain.incremental_chain(refiner, feats0.float(), image_rest, H_inc, impl="plain")
+    scale, scale32 = ref.float().abs().max().item(), ref32.abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    err32 = (got.float() - ref32).abs().max().item()
+    ok = (got.dtype == bf16 and bool(torch.isfinite(got).all())
+          and err <= BF16_CHAIN_BAR * scale and err32 <= BF16_CHAIN_F32_BAR * scale32)
+    log(f"K2 incremental_chain bf16 N={CONV_B} {tuple(feats0.shape[1:])} D={D} (phase 15's "
+        f"level 4): {err / scale:.4f} of max|plain| (bar {BF16_CHAIN_BAR}), against the f32 "
+        f"chain {err32 / scale32:.4f} (bar {BF16_CHAIN_F32_BAR}), within bars {ok}")
+    if not ok:
+        failures.append(f"K2 at bf16 off its plain version or the f32 chain at N={CONV_B} "
+                        f"{tuple(feats0.shape[1:3])}")
+    results["chain"]["max_abs_err"] = max(results["chain"]["max_abs_err"], err)
+    for name, guidance, idepth in conv_refiners:
+        module = refiner_module(state, name, dev)
+        got = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="kernel")
+        ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        ok = got.dtype == torch.float32 and bool(torch.isfinite(got).all()) and (
+            err <= BF16_KERNEL_BAR * scale)
+        log(f"K3 idepthmap_refiner bf16 {tuple(guidance.shape)} ({name} at "
+            f"{CONV_SIZE[0]}x{CONV_SIZE[1]}): max_abs_err {err:.3e}, max|plain| {scale:.3f} "
+            f"(bar {BF16_KERNEL_BAR:.0e} * max|plain|), within bar {ok}")
+        if not ok:
+            failures.append(f"K3 at bf16 disagrees with its plain version at "
+                            f"{tuple(guidance.shape)}")
+        results["refiner"]["max_abs_err"] = max(results["refiner"]["max_abs_err"], err)
+
+    # K4 at every GroupNorm shape of the serving forward and of phase 15's step: within
+    # one bf16 ulp of the f32 GroupNorm value and one of the plain result at every
+    # element, plus the f32 floor (BF16_KERNEL_BAR's note). Where kernel and plain
+    # differ, how often each is the bf16 tail of the f64 GroupNorm value.
     weight = state["refiner0.res0.bn1.weight"].to(dev)
     bias = state["refiner0.res0.bn1.bias"].to(dev)
     # At bf16 the conv that writes x leaves its bias to the GroupNorm (xbias).
     xbias = state["refiner0.res0.conv1.bias"].to(dev)
     worst_ulps = worst_err = 0.0
-    for shape, residual, what in GN_SHAPES:
+    F = torch.nn.functional
+    for shape, residual, what in GN_SHAPES + CONV_GN_SHAPES:
         x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev).to(bf16)
         res = torch.randn(shape, generator=g).to(dev).to(bf16) if residual else None
 
@@ -2084,17 +2254,29 @@ def check_kernels_bf16(dev, f32_kernels, failures):
             return gn_apply.group_norm_act(x, weight, bias, 4, res, impl="plain",
                                            xbias=xbias)
         got, ref = kernel().float(), plain().float()
-        y = torch.nn.functional.group_norm(
-            x.float() + xbias.reshape((-1,) + (1,) * (x.ndim - 2)), 4, weight, bias,
-            gn_apply.EPS)
-        ulps = ((got - ref).abs() / (bf16_ulp(y) + bf16_ulp(ref))).max().item()
+        channel = (1, -1) + (1,) * (x.ndim - 2)
+        x32 = x.float() + xbias.reshape(channel)
+        y = F.group_norm(x32, 4, weight, bias, gn_apply.EPS)
+        terms = ((F.group_norm(x32, 4, eps=gn_apply.EPS) * weight.reshape(channel)).abs()
+                 + bias.abs().reshape(channel))
+        diff = (got - ref).abs()
+        bare = diff / (bf16_ulp(y) + bf16_ulp(ref))
+        ulps = (diff / (bf16_ulp(y) + bf16_ulp(ref) + GN_F32_FLOOR * terms)).max().item()
         worst_ulps = max(worst_ulps, ulps)
-        err = (got - ref).abs().max().item()
+        err = diff.max().item()
         worst_err = max(worst_err, err)
+        y64 = F.group_norm(x32.double(), 4, weight.double(), bias.double(), gn_apply.EPS)
+        tail = gn_apply.leaky_relu(y64.float().to(bf16))
+        exact = (tail if res is None else tail + res).float()
+        off = got != ref
+        i = int(bare.argmax())
         log(f"K4 group_norm_act bf16 {shape} {'+ res' if residual else 'no res'} ({what}): "
-            f"max_abs_err {err:.3e}, worst {ulps:.2f} of (ulp(GroupNorm) + ulp(result)) "
-            f"(bar 1), elements off "
-            f"{(got != ref).float().mean().item():.2e}")
+            f"max_abs_err {err:.3e}, worst {ulps:.2f} of (ulp(GroupNorm) + ulp(result) + "
+            f"{GN_F32_FLOOR:.0e} * (|x_hat*gamma| + |beta|)) (bar 1); without the floor "
+            f"{bare.flatten()[i].item():.2f}, at y {y.flatten()[i].item():.3e} beside terms "
+            f"{terms.flatten()[i].item():.3e}; elements off {off.float().mean().item():.2e}, "
+            f"of which the bf16 tail of the f64 value: the kernel "
+            f"{int((got[off] == exact[off]).sum())}, plain {int((ref[off] == exact[off]).sum())}")
         if not (ulps <= 1.0 and bool(torch.isfinite(got).all())):
             failures.append(f"K4 at bf16 disagrees with its plain version at {shape}")
         if shape == (1, 32, H0, W0) and residual:
@@ -2103,8 +2285,9 @@ def check_kernels_bf16(dev, f32_kernels, failures):
             log(f"K4 bf16 {shape} + res: device kernel {t['ms']:.4f} ms (f32 "
                 f"{f32_kernels['gn_apply']['ms']:.4f}), plain {t['plain_ms']:.4f} ms; bound "
                 f"{b[0]:.4f} ms ({b[1]})")
-            results["gn_apply"] = entry(err, t, b, "ulp(GroupNorm value) + ulp(plain) per "
-                                        "element", "gn_apply")
+            results["gn_apply"] = entry(err, t, b, "ulp(GroupNorm value) + ulp(plain) + "
+                                        "2^-21 (|x_hat gamma| + |beta|) per element",
+                                        "gn_apply")
     results["gn_apply"].update(max_abs_err=worst_err, worst_ulps=worst_ulps)
     return results
 
@@ -2636,6 +2819,35 @@ def check_kernels_tf32(dev, failures):
                      err_vs_f32=max(entry["err_vs_f32"], rel))
         if keep:  # the level-3 times, where it does the most work, as phase 3 keeps
             entry.update(**t, bound_ms=b[0], bound_by=b[1])
+
+    # Both also at phase 15's shapes (96x128, B = 4), which its ladder's "high" config
+    # reaches: the same bars.
+    (feats0, image_rest, H_inc), conv_refiners = conv_shape_inputs(dev, g, 32)
+    n, h4, w4 = feats0.shape[:3]
+    b = bound_tf32(nbytes(feats0, image_rest, H_inc, torch.empty(n, D, h4, w4, 32),
+                          *refiner.parameters()),
+                   (D - 1) * conv_flops(refiner, n * h4 * w4), (D - 1) * 20 * n * h4 * w4 * 32)
+    err, rel, _ = measure(
+        "K2 incremental_chain", f"N={n} {h4}x{w4}x32 D={D} (phase 15's level 4)",
+        lambda: chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc, tf32=True),
+        lambda: chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc),
+        lambda: chain.incremental_chain_tf32_plain(refiner, feats0, image_rest, H_inc),
+        TF32_K2_BAR, b, False)
+    results["chain"].update(max_abs_err=max(results["chain"]["max_abs_err"], err),
+                            err_vs_f32=max(results["chain"]["err_vs_f32"], rel))
+    for name, guidance, idepth in conv_refiners:
+        module = refiner_module(state, name, dev)
+        n, _, h, w = guidance.shape
+        b = bound_tf32(nbytes(guidance, idepth, idepth, *module.parameters()),
+                       conv_flops(module, n * h * w), 7 * 10 * 32 * n * h * w)
+        err, rel, _ = measure(
+            "K3 idepthmap_refiner", f"({n},35,{h},{w}) ({name} at phase 15's size)",
+            lambda: refiner_op.idepthmap_refiner_kernel(module, guidance, idepth, tf32=True),
+            lambda: refiner_op.idepthmap_refiner_kernel(module, guidance, idepth),
+            lambda: refiner_op.idepthmap_refiner_tf32_plain(module, guidance, idepth),
+            TF32_K3_BAR, b, False)
+        results["refiner"].update(max_abs_err=max(results["refiner"]["max_abs_err"], err),
+                                  err_vs_f32=max(results["refiner"]["err_vs_f32"], rel))
     return results
 
 
@@ -3642,6 +3854,77 @@ def replica_phase(dev, inputs, smi):
     return {"launches": launches, "k3_two_over_one": ratios, "rates": rates}
 
 
+def convergence_phase(dev, smi, root):
+    """Phase 15: (a) the convergence module (``train/convergence.py``) on Run A's tree and
+    recipe (96x128, layered_track, 2 sequences x 10 frames, batch 4) for
+    CONV_EPOCHS_TOTAL epochs, stopped after CONV_EPOCHS_FIRST and resumed, on the card:
+    epochs and steps continued across the resume, every loss finite, and the launches,
+    zeroed just before, those of its train steps' and validation's forwards
+    (``expected_launches`` at 96x128: K3 takes refiners 4-1). (b) The ladder
+    (``eval/accuracy.py``) over Run A's committed weights on the tree's held-out split,
+    every config: the configs at "highest"'s modes bit-equal to it (the ladder raises
+    otherwise), and "highest"'s abs_rel and EPE within CONV_ABS_REL_BAR relative of the
+    CPU's plain path (``ladder_cpu.json``). Returns the launches and the ladder."""
+    from multi_view_stereonet_tpu_torch.eval.accuracy import ladder, split_batches
+    from multi_view_stereonet_tpu_torch.eval.streaming import load_model
+    from multi_view_stereonet_tpu_torch.train.convergence import (
+        hold_out, read_table, run_convergence)
+
+    work = os.path.join(root, "convergence")
+    data_dir, split = synthetic_data().make_gta_sfm_tree(
+        work, num_sequences=CONV_SEQUENCES, frames=CONV_FRAMES, rows=CONV_SIZE[0],
+        cols=CONV_SIZE[1], seed=CONV_TREE_SEED, scene=CONV_TAG)
+    zero_launches()
+    t0 = time.perf_counter()
+    summary = run_convergence(data_dir, split, work, os.path.join(root, "convergence_dest"),
+                              size=CONV_SIZE, batch=CONV_B, epochs_first=CONV_EPOCHS_FIRST,
+                              epochs_total=CONV_EPOCHS_TOTAL, tag=CONV_TAG, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    header, rows = read_table(os.path.join(work, "run", "losses.txt"))
+    steps = [int(r[header.index("step")]) for r in rows]
+    losses = [float(r[header.index("loss")]) for r in rows]
+    val_batches = -(-summary["n_val"] // CONV_B)
+    forwards = [(CONV_B, 1)] * (len(steps) + CONV_EPOCHS_TOTAL * val_batches)
+    expected = expected_launches(forwards, *CONV_SIZE)
+    finite = all(math.isfinite(x) for x in losses)
+    log(f"convergence run, Run A's recipe on the card ({smi}): {CONV_EPOCHS_TOTAL} epochs "
+        f"resumed after {CONV_EPOCHS_FIRST} in {seconds:.1f} s; {summary['n_train']} train / "
+        f"{summary['n_val']} held-out samples, steps {steps[0]}..{steps[-1]} continued "
+        f"across the resume (checked by run_convergence); losses finite {finite} "
+        f"({losses[0]:.4f} -> {losses[-1]:.4f}); validation EPE "
+        f"{summary['table']['first']['epe']:.4f} -> {summary['table']['final']['epe']:.4f}; "
+        f"launches {launches} (expected {expected}: {len(steps)} train steps and "
+        f"{CONV_EPOCHS_TOTAL * val_batches} validation forwards at B={CONV_B})")
+    failures = []
+    if not finite:
+        failures.append("a non-finite loss")
+    if launches != expected:
+        failures.append(f"launches {launches}, expected {expected}")
+
+    weights_dir = os.path.join(REPO, "docs", "convergence_torch", CONV_TAG)
+    _, val_split, _, _ = hold_out(split, work)
+    batches = split_batches(data_dir, val_split, *CONV_SIZE)
+    model = load_model(weights_dir, dev)
+    t0 = time.perf_counter()
+    table = ladder(model, batches, dev, base={"num_idepth_samples": D},
+                   time_batch={k: v[:1] for k, v in batches[0].items()}, log=log)
+    with open(os.path.join(weights_dir, "ladder_cpu.json")) as f:
+        cpu = json.load(f)["rows"]["highest"]
+    gaps = {k: abs(table["highest"][k] - cpu[k]) / abs(cpu[k]) for k in ("abs_rel", "epe")}
+    log(f"ladder over {weights_dir} on the held-out split ({smi}), {len(table)} configs in "
+        f"{time.perf_counter() - t0:.1f} s: highest abs_rel {table['highest']['abs_rel']:.6f}, "
+        f"EPE {table['highest']['epe']:.4f}; the CPU's plain path {cpu['abs_rel']:.6f}, "
+        f"{cpu['epe']:.4f} (gaps {gaps['abs_rel']:.2e}, {gaps['epe']:.2e}, bar "
+        f"{CONV_ABS_REL_BAR:.0e}); bit-equal to highest: "
+        f"{[n for n, r in table.items() if r['same_modes_as'] == 'highest']}")
+    if max(gaps.values()) > CONV_ABS_REL_BAR:
+        failures.append(f"highest against the CPU's plain path {gaps}")
+    if failures:
+        raise AssertionError("phase 15: " + "; ".join(failures))
+    return {"launches": launches, "ladder": table}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an "
@@ -3692,6 +3975,8 @@ def main():
                            backward_bf16)
         tf32 = phase("13 (matmul precision)", precision_phase, dev, inputs, smi, served)
         replicas = phase("14 (replicas)", replica_phase, dev, inputs, smi)
+        convergence = phase("15 (convergence and the ladder)", convergence_phase, dev, smi,
+                            tmp)
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
@@ -3734,6 +4019,7 @@ def main():
          **artifact["dispatch"]["warp"],
          "multi_process_launches": multi["per_step"]["warp"],
          "replica_launches": replicas["launches"]["warp"],
+         "convergence_launches": convergence["launches"]["warp"],
          **kernels["warp"], "bf16": {**bf16["kernels"]["warp"],
                                      "launches": bf16["launches"]["warp"]},
          "bf16_train_launches": bf16_train["launches"]["warp"],
@@ -3750,6 +4036,7 @@ def main():
          **artifact["dispatch"]["chain"],
          "multi_process_launches": multi["per_step"]["chain"],
          "replica_launches": replicas["launches"]["chain"],
+         "convergence_launches": convergence["launches"]["chain"],
          **kernels["chain"], "bf16": {**bf16["kernels"]["chain"],
                                       "launches": bf16["launches"]["chain"]},
          "bf16_train_launches": bf16_train["launches"]["chain"],
@@ -3767,6 +4054,7 @@ def main():
          **artifact["dispatch"]["refiner"],
          "multi_process_launches": multi["per_step"]["refiner"],
          "replica_launches": replicas["launches"]["refiner"],
+         "convergence_launches": convergence["launches"]["refiner"],
          **kernels["refiner"], "bf16": {**bf16["kernels"]["refiner"],
                                         "launches": bf16["launches"]["refiner"]},
          "bf16_train_launches": bf16_train["launches"]["refiner"],
@@ -3783,6 +4071,7 @@ def main():
          **artifact["dispatch"]["gn_apply"],
          "multi_process_launches": multi["per_step"]["gn_apply"],
          "replica_launches": replicas["launches"]["gn_apply"],
+         "convergence_launches": convergence["launches"]["gn_apply"],
          **kernels["gn_apply"], "bf16": {**bf16["kernels"]["gn_apply"],
                                          "launches": bf16["launches"]["gn_apply"]},
          "bf16_train_launches": bf16_train["launches"]["gn_apply"],

@@ -177,6 +177,9 @@ def python_files(target):
                                     "scripts/compare_torch_trees.py",
                                     "scripts/compare_torch_view_feed.py",
                                     "scripts/refiner_variants.py",
+                                    "scripts/run_convergence_torch.py",
+                                    "scripts/accuracy_speed_torch.py",
+                                    "scripts/gn_bf16_rounding_torch.py",
                                     "multi_view_stereonet_tpu_torch"])
 def test_imports_nothing_of_jax_or_the_jax_package(target):
     """A static check: no import statement names jax or multi_view_stereonet_tpu."""
