@@ -18,7 +18,9 @@ Phases, each printing its results; any failure raises and exits non-zero:
    w) = (N, 35, 30, 40) for N = 1, 2, 5, 8, and (1, 35, 60, 80)) within atol
    2e-5 * max|plain|, rtol 2e-4; the GroupNorm kernel at every GroupNorm
    shape of the forward (``GN_SHAPES``: resblock tails with the residual,
-   bn0 and the 5-D cost filter without) within 1e-5 * max(1, max|plain|).
+   bn0 and the 5-D cost filter without) within 1e-5 * max(1, max|plain|); also at
+   the recipe's B = 8 shapes (``RECIPE_GN_SHAPES``) at f32 and bf16 (phase 11's bar),
+   with their device time and bound.
    For each: a call's median ms over 20 timed runs after warm-up (CUDA
    events, host work included), and the device time alone (``graph_ms``:
    20 calls replayed from a CUDA graph), of kernel and plain version; the
@@ -58,10 +60,16 @@ Phases, each printing its results; any failure raises and exits non-zero:
    u8 with four decode threads and f32 with one, twice: the median time
    between consecutive results in the steady window (start-up and drain left
    out) as ms a request, and the window's depthmaps/s.
-3b. Backward of each kernel (its ``torch.autograd.Function``, which recomputes
-   the plain version) at phase 3's shapes against plain autograd on the card:
-   every input's gradient within 1e-4 of max|plain| (a gradient below 1e-4 of
-   the largest held to that floor), no launch in the backward; the device time
+3b. Backward of each kernel (its ``torch.autograd.Function``: K1-K3 recompute the
+   plain version, K4 launches its backward kernel) at phase 3's shapes against plain
+   autograd on the card: every input's gradient within 1e-4 of max|plain| (a gradient
+   below 1e-4 of the largest held to that floor), no forward launch in the backward and
+   one K4 backward launch in K4's (K4's output gradient is 0 where its GroupNorm value
+   lies within KINK_ROUNDING of LeakyReLU's kink, from f64 statistics, ``gn_kink_mask``:
+   there the two forwards' roundings may take two branches; at most KINK_SHARE of the
+   elements, or KINK_FLOOR); the backward kernel alone against its plain version (closed
+   form) on the same statistics and gradient, within the same bar, with both device
+   times (``graph_ms``) and its bound; the device time
    of one backward (torch.profiler, the sum of its kernels over two calls a session
    after one warm-up; ``profile_kernels`` keeps two sessions that agree on the count
    of kernel events), of the plain
@@ -74,7 +82,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    over 16 images and an epoch checkpoint; a second call resumes it for 2
    steps (step count continued) and ``run_eval`` scores its checkpoint. Every
    loss finite; launches 2 / 1 / 2 / 31 a forward (train steps and validation
-   batches), none from the backward; the CLI loop's ms a step (host clock
+   batches), K4's backward kernel once a K4 forward launch of a step and no other
+   launch from the backward; the CLI loop's ms a step (host clock
    between steps, loader included) and the loader's ms a batch alone. Then from
    one batch and the same seeded fan-in-scale weights, TF32 off: the kernel
    path's loss within 1e-5 relative of the plain path's and every gradient
@@ -83,7 +92,9 @@ Phases, each printing its results; any failure raises and exits non-zero:
    memory (``max_memory_allocated``), the host and device time of the K3
    weight repack that each optimizer step causes, and on each path the device
    time of the forward alone and of one whole step (torch.profiler), with the
-   top device operations of a kernel-path step.
+   top device operations of a kernel-path step, aten::native_group_norm's device
+   time and calls (the K3 backward's recomputes), and K4's kernels' forward and
+   backward device time.
 8. The two-view recipe at full width (B = 8, 480x640, D = 12, filter and five
    refiners on, adam 1e-3, augmentation on; estimate_right_idepthmap with
    supervision / reconstruction / left-right factors 1.0 / 0.5 / 0.5, the JAX
@@ -175,7 +186,10 @@ Phases, each printing its results; any failure raises and exits non-zero:
    long run torch.profiler was seen to miss most of a backward's kernel events): each
    kernel's ``autograd.Function`` at bf16 under gradients at phase 3b's shapes (K1 f32 image and grid, bf16 out; K2 bf16
    feats0; K3 bf16 guidance, f32 idepth; K4 bf16 x and res, the conv's bias as an f32
-   xbias) against plain autograd at bf16 within phase 3b's bar, with cuDNN and PyTorch
+   xbias; its backward kernel alone as in phase 3b) against plain autograd at bf16
+   within phase 3b's bar (K4 within phase 12's flat-gradient bar, 1e-2 of max|plain|: its
+   kernel rounds its own f32 dx to bf16; the worst element's ulps printed), with cuDNN
+   and PyTorch
    deterministic for the comparison; every gradient at its input's dtype; the device
    times of the Function's backward, plain autograd's and the library call's (K1
    ``F.grid_sample``, K4 ``F.group_norm`` at bf16 + ``leaky_relu`` + add). (b) The
@@ -187,8 +201,9 @@ Phases, each printing its results; any failure raises and exits non-zero:
    loss within 1e-4 relative and the flat gradient within 1e-2 relative L2 (bars from
    the phase's first chip run); with ``remat_refiners`` against without, the loss within
    1e-5 and the flat gradient within 1e-2; then ms a step, images/s and peak
-   memory at f32 and bf16 on both paths in turns, device busy a kernel-path step at
-   each dtype (torch.profiler), the K3 bf16 repack's host time. (d) The train CLI as two
+   memory at f32 and bf16 on both paths in turns, device busy a kernel-path step at each
+   dtype and K4's forward and backward kernels' share (torch.profiler), the K3 bf16
+   repack's host time. (d) The train CLI as two
    processes over gloo at bf16 for 2 steps against one process's steps on the
    concatenated batches: step 1 within 1e-4, step 2 within 1e-3. A bar missed fails the
    phase after every measurement is printed.
@@ -226,8 +241,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    bit-equal to a launch alone. (b) The V = 1 tree's four requests and
    its first again at batch 2 (two split steps, then the tail whole on replica 0)
    bit-equal to one replica at batch 1 over f32 and u8, the f16 fetch the f32 output
-   cast, the launches of five B = 1 forwards, one K3 barrier counter a replica stream,
-   the caller's cuDNN TF32 flag unchanged (off, then on). (c) The LONG tree at B = 8 on
+   cast, the launches of five B = 1 forwards, one grid-barrier counter (K3, K4) a replica
+   stream, the caller's cuDNN TF32 flag unchanged (off, then on). (c) The LONG tree at B = 8 on
    one replica and on two, in turns: depthmaps/s with the readback and peak memory.
    Every wait on the card has a deadline (``Deadline``): a hang ends the run with exit
    code 1.
@@ -265,12 +280,17 @@ times, the f32 kernel's, its bound at bf16, the bar it met and its launches in p
 max|plain|, against the 3xTF32 kernel, its device time beside the 3xTF32 kernel's in
 the same call, its plain version's, its bound at TF32, the bar it met, its launches in
 a forward at "high" and in a train step at "high"); K1's entry and its backward carry
-"loss_shapes", one entry each for one and three channels at the losses' shapes. Then the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+"loss_shapes", one entry each for one and three channels at the losses' shapes. K4's
+entry keeps "shapes" (every phase-3 shape's chunks a row and device times) and
+"recipe_shapes" (the B = 8 shapes' device times at f32 and bf16). The K4 backward kernel
+has an entry of its own ("group_norm_act_backward": launches phase
+7's first ``train`` call's, "step_launches" one step's; its times phase 3b's, "bf16"
+phase 12 (a)'s). Then the nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -341,6 +361,13 @@ PEAK_TF32_FLOPS = 494.7e12  # TF32 on the tensor cores, dense (the 1xTF32 kernel
 # its terms) and how often kernel and plain each give the bf16 tail of the f64 value.
 BF16_KERNEL_BAR = 1e-2
 GN_F32_FLOOR = 2.0 ** -21
+# Phase 3b and 12 (a): K4's backward against plain autograd leaves out the elements whose
+# GroupNorm value z lies within KINK_ROUNDING (|x_hat gamma| + |beta| + |mean rstd gamma|)
+# of LeakyReLU's kink (z from f64 statistics): there the kernel's z (from f64 statistics)
+# and F.group_norm's (from f32 ones) differ by their roundings, a few 2^-24 of those
+# terms, and may take two branches (a slope of 1 against 0.2). At most KINK_SHARE of the
+# elements, or KINK_FLOOR, are left out.
+KINK_ROUNDING, KINK_SHARE, KINK_FLOOR = 2.0 ** -16, 1e-4, 8
 BF16_CHAIN_BAR, BF16_CHAIN_F32_BAR = 5e-2, 2e-2
 BF16_FORWARD_MEAN, BF16_FORWARD_MAX = 5e-3, 3e-2
 BF16_PATH_BAR = 2e-2
@@ -384,6 +411,13 @@ GN_SHAPES = (((2, 32, 30, 40), True, "extractor resblocks, N = B + B*V"),
              ((1, 32, H0, W0), False, "refiner 0 bn0"),
              ((1, 32, D, 30, 40), False, "cost filter, N = B*V = 1"),
              ((5, 32, D, 30, 40), False, "cost filter, N = B*V = 5"))
+# K4's shapes in a training step of the recipe (phase 7: B = 8, V = 1, 480x640, D = 12).
+RECIPE_GN_SHAPES = (((2 * TRAIN_B, 32, 30, 40), True, "extractor resblocks"),
+                    ((TRAIN_B, 32, 120, 160), True, "refiner 2 resblocks"),
+                    ((TRAIN_B, 32, 240, 320), True, "refiner 1 resblocks"),
+                    ((TRAIN_B, 32, H0, W0), True, "refiner 0 resblocks"),
+                    ((TRAIN_B, 32, H0, W0), False, "refiner 0 bn0"),
+                    ((TRAIN_B, 32, D, 30, 40), False, "cost filter"))
 # Phase 15's convergence recipe (Run A of docs/convergence_torch: 96x128, B = 4, V = 1),
 # its epochs and its resume, and the bar of its "highest" abs_rel against the CPU's.
 CONV_SIZE, CONV_B, CONV_EPOCHS_FIRST, CONV_EPOCHS_TOTAL = (96, 128), 4, 2, 3
@@ -830,11 +864,13 @@ def check_kernels(dev):
             raise AssertionError(f"K3 disagrees with its plain version at ({CONV_B},35,{h},{w})")
         results["refiner"]["max_abs_err"] = max(results["refiner"]["max_abs_err"], err)
 
-    # K4 at every GroupNorm shape of the serving forward, held against the plain
-    # version; the JSON line keeps the 480x640 resblock's times.
+    # K4 at every GroupNorm shape of the serving forward and of phase 15's step, held against
+    # the plain version, with its device time beside the bound. The JSON line keeps the
+    # 480x640 resblock's times.
     weight = state["refiner0.res0.bn1.weight"].to(dev)
     bias = state["refiner0.res0.bn1.bias"].to(dev)
-    results["gn_apply"] = {"max_abs_err": 0.0, "library_ms": None}
+    results["gn_apply"] = {"max_abs_err": 0.0, "library_ms": None, "shapes": []}
+    sms = gn_apply.sm_count(dev)
     for shape, residual, what in GN_SHAPES + CONV_GN_SHAPES:
         x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev)
         res = torch.randn(shape, generator=g).to(dev) if residual else None
@@ -844,19 +880,73 @@ def check_kernels(dev):
 
         def plain():
             return gn_apply.group_norm_act(x, weight, bias, 4, res, impl="plain")
-        got, ref = kernel(), plain()
+        ref = plain()
         tol = GN_BAR * max(1.0, ref.abs().max().item())
+        got = kernel()
         err = (got - ref).abs().max().item()
         t = timings(kernel, plain)
+        p = gn_apply.plan(shape, 4, x.dtype, sms)
         b = bound(nbytes(x, got, weight, bias, *([res] if residual else [])), 10 * x.numel())
         log(f"K4 group_norm_act {shape} {'+ res' if residual else 'no res'} ({what}): "
-            f"max_abs_err {err:.3e} (bar {tol:.3e}); {describe(t, b)}")
+            f"max_abs_err {err:.3e} (bar {tol:.3e}); {p.blocks} chunks a row; "
+            f"{describe(t, b)}")
         if not (err <= tol and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K4 disagrees with its plain version at {shape}")
         results["gn_apply"]["max_abs_err"] = max(results["gn_apply"]["max_abs_err"], err)
+        results["gn_apply"]["shapes"].append(
+            {"shape": list(shape), "residual": residual, "chunks": p.blocks, "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": b[0]})
         if shape == (1, 32, H0, W0) and residual:
             results["gn_apply"].update(**t, bound_ms=b[0], bound_by=b[1])
+
+    # K4 at the recipe's B = 8 shapes (phase 7's step), f32 and bf16 (the conv's bias as
+    # xbias): against the plain version (f32 within GN_BAR, bf16 within phase 11's bar),
+    # with its device time beside the bound.
+    xbias = state["refiner0.res0.conv1.bias"].to(dev)
+    results["gn_apply"]["recipe_shapes"] = []
+    for shape, residual, what in RECIPE_GN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev).to(dtype)
+            res = torch.randn(shape, generator=g).to(dev).to(dtype) if residual else None
+            xb = xbias if dtype == torch.bfloat16 else None
+            ref = gn_apply.group_norm_act(x, weight, bias, 4, res, "plain", xb)
+
+            def run():
+                return gn_apply.group_norm_act(x, weight, bias, 4, res, "kernel", xb)
+            got = run()
+            if dtype == torch.float32:
+                err = (got - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+                ok = err <= GN_BAR
+            else:
+                err = gn_bf16_ulps(got, ref, x, weight, bias, xb)
+                ok = err <= 1.0
+            if not (ok and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"K4 disagrees with its plain version at {shape} {dtype}")
+            b = bound(nbytes(x, got, weight, bias, *([res] if residual else [])),
+                      10 * x.numel())
+            row = {"shape": list(shape), "residual": residual, "dtype": str(dtype)[6:],
+                   "err": err, "ms": graph_ms(run), "bound_ms": b[0]}
+            unit = ("of max(1, max|plain|), bar 1e-5" if dtype == torch.float32
+                    else "of the bf16 bar")
+            log(f"K4 group_norm_act recipe {shape} {'+ res' if residual else 'no res'} "
+                f"{row['dtype']} ({what}): device {row['ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({b[1]}); error {err:.3e} ({unit})")
+            results["gn_apply"]["recipe_shapes"].append(row)
     return results
+
+
+def gn_bf16_ulps(got, ref, x, weight, bias, xbias):
+    """K4's worst element at bf16 in units of phase 11's bar: one bf16 ulp of the f32
+    GroupNorm value, one of the plain result and GN_F32_FLOOR of |x_hat gamma| + |beta|."""
+    F = torch.nn.functional
+    channel = (1, -1) + (1,) * (x.ndim - 2)
+    x32 = x.float() + xbias.reshape(channel)
+    y = F.group_norm(x32, 4, weight, bias, 1e-5)
+    terms = ((F.group_norm(x32, 4, eps=1e-5) * weight.reshape(channel)).abs()
+             + bias.abs().reshape(channel))
+    ref = ref.float()
+    bar = bf16_ulp(y) + bf16_ulp(ref) + GN_F32_FLOOR * terms
+    return ((got.float() - ref).abs() / bar).max().item()
 
 
 def check_backward(dev, dtype=torch.float32):
@@ -897,20 +987,26 @@ def check_backward(dev, dtype=torch.float32):
     def leaf(x):
         return x.to(dev).requires_grad_()
 
-    def check(key, what, run, inputs, library=None, keep=False):
+    def check(key, what, run, inputs, library=None, keep=False, cot_mask=None):
         """run(impl) -> output; library() -> (output, inputs) of the one PyTorch call.
-        The JSON line keeps the times of the shape checked with ``keep``."""
+        The JSON line keeps the times of the shape checked with ``keep``. The output's
+        gradient is 0 where ``cot_mask`` is False."""
         outs = {impl: run(impl) for impl in ("kernel", "plain")}
         cot = torch.randn(outs["plain"].shape, generator=g).to(dev, outs["plain"].dtype)
+        if cot_mask is not None:
+            cot = cot * cot_mask
 
         def backward(impl):
             return torch.autograd.grad(outs[impl], inputs, cot, retain_graph=True)
-        before = read_launches()
+        before, bwd_before = read_launches(), gn_backward_launches()
         with deterministic(bf16):
             got, ref = backward("kernel"), backward("plain")
             torch.cuda.synchronize()
         if read_launches() != before:
-            raise AssertionError(f"{key}{tag} {what}: the backward launched a kernel")
+            raise AssertionError(f"{key}{tag} {what}: the backward launched a forward kernel")
+        if gn_backward_launches() - bwd_before != (key == "K4"):
+            raise AssertionError(f"{key}{tag} {what}: {gn_backward_launches() - bwd_before} "
+                                 f"K4 backward launches, expected {int(key == 'K4')}")
         dtypes = [t.dtype for t in got]
         if dtypes != [t.dtype for t in inputs] or outs["kernel"].dtype != outs["plain"].dtype:
             raise AssertionError(f"{key}{tag} {what}: output {outs['kernel'].dtype}, "
@@ -928,11 +1024,18 @@ def check_backward(dev, dtype=torch.float32):
                 lib_out, lib_inputs, lib_cot, retain_graph=True), BACKWARD_REPS, 1)
         lib = ("" if entry["library_ms"] is None
                 else f", library {entry['library_ms']:.4f} ms")
+        # K4's backward kernel at bf16 rounds its own f32 dx to bf16, where plain autograd
+        # rounds F.group_norm's: phase 12's flat-gradient bar, and the worst element's
+        # bf16 ulps beside it.
+        bar = BF16_TRAIN_GRAD_BAR if bf16 and key == "K4" else BACKWARD_BAR
+        ulps = max([((a.float() - r.float()).abs() / bf16_ulp(r.float())).max().item()
+                    for a, r in zip(got, ref) if r.dtype == torch.bfloat16], default=0.0)
+        entry["worst_bf16_ulps"] = ulps
         log(f"{key}{tag} backward {what}: worst gradient error {err:.3e} of max|plain| "
-            f"(bar {BACKWARD_BAR:.0e}); gradients {[str(d)[6:] for d in dtypes]}; device: "
-            f"through the kernel's Function {entry['ms']:.4f} ms, plain path "
-            f"{entry['plain_ms']:.4f} ms{lib}")
-        if not err <= BACKWARD_BAR:
+            f"(bar {bar:.0e}){f', worst bf16 element {ulps:.2f} ulps' if bf16 else ''}; "
+            f"gradients {[str(d)[6:] for d in dtypes]}; device: through the kernel's "
+            f"Function {entry['ms']:.4f} ms, plain path {entry['plain_ms']:.4f} ms{lib}")
+        if not err <= bar:
             raise AssertionError(f"{key}{tag} backward disagrees with plain autograd at "
                                  f"{what}")
         old = results.get(key)
@@ -1008,10 +1111,15 @@ def check_backward(dev, dtype=torch.float32):
               (guidance, idepth, *module.parameters()), keep=h == 60)
 
     # K4 at every GroupNorm shape of the serving forward; the JSON keeps the 480x640
-    # resblock's times.
+    # resblock's times. Its Function (the forward kernel, which also writes the statistics,
+    # then the backward kernel) against plain autograd, the output's gradient 0 at the
+    # elements next to LeakyReLU's kink (``gn_kink_mask``). The backward kernel alone
+    # against its plain version (closed form) on the same statistics and gradient, and
+    # the device time of each (CUDA graphs).
     weight = leaf(state["refiner0.res0.bn1.weight"].clone())
     bias = leaf(state["refiner0.res0.bn1.bias"].clone())
     xbias = leaf(state["refiner0.res0.conv1.bias"].clone()) if bf16 else None
+    sms = gn_apply.sm_count(dev)
     for shape, residual, what in GN_SHAPES:
         x = leaf((torch.randn(shape, generator=g) * 2 + 0.5).to(dtype))
         res = leaf(torch.randn(shape, generator=g).to(dtype)) if residual else None
@@ -1024,18 +1132,107 @@ def check_backward(dev, dtype=torch.float32):
                                0.2)
             return (out if rs is None else out + rs), tuple(t for t in (xs, weight, bias, rs)
                                                            if t is not None)
-        check("K4", f"{shape} {'+ res' if residual else 'no res'} ({what})",
-              lambda impl: gn_apply.group_norm_act(x, weight, bias, 4, res, impl, xbias),
-              tuple(t for t in (x, weight, bias, res, xbias) if t is not None), library,
-              keep=shape == (1, 32, H0, W0) and residual)
+
+        def run(impl, x=x, res=res):
+            return gn_apply.group_norm_act(x, weight, bias, 4, res, impl, xbias)
+        keep = shape == (1, 32, H0, W0) and residual
+        label = f"{shape} {'+ res' if residual else 'no res'} ({what})"
+        operands = tuple(t for t in (x, weight, bias, res, xbias) if t is not None)
+        away = gn_kink_mask(x, weight, bias, xbias)
+        kink = away.numel() - int(away.sum())
+        log(f"K4{tag} {label}: {kink} of {away.numel()} elements within a rounding of "
+            f"LeakyReLU's kink, left out of the backward's comparison (cap "
+            f"{KINK_SHARE:.0e} of the elements, or {KINK_FLOOR})")
+        if not kink <= max(KINK_FLOOR, KINK_SHARE * away.numel()):
+            raise AssertionError(f"K4{tag} {label}: {kink} elements next to the kink")
+        check("K4", label, run, operands, library, keep=keep, cot_mask=away)
+        # The backward kernel alone.
+        with torch.no_grad():
+            xd, wd, bd = x.detach(), weight.detach(), bias.detach()
+            xbd = None if xbias is None else xbias.detach()
+            _, stats = gn_apply._forward_launch(xd, wd, bd, None, 4, xbd, stats=True)
+            dy = torch.randn(shape, generator=g).to(dev, dtype)
+            got = gn_apply.group_norm_act_backward(xd, wd, bd, 4, stats, dy, xbd)
+            ref = gn_apply.group_norm_act_backward_plain(xd, wd, bd, 4, stats, dy, xbd)
+            pairs = [(a, r) for a, r in zip(got, ref) if r is not None]
+            err = worst_relative(*zip(*pairs))
+            abs_err = max((a.float() - r.float()).abs().max().item() for a, r in pairs)
+            t = {"ms": graph_ms(lambda: gn_apply.group_norm_act_backward(
+                     xd, wd, bd, 4, stats, dy, xbd)),
+                 "plain_ms": graph_ms(lambda: gn_apply.group_norm_act_backward_plain(
+                     xd, wd, bd, 4, stats, dy, xbd))}
+        b = bound(nbytes(xd, dy, got[0], wd, bd, stats, *got[1:3]), 16 * xd.numel())
+        p = gn_apply.plan(shape, 4, dtype, sms, backward=True)
+        log(f"K4{tag} backward kernel {label}: against its plain version {err:.3e} of "
+            f"max|plain| (bar {BACKWARD_BAR:.0e}); {p.route}, {p.blocks} blocks; device: "
+            f"kernel {t['ms']:.4f} ms, plain version {t['plain_ms']:.4f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+        if not err <= BACKWARD_BAR:
+            raise AssertionError(f"K4{tag} backward kernel disagrees with its plain version "
+                                 f"at {label}")
+        entry = {"max_rel_err": err, "max_abs_err": abs_err, **t, "bound_ms": b[0],
+                 "bound_by": b[1],
+                 "gn_route": p.route, "blocks": p.blocks, "kink_elements": kink}
+        old = results.get("K4 kernel")
+        if old is None or keep:
+            results["K4 kernel"] = {**entry, "max_rel_err": max(
+                err, old["max_rel_err"] if old else 0.0), "max_abs_err": max(
+                abs_err, old["max_abs_err"] if old else 0.0)}
+        else:
+            old["max_rel_err"] = max(old["max_rel_err"], err)
+            old["max_abs_err"] = max(old["max_abs_err"], abs_err)
+    results["K4 kernel"]["library_ms"] = results["K4"]["library_ms"]
     return results
+
+
+def gn_kink_mask(x, weight, bias, xbias):
+    """False where K4's GroupNorm value z = x_hat gamma + beta lies within KINK_ROUNDING
+    (|x_hat gamma| + |beta| + |mean rstd gamma|) of LeakyReLU's kink at 0, z and the
+    statistics in f64 from x (+ xbias) alone, apart from either forward; True elsewhere."""
+    with torch.no_grad():
+        N, C = x.shape[:2]
+        v = x.detach().double().reshape(N, 4, -1)
+        if xbias is not None:
+            v = v + xbias.detach().double().reshape(4, -1).repeat_interleave(
+                v.shape[2] // (C // 4), 1)
+        mean = v.mean(2, keepdim=True)
+        rstd = 1.0 / torch.sqrt(((v - mean) ** 2).mean(2, keepdim=True) + 1e-5)
+        v = v.reshape(N, C, -1)
+        mean, rstd = mean.repeat_interleave(C // 4, 1), rstd.repeat_interleave(C // 4, 1)
+        gamma = weight.detach().double().reshape(1, C, 1)
+        beta = bias.detach().double().reshape(1, C, 1)
+        xg = (v - mean) * rstd * gamma
+        terms = xg.abs() + beta.abs() + (mean * rstd * gamma).abs()
+        return ((xg + beta).abs() > KINK_ROUNDING * terms).reshape(x.shape)
+
+
+def group_norm_device_ms(prof) -> dict:
+    """Device ms (the profile's total over its calls) of aten::native_group_norm and its
+    backward, and of K4's kernels by name (the forward's pair, the backward)."""
+    from torch.autograd import DeviceType
+
+    out = {"native_group_norm_ms": 0.0, "native_group_norm_calls": 0,
+           "native_group_norm_backward_ms": 0.0, "k4_forward_ms": 0.0, "k4_backward_ms": 0.0}
+    for e in prof.key_averages():
+        if e.key == "aten::native_group_norm":
+            out["native_group_norm_ms"] += e.device_time_total / 1e3
+            out["native_group_norm_calls"] += e.count
+        elif e.key == "aten::native_group_norm_backward":
+            out["native_group_norm_backward_ms"] += e.device_time_total / 1e3
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "gn_bwd_kernel" in e.name:
+            out["k4_backward_ms"] += e.time_range.elapsed_us() / 1e3
+        elif any(k in e.name for k in ("gn_stats_kernel", "gn_apply_kernel")):
+            out["k4_forward_ms"] += e.time_range.elapsed_us() / 1e3
+    out["k4_ms"] = out["k4_forward_ms"] + out["k4_backward_ms"]
+    return out
 
 
 def deterministic(on):
     """Within it, with ``on``, cuDNN and PyTorch run their deterministic algorithms (a
     warning where an operation has none)."""
-    import contextlib
-
     stack = contextlib.ExitStack()
     if on:
         stack.enter_context(torch.backends.cudnn.flags(
@@ -1086,13 +1283,17 @@ def train_phase(dev, inputs, smi):
         train_cli.train(dict(cfg, num_epochs=num_epochs), data_dir, split, split, out,
                         max_steps=max_steps, stop_check=stamp, device=dev)
         seconds = time.perf_counter() - t0
-        launches = read_launches()
+        launches, backward = read_launches(), gn_backward_launches()
         expected = expected_launches([(TRAIN_B, 1)] * forwards)
-        if launches != expected:
-            raise AssertionError(f"train: expected launches {expected}, got {launches}")
+        steps = forwards - val_forwards
+        if launches != expected or backward * forwards != expected["gn_apply"] * steps:
+            raise AssertionError(f"train: expected launches {expected} and K4 backward "
+                                 f"launches {expected['gn_apply'] * steps // forwards}, got "
+                                 f"{launches} and {backward}")
         return launches, seconds, stamps
 
     launches, seconds, stamps = run(TRAIN_STEPS, 1, TRAIN_STEPS + val_forwards)
+    train_backward = gn_backward_launches()
     # The loop reads each step's loss after queuing the next, so from the third step on
     # the time between steps is the CLI's rate, loader included.
     gaps = np.diff(stamps)[2:] * 1e3
@@ -1100,7 +1301,8 @@ def train_phase(dev, inputs, smi):
     log(f"train: {TRAIN_STEPS} steps at B={TRAIN_B} V=1 {H0}x{W0} D={D} and validation over "
         f"{VAL_IMAGES} images in {seconds:.1f} s (loader start-up, first calls and the "
         f"checkpoint included); launches {launches}: per forward {TRAIN_STEPS} steps + "
-        f"{val_forwards} validation batches, none from the backward; the CLI loop "
+        f"{val_forwards} validation batches, and {train_backward} K4 backward launches (K4's "
+        f"forward launches of the {TRAIN_STEPS} steps); the CLI loop "
         f"{cli_ms:.3f} ms a step (median of steps 4-{TRAIN_STEPS}, host clock; "
         f"{[round(g, 1) for g in gaps]}), {TRAIN_B * 1e3 / cli_ms:.2f} images/s ({smi})")
     _, resume_seconds, _ = run(TRAIN_STEPS + RESUME_STEPS, 2, RESUME_STEPS + val_forwards)
@@ -1163,13 +1365,17 @@ def train_phase(dev, inputs, smi):
         torch.cuda.synchronize()
         expected = (expected_launches([(TRAIN_B, 1)]) if impl == "auto"
                     else dict.fromkeys(forward, 0))
-        if not (forward == read_launches() == expected):
+        if not (forward == read_launches() == expected
+                and gn_backward_launches() == expected["gn_apply"]):
             raise AssertionError(f"{impl}: forward launches {forward}, after the backward "
-                                 f"{read_launches()}, expected {expected}")
+                                 f"{read_launches()} and {gn_backward_launches()} K4 backward "
+                                 f"launches, expected {expected}")
         loss_of[impl] = loss.item()
         grads[impl] = {k: p.grad for k, p in model.named_parameters()}
         if impl == "auto":
-            log(f"train step launches: forward {forward}, backward none")
+            step_backward = gn_backward_launches()
+            log(f"train step launches: forward {forward}, backward: K4's backward kernel "
+                f"{step_backward}, no other")
     ref = grads["plain"]
     worst, worst_key, min_cos = compare_gradients(grads)
     loss_gap = abs(loss_of["auto"] - loss_of["plain"]) / abs(loss_of["plain"])
@@ -1222,11 +1428,17 @@ def train_phase(dev, inputs, smi):
         loss_fn = make_loss_fn(config, loss_config, impl=impl)
         forward = device_ms(lambda: loss_fn(model, batch), reps=3, warmup=1)
         busy, wall, prof = profile_kernels(lambda: step(model, batch), 1)
-        device[impl] = {"forward_ms": forward, "busy_ms": busy, "wall_ms": wall}
+        gn_ops = group_norm_device_ms(prof)
+        device[impl] = {"forward_ms": forward, "busy_ms": busy, "wall_ms": wall, **gn_ops}
         log(f"train step profile ({'kernel' if impl == 'auto' else 'plain'} path, a step): "
             f"device busy {busy:.3f} ms of {wall:.3f} ms wall (profiler on), idle "
             f"{max(0.0, 1 - busy / wall):.1%}; the forward alone {forward:.3f} ms device "
-            f"(mean of 3), the backward and the optimizer step {busy - forward:.3f} ms")
+            f"(mean of 3), the backward and the optimizer step {busy - forward:.3f} ms; "
+            f"aten::native_group_norm {gn_ops['native_group_norm_ms']:.3f} ms in "
+            f"{gn_ops['native_group_norm_calls']} calls and its backward "
+            f"{gn_ops['native_group_norm_backward_ms']:.3f} ms, K4's kernels "
+            f"{gn_ops['k4_ms']:.3f} ms (forward {gn_ops['k4_forward_ms']:.3f}, backward "
+            f"{gn_ops['k4_backward_ms']:.3f}); peak memory {peak[impl] / 2**30:.3f} GiB ({smi})")
         if impl == "auto":
             log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     after = {impl: d["busy_ms"] - d["forward_ms"] for impl, d in device.items()}
@@ -1235,6 +1447,7 @@ def train_phase(dev, inputs, smi):
         f"{after['auto'] - after['plain']:.3f} ms, their forward saves "
         f"{device['plain']['forward_ms'] - device['auto']['forward_ms']:.3f} ms ({smi})")
     summary = {"ms": ms, "images_s": {k: TRAIN_B * 1e3 / v for k, v in ms.items()},
+               "backward_launches": train_backward, "step_backward_launches": step_backward,
                "cli_ms": cli_ms, "loader_ms": loader_ms,
                "peak_gib": {k: v / 2**30 for k, v in peak.items()}, "repack": repack,
                "device": device, "grad_err": worst, "loss_gap": loss_gap}
@@ -1457,12 +1670,19 @@ def kernel_modules():
 
 
 def zero_launches():
+    """Every forward launch counter and K4's backward one to 0."""
     for module in kernel_modules().values():
         module.launches = 0
+    kernel_modules()["gn_apply"].backward_launches = 0
 
 
 def read_launches():
+    """The forward launch counters (a kernel's backward launches count apart)."""
     return {name: module.launches for name, module in kernel_modules().items()}
+
+
+def gn_backward_launches():
+    return kernel_modules()["gn_apply"].backward_launches
 
 
 def expected_launches(forwards, rows=H0, cols=W0):
@@ -2588,9 +2808,11 @@ def bf16_train_phase(dev, inputs, smi, f32_train, backward):
         torch.cuda.synchronize()
         expected = (expected_launches([(TRAIN_B, 1)]) if impl == "auto"
                     else dict.fromkeys(forward, 0))
-        if not (forward == read_launches() == expected):
+        if not (forward == read_launches() == expected
+                and gn_backward_launches() == expected["gn_apply"]):
             failures.append(f"bf16 step {impl}: forward launches {forward}, after the "
-                            f"backward {read_launches()}, expected {expected}")
+                            f"backward {read_launches()} and {gn_backward_launches()} K4 "
+                            f"backward launches, expected {expected}")
         if loss.dtype != torch.float32 or any(p.grad.dtype != torch.float32
                                               for p in model.parameters()):
             failures.append(f"bf16 step {impl}: loss {loss.dtype}, gradients not all f32")
@@ -2617,7 +2839,8 @@ def bf16_train_phase(dev, inputs, smi, f32_train, backward):
     if not (remat_loss_gap <= LOSS_BAR and remat_gap <= BF16_TRAIN_GRAD_BAR):
         failures.append(f"bf16 remat against no remat: loss {remat_loss_gap}, flat {remat_gap}")
     log(f"bf16 train step kernel vs plain path (same weights and batch): launches "
-        f"{step_launches} a step, the backward none; loss {loss_of['auto']:.6f} vs "
+        f"{step_launches} a step, the backward K4's backward kernel only; loss "
+        f"{loss_of['auto']:.6f} vs "
         f"{loss_of['plain']:.6f} ({loss_gap:.2e} relative, bar {BF16_TRAIN_LOSS_BAR:.0e}); "
         f"flat gradient {flat_gap:.3e} relative L2 (bar {BF16_TRAIN_GRAD_BAR:.0e}); worst "
         f"leaf {worst:.3e} of max|plain| at {worst_key}, least cosine {min_cos:.6f}")
@@ -2635,10 +2858,11 @@ def bf16_train_phase(dev, inputs, smi, f32_train, backward):
             f"(median of {len(times[k])}, CUDA events, the four in turns; "
             f"{[round(t, 2) for t in times[k]]}), {TRAIN_B * 1e3 / ms[k]:.2f} images/s, "
             f"peak memory {peak[k] / 2**30:.3f} GiB ({smi})")
-    busy = {}
+    busy, k4 = {}, {}
     for k in ("auto f32", "auto bf16"):
         model, _, _, step = steps_by[k]
-        busy[k] = profile_kernels(lambda: step(model, batch), 1)[0]
+        busy[k], _, prof = profile_kernels(lambda: step(model, batch), 1)
+        k4[k] = group_norm_device_ms(prof)
     module = steps_by["auto bf16"][0].refiner4
     host = []
     for _ in range(10):
@@ -2653,8 +2877,11 @@ def bf16_train_phase(dev, inputs, smi, f32_train, backward):
     log(f"bf16 train step, kernel path: device busy {busy['auto bf16']:.3f} ms a step against "
         f"f32 {busy['auto f32']:.3f} in this call (phase 7: {f32_busy:.3f}); peak "
         f"{peak['auto bf16'] / 2**30:.3f} GiB against f32 {peak['auto f32'] / 2**30:.3f} "
-        f"(phase 7: {f32_peak:.3f}); the K3 bf16 repack after an update {repack_ms:.3f} ms "
-        f"of host (median of 10, two fused refiners a step) ({smi})")
+        f"(phase 7: {f32_peak:.3f}); K4's kernels {k4['auto bf16']['k4_forward_ms']:.3f} ms "
+        f"forward, {k4['auto bf16']['k4_backward_ms']:.3f} ms backward (f32 "
+        f"{k4['auto f32']['k4_forward_ms']:.3f}, {k4['auto f32']['k4_backward_ms']:.3f}); the "
+        f"K3 bf16 repack after an update {repack_ms:.3f} ms of host (median of 10, two fused "
+        f"refiners a step) ({smi})")
     del steps_by
 
     # (d) Two processes over gloo at bf16 (the recipe's width, no augmentation, one loader
@@ -2708,6 +2935,8 @@ def bf16_train_phase(dev, inputs, smi, f32_train, backward):
     return {"backward": backward, "launches": step_launches, "ms": ms,
             "images_s": {k: TRAIN_B * 1e3 / v for k, v in ms.items()},
             "peak_gib": {k: v / 2**30 for k, v in peak.items()}, "busy_ms": busy,
+            "k4_ms": {k: {kk: v[kk] for kk in ("k4_forward_ms", "k4_backward_ms")}
+                      for k, v in k4.items()},
             "repack_host_ms": repack_ms, "loss_gap": loss_gap, "grad_gap": flat_gap,
             "mp_gaps": mp_gaps}
 
@@ -3244,8 +3473,6 @@ def child(spec_json: str):
     through the mesh (its gradients all-reduced over NCCL) and one without, on the same
     batch and weights, then leaves; prints the backend, both losses and the worst
     gradient gap."""
-    import contextlib
-
     spec = json.loads(spec_json)
     sys.path.insert(0, REPO)
     torch.backends.cudnn.allow_tf32 = False
@@ -3772,7 +3999,7 @@ def replica_phase(dev, inputs, smi):
     rates."""
     from multi_view_stereonet_tpu_torch.eval.streaming import (
         IN_FLIGHT, StreamingRunner, load_model, make_dataset, model_config_from_params)
-    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.ops.cuda import build
     from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
 
     failures = []
@@ -3808,13 +4035,13 @@ def replica_phase(dev, inputs, smi):
         same = (got.dtype == ref.dtype and got.shape == ref.shape
                 and np.array_equal(got.view(np.uint8), ref.view(np.uint8)))
         keys = {(dev.index, r.stream.cuda_stream) for r in runner._replicas}
-        counters = len(keys) == 2 and keys <= set(refiner_op._barriers)
+        counters = len(keys) == 2 and keys <= set(build._barriers)
         what = "f16 fetch" if fetch is not None else "u8" if u8 else "f32"
         log(f"replicas (b): the card named twice, {what}, caller's cuDNN TF32 {flag}: "
             f"{len(got_names)} requests at batch 2 (split, split, the tail whole) "
             f"{'equal to the f32 output cast of' if fetch else 'bit-equal to'} one replica "
-            f"at batch 1: {same}; names in order {got_names == names}; a K3 barrier counter "
-            f"a replica stream: {counters}; the flag after the run {after}")
+            f"at batch 1: {same}; names in order {got_names == names}; a grid-barrier "
+            f"counter (K3, K4) a replica stream: {counters}; the flag after the run {after}")
         if not (same and got_names == names and counters and after is flag
                 and np.isfinite(got.astype(np.float32)).all()):
             failures.append(f"two replicas, {what}: same {same}, counters {counters}, "
@@ -4077,6 +4304,19 @@ def main():
          "bf16_train_launches": bf16_train["launches"]["gn_apply"],
          "bf16_backward": bf16_train["backward"]["K4"],
          "backward": backward["K4"]},
+        {"name": "group_norm_act_backward", "route": "cuda",
+         "source": f"{pkg}/csrc/gn_apply.cu",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:120 (_bwd: the VJP of "
+                     "the XLA reference; no TPU kernel)",
+         "launches": trained["backward_launches"],
+         "step_launches": trained["step_backward_launches"],
+         "max_abs_err": backward["K4 kernel"]["max_abs_err"],
+         "max_rel_err": backward["K4 kernel"]["max_rel_err"],
+         **{k: backward["K4 kernel"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "gn_route", "blocks",
+                                                   "kink_elements")},
+         "function_ms": backward["K4"]["ms"], "autograd_ms": backward["K4"]["plain_ms"],
+         "bf16": backward_bf16["K4 kernel"]},
     ]}
     log(json.dumps(report))
     log(smi)

@@ -1,5 +1,5 @@
-// GroupNorm with its statistics -> LeakyReLU(0.2) -> optional residual add: every
-// GroupNorm of the serving forward (Hopper, sm_90a).
+// GroupNorm with its statistics -> LeakyReLU(0.2) -> optional residual add, and its
+// backward: every GroupNorm of the serving forward and of a training step (Hopper, sm_90a).
 //
 // Replaces the TPU kernel
 //   multi_view_stereonet_tpu/ops/pallas/gn_apply.py, gn_apply_residual_fused
@@ -8,41 +8,78 @@
 //   out = leaky_relu((x - mean_g) * rstd_g * gamma_c + beta_c, 0.2) [+ res],
 // mean_g and rstd_g = 1 / sqrt(var_g + eps) over each (sample, group) of x. The same
 // function without the residual is the JAX models' leaky_relu(group_norm(...)) of the
-// refiners' bn0 and the cost filter (models/refiners.py, models/cost_volume.py).
+// refiners' bn0 and the cost filter (models/refiners.py, models/cost_volume.py). The JAX
+// package has no backward kernel (its _bwd takes the VJP of the XLA reference); the
+// backward here replaces that recompute.
 //
 // x is (N, C, S), S the per-channel span (H * W, or D * H * W for the 3-D filter), so one
-// (sample, group) row is a contiguous run of L = (C / G) * S floats (2.46 M at 480x640,
-// C = 32, G = 4). What bounds it on this card: bytes, and on PyTorch's own GroupNorm the
-// number of blocks: PyTorch reduces each row in one block, so the level-0 refiner keeps 4
-// of 132 SMs busy. Here each row is cut into chunks and the statistics pass runs one
-// block per chunk, so the whole card reads x once:
-//   1. stats:  each block sums x and x^2 of its chunk in f64 (E[x^2] - mu^2 over 2.46 M
-//              f32 values loses digits in f32) and writes one (sum, sum of squares)
-//              partial;
-//   2. apply:  each block reduces its row's partials in a fixed order (so every block of
-//              a row, and every run, gets the same mean and rstd: no atomics), then reads
-//              x (from L2 at the forward's sizes) and res once as float4s and writes out
-//              once.
-// The TPU version tiled rows of an s2d layout for the 128-lane VPU; none of that is needed.
+// (sample, group) row is a contiguous run of L = (C / G) * S values (2.46 M at 480x640,
+// C = 32, G = 4) and one (sample, channel) span a run of S. What bounds it on this card:
+// bytes (x and res read once, out written once), and at the small shapes the launch and
+// the one exchange of statistics between blocks. PyTorch's own GroupNorm reduces each row
+// in one block, so the level-0 refiner keeps 4 of 132 SMs busy.
 //
-// x, res and out are f32 or bf16 (the storage type T; gamma, beta and the statistics stay
-// f32). At bf16 the tail follows the Pallas kernel (gn_apply.py:37-52): the apply in f32,
-// rounded to bf16; the sign test on the f32 value; LeakyReLU at bf16 (the slope rounded
-// to bf16, the product rounded); the residual added at bf16 (a rounded sum). The
-// statistics pass reads bf16 and sums in f64 as the f32 pass does. A bf16 call moves half
-// the bytes. An optional per-channel f32 ``xbias`` (the bias of the conv that wrote x) is
-// added to x in f32 before the statistics and the apply, so a bf16 conv's bias add costs no
-// pass of its own and is not rounded before the GroupNorm (as the Pallas kernels add it in
-// f32, and as XLA computes the JAX layers' bias add there).
+// The forward is two launches over chunks of each (sample, group) row (gn_stats_kernel,
+// gn_apply_kernel): a statistics pass, each block summing x (+ xbias) and x^2 of its chunk
+// in f64 (E[x^2] - mu^2 over 2.46 M f32 values loses digits in f32) into one partial, then
+// an apply pass in which each block reduces its row's partials in a fixed order (so every
+// block, and every run, gets the same mean and rstd: no atomics), reads x again (from L2
+// where it fits) and res once, and writes out once. Under autograd the apply also writes
+// each row's f32 mean and rstd, the values it used, for the backward. A cooperative
+// forward in the backward's layout below (x held in shared memory, one grid barrier) was
+// built and measured on an H100 (PERF.md §6): it won only where x has 16 MiB or more, and
+// a bf16 training step moved by less than its spread, so it was taken out.
+//
+// The backward (gn_bwd_kernel) is one cooperative launch of at most one 512-thread block
+// per SM, sized to the call (the wrapper's ``plan``): all N * C * S values are cut into
+// equal contiguous slices, one a block, each holding the first ``held`` values of its
+// slice of x and of dy in shared memory, stored there by the 16-byte loads of its first
+// pass (eight in flight a thread). A span of at most LANE_SPAN values goes to one thread,
+// of at most WARP_SPAN to one warp (no block-wide sum a span); longer ones to the whole
+// block. With x_hat = (x + xbias - mean) * rstd, z = x_hat * gamma + beta and
+// g = dy * leaky'(z):
+//   1. per (sample, channel) span piece, f64 partials of sum g, sum g x_hat, sum x_hat;
+//      one grid barrier;
+//   2. per row a = mean(g gamma), b = mean(g gamma x_hat) from the partials in a fixed
+//      order; dx = rstd (g gamma - a - x_hat b), rounded to x's type, x and dy from shared
+//      memory (the part not held, read again, first); the row's owner writes (a, b); one
+//      grid barrier;
+//   3. per channel, in a fixed order over samples and pieces: dbeta = sum g,
+//      dgamma = sum g x_hat, dxbias = sum over samples of rstd (gamma G - S a - b X) with
+//      G and X the span's sums of g and x_hat (the sum of dx over the span).
+// d res is dy itself (the wrapper returns it).
+//
+// x, res, out, dy and dx are f32 or bf16 (the storage type T; gamma, beta, the statistics
+// and the parameter gradients stay f32). At bf16 the tail follows the Pallas kernel
+// (gn_apply.py:37-52): the apply in f32, rounded to bf16; the sign test on the f32 value;
+// LeakyReLU at bf16 (the slope rounded to bf16, the product rounded); the residual added
+// at bf16 (a rounded sum). The backward at bf16 differentiates what plain autograd
+// differentiates there: the sign test on the bf16 value, dy times the bf16 slope rounded
+// to bf16. An optional per-channel f32 ``xbias`` (the bias of the conv that wrote x) is
+// added to x in f32 before the statistics and the apply, so a bf16 conv's bias add costs
+// no pass of its own and is not rounded before the GroupNorm (as the Pallas kernels add it
+// in f32, and as XLA computes the JAX layers' bias add there).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "grid_sync.cuh"  // grid_barrier
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // the forward's blocks
 constexpr int WARPS = THREADS / 32;
+constexpr int COOP_THREADS = 512;  // the backward's blocks
+constexpr int COOP_WARPS = COOP_THREADS / 32;
+constexpr int64_t HOLD_BYTES = 224 * 1024;  // shared memory a block holds slices in
+constexpr int64_t LANE_SPAN = 256;   // spans up to this many values go to one thread
+constexpr int64_t WARP_SPAN = 2048;  // spans up to this many values go to one warp
+constexpr int UNROLL = 8;            // vectors a thread loads before it uses any
+constexpr int R_MAX = 128;           // rows a block tabulates at a time
+constexpr int MAX_DEVICES = 64;
 constexpr float SLOPE = 0.2f;
 constexpr float SLOPE_BF16 = 0.2001953125f;  // 0.2 rounded to bf16
 
@@ -76,11 +113,98 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
+// VEC consecutive elements of T: one 16-byte vector (VEC = 16 / sizeof(T)) held raw as a
+// uint4 until it is used, or one element (VEC = 1).
+template <int VEC, typename T>
+struct Io {
+  using Raw = std::conditional_t<VEC == 1, T, uint4>;
+  static_assert(VEC == 1 || VEC * sizeof(T) == 16, "a vector is 16 bytes");
+  __device__ static __forceinline__ Raw load(const T* p) {
+    if constexpr (VEC == 1) return *p;
+    else return *reinterpret_cast<const uint4*>(p);
+  }
+  // A last read: evict first from L2.
+  __device__ static __forceinline__ Raw load_last(const T* p) {
+    if constexpr (VEC == 1) return *p;
+    else return __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static __forceinline__ void unpack(const Raw& r, float (&v)[VEC]) {
+    if constexpr (VEC == 1) {
+      v[0] = to_float(r);
+    } else if constexpr (sizeof(T) == sizeof(float)) {
+      v[0] = __uint_as_float(r.x);
+      v[1] = __uint_as_float(r.y);
+      v[2] = __uint_as_float(r.z);
+      v[3] = __uint_as_float(r.w);
+    } else {
+      const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+        v[2 * k] = f.x;
+        v[2 * k + 1] = f.y;
+      }
+    }
+  }
+  __device__ static __forceinline__ void store(T* p, const float (&v)[VEC]) {
+    if constexpr (VEC == 1) {
+      store1(p, v[0]);
+    } else if constexpr (sizeof(T) == sizeof(float)) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+        w[k] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+};
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1 fixed for a launch).
+struct IntDiv {
+  uint32_t d, m, s;
+  __host__ __device__ IntDiv(uint32_t divisor = 1) : d(divisor), s(0) {
+    while ((1u << s) < d && s < 31) ++s;
+    m = (uint32_t)(((uint64_t)1 << 32) * (((uint64_t)1 << s) - d) / d + 1);
+  }
+  __device__ __forceinline__ uint32_t div(uint32_t n) const {
+    return (__umulhi(n, m) + n) >> s;
+  }
+};
+
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+
+// The tail of one element at storage type T (``res`` tells whether r is a residual).
+template <typename T>
+__device__ __forceinline__ float tail(float v, float mu, float rs, float g, float b, float r,
+                                      bool res) {
+  const float y = (v - mu) * rs * g + b;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    return (y >= 0.0f ? y : SLOPE * y) + r;
+  } else {
+    float o = round_bf16(y);
+    if (!(y >= 0.0f)) o = round_bf16(SLOPE_BF16 * o);
+    return res ? round_bf16(o + r) : o;
+  }
+}
+
+// dy times LeakyReLU's derivative at z, as plain autograd takes it at T: at f32 the
+// slope where z <= 0; at bf16 where the bf16 value of z is below 0, dy times the bf16
+// slope rounded to bf16.
+template <typename T>
+__device__ __forceinline__ float dleaky(float z, float dy) {
+  if constexpr (sizeof(T) == sizeof(float)) return z > 0.0f ? dy : dy * SLOPE;
+  else return round_bf16(z) >= 0.0f ? dy : round_bf16(dy * SLOPE_BF16);
+}
+
+// ----------------------------------------------------------------------- the forward
 
 // Chunk c of row r covers elements [c * chunk, min(L, (c + 1) * chunk)) of the row; chunk
 // is a multiple of VEC, and rows start 16-byte aligned when VEC == 4.
@@ -132,28 +256,15 @@ gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ xbias,
   }
 }
 
-// The tail of one element at storage type T (``res`` tells whether r is a residual).
-template <typename T>
-__device__ __forceinline__ float tail(float v, float mu, float rs, float g, float b, float r,
-                                      bool res) {
-  const float y = (v - mu) * rs * g + b;
-  if constexpr (sizeof(T) == sizeof(float)) {
-    return (y >= 0.0f ? y : SLOPE * y) + r;
-  } else {
-    float o = round_bf16(y);
-    if (!(y >= 0.0f)) o = round_bf16(SLOPE_BF16 * o);
-    return res ? round_bf16(o + r) : o;
-  }
-}
-
-// res == nullptr: no residual; xbias == nullptr: none.
+// res == nullptr: no residual; xbias == nullptr: none; stats == nullptr: not written.
 template <int VEC, typename T>
 __global__ void __launch_bounds__(THREADS)
 gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ xbias,
                 const T* __restrict__ res, const float* __restrict__ gamma,
                 const float* __restrict__ beta,
-                const double2* __restrict__ partials, T* __restrict__ out, int64_t L,
-                int64_t chunk, int chunks, int64_t S, int C, int G, float eps) {
+                const double2* __restrict__ partials, T* __restrict__ out,
+                float* __restrict__ stats, int64_t L, int64_t chunk, int chunks, int64_t S,
+                int C, int G, float eps) {
   __shared__ float stat[2];
   const int row = blockIdx.y;
   if (threadIdx.x < 32) {
@@ -170,6 +281,10 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ xbias,
       const double var = fmax(ss / (double)L - mean * mean, 0.0);
       stat[0] = (float)mean;
       stat[1] = (float)(1.0 / sqrt(var + (double)eps));
+      if (stats != nullptr && blockIdx.x == 0) {
+        stats[2 * row] = stat[0];
+        stats[2 * row + 1] = stat[1];
+      }
     }
   }
   __syncthreads();
@@ -203,59 +318,468 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ xbias,
   }
 }
 
+// ---------------------------------------------------------------------- the backward
+
+// How the N * C * S values are cut: block b holds [b * q, min(E, (b + 1) * q)), its first
+// ``held`` values in shared memory. Span sg (sample sg / C, channel sg % C) covers
+// [sg * S, (sg + 1) * S) and meets blocks sg * S / q to ((sg + 1) * S - 1) / q, at most
+// maxb of them; its piece in block b has partial slot sg * maxb + b - sg * S / q.
+struct Geometry {
+  int64_t E, S, q, held;
+  int C, G, maxb;
+  IntDiv divS, divC, divCG, divQ;  // by S, C, C / G and q (values below 2^31)
+};
+
+__device__ __forceinline__ int64_t first_block(const Geometry& g, int64_t sg) {
+  return g.divQ.div((uint32_t)(sg * g.S));
+}
+__device__ __forceinline__ bool has_piece(const Geometry& g, int64_t sg, int m) {
+  return first_block(g, sg) + m <= g.divQ.div((uint32_t)((sg + 1) * g.S - 1));
+}
+__device__ __forceinline__ int64_t slot(const Geometry& g, int64_t sg, int b) {
+  return sg * g.maxb + (b - first_block(g, sg));
+}
+
+// The sums of K doubles over the block, in thread 0.
+template <int K>
+__device__ __forceinline__ void block_sum(double (&v)[K], double (*red)[COOP_WARPS]) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k][warp] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      double s = 0.0;
+      for (int w = 0; w < COOP_WARPS; ++w) s += red[k][w];
+      v[k] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// How phase 1 takes the span pieces: a thread, a warp or the whole block a piece.
+enum Mode { LANE = 0, WARP = 1, BLOCK = 2 };
+
+__device__ __forceinline__ Mode piece_mode(const Geometry& g) {
+  return g.S <= LANE_SPAN ? LANE : g.S <= WARP_SPAN ? WARP : BLOCK;
+}
+
+// Calls body(sg, lo, hi) for each span piece of [rlo, rhi) (offsets in the block's slice
+// from s0) that this thread takes part in, in increasing order: the threads (LANE) or the
+// warps (WARP) take the pieces in turn; every thread takes every piece (BLOCK).
+template <typename Body>
+__device__ __forceinline__ void for_pieces(const Geometry& g, int64_t s0, int64_t rlo,
+                                           int64_t rhi, Mode mode, Body body) {
+  if (rlo >= rhi) return;
+  const int64_t sg0 = (s0 + rlo) / g.S, sg1 = (s0 + rhi - 1) / g.S;
+  const int64_t step = mode == LANE ? COOP_THREADS : mode == WARP ? COOP_WARPS : 1;
+  const int64_t first = mode == LANE ? threadIdx.x : mode == WARP ? (threadIdx.x >> 5) : 0;
+  for (int64_t sg = sg0 + first; sg <= sg1; sg += step) {
+    const int64_t lo = (sg * g.S > s0 + rlo ? sg * g.S : s0 + rlo) - s0;
+    const int64_t hi = ((sg + 1) * g.S < s0 + rhi ? (sg + 1) * g.S : s0 + rhi) - s0;
+    body(sg, lo, hi);
+  }
+}
+
+// The K sums of a piece from every thread that took it, in the thread that writes them
+// (LANE: itself; WARP: lane 0; BLOCK: thread 0); returns whether this thread writes.
+template <int K>
+__device__ __forceinline__ bool piece_sum(double (&v)[K], Mode mode,
+                                          double (*red)[COOP_WARPS]) {
+  if (mode == LANE) return true;
+  if (mode == WARP) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
+    return (threadIdx.x & 31) == 0;
+  }
+  block_sum<K>(v, red);
+  return threadIdx.x == 0;
+}
+
+// Rows [first, last] of the block's slice [s0, s0 + n).
+__device__ __forceinline__ void block_rows(const Geometry& g, int64_t s0, int64_t n,
+                                           int64_t* first, int64_t* last) {
+  const int64_t L = (int64_t)(g.C / g.G) * g.S;
+  *first = s0 / L;
+  *last = (s0 + n - 1) / L;
+}
+
+// (span, channel, row) of value e (< 2^31) of x.
+__device__ __forceinline__ void locate(const Geometry& g, uint32_t e, uint32_t* c,
+                                       uint32_t* r) {
+  const uint32_t sg = g.divS.div(e);
+  *c = sg - g.divC.div(sg) * (uint32_t)g.C;
+  *r = g.divCG.div(sg);
+}
+
+template <typename T>
+struct Bwd {
+  const T* x;
+  const float* xbias;  // or null
+  const float* gamma;
+  const float* beta;
+  const float* stats;  // (N * G, 2): the forward's mean and rstd
+  const T* dy;
+  T* dx;
+  float* dgamma;
+  float* dbeta;
+  float* dxbias;       // or null
+  double2* partials;   // N * C * maxb * 2: (sum g, sum g x_hat), (sum x_hat, 0)
+  double2* ab;         // (N * G): a and b of each row
+  unsigned int* barrier;
+  Geometry g;
+};
+
+// a and b of row r (mean of g gamma, of g gamma x_hat) from the partials of its spans in
+// a fixed order; all lanes of the calling warp get them.
+__device__ __forceinline__ double2 row_ab(const Geometry& g, const double2* partials,
+                                          const float* gamma, int64_t r) {
+  const int cg = g.C / g.G, lane = threadIdx.x & 31;
+  double A = 0.0, B = 0.0;
+  for (int t = lane; t < cg * g.maxb; t += 32) {
+    const int64_t sg = r * cg + t / g.maxb;
+    if (has_piece(g, sg, t % g.maxb)) {
+      const double2 p = __ldcg(partials + 2 * (sg * g.maxb + t % g.maxb));
+      const double gm = gamma[sg % g.C];
+      A += gm * p.x;
+      B += gm * p.y;
+    }
+  }
+  const double L = (double)cg * (double)g.S;
+  return make_double2(warp_sum(A) / L, warp_sum(B) / L);
+}
+
 template <int VEC, typename T>
-int launch_vec(const T* x, const float* xbias, const T* res, const float* gamma,
-               const float* beta, T* out, double2* partials, int rows, int64_t L,
-               int64_t chunk, int chunks, int64_t S, int C, int G, float eps,
-               cudaStream_t stream) {
+__global__ void __launch_bounds__(COOP_THREADS, 1) gn_bwd_kernel(const Bwd<T> a) {
+  using V = Io<VEC, T>;
+  using Raw = typename V::Raw;
+  constexpr int64_t STRIDE = (int64_t)COOP_THREADS * VEC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ double red[3][COOP_WARPS];
+  __shared__ float4 rtab[R_MAX];  // a window's rows' mean, rstd, a and b
+  const Geometry& g = a.g;
+  T* const sx = reinterpret_cast<T*>(smem_raw);
+  T* const sdy = sx + g.held;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t s0 = (int64_t)b * g.q;
+  const int64_t n = g.q < g.E - s0 ? g.q : g.E - s0;
+  const int64_t h = g.held < n ? g.held : n;
+  int64_t r_first, r_last;
+  block_rows(g, s0, n, &r_first, &r_last);
+  for (int64_t r = r_first + tid; r <= r_last && r < r_first + R_MAX; r += COOP_THREADS)
+    rtab[r - r_first] = make_float4(a.stats[2 * r], a.stats[2 * r + 1], 0.0f, 0.0f);
+  __syncthreads();
+  const T* const gx = a.x + s0;
+  const T* const gdy = a.dy + s0;
+  const Mode mode = piece_mode(g);
+  const int cg = g.C / g.G;
+
+  // 1. f64 sums of g, g x_hat and x_hat over each span piece.
+  for_pieces(g, s0, 0, n, mode, [&](int64_t sg, int64_t lo, int64_t hi) {
+    const int64_t r = sg / cg;
+    const int c = (int)(sg % g.C);
+    const float mu = r - r_first < R_MAX ? rtab[r - r_first].x : a.stats[2 * r];
+    const float rs = r - r_first < R_MAX ? rtab[r - r_first].y : a.stats[2 * r + 1];
+    const float gm = a.gamma[c], bt = a.beta[c];
+    const float xb = a.xbias != nullptr ? a.xbias[c] : 0.0f;
+    const int64_t stride = mode == LANE ? VEC : mode == WARP ? 32 * VEC : STRIDE;
+    double sums[3] = {0.0, 0.0, 0.0};
+    for (int64_t i0 = lo + (mode == LANE ? 0 : (int64_t)(mode == WARP ? lane : tid) * VEC);
+         i0 < hi; i0 += UNROLL * stride) {
+      Raw xr[UNROLL], dr[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = i0 + u * stride;
+        if (i < hi) {
+          xr[u] = V::load(gx + i);
+          dr[u] = V::load(gdy + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = i0 + u * stride;
+        if (i < hi) {
+          if (i < h) {  // held for the second pass
+            *reinterpret_cast<Raw*>(sx + i) = xr[u];
+            *reinterpret_cast<Raw*>(sdy + i) = dr[u];
+          }
+          float v[VEC], d[VEC];
+          V::unpack(xr[u], v);
+          V::unpack(dr[u], d);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float xh = (v[e] + xb - mu) * rs;
+            const float gv = dleaky<T>(xh * gm + bt, d[e]);
+            sums[0] += (double)gv;
+            sums[1] += (double)gv * (double)xh;
+            sums[2] += (double)xh;
+          }
+        }
+      }
+    }
+    if (piece_sum<3>(sums, mode, red)) {
+      double2* p = a.partials + 2 * slot(g, sg, b);
+      p[0] = make_double2(sums[0], sums[1]);
+      p[1] = make_double2(sums[2], 0.0);
+    }
+  });
+  grid_barrier(a.barrier);
+
+  // 2. dx, R_MAX rows at a time: the rows' (a, b) into rtab (a warp a row), then every
+  // value of the rows in the slice, the re-read part first (the most recently read), then
+  // the held part; the owner of a row (the block its first value is in) writes its (a, b).
+  const int64_t L = (int64_t)cg * g.S;
+  auto backward = [&](int64_t lo, int64_t hi, int64_t w0) {
+    for (int64_t i0 = lo + (int64_t)tid * VEC; i0 < hi; i0 += UNROLL * STRIDE) {
+      Raw xr[UNROLL], dr[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = i0 + u * STRIDE;
+        if (i < hi) {
+          xr[u] = i < h ? V::load(sx + i) : V::load_last(gx + i);
+          dr[u] = i < h ? V::load(sdy + i) : V::load_last(gdy + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = i0 + u * STRIDE;
+        if (i < hi) {
+          uint32_t c, r;
+          locate(g, (uint32_t)(s0 + i), &c, &r);
+          const float4 st = rtab[r - w0];
+          const float gm = __ldg(a.gamma + c), bt = __ldg(a.beta + c);
+          const float xb = a.xbias != nullptr ? __ldg(a.xbias + c) : 0.0f;
+          float v[VEC], d[VEC], o[VEC];
+          V::unpack(xr[u], v);
+          V::unpack(dr[u], d);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float xh = (v[e] + xb - st.x) * st.y;
+            const float gg = dleaky<T>(xh * gm + bt, d[e]) * gm;
+            o[e] = st.y * ((gg - st.z) - xh * st.w);
+          }
+          V::store(a.dx + s0 + i, o);
+        }
+      }
+    }
+  };
+  for (int64_t w0 = r_first; w0 <= r_last; w0 += R_MAX) {
+    const int64_t w1 = w0 + R_MAX < r_last + 1 ? w0 + R_MAX : r_last + 1;
+    __syncthreads();
+    for (int64_t r = w0 + warp; r < w1; r += COOP_WARPS) {
+      const double2 ab = row_ab(g, a.partials, a.gamma, r);
+      if (lane == 0) {
+        rtab[r - w0] = make_float4(a.stats[2 * r], a.stats[2 * r + 1], (float)ab.x,
+                                   (float)ab.y);
+        if (r * L >= s0) a.ab[r] = ab;
+      }
+    }
+    __syncthreads();
+    const int64_t lo = (w0 * L > s0 ? w0 * L : s0) - s0;
+    const int64_t hi = (w1 * L < s0 + n ? w1 * L : s0 + n) - s0;
+    backward(lo > h ? lo : h, hi, w0);
+    backward(lo, hi < h ? hi : h, w0);
+  }
+  grid_barrier(a.barrier);
+
+  // 3. dbeta, dgamma and dxbias of channel c, by warp (c / P) % COOP_WARPS of block c % P,
+  // over (sample, piece) in a fixed order.
+  const int P = gridDim.x;
+  const int64_t N = g.E / ((int64_t)g.C * g.S);
+  for (int c = b + P * warp; c < g.C; c += P * COOP_WARPS) {
+    const double gm = a.gamma[c];
+    double db = 0.0, dg = 0.0, dxb = 0.0;
+    for (int64_t t = lane; t < N * g.maxb; t += 32) {
+      const int64_t sg = (t / g.maxb) * g.C + c;
+      const int m = (int)(t % g.maxb);
+      if (has_piece(g, sg, m)) {
+        const int64_t r = sg / cg;
+        const double2 p0 = __ldcg(a.partials + 2 * (sg * g.maxb + m));
+        const double2 p1 = __ldcg(a.partials + 2 * (sg * g.maxb + m) + 1);
+        const double2 ab = __ldcg(a.ab + r);
+        const double rs = a.stats[2 * r + 1];
+        db += p0.x;
+        dg += p0.y;
+        dxb += rs * (gm * p0.x - ab.y * p1.x);
+        if (m == 0) dxb -= rs * (double)g.S * ab.x;
+      }
+    }
+    db = warp_sum(db);
+    dg = warp_sum(dg);
+    dxb = warp_sum(dxb);
+    if (lane == 0) {
+      a.dbeta[c] = (float)db;
+      a.dgamma[c] = (float)dg;
+      if (a.dxbias != nullptr) a.dxbias[c] = (float)dxb;
+    }
+  }
+}
+
+// ----------------------------------------------------------------------- launchers
+
+// The cooperative launch of ``kernel`` over ``blocks`` blocks with ``smem`` bytes of
+// dynamic shared memory. A grid the card cannot hold at once is refused
+// (cudaErrorCooperativeLaunchTooLarge); the refused launch's error is cleared.
+// ``ready`` (one flag a device, the caller's for this kernel) records that the kernel may
+// take HOLD_BYTES of dynamic shared memory on the device.
+template <typename Args>
+int coop_launch(void (*kernel)(const Args), bool* ready, const Args& a, int blocks,
+                size_t smem, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)HOLD_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  void* args[] = {const_cast<Args*>(&a)};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(COOP_THREADS),
+                                    args, smem, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The geometry of a backward launch, or false for one the kernel does not take: fewer
+// than 2^31 values, q a multiple of 8, every block a non-empty slice, ``held`` (values a
+// tensor) a multiple of 8 within HOLD_BYTES for x and dy, and ``slots`` partials enough.
+bool geometry(Geometry* g, int N, int C, int G, int64_t S, int blocks, int64_t q,
+              int64_t held, int64_t slots, size_t elem) {
+  if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G || blocks < 1 || q < 8 || q % 8 ||
+      held < 0 || held % 8 || held * (int64_t)elem * 2 > HOLD_BYTES)
+    return false;
+  g->E = (int64_t)N * C * S;
+  g->S = S;
+  g->q = q;
+  g->held = held;
+  g->C = C;
+  g->G = G;
+  g->maxb = (int)((S + q - 1) / q + 1);
+  if (g->E >= ((int64_t)1 << 31) || (int64_t)(blocks - 1) * q >= g->E ||
+      (int64_t)blocks * q < g->E || slots < (int64_t)N * C * g->maxb)
+    return false;
+  g->divS = IntDiv((uint32_t)S);
+  g->divC = IntDiv((uint32_t)C);
+  g->divCG = IntDiv((uint32_t)(C / G));
+  g->divQ = IntDiv((uint32_t)q);
+  return true;
+}
+
+template <typename T>
+int backward(const T* x, const float* xbias, const float* gamma, const float* beta,
+             const float* stats, const T* dy, T* dx, float* dgamma, float* dbeta,
+             float* dxbias, double* partials, double* ab, unsigned int* barrier, int N, int C,
+             int G, int64_t S, int blocks, int64_t q, int64_t held, int64_t slots, int vec,
+             cudaStream_t stream) {
+  if (N == 0 || S == 0) return 0;
+  Bwd<T> a{x, xbias, gamma, beta, stats, dy, dx, dgamma, dbeta, dxbias,
+           reinterpret_cast<double2*>(partials), reinterpret_cast<double2*>(ab), barrier, {}};
+  if (!geometry(&a.g, N, C, G, S, blocks, q, held, slots, sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  static bool ready[2][MAX_DEVICES] = {};
+  constexpr int VEC = 16 / sizeof(T);
+  const size_t smem = 2 * (size_t)held * sizeof(T);
+  if (vec == VEC) return coop_launch(gn_bwd_kernel<VEC, T>, ready[0], a, blocks, smem, stream);
+  return coop_launch(gn_bwd_kernel<1, T>, ready[1], a, blocks, smem, stream);
+}
+
+template <int VEC, typename T>
+int forward_vec(const T* x, const float* xbias, const T* res, const float* gamma,
+                const float* beta, T* out, float* stats, double2* partials, int rows,
+                int64_t L, int64_t chunk, int chunks, int64_t S, int C, int G, float eps,
+                cudaStream_t stream) {
   const dim3 grid(chunks, rows);
   gn_stats_kernel<VEC, T><<<grid, THREADS, 0, stream>>>(x, xbias, partials, L, chunk, chunks,
                                                         S, C, G);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gn_apply_kernel<VEC, T><<<grid, THREADS, 0, stream>>>(x, xbias, res, gamma, beta, partials,
-                                                        out, L, chunk, chunks, S, C, G, eps);
+                                                        out, stats, L, chunk, chunks, S, C, G,
+                                                        eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const T* x, const float* xbias, const T* res, const float* gamma,
-           const float* beta, T* out, double* partials, int N, int C, int G, int64_t S,
-           int64_t chunk, int chunks, int vec, float eps, cudaStream_t stream) {
+int forward(const T* x, const float* xbias, const T* res, const float* gamma,
+            const float* beta, T* out, float* stats, double* partials, int N, int C, int G,
+            int64_t S, int64_t chunk, int chunks, int vec, float eps, cudaStream_t stream) {
   if (N == 0 || S == 0) return 0;
   const int rows = N * G;
   const int64_t L = (int64_t)(C / G) * S;
   double2* p = reinterpret_cast<double2*>(partials);
   if (vec == 4)
-    return launch_vec<4>(x, xbias, res, gamma, beta, out, p, rows, L, chunk, chunks, S, C, G,
-                         eps, stream);
-  return launch_vec<1>(x, xbias, res, gamma, beta, out, p, rows, L, chunk, chunks, S, C, G,
-                       eps, stream);
+    return forward_vec<4>(x, xbias, res, gamma, beta, out, stats, p, rows, L, chunk, chunks, S,
+                          C, G, eps, stream);
+  return forward_vec<1>(x, xbias, res, gamma, beta, out, stats, p, rows, L, chunk, chunks, S,
+                        C, G, eps, stream);
 }
 
 }  // namespace
 
-// x, out (N, C, S) f32 contiguous, res the same or null (no residual); gamma, beta (C,);
-// xbias (C,) f32 or null;
-// partials (N * G, chunks) of (sum, sum of squares) f64 scratch. Each (sample, group) row
-// of L = (C / G) * S elements is cut into ``chunks`` chunks of ``chunk`` elements (a
-// multiple of 4 when vec == 4). vec == 4 needs S % 4 == 0 and x, res and out aligned to
-// four elements. Returns the launches' cudaError_t (0 on success; a refused launch's
-// error is cleared, so none is left pending).
+// The forward. x, out (N, C, S) contiguous, res the same or null (no residual); gamma,
+// beta (C,); xbias (C,) f32 or null; stats (N * G, 2) f32 or null (not written). Each
+// (sample, group) row of L = (C / G) * S values is cut into ``chunks`` chunks of ``chunk``
+// values (a multiple of 4 when vec == 4); partials (N * G, chunks) of (sum, sum of
+// squares) f64 scratch. vec == 4 needs S % 4 == 0 and x, res and out aligned to 4
+// elements; vec == 1 takes one value at a time. Returns a cudaError_t code.
 extern "C" int mvs_gn_act_f32(const float* x, const float* xbias, const float* res,
-                              const float* gamma, const float* beta, float* out,
+                              const float* gamma, const float* beta, float* out, float* stats,
                               double* partials, int N, int C, int G, int64_t S, int64_t chunk,
                               int chunks, int vec, float eps, cudaStream_t stream) {
-  return launch(x, xbias, res, gamma, beta, out, partials, N, C, G, S, chunk, chunks, vec, eps,
-                stream);
+  return forward(x, xbias, res, gamma, beta, out, stats, partials, N, C, G, S, chunk, chunks,
+                 vec, eps, stream);
 }
 
 // The same with x, res and out bf16.
 extern "C" int mvs_gn_act_bf16(const __nv_bfloat16* x, const float* xbias,
                                const __nv_bfloat16* res, const float* gamma, const float* beta,
-                               __nv_bfloat16* out, double* partials, int N, int C, int G,
-                               int64_t S, int64_t chunk, int chunks, int vec, float eps,
+                               __nv_bfloat16* out, float* stats, double* partials, int N, int C,
+                               int G, int64_t S, int64_t chunk, int chunks, int vec, float eps,
                                cudaStream_t stream) {
-  return launch(x, xbias, res, gamma, beta, out, partials, N, C, G, S, chunk, chunks, vec, eps,
-                stream);
+  return forward(x, xbias, res, gamma, beta, out, stats, partials, N, C, G, S, chunk, chunks,
+                 vec, eps, stream);
+}
+
+// The backward. x, dy, dx (N, C, S) contiguous, of one type; gamma, beta (C,); xbias (C,)
+// f32 or null; stats: the forward's (N * G, 2) mean and rstd; dgamma, dbeta (C,) f32;
+// dxbias (C,) f32, or null with xbias null. The N * C * S values are cut into ``blocks``
+// slices of q values (a multiple of 8; the last may be shorter, none empty), each block
+// holding the first ``held`` (a multiple of 8) of its slice of x and of dy in shared
+// memory (2 * held values). partials: ``slots`` pairs of pairs of f64 scratch, at least
+// N * C * (ceil(S / q) + 1); ab: (N * G) pairs of f64 scratch. barrier: a uint32 that no
+// launch on another stream uses at the same time, 0 before its first launch (a launch
+// leaves it ready for the next). vec == 16 / sizeof(T) (one 16-byte vector) needs
+// S % vec == 0 and x, dy and dx 16-byte aligned; any other vec takes one value at a
+// time. Returns a cudaError_t code: cudaErrorInvalidValue for a geometry it does not
+// take, cudaErrorCooperativeLaunchTooLarge for more blocks than the card holds at once (a
+// refused launch's error is cleared, so none is left pending).
+extern "C" int mvs_gn_act_bwd_f32(const float* x, const float* xbias, const float* gamma,
+                                  const float* beta, const float* stats, const float* dy,
+                                  float* dx, float* dgamma, float* dbeta, float* dxbias,
+                                  double* partials, double* ab, unsigned int* barrier, int N,
+                                  int C, int G, int64_t S, int blocks, int64_t q, int64_t held,
+                                  int64_t slots, int vec, cudaStream_t stream) {
+  return backward(x, xbias, gamma, beta, stats, dy, dx, dgamma, dbeta, dxbias, partials, ab,
+                  barrier, N, C, G, S, blocks, q, held, slots, vec, stream);
+}
+
+extern "C" int mvs_gn_act_bwd_bf16(const __nv_bfloat16* x, const float* xbias,
+                                   const float* gamma, const float* beta, const float* stats,
+                                   const __nv_bfloat16* dy, __nv_bfloat16* dx, float* dgamma,
+                                   float* dbeta, float* dxbias, double* partials, double* ab,
+                                   unsigned int* barrier, int N, int C, int G, int64_t S,
+                                   int blocks, int64_t q, int64_t held, int64_t slots, int vec,
+                                   cudaStream_t stream) {
+  return backward(x, xbias, gamma, beta, stats, dy, dx, dgamma, dbeta, dxbias, partials, ab,
+                  barrier, N, C, G, S, blocks, q, held, slots, vec, stream);
 }

@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"  // grid_barrier
+
 namespace {
 
 constexpr int C = 32;               // hidden channels
@@ -156,26 +158,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// All blocks of the grid arrive before any leaves. Block 0 adds 2^31 - (nblocks - 1) and
-// every other block 1, so the top bit of the counter flips exactly when the last block
-// arrives; each barrier adds 2^31 in all, so the low 31 bits stay 0 and the counter is
-// ready for the next barrier, and the next launch, whichever way its top bit stands. The
-// add releases and the polling load acquires at GPU scope, after the block's own barrier:
-// every write before the barrier is visible to every read after it.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    unsigned int old, now;
-    asm volatile("atom.add.release.gpu.u32 %0, [%1], %2;\n"
-                 : "=r"(old) : "l"(counter), "r"(add) : "memory");
-    do {
-      asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(now) : "l"(counter) : "memory");
-    } while (((old ^ now) & 0x80000000u) == 0);
-  }
-  __syncthreads();
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

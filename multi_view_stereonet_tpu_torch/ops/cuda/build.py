@@ -45,8 +45,9 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 # interpolation arithmetic rounds at each step as the plain PyTorch version
 # does (an fma in ((gx + 1) * W - 1) moves a 640-wide coordinate by up to
 # 6e-5 px). The convs' explicit fmaf calls are unaffected.
+# -I: the csrc/*.cuh headers, also for a copy of a source built elsewhere.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-I", CSRC_DIR)
 IMPLS = ("auto", "kernel", "plain")
 NAMESPACE = "mvs_torch"
 # The custom ops, "<NAMESPACE>::<name>" -> the csrc/<source>.cu each launches.
@@ -54,6 +55,9 @@ OP_SOURCES: dict = {}
 
 _libs: dict = {}
 _lock = threading.Lock()
+# (device index, stream) -> the grid-barrier counter of the cooperative launches (K3, K4)
+# on that stream
+_barriers: dict = {}
 
 
 def use_kernel(impl: str, tensor) -> bool:
@@ -159,3 +163,17 @@ def custom_op(name: str, source: str):
     qualname = f"{NAMESPACE}::{name}"
     OP_SOURCES[qualname] = source
     return torch.library.custom_op(qualname, mutates_args=(), device_types="cuda")
+
+
+def barrier_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid-barrier counter (csrc/grid_sync.cuh ``grid_barrier``) of the cooperative
+    launches on ``stream``, K3's and K4's alike: zeroed once, and left ready for the next
+    launch by every launch, whichever way its top bit stands. Launches on one stream run
+    one at a time, so they share it; two streams never do. A launch captured in a CUDA
+    graph keeps its capture stream's counter (one made during capture is zeroed by that
+    graph at each replay), so graphs captured on one stream are replayed one at a time."""
+    key = (device.index, stream)
+    counter = _barriers.get(key)
+    if counter is None:
+        counter = _barriers[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return counter

@@ -1,27 +1,38 @@
-"""GroupNorm -> LeakyReLU(0.2) -> optional residual add: CUDA kernel
-(csrc/gn_apply.cu) and its plain version. Every GroupNorm of the serving
-forward on the card goes through it: the resblock tails (with the residual),
-the refiners' ``bn0`` and the cost filter's four (without).
+"""GroupNorm -> LeakyReLU(0.2) -> optional residual add: CUDA kernels
+(csrc/gn_apply.cu), forward and backward, and their plain versions. Every
+GroupNorm of the forward on the card goes through it: the resblock tails (with
+the residual), the refiners' ``bn0`` and the cost filter's four (without).
 
 Port of the TPU kernel ``multi_view_stereonet_tpu/ops/pallas/gn_apply.py``
 (``gn_apply_residual_fused``) together with the statistics it takes from
-``models/s2d.py`` ``gn_s2d_stats``: one call computes the statistics of x
-(a statistics pass over chunks of each (sample, group) row) and applies them
-(an apply pass). Layout NCHW or NCDHW (the port's modules' own), f32 or bf16 x
-and res (gamma, beta and the statistics f32), eps 1e-5 (the port's
+``models/s2d.py`` ``gn_s2d_stats``: one call computes the statistics of x and
+applies them. Layout NCHW or NCDHW (the port's modules' own), f32 or bf16 x and
+res (gamma, beta and the statistics f32), eps 1e-5 (the port's
 ``GroupNorm(C // 8)``). At bf16 it follows the Pallas kernel's rounding
 (``gn_apply.py:37-52``): the apply in f32, rounded to bf16, the sign test on
 the f32 value, then LeakyReLU and the residual add at bf16. ``xbias`` (f32, per
 channel), the bias of the conv that wrote x, is added to x in f32 first: a bf16 conv's
 bias is then never rounded before its GroupNorm, as the Pallas kernels add it in f32
-and as XLA computes the JAX layers' ``conv + b`` there. Under autograd the
-kernel runs in ``_GroupNormAct``, whose backward recomputes
-``group_norm_act_plain`` as the JAX ``_bwd`` (``gn_apply.py:120-126``) takes the VJP of ``_xla_reference``
-(see recompute.py).
+and as XLA computes the JAX layers' ``conv + b`` there.
+
+How a call runs is decided before its launch by ``plan``, from the shape, the dtype
+and the card's SM count alone. The forward is a statistics pass over chunks of each
+(sample, group) row and an apply pass ("chunked"). Under autograd the kernel runs in
+``_GroupNormAct``: its forward also writes each row's f32 mean and rstd, and its
+backward launches the backward kernel from them (``group_norm_act_backward``, whose
+plain version in closed form is ``group_norm_act_backward_plain``): one cooperative
+launch that holds x and the gradient in the shared memory of up to one block an SM
+("resident", or "partial" where they do not all fit and the rest is read twice). The
+residual's gradient is the output's. A launch the card refuses raises; nothing retries
+on another route. The JAX
+``_bwd`` (``gn_apply.py:120-126``) takes the VJP of ``_xla_reference`` instead: the
+port's other kernels recompute their plain versions so (recompute.py). Backward
+launches count in ``backward_launches``, so ``launches`` counts forwards only.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -29,26 +40,45 @@ import torch
 import torch.nn.functional as F
 
 from .build import (
-    check_status, custom_op, launch_device, load_library, tracing, use_kernel)
-from .recompute import needs_autograd, plain_vjp
+    barrier_counter, check_status, custom_op, launch_device, load_library, tracing,
+    use_kernel)
+from .recompute import needs_autograd
 
-# Kernel launches since the last reset; only the kernel path counts, one per call.
+# Kernel launches since the last reset; only the kernel path counts, one per call (a
+# forward's one or two launches count once). backward_launches counts the backward
+# kernel's.
 launches = 0
+backward_launches = 0
 
 EPS = 1e-5
 SLOPE = 0.2
-# The statistics pass aims at BLOCKS_PER_SM blocks per SM in all and gives each at
-# least MIN_CHUNK elements of its row.
+# The forward's statistics pass aims at BLOCKS_PER_SM blocks per SM in all and gives each
+# at least MIN_CHUNK elements of its row.
 BLOCKS_PER_SM = 4
 MIN_CHUNK = 4096
+# The backward kernel (csrc/gn_apply.cu): shared memory a block holds its slices of x and
+# dy in (HOLD_BYTES there), and the bytes of x and dy a block gets at least, so that a
+# small call takes few blocks to its grid barrier.
+HOLD_BYTES = 224 * 1024
+SLICE_BYTES = 32 * 1024
+MAX_VALUES = 2 ** 31  # the backward kernel indexes values in 31 bits
 
-_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p])
-# The storage dtypes the kernel takes, and each one's entry in csrc/gn_apply.cu.
-ENTRIES = {torch.float32: "mvs_gn_act_f32", torch.bfloat16: "mvs_gn_act_bf16"}
-# Per device index: (SM count, {dtype: ctypes entry}).
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# The storage dtypes the kernels take, and each one's entries in csrc/gn_apply.cu.
+FORWARD = {torch.float32: "mvs_gn_act_f32", torch.bfloat16: "mvs_gn_act_bf16"}
+BACKWARD = {torch.float32: "mvs_gn_act_bwd_f32", torch.bfloat16: "mvs_gn_act_bwd_bf16"}
+_ARGS = {
+    "forward": [_PTR] * 8 + [_INT] * 3 + [_I64, _I64, _INT, _INT, ctypes.c_float, _PTR],
+    "backward": [_PTR] * 13 + [_INT] * 3 + [_I64, _INT, _I64, _I64, _I64, _INT, _PTR]}
+# Per device index: (SM count, {entry name: ctypes entry}).
 _device_cache: dict = {}
+
+Plan = collections.namedtuple("Plan", "route blocks slice held")
+Plan.__doc__ = """How one call runs: ``route`` ("chunked" for the forward, "resident" or
+"partial" for the backward); for the forward ``blocks`` chunks of ``slice`` values a
+(sample, group) row; for the backward ``blocks`` slices of ``slice`` values (the last may
+be shorter), each block holding the first ``held`` values of its slice of x and of dy in
+shared memory."""
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +107,64 @@ def group_norm_act_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     return y if res is None else y + res
 
 
+def _biased(x: torch.Tensor, xbias: torch.Tensor | None) -> torch.Tensor:
+    """x (N, C, ...) as f32 (N, C, S), xbias added in f32."""
+    v = x.float().reshape(x.shape[0], x.shape[1], -1)
+    return v if xbias is None else v + xbias.float().reshape(1, -1, 1)
+
+
+def group_stats_plain(x: torch.Tensor, groups: int,
+                      xbias: torch.Tensor | None = None) -> torch.Tensor:
+    """(N * groups, 2) f32: the mean and rstd = 1 / sqrt(var + eps) of each (sample,
+    group) row of x [+ xbias], summed in f64 as the kernels sum them: the statistics the
+    forward writes under autograd."""
+    v = _biased(x, xbias).double().reshape(x.shape[0] * groups, -1)
+    mean = v.mean(1)
+    var = ((v * v).mean(1) - mean * mean).clamp_min(0.0)
+    return torch.stack([mean, 1.0 / torch.sqrt(var + EPS)], 1).float()
+
+
+def group_norm_act_backward_plain(x: torch.Tensor, weight: torch.Tensor,
+                                  bias: torch.Tensor, groups: int, stats: torch.Tensor,
+                                  grad: torch.Tensor, xbias: torch.Tensor | None = None
+                                  ) -> tuple:
+    """The gradients (dx, dweight, dbias, dxbias) of ``group_norm_act`` at x, given the
+    forward's ``stats`` (``group_stats_plain``) and the output's gradient ``grad``, in
+    closed form as the backward kernel computes them (dxbias None without xbias; the
+    residual's gradient is ``grad`` itself). With x_hat = (x + xbias - mean) * rstd,
+    z = x_hat * weight + bias and g = grad * leaky'(z) (at bf16 as plain autograd
+    differentiates ``leaky_relu`` there: the sign test on z rounded to bf16, grad times the
+    bf16 slope rounded to bf16): per row a = mean(g weight), b = mean(g weight x_hat),
+    dx = rstd (g weight - a - x_hat b) rounded to x's dtype; dbias = sum g, dweight =
+    sum g x_hat, dxbias = sum dx over samples and positions. Sums in f64, the elementwise
+    terms in f32."""
+    N, C = x.shape[:2]
+    cg = C // groups
+    xh = (_biased(x, xbias) - stats[:, 0].float().repeat_interleave(cg).reshape(N, C, 1)) \
+        * stats[:, 1].float().repeat_interleave(cg).reshape(N, C, 1)
+    w, b = weight.float().reshape(1, C, 1), bias.float().reshape(1, C, 1)
+    z = xh * w + b
+    dy = grad.float().reshape(N, C, -1)
+    if x.dtype == torch.float32:
+        g = torch.where(z > 0, dy, dy * SLOPE)
+    else:
+        slope = torch.tensor(SLOPE, dtype=x.dtype).item()
+        g = torch.where(z.to(x.dtype) >= 0, dy, (dy * slope).to(x.dtype).float())
+    G, GX, X = g.double().sum(2), (g.double() * xh.double()).sum(2), xh.double().sum(2)
+    span = xh.shape[2]
+    w64 = weight.double().reshape(1, C)
+    a = (w64 * G).reshape(N, groups, cg).sum(2) / (cg * span)
+    bb = (w64 * GX).reshape(N, groups, cg).sum(2) / (cg * span)
+    a_c, b_c = a.repeat_interleave(cg, 1), bb.repeat_interleave(cg, 1)
+    rs = stats[:, 1].double().repeat_interleave(cg).reshape(N, C)
+    dx = rs.float()[..., None] * ((g * w - a_c.float()[..., None])
+                                  - xh * b_c.float()[..., None])
+    dxbias = None
+    if xbias is not None:
+        dxbias = (rs * (w64 * G - span * a_c - b_c * X)).sum(0).float()
+    return (dx.reshape(x.shape).to(x.dtype), GX.sum(0).float(), G.sum(0).float(), dxbias)
+
+
 def chunking(rows: int, L: int, target_blocks: int) -> tuple:
     """(chunk, chunks): each of ``rows`` rows of L floats cut into chunks of a multiple
     of 4 elements, about ``target_blocks`` in all, none under MIN_CHUNK unless the row
@@ -87,17 +175,53 @@ def chunking(rows: int, L: int, target_blocks: int) -> tuple:
     return chunk, -(-L // chunk)
 
 
+def plan(shape, groups: int, dtype: torch.dtype, sms: int, backward: bool = False) -> Plan:
+    """How K4 runs a call on x of ``shape`` (N, C, ...) and storage ``dtype`` on a card of
+    ``sms`` SMs: the forward or, with ``backward``, the backward kernel. The rule, from
+    these alone:
+
+    - the forward: each (sample, group) row cut by ``chunking`` over BLOCKS_PER_SM * sms
+      blocks ("chunked");
+    - the backward: ``blocks`` = the bytes of x and dy over SLICE_BYTES, rounded up, at
+      least 1 and at most ``sms``; the N * C * S values cut into slices of a multiple of 8
+      values, each holding its first ``held`` (a multiple of 8; HOLD_BYTES over the bytes
+      a value of x and one of dy take) in shared memory: "resident" where every slice fits
+      whole, "partial" where the rest of each slice is read twice. It raises at
+      MAX_VALUES values."""
+    N = shape[0]
+    E = math.prod(shape)
+    if not backward:
+        chunk, chunks = chunking(N * groups, E // max(1, N * groups), BLOCKS_PER_SM * sms)
+        return Plan("chunked", chunks, chunk, 0)
+    if E >= MAX_VALUES:
+        raise ValueError(f"the GroupNorm backward kernel takes fewer than {MAX_VALUES} "
+                         f"values, got {tuple(shape)}")
+    size = torch.empty((), dtype=dtype).element_size()
+    blocks = max(1, min(sms, -(-E * size * 2 // SLICE_BYTES)))
+    q = -(-max(E, 1) // blocks)
+    q = -(-q // 8) * 8
+    blocks = -(-max(E, 1) // q)
+    held = min(q, HOLD_BYTES // (size * 2) // 8 * 8)
+    return Plan("resident" if held >= q else "partial", blocks, q, held)
+
+
 def _device_functions(device: int) -> tuple:
     info = _device_cache.get(device)
     if info is None:
         lib = load_library("gn_apply")
         fns = {}
-        for dtype, name in ENTRIES.items():
-            fn = fns[dtype] = getattr(lib, name)
-            fn.argtypes, fn.restype = _ARGS, ctypes.c_int
+        for kind, names in (("forward", FORWARD), ("backward", BACKWARD)):
+            for name in names.values():
+                fn = fns[name] = getattr(lib, name)
+                fn.argtypes, fn.restype = _ARGS[kind], ctypes.c_int
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         info = _device_cache[device] = (sms, fns)
     return info
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of ``device``, as ``plan`` takes it (the kernels' library loaded)."""
+    return _device_functions(device.index)[0]
 
 
 def _output(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -109,7 +233,7 @@ def _output(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if any(t.device != x.device for t in tensors):
         raise ValueError("group_norm_act_kernel needs x, weight, bias (and res, xbias) on "
                          "one device")
-    if (x.dtype not in ENTRIES or (res is not None and res.dtype != x.dtype)
+    if (x.dtype not in FORWARD or (res is not None and res.dtype != x.dtype)
             or any(t.dtype != torch.float32 for t in vectors)):
         raise TypeError("group_norm_act_kernel takes x (and res) float32 or bfloat16 and "
                         f"float32 weight, bias (and xbias), got x {x.dtype}, res "
@@ -124,11 +248,29 @@ def _output(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return x.new_empty(x.shape)
 
 
-def _group_norm_act_launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                           res: torch.Tensor | None, groups: int,
-                           xbias: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch csrc/gn_apply.cu (a statistics pass, then an apply pass) on CUDA
-    tensors. A launch the card refuses raises."""
+def _vec(span: int, *tensors, width: int = 4) -> int:
+    """``width`` (elements) where ``span`` and every tensor's address take vectors of that
+    many elements, else 1. The forward takes 4-element vectors, the backward 16-byte ones
+    (``_vec16``)."""
+    return width if span % width == 0 and not any(
+        t.data_ptr() % (width * t.element_size()) for t in tensors) else 1
+
+
+def _vec16(span: int, *tensors) -> int:
+    return _vec(span, *tensors, width=16 // tensors[0].element_size())
+
+
+def _slots(shape, q: int) -> int:
+    """Partial slots of a backward launch: one a (sample, channel, block it meets)."""
+    span = math.prod(shape[2:])
+    return shape[0] * shape[1] * (-(-span // q) + 1)
+
+
+def _forward_launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    res: torch.Tensor | None, groups: int, xbias: torch.Tensor | None = None,
+                    stats: bool = False):
+    """Launch the forward on CUDA tensors as ``plan`` cuts it; with ``stats`` also return
+    the (N * groups, 2) f32 mean and rstd it applied. A launch the card refuses raises."""
     global launches
     out = _output(x, weight, bias, res, groups, xbias)
     if not x.is_contiguous():
@@ -141,21 +283,30 @@ def _group_norm_act_launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Te
         xbias = xbias.contiguous()
     dev = x.get_device()
     N, C, span = x.shape[0], x.shape[1], math.prod(x.shape[2:])
-    L = C // groups * span
-    ptrs = [x.data_ptr(), out.data_ptr()] + ([] if res is None else [res.data_ptr()])
-    vec = 4 if span % 4 == 0 and not any(p % (4 * x.element_size()) for p in ptrs) else 1
+    operands = (x, out) if res is None else (x, out, res)
     sms, fns = _device_functions(dev)
-    fn = fns[x.dtype]
-    chunk, chunks = chunking(N * groups, L, BLOCKS_PER_SM * sms)
-    partials = torch.empty((N * groups, chunks, 2), dtype=torch.float64, device=x.device)
+    p = plan(x.shape, groups, x.dtype, sms)
+    st = torch.empty((N * groups, 2), dtype=torch.float32, device=x.device) if stats else None
+    partials = torch.empty((N * groups, p.blocks, 2), dtype=torch.float64, device=x.device)
+    name = FORWARD[x.dtype]
     with launch_device(x.device):
-        status = fn(x.data_ptr(), None if xbias is None else xbias.data_ptr(),
-                    None if res is None else res.data_ptr(), weight.data_ptr(),
-                    bias.data_ptr(), out.data_ptr(), partials.data_ptr(), N, C, groups, span,
-                    chunk, chunks, vec, EPS, torch._C._cuda_getCurrentRawStream(dev))
-    check_status(ENTRIES[x.dtype], status)
+        status = fns[name](
+            x.data_ptr(), None if xbias is None else xbias.data_ptr(),
+            None if res is None else res.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), None if st is None else st.data_ptr(), partials.data_ptr(), N, C,
+            groups, span, p.slice, p.blocks, _vec(span, *operands), EPS,
+            torch._C._cuda_getCurrentRawStream(dev))
+    check_status(name, status)
     launches += 1
-    return out
+    return (out, st) if stats else out
+
+
+def _group_norm_act_launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                           res: torch.Tensor | None, groups: int,
+                           xbias: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch csrc/gn_apply.cu's forward on CUDA tensors (a statistics pass, then an
+    apply pass). A launch the card refuses raises."""
+    return _forward_launch(x, weight, bias, res, groups, xbias)
 
 
 _group_norm_act_op = custom_op("group_norm_act", "gn_apply")(_group_norm_act_launch)
@@ -168,33 +319,93 @@ _group_norm_act_op.register_kernel("cpu")(
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
-            res: torch.Tensor | None, xbias: torch.Tensor | None) -> torch.Tensor:
-    """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
-    ``mvs_torch::group_norm_act`` (see build.py ``custom_op``)."""
+            res: torch.Tensor | None, xbias: torch.Tensor | None, stats: bool = False):
+    """The kernel on CUDA tensors (with ``stats``, also the statistics it applied); while
+    ``torch.export`` traces, through the custom op ``mvs_torch::group_norm_act`` (see
+    build.py ``custom_op``)."""
     if not x.is_cuda:
         raise ValueError("group_norm_act_kernel needs x, weight, bias (and res) on one "
                          "CUDA device")
+    if stats:
+        return _forward_launch(x, weight, bias, res, groups, xbias, stats=True)
     return (_group_norm_act_op if tracing() else _group_norm_act_launch)(
         x, weight, bias, res, groups, xbias)
 
 
+def group_norm_act_backward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                            groups: int, stats: torch.Tensor, grad: torch.Tensor,
+                            xbias: torch.Tensor | None = None,
+                            route: Plan | None = None) -> tuple:
+    """The backward kernel on CUDA tensors: (dx, dweight, dbias, dxbias) as
+    ``group_norm_act_backward_plain`` computes them, from the forward's ``stats``; one
+    cooperative launch as ``plan(..., backward=True)`` cuts it (``route``: a whole Plan in
+    its place). A launch the card refuses raises."""
+    global backward_launches
+    if not x.is_cuda:
+        raise ValueError("group_norm_act_backward needs CUDA tensors")
+    dx = _output(x, weight, bias, grad, groups, xbias)
+    if stats.shape != (x.shape[0] * groups, 2) or stats.dtype != torch.float32 \
+            or stats.device != x.device:
+        raise ValueError(f"bad statistics: {tuple(stats.shape)} {stats.dtype} on "
+                         f"{stats.device}")
+    x, grad, stats = x.contiguous(), grad.contiguous(), stats.contiguous()
+    weight, bias = weight.contiguous(), bias.contiguous()
+    if xbias is not None:
+        xbias = xbias.contiguous()
+    dev = x.get_device()
+    N, C, span = x.shape[0], x.shape[1], math.prod(x.shape[2:])
+    sms, fns = _device_functions(dev)
+    p = route or plan(x.shape, groups, x.dtype, sms, backward=True)
+    slots = _slots(x.shape, p.slice)
+    partials = torch.empty((slots, 4), dtype=torch.float64, device=x.device)
+    ab = torch.empty((N * groups, 2), dtype=torch.float64, device=x.device)
+    params = torch.empty((3 if xbias is not None else 2, C), dtype=torch.float32,
+                         device=x.device)
+    vec = _vec16(span, x, grad, dx)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    name = BACKWARD[x.dtype]
+    with launch_device(x.device):
+        status = fns[name](
+            x.data_ptr(), None if xbias is None else xbias.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), stats.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+            params[0].data_ptr(), params[1].data_ptr(),
+            None if xbias is None else params[2].data_ptr(), partials.data_ptr(),
+            ab.data_ptr(), barrier_counter(x.device, stream).data_ptr(), N, C, groups, span,
+            p.blocks, p.slice, p.held, slots, vec, stream)
+    check_status(name, status)
+    backward_launches += 1
+    if x.numel() == 0:
+        params.zero_()
+    return dx, params[0], params[1], params[2] if xbias is not None else None
+
+
+def _launch_backward(x, weight, bias, groups, stats, grad, xbias):
+    """The backward kernel (``group_norm_act_backward``) on CUDA tensors."""
+    return group_norm_act_backward(x, weight, bias, groups, stats, grad, xbias)
+
+
 class _GroupNormAct(torch.autograd.Function):
-    """K4 under autograd: the kernel forward; the backward recomputes the plain version."""
+    """K4 under autograd: the kernel forward, which also writes each row's mean and rstd,
+    and the backward kernel from those; the residual's gradient is the output's."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, res, groups, xbias):
+        out, stats = _launch(x, weight, bias, groups, res, xbias, stats=True)
         ctx.groups = groups
-        ctx.save_for_backward(x, weight, bias, res, xbias)
-        return _launch(x, weight, bias, groups, res, xbias)
+        ctx.save_for_backward(x, weight, bias, xbias, stats)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        def plain(x, weight, bias, res, xbias):
-            return group_norm_act_plain(x, weight, bias, ctx.groups, res, xbias)
+        x, weight, bias, xbias, stats = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        x, w, b, res, xb = plain_vjp(plain, ctx.saved_tensors, needs[:4] + needs[5:],
-                                     (grad,))
-        return x, w, b, res, None, xb
+        dx = dw = db = dxb = None
+        if any(needs[:3]) or needs[5]:
+            dx, dw, db, dxb = _launch_backward(x, weight, bias, ctx.groups, stats, grad,
+                                               xbias)
+        return (dx if needs[0] else None, dw if needs[1] else None,
+                db if needs[2] else None, grad if needs[3] else None, None,
+                dxb if needs[5] else None)
 
 
 def group_norm_act_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

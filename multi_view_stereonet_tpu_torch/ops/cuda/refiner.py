@@ -38,7 +38,8 @@ import torch
 
 from .. import precision
 from .build import (
-    check_status, custom_op, launch_device, load_library, tracing, use_kernel)
+    barrier_counter, check_status, custom_op, launch_device, load_library, tracing,
+    use_kernel)
 from .recompute import bind_parameters, needs_autograd, plain_vjp
 from .incremental_chain import _taps
 
@@ -63,8 +64,6 @@ TF32_ENTRY = "mvs_idepthmap_refiner_tf32"
 # refiner -> {(storage dtype, tf32): (parameters, their storages kept alive, the key
 # (``_pack_key``), (packed weights, dilations))}
 _packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-# (device index, stream) -> the grid-barrier counter of launches on that stream
-_barriers: dict = {}
 _fns: dict = {}  # entry name -> the kernel's ctypes entry, loaded on first use
 
 
@@ -247,18 +246,6 @@ def invalidate_packed_weights(refiner=None) -> None:
         _packs.pop(refiner, None)
 
 
-def _barrier(device: torch.device, stream: int) -> torch.Tensor:
-    """The grid-barrier counter of launches on ``stream``: zeroed once, and left ready
-    for the next launch by every launch. A launch captured in a CUDA graph keeps its
-    capture stream's counter (one made during capture is zeroed by that graph at each
-    replay), so graphs captured on one stream are replayed one at a time."""
-    key = (device.index, stream)
-    counter = _barriers.get(key)
-    if counter is None:
-        counter = _barriers[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return counter
-
-
 def _output(guidance: torch.Tensor, idepthmap: torch.Tensor, pack: torch.Tensor,
             dilations: list[int], tf32: bool = False) -> torch.Tensor:
     """Check the inputs' devices, types and shapes; allocate the (N, h, w) f32 output."""
@@ -299,7 +286,7 @@ def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
     with launch_device(dev):
         status = fn(guidance.data_ptr(), idepthmap.data_ptr(), pack.contiguous().data_ptr(),
                     out.data_ptr(), scratch.data_ptr(), size,
-                    _barrier(dev, stream).data_ptr(), N, Cg, h, w,
+                    barrier_counter(dev, stream).data_ptr(), N, Cg, h, w,
                     (ctypes.c_int * NUM_RES)(*dilations), stream)
     entry = _entry(guidance.dtype, tf32)
     check_status(entry, status)

@@ -10,7 +10,11 @@ masks (bit-equal at the losses' shapes, NaN where the plain version has NaN; its
 backward within 1e-4 of max|plain autograd|); the incremental chain (at the serving shapes and at N = 8, one step,
 a 4x5 and a 48x64 map, a pose with many invalid samples) and the idepthmap
 refiner within atol 2e-5 * max|plain|, rtol 2e-4, also after its weights are written
-(its packed weights followed); the GroupNorm kernel within 1e-5 * max(1, max|plain|);
+(its packed weights followed); the GroupNorm kernel within 1e-5 * max(1, max|plain|) at
+every serving and recipe shape (at bf16 within phase 11's rounding bar), and its backward
+kernel within 1e-4 of max|plain| of its plain version and of plain autograd (1e-2 at
+bf16; the output's gradient 0 within a rounding of LeakyReLU's kink), bit-equal over two
+calls, a refused launch raising in either;
 the whole forward within 0.2% of each level's output range; the multi-view and
 the two-view training losses and gradients within docs/PARITY.md:218-232's bar. The u8 dequantize is
 bit-equal to the host pipeline for all 256 values. Each kernel's custom op passes
@@ -48,7 +52,7 @@ from multi_view_stereonet_tpu_torch.models import (
     CostVolumeFilter, FeatureRefiner, IDepthmapRefiner, MultiViewStereoNet,
     MultiViewStereoNetConfig, mvsnet_forward)
 from multi_view_stereonet_tpu_torch.ops import build_image_pyramid, homography_grid
-from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+from multi_view_stereonet_tpu_torch.ops.cuda import build, gn_apply
 from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
 from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 from multi_view_stereonet_tpu_torch.ops.cuda import warp
@@ -451,16 +455,153 @@ def test_gn_kernel_unaligned_takes_scalar_loads(dev, shape, residual):
     assert_gn_matches_plain(got, x, weight, bias, res)
 
 
+# K4's forward and backward shapes: the serving forward's (B = 1, V = 1 and 5), the
+# recipe's training step (B = 8, V = 1, 480x640) and the convergence recipe's (96x128,
+# B = 4), each (shape, residual).
+GN_ROUTE_SHAPES = [((2, 32, 30, 40), True), ((1, 32, 120, 160), True),
+                   ((1, 32, 240, 320), True), ((1, 32, 480, 640), True),
+                   ((1, 32, 480, 640), False), ((1, 32, 12, 30, 40), False),
+                   ((5, 32, 12, 30, 40), False), ((16, 32, 30, 40), True),
+                   ((8, 32, 480, 640), True), ((8, 32, 480, 640), False),
+                   ((8, 32, 12, 30, 40), False), ((8, 32, 6, 8), True),
+                   ((4, 32, 96, 128), True), ((4, 32, 96, 128), False),
+                   ((4, 32, 12, 6, 8), False)]
+GN_F32_FLOOR = 2.0 ** -21  # chip_smoke.py's: a bf16 GroupNorm value that nearly cancels
+
+
+def gn_bf16_within_a_rounding(got, ref, x, weight, bias, xbias):
+    """Phase 11's bar (chip_smoke.py): within one bf16 ulp of the f32 GroupNorm value and
+    one of the plain result at each element, plus GN_F32_FLOOR of |x_hat gamma| + |beta|."""
+    channel = (1, -1) + (1,) * (x.ndim - 2)
+    x32 = x.float() + xbias.reshape(channel)
+    y = torch.nn.functional.group_norm(x32, 4, weight, bias, gn_apply.EPS)
+    terms = ((torch.nn.functional.group_norm(x32, 4, eps=gn_apply.EPS)
+              * weight.reshape(channel)).abs() + bias.abs().reshape(channel))
+    bar = bf16_ulp(y) + bf16_ulp(ref) + GN_F32_FLOOR * terms
+    return bool(torch.all((got.float() - ref.float()).abs() <= bar))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,residual", GN_ROUTE_SHAPES)
+def test_gn_forward_routes_match_plain(dev, shape, residual, dtype):
+    """The forward at every serving and recipe shape: f32 within 1e-5 * max(1,
+    max|plain|), bf16 (with a conv bias as xbias) within phase 11's rounding bar; the
+    statistics it writes within 1e-6 relative of the plain ones (f64 sums both); two calls
+    bit-equal."""
+    x, weight, bias, res = gn_case(shape, residual, dev)
+    x = x.to(dtype)
+    res = None if res is None else res.to(dtype)
+    xbias = (0.3 * torch.randn(shape[1], generator=torch.Generator().manual_seed(1))).to(dev)
+    xbias = xbias if dtype == torch.bfloat16 else None
+    got, stats = gn_apply._forward_launch(x, weight, bias, res, 4, xbias, stats=True)
+    again = gn_apply._forward_launch(x, weight, bias, res, 4, xbias)
+    ref = gn_apply.group_norm_act_plain(x, weight, bias, 4, res, xbias)
+    plain_stats = gn_apply.group_stats_plain(x, 4, xbias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert torch.allclose(stats, plain_stats, rtol=1e-6, atol=1e-7)
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= GN_BAR * max(1.0, ref.abs().max().item())
+    else:
+        assert gn_bf16_within_a_rounding(got, ref, x, weight, bias, xbias)
+
+
+KINK_ROUNDING, KINK_SHARE, KINK_FLOOR = 2.0 ** -16, 1e-4, 8  # chip_smoke.py's
+
+
+def gn_kink_mask(x, weight, bias, xbias):
+    """False where the GroupNorm value z lies within KINK_ROUNDING (|x_hat gamma| + |beta|
+    + |mean rstd gamma|) of LeakyReLU's kink, z from f64 statistics of x (+ xbias) alone:
+    there the kernel's f64 statistics and F.group_norm's f32 ones may put z on two sides
+    (chip_smoke.py ``gn_kink_mask``)."""
+    N, C = x.shape[:2]
+    v = x.double().reshape(N, 4, -1)
+    if xbias is not None:
+        v = v + xbias.double().reshape(4, -1).repeat_interleave(v.shape[2] // (C // 4), 1)
+    mean = v.mean(2, keepdim=True)
+    rstd = 1.0 / torch.sqrt(((v - mean) ** 2).mean(2, keepdim=True) + gn_apply.EPS)
+    v = v.reshape(N, C, -1)
+    mean, rstd = mean.repeat_interleave(C // 4, 1), rstd.repeat_interleave(C // 4, 1)
+    gamma, beta = weight.double().reshape(1, C, 1), bias.double().reshape(1, C, 1)
+    xg = (v - mean) * rstd * gamma
+    terms = xg.abs() + beta.abs() + (mean * rstd * gamma).abs()
+    return ((xg + beta).abs() > KINK_ROUNDING * terms).reshape(x.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,residual", GN_ROUTE_SHAPES)
+def test_gn_backward_kernel_matches_plain_and_autograd(dev, shape, residual, dtype):
+    """The backward kernel against its plain version on the same statistics and gradient
+    (every gradient within 1e-4 of max|plain|), bit-equal over two calls; K4's Function
+    (forward kernel, backward kernel: one launch each, counted apart) against plain
+    autograd through ``group_norm_act_plain``, within phase 3b's bar at f32 (1e-4 of
+    max|autograd|) and phase 12's at bf16 (1e-2), the output's gradient 0 at the elements
+    within a rounding of LeakyReLU's kink (at most KINK_SHARE of them, or KINK_FLOOR);
+    d res is the output's gradient."""
+    x, weight, bias, res = gn_case(shape, residual, dev)
+    x = x.to(dtype)
+    res = None if res is None else res.to(dtype)
+    xbias = None
+    if dtype == torch.bfloat16:
+        xbias = (0.3 * torch.randn(shape[1], generator=torch.Generator().manual_seed(2))).to(dev)
+    g = torch.Generator().manual_seed(3)
+    dy = torch.randn(shape, generator=g).to(dev, dtype)
+    _, stats = gn_apply._forward_launch(x, weight, bias, res, 4, xbias, stats=True)
+    got = gn_apply.group_norm_act_backward(x, weight, bias, 4, stats, dy, xbias)
+    again = gn_apply.group_norm_act_backward(x, weight, bias, 4, stats, dy, xbias)
+    ref = gn_apply.group_norm_act_backward_plain(x, weight, bias, 4, stats, dy, xbias)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and (got[3] is None) == (xbias is None)
+    for a, b, r in zip(got, again, ref):
+        if r is None:
+            continue
+        assert torch.equal(a, b)
+        assert (a.float() - r.float()).abs().max() <= 1e-4 * r.float().abs().max()
+    leaves = [t.detach().clone().requires_grad_() if t is not None else None
+              for t in (x, weight, bias, res, xbias)]
+    operands = [t for t in leaves if t is not None]
+    before, bwd_before = gn_apply.launches, gn_apply.backward_launches
+    out = gn_apply.group_norm_act(leaves[0], leaves[1], leaves[2], 4, leaves[3],
+                                  xbias=leaves[4])
+    away = gn_kink_mask(x, weight, bias, xbias)
+    kink = away.numel() - int(away.sum())
+    assert kink <= max(KINK_FLOOR, KINK_SHARE * away.numel())
+    dy_away = dy * away
+    kernel = torch.autograd.grad(out, operands, dy_away)
+    assert (gn_apply.launches - before, gn_apply.backward_launches - bwd_before) == (1, 1)
+    plain = torch.autograd.grad(
+        gn_apply.group_norm_act_plain(leaves[0], leaves[1], leaves[2], 4, leaves[3],
+                                      leaves[4]), operands, dy_away)
+    assert gn_apply.backward_launches - bwd_before == 1
+    if residual:
+        assert torch.equal(kernel[3], dy_away)
+    bar = 1e-4 if dtype == torch.float32 else 1e-2
+    floor = 1e-4 * max(p.float().abs().max().item() for p in plain)
+    for k, p in zip(kernel, plain):
+        assert k.dtype == p.dtype
+        scale = max(p.float().abs().max().item(), floor)
+        assert (k.float() - p.float()).abs().max().item() <= bar * scale
+
+
 def test_gn_launch_error_raises(dev):
-    """A launch the card refuses (more than 65535 (sample, group) rows in the grid's y
-    dimension) raises; it never runs the plain version instead, and leaves no error
-    behind for the next launch."""
+    """A launch the card refuses raises, counts nothing, never runs the plain version
+    instead, and leaves no error behind for the next launch: the forward with more than
+    65535 (sample, group) rows in its grid's y dimension, and the backward's cooperative
+    grid forced to more blocks than the card holds at once."""
     x, weight, bias, res = gn_case((1, 32, 120, 160), True, dev)
-    before = gn_apply.launches
+    before, bwd_before = gn_apply.launches, gn_apply.backward_launches
     with pytest.raises(RuntimeError, match="failed to launch"):
         gn_apply.group_norm_act_kernel(torch.zeros(16400, 32, 2, 2, device=dev), weight,
                                        bias, 4)
-    assert gn_apply.launches == before
+    sms = gn_apply.sm_count(dev)
+    big = torch.zeros(1, 32, 480, 640, device=dev)
+    p = gn_apply.plan(big.shape, 4, big.dtype, sms, backward=True)
+    q = -(-big.numel() // (sms + 1) // 8) * 8
+    stats = torch.zeros(4, 2, device=dev)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gn_apply.group_norm_act_backward(big, weight, bias, 4, stats, big, route=p._replace(
+            blocks=sms + 1, slice=q, held=gn_apply.HOLD_BYTES // 8))
+    assert (gn_apply.launches, gn_apply.backward_launches) == (before, bwd_before)
     got = gn_apply.group_norm_act_kernel(x, weight, bias, 4, res)
     assert_gn_matches_plain(got, x, weight, bias, res)
 
@@ -501,7 +642,8 @@ def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
     the same weights and batch, kernel path against plain: the loss within 1e-5
     relative, every parameter's gradient within docs/PARITY.md:218-232's bar (2.5e-3 of
     max|plain|, cosine > 0.999998; a leaf below 1e-4 of the largest held to that floor).
-    The forward launches 2 / 1 / 4 / 17, the backward nothing."""
+    The forward launches 2 / 1 / 4 / 17, the backward K4's backward kernel 17 times and no
+    forward kernel."""
     from multi_view_stereonet_tpu_torch.losses import LossConfig
     from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
 
@@ -524,10 +666,13 @@ def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
         before = counts()
         loss, _ = make_loss_fn(config, LossConfig(), impl=impl)(model, batch)
         forward = tuple(a - b for a, b in zip(counts(), before))
+        bwd_before = gn_apply.backward_launches
         loss.backward()
         torch.cuda.synchronize()
         backward = tuple(a - b for a, b in zip(counts(), before))
         assert forward == backward == ((2, 1, 4, 17) if impl == "auto" else (0, 0, 0, 0))
+        # K4's backward kernel once a forward launch (counted apart), no other kernel.
+        assert gn_apply.backward_launches - bwd_before == (17 if impl == "auto" else 0)
         results[impl] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
     assert_training_matches_plain(results)
 
@@ -1009,7 +1154,7 @@ def test_two_replicas_on_one_card_are_bit_equal_to_one(dev, small_run, u8):
     streams = [r.stream for r in runner._replicas]
     assert None not in streams and streams[0] != streams[1]
     index = torch.cuda.current_device()
-    assert {(index, s.cuda_stream) for s in streams} <= set(refiner_op._barriers)
+    assert {(index, s.cuda_stream) for s in streams} <= set(build._barriers)
     assert torch.backends.cudnn.allow_tf32 is flag
 
 
@@ -1025,7 +1170,7 @@ def test_replicas_on_two_cards_are_bit_equal_to_one_card(dev, small_run):
     one, two, runner, dataset = replica_runs(small_run, cards, u8=False)
     np.testing.assert_array_equal(two[0].view(np.int32), one[0].view(np.int32))
     assert two[1] == one[1] and two[2] == one[2]
-    assert (1, runner._replicas[1].stream.cuda_stream) in refiner_op._barriers
+    assert (1, runner._replicas[1].stream.cuda_stream) in build._barriers
     model = streaming.load_model(small_run[0], "cpu")
     with torch.cuda.device(0):
         alone = serve_replicas(streaming.StreamingRunner(model, runner.model_config,

@@ -16,7 +16,8 @@
   u8 transports bit for bit.
 - Each kernel's ``torch.autograd.Function`` on the CPU, its launch replaced by the
   plain forward: gradients equal plain autograd's within 1e-6, ``.grad`` lands and
-  accumulates on every weight, and the backward launches nothing.
+  accumulates on every weight, and the backward launches nothing (K4's: its backward
+  kernel's launcher once, replaced by the closed-form plain backward).
 - The optimizer against optax over 6 steps of fixed gradients (adam, sgd,
   rmsprop, a staircase schedule, gradient accumulation) within 1e-5 relative: the
   two round the same formula in another order (torch's Adam divides by the bias
@@ -359,17 +360,49 @@ def _check_function(run_kernel, run_plain, leaves, weights_, calls):
 
 
 def test_gn_function_recomputes_the_plain_version(monkeypatch):
-    calls = _plain_launch(monkeypatch, gn_apply,
-                          lambda x, w, b, groups, res, xbias: gn_apply.group_norm_act_plain(
-                              x, w, b, groups, res, xbias))
+    """K4's Function: its forward launch (replaced by the plain forward and the plain
+    statistics) also returns the statistics, and its backward goes through the backward
+    kernel's launcher (replaced by the closed-form plain backward), once a backward, with
+    x, the weights, the conv bias and those statistics; the residual's gradient is the
+    output's. Gradients equal plain autograd's through ``group_norm_act_plain``."""
+    calls, backward_calls = [], []
+
+    def launch(x, w, b, groups, res, xbias, stats=False):
+        calls.append(stats)
+        out = gn_apply.group_norm_act_plain(x, w, b, groups, res, xbias)
+        return (out, gn_apply.group_stats_plain(x, groups, xbias)) if stats else out
+
+    def launch_backward(*args):
+        backward_calls.append(len(args))
+        return gn_apply.group_norm_act_backward_plain(*args)
+    monkeypatch.setattr(gn_apply, "_launch", launch)
+    monkeypatch.setattr(gn_apply, "_launch_backward", launch_backward)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 32, 4, 6, generator=g, requires_grad=True)
     res = torch.randn(2, 32, 4, 6, generator=g, requires_grad=True)
     w = torch.nn.Parameter(1 + 0.1 * torch.randn(32, generator=g))
     b = torch.nn.Parameter(0.1 * torch.randn(32, generator=g))
-    _check_function(lambda: gn_apply.group_norm_act_kernel(x, w, b, 4, res),
-                    lambda: gn_apply.group_norm_act_plain(x, w, b, 4, res), [x, res], [w, b],
-                    calls)
+    xb = torch.nn.Parameter(0.3 * torch.randn(32, generator=g))
+    cot = torch.randn(x.shape, generator=g)
+    with torch.no_grad():
+        stats = gn_apply.group_stats_plain(x, 4, xb)
+        ref = gn_apply.group_norm_act_backward_plain(x, w, b, 4, stats, cot, xb)
+    for _ in range(2):
+        got = gn_apply.group_norm_act_kernel(x, w, b, 4, res, xb)
+        assert got.grad_fn is not None
+        (got * cot).sum().backward()
+    assert calls == [True, True] and backward_calls == [7, 7]
+    for t, r in zip((x, w, b, xb, res), (*ref, cot)):
+        torch.testing.assert_close(t.grad, 2 * r, atol=WIRING_BAR, rtol=WIRING_BAR)
+    # ... which is plain autograd's gradient (the closed form against autograd:
+    # tests/test_torch_gn_backward.py).
+    out = gn_apply.group_norm_act_plain(x, w, b, 4, res, xb)
+    auto = torch.autograd.grad((out * cot).sum(), (x, w, b, xb, res))
+    for t, a in zip((x, w, b, xb, res), auto):
+        assert (t.grad - 2 * a).abs().max() <= 2e-5 * a.abs().max()
+    with torch.no_grad():
+        assert gn_apply.group_norm_act_kernel(x, w, b, 4, res, xb).grad_fn is None
+    assert calls == [True, True, False] and backward_calls == [7, 7]
 
 
 def test_warp_function_recomputes_the_plain_version(monkeypatch):
