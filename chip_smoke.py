@@ -60,16 +60,25 @@ Phases, each printing its results; any failure raises and exits non-zero:
    u8 with four decode threads and f32 with one, twice: the median time
    between consecutive results in the steady window (start-up and drain left
    out) as ms a request, and the window's depthmaps/s.
-3b. Backward of each kernel (its ``torch.autograd.Function``: K1-K3 recompute the
-   plain version, K4 launches its backward kernel) at phase 3's shapes against plain
-   autograd on the card: every input's gradient within 1e-4 of max|plain| (a gradient
-   below 1e-4 of the largest held to that floor), no forward launch in the backward and
-   one K4 backward launch in K4's (K4's output gradient is 0 where its GroupNorm value
+3b. Backward of each kernel (its ``torch.autograd.Function``: K1, K2 and K4 launch
+   their backward kernels, K3 recomputes the plain version) at phase 3's shapes against
+   plain autograd on the card: every input's gradient within 1e-4 of max|plain| (a
+   gradient below 1e-4 of the largest held to that floor), no forward launch in the
+   backward and one backward launch of its own kernel's in K1's, K2's and K4's, none in
+   K3's. K2 by ``chain_legs`` (CHAIN_LEGS' bars): two legs, each within the bar (the
+   Function against its closed form on what the kernel's forward kept, and that closed
+   form on the plain forward's tensors against autograd through that forward), what the
+   kernel's forward kept (out, raw h and r, statistics) against the plain forward's, the
+   LeakyReLU branches the two forwards take apart (a GroupNorm value within their
+   roundings of the kink) by count and |z|, and the direct gap to plain autograd within
+   the bar where no branch flips. (K4's output gradient is 0 where its GroupNorm value
    lies within KINK_ROUNDING of LeakyReLU's kink, from f64 statistics, ``gn_kink_mask``:
    there the two forwards' roundings may take two branches; at most KINK_SHARE of the
-   elements, or KINK_FLOOR); the backward kernel alone against its plain version (closed
-   form) on the same statistics and gradient, within the same bar, with both device
-   times (``graph_ms``) and its bound; the device time
+   elements, or KINK_FLOOR.) Each backward kernel alone (K1, K2, K4) against its plain
+   version (closed form) on the same inputs (K2: what its forward kept; K4: the same
+   statistics), within the same bar, with both device times (``graph_ms``) and its bound
+   (K2 also timed for the recipe's gradients alone, feats0's and the weights'; K3's
+   recompute its bound, twice its forward's multiply-adds); the device time
    of one backward (torch.profiler, the sum of its kernels over two calls a session
    after one warm-up; ``profile_kernels`` keeps two sessions that agree on the count
    of kernel events), of the plain
@@ -82,8 +91,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    over 16 images and an epoch checkpoint; a second call resumes it for 2
    steps (step count continued) and ``run_eval`` scores its checkpoint. Every
    loss finite; launches 2 / 1 / 2 / 31 a forward (train steps and validation
-   batches), K4's backward kernel once a K4 forward launch of a step and no other
-   launch from the backward; the CLI loop's ms a step (host clock
+   batches), K4's backward kernel once a K4 forward launch of a step, K2's once a step,
+   K1's none, and no forward launch from the backward; the CLI loop's ms a step (host clock
    between steps, loader included) and the loader's ms a batch alone. Then from
    one batch and the same seeded fan-in-scale weights, TF32 off: the kernel
    path's loss within 1e-5 relative of the plain path's and every gradient
@@ -102,8 +111,10 @@ Phases, each printing its results; any failure raises and exits non-zero:
    steps, no validation (the JAX CLI's cannot run those losses), resumed for 1;
    losses.txt finite with the reconstruction and left-right columns; launches
    a step derived from the code (two forwards, and K1 12 + 20 + 10 times in the
-   occlusion masks, left-right and reconstruction losses), none from the
-   backward. Then one batch, kernel path against plain: the loss within 1e-5
+   occlusion masks, left-right and reconstruction losses); from the backward no forward
+   launch, K1's backward kernel 20 times (the left-right loss's two idepth samples a level
+   and the reconstruction's two a level) and K2's twice (``expected_backward``). Then one
+   batch, kernel path against plain: the loss within 1e-5
    relative and every gradient within phase 7's bar; ms a step (median of 6,
    CUDA events, the paths in turns after 2 warm-up steps each), peak memory, and
    a profile of one kernel-path step (device busy, the forward's device time, the
@@ -186,9 +197,14 @@ Phases, each printing its results; any failure raises and exits non-zero:
    long run torch.profiler was seen to miss most of a backward's kernel events): each
    kernel's ``autograd.Function`` at bf16 under gradients at phase 3b's shapes (K1 f32 image and grid, bf16 out; K2 bf16
    feats0; K3 bf16 guidance, f32 idepth; K4 bf16 x and res, the conv's bias as an f32
-   xbias; its backward kernel alone as in phase 3b) against plain autograd at bf16
+   xbias; the backward kernels alone as in phase 3b) against plain autograd at bf16
    within phase 3b's bar (K4 within phase 12's flat-gradient bar, 1e-2 of max|plain|: its
-   kernel rounds its own f32 dx to bf16; the worst element's ulps printed), with cuDNN
+   kernel rounds its own f32 dx to bf16; the worst element's ulps printed; K2 by
+   ``chain_legs``' bf16 bars, the direct gap to plain autograd at bf16 within 0.25 of
+   max whatever the branches: its kernel differentiates its own forward, which warps in
+   f32 as the Pallas kernel, and keeps its gradients f32, where the scan at bf16 warps at
+   bf16 and autograd rounds every gradient to bf16, an open fault; K2's kernel alone
+   within 1e-2 of its closed form), with cuDNN
    and PyTorch
    deterministic for the comparison; every gradient at its input's dtype; the device
    times of the Function's backward, plain autograd's and the library call's (K1
@@ -213,7 +229,10 @@ Phases, each printing its results; any failure raises and exits non-zero:
    max|plain|), and at phase 15's shapes (N = 4, 6x8x32; (4, 35, h, w) for refiners
    4-1), its error against the 3xTF32 kernel, the 3xTF32 kernel unchanged after
    it, device times (``graph_ms``) of both variants and of the plain version, the bound
-   at TF32 (the convs' operations at the 494.7 TFLOP/s TF32 tensor-core peak). (b) The
+   at TF32 (the convs' operations at the 494.7 TFLOP/s TF32 tensor-core peak); K2's
+   backward at 1xTF32 (``check_backward_tf32``): the Function by ``chain_legs``' tf32
+   bars against the TF32-rounding loop, the kernel alone against its closed form at TF32
+   within 1e-3, one backward launch, and the device times of both backward variants. (b) The
    forward at "high" against "highest" at B = 1 and 8, per level max within 1% and mean
    within 0.2% of the range; the kernel path within 0.5% of the plain path at "high";
    launches 2 / 1 / 2 / 31, of them 1xTF32 chain 1 and refiner 2; each stage alone at
@@ -285,7 +304,13 @@ entry keeps "shapes" (every phase-3 shape's chunks a row and device times) and
 "recipe_shapes" (the B = 8 shapes' device times at f32 and bf16). The K4 backward kernel
 has an entry of its own ("group_norm_act_backward": launches phase
 7's first ``train`` call's, "step_launches" one step's; its times phase 3b's, "bf16"
-phase 12 (a)'s). Then the nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+phase 12 (a)'s), and so have K1's and K2's ("grid_sample_backward": launches phase 8's
+first ``train`` call's, "step_launches" one two-view step's, "shapes" each phase-3b
+shape's times, "library_ms" ``F.grid_sample``'s backward at (1,480,640,3);
+"incremental_chain_backward": launches phase 7's first ``train`` call's,
+"step_launches" one step's, "two_view_launches" one two-view step's, "shapes" with
+"recipe_ms", "tf32" phase 13's). Then the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -398,6 +423,31 @@ TF32_FORWARD_MAX, TF32_FORWARD_MEAN = 1e-2, 2e-3
 TF32_PATH_BAR = 5e-3
 TF32_TRAIN_LOSS_BAR, TF32_TRAIN_GRAD_BAR = 1e-4, 1e-2
 TF32_TRAIN_STEPS = 2
+# K2's Function against plain autograd (``chain_legs``) in phase 3b (f32), 12 (a) (bf16)
+# and 13 (tf32). Two forwards part by their roundings; where a GroupNorm value lies
+# within them of LeakyReLU's kink the two take two branches (a slope of 1 against 0.2),
+# and each backward is the gradient of its own forward. So each leg is held to "leg":
+# the Function against its closed form on what the kernel's forward kept, and that
+# closed form on the plain forward's tensors against autograd through that forward; what
+# the kernel kept (out, raw h and r, the statistics) against the plain forward's within
+# "forward"; the branches the two take apart to "flip_share" of the GroupNorm values (or
+# KINK_FLOOR), each with |z| <= "flip_z"; and the direct gap within "direct" where no
+# branch flips, at bf16 whatever the flips. f32: the flips read 0 and 7 (|z| <= 1.29e-5)
+# at N = 1 and 8. tf32: 72 and 594 (8.5e-5 and 8.8e-5 of the values), the forward bar of
+# phase 13. bf16: the scan at bf16 warps at bf16 and plain autograd rounds every gradient
+# to bf16, where the kernel warps in f32 (the Pallas kernel's rounding) and keeps its
+# gradients f32, so "direct" is set from the readings 5.97e-2 and 1.64e-1 (ROADMAP Queue
+# 3, an open fault: the JAX package's bf16 VJP is not kept); "leg" from the CPU's 4.4e-3
+# and 7.2e-3 of the closed form against autograd through the rounded forward (the one
+# rounds each conv's gradient operand to bf16, the other each conv's result); "forward"
+# phase 11's bar.
+CHAIN_LEGS = {
+    "f32": {"leg": BACKWARD_BAR, "forward": 1e-4, "direct": BACKWARD_BAR, "flip_share": 1e-5,
+            "flip_z": 1e-4},
+    "tf32": {"leg": TF32_K2_BAR, "forward": TF32_K2_BAR, "direct": TF32_K2_BAR,
+             "flip_share": 1e-3, "flip_z": 1e-2},
+    "bf16": {"leg": 2e-2, "forward": BF16_CHAIN_BAR, "direct": 0.25, "flip_share": 1e-2,
+             "flip_z": 1e-1}}
 H0, W0, D = 480, 640, 12
 LONG = 96  # requests of the tree that phases 5, 6 and 14 time
 REPLICA_DEADLINE = 120.0  # seconds any wait on the card in phase 14 may take
@@ -950,9 +1000,10 @@ def gn_bf16_ulps(got, ref, x, weight, bias, xbias):
 
 
 def check_backward(dev, dtype=torch.float32):
-    """Phase 3b: each kernel's backward (the plain version recomputed inside its
-    Function) against plain autograd at phase 3's shapes, with its device time, the plain
-    path's and (K1, K4) the library's. Returns {kernel: backward entry}. With ``dtype``
+    """Phase 3b: each kernel's backward (its Function: K1's, K2's and K4's backward
+    kernels, K3's recompute) against plain autograd at phase 3's shapes, with its device
+    time, the plain path's and (K1, K4) the library's; the backward kernels alone against
+    their closed forms (``alone``). Returns {kernel: backward entry}. With ``dtype``
     bf16 (phase 12 (a)) each kernel takes its bf16 inputs as the bf16 forward gives them
     (K1 an f32 image and grid, bf16 out; K2 bf16 feats0; K3 bf16 guidance, f32 idepth;
     K4 bf16 x and res and the conv's bias as an f32 xbias), every gradient must come back
@@ -987,10 +1038,12 @@ def check_backward(dev, dtype=torch.float32):
     def leaf(x):
         return x.to(dev).requires_grad_()
 
-    def check(key, what, run, inputs, library=None, keep=False, cot_mask=None):
+    def check(key, what, run, inputs, library=None, keep=False, cot_mask=None, legs=None):
         """run(impl) -> output; library() -> (output, inputs) of the one PyTorch call.
         The JSON line keeps the times of the shape checked with ``keep``. The output's
-        gradient is 0 where ``cot_mask`` is False."""
+        gradient is 0 where ``cot_mask`` is False. ``legs(cot, got, ref)``, where given
+        (K2), holds the Function to plain autograd by ``chain_legs``' bars, in place of
+        the direct bar."""
         outs = {impl: run(impl) for impl in ("kernel", "plain")}
         cot = torch.randn(outs["plain"].shape, generator=g).to(dev, outs["plain"].dtype)
         if cot_mask is not None:
@@ -998,21 +1051,24 @@ def check_backward(dev, dtype=torch.float32):
 
         def backward(impl):
             return torch.autograd.grad(outs[impl], inputs, cot, retain_graph=True)
-        before, bwd_before = read_launches(), gn_backward_launches()
+        before, bwd_before = read_launches(), backward_launches()
         with deterministic(bf16):
             got, ref = backward("kernel"), backward("plain")
             torch.cuda.synchronize()
         if read_launches() != before:
             raise AssertionError(f"{key}{tag} {what}: the backward launched a forward kernel")
-        if gn_backward_launches() - bwd_before != (key == "K4"):
-            raise AssertionError(f"{key}{tag} {what}: {gn_backward_launches() - bwd_before} "
-                                 f"K4 backward launches, expected {int(key == 'K4')}")
+        bwd = {k: v - bwd_before[k] for k, v in backward_launches().items()}
+        want = {k: int(BACKWARD_OF.get(key.split()[0]) == k) for k in BACKWARD_KERNELS}
+        if bwd != want:
+            raise AssertionError(f"{key}{tag} {what}: backward launches {bwd}, expected "
+                                 f"{want}")
         dtypes = [t.dtype for t in got]
         if dtypes != [t.dtype for t in inputs] or outs["kernel"].dtype != outs["plain"].dtype:
             raise AssertionError(f"{key}{tag} {what}: output {outs['kernel'].dtype}, "
                                  f"gradients {dtypes} for inputs "
                                  f"{[t.dtype for t in inputs]}")
         err = worst_relative(got, ref)
+        split = None if legs is None else legs(cot, got, ref)
         entry = {"max_rel_err": err,
                  "ms": device_ms(lambda: backward("kernel"), BACKWARD_REPS, 1),
                  "plain_ms": device_ms(lambda: backward("plain"), BACKWARD_REPS, 1),
@@ -1031,11 +1087,18 @@ def check_backward(dev, dtype=torch.float32):
         ulps = max([((a.float() - r.float()).abs() / bf16_ulp(r.float())).max().item()
                     for a, r in zip(got, ref) if r.dtype == torch.bfloat16], default=0.0)
         entry["worst_bf16_ulps"] = ulps
+        legs_note = ""
+        if split is not None:
+            entry["legs"] = split
+            legs_note = "; " + describe_legs(split)
         log(f"{key}{tag} backward {what}: worst gradient error {err:.3e} of max|plain| "
-            f"(bar {bar:.0e}){f', worst bf16 element {ulps:.2f} ulps' if bf16 else ''}; "
-            f"gradients {[str(d)[6:] for d in dtypes]}; device: through the kernel's "
-            f"Function {entry['ms']:.4f} ms, plain path {entry['plain_ms']:.4f} ms{lib}")
-        if not err <= bar:
+            f"({'see the legs' if split else f'bar {bar:.0e}'})"
+            f"{f', worst bf16 element {ulps:.2f} ulps' if bf16 else ''}{legs_note}; "
+            f"gradients {[str(d)[6:] for d in dtypes]}; backward launches {bwd}; device: "
+            f"through the kernel's Function {entry['ms']:.4f} ms, plain path "
+            f"{entry['plain_ms']:.4f} ms{lib}")
+        ok = not split["missed"] if split is not None else err <= bar
+        if not ok:
             raise AssertionError(f"{key}{tag} backward disagrees with plain autograd at "
                                  f"{what}")
         old = results.get(key)
@@ -1044,6 +1107,53 @@ def check_backward(dev, dtype=torch.float32):
             results[key] = {**base, "max_rel_err": max(old["max_rel_err"], err)}
         else:
             results[key] = entry
+
+    def alone(key, label, run_kernel, run_plain, read_write, flops, keep,
+              peak=PEAK_F32_FLOPS):
+        """A backward kernel alone (K1, K2) against its plain version in closed form on the
+        same inputs (K2: what its forward kept), within phase 3b's bar (K2 at bf16: the
+        flat-gradient bar of phase 12, as K4's), with both device times (CUDA graphs) and
+        the bound, its operations at ``peak``. The JSON line keeps the shape checked with
+        ``keep``."""
+        def flat(grads):
+            return [t for g in grads for t in (g if isinstance(g, tuple) else (g,))]
+        with torch.no_grad():
+            got, ref = flat(run_kernel()), flat(run_plain())
+            torch.cuda.synchronize()
+            pairs = [(a, r) for a, r in zip(got, ref) if r is not None]
+            err = worst_relative(*zip(*pairs))
+            abs_err = max((a.float() - r.float()).abs().max().item() for a, r in pairs)
+            t = {"ms": graph_ms(run_kernel), "plain_ms": graph_ms(run_plain)}
+        b = bound(read_write, flops, peak)
+        bar = BF16_TRAIN_GRAD_BAR if bf16 and key == "K2" else BACKWARD_BAR
+        log(f"{key}{tag} backward kernel {label}: against its plain version {err:.3e} of "
+            f"max|plain| (bar {bar:.0e}), max_abs_err {abs_err:.3e}; device: kernel "
+            f"{t['ms']:.4f} ms, plain version {t['plain_ms']:.4f} ms, bound {b[0]:.4f} ms "
+            f"({b[1]})")
+        if not err <= bar:
+            raise AssertionError(f"{key}{tag} backward kernel disagrees with its plain "
+                                 f"version at {label}")
+        entry = {"max_rel_err": err, "max_abs_err": abs_err, **t, "bound_ms": b[0],
+                 "bound_by": b[1], "bar": bar}
+        old = results.get(f"{key} kernel")
+        if old is None or keep:
+            entry["shapes"] = (old or {}).get("shapes", [])
+            results[f"{key} kernel"] = entry
+            old = entry
+        old["max_rel_err"] = max(old["max_rel_err"], err)
+        old["max_abs_err"] = max(old["max_abs_err"], abs_err)
+        old["shapes"].append({"shape": label, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                              "bound_ms": b[0], "max_rel_err": err})
+
+    def k1_alone(image, grid, zero_invalid, what, keep=False, library=None):
+        image, grid = image.detach(), grid.detach()
+        cot = torch.randn(grid.shape[:-1] + image.shape[-1:], generator=g).to(dev, dtype)
+        M, C = grid[..., 0].numel(), image.shape[-1]
+        alone("K1", what, lambda: warp.grid_sample_backward(image, grid, cot, zero_invalid),
+              lambda: warp.grid_sample_backward_plain(image, grid, cot, zero_invalid),
+              nbytes(image, grid, cot, image, grid), M * (30 + 24 * C), keep)
+        if keep and library is not None:
+            results["K1 kernel"]["library_ms"] = library
 
     # K1 at the min-idepth warp (the JSON keeps its times) and the plane sweep.
     for n, rows, cols, grid_of, what in (
@@ -1064,6 +1174,7 @@ def check_backward(dev, dtype=torch.float32):
         check("K1", what, lambda impl: warp.grid_sample(image, grid, True, impl,
                                                         out_dtype=dtype)[0],
               (image, grid), library, keep=n == 1)
+        k1_alone(image, grid, True, what, keep=n == 1, library=results["K1"]["library_ms"])
 
     # K1 where the two-view losses call it: one channel and three at 480x640, B = 8, the
     # grid projected from idepth; image and grid both leaves.
@@ -1080,6 +1191,7 @@ def check_backward(dev, dtype=torch.float32):
         check(f"K1 C={C}", f"({TRAIN_B},{H0},{W0},{C}) loss samples, image and grid leaves",
               lambda impl: warp.grid_sample(image, grid, False, impl)[0], (image, grid),
               library)
+        k1_alone(image, grid, False, f"({TRAIN_B},{H0},{W0},{C}) loss samples")
 
     # K2 at N = 1 (the JSON keeps it) and N = 8, the training recipe's B*V.
     refiner = FeatureRefiner(32)
@@ -1087,14 +1199,43 @@ def check_backward(dev, dtype=torch.float32):
     refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
                              if k.startswith(prefix)})
     refiner = refiner.to(dev)
+    params = list(refiner.parameters())
     for n in (1, 8):
         K_pyr, T, samples = geometry(n, 10 + n)
         H_inc = incremental_homographies(create_plane_sweep_homographies(T, K_pyr[4], samples))
         feats0 = leaf(torch.randn(n, 30, 40, 32, generator=g).to(dtype))
         image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
-        check("K2", f"N={n} 30x40x32 D={D}",
+
+        def legs(cot, got, ref, feats0=feats0, image_rest=image_rest, H_inc=H_inc):
+            return chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref)
+        what = f"N={n} 30x40x32 D={D}"
+        check("K2", what,
               lambda impl: chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl),
-              (feats0, *refiner.parameters()), keep=n == 1)
+              (feats0, *params), keep=n == 1, legs=legs)
+        # The backward kernel alone, on what the forward kept: every gradient against the
+        # closed form (image_rest's and H_inc's too); timed for what the recipe asks
+        # (feats0 and the weights). Its convs' operations at bf16 storage at the bf16 peak
+        # (the dgrads run on bf16 mma.sync; the weight gradients' bf16 operands on TF32
+        # mma.sync, exact for them, at half that peak).
+        with torch.no_grad():
+            f0, im = feats0.detach(), image_rest.to(dtype)
+            weights = chain._weight_args(refiner)
+            out, raw, stats = chain._forward_launch(f0, im, H_inc, *weights, 0, False, True)
+            cot = torch.randn(out.shape, generator=g).to(dev, dtype)
+        flops = (D - 1) * (conv_flops(refiner, n * 30 * 40) + 2 * n * 30 * 40 * 32 * 288 * 3)
+        alone("K2", what,
+              lambda: chain._launch_backward(refiner, im, H_inc, weights, out, raw, stats,
+                                             cot, (True, True, True), 0, False),
+              lambda: chain.incremental_chain_backward_plain(
+                  refiner, f0, im, H_inc, out, raw, stats, cot, (True, True, True, True)),
+              nbytes(out, raw, stats, cot, im, H_inc, *weights, f0, *params), flops,
+              keep=n == 1, peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+        entry = results["K2 kernel"]["shapes"][-1]
+        entry["recipe_ms"] = graph_ms(lambda: chain._launch_backward(
+            refiner, im, H_inc, weights, out, raw, stats, cot, (True, False, False), 0,
+            False))
+        log(f"K2{tag} backward kernel {what}, feats0's and the weights' gradients alone (the "
+            f"recipe's): device {entry['recipe_ms']:.4f} ms")
 
     # K3 at level 4 (N = 1, 8) and level 3 (N = 1, the JSON keeps it).
     state = random_state_dict(4)
@@ -1109,6 +1250,13 @@ def check_backward(dev, dtype=torch.float32):
         check("K3", f"({n},35,{h},{w})",
               lambda impl: refiner_op.idepthmap_refiner(module, guidance, idepth, impl),
               (guidance, idepth, *module.parameters()), keep=h == 60)
+        # The recompute's bound: the refiner's input and weight gradients, twice its
+        # forward's multiply-adds, against the inputs, weights and their gradients once.
+        b = bound(2 * nbytes(guidance, idepth, *module.parameters()) + nbytes(idepth),
+                  2 * conv_flops(module, n * h * w), PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+        log(f"K3{tag} backward ({n},35,{h},{w}): bound {b[0]:.4f} ms ({b[1]})")
+        if h == 60:
+            results["K3"].update(bound_ms=b[0], bound_by=b[1])
 
     # K4 at every GroupNorm shape of the serving forward; the JSON keeps the 480x640
     # resblock's times. Its Function (the forward kernel, which also writes the statistics,
@@ -1185,6 +1333,88 @@ def check_backward(dev, dtype=torch.float32):
     return results
 
 
+def chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref, tf32=False):
+    """K2's Function (gradients ``got`` of feats0 and the refiner's weights, for output
+    gradient ``cot``) against plain autograd (``ref``) by CHAIN_LEGS' bars for its variant
+    (bf16 storage, ``tf32``: the 1xTF32 variant, or f32): the Function against its closed
+    form (``incremental_chain_backward_plain``) on what the kernel's forward kept; that
+    closed form on what the plain forward gives (``saved_forward``, the forward kernel's
+    plain version, its operands rounded as the variant's) against plain autograd through
+    that same forward; what the kernel kept against that plain forward's tensors; the
+    LeakyReLU branches the two forwards take apart (``branch_flips`` of ``gn_values``,
+    the largest |z| among them); and the direct gap. Returns the readings, the bars and
+    ``missed``, the names of the readings outside them."""
+    from multi_view_stereonet_tpu_torch.ops import precision
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+
+    dtype = feats0.dtype
+    variant = "bf16" if dtype == torch.bfloat16 else "tf32" if tf32 else "f32"
+    bars = CHAIN_LEGS[variant]
+    image_rest = image_rest.to(dtype)
+    needs = (True, False, False, True)
+    f0 = feats0.detach()
+    # Deterministic, so that the plain side reads the same from run to run.
+    with deterministic(True):
+        with torch.enable_grad():
+            leaves = [f0.clone().requires_grad_(),
+                      *(t.detach().clone().requires_grad_() for t in chain._weights(refiner))]
+            plain = chain.saved_forward(leaves[1:], leaves[0], image_rest, H_inc, tf32)
+            auto = torch.autograd.grad(plain[0], leaves, cot)
+        with torch.no_grad(), precision.scope("ieee"):
+            plain = [t.detach() for t in plain]
+            kept = chain._forward_launch(f0, image_rest, H_inc, *chain._weight_args(refiner), 0,
+                                         tf32, True)
+            closed_k = chain.incremental_chain_backward_plain(refiner, f0, image_rest, H_inc,
+                                                              *kept, cot, needs, tf32)
+            closed_p = chain.incremental_chain_backward_plain(refiner, f0, image_rest, H_inc,
+                                                              *plain, cot, needs, tf32)
+            forward = max(worst_relative([kept[0].float()], [plain[0].float()]),
+                          worst_relative([kept[1]], [plain[1]]),
+                          worst_relative(kept[2].unbind(-2), plain[2].unbind(-2)))
+            flips, flip_z, values = 0, 0.0, 0
+            res = refiner.res0
+            for gn, (gamma, beta) in enumerate(((refiner.bn0.weight, refiner.bn0.bias),
+                                                (res.bn1.weight, res.bn1.bias))):
+                z = [chain._gn_forward(raw[:, :, gn].flatten(0, 1), stats[:, :, gn].flatten(0, 1),
+                                       gamma.detach(), beta.detach())[1]
+                     for _, raw, stats in (kept, plain)]
+                apart = chain._leaky_slope(z[0], dtype) != chain._leaky_slope(z[1], dtype)
+                flips += int(apart.sum())
+                values += apart.numel()
+                if apart.any():
+                    flip_z = max(flip_z, z[0][apart].abs().max().item())
+    r = {"function_vs_closed_form": worst_relative(got, [closed_k[0], *closed_k[3]]),
+         "closed_form_vs_autograd": worst_relative([closed_p[0], *closed_p[3]], auto),
+         "forward": forward, "direct": worst_relative(got, ref), "branch_flips": flips,
+         "gn_values": values, "flip_max_abs_z": flip_z, "variant": variant, "bars": bars}
+    within = {"function_vs_closed_form": r["function_vs_closed_form"] <= bars["leg"],
+              "closed_form_vs_autograd": r["closed_form_vs_autograd"] <= bars["leg"],
+              "forward": forward <= bars["forward"],
+              "branch_flips": flips <= max(KINK_FLOOR, bars["flip_share"] * values),
+              "flip_max_abs_z": flip_z <= bars["flip_z"],
+              "direct": (r["direct"] <= bars["direct"]
+                         or (flips > 0 and variant != "bf16"))}
+    r["missed"] = [k for k, ok in within.items() if not ok]
+    return r
+
+
+def describe_legs(r) -> str:
+    """``chain_legs``' readings and bars, for the log."""
+    b = r["bars"]
+    direct_barred = r["branch_flips"] == 0 or r["variant"] == "bf16"
+    return (f"in two legs (bar {b['leg']:.0e} each): the Function against its closed form "
+            f"on what the kernel's forward kept {r['function_vs_closed_form']:.3e}, the "
+            f"closed form on what the plain forward gives against autograd through that "
+            f"forward {r['closed_form_vs_autograd']:.3e}; what the kernel's forward kept "
+            f"against the plain forward's {r['forward']:.3e} (bar {b['forward']:.0e}); "
+            f"LeakyReLU branches the two forwards take apart {r['branch_flips']} of "
+            f"{r['gn_values']} (bar {b['flip_share']:.0e} of them or {KINK_FLOOR}), |z| "
+            f"within {r['flip_max_abs_z']:.2e} of 0 (bar {b['flip_z']:.0e}); the direct gap "
+            f"{r['direct']:.3e} (bar {b['direct']:.2g}, "
+            f"{'held' if direct_barred else 'not held: branches apart'})"
+            f"{'; MISSED ' + ', '.join(r['missed']) if r['missed'] else ''}")
+
+
 def gn_kink_mask(x, weight, bias, xbias):
     """False where K4's GroupNorm value z = x_hat gamma + beta lies within KINK_ROUNDING
     (|x_hat gamma| + |beta| + |mean rstd gamma|) of LeakyReLU's kink at 0, z and the
@@ -1245,8 +1475,6 @@ def deterministic(on):
     return stack
 
 
-
-
 def train_phase(dev, inputs, smi):
     """Phase 7: the training CLI at full width, resumed and evaluated; then one batch
     through the kernel and plain paths: gradients, ms a step, memory, the repack and a
@@ -1283,17 +1511,17 @@ def train_phase(dev, inputs, smi):
         train_cli.train(dict(cfg, num_epochs=num_epochs), data_dir, split, split, out,
                         max_steps=max_steps, stop_check=stamp, device=dev)
         seconds = time.perf_counter() - t0
-        launches, backward = read_launches(), gn_backward_launches()
+        launches, backward = read_launches(), backward_launches()
         expected = expected_launches([(TRAIN_B, 1)] * forwards)
         steps = forwards - val_forwards
-        if launches != expected or backward * forwards != expected["gn_apply"] * steps:
-            raise AssertionError(f"train: expected launches {expected} and K4 backward "
-                                 f"launches {expected['gn_apply'] * steps // forwards}, got "
-                                 f"{launches} and {backward}")
+        want = {**expected_backward(steps), "gn_apply": expected["gn_apply"] * steps // forwards}
+        if launches != expected or backward != want:
+            raise AssertionError(f"train: expected launches {expected} and backward "
+                                 f"launches {want}, got {launches} and {backward}")
         return launches, seconds, stamps
 
     launches, seconds, stamps = run(TRAIN_STEPS, 1, TRAIN_STEPS + val_forwards)
-    train_backward = gn_backward_launches()
+    train_backward = backward_launches()
     # The loop reads each step's loss after queuing the next, so from the third step on
     # the time between steps is the CLI's rate, loader included.
     gaps = np.diff(stamps)[2:] * 1e3
@@ -1301,8 +1529,8 @@ def train_phase(dev, inputs, smi):
     log(f"train: {TRAIN_STEPS} steps at B={TRAIN_B} V=1 {H0}x{W0} D={D} and validation over "
         f"{VAL_IMAGES} images in {seconds:.1f} s (loader start-up, first calls and the "
         f"checkpoint included); launches {launches}: per forward {TRAIN_STEPS} steps + "
-        f"{val_forwards} validation batches, and {train_backward} K4 backward launches (K4's "
-        f"forward launches of the {TRAIN_STEPS} steps); the CLI loop "
+        f"{val_forwards} validation batches, and backward launches {train_backward} (K4's "
+        f"forward launches of the {TRAIN_STEPS} steps, K2 once a step, K1 none); the CLI loop "
         f"{cli_ms:.3f} ms a step (median of steps 4-{TRAIN_STEPS}, host clock; "
         f"{[round(g, 1) for g in gaps]}), {TRAIN_B * 1e3 / cli_ms:.2f} images/s ({smi})")
     _, resume_seconds, _ = run(TRAIN_STEPS + RESUME_STEPS, 2, RESUME_STEPS + val_forwards)
@@ -1365,17 +1593,18 @@ def train_phase(dev, inputs, smi):
         torch.cuda.synchronize()
         expected = (expected_launches([(TRAIN_B, 1)]) if impl == "auto"
                     else dict.fromkeys(forward, 0))
-        if not (forward == read_launches() == expected
-                and gn_backward_launches() == expected["gn_apply"]):
+        want = ({**expected_backward(1), "gn_apply": expected["gn_apply"]} if impl == "auto"
+                else dict.fromkeys(BACKWARD_KERNELS, 0))
+        if not (forward == read_launches() == expected and backward_launches() == want):
             raise AssertionError(f"{impl}: forward launches {forward}, after the backward "
-                                 f"{read_launches()} and {gn_backward_launches()} K4 backward "
-                                 f"launches, expected {expected}")
+                                 f"{read_launches()} and backward launches "
+                                 f"{backward_launches()}, expected {expected} and {want}")
         loss_of[impl] = loss.item()
         grads[impl] = {k: p.grad for k, p in model.named_parameters()}
         if impl == "auto":
-            step_backward = gn_backward_launches()
-            log(f"train step launches: forward {forward}, backward: K4's backward kernel "
-                f"{step_backward}, no other")
+            step_backward = backward_launches()
+            log(f"train step launches: forward {forward}, backward kernels {step_backward} "
+                f"(K4 once a K4 forward launch, K2 once, K1 none), no forward kernel")
     ref = grads["plain"]
     worst, worst_key, min_cos = compare_gradients(grads)
     loss_gap = abs(loss_of["auto"] - loss_of["plain"]) / abs(loss_of["plain"])
@@ -1443,8 +1672,8 @@ def train_phase(dev, inputs, smi):
             log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     after = {impl: d["busy_ms"] - d["forward_ms"] for impl, d in device.items()}
     log(f"train step backward + optimizer step, device: kernel path {after['auto']:.3f} ms, "
-        f"plain path {after['plain']:.3f} ms; the kernels' recompute adds "
-        f"{after['auto'] - after['plain']:.3f} ms, their forward saves "
+        f"plain path {after['plain']:.3f} ms; the kernels' backward (K2's and K4's kernels, "
+        f"K3's recompute) adds {after['auto'] - after['plain']:.3f} ms, their forward saves "
         f"{device['plain']['forward_ms'] - device['auto']['forward_ms']:.3f} ms ({smi})")
     summary = {"ms": ms, "images_s": {k: TRAIN_B * 1e3 / v for k, v in ms.items()},
                "backward_launches": train_backward, "step_backward_launches": step_backward,
@@ -1479,13 +1708,14 @@ def two_view_phase(dev, inputs, smi):
                         max_steps=max_steps, device=dev)
         seconds = time.perf_counter() - t0
         launches, expected = read_launches(), two_view_launches(steps)
-        if launches != expected:
-            raise AssertionError(f"two-view train: expected launches {expected}, got "
-                                 f"{launches}")
-        return launches, seconds
+        backward, want = backward_launches(), expected_backward(steps, two_view=True)
+        if launches != expected or {k: backward[k] for k in want} != want:
+            raise AssertionError(f"two-view train: expected launches {expected} and backward "
+                                 f"launches {want}, got {launches} and {backward}")
+        return launches, seconds, backward
 
-    launches, seconds = run(TWO_VIEW_STEPS, 1, TWO_VIEW_STEPS)
-    _, resume_seconds = run(TWO_VIEW_STEPS + TWO_VIEW_RESUME, 2, TWO_VIEW_RESUME)
+    launches, seconds, train_backward = run(TWO_VIEW_STEPS, 1, TWO_VIEW_STEPS)
+    _, resume_seconds, _ = run(TWO_VIEW_STEPS + TWO_VIEW_RESUME, 2, TWO_VIEW_RESUME)
     with open(os.path.join(out, "losses.txt")) as f:
         header, *rows = [line.split() for line in f.read().splitlines()]
     steps = [int(r[2]) for r in rows]
@@ -1499,7 +1729,8 @@ def two_view_phase(dev, inputs, smi):
     col = {k: values[:, header.index(k) - 3] for k in sorted(columns)}
     log(f"two-view train: {TWO_VIEW_STEPS} steps at B={TRAIN_B} {H0}x{W0} D={D} in "
         f"{seconds:.1f} s, resumed for {TWO_VIEW_RESUME} in {resume_seconds:.1f} s "
-        f"(loader start-up, first calls and checkpoints included); launches {launches}; "
+        f"(loader start-up, first calls and checkpoints included); launches {launches}, "
+        f"backward launches {train_backward}; "
         f"losses.txt has {len(header) - 3} columns, all finite: "
         + "; ".join(f"{k} {[round(float(x), 4) for x in v]}" for k, v in col.items()))
 
@@ -1528,17 +1759,24 @@ def two_view_phase(dev, inputs, smi):
         loss.backward()
         torch.cuda.synchronize()
         expected = two_view_launches(1) if impl == "auto" else dict.fromkeys(forward, 0)
-        if not (forward == read_launches() == expected):
+        want = (expected_backward(1, two_view=True) if impl == "auto"
+                else {"warp": 0, "chain": 0})
+        backward = backward_launches()
+        if not (forward == read_launches() == expected
+                and {k: backward[k] for k in want} == want):
             raise AssertionError(f"two-view {impl}: forward launches {forward}, after the "
-                                 f"backward {read_launches()}, expected {expected}")
+                                 f"backward {read_launches()} and backward launches "
+                                 f"{backward}, expected {expected} and {want}")
         loss_of[impl] = {k: loss_dict[k].item() for k in ("supervised_loss", "left_right_loss",
                                                           "reconstruction_loss")}
         loss_of[impl]["loss"] = loss.item()
         grads[impl] = {k: p.grad for k, p in model.named_parameters()}
         if impl == "auto":
-            step_launches = forward
+            step_launches = {"forward": forward, "backward": backward}
             log(f"two-view step launches: {forward} (K1: 2 a forward, two forwards, and "
-                f"{loss_warp_launches(NUM_LEVELS)} in the losses), backward none")
+                f"{loss_warp_launches(NUM_LEVELS)} in the losses); backward kernels "
+                f"{backward} (K1 {want['warp']} in the losses, K2 {want['chain']}), no "
+                f"forward kernel")
     worst, worst_key, min_cos = compare_gradients(grads)
     loss_gap = abs(loss_of["auto"]["loss"] - loss_of["plain"]["loss"]) / abs(
         loss_of["plain"]["loss"])
@@ -1574,7 +1812,7 @@ def two_view_phase(dev, inputs, smi):
         f"the backward and the optimizer step {busy - forward:.3f} ms ({smi})")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     summary = {"ms": ms, "peak_gib": {k: v / 2**30 for k, v in peak.items()},
-               "grad_err": worst, "loss_gap": loss_gap,
+               "grad_err": worst, "loss_gap": loss_gap, "backward_launches": train_backward,
                "device": {"forward_ms": forward, "busy_ms": busy, "wall_ms": wall}}
     return step_launches, summary
 
@@ -1669,11 +1907,18 @@ def kernel_modules():
     return {"warp": warp, "chain": chain, "refiner": refiner_op, "gn_apply": gn_apply}
 
 
+# The kernels with a backward kernel of their own: K1, K2 and K4 (K3's backward recomputes),
+# by the name phase 3b checks them under.
+BACKWARD_KERNELS = ("warp", "chain", "gn_apply")
+BACKWARD_OF = {"K1": "warp", "K2": "chain", "K4": "gn_apply"}
+
+
 def zero_launches():
-    """Every forward launch counter and K4's backward one to 0."""
+    """Every forward launch counter and every backward one to 0."""
     for module in kernel_modules().values():
         module.launches = 0
-    kernel_modules()["gn_apply"].backward_launches = 0
+    for name in BACKWARD_KERNELS:
+        kernel_modules()[name].backward_launches = 0
 
 
 def read_launches():
@@ -1681,8 +1926,19 @@ def read_launches():
     return {name: module.launches for name, module in kernel_modules().items()}
 
 
-def gn_backward_launches():
-    return kernel_modules()["gn_apply"].backward_launches
+def backward_launches():
+    """The backward kernels' launch counters: K1's, K2's and K4's."""
+    return {name: kernel_modules()[name].backward_launches for name in BACKWARD_KERNELS}
+
+
+def expected_backward(steps, two_view=False):
+    """Backward launches of K1 and K2 in ``steps`` train steps at the recipe: K2's once a
+    forward (both forwards of a two-view step); K1's only in the two-view losses, where
+    the left-right loss's two idepth samples a level and the reconstruction's two a level
+    carry a gradient (the occlusion masks' samples feed comparisons alone, and the
+    forward's warps sample data)."""
+    return {"warp": steps * 4 * NUM_LEVELS if two_view else 0,
+            "chain": steps * (2 if two_view else 1)}
 
 
 def expected_launches(forwards, rows=H0, cols=W0):
@@ -2808,11 +3064,12 @@ def bf16_train_phase(dev, inputs, smi, f32_train, backward):
         torch.cuda.synchronize()
         expected = (expected_launches([(TRAIN_B, 1)]) if impl == "auto"
                     else dict.fromkeys(forward, 0))
-        if not (forward == read_launches() == expected
-                and gn_backward_launches() == expected["gn_apply"]):
+        want = ({**expected_backward(1), "gn_apply": expected["gn_apply"]} if impl == "auto"
+                else dict.fromkeys(BACKWARD_KERNELS, 0))
+        if not (forward == read_launches() == expected and backward_launches() == want):
             failures.append(f"bf16 step {impl}: forward launches {forward}, after the "
-                            f"backward {read_launches()} and {gn_backward_launches()} K4 "
-                            f"backward launches, expected {expected}")
+                            f"backward {read_launches()} and backward launches "
+                            f"{backward_launches()}, expected {expected} and {want}")
         if loss.dtype != torch.float32 or any(p.grad.dtype != torch.float32
                                               for p in model.parameters()):
             failures.append(f"bf16 step {impl}: loss {loss.dtype}, gradients not all f32")
@@ -3080,6 +3337,97 @@ def check_kernels_tf32(dev, failures):
     return results
 
 
+def check_backward_tf32(dev, failures):
+    """Phase 13 (a), K2's backward at 1xTF32 (the backward of the 1xTF32 forward, the
+    "tf32" scope's) at phase 3b's shapes: the Function's gradients of feats0 and the
+    weights against plain autograd through the TF32-rounding plain loop
+    (``incremental_chain_tf32_plain``) by ``chain_legs``' tf32 bars, one backward launch
+    and no forward launch in the backward; the backward kernel alone against its closed
+    form at TF32 on what its forward kept within TF32_K2_BAR of max|plain|; the device
+    times (CUDA graphs) of the 1xTF32 and the 3xTF32 backward kernels and of the closed
+    form, and the bound at TF32. Returns the N = 1 entry."""
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.geometry import (
+        build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
+        incremental_homographies, normalize_baseline)
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner
+    from multi_view_stereonet_tpu_torch.ops import precision
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
+
+    g = torch.Generator().manual_seed(14)
+    refiner = FeatureRefiner(32)
+    prefix = "right_feature_extractor.refiner."
+    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
+                             if k.startswith(prefix)})
+    refiner = refiner.to(dev)
+    params = list(refiner.parameters())
+    weights = chain._weight_args(refiner)
+    result = None
+    for n in (1, 8):
+        K, T = scene(n, 10 + n)
+        T, _ = normalize_baseline(T)
+        K4 = build_K_pyramid(K, pyramid_sizes(H0, W0, 5))[4]
+        H_inc = incremental_homographies(create_plane_sweep_homographies(
+            T, K4, create_idepth_samples(T, K4, 30, 40, D)))
+        feats0 = torch.randn(n, 30, 40, 32, generator=g).to(dev).requires_grad_()
+        image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+        cot = torch.randn(n, D, 30, 40, 32, generator=g).to(dev)
+        with precision.scope("tf32"):
+            out = chain.incremental_chain(refiner, feats0, image_rest, H_inc)
+        before, bwd_before = read_launches(), backward_launches()
+        got = torch.autograd.grad(out, (feats0, *params), cot)
+        torch.cuda.synchronize()
+        forward_in_backward = read_launches() != before
+        bwd = {k: v - bwd_before[k] for k, v in backward_launches().items()}
+        plain = chain.incremental_chain_tf32_plain(refiner, feats0, image_rest, H_inc)
+        ref = torch.autograd.grad(plain, (feats0, *params), cot)
+        err = worst_relative(got, ref)
+        split = chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref, tf32=True)
+        with torch.no_grad():
+            f0 = feats0.detach()
+            kept = chain._forward_launch(f0, image_rest, H_inc, *weights, 0, True, True)
+            kept3 = chain._forward_launch(f0, image_rest, H_inc, *weights, 0, False, True)
+
+            def kernel(tf32=True):
+                saved = kept if tf32 else kept3
+                return chain._launch_backward(refiner, image_rest, H_inc, weights, *saved,
+                                              cot, (True, False, False), 0, tf32)
+
+            def closed():
+                return chain.incremental_chain_backward_plain(
+                    refiner, f0, image_rest, H_inc, *kept, cot, (True, False, False, True),
+                    tf32=True)
+            a, r = kernel(), closed()
+            err_alone = worst_relative([a[0], *a[3]], [r[0], *r[3]])
+            t = {"ms": graph_ms(kernel), "f32_ms": graph_ms(lambda: kernel(False)),
+                 "plain_ms": graph_ms(closed)}
+        conv_ops = (D - 1) * (conv_flops(refiner, n * 30 * 40) + 2 * n * 30 * 40 * 32 * 288 * 3)
+        b = bound_tf32(nbytes(*kept, cot, image_rest, H_inc, *weights, f0, *params), conv_ops,
+                       (D - 1) * 40 * n * 30 * 40 * 32)
+        ok = (not split["missed"] and err_alone <= TF32_K2_BAR and not forward_in_backward
+              and bwd == {"warp": 0, "chain": 1, "gn_apply": 0})
+        log(f"K2 1xTF32 backward N={n} 30x40x32 D={D}: the Function against plain autograd "
+            f"through the TF32-rounding loop {err:.3e} of max|plain|, "
+            f"{describe_legs(split)}; the kernel alone against its closed form at TF32 "
+            f"{err_alone:.3e} (bar {TF32_K2_BAR:.0e}); "
+            f"backward launches {bwd}, forward launches in the backward "
+            f"{forward_in_backward}; device: 1xTF32 kernel {t['ms']:.4f} ms, 3xTF32 "
+            f"{t['f32_ms']:.4f} ms, closed form {t['plain_ms']:.4f} ms; bound at TF32 "
+            f"{b[0]:.4f} ms ({b[1]})")
+        if not ok:
+            failures.append(f"K2 1xTF32 backward at N={n}: missed {split['missed']}, "
+                            f"{err_alone}, {bwd}")
+        if result is None:
+            result = {"max_rel_err": err, "kernel_vs_closed_form": err_alone, **t,
+                      "bound_ms": b[0], "bound_by": b[1], "bar": TF32_K2_BAR, "legs": [split]}
+        else:
+            result["max_rel_err"] = max(result["max_rel_err"], err)
+            result["kernel_vs_closed_form"] = max(result["kernel_vs_closed_form"], err_alone)
+            result["legs"].append(split)
+    return result
+
+
 def tf32_launches():
     from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
     from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
@@ -3168,6 +3516,7 @@ def precision_phase(dev, inputs, smi, served):
     failures = []
     with torch.inference_mode():
         kernels = check_kernels_tf32(dev, failures)
+    kernels["chain_backward"] = check_backward_tf32(dev, failures)
 
     cfg = load_params_yaml(inputs["params_yaml"])
     base = model_config_from_params(cfg)
@@ -4240,7 +4589,7 @@ def main():
         {"name": "grid_sample", "route": "cuda", "source": f"{pkg}/csrc/warp.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/warp_kernel.py:270",
          "launches": launches["warp"], "train_launches": train_launches["warp"],
-         "two_view_launches": two_view_step["warp"],
+         "two_view_launches": two_view_step["forward"]["warp"],
          "artifact_launches": artifact["launches"]["b1"]["warp"],
          "artifact_launches_b24": artifact["launches"]["b24"]["warp"],
          **artifact["dispatch"]["warp"],
@@ -4257,7 +4606,7 @@ def main():
          "source": f"{pkg}/csrc/incremental_chain.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/incremental_chain.py:224",
          "launches": launches["chain"], "train_launches": train_launches["chain"],
-         "two_view_launches": two_view_step["chain"],
+         "two_view_launches": two_view_step["forward"]["chain"],
          "artifact_launches": artifact["launches"]["b1"]["chain"],
          "artifact_launches_b24": artifact["launches"]["b24"]["chain"],
          **artifact["dispatch"]["chain"],
@@ -4275,7 +4624,7 @@ def main():
          "source": f"{pkg}/csrc/idepthmap_refiner.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:213",
          "launches": launches["refiner"], "train_launches": train_launches["refiner"],
-         "two_view_launches": two_view_step["refiner"],
+         "two_view_launches": two_view_step["forward"]["refiner"],
          "artifact_launches": artifact["launches"]["b1"]["refiner"],
          "artifact_launches_b24": artifact["launches"]["b24"]["refiner"],
          **artifact["dispatch"]["refiner"],
@@ -4292,7 +4641,7 @@ def main():
         {"name": "group_norm_act", "route": "cuda", "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:72",
          "launches": launches["gn_apply"], "train_launches": train_launches["gn_apply"],
-         "two_view_launches": two_view_step["gn_apply"],
+         "two_view_launches": two_view_step["forward"]["gn_apply"],
          "artifact_launches": artifact["launches"]["b1"]["gn_apply"],
          "artifact_launches_b24": artifact["launches"]["b24"]["gn_apply"],
          **artifact["dispatch"]["gn_apply"],
@@ -4308,8 +4657,8 @@ def main():
          "source": f"{pkg}/csrc/gn_apply.cu",
          "replaces": "multi_view_stereonet_tpu/ops/pallas/gn_apply.py:120 (_bwd: the VJP of "
                      "the XLA reference; no TPU kernel)",
-         "launches": trained["backward_launches"],
-         "step_launches": trained["step_backward_launches"],
+         "launches": trained["backward_launches"]["gn_apply"],
+         "step_launches": trained["step_backward_launches"]["gn_apply"],
          "max_abs_err": backward["K4 kernel"]["max_abs_err"],
          "max_rel_err": backward["K4 kernel"]["max_rel_err"],
          **{k: backward["K4 kernel"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -4317,6 +4666,31 @@ def main():
                                                    "kink_elements")},
          "function_ms": backward["K4"]["ms"], "autograd_ms": backward["K4"]["plain_ms"],
          "bf16": backward_bf16["K4 kernel"]},
+        {"name": "grid_sample_backward", "route": "cuda", "source": f"{pkg}/csrc/warp.cu",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/warp_kernel.py:396 "
+                     "(_pallas_grid_sample_bwd: the VJP of the XLA gather; no TPU kernel)",
+         "launches": two_view["backward_launches"]["warp"],
+         "step_launches": two_view_step["backward"]["warp"],
+         "train_launches": trained["backward_launches"]["warp"],
+         **{k: backward["K1 kernel"][k] for k in (
+             "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shapes")},
+         "function_ms": backward["K1"]["ms"], "autograd_ms": backward["K1"]["plain_ms"],
+         "bf16": backward_bf16["K1 kernel"]},
+        {"name": "incremental_chain_backward", "route": "cuda",
+         "source": f"{pkg}/csrc/incremental_chain.cu",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/incremental_chain.py:357 "
+                     "(_chain_bwd: the VJP of the XLA scan; no TPU kernel)",
+         "launches": trained["backward_launches"]["chain"],
+         "step_launches": trained["step_backward_launches"]["chain"],
+         "two_view_launches": two_view_step["backward"]["chain"],
+         **{k: backward["K2 kernel"][k] for k in (
+             "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "shapes")},
+         "library_ms": None,
+         "function_ms": backward["K2"]["ms"], "autograd_ms": backward["K2"]["plain_ms"],
+         "bf16": {**backward_bf16["K2 kernel"], "function": backward_bf16["K2"]},
+         "tf32": tf32["kernels"]["chain_backward"]},
     ]}
     log(json.dumps(report))
     log(smi)

@@ -63,11 +63,18 @@
 // a_hi b_hi: each conv operand rounded to TF32 as split rounds it, the products summed in
 // f32. It is the forward's "tf32" precision (matmul_precision "high"), the cuDNN convs'
 // TF32 counterpart; everything but the convs' operands stays f32.
+//
+// Under autograd the forward keeps each step's raw h and raw r in slots of their own and
+// each GroupNorm's mean and rstd (keep_raw, keep_stats); the backward kernel
+// (chain_bwd_kernel, below) reads them. It has no TPU kernel to replace: the JAX package
+// takes the backward as the VJP of the XLA scan.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "clip_grad.cuh"  // clip_grad
 
 namespace cg = cooperative_groups;
 
@@ -448,13 +455,71 @@ __device__ __forceinline__ void cluster_stats(int cs, const double* slot, float*
   __syncthreads();
 }
 
+// Stage A's tile: (th + 2) x (tw + 2) positions of conv0's input, the carry warped by H
+// (channels 0..31, zero where invalid or outside the map) and the image (32..34), rounded
+// to the storage type as the forward rounds them. Own pixels' warped values also go to
+// ``warped`` where it is not null. Items (position, quad j): j < 8 warp channels
+// 4j..4j+3, j = 8 the image; a thread computes BATCH items' taps and issues all their
+// loads before blending.
+template <typename T>
+__device__ __forceinline__ void stage_warp_tile(float* tile, const T* carry, const T* img,
+                                                const float (&Hr)[9], int y0, int x0, int th,
+                                                int tw, int h, int wd, float* warped) {
+  const int tid = threadIdx.x;
+  const int tpw = tw + 2;
+  const int items = (th + 2) * tpw * 9;
+  for (int base = tid; base < items; base += BATCH * THREADS) {
+    float4 a[BATCH], b[BATCH], c[BATCH], e[BATCH];
+    float wx[BATCH], wy[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = base + u * THREADS;
+      const int pos = i / 9, j = i % 9;
+      const int y = y0 - 1 + pos / tpw, x = x0 - 1 + pos % tpw;
+      a[u] = b[u] = c[u] = e[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      wx[u] = wy[u] = 0.0f;
+      if (i < items && y >= 0 && y < h && x >= 0 && x < wd) {
+        if (j == 8) {
+          const T* im = img + (y * wd + x) * CIMG;
+          a[u] = make_float4(ldg1(im), ldg1(im + 1), ldg1(im + 2), 0.0f);
+        } else {
+          const Tap t = warp_tap(Hr, x, y, h, wd);
+          if (t.ok) {
+            a[u] = ldcg4(carry + t.p00 * C + 4 * j);
+            b[u] = ldcg4(carry + t.p01 * C + 4 * j);
+            c[u] = ldcg4(carry + t.p10 * C + 4 * j);
+            e[u] = ldcg4(carry + t.p11 * C + 4 * j);
+            wx[u] = t.wx;
+            wy[u] = t.wy;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = base + u * THREADS;
+      if (i >= items) break;
+      const int pos = i / 9, j = i % 9;
+      const int ty = pos / tpw, tx = pos % tpw;
+      const int y = y0 - 1 + ty, x = x0 - 1 + tx;
+      // The image item passes a[u] through; invalid or outside samples blend to 0. The
+      // blend is rounded once to the storage type.
+      const float4 v = j == 8 ? a[u] : rnd4<T>(blend(a[u], b[u], c[u], e[u], wx[u], wy[u]));
+      reinterpret_cast<float4*>(tile + pos * CS)[j] = v;
+      if (warped != nullptr && j < 8 && ty >= 1 && ty <= th && tx >= 1 && tx <= tw)
+        reinterpret_cast<float4*>(warped + (y * wd + x) * C)[j] = v;
+    }
+  }
+}
+
 template <typename T, bool TF32>
 __global__ void __launch_bounds__(THREADS, 1)
 chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
              const float* __restrict__ H_inc, const float* __restrict__ w0_g,
              const float* __restrict__ wr_g, const float* __restrict__ wf_g,
-             const float* __restrict__ vec_g, T* out, float* scratch, int Dm1, int h,
-             int wd, int rows_per_block, int tile_rows, int tile_cols) {
+             const float* __restrict__ vec_g, T* out, float* scratch, float* keep_raw,
+             float* keep_stats, int Dm1, int h, int wd, int rows_per_block, int tile_rows,
+             int tile_cols) {
   constexpr bool BF16 = sizeof(T) == 2;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
@@ -511,10 +576,15 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
   for (int i = r0 * wd * PX16 + tid; i < r1 * wd * PX16; i += THREADS)
     reinterpret_cast<uint4*>(out_n)[i] = reinterpret_cast<const uint4*>(f0)[i];
   float* warped = scratch + (int64_t)n * 3 * P * C;
-  float* raw_h = warped + P * C;
-  float* raw_r = raw_h + P * C;
 
   for (int d = 0; d < Dm1; ++d) {
+    // Under autograd (keep_raw) every step's raw h and raw r stay for the backward.
+    float* raw_h = keep_raw != nullptr ? keep_raw + ((int64_t)n * Dm1 + d) * 2 * P * C
+                                       : warped + P * C;
+    float* raw_r = raw_h + P * C;
+    float* kept = keep_stats != nullptr && cluster.block_rank() == 0
+                      ? keep_stats + ((int64_t)n * Dm1 + d) * 2 * 2 * GROUPS
+                      : nullptr;
     const T* carry = d == 0 ? f0 : out_n + (int64_t)d * P * C;
     T* next = out_n + (int64_t)(d + 1) * P * C;
     const T* img = image + ((int64_t)n * Dm1 + d) * P * CIMG;
@@ -526,53 +596,8 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
     // A. warp + image -> tile; conv0 + b0 -> raw h; partial sums.
     float s[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
     for_each_tile(r0, r1, wd, tile_rows, tile_cols, [&](int y0, int x0, int th, int tw) {
-      const int tpw = tw + 2;
       __syncthreads();
-      // Items (position, quad j): j < 8 warp channels 4j..4j+3, j = 8 the image; a
-      // thread computes BATCH items' taps and issues all their loads before blending.
-      const int items = (th + 2) * tpw * 9;
-      for (int base = tid; base < items; base += BATCH * THREADS) {
-        float4 a[BATCH], b[BATCH], c[BATCH], e[BATCH];
-        float wx[BATCH], wy[BATCH];
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          const int i = base + u * THREADS;
-          const int pos = i / 9, j = i % 9;
-          const int y = y0 - 1 + pos / tpw, x = x0 - 1 + pos % tpw;
-          a[u] = b[u] = c[u] = e[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-          wx[u] = wy[u] = 0.0f;
-          if (i < items && y >= 0 && y < h && x >= 0 && x < wd) {
-            if (j == 8) {
-              const T* im = img + (y * wd + x) * CIMG;
-              a[u] = make_float4(ldg1(im), ldg1(im + 1), ldg1(im + 2), 0.0f);
-            } else {
-              const Tap t = warp_tap(Hr, x, y, h, wd);
-              if (t.ok) {
-                a[u] = ldcg4(carry + t.p00 * C + 4 * j);
-                b[u] = ldcg4(carry + t.p01 * C + 4 * j);
-                c[u] = ldcg4(carry + t.p10 * C + 4 * j);
-                e[u] = ldcg4(carry + t.p11 * C + 4 * j);
-                wx[u] = t.wx;
-                wy[u] = t.wy;
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          const int i = base + u * THREADS;
-          if (i >= items) break;
-          const int pos = i / 9, j = i % 9;
-          const int ty = pos / tpw, tx = pos % tpw;
-          const int y = y0 - 1 + ty, x = x0 - 1 + tx;
-          // The image item passes a[u] through; invalid or outside samples blend to 0. The
-          // blend is rounded once to the storage type.
-          const float4 v = j == 8 ? a[u] : rnd4<T>(blend(a[u], b[u], c[u], e[u], wx[u], wy[u]));
-          reinterpret_cast<float4*>(tile + pos * CS)[j] = v;
-          if (j < 8 && ty >= 1 && ty <= th && tx >= 1 && tx <= tw)  // own pixel: kept for C
-            reinterpret_cast<float4*>(warped + (y * wd + x) * C)[j] = v;
-        }
-      }
+      stage_warp_tile(tile, carry, img, Hr, y0, x0, th, tw, h, wd, warped);
       __syncthreads();
       conv_tile<CS, BF16, TF32>(tile, w0, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
@@ -586,6 +611,7 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
     push_partials(cluster, s, ss, red, part);
     cluster.sync();
     cluster_stats(cs, part, stat0, P);
+    if (kept != nullptr && tid < 2 * GROUPS) kept[tid] = stat0[tid];
 
     // B. h = LeakyReLU(GN0(raw h)) -> tile; resblock conv + br -> raw r; partial sums.
     s[0] = s[1] = ss[0] = ss[1] = 0.0f;
@@ -608,6 +634,7 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
     push_partials(cluster, s, ss, red, part + MAX_CLUSTER * GROUPS * 2);
     cluster.sync();
     cluster_stats(cs, part + MAX_CLUSTER * GROUPS * 2, statr, P);
+    if (kept != nullptr && tid < 2 * GROUPS) kept[2 * GROUPS + tid] = statr[tid];
 
     // C. h + LeakyReLU(GNr(raw r)) -> tile; conv_final + bf -> next = warped + delta.
     for_each_tile(r0, r1, wd, tile_rows, tile_cols, [&](int y0, int x0, int th, int tw) {
@@ -632,25 +659,607 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
   }
 }
 
+// ---------------------------------------------------------------------------------------
+// The backward: the VJP of _incremental_scan (multi_view_stereonet_tpu/models/
+// mvsnet.py:218-234) that the JAX _chain_bwd (ops/pallas/incremental_chain.py:357-368)
+// takes, in place of its recompute. It reads what the forward kept under autograd: the
+// chain out (every step's carry), each step's raw h and raw r and its GroupNorms' mean and
+// rstd. One thread-block cluster per sample, as the forward; steps d = D-2 .. 0, the carry's
+// gradient (global scratch) the only thing carried between them. A step is three stages
+// that mirror the forward's C, B, A, each staging a tile of a gradient and a tile of the
+// conv's input, then running the conv's dgrad (conv_tile over the gradient tile with the
+// weights flipped and transposed) and its weight gradient (wgrad_tile):
+//   C'. conv_final: gres = dgrad of the carry's gradient g; dWf += res^T g; dbf += sum g;
+//   B'. the resblock: gr = GNr + LeakyReLU's backward of gres; ghn = gres + dgrad(gr);
+//       dWr += h^T gr; dbr += sum gr;
+//   A'. conv0: ga = GN0 + LeakyReLU's backward of ghn; the warped channels' gradient
+//       g + dgrad(ga), zero where the sample is invalid, goes through the warp's transpose
+//       into the gradient of the step's carry (f32 atomics, in an order that changes from
+//       run to run), which starts as the output's gradient at that hypothesis;
+//       dW0 += x0^T ga over the re-warped input; db0 += sum ga; and where asked, the image
+//       channels' gradient and H's.
+// Each GroupNorm backward needs two sums a channel over the map, of gz = g leaky'(z) and of
+// gz x_hat: each block pushes its partial sums into every block's shared memory, and after
+// the cluster barrier each sums them in rank order, so they are the same in every block
+// and from run to run. The weight gradients accumulate on the tensor cores tile by tile
+// into the block's own slot of ``partial`` (global, read and written by the thread that
+// owns each element), the vector gradients in shared memory; the caller sums the blocks'
+// slots. The convs round their operands as the forward's do: 3xTF32, 1xTF32 (TF32), or bf16
+// at bf16 storage (the dgrads on bf16 mma.sync, the weight gradients' bf16-rounded operands
+// on TF32 mma.sync, where a bf16 value is exact). Everything else is f32; the map sums of
+// the GroupNorm backward f64 across ranks.
+//
+// What bounds it: operations, ~67 M MACs of dgrad and wgrad a step at 30 x 40 x 32 in
+// sequence (against the forward's ~34 M), in the same latency-bound shape as the forward.
+
+constexpr int TILE_POS_B = 360;  // a backward tile's positions, halo included (two tiles)
+constexpr int KW0 = 9 * C0 * C;  // a block's parameter gradients: conv0's taps [tap][ci][co],
+constexpr int KWR = 9 * C * C;   // the resblock's and conv_final's, then the seven vectors
+constexpr int KP = KW0 + 2 * KWR + 7 * C;
+// Shared memory of the backward, in this order: every block's per-channel partial sums (2
+// slots x MAX_CLUSTER ranks x C x {sum gz, sum gz x_hat}, f32), the three dgrad weight sets
+// (flipped, transposed, swizzled), conv0's image rows, the vectors, the step's statistics
+// and GroupNorm sums, per-warp partials, the vector gradients, the two tiles.
+constexpr int BPART_FLOATS = 2 * MAX_CLUSTER * C * 2;
+constexpr int WT_FLOATS = 9 * C * C;
+constexpr int WIMG_FLOATS = 9 * CIMG * C;
+constexpr int BRED_FLOATS = NWARPS * C * 2;
+constexpr int BTILE_OFFSET = BPART_FLOATS + 3 * WT_FLOATS + WIMG_FLOATS + VEC_FLOATS +
+                             4 * 2 * GROUPS + BRED_FLOATS + VEC_FLOATS;  // floats
+static_assert(BTILE_OFFSET % 4 == 0, "the tiles are read as float4");
+constexpr size_t BWD_SMEM_BYTES = sizeof(float) * (BTILE_OFFSET + 2 * TILE_POS_B * CS);
+static_assert(BWD_SMEM_BYTES <= 232448, "more than a block's shared memory");
+
+// An f32 operand rounded as the variant's convs round it (for the f32 multiply-adds).
+template <bool BF16, bool TF32>
+__device__ __forceinline__ float op_round(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  else if constexpr (TF32) return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  else return x;
+}
+
+// LeakyReLU's derivative at the f32 GroupNorm value z, as the plain version's autograd
+// takes it: F.leaky_relu's at f32 (0.2 at 0), the JAX-style where on z rounded at bf16.
+template <typename T>
+__device__ __forceinline__ float leaky_slope(float z) {
+  if constexpr (sizeof(T) == sizeof(float)) return z > 0.0f ? 1.0f : SLOPE;
+  else return rnd<T>(z) >= 0.0f ? 1.0f : SLOPE;
+}
+
+// GroupNorm + LeakyReLU's backward on channels 4j..4j+3 (group j / 2): the raw value's
+// gradient rstd (gz gamma - a - x_hat b), gz = g leaky'(z), from the output's gradient g
+// and the raw value x; a, b the group's sums over the map (gsum: a[4], b[4], over n).
+template <typename T>
+__device__ __forceinline__ float4 gn_bwd4(float4 g, float4 x, const float* stat,
+                                          const float* gamma, const float* beta,
+                                          const float* gsum, int j) {
+  const int q = j / 2;
+  const float mu = stat[q], rs = stat[GROUPS + q], a = gsum[q], b = gsum[GROUPS + q];
+  const float* ga = gamma + 4 * j;
+  const float* be = beta + 4 * j;
+  auto one = [&](float gv, float xv, int k) {
+    const float xh = (xv - mu) * rs;
+    const float gz = gv * leaky_slope<T>(xh * ga[k] + be[k]);
+    return rs * (gz * ga[k] - a - xh * b);
+  };
+  return make_float4(one(g.x, x.x, 0), one(g.y, x.y, 1), one(g.z, x.z, 2), one(g.w, x.w, 3));
+}
+
+// One element's terms of the GroupNorm backward's sums: gz and gz x_hat, channel oc of
+// group g, g_out the output's gradient, x the raw value.
+template <typename T>
+__device__ __forceinline__ void channel_terms(float g_out, float x, const float* stat,
+                                              const float* gamma, const float* beta, int g,
+                                              int oc, float& s1, float& s2) {
+  const float xh = (x - stat[g]) * stat[GROUPS + g];
+  const float gz = g_out * leaky_slope<T>(xh * gamma[oc] + beta[oc]);
+  s1 += gz;
+  s2 += gz * xh;
+}
+
+// The block's per-channel sums (a thread holds channels 8 (2 (warp & 1) + j) + 2 tq + k of
+// the conv epilogue), written into slot [rank][ch] of every block's shared memory
+// (distributed shared memory stores, made visible by the cluster barrier that follows), and
+// added to the block's own GroupNorm parameter gradients (dgamma += sum gz x_hat, dbeta +=
+// sum gz). Every thread calls it.
+__device__ __forceinline__ void push_channel_partials(cg::cluster_group& cluster,
+                                                      float (&s1)[2][2], float (&s2)[2][2],
+                                                      float* red, float* slot, float* dgamma,
+                                                      float* dbeta) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {  // over the lanes' pixel rows gq
+        s1[j][k] += __shfl_xor_sync(0xffffffffu, s1[j][k], off);
+        s2[j][k] += __shfl_xor_sync(0xffffffffu, s2[j][k], off);
+      }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int ch = 8 * (2 * (warp & 1) + j) + 2 * lane + k;
+        red[(warp * C + ch) * 2] = s1[j][k];
+        red[(warp * C + ch) * 2 + 1] = s2[j][k];
+      }
+  }
+  __syncthreads();
+  const int cs = cluster.num_blocks(), rank = cluster.block_rank();
+  for (int i = threadIdx.x; i < cs * C; i += THREADS) {
+    const int dest = i / C, ch = i % C;
+    float a = 0.0f, b = 0.0f;
+    for (int k = ch / 16; k < NWARPS; k += 2) {  // the warps that hold channel ch, in order
+      a += red[(k * C + ch) * 2];
+      b += red[(k * C + ch) * 2 + 1];
+    }
+    float* remote = cluster.map_shared_rank(slot, dest) + (rank * C + ch) * 2;
+    remote[0] = a;
+    remote[1] = b;
+    if (dest == 0) {
+      dgamma[ch] += b;
+      dbeta[ch] += a;
+    }
+  }
+}
+
+// After the cluster barrier: each group's a = sum_c gamma_c sum(gz) and b = sum_c gamma_c
+// sum(gz x_hat) over the map, the ranks' partials in rank order, in f64; over n.
+__device__ __forceinline__ void cluster_group_sums(int cs, const float* slot,
+                                                   const float* gamma, float* gsum, int npix) {
+  if (threadIdx.x < GROUPS) {
+    const int g = threadIdx.x;
+    double a = 0.0, b = 0.0;
+    for (int c = g * GSIZE; c < (g + 1) * GSIZE; ++c) {
+      double s1 = 0.0, s2 = 0.0;
+      for (int r = 0; r < cs; ++r) {
+        s1 += slot[(r * C + c) * 2];
+        s2 += slot[(r * C + c) * 2 + 1];
+      }
+      a += (double)gamma[c] * s1;
+      b += (double)gamma[c] * s2;
+    }
+    const double n = (double)npix * GSIZE;
+    gsum[g] = (float)(a / n);
+    gsum[GROUPS + g] = (float)(b / n);
+  }
+  __syncthreads();
+}
+
+// Operand x as the TF32 mma's hi and lo parts: 3xTF32 splits it; 1xTF32 takes the hi part;
+// at bf16 it is rounded to bf16 first, which TF32 holds exactly.
+template <bool BF16>
+__device__ __forceinline__ void split_op(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (BF16) x = __bfloat162float(__float2bfloat16_rn(x));
+  split(x, hi, lo);
+}
+
+// Weight gradient of a 3x3 conv over one tile on the tensor cores: dW[(tap, ci)][co] +=
+// sum over the tile's pixels p of X[p + tap's offset][ci] G[p][co], X the conv's input tile
+// ((th + 2) x (tw + 2) positions of CS floats, channels 0..31) and G its output's gradient
+// staged the same way (its interior read). As a GEMM (tap, ci) x pixels times pixels x co
+// in m16n8k8 TF32 steps: warp w takes the row m-tiles 3 (w >> 1) .. 3 (w >> 1) + 2 (one
+// tap and 16 channels each) and output channels 16 (w & 1) .. + 15; a k-step's eight
+// pixels are, for lane tq, pixels 2 tq and 2 tq + 1 (k = tq and tq + 4), which keeps the
+// fragment loads on distinct banks. Each accumulator is added into dw[(tap cin + cioff +
+// ci) C + co], the block's own slot, by the thread that owns it. G's column sums (the conv
+// bias's gradient) go into dbias[co] from warps 0 and 1.
+template <bool BF16, bool TF32>
+__device__ __forceinline__ void wgrad_tile(const float* X, const float* G, int th, int tw,
+                                           float* dw, int cin, int cioff, float* dbias) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mg = warp >> 1, np = warp & 1;
+  const int tp = th * tw, tpw = tw + 2;
+  float acc[3][2][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.0f;
+  float bs[2] = {0.0f, 0.0f};
+  for (int kb = 0; kb < tp; kb += 8) {
+    const int pa = kb + 2 * tq, pb = pa + 1;
+    const bool va = pa < tp, vb = pb < tp;
+    const int ca = va ? (pa / tw) * tpw + pa % tw : 0;  // the pixel's top-left halo corner
+    const int cb = vb ? (pb / tw) * tpw + pb % tw : 0;
+    uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int nn = 16 * np + 8 * j + gq;
+      const float g0 = va ? G[(ca + tpw + 1) * CS + nn] : 0.0f;
+      const float g1 = vb ? G[(cb + tpw + 1) * CS + nn] : 0.0f;
+      bs[j] += g0 + g1;
+      split_op<BF16>(g0, bh[j][0], bl[j][0]);
+      split_op<BF16>(g1, bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int mt = 3 * mg + i, t = mt >> 1;
+      const int toff = ((t / 3) * tpw + t % 3) * CS + 16 * (mt & 1) + gq;
+      uint32_t ah[4], al[4];
+      split_op<BF16>(va ? X[ca * CS + toff] : 0.0f, ah[0], al[0]);
+      split_op<BF16>(va ? X[ca * CS + toff + 8] : 0.0f, ah[1], al[1]);
+      split_op<BF16>(vb ? X[cb * CS + toff] : 0.0f, ah[2], al[2]);
+      split_op<BF16>(vb ? X[cb * CS + toff + 8] : 0.0f, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if constexpr (!TF32 && !BF16) {
+          mma_k8(acc[i][j], al, bh[j]);
+          mma_k8(acc[i][j], ah, bl[j]);
+        }
+        mma_k8(acc[i][j], ah, bh[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int mt = 3 * mg + i, t = mt >> 1;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int ci = 16 * (mt & 1) + gq + 8 * r, co = 16 * np + 8 * j + 2 * tq;
+        float* o = dw + ((t * cin + cioff + ci) * C + co);
+        o[0] += acc[i][j][2 * r];
+        o[1] += acc[i][j][2 * r + 1];
+      }
+  }
+  if (mg == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      bs[j] += __shfl_xor_sync(0xffffffffu, bs[j], 1);
+      bs[j] += __shfl_xor_sync(0xffffffffu, bs[j], 2);
+      if (tq == 0) dbias[16 * np + 8 * j + gq] += bs[j];
+    }
+  }
+}
+
+// conv0's weight gradient in its three image rows (the input tile's channels 32..34): rows
+// m = 3 tap + k, 27 of two m-tiles, one (m-tile, n-tile) for each of warps 0..7, as
+// wgrad_tile computes them; into dw[(tap C0 + k) C + co].
+template <bool BF16, bool TF32>
+__device__ __forceinline__ void wgrad_image_tile(const float* X, const float* G, int th,
+                                                 int tw, float* dw) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 8) return;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mt = warp >> 2, nt = warp & 3;
+  const int tp = th * tw, tpw = tw + 2;
+  const int ra = 16 * mt + gq, rb = ra + 8;  // rows; valid below 27
+  const int offa = ra < 27 ? (((ra / 3) / 3) * tpw + (ra / 3) % 3) * CS + C + ra % 3 : -1;
+  const int offb = rb < 27 ? (((rb / 3) / 3) * tpw + (rb / 3) % 3) * CS + C + rb % 3 : -1;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int kb = 0; kb < tp; kb += 8) {
+    const int pa = kb + 2 * tq, pb = pa + 1;
+    const bool va = pa < tp, vb = pb < tp;
+    const int ca = va ? (pa / tw) * tpw + pa % tw : 0;
+    const int cb = vb ? (pb / tw) * tpw + pb % tw : 0;
+    const int nn = 8 * nt + gq;
+    uint32_t bh[2], bl[2], ah[4], al[4];
+    split_op<BF16>(va ? G[(ca + tpw + 1) * CS + nn] : 0.0f, bh[0], bl[0]);
+    split_op<BF16>(vb ? G[(cb + tpw + 1) * CS + nn] : 0.0f, bh[1], bl[1]);
+    split_op<BF16>(va && offa >= 0 ? X[ca * CS + offa] : 0.0f, ah[0], al[0]);
+    split_op<BF16>(va && offb >= 0 ? X[ca * CS + offb] : 0.0f, ah[1], al[1]);
+    split_op<BF16>(vb && offa >= 0 ? X[cb * CS + offa] : 0.0f, ah[2], al[2]);
+    split_op<BF16>(vb && offb >= 0 ? X[cb * CS + offb] : 0.0f, ah[3], al[3]);
+    if constexpr (!TF32 && !BF16) {
+      mma_k8(acc, al, bh);
+      mma_k8(acc, ah, bl);
+    }
+    mma_k8(acc, ah, bh);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * mt + gq + 8 * r, co = 8 * nt + 2 * tq;
+    if (row < 27) {
+      float* o = dw + (((row / 3) * C0 + row % 3) * C + co);
+      o[0] += acc[2 * r];
+      o[1] += acc[2 * r + 1];
+    }
+  }
+}
+
+// conv0's gradient in the image channels at the tile's own pixels, into dimg (P, 3): the
+// sum over taps and output channels of the gradient tile (the tap flipped) times conv0's
+// image rows wimg [tap][k][co], the operands rounded as the variant's convs round them.
+template <bool BF16, bool TF32>
+__device__ __forceinline__ void image_dgrad(const float* G, const float* wimg, int y0, int x0,
+                                            int th, int tw, int wd, float* dimg) {
+  const int tpw = tw + 2, items = th * tw * CIMG;
+  for (int i = threadIdx.x; i < items; i += THREADS) {
+    const int p = i / CIMG, k = i % CIMG, py = p / tw, px = p % tw;
+    float s = 0.0f;
+    for (int kh = 0; kh < 3; ++kh)
+      for (int kw = 0; kw < 3; ++kw) {
+        const float* gp = G + ((py + 2 - kh) * tpw + px + 2 - kw) * CS;
+        const float* wp = wimg + ((kh * 3 + kw) * CIMG + k) * C;
+#pragma unroll 8
+        for (int co = 0; co < C; ++co)
+          s = fmaf(op_round<BF16, TF32>(gp[co]), op_round<BF16, TF32>(wp[co]), s);
+      }
+    dimg[((y0 + py) * wd + x0 + px) * CIMG + k] = s;
+  }
+}
+
+// H's gradient from one output pixel (x, y): gwx, gwy the gradient of its blend weights
+// (over the channels this call holds), through the border clip, the unnormalization and
+// the division by Z into hacc [row][x, y, 1], as homography_grid's plain backward.
+__device__ __forceinline__ void h_grad(const float (&Hr)[9], int x, int y, int h, int wd,
+                                       float gwx, float gwy, float (&hacc)[9]) {
+  const float px = (float)x, py = (float)y;
+  const float X = Hr[0] * px + Hr[1] * py + Hr[2];
+  const float Y = Hr[3] * px + Hr[4] * py + Hr[5];
+  const float Z = Hr[6] * px + Hr[7] * py + Hr[8];
+  const float gx = 2.0f * (X / Z + 0.5f) / (float)wd - 1.0f;
+  const float gy = 2.0f * (Y / Z + 0.5f) / (float)h - 1.0f;
+  const float dgx = clip_grad(gwx, ((gx + 1.0f) * wd - 1.0f) * 0.5f, (float)(wd - 1)) * 0.5f * wd;
+  const float dgy = clip_grad(gwy, ((gy + 1.0f) * h - 1.0f) * 0.5f, (float)(h - 1)) * 0.5f * h;
+  const float du = dgx * (2.0f / wd), dv = dgy * (2.0f / h);
+  const float dX = du / Z, dY = dv / Z, dZ = -(du * X + dv * Y) / (Z * Z);
+  hacc[0] += dX * px;
+  hacc[1] += dX * py;
+  hacc[2] += dX;
+  hacc[3] += dY * px;
+  hacc[4] += dY * py;
+  hacc[5] += dY;
+  hacc[6] += dZ * px;
+  hacc[7] += dZ * py;
+  hacc[8] += dZ;
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldcg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename T, bool TF32>
+__global__ void __launch_bounds__(THREADS, 1)
+chain_bwd_kernel(const T* __restrict__ image, const float* __restrict__ H_inc,
+                 const float* __restrict__ w0_g, const float* __restrict__ wr_g,
+                 const float* __restrict__ wf_g, const float* __restrict__ vec_g,
+                 const T* __restrict__ out, const float* __restrict__ raw,
+                 const float* __restrict__ stats, const T* __restrict__ grad, float* dfeats0,
+                 float* dimage, float* dH, float* partial, float* scratch, int Dm1, int h,
+                 int wd, int rows_per_block, int tile_rows, int tile_cols) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* part = reinterpret_cast<float*>(smem4);  // [2][MAX_CLUSTER][C][2]
+  float* wfT = part + BPART_FLOATS;  // [tap][co][ci], swizzled: the dgrads' weights
+  float* wrT = wfT + WT_FLOATS;
+  float* w0T = wrT + WT_FLOATS;  // conv0's warped channels
+  float* wimg = w0T + WT_FLOATS;  // conv0's image rows [tap][k][co]
+  float* vec = wimg + WIMG_FLOATS;
+  float* stat0 = vec + VEC_FLOATS;  // mean[4], rstd[4] of the step's GN0, then GNr's
+  float* statr = stat0 + 2 * GROUPS;
+  float* gsum0 = statr + 2 * GROUPS;  // a[4], b[4] of GN0's backward, then GNr's
+  float* gsumr = gsum0 + 2 * GROUPS;
+  float* red = gsumr + 2 * GROUPS;
+  float* vacc = red + BRED_FLOATS;  // [7][C]: the vector gradients, in vec's order
+  float* gt = reinterpret_cast<float*>(smem4) + BTILE_OFFSET;  // the gradient tile
+  float* xt = gt + TILE_POS_B * CS;                             // the conv input's tile
+  const float* g0 = vec + C;
+  const float* be0 = vec + 2 * C;
+  const float* gr = vec + 4 * C;
+  const float* ber = vec + 5 * C;
+
+  const int cs = cluster.num_blocks();
+  const int rank = cluster.block_rank();
+  const int n = blockIdx.x / cs;
+  const int tid = threadIdx.x;
+  const int P = h * wd;
+  const int D = Dm1 + 1;
+  const int r0 = min(h, rank * rows_per_block);
+  const int r1 = min(h, r0 + rows_per_block);
+
+  // The dgrads' weights: wT[t][co][ci] = W[8 - t][ci][co] (the transpose, taps flipped).
+  for (int i = tid; i < WT_FLOATS; i += THREADS) {
+    const int t = i / (C * C), co = (i / C) % C, ci = i % C;
+    const int at = t * C * C + wslot(co, ci);
+    wfT[at] = rnd<T>(__ldg(wf_g + ((8 - t) * C + ci) * C + co));
+    wrT[at] = rnd<T>(__ldg(wr_g + ((8 - t) * C + ci) * C + co));
+    w0T[at] = rnd<T>(__ldg(w0_g + ((8 - t) * C0 + CIMG + ci) * C + co));
+  }
+  for (int i = tid; i < WIMG_FLOATS; i += THREADS) {
+    const int t = i / (CIMG * C), k = (i / C) % CIMG, co = i % C;
+    wimg[i] = __ldg(w0_g + (t * C0 + k) * C + co);
+  }
+  for (int i = tid; i < VEC_FLOATS; i += THREADS) {
+    vec[i] = vec_g[i];
+    vacc[i] = 0.0f;
+  }
+  float* dw0 = partial + (int64_t)blockIdx.x * KP;
+  float* dwr = dw0 + KW0;
+  float* dwf = dwr + KWR;
+  for (int i = tid; i < KP; i += THREADS) dw0[i] = 0.0f;
+
+  float* gA = scratch + (int64_t)n * 4 * P * C;
+  float* gB = gA + P * C;
+  float* gres = gB + P * C;
+  float* ghn = gres + P * C;
+  const T* out_n = out + (int64_t)n * D * P * C;
+  const T* grad_n = grad + (int64_t)n * D * P * C;
+  for (int i = r0 * wd * C + tid; i < r1 * wd * C; i += THREADS)
+    gA[i] = ldg1(grad_n + (int64_t)Dm1 * P * C + i);  // the last output's gradient
+  cluster.sync();
+
+  for (int d = Dm1 - 1; d >= 0; --d) {
+    const int it = Dm1 - 1 - d;
+    const float* cur = (it & 1) ? gB : gA;  // the gradient of out[n, d + 1]
+    float* nxt = (it & 1) ? gA : gB;        // of out[n, d]: its own gradient, then the warp's
+    const T* carry = out_n + (int64_t)d * P * C;
+    const T* img = image + ((int64_t)n * Dm1 + d) * P * CIMG;
+    const float* Hm = H_inc + ((int64_t)n * Dm1 + d) * 9;
+    float Hr[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) Hr[k] = Hm[k];
+    const float* raw_h = raw + ((int64_t)n * Dm1 + d) * 2 * P * C;
+    const float* raw_r = raw_h + P * C;
+    if (tid < 4 * GROUPS) stat0[tid] = stats[((int64_t)n * Dm1 + d) * 4 * GROUPS + tid];
+    for (int i = r0 * wd * C + tid; i < r1 * wd * C; i += THREADS)
+      nxt[i] = ldg1(grad_n + (int64_t)d * P * C + i);
+
+    // C'. conv_final: gres = dgrad(g); dWf, dbf; GNr's channel sums.
+    float s1[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, s2[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+    for_each_tile(r0, r1, wd, tile_rows, tile_cols, [&](int y0, int x0, int th, int tw) {
+      const float* gsrc[1] = {cur};
+      const float* xsrc[2] = {raw_h, raw_r};
+      __syncthreads();
+      stage_tile(gsrc, gt, y0, x0, th, tw, h, wd,
+                 [&](const float4 (&v)[1], int) { return v[0]; });
+      stage_tile(xsrc, xt, y0, x0, th, tw, h, wd, [&](const float4 (&v)[2], int j) {
+        const float4 hv = rnd4<T>(gn_leaky4(v[0], stat0, g0, be0, j));
+        const float4 rv = rnd4<T>(gn_leaky4(v[1], statr, gr, ber, j));
+        return rnd4<T>(make_float4(hv.x + rv.x, hv.y + rv.y, hv.z + rv.z, hv.w + rv.w));
+      });
+      __syncthreads();
+      conv_tile<C, BF16, TF32>(gt, wfT, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+        const int oc = GSIZE * g + c;
+        const int off = ((y0 + ty) * wd + x0 + tx) * C + oc;
+        *reinterpret_cast<float2*>(gres + off) = make_float2(v0, v1);
+        const float2 x = __ldcg(reinterpret_cast<const float2*>(raw_r + off));
+        channel_terms<T>(v0, x.x, statr, gr, ber, g, oc, s1[g & 1][0], s2[g & 1][0]);
+        channel_terms<T>(v1, x.y, statr, gr, ber, g, oc + 1, s1[g & 1][1], s2[g & 1][1]);
+      });
+      wgrad_tile<BF16, TF32>(xt, gt, th, tw, dwf, C, 0, vacc + 6 * C);
+    });
+    push_channel_partials(cluster, s1, s2, red, part + MAX_CLUSTER * C * 2, vacc + 4 * C,
+                          vacc + 5 * C);
+    cluster.sync();
+    cluster_group_sums(cs, part + MAX_CLUSTER * C * 2, gr, gsumr, P);
+
+    // B'. the resblock: gr = GNr's backward of gres -> tile; ghn = gres + dgrad(gr); dWr,
+    // dbr; GN0's channel sums.
+    s1[0][0] = s1[0][1] = s1[1][0] = s1[1][1] = 0.0f;
+    s2[0][0] = s2[0][1] = s2[1][0] = s2[1][1] = 0.0f;
+    for_each_tile(r0, r1, wd, tile_rows, tile_cols, [&](int y0, int x0, int th, int tw) {
+      const float* gsrc[2] = {gres, raw_r};
+      const float* xsrc[1] = {raw_h};
+      __syncthreads();
+      stage_tile(gsrc, gt, y0, x0, th, tw, h, wd, [&](const float4 (&v)[2], int j) {
+        return gn_bwd4<T>(v[0], v[1], statr, gr, ber, gsumr, j);
+      });
+      stage_tile(xsrc, xt, y0, x0, th, tw, h, wd, [&](const float4 (&v)[1], int j) {
+        return rnd4<T>(gn_leaky4(v[0], stat0, g0, be0, j));
+      });
+      __syncthreads();
+      conv_tile<C, BF16, TF32>(gt, wrT, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+        const int oc = GSIZE * g + c;
+        const int off = ((y0 + ty) * wd + x0 + tx) * C + oc;
+        const float2 r = __ldcg(reinterpret_cast<const float2*>(gres + off));
+        const float a0 = v0 + r.x, a1 = v1 + r.y;
+        *reinterpret_cast<float2*>(ghn + off) = make_float2(a0, a1);
+        const float2 x = __ldcg(reinterpret_cast<const float2*>(raw_h + off));
+        channel_terms<T>(a0, x.x, stat0, g0, be0, g, oc, s1[g & 1][0], s2[g & 1][0]);
+        channel_terms<T>(a1, x.y, stat0, g0, be0, g, oc + 1, s1[g & 1][1], s2[g & 1][1]);
+      });
+      wgrad_tile<BF16, TF32>(xt, gt, th, tw, dwr, C, 0, vacc + 3 * C);
+    });
+    push_channel_partials(cluster, s1, s2, red, part, vacc + C, vacc + 2 * C);
+    cluster.sync();
+    cluster_group_sums(cs, part, g0, gsum0, P);
+
+    // A'. conv0: ga = GN0's backward of ghn -> tile, the re-warped input -> tile; the warped
+    // channels' gradient g + dgrad(ga) through the warp's transpose into nxt; dW0, db0; the
+    // image's and H's gradients where asked.
+    float hacc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for_each_tile(r0, r1, wd, tile_rows, tile_cols, [&](int y0, int x0, int th, int tw) {
+      const float* gsrc[2] = {ghn, raw_h};
+      __syncthreads();
+      stage_tile(gsrc, gt, y0, x0, th, tw, h, wd, [&](const float4 (&v)[2], int j) {
+        return gn_bwd4<T>(v[0], v[1], stat0, g0, be0, gsum0, j);
+      });
+      stage_warp_tile(xt, carry, img, Hr, y0, x0, th, tw, h, wd, nullptr);
+      __syncthreads();
+      conv_tile<C, BF16, TF32>(gt, w0T, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
+        const int oc = GSIZE * g + c;
+        const int y = y0 + ty, x = x0 + tx;
+        const Tap t = warp_tap(Hr, x, y, h, wd);
+        if (!t.ok) return;  // a zeroed sample passes no gradient
+        const float2 r = __ldcg(reinterpret_cast<const float2*>(cur + (y * wd + x) * C + oc));
+        const float gw0 = r.x + v0, gw1 = r.y + v1;
+        const float t0 = gw0 * (1.0f - t.wy), b0v = gw0 * t.wy;
+        const float t1 = gw1 * (1.0f - t.wy), b1v = gw1 * t.wy;
+        atomicAdd(nxt + t.p00 * C + oc, t0 * (1.0f - t.wx));
+        atomicAdd(nxt + t.p00 * C + oc + 1, t1 * (1.0f - t.wx));
+        atomicAdd(nxt + t.p01 * C + oc, t0 * t.wx);
+        atomicAdd(nxt + t.p01 * C + oc + 1, t1 * t.wx);
+        atomicAdd(nxt + t.p10 * C + oc, b0v * (1.0f - t.wx));
+        atomicAdd(nxt + t.p10 * C + oc + 1, b1v * (1.0f - t.wx));
+        atomicAdd(nxt + t.p11 * C + oc, b0v * t.wx);
+        atomicAdd(nxt + t.p11 * C + oc + 1, b1v * t.wx);
+        if (dH != nullptr) {
+          const float2 a = ld2(carry + t.p00 * C + oc), b = ld2(carry + t.p01 * C + oc);
+          const float2 cc = ld2(carry + t.p10 * C + oc), e = ld2(carry + t.p11 * C + oc);
+          const float gwx = t0 * (b.x - a.x) + b0v * (e.x - cc.x) + (t1 * (b.y - a.y) +
+                            b1v * (e.y - cc.y));
+          const float top0 = a.x * (1.0f - t.wx) + b.x * t.wx;
+          const float bot0 = cc.x * (1.0f - t.wx) + e.x * t.wx;
+          const float top1 = a.y * (1.0f - t.wx) + b.y * t.wx;
+          const float bot1 = cc.y * (1.0f - t.wx) + e.y * t.wx;
+          h_grad(Hr, x, y, h, wd, gwx, gw0 * (bot0 - top0) + gw1 * (bot1 - top1), hacc);
+        }
+      });
+      if (dimage != nullptr)
+        image_dgrad<BF16, TF32>(gt, wimg, y0, x0, th, tw, wd,
+                                dimage + ((int64_t)n * Dm1 + d) * P * CIMG);
+      wgrad_tile<BF16, TF32>(xt, gt, th, tw, dw0, C0, CIMG, vacc);
+      wgrad_image_tile<BF16, TF32>(xt, gt, th, tw, dw0);
+    });
+    if (dH != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          hacc[k] += __shfl_xor_sync(0xffffffffu, hacc[k], off);
+      if ((tid & 31) == 0)
+        for (int k = 0; k < 9; ++k) red[(tid >> 5) * 9 + k] = hacc[k];
+      __syncthreads();
+      if (tid < 9) {
+        float v = 0.0f;
+        for (int w = 0; w < NWARPS; ++w) v += red[w * 9 + tid];
+        dH[(((int64_t)n * Dm1 + d) * cs + rank) * 9 + tid] = v;
+      }
+    }
+    // nxt is complete for the step before; no block leaves while another may still read
+    // its partial sums.
+    cluster.sync();
+  }
+
+  const float* last = (Dm1 & 1) ? gB : gA;
+  for (int i = r0 * wd * C + tid; i < r1 * wd * C; i += THREADS)
+    dfeats0[(int64_t)n * P * C + i] = __ldcg(last + i);
+  __syncthreads();
+  for (int i = tid; i < VEC_FLOATS; i += THREADS) dw0[KW0 + 2 * KWR + i] = vacc[i];
+}
+
 struct Plan {
   int rows_per_block, tile_rows, tile_cols;
 };
 
-Plan plan_for(int cluster, int h, int w) {
+// Rows a block and tile rows and columns for a cluster of ``cluster`` blocks over an h x w
+// map, a tile holding at most tile_pos positions with its halo.
+Plan plan_for(int cluster, int h, int w, int tile_pos) {
   Plan p;
   p.rows_per_block = (h + cluster - 1) / cluster;
   p.tile_cols = w < MAX_TILE_W ? w : MAX_TILE_W;
-  const int rows_fit = TILE_POS / (p.tile_cols + 2) - 2;
+  const int rows_fit = tile_pos / (p.tile_cols + 2) - 2;
   p.tile_rows = p.rows_per_block < rows_fit ? p.rows_per_block : rows_fit;
   return p;
 }
 
-cudaLaunchConfig_t launch_config(int blocks, int cluster, cudaStream_t stream,
+cudaLaunchConfig_t launch_config(int blocks, int cluster, size_t smem, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
@@ -686,7 +1295,7 @@ int resident_clusters(int (&active)[2]) {
   if (err != cudaSuccess) return (int)err;
   for (int k = 0; k < 2; ++k) {
     cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = launch_config(CANDIDATES[k], CANDIDATES[k], 0, &attr);
+    cudaLaunchConfig_t cfg = launch_config(CANDIDATES[k], CANDIDATES[k], SMEM_BYTES, 0, &attr);
     err = cudaOccupancyMaxActiveClusters(&active[k], chain_kernel<T, TF32>, &cfg);
     if (err != cudaSuccess) {
       cudaGetLastError();
@@ -711,7 +1320,7 @@ int choose_cluster(int N, int h, int w, int* cluster) {
   *cluster = 0;
   for (int k = 0; k < 2; ++k) {
     if (active[k] <= 0) continue;
-    const Plan p = plan_for(CANDIDATES[k], h, w);
+    const Plan p = plan_for(CANDIDATES[k], h, w, TILE_POS);
     const long waves = (N + active[k] - 1) / active[k];
     const long units = GROUPS * (((long)p.rows_per_block * w + 31) / 32);
     const long cost = waves * ((units + NWARPS - 1) / NWARPS + 1);
@@ -725,8 +1334,9 @@ int choose_cluster(int N, int h, int w, int* cluster) {
 
 template <typename T, bool TF32>
 int launch(const T* feats0, const T* image, const float* H_inc, const float* w0,
-           const float* wr, const float* wf, const float* vec, T* out, float* scratch, int N,
-           int Dm1, int h, int w, int cluster, cudaStream_t stream) {
+           const float* wr, const float* wf, const float* vec, T* out, float* scratch,
+           float* keep_raw, float* keep_stats, int N, int Dm1, int h, int w, int cluster,
+           cudaStream_t stream) {
   if (N == 0) return 0;
   int active[2];
   int err = resident_clusters<T, TF32>(active);  // also sets the kernel's attributes
@@ -735,12 +1345,56 @@ int launch(const T* feats0, const T* image, const float* H_inc, const float* w0,
     err = choose_cluster<T, TF32>(N, h, w, &cluster);
     if (err != 0) return err;
   }
-  const Plan p = plan_for(cluster, h, w);
+  const Plan p = plan_for(cluster, h, w, TILE_POS);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(N * cluster, cluster, stream, &attr);
+  const cudaLaunchConfig_t cfg = launch_config(N * cluster, cluster, SMEM_BYTES, stream, &attr);
   cudaError_t status = cudaLaunchKernelEx(&cfg, chain_kernel<T, TF32>, feats0, image, H_inc,
-                                          w0, wr, wf, vec, out, scratch, Dm1, h, w,
-                                          p.rows_per_block, p.tile_rows, p.tile_cols);
+                                          w0, wr, wf, vec, out, scratch, keep_raw, keep_stats,
+                                          Dm1, h, w, p.rows_per_block, p.tile_rows,
+                                          p.tile_cols);
+  if (status != cudaSuccess) {
+    cudaGetLastError();
+    return (int)status;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Sets the backward kernel's attributes on the current device, once a device.
+template <typename T, bool TF32>
+int backward_attributes() {
+  static bool done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < MAX_DEVICES && done[dev]) return 0;
+  err = cudaFuncSetAttribute(chain_bwd_kernel<T, TF32>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(chain_bwd_kernel<T, TF32>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < MAX_DEVICES) done[dev] = true;
+  return 0;
+}
+
+template <typename T, bool TF32>
+int launch_bwd(const T* image, const float* H_inc, const float* w0, const float* wr,
+               const float* wf, const float* vec, const T* out, const float* raw,
+               const float* stats, const T* grad, float* dfeats0, float* dimage, float* dH,
+               float* partial, float* scratch, int N, int Dm1, int h, int w, int cluster,
+               cudaStream_t stream) {
+  if (N == 0) return 0;
+  if (cluster <= 0 || cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  int err = backward_attributes<T, TF32>();
+  if (err != 0) return err;
+  const Plan p = plan_for(cluster, h, w, TILE_POS_B);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(N * cluster, cluster, BWD_SMEM_BYTES, stream, &attr);
+  cudaError_t status = cudaLaunchKernelEx(&cfg, chain_bwd_kernel<T, TF32>, image, H_inc, w0, wr,
+                                          wf, vec, out, raw, stats, grad, dfeats0, dimage, dH,
+                                          partial, scratch, Dm1, h, w, p.rows_per_block,
+                                          p.tile_rows, p.tile_cols);
   if (status != cudaSuccess) {
     cudaGetLastError();
     return (int)status;
@@ -760,16 +1414,19 @@ extern "C" int mvs_incremental_chain_cluster(int N, int h, int w, int* cluster) 
 // feats0, out and scratch 16-byte aligned.
 // w0 (9, 35, 32), wr (9, 32, 32), wf (9, 32, 32): tap-major [kh*3+kw][ci][oc].
 // vec (7, 32): b0, gn0 scale, gn0 bias, res conv bias, res gn scale, res gn bias, bf.
-// out (N, D, P, 32); scratch (N, 3, P, 32). cluster: blocks a sample, 0 to choose.
+// out (N, D, P, 32); scratch (N, 3, P, 32). keep_raw (N, D-1, 2, P, 32) and keep_stats
+// (N, D-1, 2, 2, 4), f32, or both null: under autograd, each step's raw h and raw r, and
+// each GroupNorm's mean and rstd per group, kept for the backward. cluster: blocks a
+// sample, 0 to choose.
 // Returns the CUDA error of the launch (0 on success); a refused launch leaves no error.
 extern "C" int mvs_incremental_chain_f32(const float* feats0, const float* image,
                                          const float* H_inc, const float* w0,
                                          const float* wr, const float* wf,
                                          const float* vec, float* out, float* scratch,
-                                         int N, int Dm1, int h, int w, int cluster,
-                                         cudaStream_t stream) {
-  return launch<float, false>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N, Dm1, h,
-                              w, cluster, stream);
+                                         float* keep_raw, float* keep_stats, int N, int Dm1,
+                                         int h, int w, int cluster, cudaStream_t stream) {
+  return launch<float, false>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, keep_raw,
+                              keep_stats, N, Dm1, h, w, cluster, stream);
 }
 
 // The same in 1xTF32: each conv operand rounded to TF32, one product a k-step.
@@ -777,10 +1434,10 @@ extern "C" int mvs_incremental_chain_tf32(const float* feats0, const float* imag
                                           const float* H_inc, const float* w0,
                                           const float* wr, const float* wf,
                                           const float* vec, float* out, float* scratch,
-                                          int N, int Dm1, int h, int w, int cluster,
-                                          cudaStream_t stream) {
-  return launch<float, true>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N, Dm1, h,
-                             w, cluster, stream);
+                                          float* keep_raw, float* keep_stats, int N, int Dm1,
+                                          int h, int w, int cluster, cudaStream_t stream) {
+  return launch<float, true>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, keep_raw,
+                             keep_stats, N, Dm1, h, w, cluster, stream);
 }
 
 // The same with feats0, image and out bf16 (H_inc, the weights, vec and scratch f32).
@@ -788,8 +1445,58 @@ extern "C" int mvs_incremental_chain_bf16(const __nv_bfloat16* feats0,
                                           const __nv_bfloat16* image, const float* H_inc,
                                           const float* w0, const float* wr, const float* wf,
                                           const float* vec, __nv_bfloat16* out,
-                                          float* scratch, int N, int Dm1, int h, int w,
-                                          int cluster, cudaStream_t stream) {
-  return launch<__nv_bfloat16, false>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch, N,
-                                      Dm1, h, w, cluster, stream);
+                                          float* scratch, float* keep_raw, float* keep_stats,
+                                          int N, int Dm1, int h, int w, int cluster,
+                                          cudaStream_t stream) {
+  return launch<__nv_bfloat16, false>(feats0, image, H_inc, w0, wr, wf, vec, out, scratch,
+                                      keep_raw, keep_stats, N, Dm1, h, w, cluster, stream);
+}
+
+// The backward. image (N, D-1, P, 3), out (N, D, P, 32) and grad (N, D, P, 32) at the
+// storage type (f32 here); H_inc and the weights as the forward takes them; raw (N, D-1, 2,
+// P, 32) and stats (N, D-1, 2, 2, 4) as the forward kept them. Writes dfeats0 (N, P, 32),
+// dimage (N, D-1, P, 3) where not null, dH (N, D-1, cluster, 9) each block's sums where not
+// null, and partial (N * cluster, KP): each block's parameter gradients, conv0's taps (9, 35,
+// 32), the resblock's and conv_final's (9, 32, 32), then the vectors (7, 32) in vec's order.
+// scratch (N, 4, P, 32) f32. cluster: the blocks a sample (1 .. 16), as the forward took.
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int mvs_incremental_chain_bwd_f32(const float* image, const float* H_inc,
+                                             const float* w0, const float* wr, const float* wf,
+                                             const float* vec, const float* out,
+                                             const float* raw, const float* stats,
+                                             const float* grad, float* dfeats0, float* dimage,
+                                             float* dH, float* partial, float* scratch, int N,
+                                             int Dm1, int h, int w, int cluster,
+                                             cudaStream_t stream) {
+  return launch_bwd<float, false>(image, H_inc, w0, wr, wf, vec, out, raw, stats, grad,
+                                  dfeats0, dimage, dH, partial, scratch, N, Dm1, h, w, cluster,
+                                  stream);
+}
+
+// The same in 1xTF32.
+extern "C" int mvs_incremental_chain_bwd_tf32(const float* image, const float* H_inc,
+                                              const float* w0, const float* wr, const float* wf,
+                                              const float* vec, const float* out,
+                                              const float* raw, const float* stats,
+                                              const float* grad, float* dfeats0, float* dimage,
+                                              float* dH, float* partial, float* scratch, int N,
+                                              int Dm1, int h, int w, int cluster,
+                                              cudaStream_t stream) {
+  return launch_bwd<float, true>(image, H_inc, w0, wr, wf, vec, out, raw, stats, grad,
+                                 dfeats0, dimage, dH, partial, scratch, N, Dm1, h, w, cluster,
+                                 stream);
+}
+
+// The same with image, out and grad bf16.
+extern "C" int mvs_incremental_chain_bwd_bf16(const __nv_bfloat16* image, const float* H_inc,
+                                              const float* w0, const float* wr, const float* wf,
+                                              const float* vec, const __nv_bfloat16* out,
+                                              const float* raw, const float* stats,
+                                              const __nv_bfloat16* grad, float* dfeats0,
+                                              float* dimage, float* dH, float* partial,
+                                              float* scratch, int N, int Dm1, int h, int w,
+                                              int cluster, cudaStream_t stream) {
+  return launch_bwd<__nv_bfloat16, false>(image, H_inc, w0, wr, wf, vec, out, raw, stats, grad,
+                                          dfeats0, dimage, dH, partial, scratch, N, Dm1, h, w,
+                                          cluster, stream);
 }

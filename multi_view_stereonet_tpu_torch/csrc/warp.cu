@@ -25,10 +25,15 @@
 // The output is f32 or bf16 (the JAX warp's out_dtype, warp_kernel.py:224-273): the
 // interpolation is f32 either way and the bf16 output is the f32 one rounded once to
 // nearest even, so it is the f32 kernel's output rounded, bit for bit.
+//
+// The backward (grid_sample_bwd_kernel, below) has no TPU kernel to replace: the JAX
+// package takes it as the VJP of the XLA gather.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "clip_grad.cuh"  // clip_grad
 
 namespace {
 
@@ -120,6 +125,140 @@ int launch(const float* image, const float* grid, T* out, bool* invalid, int B, 
   return (int)cudaGetLastError();
 }
 
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// One tap's contribution to the image gradient, skipped where it is exactly zero: a tap
+// of zero weight (the far tap of a sample clamped to the border, where every sample
+// outside the image lands, or x1 = x0) or a zero output gradient. Adding a zero to a sum
+// that starts at +0 changes nothing, and a NaN or an infinity is still added.
+__device__ __forceinline__ void add_tap(float* p, float v) {
+  if (v != 0.0f) atomicAdd(p, v);
+}
+
+// The backward of grid_sample_kernel (the VJP of the JAX grid_sample, ops/warp.py:31-79,
+// that _pallas_grid_sample_bwd takes, warp_kernel.py:396-404): one thread per output
+// sample. It reads its grid point and its C output gradients (f32 or bf16, widened),
+// recomputes the weights and adds its four taps' contributions to the image gradient with
+// f32 atomics (red.global.add; the gradient was zeroed on the stream before), and writes
+// its grid gradient: sum_c of g times the blend's derivative in wx and wy, through the
+// border clip (clip_grad) and the unnormalization. A sample zeroed by zero_invalid passes
+// no gradient: its atomics are skipped unless a NaN weight would make them NaN, as the
+// plain version's products do. dimage or dgrid may be null (not wanted); the image's taps
+// are read only for the grid gradient.
+//
+// What bounds it: bytes (each sample's grid point and gradient read, its grid gradient
+// written, the image read and its gradient written once). The images (3.7-29.5 MB) stay
+// in the 50 MB L2, where the tap reads hit and the atomics resolve.
+template <int CC, typename G>
+__global__ void __launch_bounds__(256)
+grid_sample_bwd_kernel(const float* __restrict__ image, const float* __restrict__ grid,
+                       const G* __restrict__ grad, float* __restrict__ dimage,
+                       float* __restrict__ dgrid, int H, int W, int C_rt, int64_t M,
+                       int zero_invalid) {
+  const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  const int C = CC > 0 ? CC : C_rt;
+  const int64_t i = (int64_t)blockIdx.y * M + m;
+
+  const float gx = __ldg(grid + 2 * i);
+  const float gy = __ldg(grid + 2 * i + 1);
+  const bool zero = zero_invalid && (fabsf(gx) > 1.0f || fabsf(gy) > 1.0f);
+  const float ux = ((gx + 1.0f) * W - 1.0f) * 0.5f;
+  const float uy = ((gy + 1.0f) * H - 1.0f) * 0.5f;
+  // The clip carries a NaN coordinate through (fmaxf alone would make it 0); its taps
+  // are pixel (0, 0) and its neighbours, as the plain version's index clamp gives.
+  const float ix = isnan(ux) ? ux : fminf(fmaxf(ux, 0.0f), (float)(W - 1));
+  const float iy = isnan(uy) ? uy : fminf(fmaxf(uy, 0.0f), (float)(H - 1));
+  const float x0f = floorf(ix);
+  const float y0f = floorf(iy);
+  const float wx = ix - x0f;
+  const float wy = iy - y0f;
+  const int x0 = isnan(x0f) ? 0 : (int)x0f;
+  const int y0 = isnan(y0f) ? 0 : (int)y0f;
+  const int x1 = min(x0 + 1, W - 1);
+  const int y1 = min(y0 + 1, H - 1);
+  const int64_t base = (int64_t)blockIdx.y * H * W;
+  const int64_t q00 = (base + (int64_t)y0 * W + x0) * C, q01 = (base + (int64_t)y0 * W + x1) * C;
+  const int64_t q10 = (base + (int64_t)y1 * W + x0) * C, q11 = (base + (int64_t)y1 * W + x1) * C;
+  const G* gp = grad + i * C;
+  const bool scatter = dimage != nullptr && !(zero && !isnan(wx) && !isnan(wy));
+  float gwx = 0.0f, gwy = 0.0f;
+  if constexpr (CC > 0) {
+    float g[CC];
+#pragma unroll
+    for (int k = 0; k < CC; ++k) g[k] = zero ? 0.0f : load(gp + k);
+    if (dgrid != nullptr) {
+      float a[CC], b[CC], c[CC], e[CC];
+#pragma unroll
+      for (int k = 0; k < CC; ++k) {
+        a[k] = __ldg(image + q00 + k);
+        b[k] = __ldg(image + q01 + k);
+        c[k] = __ldg(image + q10 + k);
+        e[k] = __ldg(image + q11 + k);
+      }
+#pragma unroll
+      for (int k = 0; k < CC; ++k) {
+        const float top = a[k] * (1.0f - wx) + b[k] * wx;
+        const float bot = c[k] * (1.0f - wx) + e[k] * wx;
+        gwx += g[k] * (1.0f - wy) * (b[k] - a[k]) + g[k] * wy * (e[k] - c[k]);
+        gwy += g[k] * (bot - top);
+      }
+    }
+    if (scatter) {
+#pragma unroll
+      for (int k = 0; k < CC; ++k) {
+        const float gt = g[k] * (1.0f - wy), gb = g[k] * wy;
+        add_tap(dimage + q00 + k, gt * (1.0f - wx));
+        add_tap(dimage + q01 + k, gt * wx);
+        add_tap(dimage + q10 + k, gb * (1.0f - wx));
+        add_tap(dimage + q11 + k, gb * wx);
+      }
+    }
+  } else {
+    for (int k = 0; k < C; ++k) {
+      const float g = zero ? 0.0f : load(gp + k);
+      const float gt = g * (1.0f - wy), gb = g * wy;
+      if (dgrid != nullptr) {
+        const float a = __ldg(image + q00 + k), b = __ldg(image + q01 + k);
+        const float c = __ldg(image + q10 + k), e = __ldg(image + q11 + k);
+        const float top = a * (1.0f - wx) + b * wx;
+        const float bot = c * (1.0f - wx) + e * wx;
+        gwx += gt * (b - a) + gb * (e - c);
+        gwy += g * (bot - top);
+      }
+      if (scatter) {
+        add_tap(dimage + q00 + k, gt * (1.0f - wx));
+        add_tap(dimage + q01 + k, gt * wx);
+        add_tap(dimage + q10 + k, gb * (1.0f - wx));
+        add_tap(dimage + q11 + k, gb * wx);
+      }
+    }
+  }
+  if (dgrid != nullptr) {
+    dgrid[2 * i] = clip_grad(gwx, ux, (float)(W - 1)) * 0.5f * W;
+    dgrid[2 * i + 1] = clip_grad(gwy, uy, (float)(H - 1)) * 0.5f * H;
+  }
+}
+
+template <typename G>
+int launch_bwd(const float* image, const float* grid, const G* grad, float* dimage,
+               float* dgrid, int B, int H, int W, int C, int64_t M, int zero_invalid,
+               cudaStream_t stream) {
+  if ((int64_t)B * M == 0 || (dimage == nullptr && dgrid == nullptr)) return 0;
+  const int threads = 256;
+  const dim3 blocks((unsigned)((M + threads - 1) / threads), (unsigned)B);
+  if (C == 3)
+    grid_sample_bwd_kernel<3, G><<<blocks, threads, 0, stream>>>(image, grid, grad, dimage,
+                                                                 dgrid, H, W, C, M,
+                                                                 zero_invalid);
+  else
+    grid_sample_bwd_kernel<0, G><<<blocks, threads, 0, stream>>>(image, grid, grad, dimage,
+                                                                 dgrid, H, W, C, M,
+                                                                 zero_invalid);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // image (B, H, W, C) f32, grid (B, M, 2) f32 -> out (B, M, C) f32 (or bf16, below),
@@ -134,4 +273,20 @@ extern "C" int mvs_grid_sample_bf16(const float* image, const float* grid, __nv_
                                     bool* invalid, int B, int H, int W, int C, int64_t M,
                                     int zero_invalid, cudaStream_t stream) {
   return launch(image, grid, out, invalid, B, H, W, C, M, zero_invalid, stream);
+}
+
+// The backward: image (B, H, W, C) f32, grid (B, M, 2) f32, grad (B, M, C) f32 (or bf16,
+// below) -> dimage (B, H, W, C) f32, zeroed by the caller, and dgrid (B, M, 2) f32; either
+// may be null. Returns cudaGetLastError().
+extern "C" int mvs_grid_sample_bwd_f32(const float* image, const float* grid, const float* grad,
+                                       float* dimage, float* dgrid, int B, int H, int W, int C,
+                                       int64_t M, int zero_invalid, cudaStream_t stream) {
+  return launch_bwd(image, grid, grad, dimage, dgrid, B, H, W, C, M, zero_invalid, stream);
+}
+
+extern "C" int mvs_grid_sample_bwd_bf16(const float* image, const float* grid,
+                                        const __nv_bfloat16* grad, float* dimage, float* dgrid,
+                                        int B, int H, int W, int C, int64_t M, int zero_invalid,
+                                        cudaStream_t stream) {
+  return launch_bwd(image, grid, grad, dimage, dgrid, B, H, W, C, M, zero_invalid, stream);
 }

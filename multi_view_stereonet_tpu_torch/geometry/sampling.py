@@ -34,7 +34,8 @@ def create_idepth_samples(T_right_in_left: torch.Tensor, K: torch.Tensor,
     flat = max_idepthmap.reshape(B, -1)
     total = torch.sum(flat, dim=1)
     count = torch.sum(flat > 0, dim=1).to(dtype)
-    max_idepths = torch.clamp(total / count, max=2.0)  # NaN stays NaN
+    # NaN stays NaN; a minimum, as the JAX package's, passes half the gradient at a tie.
+    max_idepths = torch.minimum(total / count, total.new_full((), 2.0))
 
     tz = T_right_in_left[:, 2, 3]
     behind = (1.0 / max_idepths) < tz

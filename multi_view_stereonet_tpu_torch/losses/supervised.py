@@ -27,7 +27,7 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     the global batch's, and so is the empty-mask rule."""
     m = mask.to(x.dtype)
     total, count = batch_sums((x * m).sum(), m.sum())
-    return torch.where(count > 0, total / count.clamp_min(1.0), 0.0)
+    return torch.where(count > 0, total / torch.maximum(count, count.new_ones(())), 0.0)
 
 
 def pseudo_huber_loss(truth: torch.Tensor, pred: torch.Tensor, scale: float = 2.0,
@@ -55,7 +55,8 @@ def supervised_idepthmap_loss(idepthmap: torch.Tensor, truth: torch.Tensor,
     if normalize:
         m = truth_mask.to(truth.dtype)
         count = m.sum(dim=(1, 2), keepdim=True)
-        mean_idepths = (truth * m).sum(dim=(1, 2), keepdim=True) / count.clamp_min(1.0)
+        mean_idepths = (truth * m).sum(dim=(1, 2), keepdim=True) / torch.maximum(
+            count, count.new_ones(()))
         mean_idepths = torch.where(count > 0, mean_idepths, 1.0)
     else:
         mean_idepths = torch.ones_like(truth[:, :1, :1])

@@ -1,17 +1,17 @@
-"""The backward of K1-K3: recompute through the plain version.
+"""The backward of K3: recompute through the plain version.
 
 Each Pallas kernel of the JAX package sits under a ``jax.custom_vjp`` whose
 forward saves the kernel's inputs and whose backward takes ``jax.vjp`` of the
 plain XLA function (``ops/pallas/gn_apply.py:99-127``,
 ``incremental_chain.py:335-371``, ``refiner_kernel.py:227-255``,
-``warp_kernel.py:385-407``). The port does the same for K1-K3 with a
-``torch.autograd.Function`` per kernel: its forward launches the kernel and
-saves the inputs; its backward recomputes the plain PyTorch version on
-detached copies under ``torch.enable_grad()`` and returns
-``torch.autograd.grad`` for each input that needs one. The recompute runs the
-plain versions all the way down, so their backwards launch no kernel. K4's
-backward is a kernel of its own (``gn_apply.py`` ``_GroupNormAct``, from the
-statistics its forward writes), counted in ``gn_apply.backward_launches``; every
+``warp_kernel.py:385-407``). The port does the same for K3 (``refiner.py``
+``_IdepthmapRefiner``): its forward launches the kernel and saves the inputs; its
+backward recomputes the plain PyTorch version on detached copies under
+``torch.enable_grad()`` and returns ``torch.autograd.grad`` for each input that needs
+one. The recompute runs the plain versions all the way down, so it launches no kernel.
+K1, K2 and K4 have backward kernels of their own, each counted in its module's
+``backward_launches`` (``warp.py`` ``grid_sample_backward``, ``incremental_chain.py``
+``incremental_chain_backward``, ``gn_apply.py`` ``group_norm_act_backward``); every
 ``launches`` counter counts forwards only.
 """
 

@@ -14,7 +14,9 @@ refiner within atol 2e-5 * max|plain|, rtol 2e-4, also after its weights are wri
 every serving and recipe shape (at bf16 within phase 11's rounding bar), and its backward
 kernel within 1e-4 of max|plain| of its plain version and of plain autograd (1e-2 at
 bf16; the output's gradient 0 within a rounding of LeakyReLU's kink), bit-equal over two
-calls, a refused launch raising in either;
+calls, a refused launch raising in either; the grid sample's backward kernel within 1e-5
+and the chain's within 1e-4 (1e-3 in 1xTF32, 1e-2 at bf16) of max|plain| of their closed
+forms, one backward launch a call;
 the whole forward within 0.2% of each level's output range; the multi-view and
 the two-view training losses and gradients within docs/PARITY.md:218-232's bar. The u8 dequantize is
 bit-equal to the host pipeline for all 256 values. Each kernel's custom op passes
@@ -63,6 +65,10 @@ GN_BAR = 1e-5
 
 def counts():
     return (warp.launches, chain.launches, refiner_op.launches, gn_apply.launches)
+
+
+def backward_counts():
+    return (warp.backward_launches, chain.backward_launches, gn_apply.backward_launches)
 
 pytestmark = pytest.mark.cuda
 
@@ -162,6 +168,52 @@ def test_grid_sample_kernel_carries_nan_coordinates(dev, C, zero_invalid):
     assert torch.equal(torch.nan_to_num(got, nan=7.0), torch.nan_to_num(ref, nan=7.0))
 
 
+# K1's backward kernel: a small map with ties and NaN, the losses' shapes, C = 1, 3 and
+# 32 (the runtime channel loop).
+@pytest.mark.parametrize("image_shape,grid_shape", [((2, 16, 32, 3), (2, 7, 9, 2)),
+                                                    ((2, 30, 40, 1), (2, 30, 40, 2)),
+                                                    ((2, 120, 160, 3), (2, 120, 160, 2)),
+                                                    ((1, 8, 8, 32), (1, 5, 6, 2))])
+@pytest.mark.parametrize("zero_invalid", [False, True])
+def test_grid_sample_backward_kernel_matches_its_closed_form(dev, image_shape, grid_shape,
+                                                             zero_invalid):
+    """K1's backward kernel against ``grid_sample_backward_plain`` (closed form) on the same
+    inputs, at an f32 and a bf16 output gradient: both gradients within 1e-5 of
+    max|plain| (the image's four taps added with atomics, in another order), NaN where it
+    has NaN, one backward launch a call and none of the forward; each gradient alone when
+    only one is asked for; a refused shape raises."""
+    g = torch.Generator().manual_seed(image_shape[1])
+    B, H, W, C = image_shape
+    image = (torch.rand(image_shape, generator=g) * 2 - 1).to(dev)
+    grid = torch.rand(grid_shape, generator=g) * 2.4 - 1.2
+    grid[0, 0, 0] = torch.tensor([-1 + 1 / W, 0.1])  # a tie at ix = 0
+    grid[0, 0, 1] = torch.tensor([0.3, 1 - 1 / H])  # and at iy = H - 1
+    if grid_shape[1] < 30:
+        grid[-1, -1, -1] = torch.tensor([float("nan"), 0.2])
+    grid = grid.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        cot = torch.randn(grid_shape[:-1] + (C,), generator=g).to(dev, dtype)
+        before, bwd_before = counts(), warp.backward_launches
+        got = warp.grid_sample_backward(image, grid, cot, zero_invalid)
+        torch.cuda.synchronize()
+        assert counts() == before and warp.backward_launches == bwd_before + 1
+        ref = warp.grid_sample_backward_plain(image, grid, cot, zero_invalid)
+        for a, r in zip(got, ref):
+            assert a.dtype == torch.float32 and a.shape == r.shape
+            assert torch.equal(torch.isnan(a), torch.isnan(r))
+            keep = ~torch.isnan(r)
+            assert (a[keep] - r[keep]).abs().max() <= 1e-5 * r[keep].abs().max()
+        only_image = warp.grid_sample_backward(image, grid, cot, zero_invalid, (True, False))
+        only_grid = warp.grid_sample_backward(image, grid, cot, zero_invalid, (False, True))
+        assert only_image[1] is None and only_grid[0] is None
+        torch.testing.assert_close(only_grid[1], got[1], rtol=0, atol=0, equal_nan=True)
+        keep = ~torch.isnan(got[0])
+        assert (only_image[0][keep] - got[0][keep]).abs().max() <= 1e-6 * got[0][keep].abs().max()
+    with pytest.raises(ValueError):
+        warp.grid_sample_backward(image, grid, cot[..., :1].contiguous() if C > 1 else
+                                  cot.expand(*cot.shape[:-1], 2), zero_invalid)
+
+
 def chain_case(n, h, w, d, shift, seed, dev):
     """A seeded FeatureRefiner and chain inputs for n samples of an h x w map, d
     hypotheses. ``shift`` moves every incremental homography's output by that fraction
@@ -206,6 +258,88 @@ def test_chain_kernel_matches_plain(dev, n, h, w, d, shift, cluster):
     assert chain.launches == before + 1
     assert got.shape == (n, d, h, w, 32) and torch.isfinite(got).all()
     assert torch.allclose(got, ref, atol=2e-5 * ref.abs().max().item(), rtol=2e-4)
+
+
+# K2's backward kernel: the serving and recipe shapes (N = 1 and 8, 30x40, D = 12), a map
+# smaller than the cluster, a single step, two row tiles, two column tiles, and a pose that
+# puts most samples outside the map; the three variants.
+@pytest.mark.parametrize("n,h,w,d,shift", [(1, 30, 40, 12, 0.0), (8, 30, 40, 12, 0.0),
+                                           (2, 4, 5, 5, 0.0), (2, 30, 40, 2, 0.0),
+                                           (1, 80, 64, 3, 0.0), (2, 20, 72, 3, 0.0),
+                                           (2, 30, 40, 4, 0.4)])
+@pytest.mark.parametrize("variant", ["f32", "tf32", "bf16"])
+def test_chain_backward_kernel_matches_its_closed_form(dev, n, h, w, d, shift, variant):
+    """K2's backward kernel against ``incremental_chain_backward_plain`` (closed form) on
+    what its forward kept: every gradient (feats0, image_rest, H_inc and each refiner
+    parameter) within 1e-4 of max|plain| in 3xTF32, 1e-3 in 1xTF32 (each conv operand
+    rounded to TF32 on both sides, their sums in another order) and 1e-2 at bf16 (the
+    same with bf16 operands); the kept forward bit-equal to the one that keeps nothing,
+    and what it kept (the chain, raw h and raw r, the GroupNorms' mean and rstd) against
+    the forward kernel's plain version (``incremental_chain_saved_plain``) within 1e-4,
+    1e-3 and 5e-2 of max|plain| (chip_smoke.py ``CHAIN_LEGS``' "forward"); one backward
+    launch a call and no forward launch."""
+    refiner, feats0, image_rest, H_inc = chain_case(n, h, w, d, shift, seed=n + d, dev=dev)
+    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+    tf32 = variant == "tf32"
+    bar = {"f32": 1e-4, "tf32": 1e-3, "bf16": 1e-2}[variant]
+    forward_bar = {"f32": 1e-4, "tf32": 1e-3, "bf16": 5e-2}[variant]
+    f0, im = feats0.to(dtype), image_rest.to(dtype)
+    weights = chain._weight_args(refiner)
+    with torch.no_grad():
+        out, raw, stats = chain._forward_launch(f0, im, H_inc, *weights, 0, tf32, True)
+        assert torch.equal(out, chain._forward_launch(f0, im, H_inc, *weights, 0, tf32)[0])
+        plain = chain.incremental_chain_saved_plain(refiner, f0, im, H_inc, tf32)
+        floor = 1e-4 * plain[2].abs().max()  # a mean near 0 held to the statistics' scale
+        for a, r in ((out, plain[0]), (raw, plain[1]), (stats[..., 0, :], plain[2][..., 0, :]),
+                     (stats[..., 1, :], plain[2][..., 1, :])):
+            assert a.shape == r.shape and torch.isfinite(a).all()
+            assert ((a.float() - r.float()).abs().max()
+                    <= forward_bar * torch.maximum(r.float().abs().max(), floor))
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(d)).to(dev, dtype)
+        before, bwd_before = counts(), chain.backward_launches
+        got = chain._launch_backward(refiner, im, H_inc, weights, out, raw, stats, cot,
+                                     (True, True, True), 0, tf32)
+        torch.cuda.synchronize()
+        assert counts() == before and chain.backward_launches == bwd_before + 1
+        ref = chain.incremental_chain_backward_plain(refiner, f0, im, H_inc, out, raw, stats,
+                                                     cot, (True, True, True, True), tf32)
+    for a, r in zip([got[0], got[1], got[2], *got[3]], [ref[0], ref[1], ref[2], *ref[3]]):
+        assert a.shape == r.shape and torch.isfinite(a).all()
+        assert (a.float() - r.float()).abs().max() <= bar * r.float().abs().max()
+
+
+def test_chain_function_launches_the_backward_kernel_once(dev):
+    """K2's Function: the forward kernel once (keeping its tensors), the backward kernel
+    once and no forward kernel in the backward; gradients of feats0, image_rest, H_inc and
+    every weight at their inputs' dtypes, within 1e-4 of max|plain| of the closed form on
+    what the forward kept (the closed form against autograd through the same forward:
+    tests/test_torch_chain_backward.py; against plain autograd through another forward the
+    two may take two LeakyReLU branches, chip_smoke.py ``chain_legs``). A cluster size the
+    card refuses raises, in the backward as in the forward."""
+    refiner, feats0, image_rest, H_inc = chain_case(1, 30, 40, 12, 0.0, seed=3, dev=dev)
+    leaves = [t.clone().requires_grad_() for t in (feats0, image_rest, H_inc)]
+    params = list(refiner.parameters())
+    cot = torch.randn(1, 12, 30, 40, 32, generator=torch.Generator().manual_seed(5)).to(dev)
+    before, bwd_before = counts(), chain.backward_launches
+    out = chain.incremental_chain(refiner, *leaves)
+    got = torch.autograd.grad(out, leaves + params, cot)
+    torch.cuda.synchronize()
+    assert counts()[1] == before[1] + 1 and chain.backward_launches == bwd_before + 1
+    with torch.no_grad():
+        kept = chain._forward_launch(feats0, image_rest, H_inc, *chain._weight_args(refiner),
+                                     0, False, True)
+        assert torch.equal(kept[0], out)
+        d_feats0, d_image, d_H, d_params = chain.incremental_chain_backward_plain(
+            refiner, feats0, image_rest, H_inc, *kept, cot)
+    ref = [d_feats0, d_image, d_H, *d_params]
+    floor = 1e-4 * max(r.abs().max().item() for r in ref)
+    for a, r, leaf in zip(got, ref, leaves + params):
+        assert a.dtype == leaf.dtype
+        assert (a - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), floor)
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            chain.incremental_chain_backward(image_rest, H_inc, *chain._weight_args(refiner),
+                                             *kept, torch.zeros_like(kept[0]), cluster=17)
 
 
 def test_chain_cluster_size_and_refused_launch(dev):
@@ -642,8 +776,8 @@ def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
     the same weights and batch, kernel path against plain: the loss within 1e-5
     relative, every parameter's gradient within docs/PARITY.md:218-232's bar (2.5e-3 of
     max|plain|, cosine > 0.999998; a leaf below 1e-4 of the largest held to that floor).
-    The forward launches 2 / 1 / 4 / 17, the backward K4's backward kernel 17 times and no
-    forward kernel."""
+    The forward launches 2 / 1 / 4 / 17, the backward K4's backward kernel 17 times, K2's
+    once, K1's never and no forward kernel."""
     from multi_view_stereonet_tpu_torch.losses import LossConfig
     from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
 
@@ -666,13 +800,15 @@ def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
         before = counts()
         loss, _ = make_loss_fn(config, LossConfig(), impl=impl)(model, batch)
         forward = tuple(a - b for a, b in zip(counts(), before))
-        bwd_before = gn_apply.backward_launches
+        bwd_before = backward_counts()
         loss.backward()
         torch.cuda.synchronize()
         backward = tuple(a - b for a, b in zip(counts(), before))
         assert forward == backward == ((2, 1, 4, 17) if impl == "auto" else (0, 0, 0, 0))
-        # K4's backward kernel once a forward launch (counted apart), no other kernel.
-        assert gn_apply.backward_launches - bwd_before == (17 if impl == "auto" else 0)
+        # K4's backward kernel once a forward launch and K2's once (counted apart); K1's
+        # warps sample data, which needs no gradient.
+        assert tuple(a - b for a, b in zip(backward_counts(), bwd_before)) == (
+            (0, 1, 17) if impl == "auto" else (0, 0, 0))
         results[impl] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
     assert_training_matches_plain(results)
 
@@ -812,7 +948,9 @@ def test_two_view_loss_kernels_match_plain_and_the_backward_launches_nothing(dev
     reconstruction 0.5) at 64x80, B = 2, D = 12, on a rendered pair, kernel path against
     ``impl="plain"`` from the same weights: the loss and gradients as above; K1 launches
     2 a forward and 42 in the losses (occlusion 12, left-right 20, reconstruction 10),
-    the rest 1 / 4 / 17 a forward, the backward nothing."""
+    the rest 1 / 4 / 17 a forward; the backward no forward kernel, K1's backward kernel 20
+    times (the left-right loss's two idepth samples a level and the reconstruction's two;
+    the occlusion samples feed comparisons alone) and K2's twice."""
     from multi_view_stereonet_tpu_torch.losses import LossConfig
     from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
 
@@ -830,11 +968,14 @@ def test_two_view_loss_kernels_match_plain_and_the_backward_launches_nothing(dev
         loss, loss_dict = make_loss_fn(config, losses, multi_view=False,
                                        estimate_right_idepthmap=True, impl=impl)(model, batch)
         forward = tuple(a - b for a, b in zip(counts(), before))
+        bwd_before = backward_counts()
         loss.backward()
         torch.cuda.synchronize()
         backward = tuple(a - b for a, b in zip(counts(), before))
         assert forward == backward == ((2 * 2 + 42, 2, 8, 34) if impl == "auto"
                                        else (0, 0, 0, 0))
+        assert tuple(a - b for a, b in zip(backward_counts(), bwd_before))[:2] == (
+            (20, 2) if impl == "auto" else (0, 0))
         assert loss_dict["left_right_loss"].item() > 0
         results[impl] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
     assert_training_matches_plain(results)

@@ -208,12 +208,13 @@ def stage_of(model):
 
 class Spy:
     """The flags (cuDNN TF32, cuBLAS TF32) at every conv of the forward and backward,
-    by stage, at the pinned ops, and the (dtype, tf32) K2 and K3 are launched at; the
-    kernels' launches run their plain versions, so the kernel path runs on the CPU."""
+    by stage, at the pinned ops, the (dtype, tf32) K2 and K3 are launched at and the
+    tf32 K2's backward kernel is launched at; the kernels' launches run their plain
+    versions (K2's backward its closed form), so the kernel path runs on the CPU."""
 
     def __init__(self, monkeypatch, model):
         self.stages = stage_of(model)
-        self.convs, self.pinned, self.k2, self.k3 = [], [], [], []
+        self.convs, self.pinned, self.k2, self.k3, self.k2_backward = [], [], [], [], []
         conv, backward = precision._conv, precision._conv_backward
 
         def flags():
@@ -236,14 +237,27 @@ class Spy:
             fn = getattr(mvsnet, name)
             monkeypatch.setattr(mvsnet, name, self._pinned(name, fn, flags))
 
-        def k2(refiner, feats0, image_rest, H_inc, cluster, tf32):
+        def k2(refiner, feats0, image_rest, H_inc, cluster, tf32, keep=False):
             self.k2.append((feats0.dtype, tf32, flags()))
-            return chain.incremental_chain_plain(refiner, feats0, image_rest, H_inc)
+            out = chain.incremental_chain_plain(refiner, feats0, image_rest, H_inc)
+            if not keep:
+                return out
+            _, raw, stats = chain.incremental_chain_saved_plain(refiner, feats0, image_rest,
+                                                                H_inc, tf32)
+            return out, raw, stats
+
+        def k2_backward(refiner, image_rest, H_inc, weights, out, raw, stats, grad, needs,
+                        cluster, tf32):
+            self.k2_backward.append(tf32)
+            return chain.incremental_chain_backward_plain(
+                refiner, out[:, 0], image_rest, H_inc, out, raw, stats, grad,
+                (*needs[:3], any(needs[3:])), tf32)
 
         def k3(refiner, guidance, idepth, tf32):
             self.k3.append((guidance.dtype, tf32, flags()))
             return refiner_op.idepthmap_refiner_plain(refiner, guidance, idepth)
         monkeypatch.setattr(chain, "_launch", k2)
+        monkeypatch.setattr(chain, "_launch_backward", k2_backward)
         monkeypatch.setattr(refiner_op, "_launch", k3)
         for module in (mvsnet, chain, refiner_op):  # the kernel path on CPU tensors
             monkeypatch.setattr(module, "use_kernel", lambda impl, t: impl != "plain")
@@ -299,13 +313,18 @@ def test_each_stage_runs_at_its_precision(case, monkeypatch):
             assert cudnn == (modes[stage] == "tf32"), (kind, stage, cudnn)
     stages = ((torch.bfloat16,) if "bf16" in case
               else ("extractor", "chain", "cost", "refiners"))
-    assert {(k, s) for k in ("forward", "backward") for s in stages} <= seen
+    # The chain's backward is K2's backward kernel, which takes no conv of PyTorch's.
+    assert {("forward", s) for s in stages} | {("backward", s) for s in stages
+                                               if s != "chain"} <= seen
+    assert ("backward", "chain") not in seen
     assert {n for n, _ in spy.pinned} == {"resize_bilinear", "extract_idepthmap",
                                           "create_plane_sweep_homographies",
                                           "incremental_homographies"}
     assert all(not cublas for _, (_, cublas) in spy.pinned)
     dtype = torch.bfloat16 if "bf16" in case else torch.float32
     assert [(d, t) for d, t, _ in spy.k2] == [(dtype, modes["chain"] == "tf32")]
+    # K2's backward kernel once, at its forward's variant.
+    assert spy.k2_backward == [t for _, t, _ in spy.k2]
     # Levels 4 to 1 are small enough for K3 at 64x80; level 0 is not. The remat's
     # recompute launches each again.
     assert len(spy.k3) == (8 if config.remat_refiners else 4)

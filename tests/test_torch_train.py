@@ -406,13 +406,36 @@ def test_gn_function_recomputes_the_plain_version(monkeypatch):
 
 
 def test_warp_function_recomputes_the_plain_version(monkeypatch):
+    """K1's Function: its forward launch (replaced by the plain forward) once a forward, and
+    its backward through the backward kernel's launcher (replaced by the closed-form plain
+    backward) once a backward, with image, grid, the output's gradient, zero_invalid and
+    the inputs that need a gradient. Gradients equal the closed form's, which is plain
+    autograd's through ``grid_sample_plain`` (tests/test_torch_warp_backward.py)."""
     calls = _plain_launch(monkeypatch, warp, warp.grid_sample_plain)
+    backward_calls = []
+
+    def backward(*args):
+        backward_calls.append(args[3:])
+        return warp.grid_sample_backward_plain(*args)
+    monkeypatch.setattr(warp, "grid_sample_backward", backward)
     g = torch.Generator().manual_seed(1)
     image = torch.randn(2, 6, 8, 3, generator=g, requires_grad=True)
     grid = (torch.rand(2, 5, 7, 2, generator=g) * 2.4 - 1.2).requires_grad_()
-    _check_function(lambda: warp.grid_sample_kernel(image, grid, True)[0],
-                    lambda: warp.grid_sample_plain(image, grid, True)[0], [image, grid], [],
-                    calls)
+    cot = torch.randn(2, 5, 7, 3, generator=g)
+    ref = warp.grid_sample_backward_plain(image.detach(), grid.detach(), cot, True)
+    for _ in range(2):
+        out = warp.grid_sample_kernel(image, grid, True)[0]
+        assert out.grad_fn is not None
+        (out * cot).sum().backward()
+    assert len(calls) == 2 and backward_calls == [(True, (True, True))] * 2
+    for t, r in zip((image, grid), ref):
+        torch.testing.assert_close(t.grad, 2 * r, atol=WIRING_BAR, rtol=WIRING_BAR)
+    out = warp.grid_sample_plain(image, grid, True)[0]
+    for t, a in zip((image, grid), torch.autograd.grad((out * cot).sum(), (image, grid))):
+        assert (t.grad - 2 * a).abs().max() <= 2e-5 * a.abs().max()
+    with torch.no_grad():
+        assert warp.grid_sample_kernel(image, grid, True)[0].grad_fn is None
+    assert len(calls) == 3 and len(backward_calls) == 2
 
 
 def _sub_state(prefix, seed=3):
@@ -421,9 +444,29 @@ def _sub_state(prefix, seed=3):
 
 
 def test_chain_function_routes_the_refiner_weights(monkeypatch):
-    calls = _plain_launch(monkeypatch, chain,
-                          lambda refiner, f, i, h, cluster, tf32: chain.incremental_chain_plain(
-                              refiner, f, i, h))
+    """K2's Function: its forward launch (replaced by the plain forward that also gives
+    the kept raw maps and statistics, ``incremental_chain_saved_plain``) asks to keep
+    them under autograd, and its backward goes through the backward kernel's launcher
+    (replaced by the closed-form plain backward) once a backward, with what the forward
+    kept. Gradients of feats0 and of every refiner weight land, accumulate and equal the
+    closed form's, which is plain autograd's through ``incremental_chain_plain``
+    (tests/test_torch_chain_backward.py); image_rest and H_inc, which need none, get
+    none."""
+    calls, backward_calls = [], []
+
+    def launch(refiner, f, i, h, cluster, tf32, keep=False):
+        calls.append(keep)
+        if keep:
+            return chain.incremental_chain_saved_plain(refiner, f, i, h, tf32)
+        return chain.incremental_chain_plain(refiner, f, i, h)
+
+    def launch_backward(refiner, image, H, weights, out, raw, stats, grad, needs, cluster,
+                        tf32):
+        backward_calls.append(tuple(needs))
+        return chain.incremental_chain_backward_plain(refiner, out[:, 0], image, H, out, raw,
+                                                      stats, grad, (*needs[:3], True), tf32)
+    monkeypatch.setattr(chain, "_launch", launch)
+    monkeypatch.setattr(chain, "_launch_backward", launch_backward)
     refiner = FeatureRefiner(32)
     refiner.load_state_dict(_sub_state("right_feature_extractor.refiner."))
     g = torch.Generator().manual_seed(2)
@@ -431,10 +474,28 @@ def test_chain_function_routes_the_refiner_weights(monkeypatch):
     image_rest = torch.rand(1, 3, 5, 6, 3, generator=g)
     H_inc = (torch.eye(3) + 0.05 * torch.randn(1, 3, 3, 3, generator=g)).contiguous()
     params = list(refiner.parameters())
-    _check_function(lambda: chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc),
-                    lambda: chain.incremental_chain_plain(refiner, feats0, image_rest, H_inc),
-                    [feats0], params, calls)
+    cot = torch.randn(1, 4, 5, 6, 32, generator=g)
+    with torch.no_grad():
+        out, raw, stats = chain.incremental_chain_saved_plain(refiner, feats0, image_rest,
+                                                              H_inc)
+        d_feats0, _, _, d_params = chain.incremental_chain_backward_plain(
+            refiner, feats0, image_rest, H_inc, out, raw, stats, cot)
+    for _ in range(2):
+        got = chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc)
+        assert got.grad_fn is not None
+        (got * cot).sum().backward()
+    assert calls == [True, True]
+    assert backward_calls == [(True, False, False) + (True,) * len(params)] * 2
+    for t, r in zip([feats0, *params], [d_feats0, *d_params]):
+        torch.testing.assert_close(t.grad, 2 * r, atol=WIRING_BAR, rtol=WIRING_BAR)
+    plain = chain.incremental_chain_plain(refiner, feats0, image_rest, H_inc)
+    auto = torch.autograd.grad((plain * cot).sum(), [feats0, *params])
+    for t, a in zip([feats0, *params], auto):
+        assert (t.grad - 2 * a).abs().max() <= 2e-5 * a.abs().max()
     assert image_rest.grad is None and H_inc.grad is None
+    with torch.no_grad():
+        assert chain.incremental_chain_kernel(refiner, feats0, image_rest, H_inc).grad_fn is None
+    assert calls == [True, True, False] and len(backward_calls) == 2
 
 
 def test_refiner_function_routes_the_refiner_weights(monkeypatch):
