@@ -60,12 +60,12 @@ Phases, each printing its results; any failure raises and exits non-zero:
    u8 with four decode threads and f32 with one, twice: the median time
    between consecutive results in the steady window (start-up and drain left
    out) as ms a request, and the window's depthmaps/s.
-3b. Backward of each kernel (its ``torch.autograd.Function``: K1, K2 and K4 launch
-   their backward kernels, K3 recomputes the plain version) at phase 3's shapes against
-   plain autograd on the card: every input's gradient within 1e-4 of max|plain| (a
-   gradient below 1e-4 of the largest held to that floor), no forward launch in the
-   backward and one backward launch of its own kernel's in K1's, K2's and K4's, none in
-   K3's. K2 by ``chain_legs`` (CHAIN_LEGS' bars): two legs, each within the bar (the
+3b. Backward of each kernel (its ``torch.autograd.Function``, which launches its
+   backward kernel) at phase 3's shapes against plain autograd on the card: every input's
+   gradient within 1e-4 of max|plain| (a gradient below 1e-4 of the largest held to that
+   floor), no forward launch in the backward and one backward launch of its own
+   kernel's. K2 by ``chain_legs`` (CHAIN_LEGS' bars) and K3 (also at the recipe's
+   (8,35,60,80)) by ``refiner_legs`` (REFINER_LEGS'): two legs, each within the bar (the
    Function against its closed form on what the kernel's forward kept, and that closed
    form on the plain forward's tensors against autograd through that forward), what the
    kernel's forward kept (out, raw h and r, statistics) against the plain forward's, the
@@ -74,11 +74,13 @@ Phases, each printing its results; any failure raises and exits non-zero:
    the bar where no branch flips. (K4's output gradient is 0 where its GroupNorm value
    lies within KINK_ROUNDING of LeakyReLU's kink, from f64 statistics, ``gn_kink_mask``:
    there the two forwards' roundings may take two branches; at most KINK_SHARE of the
-   elements, or KINK_FLOOR.) Each backward kernel alone (K1, K2, K4) against its plain
-   version (closed form) on the same inputs (K2: what its forward kept; K4: the same
+   elements, or KINK_FLOOR.) Each backward kernel alone against its plain version
+   (closed form) on the same inputs (K2, K3: what its forward kept; K4: the same
    statistics), within the same bar, with both device times (``graph_ms``) and its bound
-   (K2 also timed for the recipe's gradients alone, feats0's and the weights'; K3's
-   recompute its bound, twice its forward's multiply-adds); the device time
+   (K2 also timed for the recipe's gradients alone, feats0's and the weights'; K3's bound
+   twice its forward's multiply-adds; the recompute it replaced, the plain forward under
+   autograd then its backward, timed by CUDA graph and by torch.profiler, and one
+   launch's device events at (1,35,60,80)); the device time
    of one backward (torch.profiler, the sum of its kernels over two calls a session
    after one warm-up; ``profile_kernels`` keeps two sessions that agree on the count
    of kernel events), of the plain
@@ -92,7 +94,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    steps (step count continued) and ``run_eval`` scores its checkpoint. Every
    loss finite; launches 2 / 1 / 2 / 31 a forward (train steps and validation
    batches), K4's backward kernel once a K4 forward launch of a step, K2's once a step,
-   K1's none, and no forward launch from the backward; the CLI loop's ms a step (host clock
+   K3's once a fused refiner (twice a step), K1's none, and no forward launch from the
+   backward; the CLI loop's ms a step (host clock
    between steps, loader included) and the loader's ms a batch alone. Then from
    one batch and the same seeded fan-in-scale weights, TF32 off: the kernel
    path's loss within 1e-5 relative of the plain path's and every gradient
@@ -102,8 +105,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    weight repack that each optimizer step causes, and on each path the device
    time of the forward alone and of one whole step (torch.profiler), with the
    top device operations of a kernel-path step, aten::native_group_norm's device
-   time and calls (the K3 backward's recomputes), and K4's kernels' forward and
-   backward device time.
+   time and calls (none on the kernel path), and K4's kernels' forward and backward
+   device time.
 8. The two-view recipe at full width (B = 8, 480x640, D = 12, filter and five
    refiners on, adam 1e-3, augmentation on; estimate_right_idepthmap with
    supervision / reconstruction / left-right factors 1.0 / 0.5 / 0.5, the JAX
@@ -113,7 +116,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    a step derived from the code (two forwards, and K1 12 + 20 + 10 times in the
    occlusion masks, left-right and reconstruction losses); from the backward no forward
    launch, K1's backward kernel 20 times (the left-right loss's two idepth samples a level
-   and the reconstruction's two a level) and K2's twice (``expected_backward``). Then one
+   and the reconstruction's two a level), K2's twice and K3's four times
+   (``expected_backward``). Then one
    batch, kernel path against plain: the loss within 1e-5
    relative and every gradient within phase 7's bar; ms a step (median of 6,
    CUDA events, the paths in turns after 2 warm-up steps each), peak memory, and
@@ -203,8 +207,10 @@ Phases, each printing its results; any failure raises and exits non-zero:
    ``chain_legs``' bf16 bars, the direct gap to plain autograd at bf16 within 0.25 of
    max whatever the branches: its kernel differentiates its own forward, which warps in
    f32 as the Pallas kernel, and keeps its gradients f32, where the scan at bf16 warps at
-   bf16 and autograd rounds every gradient to bf16, an open fault; K2's kernel alone
-   within 1e-2 of its closed form), with cuDNN
+   bf16 and autograd rounds every gradient to bf16 (the recipe trains alike under
+   either, ROADMAP Queue 3); K2's kernel alone
+   within 1e-2 of its closed form; K3 by ``refiner_legs``' bf16 bars, the direct gap
+   within 1.0, its kernel alone within K3_BF16_BAR, 2e-2, of its closed form), with cuDNN
    and PyTorch
    deterministic for the comparison; every gradient at its input's dtype; the device
    times of the Function's backward, plain autograd's and the library call's (K1
@@ -232,7 +238,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    at TF32 (the convs' operations at the 494.7 TFLOP/s TF32 tensor-core peak); K2's
    backward at 1xTF32 (``check_backward_tf32``): the Function by ``chain_legs``' tf32
    bars against the TF32-rounding loop, the kernel alone against its closed form at TF32
-   within 1e-3, one backward launch, and the device times of both backward variants. (b) The
+   within 1e-3, one backward launch, and the device times of both backward variants; K3's
+   the same (``check_refiner_backward_tf32``, ``refiner_legs``). (b) The
    forward at "high" against "highest" at B = 1 and 8, per level max within 1% and mean
    within 0.2% of the range; the kernel path within 0.5% of the plain path at "high";
    launches 2 / 1 / 2 / 31, of them 1xTF32 chain 1 and refiner 2; each stage alone at
@@ -358,10 +365,12 @@ SERVE_BAR = 2e-3  # fraction of the plain path's output range
 # Eval rows, kernel path against plain path (tests/test_torch_eval.py's bars).
 EVAL_REL_BAR, EVAL_DELTA_BAR = 1e-4, 1e-3
 RATIOS = ("a1", "a2", "a3")
+# The most torch.profiler sessions a reading takes: 16, as a run on the H100 saw seven of
+# eight sessions of one reading hold no event.
+PROFILE_SESSIONS = 16
+PROFILE_SLACK = 8  # kernel events by which two sessions of one reading may differ
 # The bound's peaks: NVIDIA H100 SXM data sheet, HBM3 rate and f32 outside the tensor
 # cores (dense), at the full 700 W power limit.
-PROFILE_SESSIONS = 8  # the most torch.profiler sessions a reading takes
-PROFILE_SLACK = 8  # kernel events by which two sessions of one reading may differ
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores (the bf16 kernels' convs)
@@ -436,8 +445,9 @@ TF32_TRAIN_STEPS = 2
 # at N = 1 and 8. tf32: 72 and 594 (8.5e-5 and 8.8e-5 of the values), the forward bar of
 # phase 13. bf16: the scan at bf16 warps at bf16 and plain autograd rounds every gradient
 # to bf16, where the kernel warps in f32 (the Pallas kernel's rounding) and keeps its
-# gradients f32, so "direct" is set from the readings 5.97e-2 and 1.64e-1 (ROADMAP Queue
-# 3, an open fault: the JAX package's bf16 VJP is not kept); "leg" from the CPU's 4.4e-3
+# gradients f32, so "direct" is set from the readings 5.97e-2 and 1.64e-1 (the JAX
+# package's bf16 VJP is not kept; the bf16 recipe trains alike under either gradient,
+# scripts/k2_bf16_convergence_torch.py, ROADMAP Queue 3); "leg" from the CPU's 4.4e-3
 # and 7.2e-3 of the closed form against autograd through the rounded forward (the one
 # rounds each conv's gradient operand to bf16, the other each conv's result); "forward"
 # phase 11's bar.
@@ -448,6 +458,29 @@ CHAIN_LEGS = {
              "flip_share": 1e-3, "flip_z": 1e-2},
     "bf16": {"leg": 2e-2, "forward": BF16_CHAIN_BAR, "direct": 0.25, "flip_share": 1e-2,
              "flip_z": 1e-1}}
+# K3's Function against plain autograd (``refiner_legs``) in phase 3b (f32), 12 (a)
+# (bf16) and 13 (a) (tf32), as CHAIN_LEGS holds K2's: the Function against its closed form
+# on what the kernel's forward kept, that closed form on the plain forward's tensors
+# against autograd through that forward (``saved_forward``, whose conv output gradients
+# are rounded as the closed form rounds them), what the kernel kept against the plain
+# forward's, the LeakyReLU (and output ReLU) branches the two forwards take apart, and the
+# direct gap where none is apart (at bf16 always). f32 and tf32: the chain's bars; the
+# second leg read 1.2-4.2e-6 and 2.3-4.2e-4 on the CPU over four weight seeds at phase
+# 3b's four shapes. bf16: the kernel's gradients are f32 where plain autograd rounds every
+# one to bf16, and its forward keeps T f32 where the plain module rounds each conv's
+# output, so the two forwards take 1-411 LeakyReLU branches apart and the direct gap is
+# one of discrete effects: the CPU read 0.08-0.78 (closed form against plain autograd at
+# bf16) over those sixteen cases, so "direct" is 1.0; the second leg, where autograd
+# rounds to bf16 each gradient that crosses a bf16 value, read 7.7e-3 to 2.05e-2 there,
+# so "leg" is 5e-2 (the first leg is also held to K3_BF16_BAR by the kernel alone).
+# K3_BF16_BAR: the backward kernel alone against its closed form at bf16 (both f32 sums
+# of bf16 products, in another order).
+REFINER_LEGS = {
+    "f32": CHAIN_LEGS["f32"],
+    "tf32": CHAIN_LEGS["tf32"],
+    "bf16": {"leg": 5e-2, "forward": BF16_CHAIN_BAR, "direct": 1.0, "flip_share": 1e-2,
+             "flip_z": 1e-1}}
+K3_BF16_BAR = 2e-2
 H0, W0, D = 480, 640, 12
 LONG = 96  # requests of the tree that phases 5, 6 and 14 time
 REPLICA_DEADLINE = 120.0  # seconds any wait on the card in phase 14 may take
@@ -562,6 +595,13 @@ def profile_kernels(fn, reps):
         kept.append(session)
     raise AssertionError(f"torch.profiler: no two of {PROFILE_SESSIONS} sessions agreed on "
                          f"the kernel events of {reps} calls; by session {counts}")
+
+
+def kernel_events(prof) -> list:
+    """(name, ms) of each device event of a profile, in order, names cut to 48 characters."""
+    from torch.autograd import DeviceType
+    return [(e.name[:48], e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
 
 
 def device_ms(fn, reps=5, warmup=2) -> float:
@@ -1016,7 +1056,7 @@ def check_backward(dev, dtype=torch.float32):
     from multi_view_stereonet_tpu_torch.geometry import (
         build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
         incremental_homographies, normalize_baseline)
-    from multi_view_stereonet_tpu_torch.models import FeatureRefiner, IDepthmapRefiner
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner
     from multi_view_stereonet_tpu_torch.ops import homography_grid
     from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
     from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
@@ -1110,11 +1150,11 @@ def check_backward(dev, dtype=torch.float32):
 
     def alone(key, label, run_kernel, run_plain, read_write, flops, keep,
               peak=PEAK_F32_FLOPS):
-        """A backward kernel alone (K1, K2) against its plain version in closed form on the
-        same inputs (K2: what its forward kept), within phase 3b's bar (K2 at bf16: the
-        flat-gradient bar of phase 12, as K4's), with both device times (CUDA graphs) and
-        the bound, its operations at ``peak``. The JSON line keeps the shape checked with
-        ``keep``."""
+        """A backward kernel alone (K1, K2, K3) against its plain version in closed form on
+        the same inputs (K2, K3: what its forward kept), within phase 3b's bar (at bf16, K2:
+        the flat-gradient bar of phase 12, as K4's; K3: K3_BF16_BAR), with both device
+        times (CUDA graphs) and the bound, its operations at ``peak``. The JSON line keeps
+        the shape checked with ``keep``."""
         def flat(grads):
             return [t for g in grads for t in (g if isinstance(g, tuple) else (g,))]
         with torch.no_grad():
@@ -1125,7 +1165,8 @@ def check_backward(dev, dtype=torch.float32):
             abs_err = max((a.float() - r.float()).abs().max().item() for a, r in pairs)
             t = {"ms": graph_ms(run_kernel), "plain_ms": graph_ms(run_plain)}
         b = bound(read_write, flops, peak)
-        bar = BF16_TRAIN_GRAD_BAR if bf16 and key == "K2" else BACKWARD_BAR
+        bar = {"K2": BF16_TRAIN_GRAD_BAR, "K3": K3_BF16_BAR}.get(key, BACKWARD_BAR) if bf16 \
+            else BACKWARD_BAR
         log(f"{key}{tag} backward kernel {label}: against its plain version {err:.3e} of "
             f"max|plain| (bar {bar:.0e}), max_abs_err {abs_err:.3e}; device: kernel "
             f"{t['ms']:.4f} ms, plain version {t['plain_ms']:.4f} ms, bound {b[0]:.4f} ms "
@@ -1237,26 +1278,64 @@ def check_backward(dev, dtype=torch.float32):
         log(f"K2{tag} backward kernel {what}, feats0's and the weights' gradients alone (the "
             f"recipe's): device {entry['recipe_ms']:.4f} ms")
 
-    # K3 at level 4 (N = 1, 8) and level 3 (N = 1, the JSON keeps it).
+    # K3 at level 4 (N = 1, 8) and level 3 (N = 1, the JSON keeps it; N = 8, the recipe's):
+    # its Function against plain autograd by ``refiner_legs``, the backward kernel alone
+    # against its closed form on what the forward kept, and the recompute it replaced (the
+    # plain forward under autograd, then its backward) timed beside it.
     state = random_state_dict(4)
     for n, h, w, name in ((1, 30, 40, "refiner4"), (8, 30, 40, "refiner4"),
-                          (1, 60, 80, "refiner3")):
-        module = IDepthmapRefiner(35)
-        module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
-                                if k.startswith(name + ".")})
-        module = module.to(dev)
+                          (1, 60, 80, "refiner3"), (8, 60, 80, "refiner3")):
+        module = refiner_module(state, name, dev)
+        params = list(module.parameters())
         guidance = leaf((torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dtype))
         idepth = leaf(torch.rand(n, h, w, generator=g) * 20)
-        check("K3", f"({n},35,{h},{w})",
+        what, keep = f"({n},35,{h},{w})", (n, h) == (1, 60)
+
+        def legs(cot, got, ref, module=module, guidance=guidance, idepth=idepth):
+            return refiner_legs(module, guidance, idepth, cot, got, ref)
+        check("K3", what,
               lambda impl: refiner_op.idepthmap_refiner(module, guidance, idepth, impl),
-              (guidance, idepth, *module.parameters()), keep=h == 60)
-        # The recompute's bound: the refiner's input and weight gradients, twice its
-        # forward's multiply-adds, against the inputs, weights and their gradients once.
-        b = bound(2 * nbytes(guidance, idepth, *module.parameters()) + nbytes(idepth),
-                  2 * conv_flops(module, n * h * w), PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
-        log(f"K3{tag} backward ({n},35,{h},{w}): bound {b[0]:.4f} ms ({b[1]})")
-        if h == 60:
-            results["K3"].update(bound_ms=b[0], bound_by=b[1])
+              (guidance, idepth, *params), keep=keep, legs=legs)
+        g0, i0 = guidance.detach(), idepth.detach()
+        cot = torch.randn(n, h, w, generator=g).to(dev)
+
+        def recompute(module=module, g0=g0, i0=i0, cot=cot):
+            leaves = [g0.clone().requires_grad_(), i0.clone().requires_grad_()]
+            out = refiner_op.idepthmap_refiner_plain(module, *leaves)
+            return torch.autograd.grad(out, leaves + list(module.parameters()), cot)
+        with torch.no_grad():
+            out, saved = refiner_op._launch(module, g0, i0, False, keep=True)
+        needs = (True, True, True)
+
+        def backward(module=module, g0=g0, i0=i0, out=out, saved=saved, cot=cot):
+            return refiner_op._launch_backward(module, g0, i0, out, saved, cot, needs, False)
+        alone("K3", what, backward,
+              lambda: refiner_op.idepthmap_refiner_backward_plain(module, g0, i0, out,
+                                                                  *saved[:2], cot, needs),
+              2 * nbytes(g0, i0, *params) + nbytes(out, *saved[:3], cot),
+              2 * conv_flops(module, n * h * w), keep,
+              peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+        # The recompute on both clocks, CUDA graph (``graph_ms``, the clock of the kernel's
+        # "ms") and torch.profiler (``device_ms``, the clock of ``check``'s Function time),
+        # and at the kept shape the device events of one launch by name: torch.profiler
+        # records the backward kernel in about one launch of two, so its Function
+        # time reads about half the kernel's.
+        entry = results["K3 kernel"]["shapes"][-1]
+        entry.update(recompute_ms=graph_ms(recompute),
+                     recompute_profiled_ms=device_ms(recompute, BACKWARD_REPS, 1))
+        if keep:
+            with torch.no_grad():
+                events = kernel_events(profile_kernels(backward, 1)[2])
+            log(f"K3{tag} backward {what}, one launch's device events under torch.profiler: "
+                f"{'; '.join(f'{k} {v:.4f}' for k, v in events) or 'none'}")
+        log(f"K3{tag} backward {what}: the backward kernel's launch {entry['ms']:.4f} ms by "
+            f"CUDA graph; the recompute it replaced (plain forward under autograd, then its "
+            f"backward) {entry['recompute_ms']:.4f} ms by CUDA graph, "
+            f"{entry['recompute_profiled_ms']:.4f} ms by torch.profiler")
+        if keep:
+            results["K3 kernel"]["recompute_ms"] = entry["recompute_ms"]
+            results["K3"].update(bound_ms=results["K3 kernel"]["bound_ms"],
+                                 bound_by=results["K3 kernel"]["bound_by"])
 
     # K4 at every GroupNorm shape of the serving forward; the JSON keeps the 480x640
     # resblock's times. Its Function (the forward kernel, which also writes the statistics,
@@ -1345,6 +1424,7 @@ def chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref, tf32=False):
     the largest |z| among them); and the direct gap. Returns the readings, the bars and
     ``missed``, the names of the readings outside them."""
     from multi_view_stereonet_tpu_torch.ops import precision
+    from multi_view_stereonet_tpu_torch.ops.cuda import closed_form
     from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
 
     dtype = feats0.dtype
@@ -1375,10 +1455,12 @@ def chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref, tf32=False):
             res = refiner.res0
             for gn, (gamma, beta) in enumerate(((refiner.bn0.weight, refiner.bn0.bias),
                                                 (res.bn1.weight, res.bn1.bias))):
-                z = [chain._gn_forward(raw[:, :, gn].flatten(0, 1), stats[:, :, gn].flatten(0, 1),
-                                       gamma.detach(), beta.detach())[1]
+                z = [closed_form._gn_forward(raw[:, :, gn].flatten(0, 1),
+                                             stats[:, :, gn].flatten(0, 1),
+                                             gamma.detach(), beta.detach())[1]
                      for _, raw, stats in (kept, plain)]
-                apart = chain._leaky_slope(z[0], dtype) != chain._leaky_slope(z[1], dtype)
+                apart = (closed_form._leaky_slope(z[0], dtype)
+                         != closed_form._leaky_slope(z[1], dtype))
                 flips += int(apart.sum())
                 values += apart.numel()
                 if apart.any():
@@ -1387,6 +1469,82 @@ def chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref, tf32=False):
          "closed_form_vs_autograd": worst_relative([closed_p[0], *closed_p[3]], auto),
          "forward": forward, "direct": worst_relative(got, ref), "branch_flips": flips,
          "gn_values": values, "flip_max_abs_z": flip_z, "variant": variant, "bars": bars}
+    within = {"function_vs_closed_form": r["function_vs_closed_form"] <= bars["leg"],
+              "closed_form_vs_autograd": r["closed_form_vs_autograd"] <= bars["leg"],
+              "forward": forward <= bars["forward"],
+              "branch_flips": flips <= max(KINK_FLOOR, bars["flip_share"] * values),
+              "flip_max_abs_z": flip_z <= bars["flip_z"],
+              "direct": (r["direct"] <= bars["direct"]
+                         or (flips > 0 and variant != "bf16"))}
+    r["missed"] = [k for k, ok in within.items() if not ok]
+    return r
+
+
+def refiner_legs(module, guidance, idepth, cot, got, ref, tf32=False):
+    """K3's Function (gradients ``got`` of guidance, idepth and the refiner's weights, for
+    output gradient ``cot``) against plain autograd (``ref``) by REFINER_LEGS' bars for its
+    variant, as ``chain_legs`` holds K2: the Function against its closed form
+    (``idepthmap_refiner_backward_plain``) on what the kernel's forward kept; that closed
+    form on what the plain forward gives (``saved_forward``, the forward kernel's plain
+    version) against plain autograd through that same forward; what the kernel kept (out,
+    raw, the statistics) against that plain forward's tensors; the LeakyReLU branches of
+    the seven GroupNorms and the output ReLU's that the two forwards take apart, and the
+    largest |z| among them; and the direct gap. At bf16 also how far the Function's and
+    plain autograd's gradients each lie from the f32 gradient of the same inputs (the
+    closed form on the f32 plain forward), unbarred. Returns the readings, the bars and
+    ``missed``."""
+    from multi_view_stereonet_tpu_torch.ops.cuda import closed_form
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+
+    dtype = guidance.dtype
+    variant = "bf16" if dtype == torch.bfloat16 else "tf32" if tf32 else "f32"
+    bars = REFINER_LEGS[variant]
+    needs = (True, True, True)
+    g0, i0 = guidance.detach(), idepth.detach()
+    weights = [p.detach() for p in module.parameters()]
+    with deterministic(True):
+        with torch.enable_grad():
+            leaves = [g0.clone().requires_grad_(), i0.clone().requires_grad_(),
+                      *(t.clone().requires_grad_() for t in weights)]
+            plain = refiner_op.saved_forward(leaves[2:], leaves[0], leaves[1],
+                                             refiner_op._dilations(module), tf32)
+            auto = torch.autograd.grad(plain[0], leaves, cot)
+        with torch.no_grad():
+            plain = [t.detach() for t in plain]
+            out, (raw, stats, _, _) = refiner_op._launch(module, g0, i0, tf32, keep=True)
+            closed_k = refiner_op.idepthmap_refiner_backward_plain(module, g0, i0, out, raw,
+                                                                   stats, cot, needs, tf32)
+            closed_p = refiner_op.idepthmap_refiner_backward_plain(module, g0, i0, *plain, cot,
+                                                                   needs, tf32)
+            forward = max(worst_relative([out], [plain[0]]), worst_relative([raw], [plain[1]]),
+                          worst_relative(stats.unbind(2), plain[2].unbind(2)))
+            apart = (out > 0) != (plain[0] > 0)
+            flips, values = int(apart.sum()), apart.numel()
+            flip_z = out[apart].abs().max().item() if apart.any() else 0.0
+            for k in range(refiner_op.NUM_GN):
+                z = [closed_form._gn_forward(r[k], st[k], *weights[4 * k + 2:4 * k + 4])[1]
+                     for r, st in ((raw, stats), (plain[1], plain[2]))]
+                apart = (closed_form._leaky_slope(z[0], dtype)
+                         != closed_form._leaky_slope(z[1], dtype))
+                flips += int(apart.sum())
+                values += apart.numel()
+                if apart.any():
+                    flip_z = max(flip_z, z[0][apart].abs().max().item())
+
+    def flat(grads):
+        return [grads[0], grads[1], *grads[2]]
+    r = {"function_vs_closed_form": worst_relative(got, flat(closed_k)),
+         "closed_form_vs_autograd": worst_relative(flat(closed_p), auto),
+         "forward": forward, "direct": worst_relative(got, ref), "branch_flips": flips,
+         "gn_values": values, "flip_max_abs_z": flip_z, "variant": variant, "bars": bars}
+    if variant == "bf16":
+        with torch.no_grad():
+            g32 = g0.float()
+            f32 = flat(refiner_op.idepthmap_refiner_backward_plain(
+                module, g32, i0, *refiner_op.idepthmap_refiner_saved_plain(module, g32, i0),
+                cot))
+        r["function_vs_f32"] = worst_relative(got, f32)
+        r["autograd_vs_f32"] = worst_relative(ref, f32)
     within = {"function_vs_closed_form": r["function_vs_closed_form"] <= bars["leg"],
               "closed_form_vs_autograd": r["closed_form_vs_autograd"] <= bars["leg"],
               "forward": forward <= bars["forward"],
@@ -1412,7 +1570,9 @@ def describe_legs(r) -> str:
             f"within {r['flip_max_abs_z']:.2e} of 0 (bar {b['flip_z']:.0e}); the direct gap "
             f"{r['direct']:.3e} (bar {b['direct']:.2g}, "
             f"{'held' if direct_barred else 'not held: branches apart'})"
-            f"{'; MISSED ' + ', '.join(r['missed']) if r['missed'] else ''}")
+            + (f"; from the f32 gradient: the Function {r['function_vs_f32']:.3e}, plain "
+               f"autograd {r['autograd_vs_f32']:.3e}" if "function_vs_f32" in r else "")
+            + f"{'; MISSED ' + ', '.join(r['missed']) if r['missed'] else ''}")
 
 
 def gn_kink_mask(x, weight, bias, xbias):
@@ -1604,7 +1764,8 @@ def train_phase(dev, inputs, smi):
         if impl == "auto":
             step_backward = backward_launches()
             log(f"train step launches: forward {forward}, backward kernels {step_backward} "
-                f"(K4 once a K4 forward launch, K2 once, K1 none), no forward kernel")
+                f"(K4 once a K4 forward launch, K2 once, K3 once a fused refiner, K1 "
+                f"none), no forward kernel")
     ref = grads["plain"]
     worst, worst_key, min_cos = compare_gradients(grads)
     loss_gap = abs(loss_of["auto"] - loss_of["plain"]) / abs(loss_of["plain"])
@@ -1650,8 +1811,8 @@ def train_phase(dev, inputs, smi):
         f"{repack['events_ms']:.3f} ms (median of 10; two fused refiners a step)")
 
     # Device time of the forward alone and of one whole step on each path (torch.profiler,
-    # kernels summed): what the backward and the optimizer step take, and on the kernel
-    # path what the recompute adds; the top device operations of one kernel-path step.
+    # kernels summed): what the backward and the optimizer step take; the top device
+    # operations of one kernel-path step.
     device = {}
     for impl, (model, config, loss_config, step) in steps_by.items():
         loss_fn = make_loss_fn(config, loss_config, impl=impl)
@@ -1672,8 +1833,8 @@ def train_phase(dev, inputs, smi):
             log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     after = {impl: d["busy_ms"] - d["forward_ms"] for impl, d in device.items()}
     log(f"train step backward + optimizer step, device: kernel path {after['auto']:.3f} ms, "
-        f"plain path {after['plain']:.3f} ms; the kernels' backward (K2's and K4's kernels, "
-        f"K3's recompute) adds {after['auto'] - after['plain']:.3f} ms, their forward saves "
+        f"plain path {after['plain']:.3f} ms; the kernels' backward (K2's, K3's and K4's "
+        f"kernels) adds {after['auto'] - after['plain']:.3f} ms, their forward saves "
         f"{device['plain']['forward_ms'] - device['auto']['forward_ms']:.3f} ms ({smi})")
     summary = {"ms": ms, "images_s": {k: TRAIN_B * 1e3 / v for k, v in ms.items()},
                "backward_launches": train_backward, "step_backward_launches": step_backward,
@@ -1760,7 +1921,7 @@ def two_view_phase(dev, inputs, smi):
         torch.cuda.synchronize()
         expected = two_view_launches(1) if impl == "auto" else dict.fromkeys(forward, 0)
         want = (expected_backward(1, two_view=True) if impl == "auto"
-                else {"warp": 0, "chain": 0})
+                else {"warp": 0, "chain": 0, "refiner": 0})
         backward = backward_launches()
         if not (forward == read_launches() == expected
                 and {k: backward[k] for k in want} == want):
@@ -1907,10 +2068,10 @@ def kernel_modules():
     return {"warp": warp, "chain": chain, "refiner": refiner_op, "gn_apply": gn_apply}
 
 
-# The kernels with a backward kernel of their own: K1, K2 and K4 (K3's backward recomputes),
-# by the name phase 3b checks them under.
-BACKWARD_KERNELS = ("warp", "chain", "gn_apply")
-BACKWARD_OF = {"K1": "warp", "K2": "chain", "K4": "gn_apply"}
+# The kernels with a backward kernel of their own: all four, by the name phase 3b checks
+# them under.
+BACKWARD_KERNELS = ("warp", "chain", "refiner", "gn_apply")
+BACKWARD_OF = {"K1": "warp", "K2": "chain", "K3": "refiner", "K4": "gn_apply"}
 
 
 def zero_launches():
@@ -1927,18 +2088,20 @@ def read_launches():
 
 
 def backward_launches():
-    """The backward kernels' launch counters: K1's, K2's and K4's."""
+    """The backward kernels' launch counters: K1's, K2's, K3's and K4's."""
     return {name: kernel_modules()[name].backward_launches for name in BACKWARD_KERNELS}
 
 
 def expected_backward(steps, two_view=False):
-    """Backward launches of K1 and K2 in ``steps`` train steps at the recipe: K2's once a
-    forward (both forwards of a two-view step); K1's only in the two-view losses, where
-    the left-right loss's two idepth samples a level and the reconstruction's two a level
-    carry a gradient (the occlusion masks' samples feed comparisons alone, and the
-    forward's warps sample data)."""
-    return {"warp": steps * 4 * NUM_LEVELS if two_view else 0,
-            "chain": steps * (2 if two_view else 1)}
+    """Backward launches of K1, K2 and K3 in ``steps`` train steps at the recipe: K2's once
+    a forward (both forwards of a two-view step), K3's once for each refiner a forward
+    fuses (``expected_launches``: levels 4 and 3 at B = 8, 480x640); K1's only in the
+    two-view losses, where the left-right loss's two idepth samples a level and the
+    reconstruction's two a level carry a gradient (the occlusion masks' samples feed
+    comparisons alone, and the forward's warps sample data)."""
+    forwards = steps * (2 if two_view else 1)
+    return {"warp": steps * 4 * NUM_LEVELS if two_view else 0, "chain": forwards,
+            "refiner": forwards * expected_launches([(TRAIN_B, 1)])["refiner"]}
 
 
 def expected_launches(forwards, rows=H0, cols=W0):
@@ -1963,9 +2126,11 @@ def expected_launches(forwards, rows=H0, cols=W0):
 
 
 def remat_launches(B):
-    """The launches that ``remat_refiners`` adds to a train step at (B, 1): its backward
-    recomputes each refiner through its kernels, K3 for those ``expected_launches``
-    fuses and 7 GroupNorm launches (bn0 + 6 resblocks) for each of the others."""
+    """The forward launches that ``remat_refiners`` adds to a train step at (B, 1): its
+    backward recomputes each refiner's forward through its kernels, K3 for those
+    ``expected_launches`` fuses and 7 GroupNorm launches (bn0 + 6 resblocks) for each of the
+    others (their backward launches are the step's as without it: K3's backward once a
+    fused refiner)."""
     from multi_view_stereonet_tpu_torch.ops.cuda.refiner import fused_refiner_supported
 
     fused = (fused_refiner_supported(H0 // 16, W0 // 16, B)
@@ -3406,7 +3571,7 @@ def check_backward_tf32(dev, failures):
         b = bound_tf32(nbytes(*kept, cot, image_rest, H_inc, *weights, f0, *params), conv_ops,
                        (D - 1) * 40 * n * 30 * 40 * 32)
         ok = (not split["missed"] and err_alone <= TF32_K2_BAR and not forward_in_backward
-              and bwd == {"warp": 0, "chain": 1, "gn_apply": 0})
+              and bwd == {"warp": 0, "chain": 1, "refiner": 0, "gn_apply": 0})
         log(f"K2 1xTF32 backward N={n} 30x40x32 D={D}: the Function against plain autograd "
             f"through the TF32-rounding loop {err:.3e} of max|plain|, "
             f"{describe_legs(split)}; the kernel alone against its closed form at TF32 "
@@ -3425,6 +3590,85 @@ def check_backward_tf32(dev, failures):
             result["max_rel_err"] = max(result["max_rel_err"], err)
             result["kernel_vs_closed_form"] = max(result["kernel_vs_closed_form"], err_alone)
             result["legs"].append(split)
+    return result
+
+
+def check_refiner_backward_tf32(dev, failures):
+    """Phase 13 (a), K3's backward at 1xTF32 at level 4 (N = 1, 8) and level 3 (N = 1): the
+    Function's gradients (its forward in a "tf32" scope) against plain autograd through
+    the TF32-rounding plain version (``idepthmap_refiner_tf32_plain``) by
+    ``refiner_legs``' tf32 bars, one backward launch and no forward launch in the
+    backward; the backward kernel alone against its closed form at TF32 on what its
+    forward kept within TF32_K2_BAR of max|plain|; the device times (CUDA graphs) of the
+    1xTF32 and the 3xTF32 backward kernels and of the closed form, and the bound at TF32.
+    Returns the N = 1 level-4 entry, with every shape's readings."""
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.ops import precision
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+
+    g = torch.Generator().manual_seed(15)
+    state = random_state_dict(4)
+    result = None
+    for n, h, w, name in ((1, 30, 40, "refiner4"), (8, 30, 40, "refiner4"),
+                          (1, 60, 80, "refiner3")):
+        module = refiner_module(state, name, dev)
+        params = list(module.parameters())
+        guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev).requires_grad_()
+        idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev).requires_grad_()
+        cot = torch.randn(n, h, w, generator=g).to(dev)
+        inputs = (guidance, idepth, *params)
+        with precision.scope("tf32"):
+            out = refiner_op.idepthmap_refiner(module, guidance, idepth)
+        before, bwd_before = read_launches(), backward_launches()
+        got = torch.autograd.grad(out, inputs, cot)
+        torch.cuda.synchronize()
+        forward_in_backward = read_launches() != before
+        bwd = {k: v - bwd_before[k] for k, v in backward_launches().items()}
+        ref = torch.autograd.grad(
+            refiner_op.idepthmap_refiner_tf32_plain(module, guidance, idepth), inputs, cot)
+        err = worst_relative(got, ref)
+        split = refiner_legs(module, guidance, idepth, cot, got, ref, tf32=True)
+        with torch.no_grad():
+            g0, i0 = guidance.detach(), idepth.detach()
+            kept = refiner_op._launch(module, g0, i0, True, keep=True)
+            kept3 = refiner_op._launch(module, g0, i0, False, keep=True)
+            needs = (True, True, True)
+
+            def kernel(tf32=True):
+                out, saved = kept if tf32 else kept3
+                return refiner_op._launch_backward(module, g0, i0, out, saved, cot, needs,
+                                                   tf32)
+
+            def closed():
+                return refiner_op.idepthmap_refiner_backward_plain(
+                    module, g0, i0, kept[0], *kept[1][:2], cot, needs, tf32=True)
+            a, r = kernel(), closed()
+            err_alone = worst_relative([a[0], a[1], *a[2]], [r[0], r[1], *r[2]])
+            t = {"ms": graph_ms(kernel), "f32_ms": graph_ms(lambda: kernel(False)),
+                 "plain_ms": graph_ms(closed)}
+        b = bound_tf32(2 * nbytes(g0, i0, *params) + nbytes(kept[0], *kept[1][:3], cot),
+                       2 * conv_flops(module, n * h * w),
+                       40 * refiner_op.NUM_GN * n * h * w * 32)
+        ok = (not split["missed"] and err_alone <= TF32_K2_BAR and not forward_in_backward
+              and bwd == {"warp": 0, "chain": 0, "refiner": 1, "gn_apply": 0})
+        what = f"({n},35,{h},{w})"
+        log(f"K3 1xTF32 backward {what}: the Function against plain autograd through the "
+            f"TF32-rounding plain version {err:.3e} of max|plain|, {describe_legs(split)}; the "
+            f"kernel alone against its closed form at TF32 {err_alone:.3e} (bar "
+            f"{TF32_K2_BAR:.0e}); backward launches {bwd}, forward launches in the backward "
+            f"{forward_in_backward}; device: 1xTF32 kernel {t['ms']:.4f} ms, 3xTF32 "
+            f"{t['f32_ms']:.4f} ms, closed form {t['plain_ms']:.4f} ms; bound at TF32 "
+            f"{b[0]:.4f} ms ({b[1]})")
+        if not ok:
+            failures.append(f"K3 1xTF32 backward at {what}: missed {split['missed']}, "
+                            f"{err_alone}, {bwd}")
+        shape = {"shape": what, "max_rel_err": err, "kernel_vs_closed_form": err_alone, **t,
+                 "bound_ms": b[0], "bound_by": b[1], "legs": split}
+        if result is None:
+            result = {**shape, "bar": TF32_K2_BAR, "shapes": []}
+        result["max_rel_err"] = max(result["max_rel_err"], err)
+        result["kernel_vs_closed_form"] = max(result["kernel_vs_closed_form"], err_alone)
+        result["shapes"].append(shape)
     return result
 
 
@@ -3517,6 +3761,7 @@ def precision_phase(dev, inputs, smi, served):
     with torch.inference_mode():
         kernels = check_kernels_tf32(dev, failures)
     kernels["chain_backward"] = check_backward_tf32(dev, failures)
+    kernels["refiner_backward"] = check_refiner_backward_tf32(dev, failures)
 
     cfg = load_params_yaml(inputs["params_yaml"])
     base = model_config_from_params(cfg)
@@ -4691,6 +4936,20 @@ def main():
          "function_ms": backward["K2"]["ms"], "autograd_ms": backward["K2"]["plain_ms"],
          "bf16": {**backward_bf16["K2 kernel"], "function": backward_bf16["K2"]},
          "tf32": tf32["kernels"]["chain_backward"]},
+        {"name": "idepthmap_refiner_backward", "route": "cuda",
+         "source": f"{pkg}/csrc/idepthmap_refiner.cu",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:244 "
+                     "(_fused_bwd: the VJP of idepthmap_refiner_s2d; no TPU kernel)",
+         "launches": trained["backward_launches"]["refiner"],
+         "step_launches": trained["step_backward_launches"]["refiner"],
+         "two_view_launches": two_view_step["backward"]["refiner"],
+         **{k: backward["K3 kernel"][k] for k in (
+             "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "recompute_ms", "shapes")},
+         "library_ms": None,
+         "function_ms": backward["K3"]["ms"], "autograd_ms": backward["K3"]["plain_ms"],
+         "bf16": {**backward_bf16["K3 kernel"], "function": backward_bf16["K3"]},
+         "tf32": tf32["kernels"]["refiner_backward"]},
     ]}
     log(json.dumps(report))
     log(smi)

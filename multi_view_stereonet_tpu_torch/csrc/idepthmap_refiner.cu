@@ -42,7 +42,10 @@
 // One grid barrier a GroupNorm: 7 a launch. h and T are double-buffered in global scratch
 // (N x h x w x 32 f32 each, L2-resident), so a neighbour's halo read of layer k - 1 never
 // races a write of layer k; what one block reads of another's writes is loaded with
-// __ldcg, from L2. The wrapper packs the weights once into the shared-memory image the
+// __ldcg, from L2. Under autograd the caller gives seven slots of each instead (every T_l
+// and h_l, h_6 included, kept) and a buffer for each GroupNorm's mean and rstd, which the
+// block holding a sample's first m-tile writes: what the backward (refiner_bwd_kernel,
+// below) reads. The wrapper packs the weights once into the shared-memory image the
 // conv reads ((hi, lo) pairs, tap-major, output channels XOR-swizzled by row so that B
 // fragment loads fall on distinct banks); a layer's copy into one of two shared-memory
 // buffers is one bulk copy by the tensor memory accelerator, issued while the layer before
@@ -119,11 +122,13 @@ struct Args {
   const float* idepth;    // (N, h, w)
   const float* wpack;     // w0 (9, cin_pad, 32, 2), wr (6, 9, 32, 32, 2), wf (9, 32, 8, 2), vec
   float* out;             // (N, h, w)
-  float* hbuf;            // (2, N * P, 32)
-  float* tbuf;            // (2, N * P, 32)
+  float* hbuf;            // (slots, N * P, 32): h_l in slot l % slots
+  float* tbuf;            // (slots, N * P, 32): T_l in slot l % slots
+  float* keep_stats;      // (NGN, N, 2, 4) mean and rstd of each GroupNorm, or null
   double2* partials;      // (NGN, M, 4)
   unsigned int* barrier;
   int cg, cin_pad, h, w, P, tps, M, mpb;  // tps: m-tiles a sample; mpb: m-tiles a block
+  int slots;                               // 2 (double-buffered), or NGN (kept for the backward)
   double inv_count;                        // 1 / (P * 8): a group's values in a sample
   int dil[NRES];
 };
@@ -216,7 +221,9 @@ __device__ __forceinline__ void fetch_weights(const Args& a, int l, float* dst, 
 }
 
 // Mean and rstd of each group of GroupNorm layer l for sample n -> tmp[0..3], tmp[4..7],
-// from the partial sums of the sample's m-tiles in a fixed order. Every thread calls it.
+// from the partial sums of the sample's m-tiles in a fixed order (RAW: the two sums over
+// the group's values, each divided by their count, instead). Every thread calls it.
+template <bool RAW = false>
 __device__ void sample_stats(const Args& a, int l, int n, double* dred, float* tmp) {
   const double2* part = a.partials + ((int64_t)l * a.M + (int64_t)n * a.tps) * GROUPS;
   const int count = a.tps * GROUPS;
@@ -252,15 +259,21 @@ __device__ void sample_stats(const Args& a, int l, int n, double* dred, float* t
       SS += dred[(k * GROUPS + threadIdx.x) * 2 + 1];
     }
     const double mean = S * a.inv_count;
-    const double var = fmax(SS * a.inv_count - mean * mean, 0.0);
-    tmp[threadIdx.x] = (float)mean;
-    tmp[GROUPS + threadIdx.x] = rsqrtf((float)(var + (double)EPS));
+    if (RAW) {
+      tmp[threadIdx.x] = (float)mean;
+      tmp[GROUPS + threadIdx.x] = (float)(SS * a.inv_count);
+    } else {
+      const double var = fmax(SS * a.inv_count - mean * mean, 0.0);
+      tmp[threadIdx.x] = (float)mean;
+      tmp[GROUPS + threadIdx.x] = rsqrtf((float)(var + (double)EPS));
+    }
   }
   __syncthreads();
 }
 
 // The statistics of every m-tile slot of a pass (tiles m .. m + mt - 1) -> stat[slot][8].
-// cur_n and reg carry the last sample's statistics from pass to pass.
+// cur_n and reg carry the last sample's statistics from pass to pass. Where they are kept
+// (keep_stats), the block that holds a sample's first m-tile writes them.
 __device__ __forceinline__ void pass_stats(const Args& a, int l, int m, int mt, double* dred,
                                            float* tmp, float* stat, int& cur_n, float& reg) {
   for (int i = 0; i < mt; ++i) {
@@ -270,7 +283,11 @@ __device__ __forceinline__ void pass_stats(const Args& a, int l, int m, int mt, 
       cur_n = n;
       if (threadIdx.x < 8) reg = tmp[threadIdx.x];
     }
-    if (threadIdx.x < 8) stat[i * 8 + threadIdx.x] = reg;
+    if (threadIdx.x < 8) {
+      stat[i * 8 + threadIdx.x] = reg;
+      if (a.keep_stats != nullptr && (m + i) % a.tps == 0)
+        a.keep_stats[((int64_t)l * (a.M / a.tps) + n) * 8 + threadIdx.x] = reg;
+    }
   }
 }
 
@@ -435,17 +452,24 @@ __device__ __forceinline__ float2 wpair(const float* wk, int row, int oc) {
 // The conv of one pass on the tensor cores: the pass's mt m-tiles x NJ n8 tiles (output
 // channels 0 .. 8 NJ - 1), ROWS input channels a tap (0: `rows`, a multiple of 4, at run
 // time), dilation d. A warp takes one m-tile slot and a share of the taps (tap part,
-// part + ks, ...). The shares go through `red`; warp part j of a slot then sums n8 tile
-// j's shares in a fixed order and runs epi(slot, j, sums). Every thread calls it. BF16:
+// part + ks, ...). The shares go through `red`; warp part j of a slot (and j + ks, ...)
+// then sums n8 tile j's shares in a fixed order and runs epi(slot, j, sums). TRANS (the
+// backward's input gradients): the product's weight (k, n) is the layer's weight (n, k) of
+// the flipped tap 8 - tap, its pack read as it is (wrows rows a tap, LDW columns), zero
+// for n >= wrows: the transposed conv of the gradient tile. Every thread calls it. BF16:
 // bf16 m16n8k16 steps, lane (gq, tq) of the step over channels k .. k + 15 holding
 // channels k + 4 tq .. k + 4 tq + 3 of A and B (the fragments' k order; lanes past
 // `rows` hold zeros), from the hi halves of the (w, 0) weight pairs. Otherwise in 3xTF32,
 // or in 1xTF32 (TF32): the one product a_hi b_hi, from the hi halves of (hi, 0) pairs.
-template <int ROWS, int NJ, int LDW, bool BF16, bool TF32, typename Epi>
+template <int ROWS, int NJ, int LDW, bool BF16, bool TF32, bool TRANS, typename Epi>
 __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, const float* zrow,
                                           const float* wt, int rows_rt, int m, int mt, int d,
-                                          float* red, Epi&& epi) {
+                                          float* red, int wrows, Epi&& epi) {
   const int rows = ROWS > 0 ? ROWS : rows_rt;
+  auto wb = [&](const float* wk, int k, int nn) -> float2 {  // the (hi, lo) pair B(k, nn)
+    if constexpr (TRANS) return nn < wrows ? wpair<LDW>(wk, nn, k) : make_float2(0.f, 0.f);
+    else return wpair<LDW>(wk, k, nn);
+  };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int ks = min(9, NWARPS / mt);
@@ -467,7 +491,7 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
       const float* row = tile_row(tile, kh, slot, d + dx + gq) + tq;
       const float* ta = xa + dx >= 0 && xa + dx < a.w ? row : zrow + tq;
       const float* tb = xb + dx >= 0 && xb + dx < a.w ? row + 8 * CS : zrow + tq;
-      const float* wk = wt + 2 * tap * rows * LDW;
+      const float* wk = TRANS ? wt + 2 * (8 - tap) * wrows * LDW : wt + 2 * tap * rows * LDW;
       if constexpr (BF16) {
         for (int k = 0; k < rows; k += 16) {
           const int c0 = k + 4 * tq;
@@ -486,8 +510,8 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
             uint32_t bv[2] = {0u, 0u};
             if (on) {
               const int oc = 8 * j + gq;
-              bv[0] = pack_bf16(wpair<LDW>(wk, c0, oc).x, wpair<LDW>(wk, c0 + 1, oc).x);
-              bv[1] = pack_bf16(wpair<LDW>(wk, c0 + 2, oc).x, wpair<LDW>(wk, c0 + 3, oc).x);
+              bv[0] = pack_bf16(wb(wk, c0, oc).x, wb(wk, c0 + 1, oc).x);
+              bv[1] = pack_bf16(wb(wk, c0 + 2, oc).x, wb(wk, c0 + 3, oc).x);
             }
             mma_bf16(acc[j], av, bv);
           }
@@ -503,8 +527,8 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
           split(tb[k + 4], ah[3], al[3]);
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
-            const float2 b0 = wpair<LDW>(wk, k + tq, 8 * j + gq);
-            const float2 b1 = wpair<LDW>(wk, k + tq + 4, 8 * j + gq);
+            const float2 b0 = wb(wk, k + tq, 8 * j + gq);
+            const float2 b1 = wb(wk, k + tq + 4, 8 * j + gq);
             const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
             const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
             if constexpr (!TF32) {
@@ -520,7 +544,7 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
           split(tb[k], ah[1], al[1]);
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
-            const float2 b = wpair<LDW>(wk, k + tq, 8 * j + gq);
+            const float2 b = wb(wk, k + tq, 8 * j + gq);
             if constexpr (!TF32) {
               mma_k4(acc[j], al, __float_as_uint(b.x));
               mma_k4(acc[j], ah, __float_as_uint(b.y));
@@ -537,19 +561,21 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
 #pragma unroll
       for (int k = 0; k < 4; ++k) red[((warp * NJ + j) * 4 + k) * 32 + lane] = acc[j][k];
   __syncthreads();
-  if (busy && part < NJ) {
-    float share[9][4];  // ks <= 9: every share is loaded before any is added
+  if (busy) {
+    for (int j = part; j < NJ; j += ks) {
+      float share[9][4];  // ks <= 9: every share is loaded before any is added
 #pragma unroll
-    for (int q = 0; q < 9; ++q)
+      for (int q = 0; q < 9; ++q)
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        share[q][k] = q < ks ? red[(((slot * ks + q) * NJ + part) * 4 + k) * 32 + lane] : 0.0f;
-    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int k = 0; k < 4; ++k)
+          share[q][k] = q < ks ? red[(((slot * ks + q) * NJ + j) * 4 + k) * 32 + lane] : 0.0f;
+      float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int q = 0; q < 9; ++q)
+      for (int q = 0; q < 9; ++q)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) sum[k] += share[q][k];
-    epi(slot, part, sum);
+        for (int k = 0; k < 4; ++k) sum[k] += share[q][k];
+      epi(slot, j, sum);
+    }
   }
 }
 
@@ -594,7 +620,7 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
     };
     const float* wt = s & 1 ? odd : even;
     const float* bias = vec + 3 * C * s;
-    float* tcur = a.tbuf + (s & 1) * NPC;
+    float* tcur = a.tbuf + (s % a.slots) * NPC;
     int cur_n = -1;
     float reg = 0.0f;
 
@@ -632,8 +658,8 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
       if (s == 0) {
         stage_input<T>(a, m, mt, tile);
         weights_ready(m);
-        conv_pass<0, GROUPS, C, BF16, TF32>(
-            a, tile, zrow, wt, a.cin_pad, m, mt, 1, red,
+        conv_pass<0, GROUPS, C, BF16, TF32, false>(
+            a, tile, zrow, wt, a.cin_pad, m, mt, 1, red, 0,
             [&](int slot, int g, float (&v)[4]) { epi_gn(m, slot, g, v); });
         continue;
       }
@@ -641,24 +667,25 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
       const int l = s - 1;
       const float* gamma = vec + 3 * C * l + C;
       const float* beta = gamma + C;
-      const float* tprev = a.tbuf + (l & 1) * NPC;
-      float* hcur = s < LAYERS - 1 ? a.hbuf + (l & 1) * NPC : nullptr;
+      const float* tprev = a.tbuf + (l % a.slots) * NPC;
+      // h_l; the final conv's input h_6 only where it is kept.
+      float* hcur = s < LAYERS - 1 || a.slots == NGN ? a.hbuf + (l % a.slots) * NPC : nullptr;
       const int d = s < LAYERS - 1 ? a.dil[s - 1] : 1;
       if (s == 1)
         stage_h<false, T>(a, l, m, mt, d, tile, dred, tmp, stat, cur_n, reg, gamma, beta,
                           nullptr, tprev, hcur);
       else
         stage_h<true, T>(a, l, m, mt, d, tile, dred, tmp, stat, cur_n, reg, gamma, beta,
-                         a.hbuf + ((l - 1) & 1) * NPC, tprev, hcur);
+                         a.hbuf + ((l - 1) % a.slots) * NPC, tprev, hcur);
       weights_ready(m);
       if (s < LAYERS - 1) {
-        conv_pass<C, GROUPS, C, BF16, TF32>(
-            a, tile, zrow, wt, C, m, mt, d, red,
+        conv_pass<C, GROUPS, C, BF16, TF32, false>(
+            a, tile, zrow, wt, C, m, mt, d, red, 0,
             [&](int slot, int g, float (&v)[4]) { epi_gn(m, slot, g, v); });
       } else {  // out = ReLU(idepth + conv_final(h_6) + bf): column 0 of the n8 tile
         const float bf = vec[3 * C * NGN];
-        conv_pass<C, 1, WF_COLS, BF16, TF32>(a, tile, zrow, wt, C, m, mt, 1, red,
-                                             [&](int slot, int, float (&v)[4]) {
+        conv_pass<C, 1, WF_COLS, BF16, TF32, false>(a, tile, zrow, wt, C, m, mt, 1, red, 0,
+                                                    [&](int slot, int, float (&v)[4]) {
           if (tq != 0) return;
           const int mm = m + slot, n = mm / a.tps;
           const int pa = (mm - n * a.tps) * MTILE + gq, pb = pa + 8;
@@ -677,48 +704,531 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
   }
 }
 
-// Floats of scratch a launch for N samples of an h x w map needs: h and T, double-
-// buffered, then the f64 (sum, sum of squares) partials of every GroupNorm layer.
-long long needed_scratch(int N, int h, int w) {
-  const long long P = (long long)h * w, M = (long long)N * ((P + MTILE - 1) / MTILE);
-  return 4LL * N * P * C + 4LL * NGN * M * GROUPS;
+// ---- The backward ----------------------------------------------------------------------
+//
+// refiner_bwd_kernel: the gradient of out = ReLU(idepth + conv_final(h_6) + bf) in the
+// guidance, the idepth map and every parameter, from what the forward kept under autograd
+// (T_0 .. T_6, h_0 .. h_6, each GroupNorm's mean and rstd) and the output's gradient. It
+// has no TPU kernel to replace: the JAX package takes it as the VJP of
+// idepthmap_refiner_s2d (refiner_kernel.py _fused_bwd). Per sample, with gout =
+// grad ReLU'(out):
+//   d idepth = gout + conv0's input gradient in the idepth channel;
+//   dh_6 = conv_final^T(gout); then for l = 6 .. 0: dz = dh_l LeakyReLU'(z_l), dT_l =
+//   rstd (dz gamma - a - x_hat b) with a, b the group means of dz gamma and dz gamma x_hat,
+//   dh_{l-1} = dh_l + conv_l^T(dT_l) (l >= 1), d[guidance, idepth] = conv0^T(dT_0);
+//   each conv's weight gradient sum_p X(p + tap) dT(p) and bias gradient sum_p dT(p),
+//   each GroupNorm's d gamma = sum dz x_hat and d beta = sum dz.
+// What bounds it: what bounds the forward, the chain of dependent stages (each
+// GroupNorm's backward needs its group sums over the whole map), with twice the forward's
+// multiply-adds (an input and a weight gradient a conv) and a cross-block sum of the
+// weight gradients at the end.
+//
+// Design: the forward's grid, m-tiles and passes, walked in reverse: eight stages, stage s
+// the backward of layer s (7: the final conv), one grid barrier after each. A pass stages
+// two tiles with the forward's geometry: the gradient tile G (stage 7: gout in channel 0;
+// else dT_s, applied on load from dh_s, the kept T_s, the statistics and the group sums,
+// which the block reduces in f64 in a fixed order from the previous stage's per-(m-tile,
+// group) partials) and the input tile X (h_{s-1}, or [guidance, idepth] at stage 0, as
+// the forward staged it). Then
+//   1. input gradient: conv_pass over G with the layer's packed weights read transposed
+//      and tap-flipped (TRANS), on the tensor cores in the variant's arithmetic; its
+//      epilogue adds the residual dh_s, writes dh_{s-1} and the (sum dz, sum dz x_hat)
+//      partials of GroupNorm s - 1 (or, at stage 0, the guidance's and idepth's gradients);
+//   2. weight gradient: X^T G over the pass's own pixels on the tensor cores (m16n8k8,
+//      rows (tap, input channel), k the pixels), accumulated in registers over the
+//      stage's passes, then written to the block's own slot of `partial`;
+//   3. the bias, gamma and beta gradients, summed per block in f64 in a fixed order.
+// After the last stage the blocks' slots are summed in block order into dparams. No float
+// atomics: every run gives the same bits. One weight buffer, refilled by one bulk copy at
+// the start of each stage (a second tile takes the forward's second buffer's place).
+// Rounding as the forward: the operands of every product are rounded as the variant's
+// convs round them (3xTF32: split, three products; 1xTF32: TF32; bf16: bf16), every sum
+// and every elementwise term is f32, the group sums f64; the gradient passes straight
+// through each rounding of the forward, LeakyReLU's slope taken as plain autograd takes it.
+
+constexpr int NJ_IN = 5;   // conv0's input gradient: cin_pad <= 36 channels, five n8 tiles
+constexpr int WQ = 9;      // (row tile, n8 tile) pairs of a weight gradient a warp holds
+constexpr int BRED_FLOATS = NWARPS * NJ_IN * 4 * 32;
+constexpr int CHAN_DOUBLES = MT_MAX * C * 2;
+constexpr int BWD_DOUBLES = DRED_DOUBLES + VEC_PAD + CHAN_DOUBLES;
+constexpr size_t BWD_SMEM_BYTES =
+    sizeof(uint64_t) * 2 + sizeof(double) * BWD_DOUBLES +
+    sizeof(float) * (W0_FLOATS + 2 * TILE_FLOATS + ZERO_FLOATS + BRED_FLOATS + VEC_PAD +
+                     MT_MAX * 16 + 8);
+static_assert(BWD_SMEM_BYTES <= 232448, "more than a block's shared memory");
+static_assert((sizeof(uint64_t) * 2 + sizeof(double) * BWD_DOUBLES) % 16 == 0,
+              "the weight buffer and the tiles are 16-byte aligned");
+
+// Where layer l's weight gradient starts in a block's slot of the parameter gradients
+// (l = LAYERS: the vector's): conv0's taps (9, cin_pad, 32), the resblocks' (6, 9, 32,
+// 32), the final conv's (9, 32), then the vector (VEC_FLOATS) in vec's order.
+__host__ __device__ inline int grad_offset(int cin_pad, int l) {
+  const int w0 = 9 * cin_pad * C;
+  if (l == 0) return 0;
+  if (l <= NRES) return w0 + (l - 1) * 9 * C * C;
+  return w0 + NRES * 9 * C * C + (l == LAYERS ? 9 * C : 0);
+}
+
+struct BwdArgs : Args {  // Args as the forward's: hbuf and tbuf hold the kept h and T
+  const float* grad;     // (N, h, w): the output's gradient
+  const float* stats;    // (NGN, N, 2, 4): the kept mean and rstd of each GroupNorm
+  float* dguid;          // (N, cg, h, w) or null
+  float* didepth;        // (N, h, w)
+  float* dh;             // (2, N * P, 32): dh_l in slot l & 1
+  float* partial;        // (gridDim.x, kp): each block's parameter gradients
+  float* dparams;        // (kp): their sum over the blocks
+  int kp;
+};
+
+// LeakyReLU's derivative at the f32 GroupNorm value z, as the plain version's autograd
+// takes it: F.leaky_relu's at f32 (0.2 at 0), the JAX-style where on z rounded at bf16.
+template <typename T>
+__device__ __forceinline__ float leaky_slope(float z) {
+  if constexpr (sizeof(T) == sizeof(float)) return z > 0.0f ? 1.0f : SLOPE;
+  else return rnd<T>(z) >= 0.0f ? 1.0f : SLOPE;
+}
+
+// An operand as the TF32 mma's hi and lo parts: 3xTF32 splits it; 1xTF32 takes the hi
+// part; at bf16 it is rounded to bf16 first, which TF32 holds exactly.
+template <bool BF16>
+__device__ __forceinline__ void split_op(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (BF16) x = rnd<__nv_bfloat16>(x);
+  split(x, hi, lo);
+}
+
+// Stage 7's gradient tile: gout = ReLU'(out) grad at each staged position (dilation 1) in
+// channel 0, channels 1..7 zero; the block's own pixels also get d idepth = gout (stage 0
+// adds conv0's part). Thread t < 162 owns (kernel row, slot, run position).
+__device__ void stage_gout(const BwdArgs& a, int m, int mt, float* tile) {
+  const int L = MTILE + 2, t = threadIdx.x;
+  if (t >= 3 * MT_MAX * L) return;
+  const int e = t % L, slot = (t / L) % MT_MAX, kh = t / (L * MT_MAX);
+  if (slot >= mt) return;
+  int n;
+  const int q = run_start(a, m + slot, 1, &n) + e + (kh - 1) * a.w;
+  float gv = 0.0f;
+  if (q >= 0 && q < a.P) {
+    const int64_t i = (int64_t)n * a.P + q;
+    gv = __ldg(a.out + i) > 0.0f ? __ldg(a.grad + i) : 0.0f;
+    if (kh == 1 && e >= 1 && e < 1 + MTILE) a.didepth[i] = gv;
+  }
+  float4* row = reinterpret_cast<float4*>(tile_row(tile, kh, slot, e));
+  row[0] = make_float4(gv, 0.0f, 0.0f, 0.0f);
+  row[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The (mean, rstd) of GroupNorm l and the (a, b) of its backward for every slot of a pass
+// -> stat[slot][8], gsum[slot][8]; a and b reduced from the partials of the sample's
+// m-tiles in a fixed order (sample_stats<true>). Every thread calls it.
+__device__ __forceinline__ void bwd_pass_stats(const BwdArgs& a, int l, int m, int mt,
+                                               double* dred, float* tmp, float* stat,
+                                               float* gsum, int& cur_n, float& reg) {
+  for (int i = 0; i < mt; ++i) {
+    const int n = (m + i) / a.tps;
+    if (n != cur_n) {
+      sample_stats<true>(a, l, n, dred, tmp);
+      cur_n = n;
+      if (threadIdx.x < 8) reg = tmp[threadIdx.x];
+    }
+    if (threadIdx.x < 8) {
+      gsum[i * 8 + threadIdx.x] = reg;
+      stat[i * 8 + threadIdx.x] =
+          __ldg(a.stats + ((int64_t)l * (a.M / a.tps) + n) * 8 + threadIdx.x);
+    }
+  }
+}
+
+// Map offsets of the staged positions of thread (e, j) (stage_h's mapping): -1 outside
+// the map or past the pass.
+__device__ __forceinline__ void staged_offsets(const Args& a, int m, int mt, int d, int e,
+                                               int j, int64_t (&off)[MT_MAX][3]) {
+#pragma unroll
+  for (int slot = 0; slot < MT_MAX; ++slot) {
+    int n = 0, q1 = 0;
+    if (slot < mt) q1 = run_start(a, m + slot, d, &n) + e;
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      const int q = q1 + (kh - 1) * d * a.w;
+      off[slot][kh] = slot < mt && q >= 0 && q < a.P ? ((int64_t)n * a.P + q) * C + 4 * j : -1;
+    }
+  }
+}
+
+// Stage s's gradient tile (s <= 6, its conv at dilation d): dT_s = rstd (dz gamma - a -
+// x_hat b), dz = dh_s LeakyReLU'(z), at each staged position (zero outside the map), from
+// dh_s, the kept T_s and the pass's stat and gsum. Thread t < 8 (16 + 2d) owns run
+// position t / 8 and channel quad t % 8.
+template <typename T>
+__device__ void stage_dt(const Args& a, int m, int mt, int d, float* tile, const float* stat,
+                         const float* gsum, const float* gamma, const float* beta,
+                         const float* dh, const float* tl) {
+  const int j = threadIdx.x & 7, e = threadIdx.x >> 3;
+  if (e >= MTILE + 2 * d) return;
+  int64_t off[MT_MAX][3];
+  staged_offsets(a, m, mt, d, e, j, off);
+  float4 gv[MT_MAX][3], tv[MT_MAX][3];
+#pragma unroll
+  for (int slot = 0; slot < MT_MAX; ++slot)
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      gv[slot][kh] = tv[slot][kh] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (off[slot][kh] >= 0) {
+        gv[slot][kh] = ldcg4(dh + off[slot][kh]);
+        tv[slot][kh] = ldcg4(tl + off[slot][kh]);
+      }
+    }
+  const float* ga = gamma + 4 * j;
+  const float* be = beta + 4 * j;
+  const int q = j / 2;
+#pragma unroll
+  for (int slot = 0; slot < MT_MAX; ++slot) {
+    if (slot >= mt) break;
+    const float mu = stat[slot * 8 + q], rs = stat[slot * 8 + GROUPS + q];
+    const float A = gsum[slot * 8 + q], B = gsum[slot * 8 + GROUPS + q];
+    auto one = [&](float g, float t, int k) {
+      const float xh = (t - mu) * rs;
+      const float dz = g * leaky_slope<T>(xh * ga[k] + be[k]);
+      return rs * (dz * ga[k] - A - xh * B);
+    };
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (off[slot][kh] >= 0) {
+        const float4 g = gv[slot][kh], t = tv[slot][kh];
+        v = make_float4(one(g.x, t.x, 0), one(g.y, t.y, 1), one(g.z, t.z, 2), one(g.w, t.w, 3));
+      }
+      reinterpret_cast<float4*>(tile_row(tile, kh, slot, e))[j] = v;
+    }
+  }
+}
+
+// The staged tile of a kept map src (h_{s-1}) at dilation d, as stage_h stages it.
+__device__ void stage_copy(const Args& a, int m, int mt, int d, float* tile, const float* src) {
+  const int j = threadIdx.x & 7, e = threadIdx.x >> 3;
+  if (e >= MTILE + 2 * d) return;
+  int64_t off[MT_MAX][3];
+  staged_offsets(a, m, mt, d, e, j, off);
+  float4 v[MT_MAX][3];
+#pragma unroll
+  for (int slot = 0; slot < MT_MAX; ++slot)
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh)
+      v[slot][kh] = off[slot][kh] >= 0 ? ldcg4(src + off[slot][kh])
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int slot = 0; slot < MT_MAX; ++slot) {
+    if (slot >= mt) break;
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh)
+      reinterpret_cast<float4*>(tile_row(tile, kh, slot, e))[j] = v[slot][kh];
+  }
+}
+
+// The weight gradient of one pass on the tensor cores: for each (row tile, n8 tile) pair
+// the warp holds (pairs warp, warp + 12, ...; a row tile is 16 input channels of one tap,
+// rows channels a tap, nt n8 tiles of output channels), acc += X(p + tap)^T G(p) over the
+// pass's own pixels p, eight a k-step (lanes tq: pixels tq and tq + 4 of a half m-tile); a
+// tap whose column falls off its row reads the zero row, as the conv does.
+template <bool BF16, bool TF32>
+__device__ __forceinline__ void wgrad_pass(const Args& a, const float* xt, const float* gt,
+                                           const float* zrow, int rows, int nt, int m, int mt,
+                                           int d, float (&acc)[WQ][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int cb = (rows + 15) >> 4, npairs = 9 * cb * nt;
+  for (int slot = 0; slot < mt; ++slot) {
+    const int mm = m + slot, n = mm / a.tps;
+    const int p0 = (mm - n * a.tps) * MTILE;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ia = 8 * half + tq, ib = ia + 4;
+      const int xa = (p0 + ia) % a.w, xb = (p0 + ib) % a.w;
+      const float* ga = tile_row(gt, 1, slot, d + ia);
+      const float* gb = tile_row(gt, 1, slot, d + ib);
+#pragma unroll
+      for (int q = 0; q < WQ; ++q) {
+        const int pair = warp + q * NWARPS;
+        if (pair >= npairs) break;
+        const int rt = pair / nt, j = pair - rt * nt;
+        const int tap = rt / cb, c0 = (rt - tap * cb) * 16;
+        const int kh = tap / 3, dx = (tap % 3 - 1) * d;
+        const float* ra = xa + dx >= 0 && xa + dx < a.w ? tile_row(xt, kh, slot, d + dx + ia) : zrow;
+        const float* rb = xb + dx >= 0 && xb + dx < a.w ? tile_row(xt, kh, slot, d + dx + ib) : zrow;
+        const int ci0 = c0 + gq, ci1 = ci0 + 8;
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        split_op<BF16>(ci0 < rows ? ra[ci0] : 0.0f, ah[0], al[0]);
+        split_op<BF16>(ci1 < rows ? ra[ci1] : 0.0f, ah[1], al[1]);
+        split_op<BF16>(ci0 < rows ? rb[ci0] : 0.0f, ah[2], al[2]);
+        split_op<BF16>(ci1 < rows ? rb[ci1] : 0.0f, ah[3], al[3]);
+        split_op<BF16>(ga[8 * j + gq], bh[0], bl[0]);
+        split_op<BF16>(gb[8 * j + gq], bh[1], bl[1]);
+        if constexpr (!TF32 && !BF16) {
+          mma_k8(acc[q], al, bh);
+          mma_k8(acc[q], ah, bl);
+        }
+        mma_k8(acc[q], ah, bh);
+      }
+    }
+  }
+}
+
+// wgrad_pass's accumulators into the block's slot dw of layer (tap, ci, co) at (tap rows +
+// ci) ncols + co; every element is written once.
+__device__ __forceinline__ void flush_wgrad(float* dw, const float (&acc)[WQ][4], int rows,
+                                            int nt, int ncols) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int cb = (rows + 15) >> 4, npairs = 9 * cb * nt;
+#pragma unroll
+  for (int q = 0; q < WQ; ++q) {
+    const int pair = warp + q * NWARPS;
+    if (pair >= npairs) break;
+    const int rt = pair / nt, j = pair - rt * nt;
+    const int tap = rt / cb, c0 = (rt - tap * cb) * 16;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int ci = c0 + gq + 8 * r;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int co = 8 * j + 2 * tq + k;
+        if (ci < rows && co < ncols) dw[(tap * rows + ci) * ncols + co] = acc[q][2 * r + k];
+      }
+    }
+  }
 }
 
 template <typename T, bool TF32>
-int launch(const T* guidance, const float* idepth, const float* wpack, float* out,
-           float* scratch, long long scratch_floats, unsigned int* barrier, int N, int cg,
-           int h, int w, const int* dil, cudaStream_t stream) {
-  static int max_blocks[MAX_DEVICES] = {0};  // resident blocks of this instantiation
-  if (N == 0 || h == 0 || w == 0) return 0;
-  if (cg < 0 || cg + 1 > MAX_CIN0 || scratch_floats < needed_scratch(N, h, w))
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  for (int k = 0; k < NRES; ++k) {
-    if (dil[k] < 1 || dil[k] > MAX_DIL) return (int)cudaErrorInvalidValue;
-    a.dil[k] = dil[k];
+__global__ void __launch_bounds__(THREADS, 1) refiner_bwd_kernel(BwdArgs a) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  extern __shared__ float4 smem4[];
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem4);  // the weight buffer's mbarrier
+  double* dred = reinterpret_cast<double*>(wbar + 2);
+  double* vacc = dred + DRED_DOUBLES;  // the block's bias, gamma and beta gradients (vec's order)
+  double* chan = vacc + VEC_PAD;       // a pass's [slot][channel][sum dz, sum dz x_hat]
+  float* wbuf = reinterpret_cast<float*>(chan + CHAN_DOUBLES);
+  float* gtile = wbuf + W0_FLOATS;
+  float* xtile = gtile + TILE_FLOATS;
+  float* zrow = xtile + TILE_FLOATS;
+  float* red = zrow + ZERO_FLOATS;
+  float* vec = red + BRED_FLOATS;
+  float* stat = vec + VEC_PAD;   // [slot][mean 4, rstd 4]
+  float* gsum = stat + MT_MAX * 8;  // [slot][a 4, b 4]
+  float* tmp = gsum + MT_MAX * 8;
+  const int tid = threadIdx.x, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int m_begin = blockIdx.x * a.mpb;
+  const int m_end = min(a.M, m_begin + a.mpb);
+  const int N = a.M / a.tps;
+  const int64_t NPC = (int64_t)N * a.P * C;  // one map
+  float* part = a.partial + (int64_t)blockIdx.x * a.kp;
+
+  int count;
+  const float* vec_g = layer_weights(a, LAYERS, &count);
+  for (int i = tid; i < count; i += THREADS) vec[i] = __ldg(vec_g + i);
+  for (int i = tid; i < VEC_PAD; i += THREADS) vacc[i] = 0.0;
+  for (int i = tid; i < ZERO_FLOATS; i += THREADS) zrow[i] = 0.0f;
+  if (tid == 0) {
+    mbar_init(&wbar[0]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+
+  for (int s = LAYERS - 1; s >= 0; --s) {
+    // Every thread is past the last stage's convs (its grid barrier): refill the buffer.
+    if (tid == 0) fetch_weights(a, s, wbuf, &wbar[0]);
+    const bool last = s == LAYERS - 1;
+    const int d = s == 0 || last ? 1 : a.dil[s - 1];
+    const int rows = s == 0 ? a.cin_pad : C;  // input channels a tap
+    const int l = max(s - 1, 0);  // the GroupNorm this stage's epilogue serves (s >= 1)
+    const float* dh_s = a.dh + (s & 1) * NPC;
+    float* dh_l = a.dh + (l & 1) * NPC;
+    const float* gamma_l = vec + 3 * C * l + C;
+    const float* beta_l = gamma_l + C;
+    float wacc[WQ][4];
+#pragma unroll
+    for (int q = 0; q < WQ; ++q)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wacc[q][k] = 0.0f;
+    int cur_n = -1;
+    float reg = 0.0f;
+
+    // Stages 7 .. 1: dh_{s-1} = [dh_s +] the input gradient, for the block's own pixels, and
+    // GroupNorm s - 1's partials: per channel (sum dz, sum dz x_hat) of the m-tile into
+    // chan, per group (sum gamma dz, sum gamma dz x_hat) into the partials.
+    auto epi_dh = [&](int m, int slot, int j, float (&v)[4]) {
+      const int mm = m + slot, n = mm / a.tps;
+      const int pa = (mm - n * a.tps) * MTILE + gq;
+      const int oc = GSIZE * j + 2 * tq;
+      const float* st = a.stats + ((int64_t)l * N + n) * 8;
+      const float mu = __ldg(st + j), rs = __ldg(st + GROUPS + j);
+      const float g0 = gamma_l[oc], g1 = gamma_l[oc + 1];
+      const float b0 = beta_l[oc], b1 = beta_l[oc + 1];
+      double s1[2] = {0.0, 0.0}, s2[2] = {0.0, 0.0};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = pa + 8 * r;
+        if (p >= a.P) continue;
+        const int64_t off = ((int64_t)n * a.P + p) * C + oc;
+        float d0 = v[2 * r], d1 = v[2 * r + 1];
+        if (!last) {  // the residual's gradient
+          const float2 res = __ldcg(reinterpret_cast<const float2*>(dh_s + off));
+          d0 = res.x + d0;
+          d1 = res.y + d1;
+        }
+        *reinterpret_cast<float2*>(dh_l + off) = make_float2(d0, d1);
+        const float2 t = __ldcg(reinterpret_cast<const float2*>(a.tbuf + l * NPC + off));
+        const float x0 = (t.x - mu) * rs, x1 = (t.y - mu) * rs;
+        const float z0 = d0 * leaky_slope<T>(x0 * g0 + b0);
+        const float z1 = d1 * leaky_slope<T>(x1 * g1 + b1);
+        s1[0] += (double)z0;
+        s1[1] += (double)z1;
+        s2[0] += (double)(z0 * x0);
+        s2[1] += (double)(z1 * x1);
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], off);
+          s2[k] += __shfl_xor_sync(0xffffffffu, s2[k], off);
+        }
+      if (gq == 0)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          chan[(slot * C + oc + k) * 2] = s1[k];
+          chan[(slot * C + oc + k) * 2 + 1] = s2[k];
+        }
+      double A = (double)g0 * s1[0] + (double)g1 * s1[1];
+      double B = (double)g0 * s2[0] + (double)g1 * s2[1];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        A += __shfl_xor_sync(0xffffffffu, A, off);
+        B += __shfl_xor_sync(0xffffffffu, B, off);
+      }
+      if (lane == 0) a.partials[((int64_t)l * a.M + mm) * GROUPS + j] = make_double2(A, B);
+    };
+    // Stage 0: the guidance's and the idepth map's gradients.
+    auto epi_in = [&](int m, int slot, int j, float (&v)[4]) {
+      const int mm = m + slot, n = mm / a.tps;
+      const int pa = (mm - n * a.tps) * MTILE + gq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = pa + 8 * r;
+        if (p >= a.P) continue;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int c = GSIZE * j + 2 * tq + k;
+          if (c < a.cg) {
+            if (a.dguid != nullptr) a.dguid[((int64_t)n * a.cg + c) * a.P + p] = v[2 * r + k];
+          } else if (c == a.cg) {
+            a.didepth[(int64_t)n * a.P + p] += v[2 * r + k];
+          }
+        }
+      }
+    };
+
+    for (int m = m_begin; m < m_end; m += MT_MAX) {
+      const int mt = min(MT_MAX, m_end - m);
+      __syncthreads();  // the last pass's tiles and sums are read
+      if (last) {
+        stage_gout(a, m, mt, gtile);
+      } else {
+        bwd_pass_stats(a, s, m, mt, dred, tmp, stat, gsum, cur_n, reg);
+        __syncthreads();
+        stage_dt<T>(a, m, mt, d, gtile, stat, gsum, vec + 3 * C * s + C, vec + 3 * C * s + 2 * C,
+                    dh_s, a.tbuf + s * NPC);
+      }
+      if (s == 0)
+        stage_input<T>(a, m, mt, xtile);
+      else
+        stage_copy(a, m, mt, d, xtile, a.hbuf + l * NPC);
+      __syncthreads();
+      mbar_wait(&wbar[0], (LAYERS - 1 - s) & 1);
+      if (last)
+        conv_pass<WF_COLS, GROUPS, WF_COLS, BF16, TF32, true>(
+            a, gtile, zrow, wbuf, WF_COLS, m, mt, 1, red, C,
+            [&](int slot, int j, float (&v)[4]) { epi_dh(m, slot, j, v); });
+      else if (s > 0)
+        conv_pass<C, GROUPS, C, BF16, TF32, true>(
+            a, gtile, zrow, wbuf, C, m, mt, d, red, C,
+            [&](int slot, int j, float (&v)[4]) { epi_dh(m, slot, j, v); });
+      else
+        conv_pass<C, NJ_IN, C, BF16, TF32, true>(
+            a, gtile, zrow, wbuf, C, m, mt, 1, red, a.cin_pad,
+            [&](int slot, int j, float (&v)[4]) { epi_in(m, slot, j, v); });
+      wgrad_pass<BF16, TF32>(a, xtile, gtile, zrow, rows, last ? 1 : GROUPS, m, mt, d, wacc);
+      // The conv bias's gradient: the gradient tile summed over the pass's own pixels.
+      if (tid < (last ? 1 : C)) {
+        double sum = 0.0;
+        for (int slot = 0; slot < mt; ++slot)
+          for (int i = 0; i < MTILE; ++i) sum += (double)tile_row(gtile, 1, slot, d + i)[tid];
+        vacc[(last ? 3 * C * NGN : 3 * C * s) + tid] += sum;
+      }
+      if (s > 0) {
+        __syncthreads();  // chan is written
+        if (tid < C)
+          for (int slot = 0; slot < mt; ++slot) {
+            vacc[3 * C * l + C + tid] += chan[(slot * C + tid) * 2 + 1];  // gamma
+            vacc[3 * C * l + 2 * C + tid] += chan[(slot * C + tid) * 2];  // beta
+          }
+      }
+    }
+    flush_wgrad(part + grad_offset(a.cin_pad, s), wacc, rows, last ? 1 : GROUPS, last ? 1 : C);
+    if (s > 0) grid_barrier(a.barrier);
+  }
+  for (int i = tid; i < VEC_FLOATS; i += THREADS)
+    part[grad_offset(a.cin_pad, LAYERS) + i] = (float)vacc[i];
+  grid_barrier(a.barrier);
+  // The parameter gradients: the blocks' slots summed in block order.
+  for (int e = blockIdx.x * THREADS + tid; e < a.kp; e += gridDim.x * THREADS) {
+    float sum = 0.0f;
+    for (int b = 0; b < (int)gridDim.x; ++b) sum += __ldcg(a.partial + (int64_t)b * a.kp + e);
+    a.dparams[e] = sum;
+  }
+}
+
+// ---- Launches ---------------------------------------------------------------------------
+
+// Floats of scratch a forward launch for N samples of an h x w map needs: h and T, double-
+// buffered (none where they are kept), then the f64 (sum, sum of squares) partials of every
+// GroupNorm layer. The backward takes the same: dh double-buffered, then the partials.
+long long needed_scratch(int N, int h, int w, bool maps) {
+  const long long P = (long long)h * w, M = (long long)N * ((P + MTILE - 1) / MTILE);
+  return (maps ? 4LL * N * P * C : 0LL) + 4LL * NGN * M * GROUPS;
+}
+
+// The blocks a cooperative launch of `kernel` (one a SM at most) may take on the current
+// device, with its shared memory set; cached by the caller's `cache`, one entry a device.
+template <typename K>
+int resident_blocks(K kernel, size_t smem, int (&cache)[MAX_DEVICES], int* blocks) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (max_blocks[dev] == 0) {
-    err = cudaFuncSetAttribute(refiner_kernel<T, TF32>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (cache[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, refiner_kernel<T, TF32>,
-                                                        THREADS, SMEM_BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     if (per_sm * sms == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-    max_blocks[dev] = per_sm * sms;
+    cache[dev] = per_sm * sms;
+  }
+  *blocks = cache[dev];
+  return 0;
+}
+
+// Args for N samples of an h x w map and the blocks the grid may take; the grid size.
+int fill_args(Args& a, const void* guidance, const float* idepth, const float* wpack,
+              unsigned int* barrier, int N, int cg, int h, int w, const int* dil,
+              int max_blocks) {
+  for (int k = 0; k < NRES; ++k) {
+    if (dil[k] < 1 || dil[k] > MAX_DIL) return -1;
+    a.dil[k] = dil[k];
   }
   a.guidance = guidance;
   a.idepth = idepth;
   a.wpack = wpack;
-  a.out = out;
   a.barrier = barrier;
+  a.keep_stats = nullptr;
   a.cg = cg;
   a.cin_pad = (cg + 1 + 3) / 4 * 4;
   a.h = h;
@@ -727,18 +1237,85 @@ int launch(const T* guidance, const float* idepth, const float* wpack, float* ou
   a.inv_count = 1.0 / ((double)a.P * GSIZE);
   a.tps = (a.P + MTILE - 1) / MTILE;
   a.M = N * a.tps;
-  a.mpb = (a.M + max_blocks[dev] - 1) / max_blocks[dev];
+  a.mpb = (a.M + max_blocks - 1) / max_blocks;
+  return (a.M + a.mpb - 1) / a.mpb;
+}
+
+template <typename T, bool TF32>
+int launch(const T* guidance, const float* idepth, const float* wpack, float* out,
+           float* scratch, long long scratch_floats, float* keep_t, float* keep_h,
+           float* keep_stats, unsigned int* barrier, int N, int cg, int h, int w,
+           const int* dil, cudaStream_t stream) {
+  static int max_blocks[MAX_DEVICES] = {0};  // resident blocks of this instantiation
+  if (N == 0 || h == 0 || w == 0) return 0;
+  const bool keep = keep_t != nullptr;
+  if (cg < 0 || cg + 1 > MAX_CIN0 || scratch_floats < needed_scratch(N, h, w, !keep) ||
+      keep != (keep_h != nullptr) || keep != (keep_stats != nullptr))
+    return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  int err = resident_blocks(refiner_kernel<T, TF32>, SMEM_BYTES, max_blocks, &blocks);
+  if (err != 0) return err;
+  Args a;
+  const int grid = fill_args(a, guidance, idepth, wpack, barrier, N, cg, h, w, dil, blocks);
+  if (grid < 0) return (int)cudaErrorInvalidValue;
   const int64_t npc = (int64_t)N * a.P * C;
-  a.hbuf = scratch;
-  a.tbuf = scratch + 2 * npc;
-  a.partials = reinterpret_cast<double2*>(scratch + 4 * npc);
-  const int grid = (a.M + a.mpb - 1) / a.mpb;
+  a.out = out;
+  a.slots = keep ? NGN : 2;
+  a.hbuf = keep ? keep_h : scratch;
+  a.tbuf = keep ? keep_t : scratch + 2 * npc;
+  a.keep_stats = keep_stats;
+  a.partials = reinterpret_cast<double2*>(keep ? scratch : scratch + 4 * npc);
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)refiner_kernel<T, TF32>, dim3(grid),
-                                    dim3(THREADS), args, SMEM_BYTES, stream);
-  if (err != cudaSuccess) {
+  cudaError_t status = cudaLaunchCooperativeKernel((const void*)refiner_kernel<T, TF32>,
+                                                   dim3(grid), dim3(THREADS), args, SMEM_BYTES,
+                                                   stream);
+  if (status != cudaSuccess) {
     cudaGetLastError();
-    return (int)err;
+    return (int)status;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool TF32>
+int launch_bwd(const T* guidance, const float* idepth, const float* wpack, const float* out,
+               const float* keep_t, const float* keep_h, const float* keep_stats,
+               const float* grad, float* dguid, float* didepth, float* dparams, float* partial,
+               long long partial_floats, float* scratch, long long scratch_floats,
+               unsigned int* barrier, int N, int cg, int h, int w, const int* dil,
+               cudaStream_t stream) {
+  static int max_blocks[MAX_DEVICES] = {0};
+  if (N == 0 || h == 0 || w == 0) return 0;
+  if (cg < 0 || cg + 1 > MAX_CIN0 || scratch_floats < needed_scratch(N, h, w, false) +
+                                                          2LL * N * h * w * C)
+    return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  int err = resident_blocks(refiner_bwd_kernel<T, TF32>, BWD_SMEM_BYTES, max_blocks, &blocks);
+  if (err != 0) return err;
+  BwdArgs a;
+  const int grid = fill_args(a, guidance, idepth, wpack, barrier, N, cg, h, w, dil, blocks);
+  if (grid < 0) return (int)cudaErrorInvalidValue;
+  a.kp = grad_offset(a.cin_pad, LAYERS) + VEC_FLOATS;
+  if (partial_floats < (long long)grid * a.kp) return (int)cudaErrorInvalidValue;
+  const int64_t npc = (int64_t)N * a.P * C;
+  a.out = const_cast<float*>(out);
+  a.slots = NGN;
+  a.hbuf = const_cast<float*>(keep_h);
+  a.tbuf = const_cast<float*>(keep_t);
+  a.grad = grad;
+  a.stats = keep_stats;
+  a.dguid = dguid;
+  a.didepth = didepth;
+  a.dh = scratch;
+  a.partials = reinterpret_cast<double2*>(scratch + 2 * npc);
+  a.partial = partial;
+  a.dparams = dparams;
+  void* args[] = {&a};
+  cudaError_t status = cudaLaunchCooperativeKernel((const void*)refiner_bwd_kernel<T, TF32>,
+                                                   dim3(grid), dim3(THREADS), args,
+                                                   BWD_SMEM_BYTES, stream);
+  if (status != cudaSuccess) {
+    cudaGetLastError();
+    return (int)status;
   }
   return (int)cudaGetLastError();
 }
@@ -752,35 +1329,67 @@ int launch(const T* guidance, const float* idepth, const float* wpack, float* ou
 // column 0 the final conv; then 7 x (conv bias, GN gamma, GN beta) x 32 for conv0 and
 // res0..5, then bf (673 floats).
 // out (N, h, w); scratch: scratch_floats f32, 16-byte aligned, at least needed_scratch.
+// keep_t, keep_h (7, N, h, w, 32) and keep_stats (7, N, 2, 4), f32, or all three null:
+// under autograd, each GroupNorm layer's raw conv output T_l, its h_l, and its mean and
+// rstd per group, kept for the backward (the scratch then holds no maps).
 // barrier: one uint32 that no launch on another stream uses, 0 before its first launch
 // (a launch leaves it ready for the next). dil: the six resblock dilations (host array),
 // 1 to 8. Returns a cudaError_t code: cudaErrorInvalidValue for an argument it does not
 // take, cudaErrorCooperativeLaunchTooLarge if the grid cannot be resident.
 extern "C" int mvs_idepthmap_refiner_f32(const float* guidance, const float* idepth,
                                          const float* wpack, float* out, float* scratch,
-                                         long long scratch_floats, unsigned int* barrier,
-                                         int N, int cg, int h, int w, const int* dil,
-                                         cudaStream_t stream) {
-  return launch<float, false>(guidance, idepth, wpack, out, scratch, scratch_floats, barrier,
-                              N, cg, h, w, dil, stream);
+                                         long long scratch_floats, float* keep_t,
+                                         float* keep_h, float* keep_stats,
+                                         unsigned int* barrier, int N, int cg, int h, int w,
+                                         const int* dil, cudaStream_t stream) {
+  return launch<float, false>(guidance, idepth, wpack, out, scratch, scratch_floats, keep_t,
+                              keep_h, keep_stats, barrier, N, cg, h, w, dil, stream);
 }
 
 // The same in 1xTF32; wpack holds each weight as (w rounded to TF32, 0).
 extern "C" int mvs_idepthmap_refiner_tf32(const float* guidance, const float* idepth,
                                           const float* wpack, float* out, float* scratch,
-                                          long long scratch_floats, unsigned int* barrier,
-                                          int N, int cg, int h, int w, const int* dil,
-                                          cudaStream_t stream) {
-  return launch<float, true>(guidance, idepth, wpack, out, scratch, scratch_floats, barrier,
-                             N, cg, h, w, dil, stream);
+                                          long long scratch_floats, float* keep_t,
+                                          float* keep_h, float* keep_stats,
+                                          unsigned int* barrier, int N, int cg, int h, int w,
+                                          const int* dil, cudaStream_t stream) {
+  return launch<float, true>(guidance, idepth, wpack, out, scratch, scratch_floats, keep_t,
+                             keep_h, keep_stats, barrier, N, cg, h, w, dil, stream);
 }
 
 // The same with bf16 guidance; wpack holds each weight as (w rounded to bf16, 0).
 extern "C" int mvs_idepthmap_refiner_bf16(const __nv_bfloat16* guidance, const float* idepth,
                                           const float* wpack, float* out, float* scratch,
-                                          long long scratch_floats, unsigned int* barrier,
-                                          int N, int cg, int h, int w, const int* dil,
-                                          cudaStream_t stream) {
+                                          long long scratch_floats, float* keep_t,
+                                          float* keep_h, float* keep_stats,
+                                          unsigned int* barrier, int N, int cg, int h, int w,
+                                          const int* dil, cudaStream_t stream) {
   return launch<__nv_bfloat16, false>(guidance, idepth, wpack, out, scratch, scratch_floats,
-                                      barrier, N, cg, h, w, dil, stream);
+                                      keep_t, keep_h, keep_stats, barrier, N, cg, h, w, dil,
+                                      stream);
 }
+
+// The backward of the variant's forward, from its inputs (guidance, idepth, the same
+// wpack), its output out and what it kept (keep_t, keep_h, keep_stats), and the output's
+// gradient grad (N, h, w) f32. Writes dguid (N, cg, h, w) f32 where not null, didepth
+// (N, h, w) f32 and dparams: the parameter gradients in the pack's order, conv0's taps
+// (9, cin_pad, 32), the resblocks' (6, 9, 32, 32), the final conv's (9, 32), then the
+// vector (673) in its order; partial: partial_floats f32, one slot of dparams' size a block
+// (at most one block a multiprocessor); scratch: scratch_floats f32, 16-byte aligned, at
+// least two maps (N, h, w, 32) and needed_scratch's partials. Same barrier, dil and returns
+// as the forward.
+#define MVS_REFINER_BWD(NAME, T, TF32)                                                      \
+  extern "C" int NAME(const T* guidance, const float* idepth, const float* wpack,          \
+                      const float* out, const float* keep_t, const float* keep_h,          \
+                      const float* keep_stats, const float* grad, float* dguid,            \
+                      float* didepth, float* dparams, float* partial,                      \
+                      long long partial_floats, float* scratch, long long scratch_floats,  \
+                      unsigned int* barrier, int N, int cg, int h, int w, const int* dil,  \
+                      cudaStream_t stream) {                                               \
+    return launch_bwd<T, TF32>(guidance, idepth, wpack, out, keep_t, keep_h, keep_stats,   \
+                               grad, dguid, didepth, dparams, partial, partial_floats,     \
+                               scratch, scratch_floats, barrier, N, cg, h, w, dil, stream); \
+  }
+MVS_REFINER_BWD(mvs_idepthmap_refiner_bwd_f32, float, false)
+MVS_REFINER_BWD(mvs_idepthmap_refiner_bwd_tf32, float, true)
+MVS_REFINER_BWD(mvs_idepthmap_refiner_bwd_bf16, __nv_bfloat16, false)

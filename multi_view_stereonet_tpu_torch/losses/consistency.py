@@ -5,7 +5,7 @@ Port of ``multi_view_stereonet_tpu/losses/consistency.py``. Every sample goes th
 ``ops.cuda.warp.grid_sample``: the K1 kernel for CUDA tensors, its plain version for
 CPU tensors or under ``impl="plain"``. Here the kernel runs under autograd with a
 gradient to the sampled map and to the grid, which is projected from predicted idepth;
-its backward recomputes the plain gather.
+its backward is K1's backward kernel (``ops.cuda.warp.grid_sample_backward``).
 """
 
 from __future__ import annotations

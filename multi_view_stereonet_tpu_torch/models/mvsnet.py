@@ -14,8 +14,8 @@ at the small levels (``fused_refiner_supported``: 4 and 3 at 480x640), and
 GroupNorm -> LeakyReLU (+ residual) everywhere else: the extractor's and
 the larger refiners' resblocks, those refiners' bn0 and the cost filter.
 ``impl`` ("auto" | "kernel" | "plain") reaches all four; see
-ops/cuda/build.py. Under autograd each kernel's backward recomputes its plain
-version (ops/cuda/recompute.py).
+ops/cuda/build.py. Under autograd each kernel runs in a ``torch.autograd.Function``
+whose backward is a hand-written kernel too, beside its plain version in closed form.
 
 ``compute_dtype`` / ``refiner_dtype`` / ``frontend_dtype`` ("float32" or
 "bfloat16") select the storage dtype of the activations, as the JAX forward

@@ -134,6 +134,14 @@ def load_library(name: str) -> ctypes.CDLL:
     return load_libraries(name)[0]
 
 
+def needs_autograd(*tensors) -> bool:
+    """True when grad mode is on and any of ``tensors`` (None skipped) requires grad:
+    the wrappers then go through their Function, and launch the kernel directly
+    otherwise."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
 def launch_device(device: torch.device):
     """The context of a ctypes launch on ``device``'s tensors: that card made current
     where it is not. The kernels launch through the runtime on the thread's current

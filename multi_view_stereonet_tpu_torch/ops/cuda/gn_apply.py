@@ -25,8 +25,7 @@ launch that holds x and the gradient in the shared memory of up to one block an 
 ("resident", or "partial" where they do not all fit and the rest is read twice). The
 residual's gradient is the output's. A launch the card refuses raises; nothing retries
 on another route. The JAX
-``_bwd`` (``gn_apply.py:120-126``) takes the VJP of ``_xla_reference`` instead: the
-port's other kernels recompute their plain versions so (recompute.py). Backward
+``_bwd`` (``gn_apply.py:120-126``) takes the VJP of ``_xla_reference`` instead. Backward
 launches count in ``backward_launches``, so ``launches`` counts forwards only.
 """
 
@@ -40,9 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from .build import (
-    barrier_counter, check_status, custom_op, launch_device, load_library, tracing,
-    use_kernel)
-from .recompute import needs_autograd
+    barrier_counter, check_status, custom_op, launch_device, load_library, needs_autograd,
+    tracing, use_kernel)
 
 # Kernel launches since the last reset; only the kernel path counts, one per call (a
 # forward's one or two launches count once). backward_launches counts the backward

@@ -46,12 +46,13 @@ import torch.nn.functional as F
 from .. import precision
 from ...geometry.projection import pixel_grid
 from .build import (
-    check_status, custom_op, launch_device, load_library, tracing, use_kernel)
-from .recompute import needs_autograd
+    check_status, custom_op, launch_device, load_library, needs_autograd, tracing,
+    use_kernel)
+from .closed_form import (
+    _conv_grads, _gn_backward, _gn_forward, _group_stats, _leaky, _nchw, _operand_round,
+    _round_to)
 from .warp import grid_sample_backward_plain, grid_sample_plain
 from ..warp import homography_grid
-
-GROUPS, SLOPE, GN_EPS = 4, 0.2, 1e-5  # the FeatureRefiner's GroupNorms and LeakyReLU
 
 # Kernel launches since the last reset; only the kernel path counts. tf32_launches
 # counts those of the 1xTF32 variant among them.
@@ -84,59 +85,6 @@ def incremental_chain_tf32_plain(refiner, feats0: torch.Tensor, image_rest: torc
     rounds it, then computed in f32 (``precision.scope("tf32_round")``)."""
     with precision.scope("tf32_round"):
         return incremental_chain_plain(refiner, feats0, image_rest, H_inc)
-
-
-def _operand_round(dtype: torch.dtype, tf32: bool):
-    """How the kernel's convs round an f32 operand: to bf16 at bf16 storage, to TF32 in
-    the 1xTF32 variant, not at all in 3xTF32 (exact f32); the gradient passed straight
-    through."""
-    if dtype == torch.bfloat16:
-        return lambda x: x.to(torch.bfloat16).float()
-    return precision.round_tf32 if tf32 else (lambda x: x)
-
-
-def _round_to(dtype: torch.dtype, x: torch.Tensor) -> torch.Tensor:
-    """x (f32) rounded to the storage ``dtype``, kept in f32."""
-    return x if dtype == torch.float32 else x.to(dtype).float()
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
-
-
-def _gn_forward(raw: torch.Tensor, stat: torch.Tensor, gamma: torch.Tensor,
-                beta: torch.Tensor):
-    """x_hat and the GroupNorm value z = x_hat gamma + beta of raw (N, h, w, 32) from the
-    statistics stat (N, 2, 4) (mean, rstd of each group), in the kernel's order."""
-    N, h, w, C = raw.shape
-    g = raw.reshape(N, h, w, GROUPS, C // GROUPS)
-    xhat = ((g - stat[:, 0, None, None, :, None]) * stat[:, 1, None, None, :, None])
-    xhat = xhat.reshape(N, h, w, C)
-    return xhat, xhat * gamma + beta
-
-
-def _leaky(z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """LeakyReLU(0.2) of an f32 value, rounded to the storage dtype."""
-    return _round_to(dtype, torch.where(z >= 0, z, SLOPE * z))
-
-
-def _leaky_slope(z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """LeakyReLU's derivative at the f32 GroupNorm value z, as plain autograd takes it: at
-    f32 ``F.leaky_relu``'s (0.2 at 0), at bf16 the JAX-style ``where`` on z rounded (1 at 0)."""
-    if dtype == torch.float32:
-        return torch.where(z > 0, 1.0, SLOPE)
-    return torch.where(_round_to(dtype, z) >= 0, 1.0, SLOPE)
-
-
-def _group_stats(x: torch.Tensor) -> torch.Tensor:
-    """(N, 2, 4) f32 mean and rstd of each group of x (N, h, w, 32), one pass in f64 with
-    the variance clamped at 0, as the kernel's cluster sums compute them."""
-    N = x.shape[0]
-    v = x.double().reshape(N, -1, GROUPS, x.shape[-1] // GROUPS).transpose(1, 2)
-    v = v.reshape(N, GROUPS, -1)
-    mean = v.mean(-1)
-    var = ((v * v).mean(-1) - mean * mean).clamp_min(0.0)
-    return torch.stack([mean, 1.0 / torch.sqrt(var + GN_EPS)], 1).float()
 
 
 # The FeatureRefiner's parameters in the order the plain forward and the closed form take
@@ -208,34 +156,6 @@ def homography_grid_backward(H: torch.Tensor, dgrid: torch.Tensor) -> torch.Tens
     dv = dgrid[..., 1].reshape(B, -1) * (2.0 / h)
     dxyz = torch.stack([du / Z, dv / Z, -(du * X + dv * Y) / (Z * Z)], 1)  # (B, 3, P)
     return dxyz @ pix.T
-
-
-def _gn_backward(g: torch.Tensor, z: torch.Tensor, xhat: torch.Tensor, stat: torch.Tensor,
-                 gamma: torch.Tensor, dtype: torch.dtype) -> tuple:
-    """GroupNorm + LeakyReLU's backward at one step: (d raw, d gamma, d beta) from the
-    output's gradient g (N, h, w, 32), sums over the map in f64."""
-    N, h, w, C = g.shape
-    gz = g * _leaky_slope(z, dtype)
-    s1 = gz.double().sum((1, 2))  # (N, C): sum of gz, and of gz x_hat
-    s2 = (gz * xhat).double().sum((1, 2))
-    n = h * w * (C // GROUPS)
-    a = (s1 * gamma.double()).reshape(N, GROUPS, -1).sum(-1) / n  # (N, groups)
-    b = (s2 * gamma.double()).reshape(N, GROUPS, -1).sum(-1) / n
-    per = C // GROUPS
-    a = a.float().repeat_interleave(per, -1)[:, None, None]
-    b = b.float().repeat_interleave(per, -1)[:, None, None]
-    rstd = stat[:, 1].repeat_interleave(per, -1)[:, None, None]
-    dx = rstd * (gz * gamma - a - xhat * b)
-    return dx, s2.sum(0).float(), s1.sum(0).float()
-
-
-def _conv_grads(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, rnd) -> tuple:
-    """(d input, d weight) of a 3x3 "same" conv of x (N, h, w, Cin) with an OIHW weight,
-    given its output's gradient g (N, h, w, Cout), each operand rounded by ``rnd``."""
-    gx, gw, _ = torch.ops.aten.convolution_backward(
-        _nchw(rnd(g)).contiguous(), _nchw(rnd(x)).contiguous(), rnd(weight), None, [1, 1],
-        [1, 1], [1, 1], False, [0, 0], 1, [True, True, False])
-    return gx.permute(0, 2, 3, 1), gw
 
 
 def incremental_chain_backward_plain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
@@ -547,8 +467,10 @@ class _IncrementalChain(torch.autograd.Function):
     Pallas kernel does; the convs' gradient operands rounded to bf16, every other
     gradient f32), not the JAX custom VJP's bf16 gradient of the scan, whose warp
     interpolates at bf16 and whose gradients are each rounded to bf16: the two lie up to
-    0.25 of max apart (chip_smoke.py ``CHAIN_LEGS``), an open fault (ROADMAP.md Queue
-    3)."""
+    0.25 of max apart (chip_smoke.py ``CHAIN_LEGS``). The bf16 recipe trains alike under
+    either gradient (``scripts/k2_bf16_convergence_torch.py``: the best validation EPE of
+    Run A's recipe with the backward by plain autograd lies within the spread of two runs
+    through this Function; ``docs/convergence_torch/k2_bf16/``)."""
 
     @staticmethod
     def forward(ctx, refiner, cluster, tf32, feats0, image_rest, H_inc, *params):

@@ -15,11 +15,16 @@ weights are packed into the kernel's layout once a storage dtype and reused unti
 a parameter changes
 (``packed_weights``; after an in-place write through ``.data``, which no key sees,
 call ``invalidate_packed_weights``). Under autograd the kernel runs in
-``_IdepthmapRefiner``, which takes every parameter of the refiner as an input and whose
-backward recomputes the module's plain version, as the JAX ``_fused_bwd``
-(``refiner_kernel.py:244-252``) recomputes ``idepthmap_refiner_s2d`` (see
-recompute.py). An optimizer step writes the weights in place, which bumps their
-versions: the next launch repacks them once.
+``_IdepthmapRefiner``, which takes every parameter of the refiner as an input; its
+forward also keeps each GroupNorm layer's raw conv output T_l and its h_l, and each
+GroupNorm's statistics, and its backward launches the backward kernel
+(``idepthmap_refiner_backward``, counted in ``backward_launches``) on those: the VJP of
+the refiner that the JAX ``_fused_bwd`` (``refiner_kernel.py:244-252``) takes by
+recomputing ``idepthmap_refiner_s2d``. Its plain version in closed form is
+``idepthmap_refiner_backward_plain``, fed by the forward kernel's plain version
+(``idepthmap_refiner_saved_plain``) or by what the kernel kept. The kept maps cost 14 x
+N x h x w x 32 f32 (69 MB at (8, 35, 60, 80)). An optimizer step writes the weights in
+place, which bumps their versions: the next launch repacks them once.
 
 At f32 guidance the kernel has two variants: 3xTF32 (exact f32, the default) and 1xTF32
 (``tf32``), which ``idepthmap_refiner`` takes inside a "tf32" precision scope
@@ -35,18 +40,22 @@ import ctypes
 import weakref
 
 import torch
+import torch.nn.functional as F
 
 from .. import precision
 from .build import (
-    barrier_counter, check_status, custom_op, launch_device, load_library, tracing,
-    use_kernel)
-from .recompute import bind_parameters, needs_autograd, plain_vjp
-from .incremental_chain import _taps
+    barrier_counter, check_status, custom_op, launch_device, load_library, needs_autograd,
+    tracing, use_kernel)
+from .closed_form import (
+    _conv_grads, _gn_backward, _gn_forward, _GradRound, _group_stats, _leaky, _nchw,
+    _operand_round, _round_to)
+from .incremental_chain import _taps, _untaps
 
 # Kernel launches since the last reset; only the kernel path counts. tf32_launches
-# counts those of the 1xTF32 variant among them.
+# counts those of the 1xTF32 variant among them; backward_launches the backward kernel's.
 launches = 0
 tf32_launches = 0
+backward_launches = 0
 
 MAX_CIN0 = 36      # conv0 input channels the kernel's shared memory holds
 NUM_RES = 6
@@ -60,6 +69,12 @@ WF_COLS = 8        # the final conv's one output channel, padded to an n8 tile
 ENTRIES = {torch.float32: "mvs_idepthmap_refiner_f32",
            torch.bfloat16: "mvs_idepthmap_refiner_bf16"}
 TF32_ENTRY = "mvs_idepthmap_refiner_tf32"
+# The backward kernel's entries, named as the forward's with "_bwd".
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGS = {"forward": [_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 4
+                    + [ctypes.POINTER(ctypes.c_int), _PTR],
+         "backward": [_PTR] * 12 + [_LL, _PTR, _LL, _PTR] + [_INT] * 4
+                     + [ctypes.POINTER(ctypes.c_int), _PTR]}
 
 # refiner -> {(storage dtype, tf32): (parameters, their storages kept alive, the key
 # (``_pack_key``), (packed weights, dilations))}
@@ -93,6 +108,100 @@ def idepthmap_refiner_tf32_plain(refiner, guidance: torch.Tensor,
         return idepthmap_refiner_plain(refiner, guidance, idepthmap)
 
 
+def _dilations(refiner) -> tuple:
+    return tuple(getattr(refiner, f"res{i}").conv1.dilation[0] for i in range(NUM_RES))
+
+
+def idepthmap_refiner_saved_plain(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
+                                  tf32: bool = False) -> tuple:
+    """The forward kernel's plain version under autograd: (out, raw, stats) at its rounding
+    points, where out is the (N, h, w) f32 output, raw (7, N, h, w, 32) f32 each GroupNorm
+    layer's conv + bias (conv0's, then the resblocks') and stats (7, N, 2, 4) f32 each of
+    those GroupNorms' (mean, rstd) per group: the tensors the backward reads. Its convs at
+    the kernel's operand rounding (``tf32``: the 1xTF32 variant's)."""
+    with torch.no_grad():
+        return saved_forward([p.detach().float() for p in refiner.parameters()], guidance,
+                             idepthmap, _dilations(refiner), tf32)
+
+
+def saved_forward(weights, guidance: torch.Tensor, idepthmap: torch.Tensor, dilations,
+                  tf32: bool = False) -> tuple:
+    """``idepthmap_refiner_saved_plain`` on f32 ``weights`` in the refiner's
+    ``parameters()`` order, differentiable in them and in the inputs: plain autograd through
+    the same forward that the closed-form backward reads, each conv's output gradient
+    rounded as the closed form rounds it (``_GradRound``), so that autograd's conv backward
+    takes the closed form's operands. As the kernel rounds at bf16 guidance: the staged
+    input [guidance, idepth rounded to bf16], each conv on bf16 operands with its bias
+    added in f32, h_0 = bf16(LeakyReLU(GN_0)), h_l = bf16(h_{l-1} +
+    bf16(LeakyReLU(GN_l))), the final conv's delta f32."""
+    dtype = guidance.dtype
+    rnd = _operand_round(dtype, tf32)
+    x = torch.cat([guidance.float().permute(0, 2, 3, 1),
+                   _round_to(dtype, idepthmap.float())[..., None]], -1)
+    raws, stats = [], []
+    with precision.scope("ieee"):
+        for k in range(NUM_GN):
+            w, b, gamma, beta = weights[4 * k:4 * k + 4]
+            d = 1 if k == 0 else dilations[k - 1]
+            t = _GradRound.apply(F.conv2d(_nchw(rnd(x)), rnd(w), None, padding=d,
+                                          dilation=d), rnd).permute(0, 2, 3, 1) + b
+            st = _group_stats(t)
+            branch = _leaky(_gn_forward(t, st, gamma, beta)[1], dtype)
+            x = branch if k == 0 else _round_to(dtype, x + branch)
+            raws.append(t)
+            stats.append(st)
+        wf, bf = weights[-2:]
+        delta = _GradRound.apply(F.conv2d(_nchw(rnd(x)), rnd(wf), None, padding=1), rnd)[:, 0]
+        out = torch.relu(idepthmap.float() + (delta + bf))
+    return out, torch.stack(raws), torch.stack(stats)
+
+
+def idepthmap_refiner_backward_plain(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
+                                     out: torch.Tensor, raw: torch.Tensor, stats: torch.Tensor,
+                                     grad: torch.Tensor, needs=(True, True, True),
+                                     tf32: bool = False) -> tuple:
+    """The backward kernel's plain version: the gradients (d guidance, d idepthmap, (d
+    parameter for each of the refiner's ``named_parameters``)) of the refiner given its
+    output's gradient ``grad``, in closed form over the forward's saved tensors (``out``,
+    ``raw``, ``stats``, as ``idepthmap_refiner_saved_plain`` gives them), the reverse loop
+    of the kernel: the final conv's backward through ReLU, then each GroupNorm layer's
+    (LeakyReLU, GroupNorm, conv; the residual's gradient added), conv0's last. h_l is
+    rebuilt from raw and stats in the forward's order and roundings. None for what
+    ``needs`` (guidance, idepthmap, the parameters) leaves out; d guidance at the
+    guidance's dtype, the rest f32. The convs' operands are rounded as the kernel's are
+    (``_operand_round``); the elementwise terms are f32, the map sums f64."""
+    dtype = guidance.dtype
+    rnd = _operand_round(dtype, tf32)
+    weights = [p.detach().float() for p in refiner.parameters()]
+    dilations = _dilations(refiner)
+    with torch.no_grad(), precision.scope("ieee"):
+        x = torch.cat([guidance.float().permute(0, 2, 3, 1),
+                       _round_to(dtype, idepthmap.float())[..., None]], -1)
+        hs = []
+        for k in range(NUM_GN):
+            branch = _leaky(_gn_forward(raw[k], stats[k], *weights[4 * k + 2:4 * k + 4])[1],
+                            dtype)
+            hs.append(branch if k == 0 else _round_to(dtype, hs[-1] + branch))
+        gout = grad.float() * (out > 0)
+        dparams = [None] * len(weights)
+        dh, dparams[-2] = _conv_grads(hs[-1], weights[-2], gout[..., None], rnd)
+        dparams[-1] = gout.sum().reshape(1)
+        didepth = gout
+        for k in range(NUM_GN - 1, -1, -1):
+            w, _, gamma, beta = weights[4 * k:4 * k + 4]
+            xhat, z = _gn_forward(raw[k], stats[k], gamma, beta)
+            dt, dgamma, dbeta = _gn_backward(dh, z, xhat, stats[k], gamma, dtype)
+            d = 1 if k == 0 else dilations[k - 1]
+            gx, dw = _conv_grads(x if k == 0 else hs[k - 1], w, dt, rnd, d)
+            dparams[4 * k:4 * k + 4] = dw, dt.sum((0, 1, 2)), dgamma, dbeta
+            if k > 0:
+                dh = dh + gx
+        cg = guidance.shape[1]
+        didepth = didepth + gx[..., cg]
+    return (gx[..., :cg].permute(0, 3, 1, 2).to(dtype) if needs[0] else None,
+            didepth if needs[1] else None, tuple(dparams) if needs[2] else None)
+
+
 def _variant(dtype: torch.dtype, tf32: bool) -> tuple:
     """(storage dtype, 1xTF32?): bf16 guidance takes its bf16 variant at every
     precision, so ``tf32`` holds only at f32."""
@@ -103,25 +212,28 @@ def _entry(dtype: torch.dtype, tf32: bool) -> str:
     return TF32_ENTRY if _variant(dtype, tf32)[1] else ENTRIES[dtype]
 
 
-def _kernel_function(dtype: torch.dtype, tf32: bool = False):
-    """The ctypes entry of csrc/idepthmap_refiner.cu for ``dtype`` and ``tf32`` (built on
-    first use)."""
+def _kernel_function(dtype: torch.dtype, tf32: bool = False, backward: bool = False):
+    """The ctypes entry of csrc/idepthmap_refiner.cu for ``dtype`` and ``tf32``, the
+    forward's or the ``backward`` kernel's (built on first use)."""
     name = _entry(dtype, tf32)
+    if backward:
+        name = name.replace("refiner_", "refiner_bwd_")
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(load_library("idepthmap_refiner"), name)
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
-                       + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.argtypes = _ARGS["backward" if backward else "forward"]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def scratch_floats(n: int, h: int, w: int) -> int:
-    """Floats of scratch a launch takes (the kernel checks it): h and T, double-buffered,
-    then the f64 (sum, sum of squares) partials of 7 GroupNorms x 4 groups per m-tile."""
+def scratch_floats(n: int, h: int, w: int, maps: int = 4) -> int:
+    """Floats of scratch a launch takes (the kernel checks it): ``maps`` (N, h, w, 32)
+    maps (the forward's h and T double-buffered: 4; kept for the backward: 0; the
+    backward's dh double-buffered: 2), then the f64 (sum, sum of squares) partials of 7
+    GroupNorms x 4 groups per m-tile."""
     m_tiles = n * -(-(h * w) // M_TILE)
-    return 4 * n * h * w * C + NUM_GN * m_tiles * 4 * 4
+    return maps * n * h * w * C + NUM_GN * m_tiles * 4 * 4
 
 
 def tf32_split(x: torch.Tensor):
@@ -267,12 +379,14 @@ def _output(guidance: torch.Tensor, idepthmap: torch.Tensor, pack: torch.Tensor,
     return idepthmap.new_empty((N, h, w))
 
 
-def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
-                              pack: torch.Tensor, dilations: list[int],
-                              tf32: bool = False) -> torch.Tensor:
+def _forward_launch(guidance: torch.Tensor, idepthmap: torch.Tensor, pack: torch.Tensor,
+                    dilations: list[int], tf32: bool = False, keep: bool = False):
     """Launch csrc/idepthmap_refiner.cu: one cooperative grid runs the whole refiner at
     the guidance's dtype (f32: 1xTF32 where ``tf32``, else 3xTF32), its weights packed by
-    ``_pack`` for that variant."""
+    ``_pack`` for that variant. Returns the (N, h, w) output; with ``keep`` (under
+    autograd) (out, raw, stats, hs), the kernel also writing what the backward reads: each
+    GroupNorm layer's raw conv output T_l (raw) and its h_l (hs), (7, N, h, w, 32), and
+    each GroupNorm's mean and rstd (stats, (7, N, 2, 4)), f32."""
     global launches, tf32_launches
     out = _output(guidance, idepthmap, pack, dilations)
     N, Cg, h, w = guidance.shape
@@ -280,19 +394,31 @@ def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
     guidance = guidance.contiguous()
     idepthmap = idepthmap.contiguous()
     fn = _kernel_function(guidance.dtype, tf32)
-    size = scratch_floats(N, h, w)
-    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    size = scratch_floats(N, h, w, 0 if keep else 4)
+    scratch = torch.empty(size, **f32)
+    raw = torch.empty((NUM_GN, N, h, w, C), **f32) if keep else None
+    hs = torch.empty((NUM_GN, N, h, w, C), **f32) if keep else None
+    stats = torch.empty((NUM_GN, N, 2, 4), **f32) if keep else None
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with launch_device(dev):
         status = fn(guidance.data_ptr(), idepthmap.data_ptr(), pack.contiguous().data_ptr(),
                     out.data_ptr(), scratch.data_ptr(), size,
+                    *(t.data_ptr() if keep else 0 for t in (raw, hs, stats)),
                     barrier_counter(dev, stream).data_ptr(), N, Cg, h, w,
                     (ctypes.c_int * NUM_RES)(*dilations), stream)
     entry = _entry(guidance.dtype, tf32)
     check_status(entry, status)
     launches += 1
     tf32_launches += entry == TF32_ENTRY
-    return out
+    return (out, raw, stats, hs) if keep else out
+
+
+def _idepthmap_refiner_launch(guidance: torch.Tensor, idepthmap: torch.Tensor,
+                              pack: torch.Tensor, dilations: list[int],
+                              tf32: bool = False) -> torch.Tensor:
+    """The forward kernel's output alone (``_forward_launch`` without ``keep``)."""
+    return _forward_launch(guidance, idepthmap, pack, dilations, tf32)
 
 
 _idepthmap_refiner_op = custom_op("idepthmap_refiner",
@@ -300,10 +426,12 @@ _idepthmap_refiner_op = custom_op("idepthmap_refiner",
 _idepthmap_refiner_op.register_fake(_output)
 
 
-def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
-            tf32: bool) -> torch.Tensor:
+def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor, tf32: bool,
+            keep: bool = False):
     """The kernel on CUDA tensors; while ``torch.export`` traces, through the custom op
-    ``mvs_torch::idepthmap_refiner`` (see build.py ``custom_op``).
+    ``mvs_torch::idepthmap_refiner`` (see build.py ``custom_op``). With ``keep`` (under
+    autograd) it returns (out, saved): saved is what ``_launch_backward`` takes, the
+    kept (raw, stats, hs) and the weight pack the forward ran on.
 
     The weights come from ``packed_weights``: a caller that writes them in place
     through ``.data`` must call ``invalidate_packed_weights`` before the next launch."""
@@ -315,30 +443,140 @@ def _launch(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
         raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, conv0 "
                          f"{tuple(refiner.conv0.weight.shape)}")
     pack, dilations = packed_weights(refiner, guidance.dtype, tf32)
+    tf32 = _variant(guidance.dtype, tf32)[1]
+    if keep:
+        out, raw, stats, hs = _forward_launch(guidance, idepthmap, pack, list(dilations),
+                                              tf32, keep=True)
+        return out, (raw, stats, hs, pack)
     launch = _idepthmap_refiner_op if tracing() else _idepthmap_refiner_launch
-    return launch(guidance, idepthmap, pack, list(dilations), _variant(guidance.dtype, tf32)[1])
+    return launch(guidance, idepthmap, pack, list(dilations), tf32)
+
+
+def grad_floats(cin0: int) -> int:
+    """Floats of the backward kernel's parameter gradients for a conv0 of ``cin0`` input
+    channels: conv0's taps (9, cin_pad, 32), the resblocks' (6, 9, 32, 32), the final
+    conv's (9, 32), then the 21 bias and GroupNorm rows and the final bias."""
+    cin_pad = -(-cin0 // 4) * 4
+    return 9 * (cin_pad * C + NUM_RES * C * C + C) + (3 + 3 * NUM_RES) * C + 1
+
+
+def idepthmap_refiner_backward(guidance: torch.Tensor, idepthmap: torch.Tensor,
+                               pack: torch.Tensor, dilations, out: torch.Tensor,
+                               raw: torch.Tensor, stats: torch.Tensor, hs: torch.Tensor,
+                               grad: torch.Tensor, need_guidance: bool = True,
+                               tf32: bool = False) -> tuple:
+    """The backward kernel of csrc/idepthmap_refiner.cu on CUDA tensors: from the forward's
+    inputs, the pack it ran on, its output ``out``, what it kept (``raw``, ``stats``,
+    ``hs``) and the output's gradient ``grad``, the gradients (d guidance f32, or None
+    without ``need_guidance``; d idepthmap f32; the parameter gradients, f32, in
+    ``grad_floats``' layout). One launch: the forward's cooperative grid, each block
+    writing its parameter gradients into a slot of its own, summed over the blocks in a
+    fixed order at the end. The contract of ``idepthmap_refiner_backward_plain``."""
+    global backward_launches
+    dtype = guidance.dtype
+    tensors = (guidance, idepthmap, pack, out, raw, stats, hs, grad)
+    if not all(t.is_cuda and t.device == out.device for t in tensors):
+        raise ValueError("idepthmap_refiner_backward needs every tensor on one CUDA device")
+    if dtype not in ENTRIES or any(t.dtype != torch.float32 for t in tensors[1:]):
+        raise TypeError("idepthmap_refiner_backward takes float32 or bfloat16 guidance and "
+                        "everything else float32")
+    N, Cg, h, w = guidance.shape
+    if (idepthmap.shape != (N, h, w) or out.shape != (N, h, w) or grad.shape != (N, h, w)
+            or raw.shape != (NUM_GN, N, h, w, C) or hs.shape != raw.shape
+            or stats.shape != (NUM_GN, N, 2, 4) or pack.shape != (packed_floats(Cg + 1),)
+            or len(dilations) != NUM_RES):
+        raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, out "
+                         f"{tuple(out.shape)}, grad {tuple(grad.shape)}, raw "
+                         f"{tuple(raw.shape)}, stats {tuple(stats.shape)}")
+    dev = out.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    kp = grad_floats(Cg + 1)
+    dguid = torch.empty((N, Cg, h, w), **f32) if need_guidance else None
+    didepth = torch.empty((N, h, w), **f32)
+    dparams = torch.empty(kp, **f32)
+    rows = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty(rows * kp, **f32)
+    size = scratch_floats(N, h, w, 2)
+    scratch = torch.empty(size, **f32)
+    args = [t.contiguous() for t in (guidance, idepthmap, pack, out, raw, hs, stats, grad)]
+    entry = _entry(dtype, tf32).replace("refiner_", "refiner_bwd_")
+    fn = _kernel_function(dtype, tf32, backward=True)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    with launch_device(dev):
+        status = fn(*(t.data_ptr() for t in args),
+                    0 if dguid is None else dguid.data_ptr(), didepth.data_ptr(),
+                    dparams.data_ptr(), partial.data_ptr(), partial.numel(),
+                    scratch.data_ptr(), size, barrier_counter(dev, stream).data_ptr(), N, Cg,
+                    h, w, (ctypes.c_int * NUM_RES)(*dilations), stream)
+    check_status(entry, status)
+    backward_launches += 1
+    return dguid, didepth, dparams
+
+
+def _unpack_grads(refiner, dparams: torch.Tensor) -> tuple:
+    """The backward kernel's parameter gradients (``grad_floats``' layout) as a gradient
+    for each of the refiner's ``named_parameters``."""
+    cin = refiner.conv0.weight.shape[1]
+    cin_pad = -(-cin // 4) * 4
+    k0, kr = 9 * cin_pad * C, 9 * C * C
+    w0 = dparams[:k0].reshape(9, cin_pad, C)[:, :cin]
+    wr = dparams[k0:k0 + NUM_RES * kr].reshape(NUM_RES, 9, C, C)
+    wf = dparams[k0 + NUM_RES * kr:k0 + NUM_RES * kr + 9 * C].reshape(9, C, 1)
+    vec = dparams[k0 + NUM_RES * kr + 9 * C:]
+    rows = vec[:-1].reshape(NUM_GN, 3, C)
+    grads = []
+    for k in range(NUM_GN):
+        grads += [_untaps(w0 if k == 0 else wr[k - 1]), *rows[k]]
+    return (*grads, _untaps(wf), vec[-1:])
+
+
+def _launch_backward(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
+                     out: torch.Tensor, saved: tuple, grad: torch.Tensor, needs,
+                     tf32: bool) -> tuple:
+    """The backward kernel (``idepthmap_refiner_backward``) on what ``_launch(...,
+    keep=True)`` saved; returns (d guidance at the guidance's dtype, d idepthmap, (d
+    parameter for each of the refiner's ``named_parameters``)) as
+    ``idepthmap_refiner_backward_plain`` does, None for what ``needs`` (guidance,
+    idepthmap, the parameters) leaves out."""
+    raw, stats, hs, pack = saved
+    dguid, didepth, dparams = idepthmap_refiner_backward(
+        guidance, idepthmap, pack, _dilations(refiner), out, raw, stats, hs, grad, needs[0],
+        tf32)
+    return (dguid.to(guidance.dtype) if needs[0] else None, didepth if needs[1] else None,
+            _unpack_grads(refiner, dparams) if needs[2] else None)
 
 
 class _IdepthmapRefiner(torch.autograd.Function):
     """K3 under autograd: the kernel forward, given every parameter of the refiner as an
-    input so that autograd routes their gradients; the backward recomputes the module's
-    plain version with those weights, its convs at the forward's precision (under cuDNN's
-    TF32 after the 1xTF32 variant, exact otherwise)."""
+    input so that autograd routes their gradients, keeping each GroupNorm layer's raw
+    conv output and h and each GroupNorm's statistics (``keep``); the backward kernel
+    from those (``_launch_backward``), launched once, and no forward kernel. It
+    differentiates the kernel's own forward at the points where it rounded: at f32 the
+    refiner's gradient within the 3xTF32 kernel's rounding (the 1xTF32 products after the
+    1xTF32 forward), as the JAX custom VJP (``refiner_kernel.py:227-255``) differentiates
+    ``idepthmap_refiner_s2d`` under the Pallas forward; at bf16 the gradient of the
+    refiner as the bf16 kernel rounds it, the convs' gradient operands rounded to bf16,
+    every other gradient f32 and the guidance's returned at bf16."""
 
     @staticmethod
-    def forward(ctx, refiner, names, tf32, guidance, idepthmap, *params):
-        ctx.refiner, ctx.names, ctx.tf32 = refiner, names, tf32
-        ctx.save_for_backward(guidance, idepthmap, *params)
-        return _launch(refiner, guidance, idepthmap, tf32)
+    def forward(ctx, refiner, tf32, guidance, idepthmap, *params):
+        ctx.refiner, ctx.tf32 = refiner, tf32
+        out, (raw, stats, hs, pack) = _launch(refiner, guidance, idepthmap, tf32, keep=True)
+        ctx.save_for_backward(guidance, idepthmap, out, raw, stats, hs)
+        # The pack the forward ran on is held by the context: it may come from the cache
+        # made under inference mode (a validation pass), which autograd refuses to save.
+        ctx.pack = pack
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        def plain(guidance, idepthmap, *params):
-            return idepthmap_refiner_plain(bind_parameters(ctx.refiner, ctx.names, params),
-                                           guidance, idepthmap)
-        with precision.scope("tf32" if ctx.tf32 else "ieee"):
-            return (None, None, None,
-                    *plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[3:], (grad,)))
+        guidance, idepthmap, out, raw, stats, hs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        dg, di, params = _launch_backward(ctx.refiner, guidance, idepthmap, out,
+                                          (raw, stats, hs, ctx.pack), grad,
+                                          (needs[0], needs[1], any(needs[2:])), ctx.tf32)
+        params = params or (None,) * len(needs[2:])
+        return (None, None, dg, di, *(p if need else None for p, need in zip(params, needs[2:])))
 
 
 def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
@@ -346,9 +584,9 @@ def idepthmap_refiner_kernel(refiner, guidance: torch.Tensor, idepthmap: torch.T
     """The kernel on CUDA tensors (``tf32``: the 1xTF32 variant at f32 guidance):
     launched directly, or through ``_IdepthmapRefiner`` when autograd records."""
     if torch.is_grad_enabled():
-        names, params = zip(*refiner.named_parameters())
+        params = list(refiner.parameters())
         if needs_autograd(guidance, idepthmap, *params):
-            return _IdepthmapRefiner.apply(refiner, names, tf32, guidance, idepthmap, *params)
+            return _IdepthmapRefiner.apply(refiner, tf32, guidance, idepthmap, *params)
     return _launch(refiner, guidance, idepthmap, tf32)
 
 

@@ -37,8 +37,8 @@ import ctypes
 import torch
 
 from .build import (
-    check_status, custom_op, launch_device, load_library, tracing, use_kernel)
-from .recompute import needs_autograd
+    check_status, custom_op, launch_device, load_library, needs_autograd, tracing,
+    use_kernel)
 
 # Kernel launches since the last reset; only the kernel path counts. backward_launches
 # counts the backward kernel's.

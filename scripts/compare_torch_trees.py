@@ -21,6 +21,14 @@ change, parent, ... (``--pairs`` of each):
 then ``scripts/profile_torch_serving.py`` of each checkout, parent, change,
 change, parent. Prints every run, the medians, the card's name and power
 limit, and with ``--out FILE`` writes it all there as JSON.
+
+With ``--train-step`` each run times instead the recipe's train step (B = 8, V = 1,
+480x640, D = 12, cost filter and five refiners on, adam 1e-3, augmentation on;
+``chip_smoke.py`` phase 7's) on one batch of a synthetic GTA-SfM tree from seeded
+fan-in-scale weights, on the kernel path: ms a step (CUDA events around each of 4 steps
+after 2 warm-up steps, the median), peak memory over those steps, device busy a step
+(``chip_smoke.profile_kernels``) with ``aten::native_group_norm``'s calls and device time
+and its backward's, and the K3 (refiner) forward and backward launches of one step.
 """
 
 from __future__ import annotations
@@ -148,16 +156,96 @@ def measure(tree: str) -> dict:
     return result
 
 
+def measure_train_step(tree: str) -> dict:
+    """One checkout's train-step numbers (``--train-step``), imported from ``tree``."""
+    sys.path.insert(0, tree)
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.data.loader import collate
+    from multi_view_stereonet_tpu_torch.models import MultiViewStereoNet
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+    from multi_view_stereonet_tpu_torch.train import train_cli
+    from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = load_params_yaml(None)
+    cfg.update({"num_workers": 0, "debug_image_freq": 0, "plot_freq": 0})
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, split = chip_smoke.synthetic_data().make_gta_sfm_tree(
+            os.path.join(tmp, "tree"), num_sequences=1, frames=cfg["batch_size"] + 1,
+            rows=cfg["size"][0], cols=cfg["size"][1], seed=3, comparisons=1)
+        dataset = train_cli.make_dataset(cfg, data_dir, split, True, 0,
+                                         np.random.default_rng(0))
+        batch = collate([dataset[i] for i in range(cfg["batch_size"])])
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+             if not k.endswith("filenames")}
+    model = MultiViewStereoNet()
+    model.load_state_dict(random_state_dict(0))
+    model = model.to(dev)
+    _, _, _, step = train_cli.build_train_step(cfg, 12, model, "auto")
+    for _ in range(2):
+        step(model, batch)
+    torch.cuda.synchronize()
+    forward0 = refiner_op.launches
+    backward0 = getattr(refiner_op, "backward_launches", None)
+    step(model, batch)
+    torch.cuda.synchronize()
+    launches = {"refiner_forward": refiner_op.launches - forward0,
+                "refiner_backward": (None if backward0 is None
+                                     else refiner_op.backward_launches - backward0)}
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, _ = step(model, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        if not np.isfinite(loss.item()):
+            raise AssertionError("a non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, prof = chip_smoke.profile_kernels(lambda: step(model, batch), 1)
+    return {"ms": statistics.median(times), "times": times, "peak_gib": peak / 2**30,
+            "busy_ms": busy, "wall_ms": wall, **chip_smoke.group_norm_device_ms(prof),
+            **launches}
+
+
+def train_step_report(runs: list, card: str) -> dict:
+    """Print each ``--train-step`` run and the medians; returns the medians."""
+    for r in runs:
+        print(f"{r['label']}: {r['ms']:.3f} ms a step, peak {r['peak_gib']:.3f} GiB, device "
+              f"busy {r['busy_ms']:.3f} ms, native_group_norm {r['native_group_norm_calls']} "
+              f"calls {r['native_group_norm_ms']:.3f} ms (backward "
+              f"{r['native_group_norm_backward_ms']:.3f}), K3 launches forward "
+              f"{r['refiner_forward']} backward {r['refiner_backward']}", flush=True)
+    medians = {label: {k: statistics.median(r[k] for r in runs if r["label"] == label)
+                       for k in ("ms", "peak_gib", "busy_ms", "native_group_norm_calls")}
+               for label in ("parent", "change")}
+    print(f"medians ({card}): {json.dumps(medians)}", flush=True)
+    return medians
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("parent")
     parser.add_argument("change")
     parser.add_argument("--pairs", type=int, default=6)
     parser.add_argument("--out", help="write every run and profile here as JSON")
+    parser.add_argument("--train-step", action="store_true",
+                        help="time the recipe's train step instead (see above)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
-        print(json.dumps(measure(os.path.abspath(args.child))), flush=True)
+        run = measure_train_step if args.train_step else measure
+        print(json.dumps(run(os.path.abspath(args.child))), flush=True)
         return
 
     trees = {"parent": os.path.abspath(args.parent), "change": os.path.abspath(args.change)}
@@ -165,14 +253,24 @@ def main():
     runs = []
     for label in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), args.parent,
-                               args.change, "--child", trees[label]], capture_output=True,
-                              text=True, check=True)
+                               args.change, "--child", trees[label]]
+                              + ["--train-step"] * args.train_step, capture_output=True,
+                              text=True, check=True, cwd=trees[label])
         run = {"label": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
         runs.append(run)
+        if args.train_step:
+            continue
         k3 = ", ".join(f"{key[3:]} {run[key]:.4f}" for key in K3_KEYS)
         print(f"{label}: {run['ms_per_frame']:.3f} ms/frame, K2 device "
               f"{run['k2_device_ms_n1']:.4f} ms at N=1, {run['k2_device_ms_n5']:.4f} at N=5; "
               f"K3 {k3}", flush=True)
+    if args.train_step:
+        card = smi()
+        medians = train_step_report(runs, card)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "runs": runs, "medians": medians}, f, indent=1)
+        return
     summary = {}
     for label in trees:
         mine = [r for r in runs if r["label"] == label]

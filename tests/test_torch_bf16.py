@@ -51,7 +51,6 @@ from multi_view_stereonet_tpu_torch.ops import homography_warp_auto
 from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
 from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
 from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
-from multi_view_stereonet_tpu_torch.ops.cuda.recompute import plain_vjp
 from multi_view_stereonet_tpu_torch.train import train_cli
 
 from tests.synthetic_data import make_gta_sfm_tree
@@ -439,7 +438,7 @@ def test_train_cli_takes_bf16_and_refuses_an_unknown_dtype(tmp_path):
         assert not (tmp_path / "run").exists()
 
 
-# ---- K3's weight pack and the recompute at bf16 ----
+# ---- K3's weight pack at bf16 ----
 
 def test_k3_pack_key_holds_the_storage_dtype():
     """The parameters stay f32 at every storage dtype, so the key must name the dtype
@@ -460,23 +459,3 @@ def test_k3_pack_key_holds_the_storage_dtype():
     # The bf16 pack holds (w rounded to bf16, 0) pairs in the f32 pack's layout.
     pairs = pack16[:-((3 + 3 * refiner_op.NUM_RES) * refiner_op.C + 1)].reshape(-1, 2)
     assert torch.equal(pairs[:, 0], pairs[:, 0].to(BF16).float()) and not pairs[:, 1].any()
-
-
-def test_recompute_runs_the_plain_version_at_bf16():
-    """A kernel's Function recomputes its plain version on the inputs it saved; given
-    bf16 inputs the recompute runs at bf16 and returns bf16 gradients, those of plain
-    autograd at bf16."""
-    g = torch.Generator().manual_seed(9)
-    x = torch.randn(2, 32, 4, 6, generator=g).to(BF16)
-    res = torch.randn(2, 32, 4, 6, generator=g).to(BF16)
-    w, b = 1 + 0.1 * torch.randn(32, generator=g), 0.1 * torch.randn(32, generator=g)
-    grad = torch.randn(2, 32, 4, 6, generator=g).to(BF16)
-
-    def plain(x, w, b, res):
-        return gn_apply.group_norm_act_plain(x, w, b, 4, res)
-    got = plain_vjp(plain, (x, w, b, res), (True, True, True, True), (grad,))
-    leaves = [t.clone().requires_grad_() for t in (x, w, b, res)]
-    ref = torch.autograd.grad(plain(*leaves), leaves, grad)
-    assert [t.dtype for t in got] == [BF16, torch.float32, torch.float32, BF16]
-    for a, r in zip(got, ref):
-        assert torch.equal(a, r)

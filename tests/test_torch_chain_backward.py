@@ -24,8 +24,9 @@ version (``incremental_chain_saved_plain``) and held against:
   ``jax.vjp`` of ``_incremental_scan`` at bf16 within BF16_JAX_BAR of max, a bar that
   also holds the port's plain autograd at bf16: the JAX scan at bf16 warps at bf16 and
   rounds every gradient to bf16, where the kernel warps in f32 and keeps its gradients
-  f32, so the two are bf16 gradients of the same scan only to within bf16's noise (an
-  open fault, ROADMAP Queue 3); and against autograd through its own rounded forward
+  f32, so the two are bf16 gradients of the same scan only to within bf16's noise (the
+  bf16 recipe trains alike under either: scripts/k2_bf16_convergence_torch.py, ROADMAP
+  Queue 3); and against autograd through its own rounded forward
   within 2e-2 (chip_smoke.py ``CHAIN_LEGS``), off the f32 gradient by more than 1e-3.
 
 N = 2, D = 4, 6 x 8 x 32 (and D = 6 at 5 x 7), with homographies from random poses and

@@ -14,9 +14,9 @@ refiner within atol 2e-5 * max|plain|, rtol 2e-4, also after its weights are wri
 every serving and recipe shape (at bf16 within phase 11's rounding bar), and its backward
 kernel within 1e-4 of max|plain| of its plain version and of plain autograd (1e-2 at
 bf16; the output's gradient 0 within a rounding of LeakyReLU's kink), bit-equal over two
-calls, a refused launch raising in either; the grid sample's backward kernel within 1e-5
-and the chain's within 1e-4 (1e-3 in 1xTF32, 1e-2 at bf16) of max|plain| of their closed
-forms, one backward launch a call;
+calls, a refused launch raising in either; the grid sample's backward kernel within 1e-5,
+the chain's within 1e-4 (1e-3 in 1xTF32, 1e-2 at bf16) and the refiner's within 1e-4 (1e-3
+in 1xTF32, 2e-2 at bf16) of max|plain| of their closed forms, one backward launch a call;
 the whole forward within 0.2% of each level's output range; the multi-view and
 the two-view training losses and gradients within docs/PARITY.md:218-232's bar. The u8 dequantize is
 bit-equal to the host pipeline for all 256 values. Each kernel's custom op passes
@@ -460,6 +460,119 @@ def test_refiner_kernel_matches_plain(dev, n, cg, h, w):
                           rtol=REFINER_RTOL)
     # The refiner moves the map: a kernel returning ReLU(idepth) would not pass.
     assert (ref - torch.relu(idepth)).abs().mean().item() > 0.01
+
+
+# K3's backward kernel: the serving and recipe shapes (level 4 at N = 1 and 8, level 3 at N
+# = 1 and 8), the image-only refiner, a map whose h*w is not a multiple of the m-tile and
+# one smaller than the dilation-8 taps; the three variants.
+@pytest.mark.parametrize("n,cg,h,w", [(1, 35, 30, 40), (8, 35, 30, 40), (1, 35, 60, 80),
+                                      (8, 35, 60, 80), (2, 3, 16, 24), (2, 35, 7, 13),
+                                      (3, 35, 4, 5)])
+@pytest.mark.parametrize("variant", ["f32", "tf32", "bf16"])
+def test_refiner_backward_kernel_matches_its_closed_form(dev, n, cg, h, w, variant):
+    """K3's backward kernel against ``idepthmap_refiner_backward_plain`` (closed form) on
+    what its forward kept: every gradient (guidance, idepth and each refiner parameter)
+    within 1e-4 of max|plain| in 3xTF32, 1e-3 in 1xTF32 (each conv operand rounded to TF32
+    on both sides, their sums in another order) and 2e-2 at bf16 (the same with bf16
+    operands); the kept forward bit-equal to the one that keeps nothing, and what it kept
+    (the output, each GroupNorm layer's raw conv output, the statistics) against the
+    forward kernel's plain version within 1e-4, 1e-3 and 5e-2 of max|plain|; one backward
+    launch a call and no forward launch; two runs bit-equal."""
+    module = idepthmap_refiner_module(cg, seed=n, dev=dev)
+    g = torch.Generator().manual_seed(h)
+    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+    tf32 = variant == "tf32"
+    bar = {"f32": 1e-4, "tf32": 1e-3, "bf16": 2e-2}[variant]
+    forward_bar = {"f32": 1e-4, "tf32": 1e-3, "bf16": 5e-2}[variant]
+    guidance = (torch.rand(n, cg, h, w, generator=g) * 2 - 1).to(dev, dtype)
+    idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+    cot = torch.randn(n, h, w, generator=g).to(dev)
+    with torch.no_grad():
+        out, saved = refiner_op._launch(module, guidance, idepth, tf32, keep=True)
+        raw, stats, hs, pack = saved
+        assert torch.equal(out, refiner_op._launch(module, guidance, idepth, tf32))
+        plain = refiner_op.idepthmap_refiner_saved_plain(module, guidance, idepth, tf32)
+        floor = 1e-4 * plain[2].abs().max()  # a mean near 0 held to the statistics' scale
+        for a, r in ((out, plain[0]), (raw, plain[1]), (stats[:, :, 0], plain[2][:, :, 0]),
+                     (stats[:, :, 1], plain[2][:, :, 1])):
+            assert a.shape == r.shape and torch.isfinite(a).all()
+            assert (a - r).abs().max() <= forward_bar * torch.maximum(r.abs().max(), floor)
+        assert torch.isfinite(hs).all()
+        needs = (True, True, True)
+        before, bwd_before = counts(), refiner_op.backward_launches
+        got = refiner_op._launch_backward(module, guidance, idepth, out, saved, cot, needs,
+                                          tf32)
+        again = refiner_op._launch_backward(module, guidance, idepth, out, saved, cot, needs,
+                                            tf32)
+        torch.cuda.synchronize()
+        assert counts() == before and refiner_op.backward_launches == bwd_before + 2
+        ref = refiner_op.idepthmap_refiner_backward_plain(module, guidance, idepth, out, raw,
+                                                          stats, cot, needs, tf32)
+    got, again, ref = ([t[0], t[1], *t[2]] for t in (got, again, ref))
+    assert got[0].dtype == dtype
+    for a, b, r in zip(got, again, ref):
+        assert a.shape == r.shape and torch.isfinite(a).all() and torch.equal(a, b)
+        assert (a.float() - r.float()).abs().max() <= bar * r.float().abs().max()
+
+
+def test_refiner_function_launches_the_backward_kernel_once(dev):
+    """K3's Function: the forward kernel once (keeping its tensors), the backward kernel
+    once and no forward kernel in the backward; gradients of guidance, idepth and every
+    weight at their inputs' dtypes, within 1e-4 of max|plain| of the closed form on what
+    the forward kept; without the guidance's gradient the kernel writes none."""
+    module = idepthmap_refiner_module(35, seed=2, dev=dev)
+    g = torch.Generator().manual_seed(5)
+    guidance = (torch.rand(2, 35, 30, 40, generator=g) * 2 - 1).to(dev)
+    idepth = (torch.rand(2, 30, 40, generator=g) * 20).to(dev)
+    cot = torch.randn(2, 30, 40, generator=g).to(dev)
+    leaves = [guidance.clone().requires_grad_(), idepth.clone().requires_grad_()]
+    params = list(module.parameters())
+    before, bwd_before = counts(), refiner_op.backward_launches
+    out = refiner_op.idepthmap_refiner(module, *leaves)
+    got = torch.autograd.grad(out, leaves + params, cot)
+    torch.cuda.synchronize()
+    assert counts()[2] == before[2] + 1 and refiner_op.backward_launches == bwd_before + 1
+    with torch.no_grad():
+        kept, (raw, stats, _, _) = refiner_op._launch(module, guidance, idepth, False, True)
+        assert torch.equal(kept, out)
+        d_g, d_i, d_params = refiner_op.idepthmap_refiner_backward_plain(
+            module, guidance, idepth, kept, raw, stats, cot)
+    for a, r, leaf in zip(got, [d_g, d_i, *d_params], leaves + params):
+        assert a.dtype == leaf.dtype
+        assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+    out = refiner_op.idepthmap_refiner(module, guidance, leaves[1])
+    d_i2, = torch.autograd.grad(out, [leaves[1]], cot)
+    assert torch.equal(d_i2, got[1])
+
+
+def test_refiner_function_under_remat_holds_no_kept_maps(dev):
+    """Under ``remat_refiners``' checkpoint (non-reentrant, as ``_refine_level`` runs it)
+    K3's Function holds none of its forward's kept maps from the forward to the backward:
+    at the recipe's (8, 35, 60, 80) the memory held after the forward is, without the
+    checkpoint, at least the fourteen kept (N, h, w, 32) f32 maps, and with it less than
+    that by at least as much; the gradients are the same bits."""
+    module = idepthmap_refiner_module(35, seed=3, dev=dev)
+    n, h, w = 8, 60, 80
+    g = torch.Generator().manual_seed(9)
+    guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev).requires_grad_()
+    idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev).requires_grad_()
+    cot = torch.randn(n, h, w, generator=g).to(dev)
+    maps = 2 * refiner_op.NUM_GN * n * h * w * refiner_op.C * 4
+
+    def run(remat):
+        def refine(gd, i):
+            return refiner_op.idepthmap_refiner(module, gd, i)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        out = (torch.utils.checkpoint.checkpoint(refine, guidance, idepth, use_reentrant=False)
+               if remat else refine(guidance, idepth))
+        held = torch.cuda.memory_allocated(dev) - base
+        return held, torch.autograd.grad(out, [guidance, idepth], cot)
+    held, want = run(False)
+    held_remat, got = run(True)
+    assert held >= maps and held_remat <= held - maps, (held, held_remat, maps)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_refiner_kernel_follows_weight_updates(dev):
@@ -1034,9 +1147,9 @@ def test_plain_paths_launch_nothing(dev):
 
 
 def assert_grads_match_plain(fn, inputs, bar=1e-5):
-    """The kernel path's gradients (its Function's backward, a recompute of the plain
-    version) equal plain autograd's within ``bar`` * max(1, max|plain|), and the
-    backward launches no kernel."""
+    """The kernel path's gradients (its Function's backward kernel) equal plain
+    autograd's within ``bar`` * max(1, max|plain|), and the backward launches no forward
+    kernel."""
     g = torch.Generator().manual_seed(9)
     outs = {impl: fn(impl) for impl in ("kernel", "plain")}
     cot = torch.randn(outs["plain"].shape, generator=g).to(outs["plain"].device)
@@ -1052,8 +1165,8 @@ def assert_grads_match_plain(fn, inputs, bar=1e-5):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
-    """And, for a tensor that requires grad, take the backward through the plain
-    version (once the forward only and raised)."""
+    """And, for a tensor that requires grad, give plain autograd's gradients through
+    their backward kernels."""
     g = torch.Generator().manual_seed(8)
     image = (torch.rand(1, 4, 5, 3, generator=g) * 2 - 1).to(dev).requires_grad_()
     grid = (torch.rand(1, 4, 5, 2, generator=g) * 2.2 - 1.1).to(dev).requires_grad_()

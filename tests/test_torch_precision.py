@@ -214,7 +214,8 @@ class Spy:
 
     def __init__(self, monkeypatch, model):
         self.stages = stage_of(model)
-        self.convs, self.pinned, self.k2, self.k3, self.k2_backward = [], [], [], [], []
+        self.convs, self.pinned, self.k2, self.k3 = [], [], [], []
+        self.k2_backward, self.k3_backward = [], []
         conv, backward = precision._conv, precision._conv_backward
 
         def flags():
@@ -253,12 +254,23 @@ class Spy:
                 refiner, out[:, 0], image_rest, H_inc, out, raw, stats, grad,
                 (*needs[:3], any(needs[3:])), tf32)
 
-        def k3(refiner, guidance, idepth, tf32):
+        def k3(refiner, guidance, idepth, tf32, keep=False):
             self.k3.append((guidance.dtype, tf32, flags()))
-            return refiner_op.idepthmap_refiner_plain(refiner, guidance, idepth)
+            out = refiner_op.idepthmap_refiner_plain(refiner, guidance, idepth)
+            if not keep:
+                return out
+            _, raw, stats = refiner_op.idepthmap_refiner_saved_plain(refiner, guidance, idepth,
+                                                                     tf32)
+            return out, (raw, stats, raw, None)
+
+        def k3_backward(refiner, guidance, idepth, out, saved, grad, needs, tf32):
+            self.k3_backward.append(tf32)
+            return refiner_op.idepthmap_refiner_backward_plain(refiner, guidance, idepth, out,
+                                                               *saved[:2], grad, needs, tf32)
         monkeypatch.setattr(chain, "_launch", k2)
         monkeypatch.setattr(chain, "_launch_backward", k2_backward)
         monkeypatch.setattr(refiner_op, "_launch", k3)
+        monkeypatch.setattr(refiner_op, "_launch_backward", k3_backward)
         for module in (mvsnet, chain, refiner_op):  # the kernel path on CPU tensors
             monkeypatch.setattr(module, "use_kernel", lambda impl, t: impl != "plain")
 
@@ -326,9 +338,10 @@ def test_each_stage_runs_at_its_precision(case, monkeypatch):
     # K2's backward kernel once, at its forward's variant.
     assert spy.k2_backward == [t for _, t, _ in spy.k2]
     # Levels 4 to 1 are small enough for K3 at 64x80; level 0 is not. The remat's
-    # recompute launches each again.
+    # recompute launches each again. K3's backward kernel once a level, at its variant.
     assert len(spy.k3) == (8 if config.remat_refiners else 4)
     assert all((d, t) == (dtype, modes["refiners"] == "tf32") for d, t, _ in spy.k3)
+    assert spy.k3_backward == [modes["refiners"] == "tf32"] * 4
     for d, t, (cudnn, cublas) in spy.k2 + spy.k3:
         assert cudnn == t and not cublas
     if dtype == torch.bfloat16:  # the bf16 variants, whatever the precision

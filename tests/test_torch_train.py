@@ -45,7 +45,7 @@ from multi_view_stereonet_tpu_torch.geometry import idepth_to_disparity
 from multi_view_stereonet_tpu_torch.losses import LossConfig
 from multi_view_stereonet_tpu_torch.models import (
     FeatureRefiner, IDepthmapRefiner, MultiViewStereoNetConfig)
-from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply, recompute
+from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
 from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
 from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 from multi_view_stereonet_tpu_torch.ops.cuda import warp
@@ -334,31 +334,6 @@ def _plain_launch(monkeypatch, module, plain):
     return calls
 
 
-def _check_function(run_kernel, run_plain, leaves, weights_, calls):
-    """Gradients of the Function path equal plain autograd's; .grad lands and
-    accumulates on every weight; one launch a forward, none in the backward; under
-    no_grad the kernel is launched directly."""
-    g = torch.Generator().manual_seed(7)
-    out = run_plain()
-    cot = torch.randn(out.shape, generator=g)
-    ref = torch.autograd.grad((out * cot).sum(), leaves + weights_)
-    for p in weights_:
-        p.grad = None
-    for _ in range(2):
-        got = run_kernel()
-        assert got.grad_fn is not None
-        (got * cot).sum().backward()
-    assert len(calls) == 2
-    for leaf, r in zip(leaves, ref[:len(leaves)]):
-        torch.testing.assert_close(leaf.grad, 2 * r, atol=WIRING_BAR, rtol=WIRING_BAR)
-    for p, r in zip(weights_, ref[len(leaves):]):
-        assert p.grad is not None
-        torch.testing.assert_close(p.grad, 2 * r, atol=WIRING_BAR, rtol=WIRING_BAR)
-    with torch.no_grad():
-        assert run_kernel().grad_fn is None
-    assert len(calls) == 3
-
-
 def test_gn_function_recomputes_the_plain_version(monkeypatch):
     """K4's Function: its forward launch (replaced by the plain forward and the plain
     statistics) also returns the statistics, and its backward goes through the backward
@@ -499,32 +474,114 @@ def test_chain_function_routes_the_refiner_weights(monkeypatch):
 
 
 def test_refiner_function_routes_the_refiner_weights(monkeypatch):
-    calls = _plain_launch(monkeypatch, refiner_op,
-                          lambda refiner, gd, i, tf32: refiner_op.idepthmap_refiner_plain(
-                              refiner, gd, i))
+    """K3's Function: its forward launch (replaced by the plain forward that also gives
+    the kept raw maps and statistics, ``idepthmap_refiner_saved_plain``) asks to keep them
+    under autograd, and its backward goes through the backward kernel's launcher
+    (replaced by the closed-form plain backward) once a backward, with what the forward
+    kept. Gradients of guidance, idepth and every refiner weight land, accumulate and
+    equal the closed form's, which is plain autograd's through ``idepthmap_refiner_plain``
+    (tests/test_torch_refiner_backward.py); weights that need no gradient get none. What
+    the launch keeps may hold a tensor made under inference mode, as the weight pack the
+    cache made during a validation pass is."""
+    calls, backward_calls = [], []
+    with torch.inference_mode():
+        pack = torch.zeros(4)
+
+    def launch(refiner, g, i, tf32, keep=False):
+        calls.append(keep)
+        if keep:
+            out, raw, stats = refiner_op.idepthmap_refiner_saved_plain(refiner, g, i, tf32)
+            return out, (raw, stats, raw.clone(), pack)
+        return refiner_op.idepthmap_refiner_plain(refiner, g, i)
+
+    def launch_backward(refiner, g, i, out, saved, grad, needs, tf32):
+        backward_calls.append(tuple(needs))
+        assert saved[3] is pack and torch.equal(saved[2], saved[0])
+        return refiner_op.idepthmap_refiner_backward_plain(refiner, g, i, out, *saved[:2], grad,
+                                                           needs, tf32)
+    monkeypatch.setattr(refiner_op, "_launch", launch)
+    monkeypatch.setattr(refiner_op, "_launch_backward", launch_backward)
     module = IDepthmapRefiner(35)
     module.load_state_dict(_sub_state("refiner3."))
     g = torch.Generator().manual_seed(4)
     guidance = torch.randn(2, 35, 6, 8, generator=g, requires_grad=True)
     idepth = (torch.rand(2, 6, 8, generator=g) * 20).requires_grad_()
-    _check_function(lambda: refiner_op.idepthmap_refiner_kernel(module, guidance, idepth),
-                    lambda: refiner_op.idepthmap_refiner_plain(module, guidance, idepth),
-                    [guidance, idepth], list(module.parameters()), calls)
+    params = list(module.parameters())
+    cot = torch.randn(2, 6, 8, generator=g)
+    with torch.no_grad():
+        out, raw, stats = refiner_op.idepthmap_refiner_saved_plain(module, guidance, idepth)
+        d_guidance, d_idepth, d_params = refiner_op.idepthmap_refiner_backward_plain(
+            module, guidance, idepth, out, raw, stats, cot)
+    for _ in range(2):
+        got = refiner_op.idepthmap_refiner_kernel(module, guidance, idepth)
+        assert got.grad_fn is not None
+        (got * cot).sum().backward()
+    assert calls == [True, True] and backward_calls == [(True, True, True)] * 2
+    for t, r in zip([guidance, idepth, *params], [d_guidance, d_idepth, *d_params]):
+        torch.testing.assert_close(t.grad, 2 * r, atol=WIRING_BAR, rtol=WIRING_BAR)
+    plain = refiner_op.idepthmap_refiner_plain(module, guidance, idepth)
+    auto = torch.autograd.grad((plain * cot).sum(), [guidance, idepth, *params])
+    for t, a in zip([guidance, idepth, *params], auto):
+        assert (t.grad - 2 * a).abs().max() <= 2e-5 * a.abs().max()
+    with torch.no_grad():
+        assert refiner_op.idepthmap_refiner_kernel(module, guidance, idepth).grad_fn is None
+    assert calls == [True, True, False] and len(backward_calls) == 2
+    # A graph kept for a second backward gives the same gradients again.
+    got = refiner_op.idepthmap_refiner_kernel(module, guidance, idepth)
+    twice = [torch.autograd.grad(got, [guidance], cot, retain_graph=True)[0] for _ in range(2)]
+    assert torch.equal(twice[0], twice[1]) and torch.equal(twice[0], d_guidance)
+    # Weights that need no gradient: the launcher is told so, and they get none.
+    for p in params:
+        p.grad = None
+        p.requires_grad_(False)
+    refiner_op.idepthmap_refiner_kernel(module, guidance, idepth).sum().backward()
+    assert backward_calls[-1] == (True, True, False)
+    assert all(p.grad is None for p in params)
 
 
-def test_plain_vjp_leaves_out_what_needs_no_grad():
-    g = torch.Generator().manual_seed(5)
-    a, b, c = (torch.randn(4, generator=g) for _ in range(3))
-    cot = torch.randn(4, generator=g)
+def test_refiner_function_saves_what_it_kept_for_backward(monkeypatch):
+    """K3's Function hands what its forward kept (the output, each GroupNorm layer's raw
+    conv output and h, the statistics) to autograd's saved tensors, so that a saved-tensor
+    hook sees each, as ``torch.utils.checkpoint``'s does under ``remat_refiners`` when it
+    drops them after the forward and recomputes them in the backward; only the weight
+    pack stays on the context. Under that checkpoint the backward gets the recomputed
+    tensors and the gradients are those without it."""
+    kept = {}
 
-    def fn(a, b, c):
-        return a * b + c.exp()
-    got = recompute.plain_vjp(fn, (a, b, c), (True, False, True), (cot,))
-    assert got[1] is None
-    torch.testing.assert_close(got[0], cot * b)
-    torch.testing.assert_close(got[2], cot * c.exp())
-    assert recompute.plain_vjp(fn, (a, b, c), (False, False, False), (cot,)) == (
-        None, None, None)
+    def launch(refiner, g, i, tf32, keep=False):
+        out, raw, stats = refiner_op.idepthmap_refiner_saved_plain(refiner, g, i, tf32)
+        kept.update(out=out, raw=raw, stats=stats, hs=raw.clone())
+        return out, (raw, stats, kept["hs"], torch.zeros(4))
+
+    def launch_backward(refiner, g, i, out, saved, grad, needs, tf32):
+        return refiner_op.idepthmap_refiner_backward_plain(refiner, g, i, out, *saved[:2], grad,
+                                                           needs, tf32)
+    monkeypatch.setattr(refiner_op, "_launch", launch)
+    monkeypatch.setattr(refiner_op, "_launch_backward", launch_backward)
+    module = IDepthmapRefiner(35)
+    module.load_state_dict(_sub_state("refiner4."))
+    g = torch.Generator().manual_seed(6)
+    guidance = torch.randn(2, 35, 6, 8, generator=g, requires_grad=True)
+    idepth = (torch.rand(2, 6, 8, generator=g) * 20).requires_grad_()
+    cot = torch.randn(2, 6, 8, generator=g)
+    packed = []
+
+    def pack_hook(t):
+        packed.append(t)
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack_hook, lambda t: t):
+        out = refiner_op.idepthmap_refiner_kernel(module, guidance, idepth)
+    for name in ("out", "raw", "stats", "hs"):
+        assert any(t is kept[name] for t in packed), name
+    want = torch.autograd.grad(out, [guidance, idepth], cot)
+    refined = torch.utils.checkpoint.checkpoint(
+        lambda g, i: refiner_op.idepthmap_refiner_kernel(module, g, i), guidance, idepth,
+        use_reentrant=False)
+    first = kept["raw"]
+    got = torch.autograd.grad(refined, [guidance, idepth], cot)
+    assert kept["raw"] is not first  # the backward ran on a recomputed forward
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
 # ---- validation metrics ----
