@@ -63,8 +63,9 @@ Phases, each printing its results; any failure raises and exits non-zero:
 3b. Backward of each kernel (its ``torch.autograd.Function``, which launches its
    backward kernel) at phase 3's shapes against plain autograd on the card: every input's
    gradient within 1e-4 of max|plain| (a gradient below 1e-4 of the largest held to that
-   floor), no forward launch in the backward and one backward launch of its own
-   kernel's. K2 by ``chain_legs`` (CHAIN_LEGS' bars) and K3 (also at the recipe's
+   floor), no forward launch in the backward and its own backward's launches: one for
+   K1's and K4's, two for K2's and K3's (the sequential part, then the weight-gradient
+   pass, ``BACKWARD_PER``). K2 by ``chain_legs`` (CHAIN_LEGS' bars) and K3 (also at the recipe's
    (8,35,60,80)) by ``refiner_legs`` (REFINER_LEGS'): two legs, each within the bar (the
    Function against its closed form on what the kernel's forward kept, and that closed
    form on the plain forward's tensors against autograd through that forward), what the
@@ -80,22 +81,26 @@ Phases, each printing its results; any failure raises and exits non-zero:
    (K2 also timed for the recipe's gradients alone, feats0's and the weights'; K3's bound
    twice its forward's multiply-adds; the recompute it replaced, the plain forward under
    autograd then its backward, timed by CUDA graph and by torch.profiler, and one
-   launch's device events at (1,35,60,80)); the device time
+   launch's device events at (1,35,60,80), and a second run bit-equal to the first); K2's
+   and K3's weight-gradient pass alone against its plain version on the maps its
+   sequential part kept, within the same bar, with both device times and its bound (the
+   forward's convs' multiply-adds); the device time
    of one backward (torch.profiler, the sum of its kernels over two calls a session
    after one warm-up; ``profile_kernels`` keeps two sessions that agree on the count
    of kernel events), of the plain
    path's backward and, for K1 and K4, of ``F.grid_sample``'s and of
    ``F.group_norm`` + ``F.leaky_relu``'s. K1 also at the losses' shapes with image
-   and grid both leaves.
+   and grid both leaves. K2 comes last, its kernels timed by CUDA events around queued
+   calls and its plain versions by torch.profiler, with no CUDA graph (``k2_section``).
 7. Training at full width (the reference recipe: B = 8, V = 1, 480x640, D = 12,
    filter and five refiners on, adam 1e-3, augmentation on, 4 loader workers)
    through ``train_cli.train`` over the 96-request tree: 10 steps, validation
    over 16 images and an epoch checkpoint; a second call resumes it for 2
    steps (step count continued) and ``run_eval`` scores its checkpoint. Every
    loss finite; launches 2 / 1 / 2 / 31 a forward (train steps and validation
-   batches), K4's backward kernel once a K4 forward launch of a step, K2's once a step,
-   K3's once a fused refiner (twice a step), K1's none, and no forward launch from the
-   backward; the CLI loop's ms a step (host clock
+   batches), K4's backward kernel once a K4 forward launch of a step, K2's backward (two
+   launches, one of them its weight-gradient pass) once a step, K3's once a fused refiner
+   (twice a step), K1's none, and no forward launch from the backward; the CLI loop's ms a step (host clock
    between steps, loader included) and the loader's ms a batch alone. Then from
    one batch and the same seeded fan-in-scale weights, TF32 off: the kernel
    path's loss within 1e-5 relative of the plain path's and every gradient
@@ -116,8 +121,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    a step derived from the code (two forwards, and K1 12 + 20 + 10 times in the
    occlusion masks, left-right and reconstruction losses); from the backward no forward
    launch, K1's backward kernel 20 times (the left-right loss's two idepth samples a level
-   and the reconstruction's two a level), K2's twice and K3's four times
-   (``expected_backward``). Then one
+   and the reconstruction's two a level), K2's backward twice and K3's four times, two
+   launches each (``expected_backward``). Then one
    batch, kernel path against plain: the loss within 1e-5
    relative and every gradient within phase 7's bar; ms a step (median of 6,
    CUDA events, the paths in turns after 2 warm-up steps each), peak memory, and
@@ -157,8 +162,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
    global batch within 1e-5 relative of losses.txt and its gradient against the applied
    one within phase 7's bar: no adam drift in between. (d) The CLI
    as two processes at
-   the recipe (augmentation on, 4 loader threads a process) for 10 steps: each
-   process's ms a step (host clock at its stop check, median of steps 4-9) beside
+   the recipe (augmentation on, 4 loader threads a process) for 7 steps: each
+   process's ms a step (host clock at its stop check, median of steps 4-6) beside
    phase 7's single-process loop, its peak memory, and its launches a step (2 / 1 / 2 /
    31 at four samples). (b) ``make_train_step`` on two processes against one: four
    samples each of (a)'s first global batch from the CLI's init, and ``mesh_view`` 2 (a
@@ -173,7 +178,7 @@ Phases, each printing its results; any failure raises and exits non-zero:
    every step's tensors on each process hash (SHA-256) to its share of the batch process
    0 loaded, and where, from the weights the two entered each step with, one process's
    loss on that batch is within 1e-5 relative and its gradient within phase 7's bar of
-   theirs; then the CLI loop's ms a step (median of steps 4-9), at 1 and 4 loader
+   theirs; then the CLI loop's ms a step (median of steps 4-6), at 1 and 4 loader
    threads in turn, with launches 2 / 1 / 2 / 31 a process-step.
 11. The bf16 serving forward (``compute_dtype: bfloat16``). (a) Each kernel's bf16
    variant at phase 3's serving shapes against its plain version at bf16: K1's bf16
@@ -237,8 +242,9 @@ Phases, each printing its results; any failure raises and exits non-zero:
    it, device times (``graph_ms``) of both variants and of the plain version, the bound
    at TF32 (the convs' operations at the 494.7 TFLOP/s TF32 tensor-core peak); K2's
    backward at 1xTF32 (``check_backward_tf32``): the Function by ``chain_legs``' tf32
-   bars against the TF32-rounding loop, the kernel alone against its closed form at TF32
-   within 1e-3, one backward launch, and the device times of both backward variants; K3's
+   bars against the TF32-rounding loop, the kernel alone (both launches) against its
+   closed form at TF32 within 1e-3 and its weight-gradient pass alone against its plain
+   version, two backward launches, and the device times of both backward variants; K3's
    the same (``check_refiner_backward_tf32``, ``refiner_legs``). (b) The
    forward at "high" against "highest" at B = 1 and 8, per level max within 1% and mean
    within 0.2% of the range; the kernel path within 0.5% of the plain path at "high";
@@ -353,7 +359,9 @@ TWO_VIEW_STEPS, TWO_VIEW_RESUME = 4, 1
 MP_PROCESSES, MP_STEPS, MP_RESUME = 2, 3, 2  # phase 10
 # Phase 10 (e): steps of the recorded run at mesh_view 2, steps of each timed run, and
 # the loader threads of the timed runs in turn.
-VIEW_RECORD_STEPS, VIEW_STEPS, VIEW_TURNS = 3, 10, (1, 4)
+VIEW_RECORD_STEPS, VIEW_STEPS, VIEW_TURNS = 3, 7, (1, 4)
+# Phase 10 (d): steps of the timed two-process run at the recipe.
+MP_TIMED_STEPS = 7
 # Phase 10 (a): the loss after adam's first updates from the init, two processes against
 # one; a wrong or reordered batch moves it by more than 1e-2 (the losses of consecutive
 # steps differ by 10-70%).
@@ -555,6 +563,16 @@ def graph_ms(fn, reps=20) -> float:
         for _ in range(reps):
             fn()
     return median_ms(graph.replay, runs=7, warmup=1) / reps
+
+
+def queued_ms(fn, reps=20) -> float:
+    """Device time of one call of a call that keeps the card busier than its host work
+    takes to queue it: ``reps`` calls back to back between CUDA events, median of 7, over
+    reps (no CUDA graph; the calls' host work overlaps the card's)."""
+    def calls():
+        for _ in range(reps):
+            fn()
+    return median_ms(calls, runs=7, warmup=1) / reps
 
 
 def profile_kernels(fn, reps):
@@ -1098,7 +1116,8 @@ def check_backward(dev, dtype=torch.float32):
         if read_launches() != before:
             raise AssertionError(f"{key}{tag} {what}: the backward launched a forward kernel")
         bwd = {k: v - bwd_before[k] for k, v in backward_launches().items()}
-        want = {k: int(BACKWARD_OF.get(key.split()[0]) == k) for k in BACKWARD_KERNELS}
+        want = {k: BACKWARD_PER[k] * int(BACKWARD_OF.get(key.split()[0]) == k)
+                for k in BACKWARD_KERNELS}
         if bwd != want:
             raise AssertionError(f"{key}{tag} {what}: backward launches {bwd}, expected "
                                  f"{want}")
@@ -1149,12 +1168,15 @@ def check_backward(dev, dtype=torch.float32):
             results[key] = entry
 
     def alone(key, label, run_kernel, run_plain, read_write, flops, keep,
-              peak=PEAK_F32_FLOPS):
-        """A backward kernel alone (K1, K2, K3) against its plain version in closed form on
-        the same inputs (K2, K3: what its forward kept), within phase 3b's bar (at bf16, K2:
-        the flat-gradient bar of phase 12, as K4's; K3: K3_BF16_BAR), with both device
-        times (CUDA graphs) and the bound, its operations at ``peak``. The JSON line keeps
-        the shape checked with ``keep``."""
+              peak=PEAK_F32_FLOPS, part="kernel", clocks=(graph_ms, graph_ms)):
+        """A backward kernel alone (K1, K2, K3; both launches of K2's and K3's) against its
+        plain version in closed form on the same inputs (K2, K3: what its forward kept),
+        within phase 3b's bar (at bf16, K2: the flat-gradient bar of phase 12, as K4's; K3:
+        K3_BF16_BAR), with both device times (CUDA graphs) and the bound, its operations at
+        ``peak``; ``part`` "wgrad": K2's or K3's weight-gradient pass alone against its
+        plain version on the maps the sequential part kept, by the same bar. ``clocks``
+        time the kernel and the plain version (K2's: no CUDA graph, see ``k2_section``).
+        The JSON line keeps the shape checked with ``keep``."""
         def flat(grads):
             return [t for g in grads for t in (g if isinstance(g, tuple) else (g,))]
         with torch.no_grad():
@@ -1163,23 +1185,23 @@ def check_backward(dev, dtype=torch.float32):
             pairs = [(a, r) for a, r in zip(got, ref) if r is not None]
             err = worst_relative(*zip(*pairs))
             abs_err = max((a.float() - r.float()).abs().max().item() for a, r in pairs)
-            t = {"ms": graph_ms(run_kernel), "plain_ms": graph_ms(run_plain)}
+            t = {"ms": clocks[0](run_kernel), "plain_ms": clocks[1](run_plain)}
         b = bound(read_write, flops, peak)
         bar = {"K2": BF16_TRAIN_GRAD_BAR, "K3": K3_BF16_BAR}.get(key, BACKWARD_BAR) if bf16 \
             else BACKWARD_BAR
-        log(f"{key}{tag} backward kernel {label}: against its plain version {err:.3e} of "
+        log(f"{key}{tag} backward {part} {label}: against its plain version {err:.3e} of "
             f"max|plain| (bar {bar:.0e}), max_abs_err {abs_err:.3e}; device: kernel "
             f"{t['ms']:.4f} ms, plain version {t['plain_ms']:.4f} ms, bound {b[0]:.4f} ms "
             f"({b[1]})")
         if not err <= bar:
-            raise AssertionError(f"{key}{tag} backward kernel disagrees with its plain "
+            raise AssertionError(f"{key}{tag} backward {part} disagrees with its plain "
                                  f"version at {label}")
         entry = {"max_rel_err": err, "max_abs_err": abs_err, **t, "bound_ms": b[0],
                  "bound_by": b[1], "bar": bar}
-        old = results.get(f"{key} kernel")
+        old = results.get(f"{key} {part}")
         if old is None or keep:
             entry["shapes"] = (old or {}).get("shapes", [])
-            results[f"{key} kernel"] = entry
+            results[f"{key} {part}"] = entry
             old = entry
         old["max_rel_err"] = max(old["max_rel_err"], err)
         old["max_abs_err"] = max(old["max_abs_err"], abs_err)
@@ -1234,49 +1256,79 @@ def check_backward(dev, dtype=torch.float32):
               library)
         k1_alone(image, grid, False, f"({TRAIN_B},{H0},{W0},{C}) loss samples")
 
-    # K2 at N = 1 (the JSON keeps it) and N = 8, the training recipe's B*V.
-    refiner = FeatureRefiner(32)
-    prefix = "right_feature_extractor.refiner."
-    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
-                             if k.startswith(prefix)})
-    refiner = refiner.to(dev)
-    params = list(refiner.parameters())
-    for n in (1, 8):
-        K_pyr, T, samples = geometry(n, 10 + n)
-        H_inc = incremental_homographies(create_plane_sweep_homographies(T, K_pyr[4], samples))
-        feats0 = leaf(torch.randn(n, 30, 40, 32, generator=g).to(dtype))
-        image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+    def k2_section():
+        """K2 at N = 1 (the JSON keeps it) and N = 8, the training recipe's B*V: its
+        Function against plain autograd at both, then its backward alone against its closed
+        form and its weight-gradient pass against its plain version. Last in the phase, its
+        kernels timed by ``queued_ms`` and its plain versions by torch.profiler: CUDA graphs
+        of K2's backward or of its closed form at bf16 were seen, in three runs of four, to
+        stop torch.profiler's device events for the rest of the process."""
+        def profiled(fn):
+            return device_ms(fn, BACKWARD_REPS, 1)
+        refiner = FeatureRefiner(32)
+        prefix = "right_feature_extractor.refiner."
+        refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
+                                 if k.startswith(prefix)})
+        refiner = refiner.to(dev)
+        params = list(refiner.parameters())
+        cases = []
+        for n in (1, 8):
+            K_pyr, T, samples = geometry(n, 10 + n)
+            H_inc = incremental_homographies(create_plane_sweep_homographies(
+                T, K_pyr[4], samples))
+            feats0 = leaf(torch.randn(n, 30, 40, 32, generator=g).to(dtype))
+            image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
 
-        def legs(cot, got, ref, feats0=feats0, image_rest=image_rest, H_inc=H_inc):
-            return chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref)
-        what = f"N={n} 30x40x32 D={D}"
-        check("K2", what,
-              lambda impl: chain.incremental_chain(refiner, feats0, image_rest, H_inc, impl),
-              (feats0, *params), keep=n == 1, legs=legs)
-        # The backward kernel alone, on what the forward kept: every gradient against the
-        # closed form (image_rest's and H_inc's too); timed for what the recipe asks
-        # (feats0 and the weights). Its convs' operations at bf16 storage at the bf16 peak
-        # (the dgrads run on bf16 mma.sync; the weight gradients' bf16 operands on TF32
-        # mma.sync, exact for them, at half that peak).
-        with torch.no_grad():
-            f0, im = feats0.detach(), image_rest.to(dtype)
-            weights = chain._weight_args(refiner)
-            out, raw, stats = chain._forward_launch(f0, im, H_inc, *weights, 0, False, True)
-            cot = torch.randn(out.shape, generator=g).to(dev, dtype)
-        flops = (D - 1) * (conv_flops(refiner, n * 30 * 40) + 2 * n * 30 * 40 * 32 * 288 * 3)
-        alone("K2", what,
-              lambda: chain._launch_backward(refiner, im, H_inc, weights, out, raw, stats,
-                                             cot, (True, True, True), 0, False),
-              lambda: chain.incremental_chain_backward_plain(
-                  refiner, f0, im, H_inc, out, raw, stats, cot, (True, True, True, True)),
-              nbytes(out, raw, stats, cot, im, H_inc, *weights, f0, *params), flops,
-              keep=n == 1, peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
-        entry = results["K2 kernel"]["shapes"][-1]
-        entry["recipe_ms"] = graph_ms(lambda: chain._launch_backward(
-            refiner, im, H_inc, weights, out, raw, stats, cot, (True, False, False), 0,
-            False))
-        log(f"K2{tag} backward kernel {what}, feats0's and the weights' gradients alone (the "
-            f"recipe's): device {entry['recipe_ms']:.4f} ms")
+            def legs(cot, got, ref, feats0=feats0, image_rest=image_rest, H_inc=H_inc):
+                return chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref)
+            check("K2", f"N={n} 30x40x32 D={D}",
+                  lambda impl: chain.incremental_chain(refiner, feats0, image_rest, H_inc,
+                                                       impl),
+                  (feats0, *params), keep=n == 1, legs=legs)
+            cases.append((n, feats0, image_rest, H_inc))
+        for n, feats0, image_rest, H_inc in cases:
+            what = f"N={n} 30x40x32 D={D}"
+            # The backward alone (both launches), on what the forward kept: every gradient
+            # against the closed form (image_rest's and H_inc's too); timed for what the
+            # recipe asks (feats0 and the weights). Its convs' operations at bf16 storage at
+            # the bf16 peak (the dgrads run on bf16 mma.sync; the weight gradients' bf16
+            # operands on TF32 mma.sync, exact for them, at half that peak).
+            with torch.no_grad():
+                f0, im = feats0.detach(), image_rest.to(dtype)
+                weights = chain._weight_args(refiner)
+                out, raw, stats = chain._forward_launch(f0, im, H_inc, *weights, 0, False,
+                                                        True)
+                cot = torch.randn(out.shape, generator=g).to(dev, dtype)
+            flops = (D - 1) * (conv_flops(refiner, n * 30 * 40)
+                               + 2 * n * 30 * 40 * 32 * 288 * 3)
+            alone("K2", what,
+                  lambda: chain._launch_backward(refiner, im, H_inc, weights, out, raw, stats,
+                                                 cot, (True, True, True), 0, False),
+                  lambda: chain.incremental_chain_backward_plain(
+                      refiner, f0, im, H_inc, out, raw, stats, cot, (True, True, True, True)),
+                  nbytes(out, raw, stats, cot, im, H_inc, *weights, f0, *params), flops,
+                  keep=n == 1, peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
+                  clocks=(queued_ms, profiled))
+            entry = results["K2 kernel"]["shapes"][-1]
+            entry["recipe_ms"] = queued_ms(lambda: chain._launch_backward(
+                refiner, im, H_inc, weights, out, raw, stats, cot, (True, False, False), 0,
+                False))
+            log(f"K2{tag} backward kernel {what}, feats0's and the weights' gradients alone "
+                f"(the recipe's): device {entry['recipe_ms']:.4f} ms")
+            # The weight-gradient pass alone on the maps the sequential part kept; its
+            # products are the forward's convs' multiply-adds over every step.
+            with torch.no_grad():
+                seq = chain.incremental_chain_sequential(im, H_inc, *weights, out, raw, stats,
+                                                         cot, (True, False, False), 0, False)
+            alone("K2", what,
+                  lambda: chain._param_grads(refiner, chain.incremental_chain_wgrad(
+                      im, H_inc, weights[3], out, raw, stats, *seq[3:])),
+                  lambda: chain.incremental_chain_wgrad_plain(refiner, im, H_inc, out, raw,
+                                                              stats, *seq[3:5], seq[5].sum(0)),
+                  nbytes(im, H_inc, weights[3], out, raw, stats, *seq[3:], *params),
+                  (D - 1) * conv_flops(refiner, n * 30 * 40), keep=n == 1,
+                  peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS, part="wgrad",
+                  clocks=(queued_ms, profiled))
 
     # K3 at level 4 (N = 1, 8) and level 3 (N = 1, the JSON keeps it; N = 8, the recipe's):
     # its Function against plain autograd by ``refiner_legs``, the backward kernel alone
@@ -1315,6 +1367,28 @@ def check_backward(dev, dtype=torch.float32):
               2 * nbytes(g0, i0, *params) + nbytes(out, *saved[:3], cot),
               2 * conv_flops(module, n * h * w), keep,
               peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+        # A second run gives the same bits: no float atomics in either launch.
+        with torch.no_grad():
+            first, second = backward(), backward()
+        same = all(torch.equal(a, b) for a, b in zip(
+            [first[0], first[1], *first[2]], [second[0], second[1], *second[2]]))
+        log(f"K3{tag} backward {what}: a second run bit-equal to the first: {same}")
+        if not same:
+            raise AssertionError(f"K3{tag} backward at {what}: two runs differ")
+        # The weight-gradient pass alone on the maps the sequential part kept; its products
+        # are the forward's convs' multiply-adds.
+        dil = refiner_op._dilations(module)
+        raw, stats, hs, pack = saved
+        with torch.no_grad():
+            seq = refiner_op.idepthmap_refiner_sequential(g0, i0, pack, dil, out, raw, stats,
+                                                          hs, cot, True, False)
+        alone("K3", what,
+              lambda: refiner_op._unpack_grads(module, refiner_op.idepthmap_refiner_wgrad(
+                  g0, i0, dil, hs, *seq[2:])),
+              lambda: refiner_op.idepthmap_refiner_wgrad_plain(
+                  module, g0, i0, raw, stats, seq[2], seq[3], seq[4].sum(0).float()),
+              nbytes(g0, i0, hs, *seq[2:], *params), conv_flops(module, n * h * w), keep,
+              peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS, part="wgrad")
         # The recompute on both clocks, CUDA graph (``graph_ms``, the clock of the kernel's
         # "ms") and torch.profiler (``device_ms``, the clock of ``check``'s Function time),
         # and at the kept shape the device events of one launch by name: torch.profiler
@@ -1409,6 +1483,7 @@ def check_backward(dev, dtype=torch.float32):
             old["max_rel_err"] = max(old["max_rel_err"], err)
             old["max_abs_err"] = max(old["max_abs_err"], abs_err)
     results["K4 kernel"]["library_ms"] = results["K4"]["library_ms"]
+    k2_section()
     return results
 
 
@@ -1675,13 +1750,15 @@ def train_phase(dev, inputs, smi):
         expected = expected_launches([(TRAIN_B, 1)] * forwards)
         steps = forwards - val_forwards
         want = {**expected_backward(steps), "gn_apply": expected["gn_apply"] * steps // forwards}
-        if launches != expected or backward != want:
-            raise AssertionError(f"train: expected launches {expected} and backward "
-                                 f"launches {want}, got {launches} and {backward}")
+        passes = {k: want[k] // BACKWARD_PER[k] for k in WGRAD_KERNELS}
+        if launches != expected or backward != want or wgrad_launches() != passes:
+            raise AssertionError(f"train: expected launches {expected}, backward launches "
+                                 f"{want} and weight-gradient passes {passes}, got "
+                                 f"{launches}, {backward} and {wgrad_launches()}")
         return launches, seconds, stamps
 
     launches, seconds, stamps = run(TRAIN_STEPS, 1, TRAIN_STEPS + val_forwards)
-    train_backward = backward_launches()
+    train_backward, train_wgrad = backward_launches(), wgrad_launches()
     # The loop reads each step's loss after queuing the next, so from the third step on
     # the time between steps is the CLI's rate, loader included.
     gaps = np.diff(stamps)[2:] * 1e3
@@ -1690,7 +1767,8 @@ def train_phase(dev, inputs, smi):
         f"{VAL_IMAGES} images in {seconds:.1f} s (loader start-up, first calls and the "
         f"checkpoint included); launches {launches}: per forward {TRAIN_STEPS} steps + "
         f"{val_forwards} validation batches, and backward launches {train_backward} (K4's "
-        f"forward launches of the {TRAIN_STEPS} steps, K2 once a step, K1 none); the CLI loop "
+        f"forward launches of the {TRAIN_STEPS} steps, K2 two a step, K3 two a fused refiner, "
+        f"K1 none; of those the weight-gradient passes {train_wgrad}); the CLI loop "
         f"{cli_ms:.3f} ms a step (median of steps 4-{TRAIN_STEPS}, host clock; "
         f"{[round(g, 1) for g in gaps]}), {TRAIN_B * 1e3 / cli_ms:.2f} images/s ({smi})")
     _, resume_seconds, _ = run(TRAIN_STEPS + RESUME_STEPS, 2, RESUME_STEPS + val_forwards)
@@ -1764,7 +1842,7 @@ def train_phase(dev, inputs, smi):
         if impl == "auto":
             step_backward = backward_launches()
             log(f"train step launches: forward {forward}, backward kernels {step_backward} "
-                f"(K4 once a K4 forward launch, K2 once, K3 once a fused refiner, K1 "
+                f"(K4 once a K4 forward launch, K2 two, K3 two a fused refiner, K1 "
                 f"none), no forward kernel")
     ref = grads["plain"]
     worst, worst_key, min_cos = compare_gradients(grads)
@@ -1838,6 +1916,7 @@ def train_phase(dev, inputs, smi):
         f"{device['plain']['forward_ms'] - device['auto']['forward_ms']:.3f} ms ({smi})")
     summary = {"ms": ms, "images_s": {k: TRAIN_B * 1e3 / v for k, v in ms.items()},
                "backward_launches": train_backward, "step_backward_launches": step_backward,
+               "wgrad_launches": train_wgrad,
                "cli_ms": cli_ms, "loader_ms": loader_ms,
                "peak_gib": {k: v / 2**30 for k, v in peak.items()}, "repack": repack,
                "device": device, "grad_err": worst, "loss_gap": loss_gap}
@@ -2072,6 +2151,11 @@ def kernel_modules():
 # them under.
 BACKWARD_KERNELS = ("warp", "chain", "refiner", "gn_apply")
 BACKWARD_OF = {"K1": "warp", "K2": "chain", "K3": "refiner", "K4": "gn_apply"}
+# Launches a backward: K2's and K3's are two (the sequential part, then the weight-gradient
+# pass), each counted in its module's ``backward_launches``; K1's and K4's one.
+BACKWARD_PER = {"warp": 1, "chain": 2, "refiner": 2, "gn_apply": 1}
+# The kernels with a weight-gradient pass of their own (``wgrad_launches``).
+WGRAD_KERNELS = ("chain", "refiner")
 
 
 def zero_launches():
@@ -2080,6 +2164,8 @@ def zero_launches():
         module.launches = 0
     for name in BACKWARD_KERNELS:
         kernel_modules()[name].backward_launches = 0
+    for name in WGRAD_KERNELS:
+        kernel_modules()[name].wgrad_launches = 0
 
 
 def read_launches():
@@ -2092,16 +2178,24 @@ def backward_launches():
     return {name: kernel_modules()[name].backward_launches for name in BACKWARD_KERNELS}
 
 
+def wgrad_launches():
+    """The weight-gradient passes' launch counters: K2's and K3's."""
+    return {name: kernel_modules()[name].wgrad_launches for name in WGRAD_KERNELS}
+
+
 def expected_backward(steps, two_view=False):
-    """Backward launches of K1, K2 and K3 in ``steps`` train steps at the recipe: K2's once
-    a forward (both forwards of a two-view step), K3's once for each refiner a forward
-    fuses (``expected_launches``: levels 4 and 3 at B = 8, 480x640); K1's only in the
-    two-view losses, where the left-right loss's two idepth samples a level and the
-    reconstruction's two a level carry a gradient (the occlusion masks' samples feed
-    comparisons alone, and the forward's warps sample data)."""
+    """Backward launches of K1, K2 and K3 in ``steps`` train steps at the recipe: K2's
+    backward once a forward (both forwards of a two-view step), K3's once for each refiner a
+    forward fuses (``expected_launches``: levels 4 and 3 at B = 8, 480x640), each of those
+    two launches (``BACKWARD_PER``); K1's only in the two-view losses, where the left-right
+    loss's two idepth samples a level and the reconstruction's two a level carry a gradient
+    (the occlusion masks' samples feed comparisons alone, and the forward's warps sample
+    data)."""
     forwards = steps * (2 if two_view else 1)
-    return {"warp": steps * 4 * NUM_LEVELS if two_view else 0, "chain": forwards,
-            "refiner": forwards * expected_launches([(TRAIN_B, 1)])["refiner"]}
+    return {"warp": steps * 4 * NUM_LEVELS if two_view else 0,
+            "chain": BACKWARD_PER["chain"] * forwards,
+            "refiner": BACKWARD_PER["refiner"] * forwards
+            * expected_launches([(TRAIN_B, 1)])["refiner"]}
 
 
 def expected_launches(forwards, rows=H0, cols=W0):
@@ -2636,18 +2730,16 @@ def artifact_phase(dev, inputs, smi):
     expected = {"b1": expected_launches([(1, 1)]), "b24": expected_launches([(24, 1)])}
     all_ops = ["mvs_torch::grid_sample", "mvs_torch::group_norm_act",
                "mvs_torch::idepthmap_refiner", "mvs_torch::incremental_chain"]
-    children = {}
+    codes = {}
     for name in paths:
         io_path = os.path.join(root, f"artifact_io_{name}.npz")
         np.savez(io_path, live=live[name], **batches[name])
-        code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
-                f"chip_smoke.artifact_child({paths[name]!r}, {io_path!r}, {str(dev)!r})")
-        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                              text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"artifact {name} in a fresh process failed:\n"
-                                 f"{proc.stderr[-3000:]}")
-        child = children[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        codes[name] = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                       f"chip_smoke.artifact_child({paths[name]!r}, {io_path!r}, "
+                       f"{str(dev)!r})")
+    children = fresh_processes(codes, "artifact")
+    for name in paths:
+        child = children[name]
         ops = [op for op in all_ops if name == "b1" or "refiner" not in op]
         log(f"artifact {name} ({os.path.getsize(paths[name])} bytes, exported in "
             f"{export_s[name]:.1f} s) in a fresh process: loaded in {child['load_s']:.1f} s, "
@@ -3506,9 +3598,11 @@ def check_backward_tf32(dev, failures):
     """Phase 13 (a), K2's backward at 1xTF32 (the backward of the 1xTF32 forward, the
     "tf32" scope's) at phase 3b's shapes: the Function's gradients of feats0 and the
     weights against plain autograd through the TF32-rounding plain loop
-    (``incremental_chain_tf32_plain``) by ``chain_legs``' tf32 bars, one backward launch
-    and no forward launch in the backward; the backward kernel alone against its closed
-    form at TF32 on what its forward kept within TF32_K2_BAR of max|plain|; the device
+    (``incremental_chain_tf32_plain``) by ``chain_legs``' tf32 bars, two backward launches
+    and no forward launch in the backward; the backward alone (both launches) against its
+    closed form at TF32 on what its forward kept, and its weight-gradient pass alone
+    against its plain version on the maps the sequential part kept, within TF32_K2_BAR of
+    max|plain|; the device
     times (CUDA graphs) of the 1xTF32 and the 3xTF32 backward kernels and of the closed
     form, and the bound at TF32. Returns the N = 1 entry."""
     from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
@@ -3567,29 +3661,46 @@ def check_backward_tf32(dev, failures):
             err_alone = worst_relative([a[0], *a[3]], [r[0], *r[3]])
             t = {"ms": graph_ms(kernel), "f32_ms": graph_ms(lambda: kernel(False)),
                  "plain_ms": graph_ms(closed)}
+            # The weight-gradient pass alone at TF32 on the maps the sequential part kept.
+            seq = chain.incremental_chain_sequential(image_rest, H_inc, *weights, *kept, cot,
+                                                     (True, False, False), 0, True)
+
+            def wgrad():
+                return chain.incremental_chain_wgrad(image_rest, H_inc, weights[3], *kept,
+                                                     *seq[3:], True)
+            err_wgrad = worst_relative(
+                chain._param_grads(refiner, wgrad()),
+                chain.incremental_chain_wgrad_plain(refiner, image_rest, H_inc, *kept,
+                                                    *seq[3:5], seq[5].sum(0), True))
+            t["wgrad_ms"] = graph_ms(wgrad)
         conv_ops = (D - 1) * (conv_flops(refiner, n * 30 * 40) + 2 * n * 30 * 40 * 32 * 288 * 3)
         b = bound_tf32(nbytes(*kept, cot, image_rest, H_inc, *weights, f0, *params), conv_ops,
                        (D - 1) * 40 * n * 30 * 40 * 32)
-        ok = (not split["missed"] and err_alone <= TF32_K2_BAR and not forward_in_backward
-              and bwd == {"warp": 0, "chain": 1, "refiner": 0, "gn_apply": 0})
+        ok = (not split["missed"] and err_alone <= TF32_K2_BAR and err_wgrad <= TF32_K2_BAR
+              and not forward_in_backward
+              and bwd == {"warp": 0, "chain": 2, "refiner": 0, "gn_apply": 0})
         log(f"K2 1xTF32 backward N={n} 30x40x32 D={D}: the Function against plain autograd "
             f"through the TF32-rounding loop {err:.3e} of max|plain|, "
             f"{describe_legs(split)}; the kernel alone against its closed form at TF32 "
-            f"{err_alone:.3e} (bar {TF32_K2_BAR:.0e}); "
+            f"{err_alone:.3e} (bar {TF32_K2_BAR:.0e}), its weight-gradient pass alone "
+            f"against its plain version {err_wgrad:.3e} ({t['wgrad_ms']:.4f} ms); "
             f"backward launches {bwd}, forward launches in the backward "
             f"{forward_in_backward}; device: 1xTF32 kernel {t['ms']:.4f} ms, 3xTF32 "
             f"{t['f32_ms']:.4f} ms, closed form {t['plain_ms']:.4f} ms; bound at TF32 "
             f"{b[0]:.4f} ms ({b[1]})")
         if not ok:
             failures.append(f"K2 1xTF32 backward at N={n}: missed {split['missed']}, "
-                            f"{err_alone}, {bwd}")
+                            f"{err_alone}, {err_wgrad}, {bwd}")
         if result is None:
-            result = {"max_rel_err": err, "kernel_vs_closed_form": err_alone, **t,
-                      "bound_ms": b[0], "bound_by": b[1], "bar": TF32_K2_BAR, "legs": [split]}
+            result = {"max_rel_err": err, "kernel_vs_closed_form": err_alone,
+                      "wgrad_vs_plain": err_wgrad, **t, "bound_ms": b[0], "bound_by": b[1],
+                      "bar": TF32_K2_BAR, "legs": [split], "n8": None}
         else:
             result["max_rel_err"] = max(result["max_rel_err"], err)
             result["kernel_vs_closed_form"] = max(result["kernel_vs_closed_form"], err_alone)
+            result["wgrad_vs_plain"] = max(result["wgrad_vs_plain"], err_wgrad)
             result["legs"].append(split)
+            result["n8"] = {**t, "bound_ms": b[0]}
     return result
 
 
@@ -3597,9 +3708,10 @@ def check_refiner_backward_tf32(dev, failures):
     """Phase 13 (a), K3's backward at 1xTF32 at level 4 (N = 1, 8) and level 3 (N = 1): the
     Function's gradients (its forward in a "tf32" scope) against plain autograd through
     the TF32-rounding plain version (``idepthmap_refiner_tf32_plain``) by
-    ``refiner_legs``' tf32 bars, one backward launch and no forward launch in the
-    backward; the backward kernel alone against its closed form at TF32 on what its
-    forward kept within TF32_K2_BAR of max|plain|; the device times (CUDA graphs) of the
+    ``refiner_legs``' tf32 bars, two backward launches and no forward launch in the
+    backward; the backward alone (both launches) against its closed form at TF32 on what
+    its forward kept, and its weight-gradient pass alone against its plain version on the
+    maps the sequential part kept, within TF32_K2_BAR of max|plain|; the device times (CUDA graphs) of the
     1xTF32 and the 3xTF32 backward kernels and of the closed form, and the bound at TF32.
     Returns the N = 1 level-4 entry, with every shape's readings."""
     from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
@@ -3646,28 +3758,45 @@ def check_refiner_backward_tf32(dev, failures):
             err_alone = worst_relative([a[0], a[1], *a[2]], [r[0], r[1], *r[2]])
             t = {"ms": graph_ms(kernel), "f32_ms": graph_ms(lambda: kernel(False)),
                  "plain_ms": graph_ms(closed)}
+            # The weight-gradient pass alone at TF32 on the maps the sequential part kept.
+            out1, (raw1, stats1, hs1, pack1) = kept
+            dil = refiner_op._dilations(module)
+            seq = refiner_op.idepthmap_refiner_sequential(g0, i0, pack1, dil, out1, raw1,
+                                                          stats1, hs1, cot, True, True)
+
+            def wgrad():
+                return refiner_op.idepthmap_refiner_wgrad(g0, i0, dil, hs1, *seq[2:], True)
+            err_wgrad = worst_relative(
+                refiner_op._unpack_grads(module, wgrad()),
+                refiner_op.idepthmap_refiner_wgrad_plain(module, g0, i0, raw1, stats1, seq[2],
+                                                         seq[3], seq[4].sum(0).float(), True))
+            t["wgrad_ms"] = graph_ms(wgrad)
         b = bound_tf32(2 * nbytes(g0, i0, *params) + nbytes(kept[0], *kept[1][:3], cot),
                        2 * conv_flops(module, n * h * w),
                        40 * refiner_op.NUM_GN * n * h * w * 32)
-        ok = (not split["missed"] and err_alone <= TF32_K2_BAR and not forward_in_backward
-              and bwd == {"warp": 0, "chain": 0, "refiner": 1, "gn_apply": 0})
+        ok = (not split["missed"] and err_alone <= TF32_K2_BAR and err_wgrad <= TF32_K2_BAR
+              and not forward_in_backward
+              and bwd == {"warp": 0, "chain": 0, "refiner": 2, "gn_apply": 0})
         what = f"({n},35,{h},{w})"
         log(f"K3 1xTF32 backward {what}: the Function against plain autograd through the "
             f"TF32-rounding plain version {err:.3e} of max|plain|, {describe_legs(split)}; the "
             f"kernel alone against its closed form at TF32 {err_alone:.3e} (bar "
-            f"{TF32_K2_BAR:.0e}); backward launches {bwd}, forward launches in the backward "
+            f"{TF32_K2_BAR:.0e}), its weight-gradient pass alone against its plain version "
+            f"{err_wgrad:.3e} ({t['wgrad_ms']:.4f} ms); backward launches {bwd}, forward launches in the backward "
             f"{forward_in_backward}; device: 1xTF32 kernel {t['ms']:.4f} ms, 3xTF32 "
             f"{t['f32_ms']:.4f} ms, closed form {t['plain_ms']:.4f} ms; bound at TF32 "
             f"{b[0]:.4f} ms ({b[1]})")
         if not ok:
             failures.append(f"K3 1xTF32 backward at {what}: missed {split['missed']}, "
-                            f"{err_alone}, {bwd}")
-        shape = {"shape": what, "max_rel_err": err, "kernel_vs_closed_form": err_alone, **t,
-                 "bound_ms": b[0], "bound_by": b[1], "legs": split}
+                            f"{err_alone}, {err_wgrad}, {bwd}")
+        shape = {"shape": what, "max_rel_err": err, "kernel_vs_closed_form": err_alone,
+                 "wgrad_vs_plain": err_wgrad, **t, "bound_ms": b[0], "bound_by": b[1],
+                 "legs": split}
         if result is None:
             result = {**shape, "bar": TF32_K2_BAR, "shapes": []}
         result["max_rel_err"] = max(result["max_rel_err"], err)
         result["kernel_vs_closed_form"] = max(result["kernel_vs_closed_form"], err_alone)
+        result["wgrad_vs_plain"] = max(result["wgrad_vs_plain"], err_wgrad)
         result["shapes"].append(shape)
     return result
 
@@ -3974,29 +4103,27 @@ def precision_phase(dev, inputs, smi, served):
     # off and in one with it on: bit-equal to the live forward at that config, the
     # refiners' convs the conv op under cuDNN's TF32 flag and every other conv without it
     # (a spy on every conv: ``conv_flags``), K3 at 1xTF32 and K2 not.
-    artifacts = {}
     override = dataclasses.replace(configs["highest"], stage_precision=(("refiners", "high"),))
-    for name, config, ambients, want_tf32 in (
-            ("high", configs["high"], (False,), {"chain": 1, "refiner": 2}),
-            ("highest", configs["highest"], (True,), {"chain": 0, "refiner": 0}),
-            ("refiners_high", override, (False, True), {"chain": 0, "refiner": 2})):
+    cases = (("high", configs["high"], (False,), {"chain": 1, "refiner": 2}),
+             ("highest", configs["highest"], (True,), {"chain": 0, "refiner": 0}),
+             ("refiners_high", override, (False, True), {"chain": 0, "refiner": 2}))
+    codes = {}
+    for name, config, ambients, _ in cases:
         path = os.path.join(inputs["root"], f"serving_b1_{name}.pt2")
         export.save_exported(export.export_inference(model, config, size=(H0, W0)), path)
         live = StreamingRunner(model, config, device=dev).forward(sample).cpu().numpy()
         io_path = os.path.join(inputs["root"], f"artifact_io_{name}.npz")
         np.savez(io_path, live=live, **sample)
+        for ambient in ambients:
+            codes[name, ambient] = (
+                f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                f"chip_smoke.artifact_child({path!r}, {io_path!r}, {str(dev)!r}, {ambient}, "
+                f"spy={config is override})")
+    artifacts = fresh_processes(codes, "the artifact at")
+    for name, config, ambients, want_tf32 in cases:
         spy = config is override
         for ambient in ambients:
-            code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
-                    f"chip_smoke.artifact_child({path!r}, {io_path!r}, {str(dev)!r}, "
-                    f"{ambient}, spy={spy})")
-            proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                                  text=True, timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"the {name} artifact in a fresh process failed:\n"
-                                     f"{proc.stderr[-3000:]}")
-            child = json.loads(proc.stdout.strip().splitlines()[-1])
-            artifacts[name, ambient] = child
+            child = artifacts[name, ambient]
             log(f"artifact at {name} B=1 in a fresh process with the cuDNN TF32 flag "
                 f"{'on' if ambient else 'off'}: mode {child['mode']}, bit-equal to the live "
                 f"forward at {name} {child['equal']}, launches {child['launches']}, 1xTF32 "
@@ -4028,6 +4155,28 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def fresh_processes(codes: dict, what: str) -> dict:
+    """Run each ``python -c`` code of ``codes`` in a fresh process, all at once (a fresh
+    process spends ~8-25 s starting up and loading before it runs anything); the last line
+    of each one's output as JSON, by key. Raises, with its errors, for one that fails."""
+    procs = {k: subprocess.Popen([sys.executable, "-c", code], cwd=REPO, text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for k, code in codes.items()}
+    outs = {}
+    try:
+        for k, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{what} {k} in a fresh process failed:\n{err[-3000:]}")
+            outs[k] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
 
 
 def spawn(spec: dict, n: int) -> list:
@@ -4380,17 +4529,17 @@ def multi_process_phase(dev, inputs, smi, cli_ms):
     recipe.update({"num_workers": 4, "debug_image_freq": 0, "plot_freq": 0,
                    "num_epochs": 1})
     timed = spawn({"kind": "train", "argv": argv(recipe, "train_mp_recipe", os.path.join(
-        root, "train_mp_recipe")) + ["--max_steps", str(TRAIN_STEPS)]}, MP_PROCESSES)
+        root, "train_mp_recipe")) + ["--max_steps", str(MP_TIMED_STEPS)]}, MP_PROCESSES)
     per_step = expected_launches([(local, 1)])
-    if any(t[0]["launches"] != {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if any(t[0]["launches"] != {k: MP_TIMED_STEPS * v for k, v in per_step.items()}
            for t in timed):
         failures.append(f"two-process launches {[t[0]['launches'] for t in timed]} in "
-                        f"{TRAIN_STEPS} steps, expected {per_step} a step")
+                        f"{MP_TIMED_STEPS} steps, expected {per_step} a step")
     ms = [float(np.median(np.diff(t[0]["stamps"][:-1])[2:] * 1e3)) for t in timed]
     peak = [t[0]["peak"] / 2**30 for t in timed]
     log(f"two processes at the recipe (B={TRAIN_B}, {local} a process, augmentation on, 4 "
         f"loader threads a process): the CLI loop {ms[0]:.3f} / {ms[1]:.3f} ms a step "
-        f"(process 0 / 1, median of steps 4-{TRAIN_STEPS - 1}, host clock; "
+        f"(process 0 / 1, median of steps 4-{MP_TIMED_STEPS - 1}, host clock; "
         f"{[round(float(g) * 1e3, 1) for g in np.diff(timed[0][0]['stamps'][:-1])]}), "
         f"{TRAIN_B * 1e3 / max(ms):.2f} images/s; one process (phase 7) {cli_ms:.3f} ms a "
         f"step; peak memory {peak[0]:.3f} / {peak[1]:.3f} GiB a process; launches a "
@@ -4950,6 +5099,28 @@ def main():
          "function_ms": backward["K3"]["ms"], "autograd_ms": backward["K3"]["plain_ms"],
          "bf16": {**backward_bf16["K3 kernel"], "function": backward_bf16["K3"]},
          "tf32": tf32["kernels"]["refiner_backward"]},
+        {"name": "incremental_chain_wgrad", "route": "cuda",
+         "source": f"{pkg}/csrc/incremental_chain.cu",
+         "header": f"{pkg}/csrc/wgrad.cuh",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/incremental_chain.py:357 "
+                     "(_chain_bwd: the VJP of the XLA scan; no TPU kernel), its weight "
+                     "gradients",
+         "launches": trained["wgrad_launches"]["chain"],
+         **{k: backward["K2 wgrad"][k] for k in (
+             "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "shapes")},
+         "library_ms": None, "bf16": backward_bf16["K2 wgrad"]},
+        {"name": "idepthmap_refiner_wgrad", "route": "cuda",
+         "source": f"{pkg}/csrc/idepthmap_refiner.cu",
+         "header": f"{pkg}/csrc/wgrad.cuh",
+         "replaces": "multi_view_stereonet_tpu/ops/pallas/refiner_kernel.py:244 "
+                     "(_fused_bwd: the VJP of idepthmap_refiner_s2d; no TPU kernel), its "
+                     "weight gradients",
+         "launches": trained["wgrad_launches"]["refiner"],
+         **{k: backward["K3 wgrad"][k] for k in (
+             "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "shapes")},
+         "library_ms": None, "bf16": backward_bf16["K3 wgrad"]},
     ]}
     log(json.dumps(report))
     log(smi)

@@ -1,5 +1,5 @@
-// The grid barrier of the cooperative kernels (idepthmap_refiner.cu, gn_apply.cu), Hopper
-// (sm_90a).
+// The grid barrier of the cooperative kernels (idepthmap_refiner.cu, gn_apply.cu, and the
+// weight-gradient passes of wgrad.cuh), and their grid size, Hopper (sm_90a).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,4 +24,29 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter) {
     } while (((old ^ now) & 0x80000000u) == 0);
   }
   __syncthreads();
+}
+
+// The blocks a cooperative launch of `kernel` (`threads` a block, `smem` bytes of dynamic
+// shared memory, its attribute set here) may take on the current device: as many as are
+// resident at once. Cached by the caller's `cache`, one entry a device (64 at most).
+// Returns a cudaError_t code.
+template <typename K>
+int resident_blocks(K kernel, int threads, size_t smem, int (&cache)[64], int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm * sms == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cache[dev] = per_sm * sms;
+  }
+  *blocks = cache[dev];
+  return 0;
 }

@@ -72,7 +72,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "grid_sync.cuh"  // grid_barrier
+#include <algorithm>
+
+#include "grid_sync.cuh"  // grid_barrier, resident_blocks
+#include "wgrad.cuh"      // the backward's weight-gradient pass
 
 namespace {
 
@@ -296,9 +299,9 @@ __device__ __forceinline__ void pass_stats(const Args& a, int l, int m, int mt, 
 // row-major map, from first + dy w - d on: tile[kh][i][e] holds position e of that run
 // (zero outside the map). A tap whose column falls off its row reads the zero row instead
 // (conv_pass), so each position is staged once for the three taps of a kernel row.
-template <typename F>
+template <int MT = MT_MAX, typename F>
 __device__ __forceinline__ F* tile_row(F* tile, int kh, int slot, int e) {
-  return tile + ((kh * MT_MAX + slot) * SEG + e) * CS;
+  return tile + ((kh * MT + slot) * SEG + e) * CS;
 }
 
 // For m-tile mm: its sample (*n), and the map position of run position 0 of kernel row
@@ -451,9 +454,10 @@ __device__ __forceinline__ float2 wpair(const float* wk, int row, int oc) {
 
 // The conv of one pass on the tensor cores: the pass's mt m-tiles x NJ n8 tiles (output
 // channels 0 .. 8 NJ - 1), ROWS input channels a tap (0: `rows`, a multiple of 4, at run
-// time), dilation d. A warp takes one m-tile slot and a share of the taps (tap part,
-// part + ks, ...). The shares go through `red`; warp part j of a slot (and j + ks, ...)
-// then sums n8 tile j's shares in a fixed order and runs epi(slot, j, sums). TRANS (the
+// time), dilation d, the tile holding MT m-tile slots. A warp takes one m-tile slot and a
+// share of the taps (tap part, part + ks, ...). The shares go through `red`; warp part j
+// of a slot (and j + ks, ...) then sums n8 tile j's shares in a fixed order and runs
+// epi(slot, j, sums). TRANS (the
 // backward's input gradients): the product's weight (k, n) is the layer's weight (n, k) of
 // the flipped tap 8 - tap, its pack read as it is (wrows rows a tap, LDW columns), zero
 // for n >= wrows: the transposed conv of the gradient tile. Every thread calls it. BF16:
@@ -461,7 +465,8 @@ __device__ __forceinline__ float2 wpair(const float* wk, int row, int oc) {
 // channels k + 4 tq .. k + 4 tq + 3 of A and B (the fragments' k order; lanes past
 // `rows` hold zeros), from the hi halves of the (w, 0) weight pairs. Otherwise in 3xTF32,
 // or in 1xTF32 (TF32): the one product a_hi b_hi, from the hi halves of (hi, 0) pairs.
-template <int ROWS, int NJ, int LDW, bool BF16, bool TF32, bool TRANS, typename Epi>
+template <int ROWS, int NJ, int LDW, bool BF16, bool TF32, bool TRANS, int MT = MT_MAX,
+          typename Epi>
 __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, const float* zrow,
                                           const float* wt, int rows_rt, int m, int mt, int d,
                                           float* red, int wrows, Epi&& epi) {
@@ -488,7 +493,7 @@ __device__ __forceinline__ void conv_pass(const Args& a, const float* tile, cons
 #pragma unroll 1
     for (int tap = part; tap < 9; tap += ks) {
       const int kh = tap / 3, dx = (tap % 3 - 1) * d;
-      const float* row = tile_row(tile, kh, slot, d + dx + gq) + tq;
+      const float* row = tile_row<MT>(tile, kh, slot, d + dx + gq) + tq;
       const float* ta = xa + dx >= 0 && xa + dx < a.w ? row : zrow + tq;
       const float* tb = xb + dx >= 0 && xb + dx < a.w ? row + 8 * CS : zrow + tq;
       const float* wk = TRANS ? wt + 2 * (8 - tap) * wrows * LDW : wt + 2 * tap * rows * LDW;
@@ -706,62 +711,69 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_kernel(Args a) {
 
 // ---- The backward ----------------------------------------------------------------------
 //
-// refiner_bwd_kernel: the gradient of out = ReLU(idepth + conv_final(h_6) + bf) in the
-// guidance, the idepth map and every parameter, from what the forward kept under autograd
-// (T_0 .. T_6, h_0 .. h_6, each GroupNorm's mean and rstd) and the output's gradient. It
-// has no TPU kernel to replace: the JAX package takes it as the VJP of
-// idepthmap_refiner_s2d (refiner_kernel.py _fused_bwd). Per sample, with gout =
-// grad ReLU'(out):
+// The gradient of out = ReLU(idepth + conv_final(h_6) + bf) in the guidance, the idepth
+// map and every parameter, from what the forward kept under autograd (T_0 .. T_6, h_0 ..
+// h_6, each GroupNorm's mean and rstd) and the output's gradient. It has no TPU kernel to
+// replace: the JAX package takes it as the VJP of idepthmap_refiner_s2d (refiner_kernel.py
+// _fused_bwd). Per sample, with gout = grad ReLU'(out):
 //   d idepth = gout + conv0's input gradient in the idepth channel;
 //   dh_6 = conv_final^T(gout); then for l = 6 .. 0: dz = dh_l LeakyReLU'(z_l), dT_l =
 //   rstd (dz gamma - a - x_hat b) with a, b the group means of dz gamma and dz gamma x_hat,
 //   dh_{l-1} = dh_l + conv_l^T(dT_l) (l >= 1), d[guidance, idepth] = conv0^T(dT_0);
 //   each conv's weight gradient sum_p X(p + tap) dT(p) and bias gradient sum_p dT(p),
 //   each GroupNorm's d gamma = sum dz x_hat and d beta = sum dz.
-// What bounds it: what bounds the forward, the chain of dependent stages (each
-// GroupNorm's backward needs its group sums over the whole map), with twice the forward's
-// multiply-adds (an input and a weight gradient a conv) and a cross-block sum of the
-// weight gradients at the end.
+// Two launches. Only the input gradients and the GroupNorm backward's sums are sequential;
+// the weight and bias gradients, half the multiply-adds, depend on nothing after them and
+// go to one pass over the whole card (wgrad.cuh).
 //
-// Design: the forward's grid, m-tiles and passes, walked in reverse: eight stages, stage s
-// the backward of layer s (7: the final conv), one grid barrier after each. A pass stages
-// two tiles with the forward's geometry: the gradient tile G (stage 7: gout in channel 0;
+// 1. refiner_bwd_kernel, the sequential part. What bounds it: what bounds the forward, the
+// chain of dependent stages (each GroupNorm's backward needs its group sums over the whole
+// map). The forward's grid and m-tiles, walked in reverse: eight stages, stage s the
+// backward of layer s (7: the final conv), a grid barrier after each but the last. A stage
+// takes the block's m-tiles in passes of up to MT_B = 6 (the forward's MT_MAX is 3: the
+// input tile X that left for the pass freed the shared memory of a tile twice the size,
+// and each pass's fixed latency is paid half as often). A pass stages the gradient tile G
+// with the forward's geometry (stage 7: gout in channel 0;
 // else dT_s, applied on load from dh_s, the kept T_s, the statistics and the group sums,
 // which the block reduces in f64 in a fixed order from the previous stage's per-(m-tile,
-// group) partials) and the input tile X (h_{s-1}, or [guidance, idepth] at stage 0, as
-// the forward staged it). Then
-//   1. input gradient: conv_pass over G with the layer's packed weights read transposed
-//      and tap-flipped (TRANS), on the tensor cores in the variant's arithmetic; its
-//      epilogue adds the residual dh_s, writes dh_{s-1} and the (sum dz, sum dz x_hat)
-//      partials of GroupNorm s - 1 (or, at stage 0, the guidance's and idepth's gradients);
-//   2. weight gradient: X^T G over the pass's own pixels on the tensor cores (m16n8k8,
-//      rows (tap, input channel), k the pixels), accumulated in registers over the
-//      stage's passes, then written to the block's own slot of `partial`;
-//   3. the bias, gamma and beta gradients, summed per block in f64 in a fixed order.
-// After the last stage the blocks' slots are summed in block order into dparams. No float
-// atomics: every run gives the same bits. One weight buffer, refilled by one bulk copy at
-// the start of each stage (a second tile takes the forward's second buffer's place).
+// group) partials) and writes its own pixels' G to a kept map (gout, or dT_s) for the
+// pass. Then conv_pass over G with the layer's packed weights read transposed and
+// tap-flipped (TRANS), on the tensor cores in the variant's arithmetic; its epilogue adds
+// the residual dh_s, writes dh_{s-1} and the (sum dz, sum dz x_hat) partials of GroupNorm
+// s - 1 (or, at stage 0, the guidance's and idepth's gradients), and the block sums its
+// (d gamma, d beta) in f64, written to a slot of the block's own at the end. One weight
+// buffer, refilled by one bulk copy at the start of each stage while its first pass stages
+// G.
+// 2. refiner_wgrad_kernel, the weight-gradient pass (wgrad.cuh): the eight convs' weight
+// and bias gradients, X the kept h_{l-1} (conv0: [guidance, idepth rounded] made on load),
+// G the kept maps; then every element summed over its blocks' slots, and (d gamma, d beta)
+// over the sequential part's, in block order. No float atomics: every run gives the same
+// bits.
 // Rounding as the forward: the operands of every product are rounded as the variant's
 // convs round them (3xTF32: split, three products; 1xTF32: TF32; bf16: bf16), every sum
-// and every elementwise term is f32, the group sums f64; the gradient passes straight
-// through each rounding of the forward, LeakyReLU's slope taken as plain autograd takes it.
+// and every elementwise term is f32, the group sums and the bias sums f64; the gradient
+// passes straight through each rounding of the forward, LeakyReLU's slope taken as plain
+// autograd takes it.
 
+constexpr int MT_B = 6;    // m-tiles a pass of the sequential part (the forward's: MT_MAX)
 constexpr int NJ_IN = 5;   // conv0's input gradient: cin_pad <= 36 channels, five n8 tiles
-constexpr int WQ = 9;      // (row tile, n8 tile) pairs of a weight gradient a warp holds
 constexpr int BRED_FLOATS = NWARPS * NJ_IN * 4 * 32;
-constexpr int CHAN_DOUBLES = MT_MAX * C * 2;
-constexpr int BWD_DOUBLES = DRED_DOUBLES + VEC_PAD + CHAN_DOUBLES;
+constexpr int CHAN_DOUBLES = MT_B * C * 2;
+constexpr int GN_GRADS = NGN * 2 * C;  // a block's (d gamma, d beta) of each GroupNorm
+constexpr int BWD_DOUBLES = DRED_DOUBLES + GN_GRADS + CHAN_DOUBLES;
+constexpr int BTILE_FLOATS = 3 * MT_B * SEG * CS;
 constexpr size_t BWD_SMEM_BYTES =
     sizeof(uint64_t) * 2 + sizeof(double) * BWD_DOUBLES +
-    sizeof(float) * (W0_FLOATS + 2 * TILE_FLOATS + ZERO_FLOATS + BRED_FLOATS + VEC_PAD +
-                     MT_MAX * 16 + 8);
+    sizeof(float) * (W0_FLOATS + BTILE_FLOATS + ZERO_FLOATS + BRED_FLOATS + VEC_PAD +
+                     MT_B * 16 + 8);
+static_assert(THREADS >= 3 * MT_B * (MTILE + 2), "stage_gout: a thread a staged position");
 static_assert(BWD_SMEM_BYTES <= 232448, "more than a block's shared memory");
 static_assert((sizeof(uint64_t) * 2 + sizeof(double) * BWD_DOUBLES) % 16 == 0,
-              "the weight buffer and the tiles are 16-byte aligned");
+              "the weight buffer and the tile are 16-byte aligned");
 
-// Where layer l's weight gradient starts in a block's slot of the parameter gradients
-// (l = LAYERS: the vector's): conv0's taps (9, cin_pad, 32), the resblocks' (6, 9, 32,
-// 32), the final conv's (9, 32), then the vector (VEC_FLOATS) in vec's order.
+// Where layer l's weight gradient starts in the parameter gradients (l = LAYERS: the
+// vector's): conv0's taps (9, cin_pad, 32), the resblocks' (6, 9, 32, 32), the final
+// conv's (9, 32), then the vector (VEC_FLOATS) in vec's order.
 __host__ __device__ inline int grad_offset(int cin_pad, int l) {
   const int w0 = 9 * cin_pad * C;
   if (l == 0) return 0;
@@ -775,9 +787,9 @@ struct BwdArgs : Args {  // Args as the forward's: hbuf and tbuf hold the kept h
   float* dguid;          // (N, cg, h, w) or null
   float* didepth;        // (N, h, w)
   float* dh;             // (2, N * P, 32): dh_l in slot l & 1
-  float* partial;        // (gridDim.x, kp): each block's parameter gradients
-  float* dparams;        // (kp): their sum over the blocks
-  int kp;
+  float* gkeep;          // (NGN, N * P, 32): dT_l, kept for the weight-gradient pass
+  float* gout;           // (N * P): gout, kept for the pass
+  double* gnpart;        // (gridDim.x, NGN, 2, 32): each block's (d gamma, d beta)
 };
 
 // LeakyReLU's derivative at the f32 GroupNorm value z, as the plain version's autograd
@@ -788,21 +800,14 @@ __device__ __forceinline__ float leaky_slope(float z) {
   else return rnd<T>(z) >= 0.0f ? 1.0f : SLOPE;
 }
 
-// An operand as the TF32 mma's hi and lo parts: 3xTF32 splits it; 1xTF32 takes the hi
-// part; at bf16 it is rounded to bf16 first, which TF32 holds exactly.
-template <bool BF16>
-__device__ __forceinline__ void split_op(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (BF16) x = rnd<__nv_bfloat16>(x);
-  split(x, hi, lo);
-}
-
 // Stage 7's gradient tile: gout = ReLU'(out) grad at each staged position (dilation 1) in
 // channel 0, channels 1..7 zero; the block's own pixels also get d idepth = gout (stage 0
-// adds conv0's part). Thread t < 162 owns (kernel row, slot, run position).
+// adds conv0's part) and are kept in a.gout. Thread t < 3 MT_B 18 owns (kernel row, slot,
+// run position).
 __device__ void stage_gout(const BwdArgs& a, int m, int mt, float* tile) {
   const int L = MTILE + 2, t = threadIdx.x;
-  if (t >= 3 * MT_MAX * L) return;
-  const int e = t % L, slot = (t / L) % MT_MAX, kh = t / (L * MT_MAX);
+  if (t >= 3 * MT_B * L) return;
+  const int e = t % L, slot = (t / L) % MT_B, kh = t / (L * MT_B);
   if (slot >= mt) return;
   int n;
   const int q = run_start(a, m + slot, 1, &n) + e + (kh - 1) * a.w;
@@ -810,9 +815,9 @@ __device__ void stage_gout(const BwdArgs& a, int m, int mt, float* tile) {
   if (q >= 0 && q < a.P) {
     const int64_t i = (int64_t)n * a.P + q;
     gv = __ldg(a.out + i) > 0.0f ? __ldg(a.grad + i) : 0.0f;
-    if (kh == 1 && e >= 1 && e < 1 + MTILE) a.didepth[i] = gv;
+    if (kh == 1 && e >= 1 && e < 1 + MTILE) a.didepth[i] = a.gout[i] = gv;
   }
-  float4* row = reinterpret_cast<float4*>(tile_row(tile, kh, slot, e));
+  float4* row = reinterpret_cast<float4*>(tile_row<MT_B>(tile, kh, slot, e));
   row[0] = make_float4(gv, 0.0f, 0.0f, 0.0f);
   row[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
@@ -838,158 +843,64 @@ __device__ __forceinline__ void bwd_pass_stats(const BwdArgs& a, int l, int m, i
   }
 }
 
-// Map offsets of the staged positions of thread (e, j) (stage_h's mapping): -1 outside
-// the map or past the pass.
-__device__ __forceinline__ void staged_offsets(const Args& a, int m, int mt, int d, int e,
-                                               int j, int64_t (&off)[MT_MAX][3]) {
-#pragma unroll
-  for (int slot = 0; slot < MT_MAX; ++slot) {
-    int n = 0, q1 = 0;
-    if (slot < mt) q1 = run_start(a, m + slot, d, &n) + e;
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
-      const int q = q1 + (kh - 1) * d * a.w;
-      off[slot][kh] = slot < mt && q >= 0 && q < a.P ? ((int64_t)n * a.P + q) * C + 4 * j : -1;
-    }
-  }
-}
-
 // Stage s's gradient tile (s <= 6, its conv at dilation d): dT_s = rstd (dz gamma - a -
 // x_hat b), dz = dh_s LeakyReLU'(z), at each staged position (zero outside the map), from
-// dh_s, the kept T_s and the pass's stat and gsum. Thread t < 8 (16 + 2d) owns run
-// position t / 8 and channel quad t % 8.
+// dh_s, the kept T_s and the pass's stat and gsum; the pass's own pixels' dT_s also go to
+// gkeep. The threads form groups of 8 (16 + 2d), as many as THREADS holds: thread (e, j)
+// of group g owns run position e and channel quad j of slots g, g + groups, ...; it
+// issues the loads of three of its slots before it uses any.
 template <typename T>
 __device__ void stage_dt(const Args& a, int m, int mt, int d, float* tile, const float* stat,
                          const float* gsum, const float* gamma, const float* beta,
-                         const float* dh, const float* tl) {
-  const int j = threadIdx.x & 7, e = threadIdx.x >> 3;
-  if (e >= MTILE + 2 * d) return;
-  int64_t off[MT_MAX][3];
-  staged_offsets(a, m, mt, d, e, j, off);
-  float4 gv[MT_MAX][3], tv[MT_MAX][3];
-#pragma unroll
-  for (int slot = 0; slot < MT_MAX; ++slot)
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
-      gv[slot][kh] = tv[slot][kh] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (off[slot][kh] >= 0) {
-        gv[slot][kh] = ldcg4(dh + off[slot][kh]);
-        tv[slot][kh] = ldcg4(tl + off[slot][kh]);
-      }
-    }
+                         const float* dh, const float* tl, float* gkeep) {
+  constexpr int CHUNK = 3;
+  const int L = MTILE + 2 * d, groups = THREADS / (8 * L), g = threadIdx.x / (8 * L);
+  if (g >= groups) return;
+  const int j = threadIdx.x & 7, e = (threadIdx.x % (8 * L)) >> 3;
   const float* ga = gamma + 4 * j;
   const float* be = beta + 4 * j;
   const int q = j / 2;
+  for (int first = g; first < mt; first += CHUNK * groups) {
+    int64_t off[CHUNK][3];
+    float4 gv[CHUNK][3], tv[CHUNK][3];
 #pragma unroll
-  for (int slot = 0; slot < MT_MAX; ++slot) {
-    if (slot >= mt) break;
-    const float mu = stat[slot * 8 + q], rs = stat[slot * 8 + GROUPS + q];
-    const float A = gsum[slot * 8 + q], B = gsum[slot * 8 + GROUPS + q];
-    auto one = [&](float g, float t, int k) {
-      const float xh = (t - mu) * rs;
-      const float dz = g * leaky_slope<T>(xh * ga[k] + be[k]);
-      return rs * (dz * ga[k] - A - xh * B);
-    };
+    for (int k = 0; k < CHUNK; ++k) {
+      const int slot = first + k * groups;
+      int n = 0, q1 = 0;
+      if (slot < mt) q1 = run_start(a, m + slot, d, &n) + e;
 #pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (off[slot][kh] >= 0) {
-        const float4 g = gv[slot][kh], t = tv[slot][kh];
-        v = make_float4(one(g.x, t.x, 0), one(g.y, t.y, 1), one(g.z, t.z, 2), one(g.w, t.w, 3));
-      }
-      reinterpret_cast<float4*>(tile_row(tile, kh, slot, e))[j] = v;
-    }
-  }
-}
-
-// The staged tile of a kept map src (h_{s-1}) at dilation d, as stage_h stages it.
-__device__ void stage_copy(const Args& a, int m, int mt, int d, float* tile, const float* src) {
-  const int j = threadIdx.x & 7, e = threadIdx.x >> 3;
-  if (e >= MTILE + 2 * d) return;
-  int64_t off[MT_MAX][3];
-  staged_offsets(a, m, mt, d, e, j, off);
-  float4 v[MT_MAX][3];
-#pragma unroll
-  for (int slot = 0; slot < MT_MAX; ++slot)
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh)
-      v[slot][kh] = off[slot][kh] >= 0 ? ldcg4(src + off[slot][kh])
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int slot = 0; slot < MT_MAX; ++slot) {
-    if (slot >= mt) break;
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh)
-      reinterpret_cast<float4*>(tile_row(tile, kh, slot, e))[j] = v[slot][kh];
-  }
-}
-
-// The weight gradient of one pass on the tensor cores: for each (row tile, n8 tile) pair
-// the warp holds (pairs warp, warp + 12, ...; a row tile is 16 input channels of one tap,
-// rows channels a tap, nt n8 tiles of output channels), acc += X(p + tap)^T G(p) over the
-// pass's own pixels p, eight a k-step (lanes tq: pixels tq and tq + 4 of a half m-tile); a
-// tap whose column falls off its row reads the zero row, as the conv does.
-template <bool BF16, bool TF32>
-__device__ __forceinline__ void wgrad_pass(const Args& a, const float* xt, const float* gt,
-                                           const float* zrow, int rows, int nt, int m, int mt,
-                                           int d, float (&acc)[WQ][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  const int cb = (rows + 15) >> 4, npairs = 9 * cb * nt;
-  for (int slot = 0; slot < mt; ++slot) {
-    const int mm = m + slot, n = mm / a.tps;
-    const int p0 = (mm - n * a.tps) * MTILE;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ia = 8 * half + tq, ib = ia + 4;
-      const int xa = (p0 + ia) % a.w, xb = (p0 + ib) % a.w;
-      const float* ga = tile_row(gt, 1, slot, d + ia);
-      const float* gb = tile_row(gt, 1, slot, d + ib);
-#pragma unroll
-      for (int q = 0; q < WQ; ++q) {
-        const int pair = warp + q * NWARPS;
-        if (pair >= npairs) break;
-        const int rt = pair / nt, j = pair - rt * nt;
-        const int tap = rt / cb, c0 = (rt - tap * cb) * 16;
-        const int kh = tap / 3, dx = (tap % 3 - 1) * d;
-        const float* ra = xa + dx >= 0 && xa + dx < a.w ? tile_row(xt, kh, slot, d + dx + ia) : zrow;
-        const float* rb = xb + dx >= 0 && xb + dx < a.w ? tile_row(xt, kh, slot, d + dx + ib) : zrow;
-        const int ci0 = c0 + gq, ci1 = ci0 + 8;
-        uint32_t ah[4], al[4], bh[2], bl[2];
-        split_op<BF16>(ci0 < rows ? ra[ci0] : 0.0f, ah[0], al[0]);
-        split_op<BF16>(ci1 < rows ? ra[ci1] : 0.0f, ah[1], al[1]);
-        split_op<BF16>(ci0 < rows ? rb[ci0] : 0.0f, ah[2], al[2]);
-        split_op<BF16>(ci1 < rows ? rb[ci1] : 0.0f, ah[3], al[3]);
-        split_op<BF16>(ga[8 * j + gq], bh[0], bl[0]);
-        split_op<BF16>(gb[8 * j + gq], bh[1], bl[1]);
-        if constexpr (!TF32 && !BF16) {
-          mma_k8(acc[q], al, bh);
-          mma_k8(acc[q], ah, bl);
+      for (int kh = 0; kh < 3; ++kh) {
+        const int p = q1 + (kh - 1) * d * a.w;
+        off[k][kh] = slot < mt && p >= 0 && p < a.P ? ((int64_t)n * a.P + p) * C + 4 * j : -1;
+        gv[k][kh] = tv[k][kh] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (off[k][kh] >= 0) {
+          gv[k][kh] = ldcg4(dh + off[k][kh]);
+          tv[k][kh] = ldcg4(tl + off[k][kh]);
         }
-        mma_k8(acc[q], ah, bh);
       }
     }
-  }
-}
-
-// wgrad_pass's accumulators into the block's slot dw of layer (tap, ci, co) at (tap rows +
-// ci) ncols + co; every element is written once.
-__device__ __forceinline__ void flush_wgrad(float* dw, const float (&acc)[WQ][4], int rows,
-                                            int nt, int ncols) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  const int cb = (rows + 15) >> 4, npairs = 9 * cb * nt;
 #pragma unroll
-  for (int q = 0; q < WQ; ++q) {
-    const int pair = warp + q * NWARPS;
-    if (pair >= npairs) break;
-    const int rt = pair / nt, j = pair - rt * nt;
-    const int tap = rt / cb, c0 = (rt - tap * cb) * 16;
+    for (int k = 0; k < CHUNK; ++k) {
+      const int slot = first + k * groups;
+      if (slot >= mt) break;
+      const float mu = stat[slot * 8 + q], rs = stat[slot * 8 + GROUPS + q];
+      const float A = gsum[slot * 8 + q], B = gsum[slot * 8 + GROUPS + q];
+      auto one = [&](float gr, float t, int c) {
+        const float xh = (t - mu) * rs;
+        const float dz = gr * leaky_slope<T>(xh * ga[c] + be[c]);
+        return rs * (dz * ga[c] - A - xh * B);
+      };
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int ci = c0 + gq + 8 * r;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int co = 8 * j + 2 * tq + k;
-        if (ci < rows && co < ncols) dw[(tap * rows + ci) * ncols + co] = acc[q][2 * r + k];
+      for (int kh = 0; kh < 3; ++kh) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (off[k][kh] >= 0) {
+          const float4 gr = gv[k][kh], t = tv[k][kh];
+          v = make_float4(one(gr.x, t.x, 0), one(gr.y, t.y, 1), one(gr.z, t.z, 2),
+                          one(gr.w, t.w, 3));
+          if (kh == 1 && e >= d && e < d + MTILE)
+            *reinterpret_cast<float4*>(gkeep + off[k][kh]) = v;
+        }
+        reinterpret_cast<float4*>(tile_row<MT_B>(tile, kh, slot, e))[j] = v;
       }
     }
   }
@@ -1001,28 +912,26 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_bwd_kernel(BwdArgs a) {
   extern __shared__ float4 smem4[];
   uint64_t* wbar = reinterpret_cast<uint64_t*>(smem4);  // the weight buffer's mbarrier
   double* dred = reinterpret_cast<double*>(wbar + 2);
-  double* vacc = dred + DRED_DOUBLES;  // the block's bias, gamma and beta gradients (vec's order)
-  double* chan = vacc + VEC_PAD;       // a pass's [slot][channel][sum dz, sum dz x_hat]
+  double* gacc = dred + DRED_DOUBLES;  // the block's (d gamma, d beta) [layer][2][C]
+  double* chan = gacc + GN_GRADS;      // a pass's [slot][channel][sum dz, sum dz x_hat]
   float* wbuf = reinterpret_cast<float*>(chan + CHAN_DOUBLES);
   float* gtile = wbuf + W0_FLOATS;
-  float* xtile = gtile + TILE_FLOATS;
-  float* zrow = xtile + TILE_FLOATS;
+  float* zrow = gtile + BTILE_FLOATS;
   float* red = zrow + ZERO_FLOATS;
   float* vec = red + BRED_FLOATS;
   float* stat = vec + VEC_PAD;   // [slot][mean 4, rstd 4]
-  float* gsum = stat + MT_MAX * 8;  // [slot][a 4, b 4]
-  float* tmp = gsum + MT_MAX * 8;
+  float* gsum = stat + MT_B * 8;  // [slot][a 4, b 4]
+  float* tmp = gsum + MT_B * 8;
   const int tid = threadIdx.x, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
   const int m_begin = blockIdx.x * a.mpb;
   const int m_end = min(a.M, m_begin + a.mpb);
   const int N = a.M / a.tps;
   const int64_t NPC = (int64_t)N * a.P * C;  // one map
-  float* part = a.partial + (int64_t)blockIdx.x * a.kp;
 
   int count;
   const float* vec_g = layer_weights(a, LAYERS, &count);
   for (int i = tid; i < count; i += THREADS) vec[i] = __ldg(vec_g + i);
-  for (int i = tid; i < VEC_PAD; i += THREADS) vacc[i] = 0.0;
+  for (int i = tid; i < GN_GRADS; i += THREADS) gacc[i] = 0.0;
   for (int i = tid; i < ZERO_FLOATS; i += THREADS) zrow[i] = 0.0f;
   if (tid == 0) {
     mbar_init(&wbar[0]);
@@ -1034,17 +943,11 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_bwd_kernel(BwdArgs a) {
     if (tid == 0) fetch_weights(a, s, wbuf, &wbar[0]);
     const bool last = s == LAYERS - 1;
     const int d = s == 0 || last ? 1 : a.dil[s - 1];
-    const int rows = s == 0 ? a.cin_pad : C;  // input channels a tap
     const int l = max(s - 1, 0);  // the GroupNorm this stage's epilogue serves (s >= 1)
     const float* dh_s = a.dh + (s & 1) * NPC;
     float* dh_l = a.dh + (l & 1) * NPC;
     const float* gamma_l = vec + 3 * C * l + C;
     const float* beta_l = gamma_l + C;
-    float wacc[WQ][4];
-#pragma unroll
-    for (int q = 0; q < WQ; ++q)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) wacc[q][k] = 0.0f;
     int cur_n = -1;
     float reg = 0.0f;
 
@@ -1123,64 +1026,205 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_bwd_kernel(BwdArgs a) {
       }
     };
 
-    for (int m = m_begin; m < m_end; m += MT_MAX) {
-      const int mt = min(MT_MAX, m_end - m);
-      __syncthreads();  // the last pass's tiles and sums are read
+    // The block's m-tiles in the fewest passes of at most MT_B, as even as they go.
+    for (int m = m_begin, mt; m < m_end; m += mt) {
+      const int left = m_end - m, passes = (left + MT_B - 1) / MT_B;
+      mt = (left + passes - 1) / passes;
+      __syncthreads();  // the last pass's tile and sums are read
       if (last) {
         stage_gout(a, m, mt, gtile);
       } else {
         bwd_pass_stats(a, s, m, mt, dred, tmp, stat, gsum, cur_n, reg);
         __syncthreads();
         stage_dt<T>(a, m, mt, d, gtile, stat, gsum, vec + 3 * C * s + C, vec + 3 * C * s + 2 * C,
-                    dh_s, a.tbuf + s * NPC);
+                    dh_s, a.tbuf + s * NPC, a.gkeep + s * NPC);
       }
-      if (s == 0)
-        stage_input<T>(a, m, mt, xtile);
-      else
-        stage_copy(a, m, mt, d, xtile, a.hbuf + l * NPC);
       __syncthreads();
       mbar_wait(&wbar[0], (LAYERS - 1 - s) & 1);
       if (last)
-        conv_pass<WF_COLS, GROUPS, WF_COLS, BF16, TF32, true>(
+        conv_pass<WF_COLS, GROUPS, WF_COLS, BF16, TF32, true, MT_B>(
             a, gtile, zrow, wbuf, WF_COLS, m, mt, 1, red, C,
             [&](int slot, int j, float (&v)[4]) { epi_dh(m, slot, j, v); });
       else if (s > 0)
-        conv_pass<C, GROUPS, C, BF16, TF32, true>(
+        conv_pass<C, GROUPS, C, BF16, TF32, true, MT_B>(
             a, gtile, zrow, wbuf, C, m, mt, d, red, C,
             [&](int slot, int j, float (&v)[4]) { epi_dh(m, slot, j, v); });
       else
-        conv_pass<C, NJ_IN, C, BF16, TF32, true>(
+        conv_pass<C, NJ_IN, C, BF16, TF32, true, MT_B>(
             a, gtile, zrow, wbuf, C, m, mt, 1, red, a.cin_pad,
             [&](int slot, int j, float (&v)[4]) { epi_in(m, slot, j, v); });
-      wgrad_pass<BF16, TF32>(a, xtile, gtile, zrow, rows, last ? 1 : GROUPS, m, mt, d, wacc);
-      // The conv bias's gradient: the gradient tile summed over the pass's own pixels.
-      if (tid < (last ? 1 : C)) {
-        double sum = 0.0;
-        for (int slot = 0; slot < mt; ++slot)
-          for (int i = 0; i < MTILE; ++i) sum += (double)tile_row(gtile, 1, slot, d + i)[tid];
-        vacc[(last ? 3 * C * NGN : 3 * C * s) + tid] += sum;
-      }
       if (s > 0) {
         __syncthreads();  // chan is written
         if (tid < C)
           for (int slot = 0; slot < mt; ++slot) {
-            vacc[3 * C * l + C + tid] += chan[(slot * C + tid) * 2 + 1];  // gamma
-            vacc[3 * C * l + 2 * C + tid] += chan[(slot * C + tid) * 2];  // beta
+            gacc[2 * C * l + tid] += chan[(slot * C + tid) * 2 + 1];  // gamma
+            gacc[2 * C * l + C + tid] += chan[(slot * C + tid) * 2];  // beta
           }
       }
     }
-    flush_wgrad(part + grad_offset(a.cin_pad, s), wacc, rows, last ? 1 : GROUPS, last ? 1 : C);
     if (s > 0) grid_barrier(a.barrier);
   }
-  for (int i = tid; i < VEC_FLOATS; i += THREADS)
-    part[grad_offset(a.cin_pad, LAYERS) + i] = (float)vacc[i];
-  grid_barrier(a.barrier);
-  // The parameter gradients: the blocks' slots summed in block order.
-  for (int e = blockIdx.x * THREADS + tid; e < a.kp; e += gridDim.x * THREADS) {
-    float sum = 0.0f;
-    for (int b = 0; b < (int)gridDim.x; ++b) sum += __ldcg(a.partial + (int64_t)b * a.kp + e);
-    a.dparams[e] = sum;
+  __syncthreads();
+  for (int i = tid; i < GN_GRADS; i += THREADS)
+    a.gnpart[(int64_t)blockIdx.x * GN_GRADS + i] = gacc[i];
+}
+
+// The weight-gradient pass's resident blocks an SM: one (at 98-113 registers; two cap them
+// at 96 and ran slower, scripts/refiner_variants.py's lever).
+constexpr int WGRAD_MIN_BLOCKS = 1;
+
+// The weight-gradient pass's arguments (wgrad.cuh): the eight convs' X and G, the
+// sequential part's (d gamma, d beta) slots, and the blocks given to each layer.
+struct WgradArgs {
+  const void* guidance;   // (N, cg, h, w), of the storage type
+  const float* idepth;    // (N, h, w)
+  const float* hbuf;      // (NGN, N * P, 32): the kept h_l
+  const float* gkeep;     // (NGN, N * P, 32): dT_l
+  const float* gout;      // (N * P)
+  const double* gnpart;   // (gn_blocks, NGN, 2, 32)
+  float* partial;         // (gridDim.x, wgrad::SLOT_FLOATS): each block's sums
+  float* dparams;         // (kp): the parameter gradients, grad_offset's layout
+  unsigned int* barrier;
+  int N, cg, cin_pad, h, w, P, spp, gn_blocks, kp;  // spp: stages a sample
+  int dil[NRES];
+  int start[LAYERS + 1];  // layer l's blocks: start[l] .. start[l + 1] - 1
+};
+
+// Layer l's stage item (sample item / spp, pixels p0 = (item % spp) KB ..) into the pass's
+// tiles, zero outside the map: X, the three kernel rows' runs of h_{l-1}, and G, dT_l (l
+// <= 6) or gout in column 0 (the final conv), by asynchronous copies (wgrad_issue); conv0's
+// X, [guidance, idepth rounded to T, 0 ...], made on load from the NCHW guidance once the
+// copies have landed (wgrad_finish: scalar items, a warp on consecutive positions of one
+// channel, BATCH loads issued before any store).
+__device__ void wgrad_issue(const WgradArgs& a, int l, int d, int item, float* xs, float* gs) {
+  constexpr int NT_ = wgrad::THREADS;
+  const int n = item / a.spp, p0 = (item - n * a.spp) * wgrad::KB;
+  const int L = wgrad::KB + 2 * d;
+  const int64_t plane = (int64_t)n * a.P;
+  const int64_t NPC = (int64_t)a.N * a.P * C;
+  if (l > 0) {
+    const float* src = a.hbuf + (l - 1) * NPC;
+    for (int i = threadIdx.x; i < 3 * L * 8; i += NT_) {
+      const int j = i & 7, e = (i >> 3) % L, kh = (i >> 3) / L;
+      const int q = p0 - d + e + (kh - 1) * d * a.w;
+      const bool in = q >= 0 && q < a.P;
+      wgrad::cp_async16(xs + (kh * wgrad::RUN + e) * wgrad::XS + 4 * j,
+                        in ? src + (plane + q) * C + 4 * j : src, in);
+    }
   }
+  if (l < LAYERS - 1) {
+    const float* src = a.gkeep + l * NPC;
+    for (int i = threadIdx.x; i < wgrad::KB * 8; i += NT_) {
+      const int j = i & 7, p = i >> 3;
+      const bool in = p0 + p < a.P;
+      wgrad::cp_async16(gs + p * wgrad::GS + 4 * j, in ? src + (plane + p0 + p) * C + 4 * j : src,
+                        in);
+    }
+  } else {
+    for (int p = threadIdx.x; p < wgrad::KB; p += NT_) {
+      const bool in = p0 + p < a.P;
+      wgrad::cp_async4(gs + p * wgrad::GS, in ? a.gout + plane + p0 + p : a.gout, in);
+    }
+  }
+}
+
+template <typename T>
+__device__ bool wgrad_finish(const WgradArgs& a, int l, int item, float* xs) {
+  if (l != 0) return false;
+  constexpr int BATCH = 4, NT_ = wgrad::THREADS, d = 1;
+  const int n = item / a.spp, p0 = (item - n * a.spp) * wgrad::KB;
+  const int L = wgrad::KB + 2 * d;
+  const int64_t plane = (int64_t)n * a.P;
+  const T* guid = static_cast<const T*>(a.guidance) + (int64_t)n * a.cg * a.P;
+  const int items = 3 * a.cin_pad * L;
+  for (int base = threadIdx.x; base < items; base += BATCH * NT_) {
+    float v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = base + u * NT_, e = i % L, c = (i / L) % a.cin_pad, kh = i / (L * a.cin_pad);
+      const int q = p0 - d + e + (kh - 1) * d * a.w;
+      v[u] = 0.0f;
+      if (i < items && q >= 0 && q < a.P)
+        v[u] = c < a.cg ? ldg1(guid + (int64_t)c * a.P + q)
+               : c == a.cg ? rnd<T>(__ldg(a.idepth + plane + q)) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = base + u * NT_, e = i % L, c = (i / L) % a.cin_pad, kh = i / (L * a.cin_pad);
+      if (i < items) xs[(kh * wgrad::RUN + e) * wgrad::XS + c] = v[u];
+    }
+  }
+  return true;
+}
+
+// The parameter gradients in grad_offset's layout: each element of layer l summed over
+// its blocks' slots (wgrad::conv_wgrad's layout) in block order; each GroupNorm's (d
+// gamma, d beta) over the sequential part's slots, in block order.
+__device__ void reduce_partials(const WgradArgs& a) {
+  constexpr int SLOT = wgrad::SLOT_FLOATS;
+  const int w0 = 9 * a.cin_pad * C, wr = NRES * 9 * C * C, vec0 = grad_offset(a.cin_pad, LAYERS);
+  for (int e = blockIdx.x * wgrad::THREADS + threadIdx.x; e < a.kp;
+       e += gridDim.x * wgrad::THREADS) {
+    int l, off;
+    if (e < w0) {  // conv0: rows of three m16 tiles, 32 columns
+      l = 0;
+      off = ((e / (a.cin_pad * C)) * 48 + (e / C) % a.cin_pad) * C + e % C;
+    } else if (e < w0 + wr) {
+      const int f = (e - w0) % (9 * C * C);
+      l = 1 + (e - w0) / (9 * C * C);
+      off = f;  // (tap 32 + ci) 32 + co
+    } else if (e < vec0) {  // the final conv: one column of eight
+      l = LAYERS - 1;
+      off = (e - w0 - wr) * 8;
+    } else {
+      const int v = e - vec0, layer = v / (3 * C), kind = (v % (3 * C)) / C, c = v % C;
+      if (v == 3 * C * NGN) {  // the final conv's bias
+        l = LAYERS - 1;
+        off = 9 * 32 * 8;
+      } else if (kind == 0) {  // a conv's bias
+        l = layer;
+        off = 9 * (l == 0 ? 48 : 32) * C + c;
+      } else {  // d gamma (kind 1) or d beta (kind 2)
+        double s = 0.0;
+        for (int b = 0; b < a.gn_blocks; ++b)
+          s += __ldcg(a.gnpart + ((int64_t)b * NGN + layer) * 2 * C + (kind - 1) * C + c);
+        a.dparams[e] = (float)s;
+        continue;
+      }
+    }
+    a.dparams[e] = wgrad::sum_slots(a.partial + (int64_t)a.start[l] * SLOT + off,
+                                    a.start[l + 1] - a.start[l], SLOT);
+  }
+}
+
+template <typename T, bool TF32>
+__global__ void __launch_bounds__(wgrad::THREADS, WGRAD_MIN_BLOCKS)
+refiner_wgrad_kernel(WgradArgs a) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  extern __shared__ float4 smem4[];
+  double* dsum = reinterpret_cast<double*>(smem4);
+  float* tiles = reinterpret_cast<float*>(dsum + wgrad::THREADS);
+  float* glo = tiles + 2 * wgrad::TILE_FLOATS;
+  int l = 0;
+  while ((int)blockIdx.x >= a.start[l + 1]) ++l;
+  const int k = blockIdx.x - a.start[l], nb = a.start[l + 1] - a.start[l];
+  const int items = a.N * a.spp;
+  const int begin = (int)((int64_t)items * k / nb), end = (int)((int64_t)items * (k + 1) / nb);
+  const int d = l == 0 || l == LAYERS - 1 ? 1 : a.dil[l - 1];
+  float* slot = a.partial + (int64_t)blockIdx.x * wgrad::SLOT_FLOATS;
+  auto issue = [&](int item, float* x, float* g) { wgrad_issue(a, l, d, item, x, g); };
+  auto finish = [&](int item, float* x, float*) { return wgrad_finish<T>(a, l, item, x); };
+  if (l == 0)
+    wgrad::conv_wgrad<3, 4, BF16, TF32>(begin, end, a.spp, d, a.cin_pad, C, a.w, tiles, glo,
+                                        dsum, slot, issue, finish);
+  else if (l < LAYERS - 1)
+    wgrad::conv_wgrad<2, 4, BF16, TF32>(begin, end, a.spp, d, C, C, a.w, tiles, glo, dsum,
+                                        slot, issue, finish);
+  else
+    wgrad::conv_wgrad<2, 1, BF16, TF32>(begin, end, a.spp, d, C, 1, a.w, tiles, glo, dsum,
+                                        slot, issue, finish);
+  grid_barrier(a.barrier);  // the blocks' slots are written
+  reduce_partials(a);
 }
 
 // ---- Launches ---------------------------------------------------------------------------
@@ -1191,29 +1235,6 @@ __global__ void __launch_bounds__(THREADS, 1) refiner_bwd_kernel(BwdArgs a) {
 long long needed_scratch(int N, int h, int w, bool maps) {
   const long long P = (long long)h * w, M = (long long)N * ((P + MTILE - 1) / MTILE);
   return (maps ? 4LL * N * P * C : 0LL) + 4LL * NGN * M * GROUPS;
-}
-
-// The blocks a cooperative launch of `kernel` (one a SM at most) may take on the current
-// device, with its shared memory set; cached by the caller's `cache`, one entry a device.
-template <typename K>
-int resident_blocks(K kernel, size_t smem, int (&cache)[MAX_DEVICES], int* blocks) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm * sms == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-    cache[dev] = per_sm * sms;
-  }
-  *blocks = cache[dev];
-  return 0;
 }
 
 // Args for N samples of an h x w map and the blocks the grid may take; the grid size.
@@ -1253,7 +1274,7 @@ int launch(const T* guidance, const float* idepth, const float* wpack, float* ou
       keep != (keep_h != nullptr) || keep != (keep_stats != nullptr))
     return (int)cudaErrorInvalidValue;
   int blocks = 0;
-  int err = resident_blocks(refiner_kernel<T, TF32>, SMEM_BYTES, max_blocks, &blocks);
+  int err = resident_blocks(refiner_kernel<T, TF32>, THREADS, SMEM_BYTES, max_blocks, &blocks);
   if (err != 0) return err;
   Args a;
   const int grid = fill_args(a, guidance, idepth, wpack, barrier, N, cg, h, w, dil, blocks);
@@ -1279,23 +1300,23 @@ int launch(const T* guidance, const float* idepth, const float* wpack, float* ou
 template <typename T, bool TF32>
 int launch_bwd(const T* guidance, const float* idepth, const float* wpack, const float* out,
                const float* keep_t, const float* keep_h, const float* keep_stats,
-               const float* grad, float* dguid, float* didepth, float* dparams, float* partial,
-               long long partial_floats, float* scratch, long long scratch_floats,
-               unsigned int* barrier, int N, int cg, int h, int w, const int* dil,
-               cudaStream_t stream) {
+               const float* grad, float* dguid, float* didepth, float* gkeep, float* gout,
+               double* gnpart, long long gnpart_doubles, int* blocks_used, float* scratch,
+               long long scratch_floats, unsigned int* barrier, int N, int cg, int h, int w,
+               const int* dil, cudaStream_t stream) {
   static int max_blocks[MAX_DEVICES] = {0};
+  *blocks_used = 0;
   if (N == 0 || h == 0 || w == 0) return 0;
   if (cg < 0 || cg + 1 > MAX_CIN0 || scratch_floats < needed_scratch(N, h, w, false) +
                                                           2LL * N * h * w * C)
     return (int)cudaErrorInvalidValue;
   int blocks = 0;
-  int err = resident_blocks(refiner_bwd_kernel<T, TF32>, BWD_SMEM_BYTES, max_blocks, &blocks);
+  int err =
+      resident_blocks(refiner_bwd_kernel<T, TF32>, THREADS, BWD_SMEM_BYTES, max_blocks, &blocks);
   if (err != 0) return err;
   BwdArgs a;
   const int grid = fill_args(a, guidance, idepth, wpack, barrier, N, cg, h, w, dil, blocks);
-  if (grid < 0) return (int)cudaErrorInvalidValue;
-  a.kp = grad_offset(a.cin_pad, LAYERS) + VEC_FLOATS;
-  if (partial_floats < (long long)grid * a.kp) return (int)cudaErrorInvalidValue;
+  if (grid < 0 || gnpart_doubles < (long long)grid * GN_GRADS) return (int)cudaErrorInvalidValue;
   const int64_t npc = (int64_t)N * a.P * C;
   a.out = const_cast<float*>(out);
   a.slots = NGN;
@@ -1307,12 +1328,68 @@ int launch_bwd(const T* guidance, const float* idepth, const float* wpack, const
   a.didepth = didepth;
   a.dh = scratch;
   a.partials = reinterpret_cast<double2*>(scratch + 2 * npc);
-  a.partial = partial;
-  a.dparams = dparams;
+  a.gkeep = gkeep;
+  a.gout = gout;
+  a.gnpart = gnpart;
   void* args[] = {&a};
   cudaError_t status = cudaLaunchCooperativeKernel((const void*)refiner_bwd_kernel<T, TF32>,
                                                    dim3(grid), dim3(THREADS), args,
                                                    BWD_SMEM_BYTES, stream);
+  if (status != cudaSuccess) {
+    cudaGetLastError();
+    return (int)status;
+  }
+  *blocks_used = grid;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool TF32>
+int launch_wgrad(const T* guidance, const float* idepth, const float* keep_h,
+                 const float* gkeep, const float* gout, const double* gnpart, int gn_blocks,
+                 float* dparams, float* partial, long long partial_floats,
+                 unsigned int* barrier, int N, int cg, int h, int w, const int* dil,
+                 cudaStream_t stream) {
+  static int max_blocks[MAX_DEVICES] = {0};
+  if (N == 0 || h == 0 || w == 0) return 0;
+  if (cg < 0 || cg + 1 > MAX_CIN0 || gn_blocks < 1) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  int err = resident_blocks(refiner_wgrad_kernel<T, TF32>, wgrad::THREADS, wgrad::SMEM_BYTES,
+                            max_blocks, &blocks);
+  if (err != 0) return err;
+  blocks = (int)std::min<long long>(blocks, partial_floats / wgrad::SLOT_FLOATS);
+  if (blocks < LAYERS) return (int)cudaErrorInvalidValue;
+  WgradArgs a;
+  for (int k = 0; k < NRES; ++k) {
+    if (dil[k] < 1 || dil[k] > MAX_DIL) return (int)cudaErrorInvalidValue;
+    a.dil[k] = dil[k];
+  }
+  a.guidance = guidance;
+  a.idepth = idepth;
+  a.hbuf = keep_h;
+  a.gkeep = gkeep;
+  a.gout = gout;
+  a.gnpart = gnpart;
+  a.partial = partial;
+  a.dparams = dparams;
+  a.barrier = barrier;
+  a.N = N;
+  a.cg = cg;
+  a.cin_pad = (cg + 1 + 3) / 4 * 4;
+  a.h = h;
+  a.w = w;
+  a.P = h * w;
+  a.spp = (a.P + wgrad::KB - 1) / wgrad::KB;
+  a.gn_blocks = gn_blocks;
+  a.kp = grad_offset(a.cin_pad, LAYERS) + VEC_FLOATS;
+  // The blocks in proportion to each layer's products (conv0's scalar staging counted half
+  // again), the final conv's one column of eight a quarter of a resblock's.
+  double weight[LAYERS];
+  for (int l = 0; l < LAYERS; ++l) weight[l] = l == 0 ? 1.5 * 3 * 4 : l < LAYERS - 1 ? 2 * 4 : 2;
+  wgrad::split_blocks(blocks, LAYERS, weight, a.start);
+  void* args[] = {&a};
+  cudaError_t status = cudaLaunchCooperativeKernel((const void*)refiner_wgrad_kernel<T, TF32>,
+                                                   dim3(blocks), dim3(wgrad::THREADS), args,
+                                                   wgrad::SMEM_BYTES, stream);
   if (status != cudaSuccess) {
     cudaGetLastError();
     return (int)status;
@@ -1369,27 +1446,49 @@ extern "C" int mvs_idepthmap_refiner_bf16(const __nv_bfloat16* guidance, const f
                                       stream);
 }
 
-// The backward of the variant's forward, from its inputs (guidance, idepth, the same
-// wpack), its output out and what it kept (keep_t, keep_h, keep_stats), and the output's
-// gradient grad (N, h, w) f32. Writes dguid (N, cg, h, w) f32 where not null, didepth
-// (N, h, w) f32 and dparams: the parameter gradients in the pack's order, conv0's taps
-// (9, cin_pad, 32), the resblocks' (6, 9, 32, 32), the final conv's (9, 32), then the
-// vector (673) in its order; partial: partial_floats f32, one slot of dparams' size a block
-// (at most one block a multiprocessor); scratch: scratch_floats f32, 16-byte aligned, at
+// The backward of the variant's forward, two launches. The sequential part: from the
+// forward's inputs (guidance, idepth, the same wpack), its output out and what it kept
+// (keep_t, keep_h, keep_stats), and the output's gradient grad (N, h, w) f32, writes
+// dguid (N, cg, h, w) f32 where not null, didepth (N, h, w) f32, and for the pass gkeep
+// (7, N, h, w, 32) f32, each GroupNorm layer's dT_l, gout (N, h, w) f32 and gnpart:
+// gnpart_doubles f64, each block's (d gamma, d beta) (7, 2, 32), its grid's blocks into
+// *blocks (at most one a multiprocessor); scratch: scratch_floats f32, 16-byte aligned, at
 // least two maps (N, h, w, 32) and needed_scratch's partials. Same barrier, dil and returns
 // as the forward.
 #define MVS_REFINER_BWD(NAME, T, TF32)                                                      \
   extern "C" int NAME(const T* guidance, const float* idepth, const float* wpack,          \
                       const float* out, const float* keep_t, const float* keep_h,          \
                       const float* keep_stats, const float* grad, float* dguid,            \
-                      float* didepth, float* dparams, float* partial,                      \
-                      long long partial_floats, float* scratch, long long scratch_floats,  \
-                      unsigned int* barrier, int N, int cg, int h, int w, const int* dil,  \
-                      cudaStream_t stream) {                                               \
+                      float* didepth, float* gkeep, float* gout, double* gnpart,           \
+                      long long gnpart_doubles, int* blocks, float* scratch,               \
+                      long long scratch_floats, unsigned int* barrier, int N, int cg,      \
+                      int h, int w, const int* dil, cudaStream_t stream) {                 \
     return launch_bwd<T, TF32>(guidance, idepth, wpack, out, keep_t, keep_h, keep_stats,   \
-                               grad, dguid, didepth, dparams, partial, partial_floats,     \
-                               scratch, scratch_floats, barrier, N, cg, h, w, dil, stream); \
+                               grad, dguid, didepth, gkeep, gout, gnpart, gnpart_doubles,  \
+                               blocks, scratch, scratch_floats, barrier, N, cg, h, w, dil, \
+                               stream);                                                    \
   }
 MVS_REFINER_BWD(mvs_idepthmap_refiner_bwd_f32, float, false)
 MVS_REFINER_BWD(mvs_idepthmap_refiner_bwd_tf32, float, true)
 MVS_REFINER_BWD(mvs_idepthmap_refiner_bwd_bf16, __nv_bfloat16, false)
+
+// The weight-gradient pass, after the sequential part on the same stream: from the
+// forward's guidance and idepth, its kept keep_h, and the sequential part's gkeep, gout and
+// gnpart (its gn_blocks blocks), writes dparams: the parameter gradients in the pack's
+// order, conv0's taps (9, cin_pad, 32), the resblocks' (6, 9, 32, 32), the final conv's (9,
+// 32), then the vector (673) in its order. partial: partial_floats f32, a slot of
+// wgrad::SLOT_FLOATS a block (the grid takes at most as many blocks as it holds slots, and
+// as are resident). Same barrier, dil and returns as the forward.
+#define MVS_REFINER_WGRAD(NAME, T, TF32)                                                    \
+  extern "C" int NAME(const T* guidance, const float* idepth, const float* keep_h,         \
+                      const float* gkeep, const float* gout, const double* gnpart,         \
+                      int gn_blocks, float* dparams, float* partial,                       \
+                      long long partial_floats, unsigned int* barrier, int N, int cg,      \
+                      int h, int w, const int* dil, cudaStream_t stream) {                 \
+    return launch_wgrad<T, TF32>(guidance, idepth, keep_h, gkeep, gout, gnpart, gn_blocks, \
+                                 dparams, partial, partial_floats, barrier, N, cg, h, w,   \
+                                 dil, stream);                                             \
+  }
+MVS_REFINER_WGRAD(mvs_idepthmap_refiner_wgrad_f32, float, false)
+MVS_REFINER_WGRAD(mvs_idepthmap_refiner_wgrad_tf32, float, true)
+MVS_REFINER_WGRAD(mvs_idepthmap_refiner_wgrad_bf16, __nv_bfloat16, false)

@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "clip_grad.cuh"  // clip_grad
+#include "wgrad.cuh"      // the backward's weight-gradient pass
 
 namespace cg = cooperative_groups;
 
@@ -367,12 +368,13 @@ __device__ __forceinline__ float4 gn_leaky4(float4 v, const float* stat, const f
 }
 
 // A tile of (th + 2) x (tw + 2) positions (one-pixel halo; zero outside the map) from
-// NL global scratch maps: tile[pos][4j..4j+3] = make(the maps' channels 4j..4j+3, j).
+// NL global scratch maps: tile[pos][4j..4j+3] = make(the maps' channels 4j..4j+3, j);
+// the tile's own pixels (the halo left out) also go to the map keep where it is given.
 // A thread loads BATCH items (position, quad) before it uses any.
 template <int NL, typename Make>
 __device__ __forceinline__ void stage_tile(const float* const (&src)[NL], float* tile, int y0,
                                            int x0, int th, int tw, int h, int wd,
-                                           Make&& make) {
+                                           Make&& make, float* keep = nullptr) {
   const int tpw = tw + 2, items = (th + 2) * tpw * 8;
   for (int base = threadIdx.x; base < items; base += BATCH * THREADS) {
     float4 v[BATCH][NL];
@@ -392,10 +394,13 @@ __device__ __forceinline__ void stage_tile(const float* const (&src)[NL], float*
       const int i = base + u * THREADS;
       if (i >= items) break;
       const int pos = i / 8, j = i % 8;
-      const int y = y0 - 1 + pos / tpw, x = x0 - 1 + pos % tpw;
+      const int ty = pos / tpw, tx = pos % tpw;
+      const int y = y0 - 1 + ty, x = x0 - 1 + tx;
       const bool inside = y >= 0 && y < h && x >= 0 && x < wd;
-      reinterpret_cast<float4*>(tile + pos * CS)[j] =
-          inside ? make(v[u], j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 made = inside ? make(v[u], j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(tile + pos * CS)[j] = made;
+      if (keep != nullptr && ty >= 1 && ty <= th && tx >= 1 && tx <= tw)
+        reinterpret_cast<float4*>(keep + (y * wd + x) * C)[j] = made;
     }
   }
 }
@@ -664,50 +669,58 @@ chain_kernel(const T* __restrict__ feats0, const T* __restrict__ image,
 // mvsnet.py:218-234) that the JAX _chain_bwd (ops/pallas/incremental_chain.py:357-368)
 // takes, in place of its recompute. It reads what the forward kept under autograd: the
 // chain out (every step's carry), each step's raw h and raw r and its GroupNorms' mean and
-// rstd. One thread-block cluster per sample, as the forward; steps d = D-2 .. 0, the carry's
-// gradient (global scratch) the only thing carried between them. A step is three stages
-// that mirror the forward's C, B, A, each staging a tile of a gradient and a tile of the
-// conv's input, then running the conv's dgrad (conv_tile over the gradient tile with the
-// weights flipped and transposed) and its weight gradient (wgrad_tile):
-//   C'. conv_final: gres = dgrad of the carry's gradient g; dWf += res^T g; dbf += sum g;
-//   B'. the resblock: gr = GNr + LeakyReLU's backward of gres; ghn = gres + dgrad(gr);
-//       dWr += h^T gr; dbr += sum gr;
-//   A'. conv0: ga = GN0 + LeakyReLU's backward of ghn; the warped channels' gradient
+// rstd. Two launches. Only the input gradients and the GroupNorm backward's sums are
+// sequential; the weight and bias gradients, half the multiply-adds, depend on nothing
+// after them and go to one pass over the whole card (wgrad.cuh).
+//
+// 1. chain_bwd_kernel, the sequential part: one thread-block cluster per sample, as the
+// forward; steps d = D-2 .. 0, the gradient of each step's carry (out[n, d + 1]) kept in a
+// map of its own (gcarry), the only thing carried between steps. A step is three stages
+// that mirror the forward's C, B, A, each staging a tile of a gradient and running the
+// conv's dgrad (conv_tile over the gradient tile with the weights flipped and transposed):
+//   C'. conv_final: gres = dgrad of the carry's gradient g;
+//   B'. the resblock: gr = GNr + LeakyReLU's backward of gres, kept; ghn = gres + dgrad(gr);
+//   A'. conv0: ga = GN0 + LeakyReLU's backward of ghn, kept; the warped channels' gradient
 //       g + dgrad(ga), zero where the sample is invalid, goes through the warp's transpose
 //       into the gradient of the step's carry (f32 atomics, in an order that changes from
-//       run to run), which starts as the output's gradient at that hypothesis;
-//       dW0 += x0^T ga over the re-warped input; db0 += sum ga; and where asked, the image
-//       channels' gradient and H's.
+//       run to run), which starts as the output's gradient at that hypothesis; and where
+//       asked, the image channels' gradient and H's (the carry read at the four taps).
 // Each GroupNorm backward needs two sums a channel over the map, of gz = g leaky'(z) and of
 // gz x_hat: each block pushes its partial sums into every block's shared memory, and after
 // the cluster barrier each sums them in rank order, so they are the same in every block
-// and from run to run. The weight gradients accumulate on the tensor cores tile by tile
-// into the block's own slot of ``partial`` (global, read and written by the thread that
-// owns each element), the vector gradients in shared memory; the caller sums the blocks'
-// slots. The convs round their operands as the forward's do: 3xTF32, 1xTF32 (TF32), or bf16
-// at bf16 storage (the dgrads on bf16 mma.sync, the weight gradients' bf16-rounded operands
+// and from run to run; the GroupNorms' (d gamma, d beta) accumulate in shared memory and
+// each block writes them to a slot of its own at the end.
+// 2. chain_wgrad_kernel, the weight-gradient pass (wgrad.cuh): the three convs' weight and
+// bias gradients over every (sample, step) plane, G the kept maps (ga, gr, the carry's
+// gradient), X made on load as the forward made it: conv0's [the carry warped by H_inc
+// from out, the image], the resblock's h = LeakyReLU(GN0(raw h)), conv_final's h +
+// LeakyReLU(GNr(raw r)), from the kept raw maps and statistics; then every element summed
+// over its blocks' slots, and (d gamma, d beta) over the sequential part's, in block order.
+// The convs round their operands as the forward's do: 3xTF32, 1xTF32 (TF32), or bf16 at
+// bf16 storage (the dgrads on bf16 mma.sync, the weight gradients' bf16-rounded operands
 // on TF32 mma.sync, where a bf16 value is exact). Everything else is f32; the map sums of
-// the GroupNorm backward f64 across ranks.
+// the GroupNorm backward f64 across ranks, the bias sums f64.
 //
-// What bounds it: operations, ~67 M MACs of dgrad and wgrad a step at 30 x 40 x 32 in
-// sequence (against the forward's ~34 M), in the same latency-bound shape as the forward.
+// What bounds the sequential part: ~34 M MACs of dgrad a step at 30 x 40 x 32, in sequence,
+// in the forward's latency-bound shape.
 
-constexpr int TILE_POS_B = 360;  // a backward tile's positions, halo included (two tiles)
-constexpr int KW0 = 9 * C0 * C;  // a block's parameter gradients: conv0's taps [tap][ci][co],
+constexpr int TILE_POS_B = 720;  // the backward tile's positions, halo included
+constexpr int KW0 = 9 * C0 * C;  // the parameter gradients: conv0's taps [tap][ci][co],
 constexpr int KWR = 9 * C * C;   // the resblock's and conv_final's, then the seven vectors
 constexpr int KP = KW0 + 2 * KWR + 7 * C;
+constexpr int GN_GRADS = 4 * C;  // a block's (d gamma, d beta) of GN0, then of GNr
 // Shared memory of the backward, in this order: every block's per-channel partial sums (2
 // slots x MAX_CLUSTER ranks x C x {sum gz, sum gz x_hat}, f32), the three dgrad weight sets
 // (flipped, transposed, swizzled), conv0's image rows, the vectors, the step's statistics
-// and GroupNorm sums, per-warp partials, the vector gradients, the two tiles.
+// and GroupNorm sums, per-warp partials, the vector gradients, the tile.
 constexpr int BPART_FLOATS = 2 * MAX_CLUSTER * C * 2;
 constexpr int WT_FLOATS = 9 * C * C;
 constexpr int WIMG_FLOATS = 9 * CIMG * C;
 constexpr int BRED_FLOATS = NWARPS * C * 2;
 constexpr int BTILE_OFFSET = BPART_FLOATS + 3 * WT_FLOATS + WIMG_FLOATS + VEC_FLOATS +
                              4 * 2 * GROUPS + BRED_FLOATS + VEC_FLOATS;  // floats
-static_assert(BTILE_OFFSET % 4 == 0, "the tiles are read as float4");
-constexpr size_t BWD_SMEM_BYTES = sizeof(float) * (BTILE_OFFSET + 2 * TILE_POS_B * CS);
+static_assert(BTILE_OFFSET % 4 == 0, "the tile is read as float4");
+constexpr size_t BWD_SMEM_BYTES = sizeof(float) * (BTILE_OFFSET + TILE_POS_B * CS);
 static_assert(BWD_SMEM_BYTES <= 232448, "more than a block's shared memory");
 
 // An f32 operand rounded as the variant's convs round it (for the f32 multiply-adds).
@@ -828,141 +841,6 @@ __device__ __forceinline__ void cluster_group_sums(int cs, const float* slot,
   __syncthreads();
 }
 
-// Operand x as the TF32 mma's hi and lo parts: 3xTF32 splits it; 1xTF32 takes the hi part;
-// at bf16 it is rounded to bf16 first, which TF32 holds exactly.
-template <bool BF16>
-__device__ __forceinline__ void split_op(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (BF16) x = __bfloat162float(__float2bfloat16_rn(x));
-  split(x, hi, lo);
-}
-
-// Weight gradient of a 3x3 conv over one tile on the tensor cores: dW[(tap, ci)][co] +=
-// sum over the tile's pixels p of X[p + tap's offset][ci] G[p][co], X the conv's input tile
-// ((th + 2) x (tw + 2) positions of CS floats, channels 0..31) and G its output's gradient
-// staged the same way (its interior read). As a GEMM (tap, ci) x pixels times pixels x co
-// in m16n8k8 TF32 steps: warp w takes the row m-tiles 3 (w >> 1) .. 3 (w >> 1) + 2 (one
-// tap and 16 channels each) and output channels 16 (w & 1) .. + 15; a k-step's eight
-// pixels are, for lane tq, pixels 2 tq and 2 tq + 1 (k = tq and tq + 4), which keeps the
-// fragment loads on distinct banks. Each accumulator is added into dw[(tap cin + cioff +
-// ci) C + co], the block's own slot, by the thread that owns it. G's column sums (the conv
-// bias's gradient) go into dbias[co] from warps 0 and 1.
-template <bool BF16, bool TF32>
-__device__ __forceinline__ void wgrad_tile(const float* X, const float* G, int th, int tw,
-                                           float* dw, int cin, int cioff, float* dbias) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int mg = warp >> 1, np = warp & 1;
-  const int tp = th * tw, tpw = tw + 2;
-  float acc[3][2][4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.0f;
-  float bs[2] = {0.0f, 0.0f};
-  for (int kb = 0; kb < tp; kb += 8) {
-    const int pa = kb + 2 * tq, pb = pa + 1;
-    const bool va = pa < tp, vb = pb < tp;
-    const int ca = va ? (pa / tw) * tpw + pa % tw : 0;  // the pixel's top-left halo corner
-    const int cb = vb ? (pb / tw) * tpw + pb % tw : 0;
-    uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int nn = 16 * np + 8 * j + gq;
-      const float g0 = va ? G[(ca + tpw + 1) * CS + nn] : 0.0f;
-      const float g1 = vb ? G[(cb + tpw + 1) * CS + nn] : 0.0f;
-      bs[j] += g0 + g1;
-      split_op<BF16>(g0, bh[j][0], bl[j][0]);
-      split_op<BF16>(g1, bh[j][1], bl[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int mt = 3 * mg + i, t = mt >> 1;
-      const int toff = ((t / 3) * tpw + t % 3) * CS + 16 * (mt & 1) + gq;
-      uint32_t ah[4], al[4];
-      split_op<BF16>(va ? X[ca * CS + toff] : 0.0f, ah[0], al[0]);
-      split_op<BF16>(va ? X[ca * CS + toff + 8] : 0.0f, ah[1], al[1]);
-      split_op<BF16>(vb ? X[cb * CS + toff] : 0.0f, ah[2], al[2]);
-      split_op<BF16>(vb ? X[cb * CS + toff + 8] : 0.0f, ah[3], al[3]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (!TF32 && !BF16) {
-          mma_k8(acc[i][j], al, bh[j]);
-          mma_k8(acc[i][j], ah, bl[j]);
-        }
-        mma_k8(acc[i][j], ah, bh[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int mt = 3 * mg + i, t = mt >> 1;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int ci = 16 * (mt & 1) + gq + 8 * r, co = 16 * np + 8 * j + 2 * tq;
-        float* o = dw + ((t * cin + cioff + ci) * C + co);
-        o[0] += acc[i][j][2 * r];
-        o[1] += acc[i][j][2 * r + 1];
-      }
-  }
-  if (mg == 0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      bs[j] += __shfl_xor_sync(0xffffffffu, bs[j], 1);
-      bs[j] += __shfl_xor_sync(0xffffffffu, bs[j], 2);
-      if (tq == 0) dbias[16 * np + 8 * j + gq] += bs[j];
-    }
-  }
-}
-
-// conv0's weight gradient in its three image rows (the input tile's channels 32..34): rows
-// m = 3 tap + k, 27 of two m-tiles, one (m-tile, n-tile) for each of warps 0..7, as
-// wgrad_tile computes them; into dw[(tap C0 + k) C + co].
-template <bool BF16, bool TF32>
-__device__ __forceinline__ void wgrad_image_tile(const float* X, const float* G, int th,
-                                                 int tw, float* dw) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= 8) return;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int mt = warp >> 2, nt = warp & 3;
-  const int tp = th * tw, tpw = tw + 2;
-  const int ra = 16 * mt + gq, rb = ra + 8;  // rows; valid below 27
-  const int offa = ra < 27 ? (((ra / 3) / 3) * tpw + (ra / 3) % 3) * CS + C + ra % 3 : -1;
-  const int offb = rb < 27 ? (((rb / 3) / 3) * tpw + (rb / 3) % 3) * CS + C + rb % 3 : -1;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int kb = 0; kb < tp; kb += 8) {
-    const int pa = kb + 2 * tq, pb = pa + 1;
-    const bool va = pa < tp, vb = pb < tp;
-    const int ca = va ? (pa / tw) * tpw + pa % tw : 0;
-    const int cb = vb ? (pb / tw) * tpw + pb % tw : 0;
-    const int nn = 8 * nt + gq;
-    uint32_t bh[2], bl[2], ah[4], al[4];
-    split_op<BF16>(va ? G[(ca + tpw + 1) * CS + nn] : 0.0f, bh[0], bl[0]);
-    split_op<BF16>(vb ? G[(cb + tpw + 1) * CS + nn] : 0.0f, bh[1], bl[1]);
-    split_op<BF16>(va && offa >= 0 ? X[ca * CS + offa] : 0.0f, ah[0], al[0]);
-    split_op<BF16>(va && offb >= 0 ? X[ca * CS + offb] : 0.0f, ah[1], al[1]);
-    split_op<BF16>(vb && offa >= 0 ? X[cb * CS + offa] : 0.0f, ah[2], al[2]);
-    split_op<BF16>(vb && offb >= 0 ? X[cb * CS + offb] : 0.0f, ah[3], al[3]);
-    if constexpr (!TF32 && !BF16) {
-      mma_k8(acc, al, bh);
-      mma_k8(acc, ah, bl);
-    }
-    mma_k8(acc, ah, bh);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = 16 * mt + gq + 8 * r, co = 8 * nt + 2 * tq;
-    if (row < 27) {
-      float* o = dw + (((row / 3) * C0 + row % 3) * C + co);
-      o[0] += acc[2 * r];
-      o[1] += acc[2 * r + 1];
-    }
-  }
-}
-
 // conv0's gradient in the image channels at the tile's own pixels, into dimg (P, 3): the
 // sum over taps and output channels of the gradient tile (the tap flipped) times conv0's
 // image rows wimg [tap][k][co], the operands rounded as the variant's convs round them.
@@ -1025,8 +903,9 @@ chain_bwd_kernel(const T* __restrict__ image, const float* __restrict__ H_inc,
                  const float* __restrict__ wf_g, const float* __restrict__ vec_g,
                  const T* __restrict__ out, const float* __restrict__ raw,
                  const float* __restrict__ stats, const T* __restrict__ grad, float* dfeats0,
-                 float* dimage, float* dH, float* partial, float* scratch, int Dm1, int h,
-                 int wd, int rows_per_block, int tile_rows, int tile_cols) {
+                 float* dimage, float* dH, float* gmaps, float* gcarry, float* gnpart,
+                 float* scratch, int Dm1, int h, int wd, int rows_per_block, int tile_rows,
+                 int tile_cols) {
   constexpr bool BF16 = sizeof(T) == 2;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
@@ -1041,9 +920,8 @@ chain_bwd_kernel(const T* __restrict__ image, const float* __restrict__ H_inc,
   float* gsum0 = statr + 2 * GROUPS;  // a[4], b[4] of GN0's backward, then GNr's
   float* gsumr = gsum0 + 2 * GROUPS;
   float* red = gsumr + 2 * GROUPS;
-  float* vacc = red + BRED_FLOATS;  // [7][C]: the vector gradients, in vec's order
+  float* vacc = red + BRED_FLOATS;  // [7][C]: the GroupNorms' (d gamma, d beta), vec's order
   float* gt = reinterpret_cast<float*>(smem4) + BTILE_OFFSET;  // the gradient tile
-  float* xt = gt + TILE_POS_B * CS;                             // the conv input's tile
   const float* g0 = vec + C;
   const float* be0 = vec + 2 * C;
   const float* gr = vec + 4 * C;
@@ -1074,50 +952,39 @@ chain_bwd_kernel(const T* __restrict__ image, const float* __restrict__ H_inc,
     vec[i] = vec_g[i];
     vacc[i] = 0.0f;
   }
-  float* dw0 = partial + (int64_t)blockIdx.x * KP;
-  float* dwr = dw0 + KW0;
-  float* dwf = dwr + KWR;
-  for (int i = tid; i < KP; i += THREADS) dw0[i] = 0.0f;
 
-  float* gA = scratch + (int64_t)n * 4 * P * C;
-  float* gB = gA + P * C;
-  float* gres = gB + P * C;
+  float* gres = scratch + (int64_t)n * 2 * P * C;
   float* ghn = gres + P * C;
+  float* gc_n = gcarry + (int64_t)n * D * P * C;  // the gradient of out[n, k] at slot k
   const T* out_n = out + (int64_t)n * D * P * C;
   const T* grad_n = grad + (int64_t)n * D * P * C;
   for (int i = r0 * wd * C + tid; i < r1 * wd * C; i += THREADS)
-    gA[i] = ldg1(grad_n + (int64_t)Dm1 * P * C + i);  // the last output's gradient
+    gc_n[(int64_t)Dm1 * P * C + i] = ldg1(grad_n + (int64_t)Dm1 * P * C + i);
   cluster.sync();
 
   for (int d = Dm1 - 1; d >= 0; --d) {
-    const int it = Dm1 - 1 - d;
-    const float* cur = (it & 1) ? gB : gA;  // the gradient of out[n, d + 1]
-    float* nxt = (it & 1) ? gA : gB;        // of out[n, d]: its own gradient, then the warp's
+    const float* cur = gc_n + (int64_t)(d + 1) * P * C;  // the gradient of out[n, d + 1]
+    float* nxt = gc_n + (int64_t)d * P * C;  // of out[n, d]: its own gradient, then the warp's
     const T* carry = out_n + (int64_t)d * P * C;
-    const T* img = image + ((int64_t)n * Dm1 + d) * P * CIMG;
     const float* Hm = H_inc + ((int64_t)n * Dm1 + d) * 9;
     float Hr[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) Hr[k] = Hm[k];
     const float* raw_h = raw + ((int64_t)n * Dm1 + d) * 2 * P * C;
     const float* raw_r = raw_h + P * C;
+    float* ga_keep = gmaps + ((int64_t)n * Dm1 + d) * 2 * P * C;
+    float* gr_keep = ga_keep + P * C;
     if (tid < 4 * GROUPS) stat0[tid] = stats[((int64_t)n * Dm1 + d) * 4 * GROUPS + tid];
     for (int i = r0 * wd * C + tid; i < r1 * wd * C; i += THREADS)
       nxt[i] = ldg1(grad_n + (int64_t)d * P * C + i);
 
-    // C'. conv_final: gres = dgrad(g); dWf, dbf; GNr's channel sums.
+    // C'. conv_final: gres = dgrad(g); GNr's channel sums.
     float s1[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, s2[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
     for_each_tile(r0, r1, wd, tile_rows, tile_cols, [&](int y0, int x0, int th, int tw) {
       const float* gsrc[1] = {cur};
-      const float* xsrc[2] = {raw_h, raw_r};
       __syncthreads();
       stage_tile(gsrc, gt, y0, x0, th, tw, h, wd,
                  [&](const float4 (&v)[1], int) { return v[0]; });
-      stage_tile(xsrc, xt, y0, x0, th, tw, h, wd, [&](const float4 (&v)[2], int j) {
-        const float4 hv = rnd4<T>(gn_leaky4(v[0], stat0, g0, be0, j));
-        const float4 rv = rnd4<T>(gn_leaky4(v[1], statr, gr, ber, j));
-        return rnd4<T>(make_float4(hv.x + rv.x, hv.y + rv.y, hv.z + rv.z, hv.w + rv.w));
-      });
       __syncthreads();
       conv_tile<C, BF16, TF32>(gt, wfT, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
@@ -1127,27 +994,22 @@ chain_bwd_kernel(const T* __restrict__ image, const float* __restrict__ H_inc,
         channel_terms<T>(v0, x.x, statr, gr, ber, g, oc, s1[g & 1][0], s2[g & 1][0]);
         channel_terms<T>(v1, x.y, statr, gr, ber, g, oc + 1, s1[g & 1][1], s2[g & 1][1]);
       });
-      wgrad_tile<BF16, TF32>(xt, gt, th, tw, dwf, C, 0, vacc + 6 * C);
     });
     push_channel_partials(cluster, s1, s2, red, part + MAX_CLUSTER * C * 2, vacc + 4 * C,
                           vacc + 5 * C);
     cluster.sync();
     cluster_group_sums(cs, part + MAX_CLUSTER * C * 2, gr, gsumr, P);
 
-    // B'. the resblock: gr = GNr's backward of gres -> tile; ghn = gres + dgrad(gr); dWr,
-    // dbr; GN0's channel sums.
+    // B'. the resblock: gr = GNr's backward of gres -> tile, kept; ghn = gres + dgrad(gr);
+    // GN0's channel sums.
     s1[0][0] = s1[0][1] = s1[1][0] = s1[1][1] = 0.0f;
     s2[0][0] = s2[0][1] = s2[1][0] = s2[1][1] = 0.0f;
     for_each_tile(r0, r1, wd, tile_rows, tile_cols, [&](int y0, int x0, int th, int tw) {
       const float* gsrc[2] = {gres, raw_r};
-      const float* xsrc[1] = {raw_h};
       __syncthreads();
       stage_tile(gsrc, gt, y0, x0, th, tw, h, wd, [&](const float4 (&v)[2], int j) {
         return gn_bwd4<T>(v[0], v[1], statr, gr, ber, gsumr, j);
-      });
-      stage_tile(xsrc, xt, y0, x0, th, tw, h, wd, [&](const float4 (&v)[1], int j) {
-        return rnd4<T>(gn_leaky4(v[0], stat0, g0, be0, j));
-      });
+      }, gr_keep);
       __syncthreads();
       conv_tile<C, BF16, TF32>(gt, wrT, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
@@ -1159,23 +1021,21 @@ chain_bwd_kernel(const T* __restrict__ image, const float* __restrict__ H_inc,
         channel_terms<T>(a0, x.x, stat0, g0, be0, g, oc, s1[g & 1][0], s2[g & 1][0]);
         channel_terms<T>(a1, x.y, stat0, g0, be0, g, oc + 1, s1[g & 1][1], s2[g & 1][1]);
       });
-      wgrad_tile<BF16, TF32>(xt, gt, th, tw, dwr, C, 0, vacc + 3 * C);
     });
     push_channel_partials(cluster, s1, s2, red, part, vacc + C, vacc + 2 * C);
     cluster.sync();
     cluster_group_sums(cs, part, g0, gsum0, P);
 
-    // A'. conv0: ga = GN0's backward of ghn -> tile, the re-warped input -> tile; the warped
-    // channels' gradient g + dgrad(ga) through the warp's transpose into nxt; dW0, db0; the
-    // image's and H's gradients where asked.
+    // A'. conv0: ga = GN0's backward of ghn -> tile, kept; the warped channels' gradient
+    // g + dgrad(ga) through the warp's transpose into nxt; the image's and H's gradients
+    // where asked.
     float hacc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     for_each_tile(r0, r1, wd, tile_rows, tile_cols, [&](int y0, int x0, int th, int tw) {
       const float* gsrc[2] = {ghn, raw_h};
       __syncthreads();
       stage_tile(gsrc, gt, y0, x0, th, tw, h, wd, [&](const float4 (&v)[2], int j) {
         return gn_bwd4<T>(v[0], v[1], stat0, g0, be0, gsum0, j);
-      });
-      stage_warp_tile(xt, carry, img, Hr, y0, x0, th, tw, h, wd, nullptr);
+      }, ga_keep);
       __syncthreads();
       conv_tile<C, BF16, TF32>(gt, w0T, th, tw, [&](int ty, int tx, int g, int c, float v0, float v1) {
         const int oc = GSIZE * g + c;
@@ -1209,8 +1069,6 @@ chain_bwd_kernel(const T* __restrict__ image, const float* __restrict__ H_inc,
       if (dimage != nullptr)
         image_dgrad<BF16, TF32>(gt, wimg, y0, x0, th, tw, wd,
                                 dimage + ((int64_t)n * Dm1 + d) * P * CIMG);
-      wgrad_tile<BF16, TF32>(xt, gt, th, tw, dw0, C0, CIMG, vacc);
-      wgrad_image_tile<BF16, TF32>(xt, gt, th, tw, dw0);
     });
     if (dH != nullptr) {
 #pragma unroll
@@ -1232,12 +1090,183 @@ chain_bwd_kernel(const T* __restrict__ image, const float* __restrict__ H_inc,
     cluster.sync();
   }
 
-  const float* last = (Dm1 & 1) ? gB : gA;
   for (int i = r0 * wd * C + tid; i < r1 * wd * C; i += THREADS)
-    dfeats0[(int64_t)n * P * C + i] = __ldcg(last + i);
+    dfeats0[(int64_t)n * P * C + i] = __ldcg(gc_n + i);
   __syncthreads();
-  for (int i = tid; i < VEC_FLOATS; i += THREADS) dw0[KW0 + 2 * KWR + i] = vacc[i];
+  for (int i = tid; i < 2 * C; i += THREADS) {  // GN0's (d gamma, d beta), then GNr's
+    gnpart[(int64_t)blockIdx.x * GN_GRADS + i] = vacc[C + i];
+    gnpart[(int64_t)blockIdx.x * GN_GRADS + 2 * C + i] = vacc[4 * C + i];
+  }
 }
+
+// The weight-gradient pass's resident blocks an SM: two, so that one's staging of X (made
+// on load, not copied) overlaps the other's products (one ran slower,
+// scripts/refiner_variants.py's lever).
+constexpr int WGRAD_MIN_BLOCKS = 2;
+
+// The weight-gradient pass's arguments (wgrad.cuh): what X is made from, the kept G maps,
+// the sequential part's (d gamma, d beta) slots, and the blocks given to each conv.
+struct WgradArgs {
+  const void* image;      // (N, D-1, P, 3), of the storage type
+  const float* H_inc;     // (N, D-1, 9)
+  const void* out;        // (N, D, P, 32), of the storage type: the carries
+  const float* raw;       // (N, D-1, 2, P, 32): raw h, raw r
+  const float* stats;     // (N, D-1, 2, 2, 4)
+  const float* vec;       // (7, 32)
+  const float* gmaps;     // (N, D-1, 2, P, 32): ga, gr
+  const float* gcarry;    // (N, D, P, 32): the gradient of out[n, k]
+  const float* gnpart;    // (gn_blocks, 4, 32)
+  float* partial;         // (gridDim.x, wgrad::SLOT_FLOATS): each block's sums
+  float* dparams;         // (KP): conv0's taps (9, 35, 32), the resblock's and conv_final's
+                          // (9, 32, 32), the vectors (7, 32)
+  unsigned int* barrier;
+  int N, Dm1, h, w, P, spp, gn_blocks;  // spp: stages a (sample, step) plane
+  int start[4];  // conv c's blocks (0: conv0, 1: the resblock's, 2: conv_final)
+};
+
+// Conv c's stage item (plane item / spp = n (D-1) + d, pixels p0 = (item % spp) KB ..) into
+// the pass's tiles, zero outside the map: G, the kept map, by asynchronous copies
+// (chain_wgrad_issue); X made on load as the forward made it once those have landed
+// (chain_wgrad_finish, the plane's H and statistics to pl first; one item a thread at a
+// time, which keeps the pass's two blocks an SM within their registers).
+__device__ void chain_wgrad_issue(const WgradArgs& a, int c, int item, float* gs) {
+  const int plane = item / a.spp, p0 = (item - plane * a.spp) * wgrad::KB;
+  const int n = plane / a.Dm1, d = plane - n * a.Dm1;
+  const int64_t PC = (int64_t)a.P * C;
+  const float* g = c == 2 ? a.gcarry + ((int64_t)n * (a.Dm1 + 1) + d + 1) * PC
+                          : a.gmaps + ((int64_t)plane * 2 + c) * PC;
+  for (int i = threadIdx.x; i < wgrad::KB * 8; i += wgrad::THREADS) {
+    const int j = i & 7, p = i >> 3;
+    const bool in = p0 + p < a.P;
+    wgrad::cp_async16(gs + p * wgrad::GS + 4 * j, in ? g + (int64_t)(p0 + p) * C + 4 * j : g, in);
+  }
+}
+
+template <typename T>
+__device__ void chain_wgrad_finish(const WgradArgs& a, int c, int item, float* xs,
+                                   const float* vec, float* pl) {
+  const int plane = item / a.spp, p0 = (item - plane * a.spp) * wgrad::KB;
+  const int n = plane / a.Dm1, d = plane - n * a.Dm1, L = wgrad::KB + 2;
+  const int64_t PC = (int64_t)a.P * C;
+  const float* raw_h = a.raw + (int64_t)plane * 2 * PC;
+  const float* raw_r = raw_h + PC;
+  float* Hs = pl;           // H of the plane
+  float* stat0 = pl + 12;   // mean[4], rstd[4] of GN0, then GNr's
+  float* statr = stat0 + 2 * GROUPS;
+  if (threadIdx.x < 9) Hs[threadIdx.x] = __ldg(a.H_inc + (int64_t)plane * 9 + threadIdx.x);
+  else if (threadIdx.x >= 32 && threadIdx.x < 32 + 4 * GROUPS)
+    stat0[threadIdx.x - 32] = __ldg(a.stats + (int64_t)plane * 4 * GROUPS + threadIdx.x - 32);
+  __syncthreads();
+  if (c == 0) {  // [the carry warped by H, the image, 0]: items (kh, e, quad j < 9)
+    const T* carry = static_cast<const T*>(a.out) + ((int64_t)n * (a.Dm1 + 1) + d) * PC;
+    const T* img = static_cast<const T*>(a.image) + (int64_t)plane * a.P * CIMG;
+    const float (&Hr)[9] = *reinterpret_cast<const float(*)[9]>(Hs);
+    for (int i = threadIdx.x; i < 3 * L * 9; i += wgrad::THREADS) {
+      const int j = i % 9, e = (i / 9) % L, kh = i / (9 * L);
+      const int q = p0 - 1 + e + (kh - 1) * a.w;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q >= 0 && q < a.P) {
+        if (j == 8) {
+          const T* im = img + (int64_t)q * CIMG;
+          v = make_float4(ldg1(im), ldg1(im + 1), ldg1(im + 2), 0.0f);
+        } else {
+          const Tap t = warp_tap(Hr, q % a.w, q / a.w, a.h, a.w);
+          if (t.ok)
+            v = rnd4<T>(blend(ldcg4(carry + (int64_t)t.p00 * C + 4 * j),
+                              ldcg4(carry + (int64_t)t.p01 * C + 4 * j),
+                              ldcg4(carry + (int64_t)t.p10 * C + 4 * j),
+                              ldcg4(carry + (int64_t)t.p11 * C + 4 * j), t.wx, t.wy));
+        }
+      }
+      *reinterpret_cast<float4*>(xs + (kh * wgrad::RUN + e) * wgrad::XS + 4 * j) = v;
+    }
+  } else {  // the resblock's input h, or conv_final's h + the resblock's branch
+    for (int i = threadIdx.x; i < 3 * L * 8; i += wgrad::THREADS) {
+      const int j = i & 7, e = (i >> 3) % L, kh = (i >> 3) / L;
+      const int q = p0 - 1 + e + (kh - 1) * a.w;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q >= 0 && q < a.P) {
+        v = rnd4<T>(gn_leaky4(wgrad::ldcg4(raw_h + (int64_t)q * C + 4 * j), stat0, vec + C,
+                              vec + 2 * C, j));
+        if (c == 2) {
+          const float4 r = rnd4<T>(gn_leaky4(wgrad::ldcg4(raw_r + (int64_t)q * C + 4 * j),
+                                             statr, vec + 4 * C, vec + 5 * C, j));
+          v = rnd4<T>(make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w));
+        }
+      }
+      *reinterpret_cast<float4*>(xs + (kh * wgrad::RUN + e) * wgrad::XS + 4 * j) = v;
+    }
+  }
+}
+
+// The parameter gradients in KP's layout: each element of conv c summed over its blocks'
+// slots (wgrad::conv_wgrad's layout; conv0's staged rows are [warped 0..31, image 32..34]
+// where its taps' rows are [image 0..2, warped 3..34]) in block order; each GroupNorm's
+// (d gamma, d beta) over the sequential part's slots, in block order.
+__device__ void chain_reduce(const WgradArgs& a) {
+  constexpr int SLOT = wgrad::SLOT_FLOATS;
+  for (int e = blockIdx.x * wgrad::THREADS + threadIdx.x; e < KP;
+       e += gridDim.x * wgrad::THREADS) {
+    int c, off;
+    if (e < KW0) {
+      const int ci = (e / C) % C0;
+      c = 0;
+      off = ((e / (C0 * C)) * 48 + (ci < CIMG ? C + ci : ci - CIMG)) * C + e % C;
+    } else if (e < KW0 + 2 * KWR) {
+      c = 1 + (e - KW0) / KWR;
+      off = (e - KW0) % KWR;
+    } else {
+      const int row = (e - KW0 - 2 * KWR) / C, ch = e % C;
+      if (row == 0 || row == 3 || row == 6) {  // a conv's bias
+        c = row / 3;
+        off = 9 * (c == 0 ? 48 : 32) * C + ch;
+      } else {  // GN0's d gamma, d beta (rows 1, 2), GNr's (4, 5)
+        const int k = row < 3 ? row - 1 : row - 2;
+        float s = 0.0f;
+        for (int b = 0; b < a.gn_blocks; ++b)
+          s += __ldcg(a.gnpart + (int64_t)b * GN_GRADS + k * C + ch);
+        a.dparams[e] = s;
+        continue;
+      }
+    }
+    a.dparams[e] = wgrad::sum_slots(a.partial + (int64_t)a.start[c] * SLOT + off,
+                                    a.start[c + 1] - a.start[c], SLOT);
+  }
+}
+
+template <typename T, bool TF32>
+__global__ void __launch_bounds__(wgrad::THREADS, WGRAD_MIN_BLOCKS)
+chain_wgrad_kernel(WgradArgs a) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  extern __shared__ float4 smem4[];
+  double* dsum = reinterpret_cast<double*>(smem4);
+  float* tiles = reinterpret_cast<float*>(dsum + wgrad::THREADS);
+  float* glo = tiles + 2 * wgrad::TILE_FLOATS;
+  float* vec = glo + wgrad::G_FLOATS;
+  float* pl = vec + VEC_FLOATS;
+  for (int i = threadIdx.x; i < VEC_FLOATS; i += wgrad::THREADS) vec[i] = __ldg(a.vec + i);
+  int c = 0;
+  while ((int)blockIdx.x >= a.start[c + 1]) ++c;
+  const int k = blockIdx.x - a.start[c], nb = a.start[c + 1] - a.start[c];
+  const int items = a.N * a.Dm1 * a.spp;
+  const int begin = (int)((int64_t)items * k / nb), end = (int)((int64_t)items * (k + 1) / nb);
+  float* slot = a.partial + (int64_t)blockIdx.x * wgrad::SLOT_FLOATS;
+  auto issue = [&](int item, float*, float* g) { chain_wgrad_issue(a, c, item, g); };
+  auto finish = [&](int item, float* x, float*) {
+    chain_wgrad_finish<T>(a, c, item, x, vec, pl);
+    return true;
+  };
+  if (c == 0)
+    wgrad::conv_wgrad<3, 4, BF16, TF32>(begin, end, a.spp, 1, CS, C, a.w, tiles, glo, dsum,
+                                        slot, issue, finish);
+  else
+    wgrad::conv_wgrad<2, 4, BF16, TF32>(begin, end, a.spp, 1, C, C, a.w, tiles, glo, dsum,
+                                        slot, issue, finish);
+  grid_barrier(a.barrier);  // the blocks' slots are written
+  chain_reduce(a);
+}
+// The pass's shared memory: wgrad.cuh's, then the vectors and a plane's H and statistics.
+constexpr size_t WGRAD_SMEM_BYTES = wgrad::SMEM_BYTES + sizeof(float) * (VEC_FLOATS + 32);
 
 struct Plan {
   int rows_per_block, tile_rows, tile_cols;
@@ -1381,8 +1410,8 @@ template <typename T, bool TF32>
 int launch_bwd(const T* image, const float* H_inc, const float* w0, const float* wr,
                const float* wf, const float* vec, const T* out, const float* raw,
                const float* stats, const T* grad, float* dfeats0, float* dimage, float* dH,
-               float* partial, float* scratch, int N, int Dm1, int h, int w, int cluster,
-               cudaStream_t stream) {
+               float* gmaps, float* gcarry, float* gnpart, float* scratch, int N, int Dm1,
+               int h, int w, int cluster, cudaStream_t stream) {
   if (N == 0) return 0;
   if (cluster <= 0 || cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
   int err = backward_attributes<T, TF32>();
@@ -1393,8 +1422,59 @@ int launch_bwd(const T* image, const float* H_inc, const float* w0, const float*
       launch_config(N * cluster, cluster, BWD_SMEM_BYTES, stream, &attr);
   cudaError_t status = cudaLaunchKernelEx(&cfg, chain_bwd_kernel<T, TF32>, image, H_inc, w0, wr,
                                           wf, vec, out, raw, stats, grad, dfeats0, dimage, dH,
-                                          partial, scratch, Dm1, h, w, p.rows_per_block,
-                                          p.tile_rows, p.tile_cols);
+                                          gmaps, gcarry, gnpart, scratch, Dm1, h, w,
+                                          p.rows_per_block, p.tile_rows, p.tile_cols);
+  if (status != cudaSuccess) {
+    cudaGetLastError();
+    return (int)status;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool TF32>
+int launch_wgrad(const T* image, const float* H_inc, const float* vec, const T* out,
+                 const float* raw, const float* stats, const float* gmaps,
+                 const float* gcarry, const float* gnpart, int gn_blocks, float* dparams,
+                 float* partial, long long partial_floats, unsigned int* barrier, int N,
+                 int Dm1, int h, int w, cudaStream_t stream) {
+  static int max_blocks[64] = {0};
+  if (N == 0 || Dm1 == 0) return 0;
+  if (gn_blocks < 1) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  int err = resident_blocks(chain_wgrad_kernel<T, TF32>, wgrad::THREADS, WGRAD_SMEM_BYTES,
+                            max_blocks, &blocks);
+  if (err != 0) return err;
+  if (partial_floats / wgrad::SLOT_FLOATS < blocks)
+    blocks = (int)(partial_floats / wgrad::SLOT_FLOATS);
+  if (blocks < 3) return (int)cudaErrorInvalidValue;
+  WgradArgs a;
+  a.image = image;
+  a.H_inc = H_inc;
+  a.out = out;
+  a.raw = raw;
+  a.stats = stats;
+  a.vec = vec;
+  a.gmaps = gmaps;
+  a.gcarry = gcarry;
+  a.gnpart = gnpart;
+  a.partial = partial;
+  a.dparams = dparams;
+  a.barrier = barrier;
+  a.N = N;
+  a.Dm1 = Dm1;
+  a.h = h;
+  a.w = w;
+  a.P = h * w;
+  a.spp = (a.P + wgrad::KB - 1) / wgrad::KB;
+  a.gn_blocks = gn_blocks;
+  // The blocks in proportion to each conv's products and the cost of making its X: conv0's
+  // three row tiles and its gathers from four taps, then a GroupNorm on load, or two.
+  const double weight[3] = {3 * 4 * 2.0, 2 * 4 * 1.2, 2 * 4 * 1.4};
+  wgrad::split_blocks(blocks, 3, weight, a.start);
+  void* args[] = {&a};
+  cudaError_t status = cudaLaunchCooperativeKernel((const void*)chain_wgrad_kernel<T, TF32>,
+                                                   dim3(blocks), dim3(wgrad::THREADS), args,
+                                                   WGRAD_SMEM_BYTES, stream);
   if (status != cudaSuccess) {
     cudaGetLastError();
     return (int)status;
@@ -1452,51 +1532,49 @@ extern "C" int mvs_incremental_chain_bf16(const __nv_bfloat16* feats0,
                                       keep_raw, keep_stats, N, Dm1, h, w, cluster, stream);
 }
 
-// The backward. image (N, D-1, P, 3), out (N, D, P, 32) and grad (N, D, P, 32) at the
-// storage type (f32 here); H_inc and the weights as the forward takes them; raw (N, D-1, 2,
-// P, 32) and stats (N, D-1, 2, 2, 4) as the forward kept them. Writes dfeats0 (N, P, 32),
-// dimage (N, D-1, P, 3) where not null, dH (N, D-1, cluster, 9) each block's sums where not
-// null, and partial (N * cluster, KP): each block's parameter gradients, conv0's taps (9, 35,
-// 32), the resblock's and conv_final's (9, 32, 32), then the vectors (7, 32) in vec's order.
-// scratch (N, 4, P, 32) f32. cluster: the blocks a sample (1 .. 16), as the forward took.
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int mvs_incremental_chain_bwd_f32(const float* image, const float* H_inc,
-                                             const float* w0, const float* wr, const float* wf,
-                                             const float* vec, const float* out,
-                                             const float* raw, const float* stats,
-                                             const float* grad, float* dfeats0, float* dimage,
-                                             float* dH, float* partial, float* scratch, int N,
-                                             int Dm1, int h, int w, int cluster,
-                                             cudaStream_t stream) {
-  return launch_bwd<float, false>(image, H_inc, w0, wr, wf, vec, out, raw, stats, grad,
-                                  dfeats0, dimage, dH, partial, scratch, N, Dm1, h, w, cluster,
-                                  stream);
-}
+// The backward, two launches, both on the stream of the forward's tensors. The sequential
+// part: image (N, D-1, P, 3), out (N, D, P, 32) and grad (N, D, P, 32) at the storage type
+// (f32 here); H_inc and the weights as the forward takes them; raw (N, D-1, 2, P, 32) and
+// stats (N, D-1, 2, 2, 4) as the forward kept them. Writes dfeats0 (N, P, 32), dimage (N,
+// D-1, P, 3) where not null, dH (N, D-1, cluster, 9) each block's sums where not null, and
+// for the pass gmaps (N, D-1, 2, P, 32) each step's conv0 and resblock output gradients,
+// gcarry (N, D, P, 32) the gradient of each out[n, k], gnpart (N * cluster, 4, 32) each
+// block's (d gamma, d beta) of GN0 and of GNr. scratch (N, 2, P, 32) f32. cluster: the
+// blocks a sample (1 .. 16), as the forward took. Returns the CUDA error of the launch (0 on
+// success).
+#define MVS_CHAIN_BWD(NAME, T, TF32)                                                        \
+  extern "C" int NAME(const T* image, const float* H_inc, const float* w0, const float* wr, \
+                      const float* wf, const float* vec, const T* out, const float* raw,   \
+                      const float* stats, const T* grad, float* dfeats0, float* dimage,    \
+                      float* dH, float* gmaps, float* gcarry, float* gnpart,               \
+                      float* scratch, int N, int Dm1, int h, int w, int cluster,           \
+                      cudaStream_t stream) {                                               \
+    return launch_bwd<T, TF32>(image, H_inc, w0, wr, wf, vec, out, raw, stats, grad,       \
+                               dfeats0, dimage, dH, gmaps, gcarry, gnpart, scratch, N, Dm1, \
+                               h, w, cluster, stream);                                     \
+  }
+MVS_CHAIN_BWD(mvs_incremental_chain_bwd_f32, float, false)
+MVS_CHAIN_BWD(mvs_incremental_chain_bwd_tf32, float, true)
+MVS_CHAIN_BWD(mvs_incremental_chain_bwd_bf16, __nv_bfloat16, false)
 
-// The same in 1xTF32.
-extern "C" int mvs_incremental_chain_bwd_tf32(const float* image, const float* H_inc,
-                                              const float* w0, const float* wr, const float* wf,
-                                              const float* vec, const float* out,
-                                              const float* raw, const float* stats,
-                                              const float* grad, float* dfeats0, float* dimage,
-                                              float* dH, float* partial, float* scratch, int N,
-                                              int Dm1, int h, int w, int cluster,
-                                              cudaStream_t stream) {
-  return launch_bwd<float, true>(image, H_inc, w0, wr, wf, vec, out, raw, stats, grad,
-                                 dfeats0, dimage, dH, partial, scratch, N, Dm1, h, w, cluster,
-                                 stream);
-}
-
-// The same with image, out and grad bf16.
-extern "C" int mvs_incremental_chain_bwd_bf16(const __nv_bfloat16* image, const float* H_inc,
-                                              const float* w0, const float* wr, const float* wf,
-                                              const float* vec, const __nv_bfloat16* out,
-                                              const float* raw, const float* stats,
-                                              const __nv_bfloat16* grad, float* dfeats0,
-                                              float* dimage, float* dH, float* partial,
-                                              float* scratch, int N, int Dm1, int h, int w,
-                                              int cluster, cudaStream_t stream) {
-  return launch_bwd<__nv_bfloat16, false>(image, H_inc, w0, wr, wf, vec, out, raw, stats, grad,
-                                          dfeats0, dimage, dH, partial, scratch, N, Dm1, h, w,
-                                          cluster, stream);
-}
+// The weight-gradient pass, after the sequential part on the same stream: from image, H_inc,
+// vec, out, raw and stats as the sequential part took them and its gmaps, gcarry and
+// gnpart (its gn_blocks blocks), writes dparams (KP f32): conv0's taps (9, 35, 32), the
+// resblock's and conv_final's (9, 32, 32), then the vectors (7, 32) in vec's order.
+// partial: partial_floats f32, a slot of wgrad::SLOT_FLOATS a block (the grid takes at most
+// as many blocks as it holds slots, and as are resident). barrier: the cooperative
+// launches' counter of the stream (grid_sync.cuh). Returns the CUDA error of the launch.
+#define MVS_CHAIN_WGRAD(NAME, T, TF32)                                                      \
+  extern "C" int NAME(const T* image, const float* H_inc, const float* vec, const T* out,  \
+                      const float* raw, const float* stats, const float* gmaps,            \
+                      const float* gcarry, const float* gnpart, int gn_blocks,             \
+                      float* dparams, float* partial, long long partial_floats,            \
+                      unsigned int* barrier, int N, int Dm1, int h, int w,                 \
+                      cudaStream_t stream) {                                               \
+    return launch_wgrad<T, TF32>(image, H_inc, vec, out, raw, stats, gmaps, gcarry, gnpart, \
+                                 gn_blocks, dparams, partial, partial_floats, barrier, N,  \
+                                 Dm1, h, w, stream);                                       \
+  }
+MVS_CHAIN_WGRAD(mvs_incremental_chain_wgrad_f32, float, false)
+MVS_CHAIN_WGRAD(mvs_incremental_chain_wgrad_tf32, float, true)
+MVS_CHAIN_WGRAD(mvs_incremental_chain_wgrad_bf16, __nv_bfloat16, false)

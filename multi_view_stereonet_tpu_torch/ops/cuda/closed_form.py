@@ -106,11 +106,11 @@ def _gn_backward(g: torch.Tensor, z: torch.Tensor, xhat: torch.Tensor, stat: tor
 
 
 def _conv_grads(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, rnd,
-                dilation: int = 1) -> tuple:
+                dilation: int = 1, which=(True, True)) -> tuple:
     """(d input, d weight) of a 3x3 "same" conv of x (N, h, w, Cin) with an OIHW weight at
     ``dilation``, given its output's gradient g (N, h, w, Cout), each operand rounded by
-    ``rnd``."""
+    ``rnd``; None for what ``which`` (input, weight) leaves out."""
     gx, gw, _ = torch.ops.aten.convolution_backward(
         _nchw(rnd(g)).contiguous(), _nchw(rnd(x)).contiguous(), rnd(weight), None, [1, 1],
-        [dilation, dilation], [dilation, dilation], False, [0, 0], 1, [True, True, False])
-    return gx.permute(0, 2, 3, 1), gw
+        [dilation, dilation], [dilation, dilation], False, [0, 0], 1, [*which, False])
+    return None if gx is None else gx.permute(0, 2, 3, 1), gw

@@ -46,8 +46,8 @@ import torch.nn.functional as F
 from .. import precision
 from ...geometry.projection import pixel_grid
 from .build import (
-    check_status, custom_op, launch_device, load_library, needs_autograd, tracing,
-    use_kernel)
+    barrier_counter, check_status, custom_op, launch_device, load_library, needs_autograd,
+    tracing, use_kernel)
 from .closed_form import (
     _conv_grads, _gn_backward, _gn_forward, _group_stats, _leaky, _nchw, _operand_round,
     _round_to)
@@ -158,70 +158,125 @@ def homography_grid_backward(H: torch.Tensor, dgrid: torch.Tensor) -> torch.Tens
     return dxyz @ pix.T
 
 
+def _step_maps(out: torch.Tensor, raw: torch.Tensor, stats: torch.Tensor, image_rest,
+               H_inc: torch.Tensor, d: int, vecs, dtype: torch.dtype) -> tuple:
+    """Step d's forward maps rebuilt from what the forward kept, at its rounding points:
+    (carry, grid, conv0's input [image, warped], GN0's and GNr's (x_hat, z), h, res)."""
+    _, g0, be0, _, gr, ber = vecs
+    h, w = out.shape[2], out.shape[3]
+    carry = out[:, d].float()
+    grid = homography_grid(H_inc[:, d].float(), h, w)
+    warped = _round_to(dtype, grid_sample_plain(carry, grid, zero_invalid=True)[0])
+    x0 = torch.cat([_round_to(dtype, image_rest[:, d].float()), warped], -1)
+    gn0 = _gn_forward(raw[:, d, 0], stats[:, d, 0], g0, be0)
+    gnr = _gn_forward(raw[:, d, 1], stats[:, d, 1], gr, ber)
+    hn = _leaky(gn0[1], dtype)
+    res = _round_to(dtype, hn + _leaky(gnr[1], dtype))
+    return carry, grid, x0, gn0, gnr, hn, res
+
+
+def incremental_chain_sequential_plain(refiner, feats0: torch.Tensor,
+                                       image_rest: torch.Tensor, H_inc: torch.Tensor,
+                                       out: torch.Tensor, raw: torch.Tensor,
+                                       stats: torch.Tensor, grad: torch.Tensor,
+                                       needs=(True, True), tf32: bool = False) -> tuple:
+    """The backward's sequential part's plain version (``incremental_chain_sequential``):
+    (d feats0, d image_rest, d H_inc, gmaps, gcarry, gn) from the forward's saved tensors
+    (``out``, ``raw``, ``stats``, as ``incremental_chain_saved_plain`` gives them) and the
+    output's gradient ``grad``: the reverse loop of the kernel, steps d = D-2 .. 0, each
+    conv_final's, the resblock's, then conv0's input gradient and GroupNorm backward, and
+    the warp's transpose into the carry's gradient. gmaps (N, D-1, 2, h, w, 32) f32 is each
+    step's conv0 and resblock output gradients, gcarry (N, D, h, w, 32) f32 the gradient of
+    each out[:, k] (the last step's conv_final output gradient at k = d + 1), gn (4, 32) f32
+    GN0's (d gamma, d beta) and GNr's: what the weight-gradient pass reads. d image_rest and
+    d H_inc None where ``needs`` (image_rest, H_inc) leaves them out. The convs' operands
+    are rounded as the kernel's are (``_operand_round``); the elementwise terms are f32,
+    the map sums f64."""
+    dtype = feats0.dtype
+    rnd = _operand_round(dtype, tf32)
+    w0, b0, g0, be0, wr, br, gr, ber, wf, bf = (t.detach().float() for t in _weights(refiner))
+    grad = grad.float()
+    gn = torch.zeros((4, 32), dtype=torch.float32, device=feats0.device)
+    dimage = torch.zeros(image_rest.shape, dtype=torch.float32, device=feats0.device)
+    dH = torch.zeros(H_inc.shape, dtype=torch.float32, device=feats0.device)
+    gmaps = torch.zeros(raw.shape, dtype=torch.float32, device=feats0.device)
+    gcarry = torch.zeros(out.shape, dtype=torch.float32, device=feats0.device)
+    gcarry[:, -1] = carry_grad = grad[:, -1]
+    with torch.no_grad(), precision.scope("ieee"):
+        for d in range(H_inc.shape[1] - 1, -1, -1):
+            carry, grid, x0, (xh0, z0), (xhr, zr), hn, res = _step_maps(
+                out, raw, stats, image_rest, H_inc, d, (b0, g0, be0, br, gr, ber), dtype)
+            # conv_final; the resblock's GroupNorm and conv; GN0 and conv0.
+            gres, _ = _conv_grads(res, wf, carry_grad, rnd, which=(True, False))
+            dr, dg, db = _gn_backward(gres, zr, xhr, stats[:, d, 1], gr, dtype)
+            gn[2] += dg
+            gn[3] += db
+            ghn, _ = _conv_grads(hn, wr, dr, rnd, which=(True, False))
+            ghn = ghn + gres
+            da, dg, db = _gn_backward(ghn, z0, xh0, stats[:, d, 0], g0, dtype)
+            gn[0] += dg
+            gn[1] += db
+            gx0, _ = _conv_grads(x0, w0, da, rnd, which=(True, False))
+            gmaps[:, d, 0], gmaps[:, d, 1] = da, dr
+            dimage[:, d] = gx0[..., :3]
+            gwarped = carry_grad + gx0[..., 3:]
+            dcarry, dgrid = grid_sample_backward_plain(carry, grid, gwarped, True,
+                                                       (True, needs[1]))
+            if needs[1]:
+                dH[:, d] = homography_grid_backward(H_inc[:, d], dgrid)
+            gcarry[:, d] = carry_grad = grad[:, d] + dcarry
+    return (carry_grad.to(dtype), dimage.to(image_rest.dtype) if needs[0] else None,
+            dH.to(H_inc.dtype) if needs[1] else None, gmaps, gcarry, gn)
+
+
+def incremental_chain_wgrad_plain(refiner, image_rest: torch.Tensor, H_inc: torch.Tensor,
+                                  out: torch.Tensor, raw: torch.Tensor, stats: torch.Tensor,
+                                  gmaps: torch.Tensor, gcarry: torch.Tensor, gn: torch.Tensor,
+                                  tf32: bool = False) -> tuple:
+    """The backward's weight-gradient pass's plain version (``incremental_chain_wgrad``):
+    (d parameter for each of the refiner's ``named_parameters``) from the kept maps, as
+    ``incremental_chain_sequential_plain`` gives them: each conv's weight gradient summed
+    over the steps, its input X made from what the forward kept (conv0's [image, the carry
+    warped by H_inc], the resblock's h, conv_final's res) and its output gradient G
+    (``gmaps``' ga and gr, ``gcarry``'s gradient of the step's output) rounded as the
+    kernel's convs round them; its bias gradient sum G in f32; the GroupNorms' (d gamma,
+    d beta) from ``gn``."""
+    dtype = out.dtype
+    rnd = _operand_round(dtype, tf32)
+    weights = [t.detach().float() for t in _weights(refiner)]
+    w0, b0, g0, be0, wr, br, gr, ber, wf, bf = weights
+    dparams = [torch.zeros_like(t) for t in weights]
+    with torch.no_grad(), precision.scope("ieee"):
+        for d in range(H_inc.shape[1] - 1, -1, -1):
+            _, _, x0, _, _, hn, res = _step_maps(out, raw, stats, image_rest, H_inc, d,
+                                                 (b0, g0, be0, br, gr, ber), dtype)
+            for i, (x, wt, g) in ((0, (x0, w0, gmaps[:, d, 0])), (4, (hn, wr, gmaps[:, d, 1])),
+                                  (8, (res, wf, gcarry[:, d + 1]))):
+                dparams[i] += _conv_grads(x, wt, g, rnd, which=(False, True))[1]
+                dparams[i + 1] += g.sum((0, 1, 2))
+        dparams[2], dparams[3], dparams[6], dparams[7] = gn
+    names = [name for name, _ in refiner.named_parameters()]
+    by_name = dict(zip((name for name, _, _ in LAYOUT), dparams))
+    return tuple(by_name[n] for n in names)
+
+
 def incremental_chain_backward_plain(refiner, feats0: torch.Tensor, image_rest: torch.Tensor,
                                      H_inc: torch.Tensor, out: torch.Tensor, raw: torch.Tensor,
                                      stats: torch.Tensor, grad: torch.Tensor,
                                      needs=(True, True, True, True), tf32: bool = False
                                      ) -> tuple:
-    """The backward kernel's plain version: the gradients (d feats0, d image_rest, d H_inc,
-    (d parameter for each of the refiner's ``named_parameters``)) of the chain given its
+    """The backward's plain version: the gradients (d feats0, d image_rest, d H_inc, (d
+    parameter for each of the refiner's ``named_parameters``)) of the chain given its
     output's gradient ``grad``, in closed form over the forward's saved tensors (``out``,
-    ``raw``, ``stats``, as ``incremental_chain_saved_plain`` gives them), the reverse loop
-    of the kernel: steps d = D-2 .. 0, each conv_final's, the resblock's, then conv0's
-    backward and the warp's transpose into the carry's gradient. None for what ``needs``
-    (feats0, image_rest, H_inc, the parameters) leaves out. The convs' operands are rounded
-    as the kernel's are (``_operand_round``); the elementwise terms are f32, the map sums
-    f64."""
-    dtype = feats0.dtype
-    rnd = _operand_round(dtype, tf32)
-    w0, b0, g0, be0, wr, br, gr, ber, wf, bf = (t.detach().float() for t in _weights(refiner))
-    N, h, w, _ = feats0.shape
-    grad = grad.float()
-    dparams = [torch.zeros_like(t) for t in (w0, b0, g0, be0, wr, br, gr, ber, wf, bf)]
-    dimage = torch.zeros(image_rest.shape, dtype=torch.float32, device=feats0.device)
-    dH = torch.zeros(H_inc.shape, dtype=torch.float32, device=feats0.device)
-    carry_grad = grad[:, -1]
-    with torch.no_grad(), precision.scope("ieee"):
-        for d in range(H_inc.shape[1] - 1, -1, -1):
-            carry = out[:, d].float()
-            grid = homography_grid(H_inc[:, d].float(), h, w)
-            warped = _round_to(dtype, grid_sample_plain(carry, grid, zero_invalid=True)[0])
-            x0 = torch.cat([_round_to(dtype, image_rest[:, d].float()), warped], -1)
-            a, r = raw[:, d, 0], raw[:, d, 1]
-            xh0, z0 = _gn_forward(a, stats[:, d, 0], g0, be0)
-            xhr, zr = _gn_forward(r, stats[:, d, 1], gr, ber)
-            hn = _leaky(z0, dtype)
-            res = _round_to(dtype, hn + _leaky(zr, dtype))
-            # conv_final; the resblock's GroupNorm and conv; GN0 and conv0.
-            gres, dw = _conv_grads(res, wf, carry_grad, rnd)
-            dparams[8] += dw
-            dparams[9] += carry_grad.sum((0, 1, 2))
-            dr, dg, db = _gn_backward(gres, zr, xhr, stats[:, d, 1], gr, dtype)
-            dparams[6] += dg
-            dparams[7] += db
-            ghn, dw = _conv_grads(hn, wr, dr, rnd)
-            ghn = ghn + gres
-            dparams[4] += dw
-            dparams[5] += dr.sum((0, 1, 2))
-            da, dg, db = _gn_backward(ghn, z0, xh0, stats[:, d, 0], g0, dtype)
-            dparams[2] += dg
-            dparams[3] += db
-            gx0, dw = _conv_grads(x0, w0, da, rnd)
-            dparams[0] += dw
-            dparams[1] += da.sum((0, 1, 2))
-            dimage[:, d] = gx0[..., :3]
-            gwarped = carry_grad + gx0[..., 3:]
-            dcarry, dgrid = grid_sample_backward_plain(carry, grid, gwarped, True,
-                                                       (True, needs[2]))
-            if needs[2]:
-                dH[:, d] = homography_grid_backward(H_inc[:, d], dgrid)
-            carry_grad = grad[:, d] + dcarry
-    names = [name for name, _ in refiner.named_parameters()]
-    by_name = dict(zip((name for name, _, _ in LAYOUT), dparams))
-    return (carry_grad.to(dtype) if needs[0] else None,
-            dimage.to(image_rest.dtype) if needs[1] else None,
-            dH.to(H_inc.dtype) if needs[2] else None,
-            tuple(by_name[n] for n in names) if needs[3] else None)
+    ``raw``, ``stats``, as ``incremental_chain_saved_plain`` gives them): the plain versions
+    of its two launches, ``incremental_chain_sequential_plain`` then
+    ``incremental_chain_wgrad_plain`` on the maps it keeps. None for what ``needs``
+    (feats0, image_rest, H_inc, the parameters) leaves out."""
+    df, di, dH, gmaps, gcarry, gn = incremental_chain_sequential_plain(
+        refiner, feats0, image_rest, H_inc, out, raw, stats, grad, needs[1:3], tf32)
+    params = (incremental_chain_wgrad_plain(refiner, image_rest, H_inc, out, raw, stats, gmaps,
+                                            gcarry, gn, tf32) if needs[3] else None)
+    return df if needs[0] else None, di, dH, params
 
 
 # The storage dtypes the kernel takes, and each one's entry in csrc/incremental_chain.cu;
@@ -233,7 +288,15 @@ TF32_ENTRY = "mvs_incremental_chain_tf32"
 BACKWARD = {torch.float32: "mvs_incremental_chain_bwd_f32",
             torch.bfloat16: "mvs_incremental_chain_bwd_bf16"}
 TF32_BACKWARD = "mvs_incremental_chain_bwd_tf32"
-backward_launches = 0  # the backward kernel's launches since the last reset
+# The backward's launches since the last reset: two a backward (its sequential part's and
+# its weight-gradient pass's); wgrad_launches the pass's among them.
+backward_launches = 0
+wgrad_launches = 0
+# The weight-gradient pass's slots (csrc/wgrad.cuh): floats a block's sums take, and its
+# blocks an SM (csrc/incremental_chain.cu WGRAD_MIN_BLOCKS).
+WGRAD_SLOT_FLOATS = 9 * 48 * 32 + 32
+WGRAD_BLOCKS_PER_SM = 2
+KP = 9 * 35 * 32 + 2 * 9 * 32 * 32 + 7 * 32  # the parameter gradients' floats
 
 
 def _entry(dtype: torch.dtype, tf32: bool) -> str:
@@ -251,7 +314,12 @@ def _library():
             fn.restype = ctypes.c_int
         for name in (*BACKWARD.values(), TF32_BACKWARD):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, name.replace("_bwd_", "_wgrad_"))
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                           + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         query = lib.mvs_incremental_chain_cluster
         query.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
@@ -381,27 +449,35 @@ def _launch(refiner, feats0: torch.Tensor, image_rest: torch.Tensor, H_inc: torc
     return (_incremental_chain_op if tracing() else _incremental_chain_launch)(*args)
 
 
-def incremental_chain_backward(image_rest: torch.Tensor, H_inc: torch.Tensor,
-                               w0: torch.Tensor, wr: torch.Tensor, wf: torch.Tensor,
-                               vec: torch.Tensor, out: torch.Tensor, raw: torch.Tensor,
-                               stats: torch.Tensor, grad: torch.Tensor,
-                               needs=(True, True, True), cluster: int = 0,
-                               tf32: bool = False) -> tuple:
-    """The backward kernel of csrc/incremental_chain.cu on CUDA tensors: from the forward's
-    inputs (image_rest at the storage dtype, H_inc, the weights as ``_weight_args`` gives
-    them), its output ``out``, what it kept (``raw``, ``stats``) and the output's gradient
-    ``grad``, the gradients (d feats0, d image_rest, d H_inc, d conv0 taps, d resblock
-    taps, d conv_final taps, d vec), all f32; d image_rest and d H_inc None where
-    ``needs`` (feats0, image_rest, H_inc) leaves them out. One launch: a thread-block
-    cluster a sample (``cluster`` blocks, 0: ``cluster_size``'s), each block writing its
-    own parameter gradients (and H's) into a slot of its own, which are then summed over
-    the blocks in a fixed order (one reduction). The contract of
-    ``incremental_chain_backward_plain``."""
+def _entry_of(part: str, dtype: torch.dtype, tf32: bool) -> str:
+    """The backward's ``part`` ("bwd": the sequential part; "wgrad": the weight-gradient
+    pass) entry for storage ``dtype`` (1xTF32 where ``tf32`` at f32)."""
+    name = TF32_BACKWARD if tf32 and dtype == torch.float32 else BACKWARD[dtype]
+    return name.replace("_bwd_", f"_{part}_")
+
+
+def incremental_chain_sequential(image_rest: torch.Tensor, H_inc: torch.Tensor,
+                                 w0: torch.Tensor, wr: torch.Tensor, wf: torch.Tensor,
+                                 vec: torch.Tensor, out: torch.Tensor, raw: torch.Tensor,
+                                 stats: torch.Tensor, grad: torch.Tensor,
+                                 needs=(True, True, True), cluster: int = 0,
+                                 tf32: bool = False) -> tuple:
+    """The backward's sequential part (csrc/incremental_chain.cu ``chain_bwd_kernel``) on
+    CUDA tensors: from the forward's inputs (image_rest at the storage dtype, H_inc, the
+    weights as ``_weight_args`` gives them), its output ``out``, what it kept (``raw``,
+    ``stats``) and the output's gradient ``grad``, (d feats0, d image_rest, d H_inc,
+    gmaps, gcarry, gnpart), all f32: d image_rest and d H_inc None where ``needs``
+    (feats0, image_rest, H_inc) leaves them out; gmaps (N, D-1, 2, h, w, 32) each step's
+    conv0 and resblock output gradients, gcarry (N, D, h, w, 32) the gradient of each
+    out[:, k], gnpart (N * cluster, 4, 32) each block's (d gamma, d beta) of GN0 and GNr.
+    One launch: a thread-block cluster a sample (``cluster`` blocks, 0: ``cluster_size``'s),
+    H's gradient each block's sum, added over the blocks here. The contract of
+    ``incremental_chain_sequential_plain``, its gn the sum of gnpart over the blocks."""
     global backward_launches
-    dtype = out.dtype
     tensors = (image_rest, H_inc, w0, wr, wf, vec, out, raw, stats, grad)
     if not all(t.is_cuda and t.device == out.device for t in tensors):
         raise ValueError("incremental_chain_backward needs every tensor on one CUDA device")
+    dtype = out.dtype
     if (dtype not in BACKWARD or image_rest.dtype != dtype or grad.dtype != dtype
             or any(t.dtype != torch.float32 for t in (H_inc, w0, wr, wf, vec, raw, stats))):
         raise TypeError("incremental_chain_backward takes image_rest, out and grad at the "
@@ -418,40 +494,113 @@ def incremental_chain_backward(image_rest: torch.Tensor, H_inc: torch.Tensor,
     dfeats0 = torch.empty((N, h, w, C), **f32)
     dimage = torch.empty((N, Dm1, h, w, 3), **f32) if needs[1] else None
     dH = torch.empty((N, Dm1, cluster, 9), **f32) if needs[2] else None
-    partial = torch.empty((N * cluster, 9 * 35 * 32 + 2 * 9 * 32 * 32 + 7 * 32), **f32)
-    scratch = torch.empty((N, 4, h, w, C), **f32)
+    gmaps = torch.empty((N, Dm1, 2, h, w, C), **f32)
+    gcarry = torch.empty((N, D, h, w, C), **f32)
+    gnpart = torch.empty((N * cluster, 4, C), **f32)
+    scratch = torch.empty((N, 2, h, w, C), **f32)
     args = [t.contiguous() for t in tensors]
-    entry = TF32_BACKWARD if tf32 and dtype == torch.float32 else BACKWARD[dtype]
+    entry = _entry_of("bwd", dtype, tf32)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     with launch_device(out.device):
         status = getattr(_library(), entry)(
             *(t.data_ptr() for t in args), dfeats0.data_ptr(),
             0 if dimage is None else dimage.data_ptr(), 0 if dH is None else dH.data_ptr(),
-            partial.data_ptr(), scratch.data_ptr(), N, Dm1, h, w, cluster, stream)
+            gmaps.data_ptr(), gcarry.data_ptr(), gnpart.data_ptr(), scratch.data_ptr(), N,
+            Dm1, h, w, cluster, stream)
     check_status(entry, status)
     backward_launches += 1
-    sums = partial.sum(0)
+    return (dfeats0, dimage, None if dH is None else dH.sum(2).reshape(N, Dm1, 3, 3), gmaps,
+            gcarry, gnpart)
+
+
+def incremental_chain_wgrad(image_rest: torch.Tensor, H_inc: torch.Tensor, vec: torch.Tensor,
+                            out: torch.Tensor, raw: torch.Tensor, stats: torch.Tensor,
+                            gmaps: torch.Tensor, gcarry: torch.Tensor, gnpart: torch.Tensor,
+                            tf32: bool = False) -> tuple:
+    """The backward's weight-gradient pass (csrc/incremental_chain.cu
+    ``chain_wgrad_kernel``, csrc/wgrad.cuh) on CUDA tensors: from what the forward took and
+    kept (image_rest, H_inc, vec, out, raw, stats, as ``incremental_chain_sequential``
+    takes them) and what the sequential part kept (``gmaps``, ``gcarry``, ``gnpart``), the
+    parameter gradients (d conv0 taps (9, 35, 32), d resblock taps, d conv_final taps (9,
+    32, 32), d vec (7, 32)), f32: one cooperative launch over every SM, each block a share
+    of one conv's (sample, step) planes, X made on load as the forward made it, the blocks'
+    sums added in block order. The contract of ``incremental_chain_wgrad_plain``."""
+    global backward_launches, wgrad_launches
+    dtype = out.dtype
+    N, D, h, w, C = out.shape
+    tensors = (image_rest, H_inc, vec, out, raw, stats, gmaps, gcarry, gnpart)
+    if not all(t.is_cuda and t.device == out.device for t in tensors):
+        raise ValueError("incremental_chain_wgrad needs every tensor on one CUDA device")
+    if (dtype not in BACKWARD or image_rest.dtype != dtype
+            or any(t.dtype != torch.float32 for t in tensors[4:] + (H_inc, vec))):
+        raise TypeError("incremental_chain_wgrad takes image_rest and out at the storage "
+                        "dtype and everything else float32")
+    if (gmaps.shape != (N, D - 1, 2, h, w, C) or gcarry.shape != out.shape
+            or gnpart.shape[1:] != (4, C) or vec.shape != (7, C)):
+        raise ValueError(f"bad shapes: out {tuple(out.shape)}, gmaps {tuple(gmaps.shape)}, "
+                         f"gcarry {tuple(gcarry.shape)}, gnpart {tuple(gnpart.shape)}")
+    dev = out.device
+    dparams = torch.empty(KP, dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty(sms * WGRAD_BLOCKS_PER_SM * WGRAD_SLOT_FLOATS, dtype=torch.float32,
+                          device=dev)
+    args = [t.contiguous() for t in tensors]
+    entry = _entry_of("wgrad", dtype, tf32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with launch_device(dev):
+        status = getattr(_library(), entry)(
+            *(t.data_ptr() for t in args), gnpart.shape[0], dparams.data_ptr(),
+            partial.data_ptr(), partial.numel(), barrier_counter(dev, stream).data_ptr(), N,
+            D - 1, h, w, stream)
+    check_status(entry, status)
+    backward_launches += 1
+    wgrad_launches += 1
     k0, kr = 9 * 35 * 32, 9 * 32 * 32
-    return (dfeats0, dimage, None if dH is None else dH.sum(2).reshape(N, Dm1, 3, 3),
-            sums[:k0].reshape(9, 35, 32), sums[k0:k0 + kr].reshape(9, 32, 32),
-            sums[k0 + kr:k0 + 2 * kr].reshape(9, 32, 32), sums[k0 + 2 * kr:].reshape(7, 32))
+    return (dparams[:k0].reshape(9, 35, 32), dparams[k0:k0 + kr].reshape(9, 32, 32),
+            dparams[k0 + kr:k0 + 2 * kr].reshape(9, 32, 32), dparams[k0 + 2 * kr:].reshape(7, 32))
 
 
-def _launch_backward(refiner, image_rest: torch.Tensor, H_inc: torch.Tensor, weights,
-                     out: torch.Tensor, raw: torch.Tensor, stats: torch.Tensor,
-                     grad: torch.Tensor, needs, cluster: int, tf32: bool) -> tuple:
-    """The backward kernel (``incremental_chain_backward``) with the refiner's ``weights``
-    as ``_weight_args`` gave them to the forward; returns (d feats0, d image_rest,
-    d H_inc, (d parameter for each of the refiner's ``named_parameters``)) in f32, as
-    ``incremental_chain_backward_plain`` does."""
-    df, di, dH, *grads = incremental_chain_backward(image_rest, H_inc, *weights, out, raw,
-                                                    stats, grad, needs[:3], cluster, tf32)
+def incremental_chain_backward(image_rest: torch.Tensor, H_inc: torch.Tensor,
+                               w0: torch.Tensor, wr: torch.Tensor, wf: torch.Tensor,
+                               vec: torch.Tensor, out: torch.Tensor, raw: torch.Tensor,
+                               stats: torch.Tensor, grad: torch.Tensor,
+                               needs=(True, True, True), cluster: int = 0,
+                               tf32: bool = False) -> tuple:
+    """The backward on CUDA tensors: from the forward's inputs (image_rest at the storage
+    dtype, H_inc, the weights as ``_weight_args`` gives them), its output ``out``, what it
+    kept (``raw``, ``stats``) and the output's gradient ``grad``, the gradients (d feats0,
+    d image_rest, d H_inc, d conv0 taps, d resblock taps, d conv_final taps, d vec), all
+    f32; d image_rest and d H_inc None where ``needs`` (feats0, image_rest, H_inc) leaves
+    them out. Two launches: the sequential part (``incremental_chain_sequential``), then
+    the weight-gradient pass (``incremental_chain_wgrad``) on the maps it kept. The
+    contract of ``incremental_chain_backward_plain``."""
+    df, di, dH, gmaps, gcarry, gnpart = incremental_chain_sequential(
+        image_rest, H_inc, w0, wr, wf, vec, out, raw, stats, grad, needs, cluster, tf32)
+    return (df, di, dH, *incremental_chain_wgrad(image_rest, H_inc, vec, out, raw, stats,
+                                                 gmaps, gcarry, gnpart, tf32))
+
+
+def _param_grads(refiner, grads) -> tuple:
+    """The backward's parameter gradients (d conv0 taps, d resblock taps, d conv_final
+    taps, d vec) as a gradient for each of the refiner's ``named_parameters``."""
     place = {name: (kind, i) for name, kind, i in LAYOUT}
     params = []
     for name, _ in refiner.named_parameters():
         kind, i = place[name]
         params.append(_untaps(grads[i]) if kind == "taps" else grads[3][i])
-    return df, di, dH, tuple(params)
+    return tuple(params)
+
+
+def _launch_backward(refiner, image_rest: torch.Tensor, H_inc: torch.Tensor, weights,
+                     out: torch.Tensor, raw: torch.Tensor, stats: torch.Tensor,
+                     grad: torch.Tensor, needs, cluster: int, tf32: bool) -> tuple:
+    """The backward (``incremental_chain_backward``) with the refiner's ``weights`` as
+    ``_weight_args`` gave them to the forward; returns (d feats0, d image_rest, d H_inc,
+    (d parameter for each of the refiner's ``named_parameters``)) in f32, as
+    ``incremental_chain_backward_plain`` does."""
+    df, di, dH, *grads = incremental_chain_backward(image_rest, H_inc, *weights, out, raw,
+                                                    stats, grad, needs[:3], cluster, tf32)
+    return df, di, dH, _param_grads(refiner, grads)
 
 
 class _IncrementalChain(torch.autograd.Function):

@@ -52,12 +52,19 @@ from .closed_form import (
 from .incremental_chain import _taps, _untaps
 
 # Kernel launches since the last reset; only the kernel path counts. tf32_launches
-# counts those of the 1xTF32 variant among them; backward_launches the backward kernel's.
+# counts those of the 1xTF32 variant among them; backward_launches the backward's (two a
+# backward: the sequential part's and the weight-gradient pass's), wgrad_launches the
+# pass's among them.
 launches = 0
 tf32_launches = 0
 backward_launches = 0
+wgrad_launches = 0
 
 MAX_CIN0 = 36      # conv0 input channels the kernel's shared memory holds
+# The weight-gradient pass's slots (csrc/wgrad.cuh): floats a block's sums take, and its
+# blocks an SM (csrc/idepthmap_refiner.cu WGRAD_MIN_BLOCKS).
+WGRAD_SLOT_FLOATS = 9 * 48 * 32 + 32
+WGRAD_BLOCKS_PER_SM = 1
 NUM_RES = 6
 NUM_GN = NUM_RES + 1
 M_TILE = 16        # pixels a kernel m-tile, csrc/idepthmap_refiner.cu's MTILE
@@ -69,12 +76,15 @@ WF_COLS = 8        # the final conv's one output channel, padded to an n8 tile
 ENTRIES = {torch.float32: "mvs_idepthmap_refiner_f32",
            torch.bfloat16: "mvs_idepthmap_refiner_bf16"}
 TF32_ENTRY = "mvs_idepthmap_refiner_tf32"
-# The backward kernel's entries, named as the forward's with "_bwd".
+# The backward's two kernels' entries, named as the forward's with "_bwd" (the sequential
+# part) and "_wgrad" (the weight-gradient pass).
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = {"forward": [_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 4
                     + [ctypes.POINTER(ctypes.c_int), _PTR],
-         "backward": [_PTR] * 12 + [_LL, _PTR, _LL, _PTR] + [_INT] * 4
-                     + [ctypes.POINTER(ctypes.c_int), _PTR]}
+         "bwd": [_PTR] * 13 + [_LL, _PTR, _PTR, _LL, _PTR] + [_INT] * 4
+                + [ctypes.POINTER(ctypes.c_int), _PTR],
+         "wgrad": [_PTR] * 6 + [_INT, _PTR, _PTR, _LL, _PTR] + [_INT] * 4
+                  + [ctypes.POINTER(ctypes.c_int), _PTR]}
 
 # refiner -> {(storage dtype, tf32): (parameters, their storages kept alive, the key
 # (``_pack_key``), (packed weights, dilations))}
@@ -156,50 +166,106 @@ def saved_forward(weights, guidance: torch.Tensor, idepthmap: torch.Tensor, dila
     return out, torch.stack(raws), torch.stack(stats)
 
 
-def idepthmap_refiner_backward_plain(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
-                                     out: torch.Tensor, raw: torch.Tensor, stats: torch.Tensor,
-                                     grad: torch.Tensor, needs=(True, True, True),
-                                     tf32: bool = False) -> tuple:
-    """The backward kernel's plain version: the gradients (d guidance, d idepthmap, (d
-    parameter for each of the refiner's ``named_parameters``)) of the refiner given its
-    output's gradient ``grad``, in closed form over the forward's saved tensors (``out``,
-    ``raw``, ``stats``, as ``idepthmap_refiner_saved_plain`` gives them), the reverse loop
-    of the kernel: the final conv's backward through ReLU, then each GroupNorm layer's
-    (LeakyReLU, GroupNorm, conv; the residual's gradient added), conv0's last. h_l is
-    rebuilt from raw and stats in the forward's order and roundings. None for what
-    ``needs`` (guidance, idepthmap, the parameters) leaves out; d guidance at the
-    guidance's dtype, the rest f32. The convs' operands are rounded as the kernel's are
-    (``_operand_round``); the elementwise terms are f32, the map sums f64."""
+def _hidden(raw: torch.Tensor, stats: torch.Tensor, weights, dtype: torch.dtype) -> list:
+    """h_0 .. h_6 rebuilt from each GroupNorm layer's raw conv output and statistics in the
+    forward's order and roundings."""
+    hs = []
+    for k in range(NUM_GN):
+        branch = _leaky(_gn_forward(raw[k], stats[k], *weights[4 * k + 2:4 * k + 4])[1], dtype)
+        hs.append(branch if k == 0 else _round_to(dtype, hs[-1] + branch))
+    return hs
+
+
+def _conv0_input(guidance: torch.Tensor, idepthmap: torch.Tensor) -> torch.Tensor:
+    """conv0's input [guidance, idepthmap rounded to the guidance's dtype], NHWC f32."""
+    return torch.cat([guidance.float().permute(0, 2, 3, 1),
+                      _round_to(guidance.dtype, idepthmap.float())[..., None]], -1)
+
+
+def idepthmap_refiner_sequential_plain(refiner, guidance: torch.Tensor,
+                                       idepthmap: torch.Tensor, out: torch.Tensor,
+                                       raw: torch.Tensor, stats: torch.Tensor,
+                                       grad: torch.Tensor, tf32: bool = False) -> tuple:
+    """The backward's sequential part's plain version (``idepthmap_refiner_sequential``):
+    (d guidance at the guidance's dtype, d idepthmap, gmaps, gout, gn) from the forward's
+    saved tensors (``out``, ``raw``, ``stats``, as ``idepthmap_refiner_saved_plain`` gives
+    them) and the output's gradient ``grad``: the reverse loop of the kernel, the final
+    conv's input gradient through ReLU, then each GroupNorm layer's backward (LeakyReLU,
+    GroupNorm, the conv's input gradient; the residual's gradient added), conv0's last.
+    gmaps (7, N, h, w, 32) f32 is each GroupNorm layer's conv output gradient dT_l, gout
+    (N, h, w) f32 the final conv's, gn (7, 2, 32) f32 each GroupNorm's (d gamma, d beta):
+    what the weight-gradient pass reads. The convs' operands are rounded as the kernel's
+    are (``_operand_round``); the elementwise terms are f32, the map sums f64."""
     dtype = guidance.dtype
     rnd = _operand_round(dtype, tf32)
     weights = [p.detach().float() for p in refiner.parameters()]
     dilations = _dilations(refiner)
     with torch.no_grad(), precision.scope("ieee"):
-        x = torch.cat([guidance.float().permute(0, 2, 3, 1),
-                       _round_to(dtype, idepthmap.float())[..., None]], -1)
-        hs = []
-        for k in range(NUM_GN):
-            branch = _leaky(_gn_forward(raw[k], stats[k], *weights[4 * k + 2:4 * k + 4])[1],
-                            dtype)
-            hs.append(branch if k == 0 else _round_to(dtype, hs[-1] + branch))
+        hs = _hidden(raw, stats, weights, dtype)
         gout = grad.float() * (out > 0)
-        dparams = [None] * len(weights)
-        dh, dparams[-2] = _conv_grads(hs[-1], weights[-2], gout[..., None], rnd)
-        dparams[-1] = gout.sum().reshape(1)
-        didepth = gout
+        dh, _ = _conv_grads(hs[-1], weights[-2], gout[..., None], rnd, which=(True, False))
+        gmaps, gn = [None] * NUM_GN, [None] * NUM_GN
         for k in range(NUM_GN - 1, -1, -1):
             w, _, gamma, beta = weights[4 * k:4 * k + 4]
             xhat, z = _gn_forward(raw[k], stats[k], gamma, beta)
-            dt, dgamma, dbeta = _gn_backward(dh, z, xhat, stats[k], gamma, dtype)
+            gmaps[k], dgamma, dbeta = _gn_backward(dh, z, xhat, stats[k], gamma, dtype)
+            gn[k] = torch.stack([dgamma, dbeta])
             d = 1 if k == 0 else dilations[k - 1]
-            gx, dw = _conv_grads(x if k == 0 else hs[k - 1], w, dt, rnd, d)
-            dparams[4 * k:4 * k + 4] = dw, dt.sum((0, 1, 2)), dgamma, dbeta
+            gx, _ = _conv_grads(_conv0_input(guidance, idepthmap) if k == 0 else hs[k - 1],
+                                w, gmaps[k], rnd, d, which=(True, False))
             if k > 0:
                 dh = dh + gx
         cg = guidance.shape[1]
-        didepth = didepth + gx[..., cg]
-    return (gx[..., :cg].permute(0, 3, 1, 2).to(dtype) if needs[0] else None,
-            didepth if needs[1] else None, tuple(dparams) if needs[2] else None)
+    return (gx[..., :cg].permute(0, 3, 1, 2).to(dtype), gout + gx[..., cg],
+            torch.stack(gmaps), gout, torch.stack(gn))
+
+
+def idepthmap_refiner_wgrad_plain(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
+                                  raw: torch.Tensor, stats: torch.Tensor, gmaps: torch.Tensor,
+                                  gout: torch.Tensor, gn: torch.Tensor,
+                                  tf32: bool = False) -> tuple:
+    """The backward's weight-gradient pass's plain version (``idepthmap_refiner_wgrad``):
+    (d parameter for each of the refiner's ``named_parameters``) from the kept maps, as
+    ``idepthmap_refiner_sequential_plain`` gives them: each conv's weight gradient, its
+    input X (h_{l-1} rebuilt from ``raw`` and ``stats``; conv0's [guidance, idepthmap]) and
+    its output gradient G (``gmaps``' dT_l; the final conv's ``gout``) rounded as the
+    kernel's convs round them; its bias gradient sum G in f32; each GroupNorm's (d gamma,
+    d beta) from ``gn``."""
+    dtype = guidance.dtype
+    rnd = _operand_round(dtype, tf32)
+    weights = [p.detach().float() for p in refiner.parameters()]
+    dilations = _dilations(refiner)
+    with torch.no_grad(), precision.scope("ieee"):
+        hs = _hidden(raw, stats, weights, dtype)
+        dparams = [None] * len(weights)
+        _, dparams[-2] = _conv_grads(hs[-1], weights[-2], gout[..., None], rnd,
+                                     which=(False, True))
+        dparams[-1] = gout.sum().reshape(1)
+        for k in range(NUM_GN):
+            d = 1 if k == 0 else dilations[k - 1]
+            _, dw = _conv_grads(_conv0_input(guidance, idepthmap) if k == 0 else hs[k - 1],
+                                weights[4 * k], gmaps[k], rnd, d, which=(False, True))
+            dparams[4 * k:4 * k + 4] = dw, gmaps[k].sum((0, 1, 2)), gn[k, 0], gn[k, 1]
+    return tuple(dparams)
+
+
+def idepthmap_refiner_backward_plain(refiner, guidance: torch.Tensor, idepthmap: torch.Tensor,
+                                     out: torch.Tensor, raw: torch.Tensor, stats: torch.Tensor,
+                                     grad: torch.Tensor, needs=(True, True, True),
+                                     tf32: bool = False) -> tuple:
+    """The backward's plain version: the gradients (d guidance, d idepthmap, (d parameter
+    for each of the refiner's ``named_parameters``)) of the refiner given its output's
+    gradient ``grad``, in closed form over the forward's saved tensors (``out``, ``raw``,
+    ``stats``, as ``idepthmap_refiner_saved_plain`` gives them): the plain versions of its
+    two launches, ``idepthmap_refiner_sequential_plain`` then
+    ``idepthmap_refiner_wgrad_plain`` on the maps it keeps. None for what ``needs``
+    (guidance, idepthmap, the parameters) leaves out; d guidance at the guidance's dtype,
+    the rest f32."""
+    dguid, didepth, gmaps, gout, gn = idepthmap_refiner_sequential_plain(
+        refiner, guidance, idepthmap, out, raw, stats, grad, tf32)
+    dparams = (idepthmap_refiner_wgrad_plain(refiner, guidance, idepthmap, raw, stats, gmaps,
+                                             gout, gn, tf32) if needs[2] else None)
+    return dguid if needs[0] else None, didepth if needs[1] else None, dparams
 
 
 def _variant(dtype: torch.dtype, tf32: bool) -> tuple:
@@ -212,16 +278,17 @@ def _entry(dtype: torch.dtype, tf32: bool) -> str:
     return TF32_ENTRY if _variant(dtype, tf32)[1] else ENTRIES[dtype]
 
 
-def _kernel_function(dtype: torch.dtype, tf32: bool = False, backward: bool = False):
-    """The ctypes entry of csrc/idepthmap_refiner.cu for ``dtype`` and ``tf32``, the
-    forward's or the ``backward`` kernel's (built on first use)."""
+def _kernel_function(dtype: torch.dtype, tf32: bool = False, part: str = "forward"):
+    """The ctypes entry of csrc/idepthmap_refiner.cu for ``dtype`` and ``tf32``: the
+    forward's, or the backward's ``part`` ("bwd": the sequential part; "wgrad": the
+    weight-gradient pass) (built on first use)."""
     name = _entry(dtype, tf32)
-    if backward:
-        name = name.replace("refiner_", "refiner_bwd_")
+    if part != "forward":
+        name = name.replace("refiner_", f"refiner_{part}_")
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(load_library("idepthmap_refiner"), name)
-        fn.argtypes = _ARGS["backward" if backward else "forward"]
+        fn.argtypes = _ARGS[part]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -460,18 +527,19 @@ def grad_floats(cin0: int) -> int:
     return 9 * (cin_pad * C + NUM_RES * C * C + C) + (3 + 3 * NUM_RES) * C + 1
 
 
-def idepthmap_refiner_backward(guidance: torch.Tensor, idepthmap: torch.Tensor,
-                               pack: torch.Tensor, dilations, out: torch.Tensor,
-                               raw: torch.Tensor, stats: torch.Tensor, hs: torch.Tensor,
-                               grad: torch.Tensor, need_guidance: bool = True,
-                               tf32: bool = False) -> tuple:
-    """The backward kernel of csrc/idepthmap_refiner.cu on CUDA tensors: from the forward's
-    inputs, the pack it ran on, its output ``out``, what it kept (``raw``, ``stats``,
-    ``hs``) and the output's gradient ``grad``, the gradients (d guidance f32, or None
-    without ``need_guidance``; d idepthmap f32; the parameter gradients, f32, in
-    ``grad_floats``' layout). One launch: the forward's cooperative grid, each block
-    writing its parameter gradients into a slot of its own, summed over the blocks in a
-    fixed order at the end. The contract of ``idepthmap_refiner_backward_plain``."""
+def idepthmap_refiner_sequential(guidance: torch.Tensor, idepthmap: torch.Tensor,
+                                 pack: torch.Tensor, dilations, out: torch.Tensor,
+                                 raw: torch.Tensor, stats: torch.Tensor, hs: torch.Tensor,
+                                 grad: torch.Tensor, need_guidance: bool = True,
+                                 tf32: bool = False) -> tuple:
+    """The backward's sequential part (csrc/idepthmap_refiner.cu ``refiner_bwd_kernel``) on
+    CUDA tensors: from the forward's inputs, the pack it ran on, its output ``out``, what
+    it kept (``raw``, ``stats``, ``hs``) and the output's gradient ``grad``, (d guidance
+    f32, or None without ``need_guidance``; d idepthmap f32; gmaps (7, N, h, w, 32) f32,
+    each GroupNorm layer's dT_l; gout (N, h, w) f32; gnpart (blocks, 7, 2, 32) f64, each
+    block's (d gamma, d beta)): the forward's cooperative grid over the layers in reverse.
+    The contract of ``idepthmap_refiner_sequential_plain``, its gn the sum of gnpart over
+    the blocks."""
     global backward_launches
     dtype = guidance.dtype
     tensors = (guidance, idepthmap, pack, out, raw, stats, hs, grad)
@@ -490,27 +558,92 @@ def idepthmap_refiner_backward(guidance: torch.Tensor, idepthmap: torch.Tensor,
                          f"{tuple(raw.shape)}, stats {tuple(stats.shape)}")
     dev = out.device
     f32 = dict(dtype=torch.float32, device=dev)
-    kp = grad_floats(Cg + 1)
     dguid = torch.empty((N, Cg, h, w), **f32) if need_guidance else None
     didepth = torch.empty((N, h, w), **f32)
-    dparams = torch.empty(kp, **f32)
-    rows = torch.cuda.get_device_properties(dev).multi_processor_count
-    partial = torch.empty(rows * kp, **f32)
+    gmaps = torch.empty((NUM_GN, N, h, w, C), **f32)
+    gout = torch.empty((N, h, w), **f32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gnpart = torch.empty((sms, NUM_GN, 2, C), dtype=torch.float64, device=dev)
     size = scratch_floats(N, h, w, 2)
     scratch = torch.empty(size, **f32)
+    blocks = ctypes.c_int(0)
     args = [t.contiguous() for t in (guidance, idepthmap, pack, out, raw, hs, stats, grad)]
     entry = _entry(dtype, tf32).replace("refiner_", "refiner_bwd_")
-    fn = _kernel_function(dtype, tf32, backward=True)
+    fn = _kernel_function(dtype, tf32, "bwd")
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with launch_device(dev):
         status = fn(*(t.data_ptr() for t in args),
                     0 if dguid is None else dguid.data_ptr(), didepth.data_ptr(),
-                    dparams.data_ptr(), partial.data_ptr(), partial.numel(),
-                    scratch.data_ptr(), size, barrier_counter(dev, stream).data_ptr(), N, Cg,
-                    h, w, (ctypes.c_int * NUM_RES)(*dilations), stream)
+                    gmaps.data_ptr(), gout.data_ptr(), gnpart.data_ptr(), gnpart.numel(),
+                    ctypes.byref(blocks), scratch.data_ptr(), size,
+                    barrier_counter(dev, stream).data_ptr(), N, Cg, h, w,
+                    (ctypes.c_int * NUM_RES)(*dilations), stream)
     check_status(entry, status)
     backward_launches += 1
-    return dguid, didepth, dparams
+    return dguid, didepth, gmaps, gout, gnpart[:blocks.value]
+
+
+def idepthmap_refiner_wgrad(guidance: torch.Tensor, idepthmap: torch.Tensor, dilations,
+                            hs: torch.Tensor, gmaps: torch.Tensor, gout: torch.Tensor,
+                            gnpart: torch.Tensor, tf32: bool = False) -> torch.Tensor:
+    """The backward's weight-gradient pass (csrc/idepthmap_refiner.cu
+    ``refiner_wgrad_kernel``, csrc/wgrad.cuh) on CUDA tensors: from the forward's guidance
+    and idepthmap, its kept ``hs`` and what the sequential part kept (``gmaps``, ``gout``,
+    ``gnpart``), the parameter gradients, f32, in ``grad_floats``' layout: one cooperative
+    launch over every SM, each block a share of one conv's pixels, the blocks' sums added
+    in block order. The contract of ``idepthmap_refiner_wgrad_plain``."""
+    global backward_launches, wgrad_launches
+    dtype = guidance.dtype
+    N, Cg, h, w = guidance.shape
+    tensors = (guidance, idepthmap, hs, gmaps, gout, gnpart)
+    if not all(t.is_cuda and t.device == guidance.device for t in tensors):
+        raise ValueError("idepthmap_refiner_wgrad needs every tensor on one CUDA device")
+    if (dtype not in ENTRIES or any(t.dtype != torch.float32 for t in tensors[1:5])
+            or gnpart.dtype != torch.float64):
+        raise TypeError("idepthmap_refiner_wgrad takes float32 or bfloat16 guidance, float64 "
+                        "gnpart and everything else float32")
+    if (idepthmap.shape != (N, h, w) or hs.shape != (NUM_GN, N, h, w, C)
+            or gmaps.shape != hs.shape or gout.shape != (N, h, w)
+            or gnpart.shape[1:] != (NUM_GN, 2, C) or len(dilations) != NUM_RES):
+        raise ValueError(f"bad shapes: guidance {tuple(guidance.shape)}, gmaps "
+                         f"{tuple(gmaps.shape)}, gout {tuple(gout.shape)}, gnpart "
+                         f"{tuple(gnpart.shape)}")
+    dev = guidance.device
+    dparams = torch.empty(grad_floats(Cg + 1), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty(sms * WGRAD_BLOCKS_PER_SM * WGRAD_SLOT_FLOATS, dtype=torch.float32,
+                          device=dev)
+    args = [t.contiguous() for t in (guidance, idepthmap, hs, gmaps, gout, gnpart)]
+    entry = _entry(dtype, tf32).replace("refiner_", "refiner_wgrad_")
+    fn = _kernel_function(dtype, tf32, "wgrad")
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    with launch_device(dev):
+        status = fn(*(t.data_ptr() for t in args), gnpart.shape[0], dparams.data_ptr(),
+                    partial.data_ptr(), partial.numel(),
+                    barrier_counter(dev, stream).data_ptr(), N, Cg, h, w,
+                    (ctypes.c_int * NUM_RES)(*dilations), stream)
+    check_status(entry, status)
+    backward_launches += 1
+    wgrad_launches += 1
+    return dparams
+
+
+def idepthmap_refiner_backward(guidance: torch.Tensor, idepthmap: torch.Tensor,
+                               pack: torch.Tensor, dilations, out: torch.Tensor,
+                               raw: torch.Tensor, stats: torch.Tensor, hs: torch.Tensor,
+                               grad: torch.Tensor, need_guidance: bool = True,
+                               tf32: bool = False) -> tuple:
+    """The backward on CUDA tensors: from the forward's inputs, the pack it ran on, its
+    output ``out``, what it kept (``raw``, ``stats``, ``hs``) and the output's gradient
+    ``grad``, the gradients (d guidance f32, or None without ``need_guidance``; d
+    idepthmap f32; the parameter gradients, f32, in ``grad_floats``' layout). Two launches:
+    the sequential part (``idepthmap_refiner_sequential``), then the weight-gradient pass
+    (``idepthmap_refiner_wgrad``) on the maps it kept. The contract of
+    ``idepthmap_refiner_backward_plain``."""
+    dguid, didepth, gmaps, gout, gnpart = idepthmap_refiner_sequential(
+        guidance, idepthmap, pack, dilations, out, raw, stats, hs, grad, need_guidance, tf32)
+    return dguid, didepth, idepthmap_refiner_wgrad(guidance, idepthmap, dilations, hs, gmaps,
+                                                   gout, gnpart, tf32)
 
 
 def _unpack_grads(refiner, dparams: torch.Tensor) -> tuple:

@@ -2,6 +2,7 @@
 """Compare two checkouts of the PyTorch port on one NVIDIA card, in turns.
 
     python scripts/compare_torch_trees.py PARENT_DIR CHANGE_DIR [--pairs 6] [--out FILE]
+        [--backward | --train-step]
 
 Each directory is a whole checkout (for example ``git archive`` of a commit,
 unpacked). The script runs, one process a run, in the order parent, change,
@@ -22,13 +23,24 @@ then ``scripts/profile_torch_serving.py`` of each checkout, parent, change,
 change, parent. Prints every run, the medians, the card's name and power
 limit, and with ``--out FILE`` writes it all there as JSON.
 
+With ``--backward`` each run times instead the backward of K2's and K3's
+``autograd.Function`` (the call every tree of the port has, whatever its backward launches):
+20 backwards captured in a CUDA graph on the stream their forward ran on, the graph's
+device time over 20, median of 7 replays; K2 at N = 1 and 8, 30x40x32, D = 12 (the
+gradients of feats0 and the weights, the recipe's), K3 at (N, 35, h, w) = (1, 35, 30, 40),
+(8, 35, 30, 40), (1, 35, 60, 80) and the recipe's (8, 35, 60, 80) (the guidance's, the
+idepth map's and the weights').
+
 With ``--train-step`` each run times instead the recipe's train step (B = 8, V = 1,
 480x640, D = 12, cost filter and five refiners on, adam 1e-3, augmentation on;
 ``chip_smoke.py`` phase 7's) on one batch of a synthetic GTA-SfM tree from seeded
 fan-in-scale weights, on the kernel path: ms a step (CUDA events around each of 4 steps
 after 2 warm-up steps, the median), peak memory over those steps, device busy a step
 (``chip_smoke.profile_kernels``) with ``aten::native_group_norm``'s calls and device time
-and its backward's, and the K3 (refiner) forward and backward launches of one step.
+and its backward's, and the K3 (refiner) forward and backward launches of one step; and,
+first, the loss and every parameter's gradient of one step from the seeded weights, saved
+beside the tree, so that the first change run's are held to the first parent run's
+(chip_smoke.py's LOSS_BAR and GRAD_BAR: the kernel path against plain autograd).
 """
 
 from __future__ import annotations
@@ -45,6 +57,9 @@ H0, W0, D = 480, 640, 12
 K3_SHAPES = ((1, 30, 40, "refiner4"), (8, 30, 40, "refiner4"), (1, 60, 80, "refiner3"))
 K3_KEYS = tuple(f"k3_{what}_ms_{n}x{h}x{w}" for n, h, w, _ in K3_SHAPES
                 for what in ("device", "call"))
+K3_BACKWARD_SHAPES = K3_SHAPES + ((8, 60, 80, "refiner3"),)
+BACKWARD_KEYS = (tuple(f"k2_backward_ms_n{n}" for n in (1, 8))
+                 + tuple(f"k3_backward_ms_{n}x{h}x{w}" for n, h, w, _ in K3_BACKWARD_SHAPES))
 
 
 def smi() -> str:
@@ -156,6 +171,81 @@ def measure(tree: str) -> dict:
     return result
 
 
+def measure_backward(tree: str) -> dict:
+    """One checkout's backward times (``--backward``), imported from ``tree``."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner, IDepthmapRefiner
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(2)
+    stream = torch.cuda.Stream(dev)
+
+    def backward_ms(forward, inputs, reps=20):
+        """One backward's device time: the forward once on ``stream``, then ``reps``
+        backwards (``torch.autograd.grad``) captured in a CUDA graph on that stream."""
+        with torch.cuda.stream(stream):
+            out = forward()
+            cot = torch.randn(out.shape, generator=g).to(dev)
+
+            def call():
+                return torch.autograd.grad(out, inputs, cot, retain_graph=True)
+            for _ in range(3):
+                call()
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                call()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        return statistics.median(times)
+
+    result = {"tree": tree}
+    prefix = "right_feature_extractor.refiner."
+    refiner = FeatureRefiner(32)
+    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
+                             if k.startswith(prefix)})
+    refiner = refiner.to(dev)
+    for n in (1, 8):
+        feats0 = torch.randn(n, 30, 40, 32, generator=g).to(dev).requires_grad_()
+        image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+        H_inc = torch.eye(3).repeat(n, D - 1, 1, 1)
+        H_inc[..., 0, 2] = torch.rand(n, D - 1, generator=g) * 2 - 1
+        H_inc = H_inc.to(dev)
+        result[f"k2_backward_ms_n{n}"] = backward_ms(
+            lambda: chain.incremental_chain(refiner, feats0, image_rest, H_inc),
+            [feats0, *refiner.parameters()])
+    state = random_state_dict(4)
+    for n, h, w, name in K3_BACKWARD_SHAPES:
+        module = IDepthmapRefiner(35)
+        module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                if k.startswith(name + ".")})
+        module = module.to(dev)
+        guidance = ((torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev)
+                    .requires_grad_())
+        idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev).requires_grad_()
+        result[f"k3_backward_ms_{n}x{h}x{w}"] = backward_ms(
+            lambda: refiner_op.idepthmap_refiner(module, guidance, idepth),
+            [guidance, idepth, *module.parameters()])
+    return result
+
+
 def measure_train_step(tree: str) -> dict:
     """One checkout's train-step numbers (``--train-step``), imported from ``tree``."""
     sys.path.insert(0, tree)
@@ -171,6 +261,7 @@ def measure_train_step(tree: str) -> dict:
     from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
     from multi_view_stereonet_tpu_torch.train import train_cli
     from multi_view_stereonet_tpu_torch.train.config import load_params_yaml
+    from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
 
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -188,7 +279,13 @@ def measure_train_step(tree: str) -> dict:
     model = MultiViewStereoNet()
     model.load_state_dict(random_state_dict(0))
     model = model.to(dev)
-    _, _, _, step = train_cli.build_train_step(cfg, 12, model, "auto")
+    config, loss_config, _, step = train_cli.build_train_step(cfg, 12, model, "auto")
+    loss, _ = make_loss_fn(config, loss_config, impl="auto")(model, batch)
+    loss.backward()
+    grad_file = os.path.join(tree, "_train_step_grads.pt")
+    torch.save({k: p.grad.detach().cpu() for k, p in model.named_parameters()}, grad_file)
+    first_loss = loss.item()
+    model.zero_grad(set_to_none=True)
     for _ in range(2):
         step(model, batch)
     torch.cuda.synchronize()
@@ -215,7 +312,7 @@ def measure_train_step(tree: str) -> dict:
     busy, wall, prof = chip_smoke.profile_kernels(lambda: step(model, batch), 1)
     return {"ms": statistics.median(times), "times": times, "peak_gib": peak / 2**30,
             "busy_ms": busy, "wall_ms": wall, **chip_smoke.group_norm_device_ms(prof),
-            **launches}
+            **launches, "loss": first_loss, "grad_file": grad_file}
 
 
 def train_step_report(runs: list, card: str) -> dict:
@@ -233,6 +330,29 @@ def train_step_report(runs: list, card: str) -> dict:
     return medians
 
 
+def gradient_agreement(runs: list) -> dict:
+    """The first change run's loss and gradients of one step against the first parent
+    run's: the loss's relative gap and the worst parameter's max|diff| over max|parent| (a
+    gradient below 1e-4 of the largest held to that floor), beside chip_smoke.py's bars."""
+    import torch
+
+    first = {label: next(r for r in runs if r["label"] == label) for label in ("parent",
+                                                                              "change")}
+    ref, got = (torch.load(first[label]["grad_file"]) for label in ("parent", "change"))
+    floor = 1e-4 * max(r.abs().max().item() for r in ref.values())
+    worst = max((got[k] - r).abs().max().item() / max(r.abs().max().item(), floor)
+                for k, r in ref.items())
+    loss_gap = abs(first["change"]["loss"] - first["parent"]["loss"]) / abs(
+        first["parent"]["loss"])
+    result = {"loss_gap": loss_gap, "worst_gradient": worst, "loss_bar": 1e-5,
+              "gradient_bar": 2.5e-3}
+    print(f"one step from the seeded weights, change against parent: loss "
+          f"{first['change']['loss']:.7f} vs {first['parent']['loss']:.7f} ({loss_gap:.2e} "
+          f"relative, bar 1e-05); worst gradient {worst:.3e} of max|parent| (bar 2.5e-03)",
+          flush=True)
+    return result
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("parent")
@@ -241,10 +361,13 @@ def main():
     parser.add_argument("--out", help="write every run and profile here as JSON")
     parser.add_argument("--train-step", action="store_true",
                         help="time the recipe's train step instead (see above)")
+    parser.add_argument("--backward", action="store_true",
+                        help="time K2's and K3's backwards instead (see above)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
-        run = measure_train_step if args.train_step else measure
+        run = (measure_train_step if args.train_step else measure_backward if args.backward
+               else measure)
         print(json.dumps(run(os.path.abspath(args.child))), flush=True)
         return
 
@@ -254,19 +377,33 @@ def main():
     for label in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), args.parent,
                                args.change, "--child", trees[label]]
-                              + ["--train-step"] * args.train_step, capture_output=True,
+                              + ["--train-step"] * args.train_step
+                              + ["--backward"] * args.backward, capture_output=True,
                               text=True, check=True, cwd=trees[label])
         run = {"label": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
         runs.append(run)
-        if args.train_step:
+        if args.backward:
+            print(f"{label}: " + ", ".join(f"{key} {run[key]:.4f}" for key in BACKWARD_KEYS),
+                  flush=True)
+        if args.train_step or args.backward:
             continue
         k3 = ", ".join(f"{key[3:]} {run[key]:.4f}" for key in K3_KEYS)
         print(f"{label}: {run['ms_per_frame']:.3f} ms/frame, K2 device "
               f"{run['k2_device_ms_n1']:.4f} ms at N=1, {run['k2_device_ms_n5']:.4f} at N=5; "
               f"K3 {k3}", flush=True)
+    if args.backward:
+        card = smi()
+        medians = {label: {key: statistics.median(r[key] for r in runs if r["label"] == label)
+                           for key in BACKWARD_KEYS} for label in trees}
+        print(f"medians ({card}): {json.dumps(medians)}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "runs": runs, "medians": medians}, f, indent=1)
+        return
     if args.train_step:
         card = smi()
         medians = train_step_report(runs, card)
+        medians["agreement"] = gradient_agreement(runs)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "runs": runs, "medians": medians}, f, indent=1)

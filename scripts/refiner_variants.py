@@ -1,21 +1,37 @@
 #!/usr/bin/env python3
-"""Time edited copies of the idepthmap-refiner kernel (K3) against it, in one process.
+"""Time edited copies of a kernel of the port against the kernel as it stands, in one
+process.
 
-    python scripts/refiner_variants.py [--rounds 2] [--out FILE]
+    python scripts/refiner_variants.py [--kernel k3|k3_backward|k2_backward]
+        [--tree DIR] [--rounds 2] [--ptxas] [--out FILE]
 
-Builds ``csrc/idepthmap_refiner.cu`` as it stands and each variant below (the
-same source with a few text edits), all with the package's nvcc flags, then times
-each at the serving shapes (N, 35, h, w) = (1, 35, 30, 40), (8, 35, 30, 40) and
-(1, 35, 60, 80): the device time of one call, 20 calls replayed from a CUDA
-graph, median of 7, in the order shipped, variants, variants reversed, shipped
-(``--rounds`` times), and prints the median of each. Two kinds of variant:
+Builds the kernel's source (``csrc/idepthmap_refiner.cu`` for K3 and its backward,
+``csrc/incremental_chain.cu`` for K2's backward) of the checkout ``--tree`` (this one
+by default; ``git archive`` of another commit unpacked under ``_checkout/`` times that
+commit's design) as it stands and each variant below (the same source with a few text
+edits), all with the package's nvcc flags, each by its own nvcc at once, then times
+each through the tree's own wrapper, which loads the variant's library in place of the
+shipped one:
 
-- levers: a design choice undone (the result stays right, and is checked
-  against the plain version);
-- knockouts: one phase of every stage removed (the result is wrong and is not
-  checked), to show what that phase costs.
+- ``k3``: the forward at (N, 35, h, w) = (1, 35, 30, 40), (8, 35, 30, 40), (1, 35, 60, 80);
+- ``k3_backward``: the backward (``refiner.idepthmap_refiner_backward``, every launch it
+  makes) at those and the recipe's (8, 35, 60, 80), from one forward with ``keep``;
+- ``k2_backward``: the backward (``incremental_chain.incremental_chain_backward``, with
+  what its wrapper adds) at N = 1 and 8, 30x40x32, D = 12, and the one-launch design's
+  wrapper-side slot sum (``partial.sum(0)``) alone where that wrapper has one;
 
-Needs a CUDA card; prints the card's name and power limit last.
+the device time of one call, 20 calls replayed from a CUDA graph, median of 7, in the
+order shipped, variants, variants reversed, shipped (``--rounds`` times), and prints the
+median of each. Two kinds of variant:
+
+- levers: a design choice undone (the result stays right, and is checked against the
+  plain version);
+- knockouts: one phase of every stage removed (the result is wrong and is not checked),
+  to show what that phase costs.
+
+A variant whose text is not in the tree's source is skipped (the knockouts of one
+design do not apply to another), and named as skipped. ``--ptxas`` prints nvcc's
+``-Xptxas -v`` report (registers, spills) of every build's kernels. Needs a CUDA card; prints the card's name and power limit last.
 """
 
 from __future__ import annotations
@@ -24,45 +40,151 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(REPO, "multi_view_stereonet_tpu_torch", "csrc", "idepthmap_refiner.cu")
-SHAPES = ((1, 30, 40, "refiner4"), (8, 30, 40, "refiner4"), (1, 60, 80, "refiner3"))
+K3_SHAPES = ((1, 30, 40, "refiner4"), (8, 30, 40, "refiner4"), (1, 60, 80, "refiner3"))
+K3_BWD_SHAPES = K3_SHAPES + ((8, 60, 80, "refiner3"),)
+K2_SAMPLES = (1, 8)
+D = 12
 
-# name -> (kind, [(text in the source, its replacement)])
-VARIANTS = {
+# kernel -> (source, library name, {variant: (kind, [(text in the source, its
+# replacement, how many times the text is there)])})
+FORWARD = {
     "staging loads after the statistics": ("lever", [(
         "  float4 tv[MT_MAX][3], hv[MT_MAX][3];",
         "  pass_stats(a, l, m, mt, dred, tmp, stat, cur_n, reg);\n"
-        "  __syncthreads();\n  float4 tv[MT_MAX][3], hv[MT_MAX][3];"), (
+        "  __syncthreads();\n  float4 tv[MT_MAX][3], hv[MT_MAX][3];", 1), (
         "  pass_stats(a, l, m, mt, dred, tmp, stat, cur_n, reg);\n"
         "  __syncthreads();\n  if (!active) return;",
-        "  if (!active) return;")]),
-    "correction products in a second accumulator": ("lever", [(
-        "  float acc[NJ][4];\n", "  float acc[NJ][4], cor[NJ][4] = {};\n"), (
-        "          mma_k8(acc[j], al, bh);\n          mma_k8(acc[j], ah, bl);",
-        "          mma_k8(cor[j], al, bh);\n          mma_k8(cor[j], ah, bl);"), (
-        "      }\n    }\n  }\n  if (busy)\n",
-        "      }\n    }\n    for (int j = 0; j < NJ; ++j)\n"
-        "      for (int k = 0; k < 4; ++k) acc[j][k] += cor[j][k];\n  }\n  if (busy)\n")]),
+        "  if (!active) return;", 1)]),
     "rstd in f64": ("lever", [(
         "    tmp[GROUPS + threadIdx.x] = rsqrtf((float)(var + (double)EPS));",
-        "    tmp[GROUPS + threadIdx.x] = (float)(1.0 / sqrt(var + (double)EPS));")]),
+        "    tmp[GROUPS + threadIdx.x] = (float)(1.0 / sqrt(var + (double)EPS));", 1)]),
     "no grid barrier": ("knockout", [(
-        "    if (s < LAYERS - 1) grid_barrier(a.barrier);", "    __syncthreads();")]),
+        "    if (s < LAYERS - 1) grid_barrier(a.barrier);", "    __syncthreads();", 1)]),
     "no conv tap loop": ("knockout", [(
         "    for (int tap = part; tap < 9; tap += ks) {",
-        "    for (int tap = part + 9; tap < 9; tap += ks) {")]),
+        "    for (int tap = part + 9; tap < 9; tap += ks) {", 1)]),
     "no statistics and staging": ("knockout", [(
         "  pass_stats(a, l, m, mt, dred, tmp, stat, cur_n, reg);\n"
-        "  __syncthreads();\n  if (!active) return;", "  return;")]),
-    "no tap-share sum and epilogue": ("knockout", [(
-        "    epi(slot, part, sum);\n", "")]),
+        "  __syncthreads();\n  if (!active) return;", "  return;", 1)]),
 }
+
+
+# K3's backward. The one-launch design: every stage stages the input tile X
+# beside the gradient tile and runs the weight gradient, the bias sums and the
+# per-block slots; the slots are summed over the blocks at the end. The split design
+# (two launches): the sequential part writes each conv's output gradient map, and the
+# weight-gradient pass computes every weight gradient over the whole card.
+K3_BACKWARD = {
+    # The one-launch design.
+    "no weight-gradient pass and its X staging": ("knockout", [(
+        "      if (s == 0)\n        stage_input<T>(a, m, mt, xtile);\n      else\n"
+        "        stage_copy(a, m, mt, d, xtile, a.hbuf + l * NPC);\n", "", 1), (
+        "      wgrad_pass<BF16, TF32>(a, xtile, gtile, zrow, rows, last ? 1 : GROUPS, m, mt, "
+        "d, wacc);\n", "", 1)]),
+    "no slot writes (the weight gradient kept)": ("knockout", [(
+        "    flush_wgrad(part + grad_offset(a.cin_pad, s), wacc,",
+        "    if (a.kp < 0) flush_wgrad(part + grad_offset(a.cin_pad, s), wacc,", 1)]),
+    "no final cross-block sum": ("knockout", [(
+        "  grid_barrier(a.barrier);\n  // The parameter gradients: the blocks' slots summed "
+        "in block order.\n", "", 1), (
+        "    for (int b = 0; b < (int)gridDim.x; ++b) sum += __ldcg(a.partial + (int64_t)b * "
+        "a.kp + e);\n", "", 1)]),
+    "no bias-sum loop": ("knockout", [(
+        "          for (int i = 0; i < MTILE; ++i) sum += (double)tile_row(gtile, 1, slot, d + "
+        "i)[tid];\n", "", 1)]),
+    # Both designs.
+    "no input-gradient products": ("knockout", [(
+        "    for (int tap = part; tap < 9; tap += ks) {",
+        "    for (int tap = part + 9; tap < 9; tap += ks) {", 1)]),
+    # The split design.
+    "no gradient-map writes": ("knockout", [(
+        "          if (kh == 1 && e >= d && e < d + MTILE)\n",
+        "          if (kh == 1 && e >= d && e < d + MTILE && a.P < 0)\n", 1)]),
+    "passes of three m-tiles (the forward's)": ("lever", [(
+        "constexpr int MT_B = 6;", "constexpr int MT_B = 3;", 1)]),
+    "no weight-gradient pass": ("knockout", [(
+        "refiner_wgrad_kernel(WgradArgs a) {\n",
+        "refiner_wgrad_kernel(WgradArgs a) {\n  if (a.N > 0) return;\n", 1)]),
+    "no weight-gradient products": ("knockout", [(
+        "    for (int s8 = 0; s8 < KB / 8; ++s8) {",
+        "    for (int s8 = KB; s8 < KB / 8; ++s8) {", 1)]),
+    "no weight-gradient staging": ("knockout", [(
+        "  if (begin < end) issue(", "  if (begin < end && end < 0) issue(", 1), (
+        "      issue(item + 1, next, next + X_FLOATS);",
+        "      if (end < 0) issue(item + 1, next, next + X_FLOATS);", 1), (
+        "    if (finish(item, xs, gs)) __syncthreads();",
+        "    if (end < 0 && finish(item, xs, gs)) __syncthreads();", 1)]),
+    "no weight-gradient block sum": ("knockout", [(
+        "  grid_barrier(a.barrier);  // the blocks' slots are written\n", "", 1), (
+        "  for (int b = 0; b < nb; ++b) s += __ldcg(src + (int64_t)b * stride);",
+        "  s += __ldcg(src);", 1)]),
+    "the pass at two blocks an SM": ("lever", [(
+        "constexpr int WGRAD_MIN_BLOCKS = 1;", "constexpr int WGRAD_MIN_BLOCKS = 2;", 1)]),
+}
+
+# K2's backward. The one-launch design (a cluster a sample): each stage stages the
+# conv input X beside the gradient tile (A' re-warps the carry for it) and adds the
+# tile's weight gradient into the block's slot of ``partial`` in global memory; the
+# wrapper sums the slots. The split design: the cluster keeps each conv's output
+# gradient map, and the weight-gradient pass makes X on load over the whole card.
+K2_BACKWARD = {
+    # The one-launch design.
+    "no weight gradients and their X staging": ("knockout", [(
+        "      stage_tile(xsrc, xt,", "      if (th < 0) stage_tile(xsrc, xt,", 2), (
+        "      stage_warp_tile(xt, carry,", "      if (th < 0) stage_warp_tile(xt, carry,", 1), (
+        "      wgrad_tile<BF16, TF32>(", "      if (th < 0) wgrad_tile<BF16, TF32>(", 3), (
+        "      wgrad_image_tile<BF16, TF32>(", "      if (th < 0) wgrad_image_tile<BF16, TF32>(",
+        1)]),
+    "no re-warp in A'": ("knockout", [(
+        "      stage_warp_tile(xt, carry,", "      if (th < 0) stage_warp_tile(xt, carry,", 1)]),
+    "no slot read-modify-write": ("knockout", [(
+        "        o[0] += acc[i][j][2 * r];\n        o[1] += acc[i][j][2 * r + 1];\n",
+        "        if (tp < 0) {\n          o[0] += acc[i][j][2 * r];\n"
+        "          o[1] += acc[i][j][2 * r + 1];\n        }\n", 1), (
+        "      o[0] += acc[2 * r];\n      o[1] += acc[2 * r + 1];\n",
+        "      if (tp < 0) {\n        o[0] += acc[2 * r];\n        o[1] += acc[2 * r + 1];\n"
+        "      }\n", 1)]),
+    # Both designs.
+    "no input-gradient convs": ("knockout", [(
+        "      conv_tile<C, BF16, TF32>(gt, ", "      if (th < 0) conv_tile<C, BF16, TF32>(gt, ",
+        3)]),
+    "no warp-transpose atomics": ("knockout", [(
+        "        if (!t.ok) return;  // a zeroed sample passes no gradient",
+        "        if (!t.ok || th > 0) return;  // a zeroed sample passes no gradient", 1)]),
+    # The split design.
+    "no gradient-map writes": ("knockout", [(
+        "      if (keep != nullptr && ty >= 1 && ty <= th && tx >= 1 && tx <= tw)",
+        "      if (keep != nullptr && ty >= 1 && ty <= th && tx >= 1 && tx <= tw && h < 0)", 1)]),
+    "no weight-gradient pass": ("knockout", [(
+        "chain_wgrad_kernel(WgradArgs a) {\n",
+        "chain_wgrad_kernel(WgradArgs a) {\n  if (a.N > 0) return;\n", 1)]),
+    "no weight-gradient products": ("knockout", [(
+        "    for (int s8 = 0; s8 < KB / 8; ++s8) {",
+        "    for (int s8 = KB; s8 < KB / 8; ++s8) {", 1)]),
+    "no weight-gradient staging": ("knockout", [(
+        "  if (begin < end) issue(", "  if (begin < end && end < 0) issue(", 1), (
+        "      issue(item + 1, next, next + X_FLOATS);",
+        "      if (end < 0) issue(item + 1, next, next + X_FLOATS);", 1), (
+        "    if (finish(item, xs, gs)) __syncthreads();",
+        "    if (end < 0 && finish(item, xs, gs)) __syncthreads();", 1)]),
+    "no weight-gradient block sum": ("knockout", [(
+        "  grid_barrier(a.barrier);  // the blocks' slots are written\n", "", 1), (
+        "  for (int b = 0; b < nb; ++b) s += __ldcg(src + (int64_t)b * stride);",
+        "  s += __ldcg(src);", 1)]),
+    "the pass at one block an SM": ("lever", [(
+        "constexpr int WGRAD_MIN_BLOCKS = 2;", "constexpr int WGRAD_MIN_BLOCKS = 1;", 1)]),
+}
+
+KERNELS = {"k3": ("idepthmap_refiner", FORWARD),
+           "k3_backward": ("idepthmap_refiner", K3_BACKWARD),
+           "k2_backward": ("incremental_chain", K2_BACKWARD)}
 
 
 def smi() -> str:
@@ -71,113 +193,237 @@ def smi() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def build_all(tmp: str) -> dict:
-    """name -> the library's kernel entry, every source built by its own nvcc at once."""
+def edited(files: dict, edits) -> dict | None:
+    """{name: text} of the sources (the kernel's .cu and every .cuh header) with every
+    edit made, or None where an edit's text is not in them as often as it says."""
+    files = dict(files)
+    for old, new, count in edits:
+        if sum(text.count(old) for text in files.values()) != count:
+            return None
+        files = {name: text.replace(old, new) for name, text in files.items()}
+    return files
+
+
+def build_all(tree: str, source: str, variants: dict, tmp: str, ptxas: bool):
+    """({name: the built library's path}, [skipped variants]); every source built by its
+    own nvcc at once, each variant from a directory of its own that holds the kernel's
+    source and the headers, edited. With ``ptxas`` each build prints nvcc's -Xptxas -v
+    report."""
     from multi_view_stereonet_tpu_torch.ops.cuda import build
 
-    base = open(SOURCE).read()
-    procs = {}
-    for i, name in enumerate(["shipped", *VARIANTS]):
-        src = base
-        for old, new in ([] if name == "shipped" else VARIANTS[name][1]):
-            if src.count(old) != 1:
-                raise SystemExit(f"variant {name!r}: its text is not in the source once")
-            src = src.replace(old, new)
-        cu, so = os.path.join(tmp, f"v{i}.cu"), os.path.join(tmp, f"v{i}.so")
-        with open(cu, "w") as f:
-            f.write(src)
-        procs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu]), so)
-    fns = {}
+    csrc = os.path.join(tree, "multi_view_stereonet_tpu_torch", "csrc")
+    base = {name: open(os.path.join(csrc, name)).read() for name in os.listdir(csrc)
+            if name == f"{source}.cu" or name.endswith(".cuh")}
+    procs, skipped = {}, []
+    for i, name in enumerate(["shipped", *variants]):
+        files = base if name == "shipped" else edited(base, variants[name][1])
+        if files is None:
+            skipped.append(name)
+            continue
+        here = os.path.join(tmp, f"v{i}")
+        os.makedirs(here)
+        for fname, text in files.items():
+            with open(os.path.join(here, fname), "w") as f:
+                f.write(text)
+        cu, so = os.path.join(here, f"{source}.cu"), os.path.join(tmp, f"v{i}.so")
+        extra = ["-Xptxas", "-v"] if ptxas else []
+        procs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, *extra, "-o", so,
+                                         cu], stderr=subprocess.PIPE, text=True), so)
+    paths = {}
     for name, (proc, so) in procs.items():
-        if proc.wait() != 0:
-            raise SystemExit(f"nvcc failed for variant {name!r}")
-        fn = ctypes.CDLL(so).mvs_idepthmap_refiner_f32
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
-                       + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for variant {name!r}:\n{err}")
+        if ptxas:
+            print_ptxas(name, err)
+        paths[name] = so
+    return paths, skipped
 
 
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--rounds", type=int, default=2)
-    parser.add_argument("--out", help="write the medians here as JSON")
-    args = parser.parse_args()
-    sys.path.insert(0, REPO)
+def print_ptxas(variant: str, report: str) -> None:
+    """Each kernel's registers and spills from a -Xptxas -v report of a variant's build."""
+    kernel = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"ptxas [{variant}] {kernel}: {line.split('ptxas info    :')[-1].strip()}",
+                  flush=True)
+
+
+def graph_ms(call, reps=20):
+    """One call's device time: ``reps`` calls replayed from a CUDA graph, median of 7."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            call()
+    times = []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def k3_cases(dev, backward: bool) -> list:
+    """(label, call, check) a shape: the forward's call and its plain version's output, or
+    the backward's call on what one forward with ``keep`` (the shipped library's) saved."""
     import torch
 
     from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
     from multi_view_stereonet_tpu_torch.models import IDepthmapRefiner
     from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 
+    state = random_state_dict(4)
+    g = torch.Generator().manual_seed(0)
+    cases = []
+    for n, h, w, name in K3_BWD_SHAPES if backward else K3_SHAPES:
+        module = IDepthmapRefiner(35)
+        module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                                if k.startswith(name + ".")})
+        module = module.to(dev).eval()
+        guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev)
+        idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
+        label = f"({n},35,{h},{w})"
+        if not backward:
+            with torch.inference_mode():
+                ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
+            cases.append((label, lambda m=module, gu=guidance, i=idepth:
+                          refiner_op.idepthmap_refiner_kernel(m, gu, i), ref))
+            continue
+        grad = torch.randn(n, h, w, generator=g).to(dev)
+        dil = refiner_op._dilations(module)
+
+        with torch.no_grad():
+            out, (raw, stats, hs, pack) = refiner_op._launch(module, guidance, idepth, False,
+                                                             keep=True)
+        cases.append((label, lambda gu=guidance, i=idepth, gr=grad, p=pack, o=out, r=raw,
+                      st=stats, h_=hs: refiner_op.idepthmap_refiner_backward(
+                          gu, i, p, dil, o, r, st, h_, gr), None))
+    return cases
+
+
+def k2_cases(dev) -> list:
+    """(label, call, None) a sample count: the backward's call on what one forward with
+    ``keep`` (the shipped library's) saved."""
+    import torch
+
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.models import FeatureRefiner
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+
+    prefix = "right_feature_extractor.refiner."
+    refiner = FeatureRefiner(32)
+    refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
+                             if k.startswith(prefix)})
+    refiner = refiner.to(dev).eval()
+    weights = chain._weight_args(refiner)
+    g = torch.Generator().manual_seed(1)
+    cases = []
+    for n in K2_SAMPLES:
+        feats0 = torch.randn(n, 30, 40, 32, generator=g).to(dev)
+        image_rest = (torch.rand(n, D - 1, 30, 40, 3, generator=g) * 2 - 1).to(dev)
+        H_inc = torch.eye(3).repeat(n, D - 1, 1, 1)
+        H_inc[..., 0, 2] = torch.rand(n, D - 1, generator=g) * 2 - 1
+        H_inc = H_inc.to(dev)
+        grad = torch.randn(n, D, 30, 40, 32, generator=g).to(dev)
+
+        with torch.no_grad():
+            out, raw, stats = chain._launch(refiner, feats0, image_rest, H_inc, 0, False,
+                                            keep=True)
+        cases.append((f"N={n}", lambda im=image_rest, H=H_inc, o=out, r=raw, st=stats,
+                      gr=grad: chain.incremental_chain_backward(im, H, *weights, o, r, st, gr),
+                      None))
+    return cases
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=tuple(KERNELS), default="k3")
+    parser.add_argument("--tree", default=REPO, help="the checkout whose kernel is timed")
+    parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--ptxas", action="store_true",
+                        help="print the shipped source's -Xptxas -v report")
+    parser.add_argument("--out", help="write the medians here as JSON")
+    args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    from multi_view_stereonet_tpu_torch.ops.cuda import build
+    from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
+    from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
+
     if not torch.cuda.is_available():
         raise SystemExit("refiner_variants: needs an NVIDIA card")
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    source, variants = KERNELS[args.kernel]
+
+    def use(path):
+        """Load ``path`` in place of the shipped library; the wrappers' entries reload."""
+        build._libs[source] = ctypes.CDLL(path)
+        refiner_op._fns.clear()
+
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build_all(tmp)
-        state = random_state_dict(4)
-        g = torch.Generator().manual_seed(0)
-        cases = []
-        for n, h, w, name in SHAPES:
-            module = IDepthmapRefiner(35)
-            module.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
-                                    if k.startswith(name + ".")})
-            module = module.to(dev).eval()
-            guidance = (torch.rand(n, 35, h, w, generator=g) * 2 - 1).to(dev)
-            idepth = (torch.rand(n, h, w, generator=g) * 20).to(dev)
-            with torch.inference_mode():
-                ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
-            cases.append((f"({n},35,{h},{w})", module, guidance, idepth, ref))
-
-        def graph_ms(call, reps=20):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    call()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(reps):
-                    call()
-            times = []
-            for _ in range(7):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                graph.replay()
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end) / reps)
-            return statistics.median(times)
-
-        names = list(VARIANTS)
+        paths, skipped = build_all(tree, source, variants, tmp, args.ptxas)
+        names = [v for v in variants if v in paths]
+        use(paths["shipped"])
+        if args.kernel == "k2_backward":
+            cases = k2_cases(dev)
+        else:
+            cases = k3_cases(dev, args.kernel == "k3_backward")
         order = (["shipped", *names, *names[::-1], "shipped"]) * args.rounds
-        times = {(v, c[0]): [] for v in fns for c in cases}
-        with torch.inference_mode():
-            for v in order:
-                refiner_op._fn = fns[v]
-                for label, module, guidance, idepth, ref in cases:
-                    def call():
-                        return refiner_op.idepthmap_refiner_kernel(module, guidance, idepth)
+        times = {(v, c[0]): [] for v in paths for c in cases}
+        for v in order:
+            use(paths[v])
+            for label, call, ref in cases:
+                with torch.inference_mode(ref is not None):
                     got = call()
-                    if v == "shipped" or VARIANTS[v][0] == "lever":
+                    if ref is not None and (v == "shipped" or variants[v][0] == "lever"):
                         if not torch.allclose(got, ref, atol=2e-5 * ref.abs().max().item(),
                                               rtol=2e-4):
-                            raise SystemExit(f"{v} at {label} disagrees with the plain version")
+                            raise SystemExit(f"{v} at {label} disagrees with the plain "
+                                             "version")
                     times[(v, label)].append(graph_ms(call))
-        refiner_op._fn = None
-    medians = {v: {c[0]: statistics.median(times[(v, c[0])]) for c in cases} for v in fns}
+        use(paths["shipped"])
+    medians = {v: {c[0]: statistics.median(times[(v, c[0])]) for c in cases} for v in paths}
+    if args.kernel == "k2_backward":  # the one-launch wrapper's slot sum alone, if any
+        src = open(os.path.join(tree, "multi_view_stereonet_tpu_torch", "ops", "cuda",
+                                "incremental_chain.py")).read()
+        if "partial.sum(0)" in src:
+            row = {}
+            for n in K2_SAMPLES:
+                cluster = chain.cluster_size(n, 30, 40, dev)
+                partial = torch.randn(n * cluster, 9 * 35 * 32 + 2 * 9 * 32 * 32 + 7 * 32,
+                                      device=dev)
+                row[f"N={n}"] = graph_ms(lambda p=partial: p.sum(0))
+            medians["the wrapper's slot sum alone"] = row
     for v, row in medians.items():
-        kind = "shipped" if v == "shipped" else VARIANTS[v][0]
+        kind = ("shipped" if v == "shipped" else variants[v][0] if v in variants
+                else "part")
         print(f"{kind:9s} {v}: " + ", ".join(f"{k} {ms * 1e3:.1f} us" for k, ms in row.items()),
               flush=True)
+    for v in skipped:
+        print(f"skipped   {v}: its text is not in this tree's source", flush=True)
     card = smi()
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "device_ms": medians}, f, indent=1)
+            json.dump({"card": card, "kernel": args.kernel, "tree": tree,
+                       "device_ms": medians, "skipped": skipped}, f, indent=1)
     print(card)
 
 

@@ -29,6 +29,14 @@ version (``incremental_chain_saved_plain``) and held against:
   Queue 3); and against autograd through its own rounded forward
   within 2e-2 (chip_smoke.py ``CHAIN_LEGS``), off the f32 gradient by more than 1e-3.
 
+The closed form is the plain versions of the backward's two launches composed: its
+sequential part (``incremental_chain_sequential_plain``: the input gradients, each conv's
+output gradient and each step's carry gradient kept, the GroupNorms' (d gamma, d beta)) and
+its weight-gradient pass (``incremental_chain_wgrad_plain`` over the kept maps). At each
+variant (f32, 1xTF32, bf16) the composition is held to the closed form written as one
+reverse loop, each step's input and weight gradients together (``single_loop``), within
+1e-6 of max.
+
 N = 2, D = 4, 6 x 8 x 32 (and D = 6 at 5 x 7), with homographies from random poses and
 fan-in-scale weights, inputs made from a seed with numpy (``tests/test_torch_kernels_plain``).
 """
@@ -51,6 +59,7 @@ JAX_BAR = 1e-4
 # The bf16 gradients against jax.vjp at bf16, of max|JAX|: read on the CPU 0.045-0.136 for
 # the closed form and 0.034-0.084 for the port's plain autograd at bf16, at four shapes.
 BF16_JAX_BAR = 0.15
+SPLIT_BAR = 1e-6
 
 
 def case(N, D, h, w, seed):
@@ -215,3 +224,81 @@ def test_homography_grid_backward_matches_autograd():
     ref, = torch.autograd.grad(homography_grid(leaf, 5, 7), leaf, dgrid)
     got = chain.homography_grid_backward(H, dgrid)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def single_loop(refiner, feats0, image_rest, H_inc, out, raw, stats, grad, tf32=False):
+    """The closed form as one reverse loop: for each step its convs' input and weight
+    gradients together; (d feats0, d image_rest, d H_inc, (d parameter for each of
+    ``named_parameters``))."""
+    from multi_view_stereonet_tpu_torch.ops import homography_grid
+    from multi_view_stereonet_tpu_torch.ops.cuda import closed_form as cf
+    from multi_view_stereonet_tpu_torch.ops.cuda.warp import (
+        grid_sample_backward_plain, grid_sample_plain)
+    dtype = feats0.dtype
+    rnd = cf._operand_round(dtype, tf32)
+    weights = [t.detach().float() for t in chain._weights(refiner)]
+    w0, b0, g0, be0, wr, br, gr, ber, wf, bf = weights
+    h, w = feats0.shape[1], feats0.shape[2]
+    grad = grad.float()
+    dparams = [torch.zeros_like(t) for t in weights]
+    dimage = torch.zeros(image_rest.shape)
+    dH = torch.zeros(H_inc.shape)
+    carry_grad = grad[:, -1]
+    with torch.no_grad():
+        for d in range(H_inc.shape[1] - 1, -1, -1):
+            carry = out[:, d].float()
+            grid = homography_grid(H_inc[:, d].float(), h, w)
+            warped = cf._round_to(dtype, grid_sample_plain(carry, grid, zero_invalid=True)[0])
+            x0 = torch.cat([cf._round_to(dtype, image_rest[:, d].float()), warped], -1)
+            xh0, z0 = cf._gn_forward(raw[:, d, 0], stats[:, d, 0], g0, be0)
+            xhr, zr = cf._gn_forward(raw[:, d, 1], stats[:, d, 1], gr, ber)
+            hn = cf._leaky(z0, dtype)
+            res = cf._round_to(dtype, hn + cf._leaky(zr, dtype))
+            gres, dw = cf._conv_grads(res, wf, carry_grad, rnd)
+            dparams[8] += dw
+            dparams[9] += carry_grad.sum((0, 1, 2))
+            dr, dg, db = cf._gn_backward(gres, zr, xhr, stats[:, d, 1], gr, dtype)
+            dparams[6] += dg
+            dparams[7] += db
+            ghn, dw = cf._conv_grads(hn, wr, dr, rnd)
+            ghn = ghn + gres
+            dparams[4] += dw
+            dparams[5] += dr.sum((0, 1, 2))
+            da, dg, db = cf._gn_backward(ghn, z0, xh0, stats[:, d, 0], g0, dtype)
+            dparams[2] += dg
+            dparams[3] += db
+            gx0, dw = cf._conv_grads(x0, w0, da, rnd)
+            dparams[0] += dw
+            dparams[1] += da.sum((0, 1, 2))
+            dimage[:, d] = gx0[..., :3]
+            dcarry, dgrid = grid_sample_backward_plain(carry, grid, carry_grad + gx0[..., 3:],
+                                                       True, (True, True))
+            dH[:, d] = chain.homography_grid_backward(H_inc[:, d], dgrid)
+            carry_grad = grad[:, d] + dcarry
+    by_name = dict(zip((name for name, _, _ in chain.LAYOUT), dparams))
+    return (carry_grad.to(dtype), dimage.to(image_rest.dtype), dH,
+            tuple(by_name[n] for n, _ in refiner.named_parameters()))
+
+
+@pytest.mark.parametrize("variant", ["f32", "tf32", "bf16"])
+def test_split_closed_form_matches_the_single_loop(variant):
+    """The plain versions of the backward's two launches, composed, against the closed form
+    as one reverse loop, within 1e-6 of max at each variant: the sequential part keeps
+    what the weight-gradient pass reads (each step's conv0 and resblock output gradients,
+    the gradient of every step's output, the GroupNorms' (d gamma, d beta)), and the pass
+    gives every parameter's gradient from it."""
+    refiner, _, (feats0, image_rest, H_inc, cot) = case(1, 3, 4, 5, seed=9)
+    tf32, dtype = variant == "tf32", torch.bfloat16 if variant == "bf16" else torch.float32
+    feats0, image_rest, cot = feats0.to(dtype), image_rest.to(dtype), cot.to(dtype)
+    with torch.no_grad():
+        out, raw, stats = chain.incremental_chain_saved_plain(refiner, feats0, image_rest,
+                                                              H_inc, tf32)
+    seq = chain.incremental_chain_sequential_plain(refiner, feats0, image_rest, H_inc, out,
+                                                   raw, stats, cot, tf32=tf32)
+    assert seq[3].shape == (1, 2, 2, 4, 5, 32) and seq[4].shape == (1, 3, 4, 5, 32)
+    assert seq[5].shape == (4, 32)
+    got = flat(chain.incremental_chain_backward_plain(refiner, feats0, image_rest, H_inc, out,
+                                                      raw, stats, cot, tf32=tf32))
+    ref = flat(single_loop(refiner, feats0, image_rest, H_inc, out, raw, stats, cot, tf32))
+    assert got[0].dtype == dtype
+    assert_within(got, ref, SPLIT_BAR, names(refiner))

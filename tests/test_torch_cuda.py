@@ -276,8 +276,11 @@ def test_chain_backward_kernel_matches_its_closed_form(dev, n, h, w, d, shift, v
     same with bf16 operands); the kept forward bit-equal to the one that keeps nothing,
     and what it kept (the chain, raw h and raw r, the GroupNorms' mean and rstd) against
     the forward kernel's plain version (``incremental_chain_saved_plain``) within 1e-4,
-    1e-3 and 5e-2 of max|plain| (chip_smoke.py ``CHAIN_LEGS``' "forward"); one backward
-    launch a call and no forward launch."""
+    1e-3 and 5e-2 of max|plain| (chip_smoke.py ``CHAIN_LEGS``' "forward"); two backward
+    launches a call (the sequential part and the weight-gradient pass) and no forward
+    launch; each launch alone against its plain part within the same bar: the sequential
+    part's kept maps (each step's conv0 and resblock output gradients, every carry's
+    gradient) and the blocks' (d gamma, d beta) summed, and the pass on those maps."""
     refiner, feats0, image_rest, H_inc = chain_case(n, h, w, d, shift, seed=n + d, dev=dev)
     dtype = torch.bfloat16 if variant == "bf16" else torch.float32
     tf32 = variant == "tf32"
@@ -300,17 +303,33 @@ def test_chain_backward_kernel_matches_its_closed_form(dev, n, h, w, d, shift, v
         got = chain._launch_backward(refiner, im, H_inc, weights, out, raw, stats, cot,
                                      (True, True, True), 0, tf32)
         torch.cuda.synchronize()
-        assert counts() == before and chain.backward_launches == bwd_before + 1
+        assert counts() == before and chain.backward_launches == bwd_before + 2
         ref = chain.incremental_chain_backward_plain(refiner, f0, im, H_inc, out, raw, stats,
                                                      cot, (True, True, True, True), tf32)
-    for a, r in zip([got[0], got[1], got[2], *got[3]], [ref[0], ref[1], ref[2], *ref[3]]):
+        seq = chain.incremental_chain_sequential(im, H_inc, *weights, out, raw, stats, cot,
+                                                 (True, True, True), 0, tf32)
+        seq_ref = chain.incremental_chain_sequential_plain(refiner, f0, im, H_inc, out, raw,
+                                                           stats, cot, (True, True), tf32)
+        wg = chain.incremental_chain_wgrad(im, H_inc, weights[3], out, raw, stats, *seq[3:],
+                                           tf32)
+        by_name = dict(zip((name for name, _, _ in chain.LAYOUT),
+                           chain.incremental_chain_wgrad_plain(
+                               refiner, im, H_inc, out, raw, stats, *seq[3:5],
+                               seq[5].sum(0), tf32)))
+        wg_ref = [chain._taps(by_name[n]) for n in ("conv0.weight", "res0.conv1.weight",
+                                                     "conv_final.weight")]
+        wg_ref.append(torch.stack([by_name[n] for n, kind, _ in chain.LAYOUT if kind == "vec"]))
+    pairs = [(got[0], ref[0]), (got[1], ref[1]), (got[2], ref[2]), *zip(got[3], ref[3]),
+             (seq[3], seq_ref[3]), (seq[4], seq_ref[4]), (seq[5].sum(0), seq_ref[5]),
+             *zip(wg, wg_ref)]
+    for a, r in pairs:
         assert a.shape == r.shape and torch.isfinite(a).all()
         assert (a.float() - r.float()).abs().max() <= bar * r.float().abs().max()
 
 
 def test_chain_function_launches_the_backward_kernel_once(dev):
-    """K2's Function: the forward kernel once (keeping its tensors), the backward kernel
-    once and no forward kernel in the backward; gradients of feats0, image_rest, H_inc and
+    """K2's Function: the forward kernel once (keeping its tensors), the backward's two
+    launches once each and no forward kernel in the backward; gradients of feats0, image_rest, H_inc and
     every weight at their inputs' dtypes, within 1e-4 of max|plain| of the closed form on
     what the forward kept (the closed form against autograd through the same forward:
     tests/test_torch_chain_backward.py; against plain autograd through another forward the
@@ -324,7 +343,7 @@ def test_chain_function_launches_the_backward_kernel_once(dev):
     out = chain.incremental_chain(refiner, *leaves)
     got = torch.autograd.grad(out, leaves + params, cot)
     torch.cuda.synchronize()
-    assert counts()[1] == before[1] + 1 and chain.backward_launches == bwd_before + 1
+    assert counts()[1] == before[1] + 1 and chain.backward_launches == bwd_before + 2
     with torch.no_grad():
         kept = chain._forward_launch(feats0, image_rest, H_inc, *chain._weight_args(refiner),
                                      0, False, True)
@@ -476,8 +495,11 @@ def test_refiner_backward_kernel_matches_its_closed_form(dev, n, cg, h, w, varia
     on both sides, their sums in another order) and 2e-2 at bf16 (the same with bf16
     operands); the kept forward bit-equal to the one that keeps nothing, and what it kept
     (the output, each GroupNorm layer's raw conv output, the statistics) against the
-    forward kernel's plain version within 1e-4, 1e-3 and 5e-2 of max|plain|; one backward
-    launch a call and no forward launch; two runs bit-equal."""
+    forward kernel's plain version within 1e-4, 1e-3 and 5e-2 of max|plain|; two backward
+    launches a call (the sequential part and the weight-gradient pass) and no forward
+    launch; two runs bit-equal; each launch alone against its plain part within the same
+    bar: the sequential part's kept maps (each GroupNorm layer's dT_l, gout) and the
+    blocks' (d gamma, d beta) summed, and the pass on those maps."""
     module = idepthmap_refiner_module(cg, seed=n, dev=dev)
     g = torch.Generator().manual_seed(h)
     dtype = torch.bfloat16 if variant == "bf16" else torch.float32
@@ -505,19 +527,33 @@ def test_refiner_backward_kernel_matches_its_closed_form(dev, n, cg, h, w, varia
         again = refiner_op._launch_backward(module, guidance, idepth, out, saved, cot, needs,
                                             tf32)
         torch.cuda.synchronize()
-        assert counts() == before and refiner_op.backward_launches == bwd_before + 2
+        assert counts() == before and refiner_op.backward_launches == bwd_before + 4
         ref = refiner_op.idepthmap_refiner_backward_plain(module, guidance, idepth, out, raw,
                                                           stats, cot, needs, tf32)
+        dil = refiner_op._dilations(module)
+        seq = refiner_op.idepthmap_refiner_sequential(guidance, idepth, pack, dil, out, raw,
+                                                      stats, hs, cot, True, tf32)
+        seq_ref = refiner_op.idepthmap_refiner_sequential_plain(module, guidance, idepth, out,
+                                                                raw, stats, cot, tf32)
+        gn = seq[4].sum(0).float()
+        wg = refiner_op._unpack_grads(module, refiner_op.idepthmap_refiner_wgrad(
+            guidance, idepth, dil, hs, seq[2], seq[3], seq[4], tf32))
+        wg_ref = refiner_op.idepthmap_refiner_wgrad_plain(module, guidance, idepth, raw, stats,
+                                                          seq[2], seq[3], gn, tf32)
     got, again, ref = ([t[0], t[1], *t[2]] for t in (got, again, ref))
     assert got[0].dtype == dtype
     for a, b, r in zip(got, again, ref):
         assert a.shape == r.shape and torch.isfinite(a).all() and torch.equal(a, b)
         assert (a.float() - r.float()).abs().max() <= bar * r.float().abs().max()
+    for a, r in ((seq[2], seq_ref[2]), (seq[3], seq_ref[3]), (gn, seq_ref[4]),
+                 *zip(wg, wg_ref)):
+        assert a.shape == r.shape and torch.isfinite(a).all()
+        assert (a.float() - r.float()).abs().max() <= bar * r.float().abs().max()
 
 
 def test_refiner_function_launches_the_backward_kernel_once(dev):
-    """K3's Function: the forward kernel once (keeping its tensors), the backward kernel
-    once and no forward kernel in the backward; gradients of guidance, idepth and every
+    """K3's Function: the forward kernel once (keeping its tensors), the backward's two
+    launches once each and no forward kernel in the backward; gradients of guidance, idepth and every
     weight at their inputs' dtypes, within 1e-4 of max|plain| of the closed form on what
     the forward kept; without the guidance's gradient the kernel writes none."""
     module = idepthmap_refiner_module(35, seed=2, dev=dev)
@@ -531,7 +567,7 @@ def test_refiner_function_launches_the_backward_kernel_once(dev):
     out = refiner_op.idepthmap_refiner(module, *leaves)
     got = torch.autograd.grad(out, leaves + params, cot)
     torch.cuda.synchronize()
-    assert counts()[2] == before[2] + 1 and refiner_op.backward_launches == bwd_before + 1
+    assert counts()[2] == before[2] + 1 and refiner_op.backward_launches == bwd_before + 2
     with torch.no_grad():
         kept, (raw, stats, _, _) = refiner_op._launch(module, guidance, idepth, False, True)
         assert torch.equal(kept, out)
@@ -890,7 +926,7 @@ def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
     relative, every parameter's gradient within docs/PARITY.md:218-232's bar (2.5e-3 of
     max|plain|, cosine > 0.999998; a leaf below 1e-4 of the largest held to that floor).
     The forward launches 2 / 1 / 4 / 17, the backward K4's backward kernel 17 times, K2's
-    once, K1's never and no forward kernel."""
+    backward once (its two launches), K1's never and no forward kernel."""
     from multi_view_stereonet_tpu_torch.losses import LossConfig
     from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
 
@@ -921,7 +957,7 @@ def test_train_step_kernels_match_plain_and_the_backward_launches_nothing(dev):
         # K4's backward kernel once a forward launch and K2's once (counted apart); K1's
         # warps sample data, which needs no gradient.
         assert tuple(a - b for a, b in zip(backward_counts(), bwd_before)) == (
-            (0, 1, 17) if impl == "auto" else (0, 0, 0))
+            (0, 2, 17) if impl == "auto" else (0, 0, 0))
         results[impl] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
     assert_training_matches_plain(results)
 
@@ -1063,7 +1099,8 @@ def test_two_view_loss_kernels_match_plain_and_the_backward_launches_nothing(dev
     2 a forward and 42 in the losses (occlusion 12, left-right 20, reconstruction 10),
     the rest 1 / 4 / 17 a forward; the backward no forward kernel, K1's backward kernel 20
     times (the left-right loss's two idepth samples a level and the reconstruction's two;
-    the occlusion samples feed comparisons alone) and K2's twice."""
+    the occlusion samples feed comparisons alone) and K2's backward twice (two launches
+    each)."""
     from multi_view_stereonet_tpu_torch.losses import LossConfig
     from multi_view_stereonet_tpu_torch.train.step import make_loss_fn
 
@@ -1088,7 +1125,7 @@ def test_two_view_loss_kernels_match_plain_and_the_backward_launches_nothing(dev
         assert forward == backward == ((2 * 2 + 42, 2, 8, 34) if impl == "auto"
                                        else (0, 0, 0, 0))
         assert tuple(a - b for a, b in zip(backward_counts(), bwd_before))[:2] == (
-            (20, 2) if impl == "auto" else (0, 0))
+            (20, 4) if impl == "auto" else (0, 0))
         assert loss_dict["left_right_loss"].item() > 0
         results[impl] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
     assert_training_matches_plain(results)

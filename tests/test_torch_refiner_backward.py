@@ -46,6 +46,13 @@ version (``idepthmap_refiner_saved_plain``) and held against:
   the closed form keeps it f32 (0.007-0.022 over those draws). The bf16 form must also lie
   farther than 1e-3 from the f32 gradient: it differentiates the bf16 forward.
 
+The closed form is the plain versions of the backward's two launches composed: its
+sequential part (``idepthmap_refiner_sequential_plain``: the input gradients, each conv's
+output gradient kept, the GroupNorms' (d gamma, d beta)) and its weight-gradient pass
+(``idepthmap_refiner_wgrad_plain`` over the kept maps). At each variant (f32, 1xTF32, bf16)
+the composition is held to the closed form written as one reverse loop, each layer's input
+and weight gradients together (``single_loop``), within 1e-6 of max.
+
 N = 2, 35 guidance channels at 8 x 12 and 6 x 10, refiner 4's fan-in-scale weights, inputs
 made from a seed with numpy.
 """
@@ -75,6 +82,7 @@ TF32_BAR = 1e-3
 BF16_JAX_BAR = 0.11
 BF16_PLAIN_RATIO = 2.25
 BF16_LEG_BAR = 5e-2
+SPLIT_BAR = 1e-6
 SHAPES = [(8, 12), (6, 10)]
 NAME = "refiner4"
 
@@ -266,3 +274,58 @@ def test_closed_form_leaves_out_what_is_not_asked_for():
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
             else:
                 assert torch.equal(got, want)
+
+
+def single_loop(refiner, guidance, idepth, out, raw, stats, grad, tf32=False):
+    """The closed form as one reverse loop: for each layer its GroupNorm's backward, then
+    its conv's input and weight gradients together; (d guidance, d idepth, (d parameter
+    for each of ``named_parameters``))."""
+    cf = closed_form_module
+    dtype = guidance.dtype
+    rnd = cf._operand_round(dtype, tf32)
+    weights = [p.detach().float() for p in refiner.parameters()]
+    dilations = refiner_op._dilations(refiner)
+    with torch.no_grad():
+        x = torch.cat([guidance.float().permute(0, 2, 3, 1),
+                       cf._round_to(dtype, idepth.float())[..., None]], -1)
+        hs = []
+        for k in range(refiner_op.NUM_GN):
+            branch = cf._leaky(cf._gn_forward(raw[k], stats[k], *weights[4 * k + 2:4 * k + 4])[1],
+                               dtype)
+            hs.append(branch if k == 0 else cf._round_to(dtype, hs[-1] + branch))
+        gout = grad.float() * (out > 0)
+        dparams = [None] * len(weights)
+        dh, dparams[-2] = cf._conv_grads(hs[-1], weights[-2], gout[..., None], rnd)
+        dparams[-1] = gout.sum().reshape(1)
+        for k in range(refiner_op.NUM_GN - 1, -1, -1):
+            w, _, gamma, beta = weights[4 * k:4 * k + 4]
+            xhat, z = cf._gn_forward(raw[k], stats[k], gamma, beta)
+            dt, dgamma, dbeta = cf._gn_backward(dh, z, xhat, stats[k], gamma, dtype)
+            d = 1 if k == 0 else dilations[k - 1]
+            gx, dw = cf._conv_grads(x if k == 0 else hs[k - 1], w, dt, rnd, d)
+            dparams[4 * k:4 * k + 4] = dw, dt.sum((0, 1, 2)), dgamma, dbeta
+            if k > 0:
+                dh = dh + gx
+        cg = guidance.shape[1]
+    return (gx[..., :cg].permute(0, 3, 1, 2).to(dtype), gout + gx[..., cg], tuple(dparams))
+
+
+@pytest.mark.parametrize("variant", ["f32", "tf32", "bf16"])
+def test_split_closed_form_matches_the_single_loop(variant):
+    """The plain versions of the backward's two launches, composed, against the closed form
+    as one reverse loop, within 1e-6 of max at each variant: the sequential part keeps
+    what the weight-gradient pass reads (each conv's output gradient, the GroupNorms'
+    (d gamma, d beta)), and the pass gives every parameter's gradient from it."""
+    refiner, _, (guidance, idepth, cot) = case(6, 10, seed=3)
+    tf32, dtype = variant == "tf32", torch.bfloat16 if variant == "bf16" else torch.float32
+    guidance = guidance.to(dtype)
+    out, raw, stats = refiner_op.idepthmap_refiner_saved_plain(refiner, guidance, idepth, tf32)
+    seq = refiner_op.idepthmap_refiner_sequential_plain(refiner, guidance, idepth, out, raw,
+                                                        stats, cot, tf32)
+    assert seq[2].shape == (7, 2, 6, 10, 32) and seq[3].shape == (2, 6, 10)
+    assert seq[4].shape == (7, 2, 32)
+    got = flat(refiner_op.idepthmap_refiner_backward_plain(refiner, guidance, idepth, out, raw,
+                                                           stats, cot, tf32=tf32))
+    ref = flat(single_loop(refiner, guidance, idepth, out, raw, stats, cot, tf32))
+    assert got[0].dtype == dtype
+    assert_within(got, ref, SPLIT_BAR, names(refiner))
