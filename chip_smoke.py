@@ -90,7 +90,11 @@ Phases, each printing its results; any failure raises and exits non-zero:
    of kernel events), of the plain
    path's backward and, for K1 and K4, of ``F.grid_sample``'s and of
    ``F.group_norm`` + ``F.leaky_relu``'s. K1 also at the losses' shapes with image
-   and grid both leaves. K2 comes last, its kernels timed by CUDA events around queued
+   and grid both leaves, and at each of a two-view step's 20 calls (``k1_step_calls``:
+   C = 1 at the five levels with both gradients, C = 3 at 480x640 with the grid's only),
+   the kernel alone against its closed form with its device time and bound beside
+   ``F.grid_sample``'s autograd for the same gradients (``backward_graph_ms``), and the
+   sums a step. K2 comes last, its kernels timed by CUDA events around queued
    calls and its plain versions by torch.profiler, with no CUDA graph (``k2_section``).
 7. Training at full width (the reference recipe: B = 8, V = 1, 480x640, D = 12,
    filter and five refiners on, adam 1e-3, augmentation on, 4 loader workers)
@@ -319,7 +323,9 @@ has an entry of its own ("group_norm_act_backward": launches phase
 7's first ``train`` call's, "step_launches" one step's; its times phase 3b's, "bf16"
 phase 12 (a)'s), and so have K1's and K2's ("grid_sample_backward": launches phase 8's
 first ``train`` call's, "step_launches" one two-view step's, "shapes" each phase-3b
-shape's times, "library_ms" ``F.grid_sample``'s backward at (1,480,640,3);
+shape's times, "library_ms" ``F.grid_sample``'s backward at (1,480,640,3), "step_calls"
+a two-view step's calls with their "needs", "calls", times, bound and "library_ms", and
+their sums "step_ms", "step_bound_ms", "step_library_ms";
 "incremental_chain_backward": launches phase 7's first ``train`` call's,
 "step_launches" one step's, "two_view_launches" one two-view step's, "shapes" with
 "recipe_ms", "tf32" phase 13's). Then the nvidia-smi line; the last line is
@@ -471,8 +477,13 @@ CHAIN_LEGS = {
 # on what the kernel's forward kept, that closed form on the plain forward's tensors
 # against autograd through that forward (``saved_forward``, whose conv output gradients
 # are rounded as the closed form rounds them), what the kernel kept against the plain
-# forward's, the LeakyReLU (and output ReLU) branches the two forwards take apart, and the
-# direct gap where none is apart (at bf16 always). f32 and tf32: the chain's bars; the
+# forward's, the LeakyReLU (and output ReLU) branches the two forwards take apart, the
+# Function against autograd through that forward where none is apart, and the direct gap
+# (to autograd through the module's plain forward) where the kernel's forward and that
+# one take none apart (at bf16 always). Phase 3b's inputs over 32 draws
+# (``scripts/k3_check_draws.py``, PERF.md §6): the direct gap passed 1e-4 on 9, each
+# with 1-2 branches apart from the module's plain forward at |z| <= 1.32e-6; on two of
+# them no branch was apart from ``saved_forward``. f32 and tf32: the chain's bars; the
 # second leg read 1.2-4.2e-6 and 2.3-4.2e-4 on the CPU over four weight seeds at phase
 # 3b's four shapes. bf16: the kernel's gradients are f32 where plain autograd rounds every
 # one to bf16, and its forward keeps T f32 where the plain module rounds each conv's
@@ -526,6 +537,19 @@ def log(*args):
     print(*args, flush=True)
 
 
+def k4_step_backward_bound() -> tuple:
+    """(launches, ms): K4's backward launches in a recipe step (one a K4 forward launch:
+    the extractor's six resblocks at N = B + B*V, six resblocks and bn0 for each of
+    refiners 2, 1 and 0, the cost filter's four) and their bound, each launch reading x
+    and the output's gradient and writing x's (the residual's gradient is the output's)
+    at PEAK_BYTES_S."""
+    calls = ([((2 * TRAIN_B, 32, 30, 40), 6)]
+             + [((TRAIN_B, 32, H0 >> lvl, W0 >> lvl), 7) for lvl in (2, 1, 0)]
+             + [((TRAIN_B, 32, D, 30, 40), 4)])
+    elements = sum(math.prod(shape) * n for shape, n in calls)
+    return sum(n for _, n in calls), 3 * 4 * elements / PEAK_BYTES_S * 1e3
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -562,6 +586,29 @@ def graph_ms(fn, reps=20) -> float:
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
+    return median_ms(graph.replay, runs=7, warmup=1) / reps
+
+
+def backward_graph_ms(forward, leaves, reps=20) -> float:
+    """Device time of one backward (``torch.autograd.grad``) of ``forward()``'s output:
+    the forward once on a side stream, then ``reps`` backwards captured in a CUDA graph on
+    that stream (a backward runs on its forward's stream), median of 7 replays, over
+    reps."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = forward()
+        cot = torch.randn_like(out)
+
+        def call():
+            return torch.autograd.grad(out, leaves, cot, retain_graph=True)
+        for _ in range(3):
+            call()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            call()
     return median_ms(graph.replay, runs=7, warmup=1) / reps
 
 
@@ -696,19 +743,55 @@ def refiner_module(state, name, dev):
         return module.to(dev).eval()
 
 
-def loss_grid(n, dev, g):
-    """The sampling grid of the two-view losses at 480x640: a tilted-plane idepth map per
-    sample (0.1-0.5, 1/m at a unit baseline) projected into the right camera by
-    ``project_idepthmap`` (n, 480, 640, 2); a share of it falls outside the image."""
-    from multi_view_stereonet_tpu_torch.geometry import normalize_baseline, project_idepthmap
+def loss_grid(n, dev, g, level=0):
+    """The sampling grid of the two-view losses at pyramid level ``level`` (480x640 at 0,
+    halved a level): a tilted-plane idepth map per sample (0.1-0.5, 1/m at a unit
+    baseline) projected into the right camera by ``project_idepthmap`` (n, h, w, 2); a
+    share of it falls outside the image."""
+    from multi_view_stereonet_tpu_torch.geometry import (
+        build_K_pyramid, normalize_baseline, project_idepthmap)
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
 
     K, T = scene(n, 20 + n)
     T, _ = normalize_baseline(T)
-    y = torch.linspace(0, 1, H0)[:, None]
-    x = torch.linspace(0, 1, W0)[None, :]
+    sizes = pyramid_sizes(H0, W0, NUM_LEVELS)
+    rows, cols = sizes[level]
+    y = torch.linspace(0, 1, rows)[:, None]
+    x = torch.linspace(0, 1, cols)[None, :]
     a, b, c = (torch.rand(3, n, 1, 1, generator=g) * 0.2).unbind(0)
     idepth = 0.1 + a + b * x + c * y
-    return project_idepthmap(K, T, idepth.to(dev))[0]
+    return project_idepthmap(build_K_pyramid(K, sizes)[level], T, idepth.to(dev))[0]
+
+
+def k1_step_calls(dev, g):
+    """K1's backward calls in one two-view step at the recipe (phase 8), as
+    [{"label", "image", "grid", "needs", "calls"}]: the left-right consistency loss samples
+    each view's idepth map at every level (``losses/consistency.py:83``, ``:92``; two calls
+    a level, C = 1, the map's and the grid's gradients) and the reconstruction loss each
+    view's image at 480x640 (``consistency.py:32``; two calls a level, C = 3, the grid's
+    gradient only: the images are data). Each at B = 8 on ``loss_grid`` of its level."""
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
+
+    calls = []
+    for level, (rows, cols) in enumerate(pyramid_sizes(H0, W0, NUM_LEVELS)):
+        calls.append({"label": f"({TRAIN_B},{rows},{cols},1) left-right, both gradients",
+                      "image": (torch.rand(TRAIN_B, rows, cols, 1, generator=g) * 0.4
+                                + 0.1).to(dev),
+                      "grid": loss_grid(TRAIN_B, dev, g, level), "needs": (True, True),
+                      "calls": 2})
+    calls.append({"label": f"({TRAIN_B},{H0},{W0},3) reconstruction, grid gradient only",
+                  "image": (torch.rand(TRAIN_B, H0, W0, 3, generator=g) * 2 - 1).to(dev),
+                  "grid": loss_grid(TRAIN_B, dev, g), "needs": (False, True),
+                  "calls": 2 * NUM_LEVELS})
+    return calls
+
+
+def k1_backward_bytes(image, grid, cot, needs) -> int:
+    """The bytes K1's backward must move: the grid and the output's gradient ``cot`` read
+    once, the image read once for the grid's gradient, and each gradient asked for
+    written once."""
+    return (nbytes(grid, cot) + nbytes(image) * (int(needs[0]) + int(needs[1]))
+            + nbytes(grid) * int(needs[1]))
 
 
 def nbytes(*tensors) -> int:
@@ -1214,7 +1297,7 @@ def check_backward(dev, dtype=torch.float32):
         M, C = grid[..., 0].numel(), image.shape[-1]
         alone("K1", what, lambda: warp.grid_sample_backward(image, grid, cot, zero_invalid),
               lambda: warp.grid_sample_backward_plain(image, grid, cot, zero_invalid),
-              nbytes(image, grid, cot, image, grid), M * (30 + 24 * C), keep)
+              k1_backward_bytes(image, grid, cot, (True, True)), M * (30 + 24 * C), keep)
         if keep and library is not None:
             results["K1 kernel"]["library_ms"] = library
 
@@ -1255,6 +1338,41 @@ def check_backward(dev, dtype=torch.float32):
               lambda impl: warp.grid_sample(image, grid, False, impl)[0], (image, grid),
               library)
         k1_alone(image, grid, False, f"({TRAIN_B},{H0},{W0},{C}) loss samples")
+
+    # K1's backward at a two-view step's 20 calls (``k1_step_calls``), each with its
+    # gradients: the kernel alone against its closed form (``alone``), beside its bound and
+    # F.grid_sample's autograd for the same gradients on the same data; and the sums a step.
+    # Its inputs come from a generator of their own, so that the sections below draw theirs
+    # as before.
+    if not bf16:
+        g_step = torch.Generator().manual_seed(21)
+        for c in k1_step_calls(dev, g_step):
+            image, grid, needs = c["image"], c["grid"], c["needs"]
+            cot = torch.randn(grid.shape[:-1] + image.shape[-1:], generator=g_step).to(dev)
+            alone("K1", c["label"], lambda a=(image, grid, cot, False, needs):
+                  warp.grid_sample_backward(*a),
+                  lambda a=(image, grid, cot, False, needs):
+                  warp.grid_sample_backward_plain(*a),
+                  k1_backward_bytes(image, grid, cot, needs),
+                  grid[..., 0].numel() * (30 + 24 * image.shape[-1]), False, part="step")
+            x = image.permute(0, 3, 1, 2).contiguous().requires_grad_(needs[0])
+            grid4 = grid.clone().requires_grad_(needs[1])
+            call = results["K1 step"]["shapes"][-1]
+            call.update(needs=list(needs), calls=c["calls"],
+                        library_ms=backward_graph_ms(
+                            lambda x=x, grid4=grid4: F.grid_sample(
+                                x, grid4, mode="bilinear", padding_mode="border",
+                                align_corners=False),
+                            [t for t, need in zip((x, grid4), needs) if need]))
+            log(f"K1 backward step call {c['label']} x{c['calls']}: device {call['ms']:.4f} "
+                f"ms, bound {call['bound_ms']:.4f} ms, F.grid_sample autograd "
+                f"{call['library_ms']:.4f} ms")
+        step = results["K1 step"]
+        for key in ("ms", "bound_ms", "library_ms"):
+            step[f"step_{key}"] = sum(c["calls"] * c[key] for c in step["shapes"])
+        log(f"K1 backward, a two-view step's {sum(c['calls'] for c in step['shapes'])} "
+            f"calls: device {step['step_ms']:.4f} ms, bound {step['step_bound_ms']:.4f} ms, "
+            f"F.grid_sample autograd {step['step_library_ms']:.4f} ms")
 
     def k2_section():
         """K2 at N = 1 (the JSON keeps it) and N = 8, the training recipe's B*V: its
@@ -1555,6 +1673,25 @@ def chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref, tf32=False):
     return r
 
 
+def plain_branch_inputs(forward, module, guidance, idepth):
+    """The module's plain forward ``forward(module, guidance, idepth)`` at f32: the inputs
+    of its seven LeakyReLUs (each GroupNorm's value z, NHWC) and of its output ReLU, read
+    as it calls ``F.leaky_relu`` and ``torch.relu``."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    seen = {F.leaky_relu: [], torch.relu: []}
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in seen:
+                seen[func].append(args[0].detach())
+            return func(*args, **(kwargs or {}))
+    with torch.no_grad(), Record():
+        forward(module, guidance, idepth)
+    return [z.permute(0, 2, 3, 1) for z in seen[F.leaky_relu]], seen[torch.relu][-1]
+
+
 def refiner_legs(module, guidance, idepth, cot, got, ref, tf32=False):
     """K3's Function (gradients ``got`` of guidance, idepth and the refiner's weights, for
     output gradient ``cot``) against plain autograd (``ref``) by REFINER_LEGS' bars for its
@@ -1564,10 +1701,14 @@ def refiner_legs(module, guidance, idepth, cot, got, ref, tf32=False):
     version) against plain autograd through that same forward; what the kernel kept (out,
     raw, the statistics) against that plain forward's tensors; the LeakyReLU branches of
     the seven GroupNorms and the output ReLU's that the two forwards take apart, and the
-    largest |z| among them; and the direct gap. At bf16 also how far the Function's and
-    plain autograd's gradients each lie from the f32 gradient of the same inputs (the
-    closed form on the f32 plain forward), unbarred. Returns the readings, the bars and
-    ``missed``."""
+    largest |z| among them; the Function against autograd through that plain forward
+    (``direct_saved``, held unless branches are apart). Then the direct gap, to plain
+    autograd through the module (``ref``): at f32 and TF32 the branches that the kernel's
+    forward and the module's plain forward (``plain_branch_inputs``) take apart are counted
+    by the same bars, and the direct bar is held unless some are. At bf16 also how far the
+    Function's and plain autograd's gradients each lie from the f32 gradient of the same
+    inputs (the closed form on the f32 plain forward), unbarred. Returns the readings, the
+    bars and ``missed``."""
     from multi_view_stereonet_tpu_torch.ops.cuda import closed_form
     from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 
@@ -1577,6 +1718,11 @@ def refiner_legs(module, guidance, idepth, cot, got, ref, tf32=False):
     needs = (True, True, True)
     g0, i0 = guidance.detach(), idepth.detach()
     weights = [p.detach() for p in module.parameters()]
+    # The module's plain forward as ``ref``'s autograd took it: outside the deterministic
+    # flags, which could pick another cuDNN algorithm and so another rounding.
+    module_z = None if variant == "bf16" else plain_branch_inputs(
+        refiner_op.idepthmap_refiner_tf32_plain if tf32 else refiner_op.idepthmap_refiner_plain,
+        module, g0, i0)
     with deterministic(True):
         with torch.enable_grad():
             leaves = [g0.clone().requires_grad_(), i0.clone().requires_grad_(),
@@ -1593,25 +1739,39 @@ def refiner_legs(module, guidance, idepth, cot, got, ref, tf32=False):
                                                                    needs, tf32)
             forward = max(worst_relative([out], [plain[0]]), worst_relative([raw], [plain[1]]),
                           worst_relative(stats.unbind(2), plain[2].unbind(2)))
-            apart = (out > 0) != (plain[0] > 0)
-            flips, values = int(apart.sum()), apart.numel()
-            flip_z = out[apart].abs().max().item() if apart.any() else 0.0
-            for k in range(refiner_op.NUM_GN):
-                z = [closed_form._gn_forward(r[k], st[k], *weights[4 * k + 2:4 * k + 4])[1]
-                     for r, st in ((raw, stats), (plain[1], plain[2]))]
-                apart = (closed_form._leaky_slope(z[0], dtype)
-                         != closed_form._leaky_slope(z[1], dtype))
-                flips += int(apart.sum())
-                values += apart.numel()
-                if apart.any():
-                    flip_z = max(flip_z, z[0][apart].abs().max().item())
+            z_kernel = [closed_form._gn_forward(raw[k], stats[k],
+                                                *weights[4 * k + 2:4 * k + 4])[1]
+                        for k in range(refiner_op.NUM_GN)]
+            z_saved = [closed_form._gn_forward(plain[1][k], plain[2][k],
+                                               *weights[4 * k + 2:4 * k + 4])[1]
+                       for k in range(refiner_op.NUM_GN)]
+
+            def branches_apart(zs, pre_relu):
+                """(flips, values, the largest |z| among the flips) of the kernel's forward
+                against another forward's LeakyReLU inputs ``zs`` and output ReLU input."""
+                apart = (out > 0) != (pre_relu > 0)
+                flips, values = int(apart.sum()), apart.numel()
+                flip_z = out[apart].abs().max().item() if apart.any() else 0.0
+                for zk, zo in zip(z_kernel, zs):
+                    apart = (closed_form._leaky_slope(zk, dtype)
+                             != closed_form._leaky_slope(zo, dtype))
+                    flips += int(apart.sum())
+                    values += apart.numel()
+                    if apart.any():
+                        flip_z = max(flip_z, zk[apart].abs().max().item())
+                return flips, values, flip_z
+            flips, values, flip_z = branches_apart(z_saved, plain[0])
+            module_flips = None if module_z is None else branches_apart(*module_z)
 
     def flat(grads):
         return [grads[0], grads[1], *grads[2]]
     r = {"function_vs_closed_form": worst_relative(got, flat(closed_k)),
          "closed_form_vs_autograd": worst_relative(flat(closed_p), auto),
-         "forward": forward, "direct": worst_relative(got, ref), "branch_flips": flips,
-         "gn_values": values, "flip_max_abs_z": flip_z, "variant": variant, "bars": bars}
+         "forward": forward, "direct": worst_relative(got, ref),
+         "direct_saved": worst_relative(got, auto), "branch_flips": flips,
+         "gn_values": values, "flip_max_abs_z": flip_z, "variant": variant, "bars": bars,
+         "module_branch_flips": None if module_flips is None else module_flips[0],
+         "module_flip_max_abs_z": None if module_flips is None else module_flips[2]}
     if variant == "bf16":
         with torch.no_grad():
             g32 = g0.float()
@@ -1625,16 +1785,24 @@ def refiner_legs(module, guidance, idepth, cot, got, ref, tf32=False):
               "forward": forward <= bars["forward"],
               "branch_flips": flips <= max(KINK_FLOOR, bars["flip_share"] * values),
               "flip_max_abs_z": flip_z <= bars["flip_z"],
+              "direct_saved": (r["direct_saved"] <= bars["direct"]
+                               or (flips > 0 and variant != "bf16")),
               "direct": (r["direct"] <= bars["direct"]
-                         or (flips > 0 and variant != "bf16"))}
+                         or (module_flips is not None and module_flips[0] > 0))}
+    if module_flips is not None:
+        within["module_branch_flips"] = module_flips[0] <= max(
+            KINK_FLOOR, bars["flip_share"] * module_flips[1])
+        within["module_flip_max_abs_z"] = module_flips[2] <= bars["flip_z"]
     r["missed"] = [k for k, ok in within.items() if not ok]
     return r
 
 
 def describe_legs(r) -> str:
-    """``chain_legs``' readings and bars, for the log."""
+    """``chain_legs``' or ``refiner_legs``' readings and bars, for the log."""
     b = r["bars"]
-    direct_barred = r["branch_flips"] == 0 or r["variant"] == "bf16"
+    saved_held = r["branch_flips"] == 0 or r["variant"] == "bf16"
+    module = r.get("module_branch_flips")
+    direct_held = not module if "direct_saved" in r else saved_held
     return (f"in two legs (bar {b['leg']:.0e} each): the Function against its closed form "
             f"on what the kernel's forward kept {r['function_vs_closed_form']:.3e}, the "
             f"closed form on what the plain forward gives against autograd through that "
@@ -1642,9 +1810,16 @@ def describe_legs(r) -> str:
             f"against the plain forward's {r['forward']:.3e} (bar {b['forward']:.0e}); "
             f"LeakyReLU branches the two forwards take apart {r['branch_flips']} of "
             f"{r['gn_values']} (bar {b['flip_share']:.0e} of them or {KINK_FLOOR}), |z| "
-            f"within {r['flip_max_abs_z']:.2e} of 0 (bar {b['flip_z']:.0e}); the direct gap "
-            f"{r['direct']:.3e} (bar {b['direct']:.2g}, "
-            f"{'held' if direct_barred else 'not held: branches apart'})"
+            f"within {r['flip_max_abs_z']:.2e} of 0 (bar {b['flip_z']:.0e}); "
+            + ("" if "direct_saved" not in r else
+               f"the Function against autograd through the plain forward "
+               f"{r['direct_saved']:.3e} (bar {b['direct']:.2g}, "
+               f"{'held' if saved_held else 'not held: branches apart'}); ")
+            + ("" if module is None else
+               f"branches the kernel's forward and the module's plain forward take apart "
+               f"{module}, |z| within {r['module_flip_max_abs_z']:.2e} of 0; ")
+            + f"the direct gap {r['direct']:.3e} (bar {b['direct']:.2g}, "
+            f"{'held' if direct_held else 'not held: branches apart'})"
             + (f"; from the f32 gradient: the Function {r['function_vs_f32']:.3e}, plain "
                f"autograd {r['autograd_vs_f32']:.3e}" if "function_vs_f32" in r else "")
             + f"{'; MISSED ' + ', '.join(r['missed']) if r['missed'] else ''}")
@@ -1898,6 +2073,7 @@ def train_phase(dev, inputs, smi):
         busy, wall, prof = profile_kernels(lambda: step(model, batch), 1)
         gn_ops = group_norm_device_ms(prof)
         device[impl] = {"forward_ms": forward, "busy_ms": busy, "wall_ms": wall, **gn_ops}
+        k4_calls, k4_bound = k4_step_backward_bound()
         log(f"train step profile ({'kernel' if impl == 'auto' else 'plain'} path, a step): "
             f"device busy {busy:.3f} ms of {wall:.3f} ms wall (profiler on), idle "
             f"{max(0.0, 1 - busy / wall):.1%}; the forward alone {forward:.3f} ms device "
@@ -1906,7 +2082,8 @@ def train_phase(dev, inputs, smi):
             f"{gn_ops['native_group_norm_calls']} calls and its backward "
             f"{gn_ops['native_group_norm_backward_ms']:.3f} ms, K4's kernels "
             f"{gn_ops['k4_ms']:.3f} ms (forward {gn_ops['k4_forward_ms']:.3f}, backward "
-            f"{gn_ops['k4_backward_ms']:.3f}); peak memory {peak[impl] / 2**30:.3f} GiB ({smi})")
+            f"{gn_ops['k4_backward_ms']:.3f}; the bound of its {k4_calls} backward launches "
+            f"{k4_bound:.3f} ms); peak memory {peak[impl] / 2**30:.3f} GiB ({smi})")
         if impl == "auto":
             log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     after = {impl: d["busy_ms"] - d["forward_ms"] for impl, d in device.items()}
@@ -5070,6 +5247,9 @@ def main():
              "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shapes")},
          "function_ms": backward["K1"]["ms"], "autograd_ms": backward["K1"]["plain_ms"],
+         "step_calls": backward["K1 step"]["shapes"],
+         **{k: backward["K1 step"][k] for k in ("step_ms", "step_bound_ms",
+                                                 "step_library_ms")},
          "bf16": backward_bf16["K1 kernel"]},
         {"name": "incremental_chain_backward", "route": "cuda",
          "source": f"{pkg}/csrc/incremental_chain.cu",

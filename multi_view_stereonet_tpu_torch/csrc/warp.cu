@@ -136,59 +136,120 @@ __device__ __forceinline__ void add_tap(float* p, float v) {
   if (v != 0.0f) atomicAdd(p, v);
 }
 
+// The backward's blocks: BWD_THREADS threads, a sample each (two or four a thread measured
+// slower, PERF.md §6).
+constexpr int BWD_THREADS = 256;
+
+// One output sample of the backward: its taps and weights, recomputed from its grid point
+// as the forward computes them.
+struct Sample {
+  int x0, y0, x1, y1;
+  float wx, wy, ux, uy;
+  bool on;       // a sample of the map (the last block's tail is not)
+  bool zero;     // zeroed by zero_invalid: passes no gradient
+  bool scatter;  // adds its taps to the image gradient
+  bool clamped;  // scatters, with a number for each coordinate, clamped to the border
+};
+
+__device__ __forceinline__ Sample sample_at(const float* grid, int64_t i, bool on, int H, int W,
+                                            bool want_image, int zero_invalid) {
+  Sample t;
+  t.on = on;
+  const float2 p = on ? __ldg(reinterpret_cast<const float2*>(grid) + i) : make_float2(0.f, 0.f);
+  const bool inv = fabsf(p.x) > 1.0f || fabsf(p.y) > 1.0f;
+  t.zero = zero_invalid && inv;
+  t.ux = ((p.x + 1.0f) * W - 1.0f) * 0.5f;
+  t.uy = ((p.y + 1.0f) * H - 1.0f) * 0.5f;
+  // The clip carries a NaN coordinate through (fmaxf alone would make it 0); its taps
+  // are pixel (0, 0) and its neighbours, as the plain version's index clamp gives.
+  const float ix = isnan(t.ux) ? t.ux : fminf(fmaxf(t.ux, 0.0f), (float)(W - 1));
+  const float iy = isnan(t.uy) ? t.uy : fminf(fmaxf(t.uy, 0.0f), (float)(H - 1));
+  const float x0f = floorf(ix);
+  const float y0f = floorf(iy);
+  t.wx = ix - x0f;
+  t.wy = iy - y0f;
+  t.x0 = isnan(x0f) ? 0 : (int)x0f;
+  t.y0 = isnan(y0f) ? 0 : (int)y0f;
+  t.x1 = min(t.x0 + 1, W - 1);
+  t.y1 = min(t.y0 + 1, H - 1);
+  const bool nan = isnan(t.wx) || isnan(t.wy);
+  t.scatter = on && want_image && !(t.zero && !nan);
+  t.clamped = t.scatter && !nan && inv;
+  return t;
+}
+
 // The backward of grid_sample_kernel (the VJP of the JAX grid_sample, ops/warp.py:31-79,
 // that _pallas_grid_sample_bwd takes, warp_kernel.py:396-404): one thread per output
-// sample. It reads its grid point and its C output gradients (f32 or bf16, widened),
-// recomputes the weights and adds its four taps' contributions to the image gradient with
-// f32 atomics (red.global.add; the gradient was zeroed on the stream before), and writes
-// its grid gradient: sum_c of g times the blend's derivative in wx and wy, through the
-// border clip (clip_grad) and the unnormalization. A sample zeroed by zero_invalid passes
-// no gradient: its atomics are skipped unless a NaN weight would make them NaN, as the
-// plain version's products do. dimage or dgrid may be null (not wanted); the image's taps
-// are read only for the grid gradient.
+// sample, in the map's order; blockIdx.y is the sample of the batch. Each thread reads its
+// grid point (8 bytes) and its C output gradients (f32 or bf16, widened) and recomputes
+// the weights; then:
+// - the grid gradient: sum_c of g times the blend's derivative in wx and wy, through the
+//   border clip (clip_grad) and the unnormalization, written as 8 bytes a sample;
+// - the image gradient, where it is wanted: each nonzero tap one f32 atomic to device
+//   memory (red.global.add; the gradient was zeroed on the stream first, cudaMemsetAsync
+//   in the entry). A sample clamped to the border puts its taps on the border's pixels,
+//   where the losses' grids pile up thousands of them (a quarter of their samples lie
+//   outside the image): the clamped samples of a warp with the same taps are found by
+//   __match_any_sync and summed by the group's first lane, which adds the sums once.
+// A sample zeroed by zero_invalid passes no gradient: its taps are skipped unless a NaN
+// weight would make them NaN, as the plain version's products do. dimage or dgrid may be
+// null (not wanted); the image's taps are read only for the grid gradient, and a call
+// without dimage (the reconstruction loss: its images are data) stops after the grid
+// gradient. The runtime-C path (CC = 0) adds every tap on its own.
 //
 // What bounds it: bytes (each sample's grid point and gradient read, its grid gradient
 // written, the image read and its gradient written once). The images (3.7-29.5 MB) stay
 // in the 50 MB L2, where the tap reads hit and the atomics resolve.
 template <int CC, typename G>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(BWD_THREADS)
 grid_sample_bwd_kernel(const float* __restrict__ image, const float* __restrict__ grid,
                        const G* __restrict__ grad, float* __restrict__ dimage,
                        float* __restrict__ dgrid, int H, int W, int C_rt, int64_t M,
                        int zero_invalid) {
-  const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
   const int C = CC > 0 ? CC : C_rt;
-  const int64_t i = (int64_t)blockIdx.y * M + m;
+  const int lane = threadIdx.x & 31;
+  const int64_t m = (int64_t)blockIdx.x * BWD_THREADS + threadIdx.x;
+  const int64_t i = (int64_t)blockIdx.y * M + m;  // the thread's sample
+  const int64_t base = (int64_t)blockIdx.y * H * W;  // the sample's image, in pixels
+  const Sample u = sample_at(grid, i, m < M, H, W, dimage != nullptr, zero_invalid);
+  auto pix = [&](int y, int x) { return (base + (int64_t)y * W + x) * C; };
 
-  const float gx = __ldg(grid + 2 * i);
-  const float gy = __ldg(grid + 2 * i + 1);
-  const bool zero = zero_invalid && (fabsf(gx) > 1.0f || fabsf(gy) > 1.0f);
-  const float ux = ((gx + 1.0f) * W - 1.0f) * 0.5f;
-  const float uy = ((gy + 1.0f) * H - 1.0f) * 0.5f;
-  // The clip carries a NaN coordinate through (fmaxf alone would make it 0); its taps
-  // are pixel (0, 0) and its neighbours, as the plain version's index clamp gives.
-  const float ix = isnan(ux) ? ux : fminf(fmaxf(ux, 0.0f), (float)(W - 1));
-  const float iy = isnan(uy) ? uy : fminf(fmaxf(uy, 0.0f), (float)(H - 1));
-  const float x0f = floorf(ix);
-  const float y0f = floorf(iy);
-  const float wx = ix - x0f;
-  const float wy = iy - y0f;
-  const int x0 = isnan(x0f) ? 0 : (int)x0f;
-  const int y0 = isnan(y0f) ? 0 : (int)y0f;
-  const int x1 = min(x0 + 1, W - 1);
-  const int y1 = min(y0 + 1, H - 1);
-  const int64_t base = (int64_t)blockIdx.y * H * W;
-  const int64_t q00 = (base + (int64_t)y0 * W + x0) * C, q01 = (base + (int64_t)y0 * W + x1) * C;
-  const int64_t q10 = (base + (int64_t)y1 * W + x0) * C, q11 = (base + (int64_t)y1 * W + x1) * C;
-  const G* gp = grad + i * C;
-  const bool scatter = dimage != nullptr && !(zero && !isnan(wx) && !isnan(wy));
-  float gwx = 0.0f, gwy = 0.0f;
-  if constexpr (CC > 0) {
+  if constexpr (CC == 0) {
+    if (!u.on) return;
+    const G* gp = grad + i * C;
+    float gwx = 0.0f, gwy = 0.0f;
+    for (int k = 0; k < C; ++k) {
+      const float g = u.zero ? 0.0f : load(gp + k);
+      const float gt = g * (1.0f - u.wy), gb = g * u.wy;
+      if (dgrid != nullptr) {
+        const float a = __ldg(image + pix(u.y0, u.x0) + k);
+        const float b = __ldg(image + pix(u.y0, u.x1) + k);
+        const float c = __ldg(image + pix(u.y1, u.x0) + k);
+        const float e = __ldg(image + pix(u.y1, u.x1) + k);
+        const float top = a * (1.0f - u.wx) + b * u.wx;
+        const float bot = c * (1.0f - u.wx) + e * u.wx;
+        gwx += gt * (b - a) + gb * (e - c);
+        gwy += g * (bot - top);
+      }
+      if (u.scatter) {
+        add_tap(dimage + pix(u.y0, u.x0) + k, gt * (1.0f - u.wx));
+        add_tap(dimage + pix(u.y0, u.x1) + k, gt * u.wx);
+        add_tap(dimage + pix(u.y1, u.x0) + k, gb * (1.0f - u.wx));
+        add_tap(dimage + pix(u.y1, u.x1) + k, gb * u.wx);
+      }
+    }
+    if (dgrid != nullptr)
+      reinterpret_cast<float2*>(dgrid)[i] =
+          make_float2(clip_grad(gwx, u.ux, (float)(W - 1)) * 0.5f * W,
+                      clip_grad(gwy, u.uy, (float)(H - 1)) * 0.5f * H);
+  } else {
     float g[CC];
 #pragma unroll
-    for (int k = 0; k < CC; ++k) g[k] = zero ? 0.0f : load(gp + k);
-    if (dgrid != nullptr) {
+    for (int k = 0; k < CC; ++k) g[k] = (!u.on || u.zero) ? 0.0f : load(grad + i * CC + k);
+
+    if (dgrid != nullptr && u.on) {
+      const int64_t q00 = pix(u.y0, u.x0), q01 = pix(u.y0, u.x1);
+      const int64_t q10 = pix(u.y1, u.x0), q11 = pix(u.y1, u.x1);
       float a[CC], b[CC], c[CC], e[CC];
 #pragma unroll
       for (int k = 0; k < CC; ++k) {
@@ -197,47 +258,57 @@ grid_sample_bwd_kernel(const float* __restrict__ image, const float* __restrict_
         c[k] = __ldg(image + q10 + k);
         e[k] = __ldg(image + q11 + k);
       }
+      float gwx = 0.0f, gwy = 0.0f;
 #pragma unroll
       for (int k = 0; k < CC; ++k) {
-        const float top = a[k] * (1.0f - wx) + b[k] * wx;
-        const float bot = c[k] * (1.0f - wx) + e[k] * wx;
-        gwx += g[k] * (1.0f - wy) * (b[k] - a[k]) + g[k] * wy * (e[k] - c[k]);
+        const float top = a[k] * (1.0f - u.wx) + b[k] * u.wx;
+        const float bot = c[k] * (1.0f - u.wx) + e[k] * u.wx;
+        gwx += g[k] * (1.0f - u.wy) * (b[k] - a[k]) + g[k] * u.wy * (e[k] - c[k]);
         gwy += g[k] * (bot - top);
       }
+      reinterpret_cast<float2*>(dgrid)[i] =
+          make_float2(clip_grad(gwx, u.ux, (float)(W - 1)) * 0.5f * W,
+                      clip_grad(gwy, u.uy, (float)(H - 1)) * 0.5f * H);
     }
-    if (scatter) {
+    if (dimage == nullptr) return;  // the whole grid: no warp sums
+
+    float v[4][CC];  // the sample's four taps' contributions
 #pragma unroll
-      for (int k = 0; k < CC; ++k) {
-        const float gt = g[k] * (1.0f - wy), gb = g[k] * wy;
-        add_tap(dimage + q00 + k, gt * (1.0f - wx));
-        add_tap(dimage + q01 + k, gt * wx);
-        add_tap(dimage + q10 + k, gb * (1.0f - wx));
-        add_tap(dimage + q11 + k, gb * wx);
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int k = 0; k < CC; ++k)
+        v[q][k] = g[k] * (q & 2 ? u.wy : 1.0f - u.wy) * (q & 1 ? u.wx : 1.0f - u.wx);
+    // The warp's clamped samples with the same first tap (so the same taps): the group's
+    // first lane adds their sums, the others nothing.
+    __shared__ float agg[BWD_THREADS][4 * CC + 1];  // a lane's taps, for its group's first
+    unsigned group = 1u << lane;  // the lanes whose contributions this lane adds
+    if (__any_sync(0xffffffffu, u.clamped)) {
+      const unsigned peers =
+          __match_any_sync(0xffffffffu, u.clamped ? u.y0 * W + u.x0 : -1 - lane);
+      if (u.clamped && __popc(peers) > 1) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int k = 0; k < CC; ++k) agg[threadIdx.x][q * CC + k] = v[q][k];
+        group = lane == __ffs(peers) - 1 ? peers : 0u;
+      }
+      __syncwarp();
+      for (unsigned rest = group & ~(1u << lane); rest != 0u; rest &= rest - 1u) {
+        const float* other = agg[(threadIdx.x & ~31u) + __ffs(rest) - 1];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int k = 0; k < CC; ++k) v[q][k] += other[q * CC + k];
       }
     }
-  } else {
-    for (int k = 0; k < C; ++k) {
-      const float g = zero ? 0.0f : load(gp + k);
-      const float gt = g * (1.0f - wy), gb = g * wy;
-      if (dgrid != nullptr) {
-        const float a = __ldg(image + q00 + k), b = __ldg(image + q01 + k);
-        const float c = __ldg(image + q10 + k), e = __ldg(image + q11 + k);
-        const float top = a * (1.0f - wx) + b * wx;
-        const float bot = c * (1.0f - wx) + e * wx;
-        gwx += gt * (b - a) + gb * (e - c);
-        gwy += g * (bot - top);
-      }
-      if (scatter) {
-        add_tap(dimage + q00 + k, gt * (1.0f - wx));
-        add_tap(dimage + q01 + k, gt * wx);
-        add_tap(dimage + q10 + k, gb * (1.0f - wx));
-        add_tap(dimage + q11 + k, gb * wx);
+    if (u.scatter && group != 0u) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int64_t p = pix(q & 2 ? u.y1 : u.y0, q & 1 ? u.x1 : u.x0);
+#pragma unroll
+        for (int k = 0; k < CC; ++k) add_tap(dimage + p + k, v[q][k]);
       }
     }
-  }
-  if (dgrid != nullptr) {
-    dgrid[2 * i] = clip_grad(gwx, ux, (float)(W - 1)) * 0.5f * W;
-    dgrid[2 * i + 1] = clip_grad(gwy, uy, (float)(H - 1)) * 0.5f * H;
   }
 }
 
@@ -245,17 +316,24 @@ template <typename G>
 int launch_bwd(const float* image, const float* grid, const G* grad, float* dimage,
                float* dgrid, int B, int H, int W, int C, int64_t M, int zero_invalid,
                cudaStream_t stream) {
-  if ((int64_t)B * M == 0 || (dimage == nullptr && dgrid == nullptr)) return 0;
-  const int threads = 256;
-  const dim3 blocks((unsigned)((M + threads - 1) / threads), (unsigned)B);
+  if (dimage == nullptr && dgrid == nullptr) return 0;
+  if (dimage != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(
+        dimage, 0, (size_t)B * H * W * C * sizeof(float), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if ((int64_t)B * M == 0) return 0;
+  const dim3 blocks((unsigned)((M + BWD_THREADS - 1) / BWD_THREADS), (unsigned)B);
+#define MVS_BWD(CC_)                                                                        \
+  grid_sample_bwd_kernel<CC_, G><<<blocks, BWD_THREADS, 0, stream>>>(                       \
+      image, grid, grad, dimage, dgrid, H, W, C, M, zero_invalid)
   if (C == 3)
-    grid_sample_bwd_kernel<3, G><<<blocks, threads, 0, stream>>>(image, grid, grad, dimage,
-                                                                 dgrid, H, W, C, M,
-                                                                 zero_invalid);
+    MVS_BWD(3);
+  else if (C == 1)
+    MVS_BWD(1);
   else
-    grid_sample_bwd_kernel<0, G><<<blocks, threads, 0, stream>>>(image, grid, grad, dimage,
-                                                                 dgrid, H, W, C, M,
-                                                                 zero_invalid);
+    MVS_BWD(0);
+#undef MVS_BWD
   return (int)cudaGetLastError();
 }
 
@@ -276,8 +354,8 @@ extern "C" int mvs_grid_sample_bf16(const float* image, const float* grid, __nv_
 }
 
 // The backward: image (B, H, W, C) f32, grid (B, M, 2) f32, grad (B, M, C) f32 (or bf16,
-// below) -> dimage (B, H, W, C) f32, zeroed by the caller, and dgrid (B, M, 2) f32; either
-// may be null. Returns cudaGetLastError().
+// below) -> dimage (B, H, W, C) f32, zeroed here on the stream, and dgrid (B, M, 2) f32;
+// either may be null. grid and dgrid 8-byte aligned. Returns the first CUDA error.
 extern "C" int mvs_grid_sample_bwd_f32(const float* image, const float* grid, const float* grad,
                                        float* dimage, float* dgrid, int B, int H, int W, int C,
                                        int64_t M, int zero_invalid, cudaStream_t stream) {

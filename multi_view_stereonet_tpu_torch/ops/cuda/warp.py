@@ -11,9 +11,10 @@ Under autograd the kernel runs in ``_GridSample``, whose backward launches the
 backward kernel (``grid_sample_backward``, counted in ``backward_launches``; its plain
 version in closed form is ``grid_sample_backward_plain``). It computes the VJP of the
 XLA gather that the JAX ``_pallas_grid_sample_bwd`` (``warp_kernel.py:396-404``)
-takes: the image's gradient is the transpose of the four-tap blend, added with f32
-atomics in an order that changes from run to run; the grid's goes through the border
-clip as ``jnp.clip``'s does, half at an exact tie (``_clip``). The multi-view recipe
+takes: the image's gradient is the transpose of the four-tap blend (a warp's
+border-clamped samples summed by their first lane), added with f32 atomics in an order
+that changes from run to run; the grid's goes through the border clip as ``jnp.clip``'s
+does, half at an exact tie (``_clip``). The multi-view recipe
 never reaches it, since the forward's images and grids carry no gradient; the two-view
 recipe's losses do (``losses/consistency.py``): there the sampled image (a right image,
 an idepth map) and the grid, projected from predicted idepth, both carry one, at one
@@ -229,8 +230,8 @@ def grid_sample_backward(image: torch.Tensor, grid: torch.Tensor, grad: torch.Te
                          zero_invalid: bool = False, needs=(True, True)) -> tuple:
     """The backward kernel of csrc/warp.cu on CUDA tensors: (d image, d grid) f32, None
     for an input that ``needs`` leaves out; the contract of
-    ``grid_sample_backward_plain``. The image's gradient is zeroed on the stream, then
-    the kernel adds each sample's four taps into it."""
+    ``grid_sample_backward_plain``. The kernel zeroes the image's gradient on the stream,
+    then adds each sample's four taps into it."""
     global backward_launches
     if not (image.is_cuda and grid.device == image.device and grad.device == image.device):
         raise ValueError("grid_sample_backward needs image, grid and grad on one CUDA device")
@@ -242,7 +243,9 @@ def grid_sample_backward(image: torch.Tensor, grid: torch.Tensor, grad: torch.Te
         raise ValueError(f"bad shapes: image {tuple(image.shape)}, grid {tuple(grid.shape)}, "
                          f"grad {tuple(grad.shape)}")
     image, grid, grad = image.contiguous(), grid.contiguous(), grad.contiguous()
-    dimage = torch.zeros_like(image) if needs[0] else None
+    if grid.data_ptr() % 8:  # the kernel reads each point as 8 bytes
+        grid = grid.clone()
+    dimage = torch.empty_like(image) if needs[0] else None
     dgrid = torch.empty_like(grid) if needs[1] else None
     if dimage is None and dgrid is None:
         return None, None

@@ -2,7 +2,7 @@
 """Compare two checkouts of the PyTorch port on one NVIDIA card, in turns.
 
     python scripts/compare_torch_trees.py PARENT_DIR CHANGE_DIR [--pairs 6] [--out FILE]
-        [--backward | --train-step]
+        [--backward [--k1-only] | --train-step [--two-view]]
 
 Each directory is a whole checkout (for example ``git archive`` of a commit,
 unpacked). The script runs, one process a run, in the order parent, change,
@@ -29,7 +29,12 @@ With ``--backward`` each run times instead the backward of K2's and K3's
 device time over 20, median of 7 replays; K2 at N = 1 and 8, 30x40x32, D = 12 (the
 gradients of feats0 and the weights, the recipe's), K3 at (N, 35, h, w) = (1, 35, 30, 40),
 (8, 35, 30, 40), (1, 35, 60, 80) and the recipe's (8, 35, 60, 80) (the guidance's, the
-idepth map's and the weights').
+idepth map's and the weights'); K1's (``warp.grid_sample``'s Function) at each of a
+two-view step's calls and at the other shapes the records time (``chip_smoke.py``
+``k1_step_calls``, of this script's checkout, and ``k1_other_calls``), each with its
+gradients, beside ``F.grid_sample``'s autograd for the same gradients on the same data
+in the same run, and the sum of a step's 20 calls of each. ``--k1-only`` times K1's
+alone.
 
 With ``--train-step`` each run times instead the recipe's train step (B = 8, V = 1,
 480x640, D = 12, cost filter and five refiners on, adam 1e-3, augmentation on;
@@ -41,6 +46,9 @@ and its backward's, and the K3 (refiner) forward and backward launches of one st
 first, the loss and every parameter's gradient of one step from the seeded weights, saved
 beside the tree, so that the first change run's are held to the first parent run's
 (chip_smoke.py's LOSS_BAR and GRAD_BAR: the kernel path against plain autograd).
+``--two-view`` takes the two-view recipe's step instead (phase 8's: the right view's
+forward and every loss, ``chip_smoke.TWO_VIEW_FACTORS``), whose losses call K1's backward
+20 times.
 """
 
 from __future__ import annotations
@@ -58,8 +66,6 @@ K3_SHAPES = ((1, 30, 40, "refiner4"), (8, 30, 40, "refiner4"), (1, 60, 80, "refi
 K3_KEYS = tuple(f"k3_{what}_ms_{n}x{h}x{w}" for n, h, w, _ in K3_SHAPES
                 for what in ("device", "call"))
 K3_BACKWARD_SHAPES = K3_SHAPES + ((8, 60, 80, "refiner3"),)
-BACKWARD_KEYS = (tuple(f"k2_backward_ms_n{n}" for n in (1, 8))
-                 + tuple(f"k3_backward_ms_{n}x{h}x{w}" for n, h, w, _ in K3_BACKWARD_SHAPES))
 
 
 def smi() -> str:
@@ -171,8 +177,78 @@ def measure(tree: str) -> dict:
     return result
 
 
-def measure_backward(tree: str) -> dict:
-    """One checkout's backward times (``--backward``), imported from ``tree``."""
+def chip_smoke_module():
+    """This script's checkout's ``chip_smoke.py`` as a module; its package imports come
+    from the tree first on ``sys.path``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def k1_other_calls(smoke, dev, g):
+    """K1's backward at the shapes the records time beside a two-view step's calls, in
+    ``smoke.k1_step_calls``' form with no calls a step: the losses' (8, 480, 640, 3) with
+    both gradients (chip_smoke's phase 3b leaves) and the (1, 480, 640, 3) min-idepth
+    warp's homography grid, with both."""
+    import torch
+
+    from multi_view_stereonet_tpu_torch.geometry import (
+        build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
+        normalize_baseline)
+    from multi_view_stereonet_tpu_torch.ops import homography_grid
+    from multi_view_stereonet_tpu_torch.train.pipeline import pyramid_sizes
+
+    H0, W0, B = smoke.H0, smoke.W0, smoke.TRAIN_B
+    K, T = smoke.scene(1, 1)
+    T, _ = normalize_baseline(T)
+    K_pyr = build_K_pyramid(K, pyramid_sizes(H0, W0, smoke.NUM_LEVELS))
+    samples = create_idepth_samples(T, K_pyr[4], 30, 40, smoke.D)
+    warp_grid = homography_grid(create_plane_sweep_homographies(T, K_pyr[0],
+                                                                samples[:, :1])[:, 0], H0, W0)
+    return [{"label": f"({B},{H0},{W0},3) losses, both gradients",
+             "image": (torch.rand(B, H0, W0, 3, generator=g) * 2 - 1).to(dev),
+             "grid": smoke.loss_grid(B, dev, g), "needs": (True, True), "calls": 0},
+            {"label": f"(1,{H0},{W0},3) min-idepth warp, both gradients",
+             "image": (torch.rand(1, H0, W0, 3, generator=g) * 2 - 1).to(dev),
+             "grid": warp_grid, "needs": (True, True), "calls": 0}]
+
+
+def measure_k1_backward(smoke, dev) -> dict:
+    """K1's backward through its Function and ``F.grid_sample``'s autograd, at each call of
+    ``smoke.k1_step_calls`` and ``k1_other_calls``, timed by ``smoke.backward_graph_ms``;
+    and each one's sum over a step's calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from multi_view_stereonet_tpu_torch.ops.cuda import warp
+
+    g = torch.Generator().manual_seed(5)
+    result = {"k1_step_ms": 0.0, "k1_library_step_ms": 0.0}
+    for c in smoke.k1_step_calls(dev, g) + k1_other_calls(smoke, dev, g):
+        image = c["image"].requires_grad_(c["needs"][0])
+        grid = c["grid"].requires_grad_(c["needs"][1])
+        leaves = [t for t, need in zip((image, grid), c["needs"]) if need]
+        x = c["image"].detach().permute(0, 3, 1, 2).contiguous().requires_grad_(c["needs"][0])
+        grid4 = c["grid"].detach().clone().requires_grad_(c["needs"][1])
+        lib_leaves = [t for t, need in zip((x, grid4), c["needs"]) if need]
+        ms = smoke.backward_graph_ms(lambda: warp.grid_sample(image, grid)[0], leaves)
+        lib = smoke.backward_graph_ms(lambda: F.grid_sample(
+            x, grid4, mode="bilinear", padding_mode="border", align_corners=False),
+            lib_leaves)
+        result[f"k1_backward_ms {c['label']}"] = ms
+        result[f"k1_library_ms {c['label']}"] = lib
+        result["k1_step_ms"] += c["calls"] * ms
+        result["k1_library_step_ms"] += c["calls"] * lib
+    return result
+
+
+def measure_backward(tree: str, k1_only: bool = False) -> dict:
+    """One checkout's backward times (``--backward``), imported from ``tree``; each
+    backward timed by ``chip_smoke.backward_graph_ms`` (of this script's checkout)."""
     sys.path.insert(0, tree)
     import torch
 
@@ -185,38 +261,13 @@ def measure_backward(tree: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     g = torch.Generator().manual_seed(2)
-    stream = torch.cuda.Stream(dev)
-
-    def backward_ms(forward, inputs, reps=20):
-        """One backward's device time: the forward once on ``stream``, then ``reps``
-        backwards (``torch.autograd.grad``) captured in a CUDA graph on that stream."""
-        with torch.cuda.stream(stream):
-            out = forward()
-            cot = torch.randn(out.shape, generator=g).to(dev)
-
-            def call():
-                return torch.autograd.grad(out, inputs, cot, retain_graph=True)
-            for _ in range(3):
-                call()
-        stream.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            for _ in range(reps):
-                call()
-        graph.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(7):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / reps)
-        return statistics.median(times)
+    smoke = chip_smoke_module()
+    backward_ms = smoke.backward_graph_ms
 
     result = {"tree": tree}
+    result.update(measure_k1_backward(smoke, dev))
+    if k1_only:
+        return result
     prefix = "right_feature_extractor.refiner."
     refiner = FeatureRefiner(32)
     refiner.load_state_dict({k[len(prefix):]: v for k, v in random_state_dict(3).items()
@@ -246,8 +297,9 @@ def measure_backward(tree: str) -> dict:
     return result
 
 
-def measure_train_step(tree: str) -> dict:
-    """One checkout's train-step numbers (``--train-step``), imported from ``tree``."""
+def measure_train_step(tree: str, two_view: bool = False) -> dict:
+    """One checkout's train-step numbers (``--train-step``), imported from ``tree``; with
+    ``two_view`` the two-view recipe's (``--two-view``)."""
     sys.path.insert(0, tree)
     import tempfile
 
@@ -267,6 +319,8 @@ def measure_train_step(tree: str) -> dict:
     dev = torch.device("cuda", 0)
     cfg = load_params_yaml(None)
     cfg.update({"num_workers": 0, "debug_image_freq": 0, "plot_freq": 0})
+    if two_view:
+        cfg.update({"estimate_right_idepthmap": True, **chip_smoke.TWO_VIEW_FACTORS})
     with tempfile.TemporaryDirectory() as tmp:
         data_dir, split = chip_smoke.synthetic_data().make_gta_sfm_tree(
             os.path.join(tmp, "tree"), num_sequences=1, frames=cfg["batch_size"] + 1,
@@ -276,11 +330,14 @@ def measure_train_step(tree: str) -> dict:
         batch = collate([dataset[i] for i in range(cfg["batch_size"])])
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
              if not k.endswith("filenames")}
+    if two_view:
+        batch = train_cli.two_view_batch(batch)
     model = MultiViewStereoNet()
     model.load_state_dict(random_state_dict(0))
     model = model.to(dev)
     config, loss_config, _, step = train_cli.build_train_step(cfg, 12, model, "auto")
-    loss, _ = make_loss_fn(config, loss_config, impl="auto")(model, batch)
+    loss, _ = make_loss_fn(config, loss_config, multi_view=not two_view,
+                           estimate_right_idepthmap=two_view, impl="auto")(model, batch)
     loss.backward()
     grad_file = os.path.join(tree, "_train_step_grads.pt")
     torch.save({k: p.grad.detach().cpu() for k, p in model.named_parameters()}, grad_file)
@@ -362,13 +419,18 @@ def main():
     parser.add_argument("--train-step", action="store_true",
                         help="time the recipe's train step instead (see above)")
     parser.add_argument("--backward", action="store_true",
-                        help="time K2's and K3's backwards instead (see above)")
+                        help="time K1's, K2's and K3's backwards instead (see above)")
+    parser.add_argument("--two-view", action="store_true",
+                        help="with --train-step, the two-view recipe's step (phase 8's)")
+    parser.add_argument("--k1-only", action="store_true",
+                        help="with --backward, time K1's backward alone")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
-        run = (measure_train_step if args.train_step else measure_backward if args.backward
-               else measure)
-        print(json.dumps(run(os.path.abspath(args.child))), flush=True)
+        tree = os.path.abspath(args.child)
+        run = (measure_train_step(tree, args.two_view) if args.train_step
+               else measure_backward(tree, args.k1_only) if args.backward else measure(tree))
+        print(json.dumps(run), flush=True)
         return
 
     trees = {"parent": os.path.abspath(args.parent), "change": os.path.abspath(args.change)}
@@ -378,12 +440,15 @@ def main():
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), args.parent,
                                args.change, "--child", trees[label]]
                               + ["--train-step"] * args.train_step
-                              + ["--backward"] * args.backward, capture_output=True,
+                              + ["--backward"] * args.backward
+                              + ["--k1-only"] * args.k1_only
+                              + ["--two-view"] * args.two_view, capture_output=True,
                               text=True, check=True, cwd=trees[label])
         run = {"label": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
         runs.append(run)
         if args.backward:
-            print(f"{label}: " + ", ".join(f"{key} {run[key]:.4f}" for key in BACKWARD_KEYS),
+            keys = [key for key in run if key not in ("label", "tree")]
+            print(f"{label}: " + ", ".join(f"{key} {run[key]:.4f}" for key in keys),
                   flush=True)
         if args.train_step or args.backward:
             continue
@@ -394,7 +459,7 @@ def main():
     if args.backward:
         card = smi()
         medians = {label: {key: statistics.median(r[key] for r in runs if r["label"] == label)
-                           for key in BACKWARD_KEYS} for label in trees}
+                           for key in keys} for label in trees}
         print(f"medians ({card}): {json.dumps(medians)}", flush=True)
         if args.out:
             with open(args.out, "w") as f:

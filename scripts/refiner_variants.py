@@ -2,11 +2,12 @@
 """Time edited copies of a kernel of the port against the kernel as it stands, in one
 process.
 
-    python scripts/refiner_variants.py [--kernel k3|k3_backward|k2_backward]
+    python scripts/refiner_variants.py [--kernel k3|k3_backward|k2_backward|k1_backward]
         [--tree DIR] [--rounds 2] [--ptxas] [--out FILE]
 
 Builds the kernel's source (``csrc/idepthmap_refiner.cu`` for K3 and its backward,
-``csrc/incremental_chain.cu`` for K2's backward) of the checkout ``--tree`` (this one
+``csrc/incremental_chain.cu`` for K2's backward, ``csrc/warp.cu`` for K1's backward) of
+the checkout ``--tree`` (this one
 by default; ``git archive`` of another commit unpacked under ``_checkout/`` times that
 commit's design) as it stands and each variant below (the same source with a few text
 edits), all with the package's nvcc flags, each by its own nvcc at once, then times
@@ -19,6 +20,12 @@ shipped one:
 - ``k2_backward``: the backward (``incremental_chain.incremental_chain_backward``, with
   what its wrapper adds) at N = 1 and 8, 30x40x32, D = 12, and the one-launch design's
   wrapper-side slot sum (``partial.sum(0)``) alone where that wrapper has one;
+- ``k1_backward``: the backward (``warp.grid_sample_backward``, with what its wrapper
+  adds) at each of a two-view step's calls (``chip_smoke.k1_step_calls``: C = 1 at the
+  five levels with both gradients, C = 3 at 480x640 with the grid's only) and at
+  ``compare_torch_trees.k1_other_calls``' shapes, each with its ``needs``; the sum of a
+  step's 20 calls; and the zero fill of the image's gradient alone (``torch.zeros_like``,
+  what the first design's wrapper launches before the kernel);
 
 the device time of one call, 20 calls replayed from a CUDA graph, median of 7, in the
 order shipped, variants, variants reversed, shipped (``--rounds`` times), and prints the
@@ -182,9 +189,34 @@ K2_BACKWARD = {
         "constexpr int WGRAD_MIN_BLOCKS = 2;", "constexpr int WGRAD_MIN_BLOCKS = 1;", 1)]),
 }
 
+# K1's backward. The first design (a thread a sample): every nonzero tap of the image's
+# gradient is one scalar f32 atomic to device memory, the grid is read and its gradient
+# written as two scalars each, and the wrapper zero-fills the image's gradient first. The
+# second: a warp's border-clamped samples with the same taps summed by their first lane,
+# the grid and its gradient as 8 bytes, the entry zeroing the gradient by cudaMemsetAsync.
+K1_BACKWARD = {
+    # Both designs: every f32 atomic to device memory (``add_tap``).
+    "no image-gradient atomics": ("knockout", [(
+        "  if (v != 0.0f) atomicAdd(p, v);", "  if (v != 0.0f && p == nullptr) atomicAdd(p, v);",
+        1)]),
+    # The first design.
+    "no grid-gradient tap reads and arithmetic": ("knockout", [(
+        "    if (dgrid != nullptr) {\n      float a[CC], b[CC], c[CC], e[CC];",
+        "    if (dgrid == (float*)16) {\n      float a[CC], b[CC], c[CC], e[CC];", 1)]),
+    # The second design.
+    "no warp sums of clamped samples": ("lever", [(
+        "    if (__any_sync(0xffffffffu, u.clamped)) {", "    if (false) {", 1)]),
+    "no zeroing (cudaMemsetAsync)": ("knockout", [(
+        "  if (dimage != nullptr) {\n    const cudaError_t err = cudaMemsetAsync(",
+        "  if (dimage == (float*)16) {\n    const cudaError_t err = cudaMemsetAsync(", 1)]),
+    "no grid gradient (tap reads, arithmetic, writes)": ("knockout", [(
+        "    if (dgrid != nullptr && u.on) {", "    if (dgrid == (float*)16 && u.on) {", 1)]),
+}
+
 KERNELS = {"k3": ("idepthmap_refiner", FORWARD),
            "k3_backward": ("idepthmap_refiner", K3_BACKWARD),
-           "k2_backward": ("incremental_chain", K2_BACKWARD)}
+           "k2_backward": ("incremental_chain", K2_BACKWARD),
+           "k1_backward": ("warp", K1_BACKWARD)}
 
 
 def smi() -> str:
@@ -279,8 +311,9 @@ def graph_ms(call, reps=20):
 
 
 def k3_cases(dev, backward: bool) -> list:
-    """(label, call, check) a shape: the forward's call and its plain version's output, or
-    the backward's call on what one forward with ``keep`` (the shipped library's) saved."""
+    """(label, call, check) a shape: the forward's call and a check of its output against
+    its plain version's, or the backward's call on what one forward with ``keep`` (the
+    shipped library's) saved and no check."""
     import torch
 
     from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
@@ -302,7 +335,9 @@ def k3_cases(dev, backward: bool) -> list:
             with torch.inference_mode():
                 ref = refiner_op.idepthmap_refiner(module, guidance, idepth, impl="plain")
             cases.append((label, lambda m=module, gu=guidance, i=idepth:
-                          refiner_op.idepthmap_refiner_kernel(m, gu, i), ref))
+                          refiner_op.idepthmap_refiner_kernel(m, gu, i),
+                          lambda got, ref=ref: torch.allclose(
+                              got, ref, atol=2e-5 * ref.abs().max().item(), rtol=2e-4)))
             continue
         grad = torch.randn(n, h, w, generator=g).to(dev)
         dil = refiner_op._dilations(module)
@@ -350,6 +385,53 @@ def k2_cases(dev) -> list:
     return cases
 
 
+def k1_calls(dev) -> list:
+    """``chip_smoke.k1_step_calls`` (``chip_smoke.py`` of this script's checkout, its
+    package imports from ``--tree``) and ``compare_torch_trees.k1_other_calls``, each with
+    an output gradient from a seed."""
+    import torch
+
+    from compare_torch_trees import chip_smoke_module, k1_other_calls
+
+    smoke = chip_smoke_module()
+    g = torch.Generator().manual_seed(3)
+    calls = smoke.k1_step_calls(dev, g) + k1_other_calls(smoke, dev, g)
+    for c in calls:
+        c["cot"] = torch.randn(c["grid"].shape[:-1] + c["image"].shape[-1:],
+                               generator=g).to(dev)
+    return calls
+
+
+def k1_cases(calls) -> list:
+    """(label, call, check) a call of ``k1_calls``: the backward, and a check of both
+    gradients against its plain version's within 1e-4 of max|plain| (``chip_smoke.py``
+    phase 3b's bar; NaN where it has NaN). Both sum a border corner's thousands of taps at
+    these grids, each in its own order: two sequential orders part there by 4.4e-6 of
+    max on the CPU, and the card's atomics add the order of a run."""
+    import torch
+
+    from multi_view_stereonet_tpu_torch.ops.cuda import warp
+
+    def check(got, ref):
+        for a, r in zip(got, ref):
+            if (a is None) != (r is None):
+                return False
+            if r is not None:
+                keep = ~torch.isnan(r)
+                if not (torch.equal(torch.isnan(a), torch.isnan(r)) and
+                        (a[keep] - r[keep]).abs().max() <= 1e-4 * r[keep].abs().max()):
+                    return False
+        return True
+
+    cases = []
+    for c in calls:
+        args = (c["image"], c["grid"], c["cot"], False, c["needs"])
+        ref = warp.grid_sample_backward_plain(*args)
+        cases.append((c["label"], lambda a=args: warp.grid_sample_backward(*a),
+                      lambda got, ref=ref: check(got, ref)))
+    return cases
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=tuple(KERNELS), default="k3")
@@ -382,7 +464,10 @@ def main():
         paths, skipped = build_all(tree, source, variants, tmp, args.ptxas)
         names = [v for v in variants if v in paths]
         use(paths["shipped"])
-        if args.kernel == "k2_backward":
+        if args.kernel == "k1_backward":
+            calls = k1_calls(dev)
+            cases = k1_cases(calls)
+        elif args.kernel == "k2_backward":
             cases = k2_cases(dev)
         else:
             cases = k3_cases(dev, args.kernel == "k3_backward")
@@ -390,12 +475,11 @@ def main():
         times = {(v, c[0]): [] for v in paths for c in cases}
         for v in order:
             use(paths[v])
-            for label, call, ref in cases:
-                with torch.inference_mode(ref is not None):
+            for label, call, check in cases:
+                with torch.inference_mode(check is not None):
                     got = call()
-                    if ref is not None and (v == "shipped" or variants[v][0] == "lever"):
-                        if not torch.allclose(got, ref, atol=2e-5 * ref.abs().max().item(),
-                                              rtol=2e-4):
+                    if check is not None and (v == "shipped" or variants[v][0] == "lever"):
+                        if not check(got):
                             raise SystemExit(f"{v} at {label} disagrees with the plain "
                                              "version")
                     times[(v, label)].append(graph_ms(call))
@@ -412,6 +496,13 @@ def main():
                                       device=dev)
                 row[f"N={n}"] = graph_ms(lambda p=partial: p.sum(0))
             medians["the wrapper's slot sum alone"] = row
+    if args.kernel == "k1_backward":
+        for v in paths:
+            medians[v]["a two-view step's 20 calls"] = sum(
+                c["calls"] * medians[v][c["label"]] for c in calls)
+        medians["the zero fill alone (torch.zeros_like)"] = {
+            c["label"]: graph_ms(lambda im=c["image"]: torch.zeros_like(im))
+            for c in calls if c["needs"][0]}
     for v, row in medians.items():
         kind = ("shipped" if v == "shipped" else variants[v][0] if v in variants
                 else "part")

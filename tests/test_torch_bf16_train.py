@@ -18,12 +18,13 @@ JAX's bf16 gradient lies 0.32-0.46 of the leaf's max from its f32 gradient (cosi
 (K4's ``xbias``, as XLA's CPU compiler computes the JAX layers' unrounded ``conv +
 b``), while the JAX layer adds them at bf16 (``models/layers.py:57``) and so sums a
 bf16 cotangent in the backward. So the port is held to the exact gradient at JAX's
-own bf16 distance from it, not to JAX's bf16 noise. The exact gradient is JAX's f32
-gradient for the multi-view recipe; for the two-view recipe it is the port's f32
-gradient, which ``tests/test_torch_train.py::test_two_view_gradients_match_jax`` holds
-to JAX's on the first pair below (measured 4.3e-7 flat relative L2; 4.2e-7 to 1.2e-5 on
-the others), and which spares a ~30 s JAX compile. Bars, each with the value measured
-on these inputs:
+own bf16 distance from it, not to JAX's bf16 noise. The exact gradient is the port's
+f32 gradient, which ``tests/test_torch_train.py`` holds to JAX's f32 gradient on the
+same inputs: ``test_gradients_match_jax[2-2-4-20]`` for the multi-view recipe (measured
+5.7e-7 flat relative L2; with JAX's f32 gradient as the exact one the bars below read the
+same to five digits) and ``test_two_view_gradients_match_jax`` on the first two-view pair
+below (4.3e-7; 4.2e-7 to 1.2e-5 on the others). It spares a JAX f32 compile a recipe
+(~30 s for the two-view one). Bars, each with the value measured on these inputs:
 
 - the loss within 5e-3 relative of JAX's bf16 loss (measured 4.5e-4; two-view
   1.5e-3 to 1.8e-3);
@@ -160,13 +161,14 @@ def check_bf16(port, jax16, exact, port32, exact_ratio=EXACT_RATIO,
 @pytest.mark.parametrize("B,V,D,seed", [(2, 2, 4, 20)])
 def test_bf16_gradients_match_jax(B, V, D, seed):
     """The multi-view recipe; V = 1 and D = 9 at bf16 run in
-    tests/test_torch_model_fuzz.py's forward sweep."""
+    tests/test_torch_model_fuzz.py's forward sweep. The exact gradient is the port's f32
+    gradient, which ``tests/test_torch_train.py::test_gradients_match_jax[2-2-4-20]``
+    holds to JAX's on these inputs."""
     model, params = weights(seed)
     batch = make_batch(B, V, seed)
+    port32 = port_grads(model, batch, "float32", D)
     check_bf16(port_grads(model, batch, "bfloat16", D),
-               jax_grads(params, batch, "bfloat16", D),
-               jax_grads(params, batch, "float32", D),
-               port_grads(model, batch, "float32", D))
+               jax_grads(params, batch, "bfloat16", D), port32, port32)
 
 
 def check_two_view(weights_seed, pair_seed, *bars):

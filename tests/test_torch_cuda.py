@@ -49,7 +49,7 @@ import yaml
 from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
 from multi_view_stereonet_tpu_torch.geometry import (
     build_K_pyramid, create_idepth_samples, create_plane_sweep_homographies,
-    incremental_homographies, normalize_baseline)
+    incremental_homographies, normalize_baseline, project_idepthmap)
 from multi_view_stereonet_tpu_torch.models import (
     CostVolumeFilter, FeatureRefiner, IDepthmapRefiner, MultiViewStereoNet,
     MultiViewStereoNetConfig, mvsnet_forward)
@@ -168,27 +168,52 @@ def test_grid_sample_kernel_carries_nan_coordinates(dev, C, zero_invalid):
     assert torch.equal(torch.nan_to_num(got, nan=7.0), torch.nan_to_num(ref, nan=7.0))
 
 
-# K1's backward kernel: a small map with ties and NaN, the losses' shapes, C = 1, 3 and
-# 32 (the runtime channel loop).
-@pytest.mark.parametrize("image_shape,grid_shape", [((2, 16, 32, 3), (2, 7, 9, 2)),
-                                                    ((2, 30, 40, 1), (2, 30, 40, 2)),
-                                                    ((2, 120, 160, 3), (2, 120, 160, 2)),
-                                                    ((1, 8, 8, 32), (1, 5, 6, 2))])
+def loss_like_grid(n, rows, cols, seed, straddle=False):
+    """A grid like the two-view losses' (``chip_smoke.py`` ``loss_grid``): a tilted-plane
+    idepth map per sample (0.1-0.5 at a unit baseline) projected into the right camera by
+    ``project_idepthmap``; a share falls past the left border. ``straddle`` pushes every
+    8th sample from column 288 on of every 7th row past the left border as well, so that
+    a warp's samples mix clamped ones, summed by their first lane, with unclamped ones
+    whose taps land on the same border pixels."""
+    K, T = scene(n, rows, cols, seed)
+    rng = np.random.default_rng(seed)
+    a, b, c = rng.uniform(0, 0.2, size=(3, n, 1, 1)).astype(np.float32)
+    y = np.linspace(0, 1, rows, dtype=np.float32)[:, None]
+    x = np.linspace(0, 1, cols, dtype=np.float32)[None, :]
+    grid = project_idepthmap(K, T, torch.from_numpy(0.1 + a + b * x + c * y))[0]
+    if straddle:
+        grid[:, 3::7, 288::8, 0] -= 3.0
+    return grid
+
+
+# K1's backward kernel: a small map with ties and NaN, random grids (few clamped samples
+# of a warp share their taps), C = 1, 3 and 32 (the runtime channel loop); and loss-like
+# grids at C = 1 and 3 (whole warps of clamped samples summed by their first lanes), also
+# straddling the border (such sums and single taps at the same pixels), with a tie and NaN.
+@pytest.mark.parametrize("image_shape,grid_shape,kind", [
+    ((2, 16, 32, 3), (2, 7, 9, 2), "random"), ((2, 30, 40, 1), (2, 30, 40, 2), "random"),
+    ((2, 120, 160, 3), (2, 120, 160, 2), "random"), ((1, 8, 8, 32), (1, 5, 6, 2), "random"),
+    ((2, 48, 64, 1), (2, 48, 64, 2), "smooth"), ((2, 48, 64, 3), (2, 48, 64, 2), "smooth"),
+    ((2, 32, 480, 1), (2, 32, 480, 2), "straddle"),
+    ((2, 32, 480, 3), (2, 32, 480, 2), "straddle")])
 @pytest.mark.parametrize("zero_invalid", [False, True])
 def test_grid_sample_backward_kernel_matches_its_closed_form(dev, image_shape, grid_shape,
-                                                             zero_invalid):
+                                                             kind, zero_invalid):
     """K1's backward kernel against ``grid_sample_backward_plain`` (closed form) on the same
     inputs, at an f32 and a bf16 output gradient: both gradients within 1e-5 of
-    max|plain| (the image's four taps added with atomics, in another order), NaN where it
-    has NaN, one backward launch a call and none of the forward; each gradient alone when
-    only one is asked for; a refused shape raises."""
+    max|plain| (the image's taps summed in a warp and added with atomics, in another
+    order), NaN where it has NaN, one backward launch a call and none of the forward; each
+    gradient alone when only one is asked for; a refused shape raises."""
     g = torch.Generator().manual_seed(image_shape[1])
     B, H, W, C = image_shape
     image = (torch.rand(image_shape, generator=g) * 2 - 1).to(dev)
-    grid = torch.rand(grid_shape, generator=g) * 2.4 - 1.2
+    if kind == "random":
+        grid = torch.rand(grid_shape, generator=g) * 2.4 - 1.2
+    else:
+        grid = loss_like_grid(B, H, W, H, straddle=kind == "straddle")
     grid[0, 0, 0] = torch.tensor([-1 + 1 / W, 0.1])  # a tie at ix = 0
     grid[0, 0, 1] = torch.tensor([0.3, 1 - 1 / H])  # and at iy = H - 1
-    if grid_shape[1] < 30:
+    if grid_shape[1] < 30 or kind != "random":
         grid[-1, -1, -1] = torch.tensor([float("nan"), 0.2])
     grid = grid.to(dev)
     for dtype in (torch.float32, torch.bfloat16):

@@ -29,22 +29,28 @@ version (``idepthmap_refiner_saved_plain``) and held against:
   and the two forwards' outputs, within 1e-3 each, every flip at |z| below 1e-3;
 - its bf16 form (the refiner as the bf16 kernel rounds it, its gradients f32 but the
   guidance's) against ``jax.vjp`` of ``models/s2d.py`` ``idepthmap_refiner_s2d`` at bf16
-  (the function the JAX ``_fused_bwd`` differentiates). The port's plain autograd at bf16
-  is held to BF16_JAX_BAR, 0.11 of max|JAX|. The closed form is held to that bar or to
-  BF16_PLAIN_RATIO times plain autograd's own gap at the same inputs, whichever is larger.
-  At these sizes two bf16 gradients of the refiner part by discrete effects: a GroupNorm
-  value next to LeakyReLU's kink, or an output next to ReLU's, takes the other branch in
-  the other forward, and a weight gradient of 60-96 pixels moves by a tenth of its max.
-  Over seventeen draws of these inputs at both shapes (read on the CPU) the closed form
-  lies 0.06-0.93 of max from JAX's bf16 VJP, plain autograd 0.06-0.93, and JAX's own bf16
-  VJP 0.08-1.54 from its f32 VJP. The closed form's gap over plain autograd's has median
-  1.0 and reaches 2.21. Rounding the closed form's T_l or its gradients where plain
-  autograd rounds them does not bring it nearer (0.191 and 0.099 at 8 x 12, 0.132 and
-  0.121 at 6 x 10, against 0.100 and 0.121). So the sharp bf16 check is the leg: the
-  closed form against autograd through its own bf16 forward (``saved_forward``) within
-  BF16_LEG_BAR, where autograd rounds to bf16 each gradient that crosses a bf16 value and
-  the closed form keeps it f32 (0.007-0.022 over those draws). The bf16 form must also lie
-  farther than 1e-3 from the f32 gradient: it differentiates the bf16 forward.
+  (the function the JAX ``_fused_bwd`` differentiates), on each of BF16_DRAWS draws a
+  shape. At these sizes two bf16 gradients of the refiner part by discrete effects: a
+  GroupNorm value next to LeakyReLU's kink, or an output next to ReLU's, takes the other
+  branch in the other forward, and a weight gradient of 60-96 pixels moves by another
+  amount on every draw. JAX's own bf16 VJP lies 0.2-24% from its f32 VJP (``jax_refiner``)
+  by leaf and draw, in relative L2 (``leaf_gaps``: |a - r|_2 / |r|_2; a leaf's max
+  element swings further, to 49% of its max). So no fixed fraction bounds them on every
+  draw, and each leaf is held to JAX's own bf16 error on that draw: its bf16 VJP's relative
+  L2 distance from its f32 VJP, at least BF16_FLOOR (1.5 bf16 roundings). The closed form
+  lies within BF16_SPREAD_BAR times that of JAX's bf16 VJP, plain autograd at bf16 within
+  BF16_PLAIN_BAR times. Over draws 0-19 at each shape (read on the CPU) the closed form
+  reached 2.26 times JAX's error at 8 x 12 and 3.01 at 6 x 10, plain autograd 1.75 and
+  3.67. The bar fails two planted faults on every draw: conv_final's weight gradient
+  scaled by 1.1 (the tightest leaf: JAX's bf16 error there at most 1.1%), and the sign of
+  the leaf where JAX's bf16 error is widest flipped, each at least 8.19 times JAX's gap
+  over those draws. A 10% error in that widest leaf is
+  inside the bar, as it is inside JAX's own bf16 error there. The sharp bf16 check stays the
+  leg: the closed form against autograd through its own bf16 forward (``saved_forward``)
+  within BF16_LEG_BAR of max, where autograd rounds to bf16 each gradient that crosses a
+  bf16 value and the closed form keeps it f32 (0.007-0.022 over seventeen draws). The bf16
+  form must also lie farther than 1e-3 from the f32 gradient: it differentiates the bf16
+  forward.
 
 The closed form is the plain versions of the backward's two launches composed: its
 sequential part (``idepthmap_refiner_sequential_plain``: the input gradients, each conv's
@@ -57,6 +63,8 @@ N = 2, 35 guidance channels at 8 x 12 and 6 x 10, refiner 4's fan-in-scale weigh
 made from a seed with numpy.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -65,7 +73,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
-from multi_view_stereonet_tpu.checkpoint import convert_reference_state_dict
+from multi_view_stereonet_tpu.checkpoint import torchscript as jax_torchscript
 from multi_view_stereonet_tpu.models.refiners import idepthmap_refiner as jax_refiner
 from multi_view_stereonet_tpu.models.s2d import idepthmap_refiner_s2d
 from multi_view_stereonet_tpu_torch.checkpoint import convert, random_state_dict
@@ -77,21 +85,37 @@ from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 AUTOGRAD_BAR = 1e-5
 JAX_BAR = 1e-4
 TF32_BAR = 1e-3
-# The bf16 gradients against jax.vjp at bf16, of max|JAX|: plain autograd within
-# BF16_JAX_BAR; the closed form within that or BF16_PLAIN_RATIO times plain autograd's gap.
-BF16_JAX_BAR = 0.11
-BF16_PLAIN_RATIO = 2.25
+# The bf16 gradients against jax.vjp at bf16, leaf by leaf on each draw in relative L2:
+# the closed form within BF16_SPREAD_BAR, plain autograd within BF16_PLAIN_BAR times JAX's
+# own bf16-to-f32 gap, at least BF16_FLOOR.
+BF16_SPREAD_BAR = 4.0
+BF16_PLAIN_BAR = 5.0
+BF16_FLOOR = 3e-3
+BF16_DRAWS = tuple(range(6, 11))
 BF16_LEG_BAR = 5e-2
 SPLIT_BAR = 1e-6
 SHAPES = [(8, 12), (6, 10)]
 NAME = "refiner4"
 
 
+def jax_refiner_params(sd):
+    """Refiner NAME's JAX params from a state dict in the reference's names, as the JAX
+    converter (``checkpoint/torchscript.py`` ``convert_reference_state_dict``) builds each
+    refiner's, with its helpers; only this refiner's arrays are placed on the device."""
+    sd = {k: v.numpy() for k, v in sd.items() if k.startswith(NAME + ".")}
+    params = {"conv0": jax_torchscript._conv(sd, f"{NAME}.conv0"),
+              "gn0": jax_torchscript._gn(sd, f"{NAME}.bn0"),
+              "conv_final": jax_torchscript._conv(sd, f"{NAME}.conv_final")}
+    params.update({f"res{i}": jax_torchscript._res(sd, f"{NAME}.res{i}")
+                   for i in range(refiner_op.NUM_RES)})
+    return jax.tree.map(lambda a: jnp.asarray(np.asarray(a)), params)
+
+
 def case(h, w, seed):
     """The refiner, its JAX params, guidance (N, 35, h, w), idepth and the output's
     gradient (N, h, w), as torch tensors."""
     sd = random_state_dict(seed)
-    jparams = convert_reference_state_dict({k: v.numpy() for k, v in sd.items()})[NAME]
+    jparams = jax_refiner_params(sd)
     refiner = IDepthmapRefiner(35)
     refiner.load_state_dict({k[len(NAME) + 1:]: v for k, v in sd.items()
                              if k.startswith(NAME + ".")})
@@ -139,17 +163,24 @@ def assert_within(got, ref, bar, names):
     assert err <= bar, (names[at], err)
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted_vjp(fn, dtype):
+    """The jitted VJP of ``fn`` at ``dtype``, one a function and dtype, so that every draw
+    and test of a shape reuses one compile."""
+    def run(p, g, i, c):
+        _, vjp = jax.vjp(lambda p, g, i: fn(p, g, i, compute_dtype=dtype), p, g, i)
+        return vjp(c)
+    return jax.jit(run)
+
+
 def jax_vjp(fn, jparams, refiner, guidance, idepth, cot, dtype=jnp.float32):
     """``jax.vjp`` of ``fn`` (NHWC guidance at ``dtype``, f32 idepth), the weights'
     gradients carried to the port's layout by its converter; f32 tensors in ``names``'
     order."""
-    def run(p, g, i, c):
-        _, vjp = jax.vjp(lambda p, g, i: fn(p, g, i, compute_dtype=dtype), p, g, i)
-        return vjp(c)
     g = jnp.asarray(guidance.numpy().transpose(0, 2, 3, 1)).astype(dtype)
     with jax.default_matmul_precision("highest"):
-        d_params, d_g, d_i = jax.jit(run)(jparams, g, jnp.asarray(idepth.numpy()),
-                                          jnp.asarray(cot.numpy()))
+        d_params, d_g, d_i = _jitted_vjp(fn, dtype)(jparams, g, jnp.asarray(idepth.numpy()),
+                                                    jnp.asarray(cot.numpy()))
     sd = {}
     convert._conv(sd, "conv0", d_params["conv0"])
     convert._gn(sd, "bn0", d_params["gn0"])
@@ -234,28 +265,47 @@ def test_tf32_closed_form_matches_autograd_through_the_rounding_plain(h, w, monk
     assert worst(got, exact)[0] > AUTOGRAD_BAR
 
 
+def leaf_gaps(got, ref):
+    """Each leaf's relative L2 distance, |got - ref|_2 / |ref|_2."""
+    return np.array([((a.float() - r.float()).norm() / r.float().norm()).item()
+                     for a, r in zip(got, ref)])
+
+
+@pytest.mark.parametrize("seed", BF16_DRAWS)
 @pytest.mark.parametrize("h,w", SHAPES)
-def test_bf16_closed_form_matches_jax_vjp_at_bf16(h, w):
-    """The bf16 form against ``jax.vjp`` of ``idepthmap_refiner_s2d`` at bf16: plain
-    autograd at bf16 within BF16_JAX_BAR of max|JAX|, the closed form within that or
-    BF16_PLAIN_RATIO times plain autograd's gap; the closed form against autograd through
-    its own bf16 forward within BF16_LEG_BAR; the guidance's gradient at bf16, the rest
-    f32; off the f32 gradient by more than 1e-3."""
-    refiner, jparams, (guidance, idepth, cot) = case(h, w, seed=6)
+def test_bf16_closed_form_matches_jax_vjp_at_bf16(h, w, seed):
+    """On a draw, the bf16 form against ``jax.vjp`` of ``idepthmap_refiner_s2d`` at bf16,
+    leaf by leaf in relative L2: the closed form within BF16_SPREAD_BAR and plain autograd
+    at bf16 within BF16_PLAIN_BAR times JAX's own bf16 VJP's distance from its f32 VJP
+    (at least BF16_FLOOR); the closed form with conv_final's weight gradient 10% off, or
+    with the sign of the leaf where JAX's gap is widest flipped, outside the bar; the
+    guidance's gradient at bf16, the rest f32. On the first draw, the closed form against
+    autograd through its own bf16 forward within BF16_LEG_BAR, and off the f32 gradient by
+    more than 1e-3."""
+    refiner, jparams, (guidance, idepth, cot) = case(h, w, seed=seed)
+    leaves = names(refiner)
     got = flat(closed_form(refiner, guidance, idepth, cot, dtype=torch.bfloat16))
     assert got[0].dtype == torch.bfloat16
     assert all(g.dtype == torch.float32 for g in got[1:])
     ref = jax_vjp(idepthmap_refiner_s2d, jparams, refiner, guidance, idepth, cot, jnp.bfloat16)
+    jax_gap = np.maximum(leaf_gaps(ref, jax_vjp(jax_refiner, jparams, refiner, guidance,
+                                                idepth, cot)), BF16_FLOOR)
     plain = autograd(refiner_op.idepthmap_refiner_plain, refiner, guidance, idepth, cot,
                      torch.bfloat16)
-    assert_within(plain, ref, BF16_JAX_BAR, names(refiner))
-    bar = max(BF16_JAX_BAR, BF16_PLAIN_RATIO * worst(plain, ref)[0])
-    assert_within(got, ref, bar, names(refiner))
-    leaves = [guidance.to(torch.bfloat16).requires_grad_(), idepth.clone().requires_grad_(),
-              *(p.detach().clone().requires_grad_() for p in refiner.parameters())]
-    out = refiner_op.saved_forward(leaves[2:], leaves[0], leaves[1],
-                                   refiner_op._dilations(refiner))[0]
-    assert_within(got, torch.autograd.grad(out, leaves, cot), BF16_LEG_BAR, names(refiner))
+    ratio = leaf_gaps(plain, ref) / jax_gap
+    assert ratio.max() <= BF16_PLAIN_BAR, (leaves[int(np.argmax(ratio))], ratio.max())
+    ratio = leaf_gaps(got, ref) / jax_gap
+    assert ratio.max() <= BF16_SPREAD_BAR, (leaves[int(np.argmax(ratio))], ratio.max())
+    widest = int(np.argmax(jax_gap))
+    for at, scale in ((leaves.index("conv_final.weight"), 1.1), (widest, -1.0)):
+        faulty = [t * scale if k == at else t for k, t in enumerate(got)]
+        assert (leaf_gaps(faulty, ref) / jax_gap)[at] > BF16_SPREAD_BAR, (leaves[at], scale)
+    if seed != BF16_DRAWS[0]:
+        return
+    leg = [guidance.to(torch.bfloat16).requires_grad_(), idepth.clone().requires_grad_(),
+           *(p.detach().clone().requires_grad_() for p in refiner.parameters())]
+    out = refiner_op.saved_forward(leg[2:], leg[0], leg[1], refiner_op._dilations(refiner))[0]
+    assert_within(got, torch.autograd.grad(out, leg, cot), BF16_LEG_BAR, leaves)
     exact = flat(closed_form(refiner, guidance, idepth, cot))
     assert worst(got, exact)[0] > 1e-3
 
