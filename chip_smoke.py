@@ -96,6 +96,11 @@ Phases, each printing its results; any failure raises and exits non-zero:
    ``F.grid_sample``'s autograd for the same gradients (``backward_graph_ms``), and the
    sums a step. K2 comes last, its kernels timed by CUDA events around queued
    calls and its plain versions by torch.profiler, with no CUDA graph (``k2_section``).
+   Phase 3c, the last of the script: K4's backward kernel alone at each shape of a
+   recipe step (``k4_recipe_backward``: RECIPE_GN_SHAPES' shapes, f32 and bf16), against
+   its plain version and bit-equal over two launches, with its route and waves, its
+   device time, its bound, the bytes its route asks of memory, its plain version's and
+   the library's autograd, and the sums over a step's 31 calls.
 7. Training at full width (the reference recipe: B = 8, V = 1, 480x640, D = 12,
    filter and five refiners on, adam 1e-3, augmentation on, 4 loader workers)
    through ``train_cli.train`` over the 96-request tree: 10 steps, validation
@@ -320,8 +325,10 @@ a forward at "high" and in a train step at "high"); K1's entry and its backward 
 entry keeps "shapes" (every phase-3 shape's chunks a row and device times) and
 "recipe_shapes" (the B = 8 shapes' device times at f32 and bf16). The K4 backward kernel
 has an entry of its own ("group_norm_act_backward": launches phase
-7's first ``train`` call's, "step_launches" one step's; its times phase 3b's, "bf16"
-phase 12 (a)'s), and so have K1's and K2's ("grid_sample_backward": launches phase 8's
+7's first ``train`` call's, "step_launches" one step's; its times phase 3b's, "gn_route"
+and "waves" its route at (1,32,480,640), "recipe_shapes" and "recipe_step" phase 3c's times at a
+recipe step's shapes and their sums, "bf16" phase 12 (a)'s), and so have K1's and K2's
+("grid_sample_backward": launches phase 8's
 first ``train`` call's, "step_launches" one two-view step's, "shapes" each phase-3b
 shape's times, "library_ms" ``F.grid_sample``'s backward at (1,480,640,3), "step_calls"
 a two-view step's calls with their "needs", "calls", times, bound and "library_ms", and
@@ -537,15 +544,20 @@ def log(*args):
     print(*args, flush=True)
 
 
-def k4_step_backward_bound() -> tuple:
-    """(launches, ms): K4's backward launches in a recipe step (one a K4 forward launch:
+def k4_step_calls() -> list:
+    """[(shape, calls)]: K4's backward launches in a recipe step, one a K4 forward launch:
     the extractor's six resblocks at N = B + B*V, six resblocks and bn0 for each of
-    refiners 2, 1 and 0, the cost filter's four) and their bound, each launch reading x
-    and the output's gradient and writing x's (the residual's gradient is the output's)
-    at PEAK_BYTES_S."""
-    calls = ([((2 * TRAIN_B, 32, 30, 40), 6)]
-             + [((TRAIN_B, 32, H0 >> lvl, W0 >> lvl), 7) for lvl in (2, 1, 0)]
-             + [((TRAIN_B, 32, D, 30, 40), 4)])
+    refiners 2, 1 and 0, the cost filter's four."""
+    return ([((2 * TRAIN_B, 32, 30, 40), 6)]
+            + [((TRAIN_B, 32, H0 >> lvl, W0 >> lvl), 7) for lvl in (2, 1, 0)]
+            + [((TRAIN_B, 32, D, 30, 40), 4)])
+
+
+def k4_step_backward_bound() -> tuple:
+    """(launches, ms): K4's backward launches in a recipe step (``k4_step_calls``) and
+    their bound at f32, each launch reading x and the output's gradient and writing x's
+    (the residual's gradient is the output's) at PEAK_BYTES_S."""
+    calls = k4_step_calls()
     elements = sum(math.prod(shape) * n for shape, n in calls)
     return sum(n for _, n in calls), 3 * 4 * elements / PEAK_BYTES_S * 1e3
 
@@ -1583,7 +1595,8 @@ def check_backward(dev, dtype=torch.float32):
         b = bound(nbytes(xd, dy, got[0], wd, bd, stats, *got[1:3]), 16 * xd.numel())
         p = gn_apply.plan(shape, 4, dtype, sms, backward=True)
         log(f"K4{tag} backward kernel {label}: against its plain version {err:.3e} of "
-            f"max|plain| (bar {BACKWARD_BAR:.0e}); {p.route}, {p.blocks} blocks; device: "
+            f"max|plain| (bar {BACKWARD_BAR:.0e}); {p.route}, {p.waves} waves of {p.blocks} "
+            f"blocks; device: "
             f"kernel {t['ms']:.4f} ms, plain version {t['plain_ms']:.4f} ms, bound "
             f"{b[0]:.4f} ms ({b[1]})")
         if not err <= BACKWARD_BAR:
@@ -1591,7 +1604,8 @@ def check_backward(dev, dtype=torch.float32):
                                  f"at {label}")
         entry = {"max_rel_err": err, "max_abs_err": abs_err, **t, "bound_ms": b[0],
                  "bound_by": b[1],
-                 "gn_route": p.route, "blocks": p.blocks, "kink_elements": kink}
+                 "gn_route": p.route, "blocks": p.blocks, "waves": p.waves,
+                 "kink_elements": kink}
         old = results.get("K4 kernel")
         if old is None or keep:
             results["K4 kernel"] = {**entry, "max_rel_err": max(
@@ -1603,6 +1617,108 @@ def check_backward(dev, dtype=torch.float32):
     results["K4 kernel"]["library_ms"] = results["K4"]["library_ms"]
     k2_section()
     return results
+
+
+def k4_backward_bytes(shape, dtype, p) -> int:
+    """The bytes K4's backward route ``p`` asks of memory at x of ``shape``: x and dy
+    read once, dx written once, and the part of each slice a block does not hold read
+    twice (L2 may serve that second read)."""
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+
+    size = torch.empty((), dtype=dtype).element_size()
+    again = 0
+    for e0, e1, q in gn_apply.wave_slices(shape, 4, p):
+        for b in range(p.blocks):
+            n = max(0, min(q, e1 - e0 - b * q))
+            again += max(0, n - p.held)
+    return (3 * math.prod(shape) + 2 * again) * size
+
+
+def k4_recipe_backward(dev) -> dict:
+    """Phase 3c: K4's backward kernel alone at each shape of a recipe step
+    (``k4_step_calls``: RECIPE_GN_SHAPES' shapes, the residual aside), f32 and bf16 (the
+    conv's bias as xbias), against its plain version (BACKWARD_BAR of max|plain|) and
+    bit-equal over two launches, with its route and waves, its device time (``graph_ms``),
+    its bound (x and dy read once, dx written, at PEAK_BYTES_S) and the bytes its route
+    asks of memory (``k4_backward_bytes``), its plain version's device time and that of
+    the autograd of F.group_norm + leaky_relu (+ the residual's add at the 2-D maps) at
+    that dtype (``backward_graph_ms``; these two over 5 calls a graph, the kernel over 20);
+    and the sums over a step's 31 calls. The weights are phase 3b's K4 weights."""
+    import torch.nn.functional as F
+
+    from multi_view_stereonet_tpu_torch.checkpoint import random_state_dict
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+
+    state = random_state_dict(4)
+    weight, bias, xbias = (state[f"refiner0.res0.{k}"].to(dev)
+                           for k in ("bn1.weight", "bn1.bias", "conv1.bias"))
+    g = torch.Generator(device=dev).manual_seed(5)  # a CPU draw of 480x640 takes seconds
+    sms = gn_apply.sm_count(dev)
+    rows, step = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                 "route_bytes": 0, "launches": 0}
+        for shape, calls in k4_step_calls():
+            x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+            dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+            xb = xbias if dtype == torch.bfloat16 else None
+            p = gn_apply.plan(shape, 4, dtype, sms, backward=True)
+            with torch.no_grad():
+                _, stats = gn_apply._forward_launch(x, weight, bias, None, 4, xb, stats=True)
+
+                def kernel():
+                    return gn_apply.group_norm_act_backward(x, weight, bias, 4, stats, dy, xb)
+
+                def plain():
+                    return gn_apply.group_norm_act_backward_plain(x, weight, bias, 4, stats,
+                                                                  dy, xb)
+                got, again, ref = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+                pairs = [(a, r) for a, r in zip(got, ref) if r is not None]
+                err = worst_relative(*zip(*pairs))
+                equal = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+                del got, again, ref, pairs
+                ms, plain_ms = graph_ms(kernel), graph_ms(plain, reps=5)
+            residual = len(shape) == 4
+            xs = x.detach().requires_grad_()
+            ws, bs = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+            rs = torch.randn(shape, generator=g, device=dev).to(dtype).requires_grad_()
+
+            def library():
+                out = F.leaky_relu(F.group_norm(xs, 4, ws.to(dtype), bs.to(dtype),
+                                                gn_apply.EPS), 0.2)
+                return out + rs if residual else out
+            library_ms = backward_graph_ms(library, [xs, ws, bs] + [rs] * residual, reps=5)
+            b = bound(3 * nbytes(x), 0)[0]
+            moved = k4_backward_bytes(shape, dtype, p)
+            row = {"shape": list(shape), "dtype": name, "calls": calls, "route": p.route,
+                   "blocks": p.blocks, "waves": p.waves, "held": p.held,
+                   "max_rel_err": err, "bit_equal": equal, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": b, "route_bytes": moved}
+            log(f"K4 backward kernel recipe {shape} {name}: against its plain version "
+                f"{err:.3e} of max|plain| (bar {BACKWARD_BAR:.0e}), two launches bit-equal "
+                f"{equal}; {p.route}, {p.waves} waves of {p.blocks} blocks holding {p.held} "
+                f"values; device: kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
+                f"autograd of F.group_norm + leaky_relu{' + add' if residual else ''} "
+                f"{library_ms:.4f} ms; bound {b:.4f} ms (bytes: x and dy read, dx written), "
+                f"the route asks {moved / 1e6:.1f} MB of memory ({moved / 3 / nbytes(x):.3f}x "
+                f"the bound's); {calls} calls a step")
+            if not (err <= BACKWARD_BAR and equal):
+                raise AssertionError(f"K4 backward kernel at the recipe's {shape} {name}: "
+                                     f"error {err:.3e}, bit-equal {equal}")
+            rows.append(row)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "route_bytes"):
+                total[k] += calls * row[k]
+            total["launches"] += calls
+            del x, dy, xs, rs, stats
+        step[name] = total
+        log(f"K4 backward kernel, a recipe step's {total['launches']} calls at {name}: "
+            f"device {total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+            f"({total['bound_ms'] / total['ms']:.1%} of it), plain version "
+            f"{total['plain_ms']:.4f} ms, autograd of the library calls "
+            f"{total['library_ms']:.4f} ms")
+    return {"recipe_shapes": rows, "recipe_step": step}
 
 
 def chain_legs(refiner, feats0, image_rest, H_inc, cot, got, ref, tf32=False):
@@ -5124,6 +5240,10 @@ def main():
         replicas = phase("14 (replicas)", replica_phase, dev, inputs, smi)
         convergence = phase("15 (convergence and the ladder)", convergence_phase, dev, smi,
                             tmp)
+    # Last in the process: in a run that took it in phase 3b, torch.profiler's sessions of
+    # phase 12 (a), after its CUDA graphs at bf16, came to record no device event.
+    backward["K4 kernel"].update(phase("3c (K4's backward at a recipe step's shapes)",
+                                       k4_recipe_backward, dev))
     log(f"train B={TRAIN_B} V=1 {H0}x{W0} D={D} ({smi}): kernel path "
         f"{trained['ms']['auto']:.3f} ms a step, {trained['images_s']['auto']:.2f} images/s, "
         f"peak {trained['peak_gib']['auto']:.3f} GiB; plain path {trained['ms']['plain']:.3f} "
@@ -5234,7 +5354,8 @@ def main():
          "max_rel_err": backward["K4 kernel"]["max_rel_err"],
          **{k: backward["K4 kernel"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms", "gn_route", "blocks",
-                                                   "kink_elements")},
+                                                   "waves", "kink_elements", "recipe_shapes",
+                                                   "recipe_step")},
          "function_ms": backward["K4"]["ms"], "autograd_ms": backward["K4"]["plain_ms"],
          "bf16": backward_bf16["K4 kernel"]},
         {"name": "grid_sample_backward", "route": "cuda", "source": f"{pkg}/csrc/warp.cu",

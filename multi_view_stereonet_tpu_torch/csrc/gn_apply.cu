@@ -31,19 +31,30 @@
 // a bf16 training step moved by less than its spread, so it was taken out.
 //
 // The backward (gn_bwd_kernel) is one cooperative launch of at most one 512-thread block
-// per SM, sized to the call (the wrapper's ``plan``): all N * C * S values are cut into
-// equal contiguous slices, one a block, each holding the first ``held`` values of its
-// slice of x and of dy in shared memory, stored there by the 16-byte loads of its first
-// pass (eight in flight a thread). A span of at most LANE_SPAN values goes to one thread,
-// of at most WARP_SPAN to one warp (no block-wide sum a span); longer ones to the whole
-// block. With x_hat = (x + xbias - mean) * rstd, z = x_hat * gamma + beta and
-// g = dy * leaky'(z):
+// per SM, sized to the call (the wrapper's ``plan``). What bounds it is bytes: x and dy
+// read once, dx written once. A block holds at most HOLD_BYTES of x and dy in shared
+// memory, 30 MB over the card, while the recipe's 480x640 calls hold 629 MB at f32. A
+// call that fits is held whole ("resident"). One that does not goes either in one wave
+// whose slices read their part beyond the buffer twice ("partial": every bf16 call, and
+// f32 calls that read little twice), or in waves of whole (sample, group) rows, each held
+// on chip between its two passes, so that every value leaves the card's memory once
+// apart from the part of a wave beyond what the blocks hold (a share of L2, read again
+// while L2 still has it). A wave's values are cut into equal contiguous slices, one a
+// block, each holding the first ``held`` values of its slice of x and of dy, stored there
+// by the 16-byte loads of its first pass (eight in flight a thread). Bulk copies (TMA)
+// and cp.async of the next wave into the buffer, and an L2 prefetch of it, were measured
+// slower than these loads on an H100 (PERF.md §6). A span of at most LANE_SPAN values
+// goes to one thread, of at most WARP_SPAN to one warp (no block-wide sum a span); longer
+// ones to the whole block. With x_hat = (x + xbias - mean) * rstd, z = x_hat * gamma +
+// beta and g = dy * leaky'(z), in each wave:
 //   1. per (sample, channel) span piece, f64 partials of sum g, sum g x_hat, sum x_hat;
 //      one grid barrier;
 //   2. per row a = mean(g gamma), b = mean(g gamma x_hat) from the partials in a fixed
-//      order; dx = rstd (g gamma - a - x_hat b), rounded to x's type, x and dy from shared
-//      memory (the part not held, read again, first); the row's owner writes (a, b); one
-//      grid barrier;
+//      order; dx = rstd (g gamma - a - x_hat b), rounded to x's type, from what is held
+//      (the part not held, read again, first), stored evict-first (not read again here,
+//      and L2 keeps x and dy for the second read); the row's owner writes (a, b). A
+//      block then goes on to the next wave at once: no barrier between waves.
+// After the last wave, one grid barrier and
 //   3. per channel, in a fixed order over samples and pieces: dbeta = sum g,
 //      dgamma = sum g x_hat, dxbias = sum over samples of rstd (gamma G - S a - b X) with
 //      G and X the span's sums of g and x_hat (the sum of dx over the span).
@@ -146,11 +157,14 @@ struct Io {
       }
     }
   }
-  __device__ static __forceinline__ void store(T* p, const float (&v)[VEC]) {
+  // v rounded to T, as one Raw.
+  __device__ static __forceinline__ Raw pack(const float (&v)[VEC]) {
     if constexpr (VEC == 1) {
-      store1(p, v[0]);
+      if constexpr (sizeof(T) == sizeof(float)) return v[0];
+      else return __float2bfloat16_rn(v[0]);
     } else if constexpr (sizeof(T) == sizeof(float)) {
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+      return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                        __float_as_uint(v[3]));
     } else {
       uint32_t w[4];
 #pragma unroll
@@ -158,8 +172,16 @@ struct Io {
         const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
         w[k] = *reinterpret_cast<const uint32_t*>(&h);
       }
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+      return make_uint4(w[0], w[1], w[2], w[3]);
     }
+  }
+  __device__ static __forceinline__ void store(T* p, const float (&v)[VEC]) {
+    *reinterpret_cast<Raw*>(p) = pack(v);
+  }
+  // A store not read again here: evict first from L2.
+  __device__ static __forceinline__ void store_last(T* p, const float (&v)[VEC]) {
+    if constexpr (VEC == 1) *p = pack(v);
+    else __stcs(reinterpret_cast<uint4*>(p), pack(v));
   }
 };
 
@@ -320,24 +342,57 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ xbias,
 
 // ---------------------------------------------------------------------- the backward
 
-// How the N * C * S values are cut: block b holds [b * q, min(E, (b + 1) * q)), its first
-// ``held`` values in shared memory. Span sg (sample sg / C, channel sg % C) covers
-// [sg * S, (sg + 1) * S) and meets blocks sg * S / q to ((sg + 1) * S - 1) / q, at most
-// maxb of them; its piece in block b has partial slot sg * maxb + b - sg * S / q.
+// How the N * C * S values are cut. The N * G rows go into ``waves`` waves of whole rows,
+// wave w the rows [w * rows / waves, (w + 1) * rows / waves) (R or R + 1 of them), and
+// each wave's values [e0, e1) into one contiguous slice a block, of q = (e1 - e0) /
+// blocks values rounded up to a multiple of 8 (qa for a wave of R rows, qb for one of
+// R + 1; the last slices may be shorter, or empty). Block b holds the first ``held``
+// values of its slice of x and of dy in shared memory. Span sg (sample sg / C, channel
+// sg % C) covers [sg * S, (sg + 1) * S) and meets blocks (sg * S - e0) / q to
+// ((sg + 1) * S - 1 - e0) / q of its wave, at most maxb of them; its piece in block b has
+// partial slot sg * maxb + b - (sg * S - e0) / q. The host computes the two slices and
+// their divisions, so that they stay in the launch's parameters and out of registers.
 struct Geometry {
-  int64_t E, S, q, held;
-  int C, G, maxb;
-  IntDiv divS, divC, divCG, divQ;  // by S, C, C / G and q (values below 2^31)
+  int64_t E, S, L, held;  // L: values a row; held: values of x (and of dy) a block holds
+  int64_t qa, qb;
+  int C, G, rows, waves, maxb, R;
+  IntDiv divS, divC, divCG, divQa, divQb;  // by S, C, C / G, qa and qb (below 2^31)
 };
 
-__device__ __forceinline__ int64_t first_block(const Geometry& g, int64_t sg) {
-  return g.divQ.div((uint32_t)(sg * g.S));
+// One wave's values [e0, e1); ``big``: R + 1 rows (slices of qb, else qa).
+struct Wave {
+  int64_t e0, e1;
+  bool big;
+};
+
+__host__ __device__ __forceinline__ int64_t slice(int64_t values, int blocks) {
+  return ((values + blocks - 1) / blocks + 7) / 8 * 8;
 }
-__device__ __forceinline__ bool has_piece(const Geometry& g, int64_t sg, int m) {
-  return first_block(g, sg) + m <= g.divQ.div((uint32_t)((sg + 1) * g.S - 1));
+
+__device__ __forceinline__ Wave wave(const Geometry& g, int w) {
+  const int r0 = (int)((int64_t)w * g.rows / g.waves);
+  const int r1 = (int)((int64_t)(w + 1) * g.rows / g.waves);
+  return Wave{r0 * g.L, r1 * g.L, r1 - r0 > g.R};
 }
-__device__ __forceinline__ int64_t slot(const Geometry& g, int64_t sg, int b) {
-  return sg * g.maxb + (b - first_block(g, sg));
+__device__ __forceinline__ int64_t wave_q(const Geometry& g, const Wave& v) {
+  return v.big ? g.qb : g.qa;
+}
+
+__device__ __forceinline__ int wave_of_row(const Geometry& g, int64_t r) {
+  return (int)(((r + 1) * g.waves - 1) / g.rows);
+}
+
+__device__ __forceinline__ uint32_t block_of(const Geometry& g, const Wave& v, int64_t e) {
+  return v.big ? g.divQb.div((uint32_t)(e - v.e0)) : g.divQa.div((uint32_t)(e - v.e0));
+}
+__device__ __forceinline__ int64_t first_block(const Geometry& g, const Wave& v, int64_t sg) {
+  return block_of(g, v, sg * g.S);
+}
+__device__ __forceinline__ bool has_piece(const Geometry& g, const Wave& v, int64_t sg, int m) {
+  return first_block(g, v, sg) + m <= block_of(g, v, (sg + 1) * g.S - 1);
+}
+__device__ __forceinline__ int64_t slot(const Geometry& g, const Wave& v, int64_t sg, int b) {
+  return sg * g.maxb + (b - first_block(g, v, sg));
 }
 
 // The sums of K doubles over the block, in thread 0.
@@ -401,14 +456,6 @@ __device__ __forceinline__ bool piece_sum(double (&v)[K], Mode mode,
   return threadIdx.x == 0;
 }
 
-// Rows [first, last] of the block's slice [s0, s0 + n).
-__device__ __forceinline__ void block_rows(const Geometry& g, int64_t s0, int64_t n,
-                                           int64_t* first, int64_t* last) {
-  const int64_t L = (int64_t)(g.C / g.G) * g.S;
-  *first = s0 / L;
-  *last = (s0 + n - 1) / L;
-}
-
 // (span, channel, row) of value e (< 2^31) of x.
 __device__ __forceinline__ void locate(const Geometry& g, uint32_t e, uint32_t* c,
                                        uint32_t* r) {
@@ -437,24 +484,116 @@ struct Bwd {
 
 // a and b of row r (mean of g gamma, of g gamma x_hat) from the partials of its spans in
 // a fixed order; all lanes of the calling warp get them.
-__device__ __forceinline__ double2 row_ab(const Geometry& g, const double2* partials,
-                                          const float* gamma, int64_t r) {
+__device__ __forceinline__ double2 row_ab(const Geometry& g, const Wave& v,
+                                          const double2* partials, const float* gamma,
+                                          int64_t r) {
   const int cg = g.C / g.G, lane = threadIdx.x & 31;
   double A = 0.0, B = 0.0;
   for (int t = lane; t < cg * g.maxb; t += 32) {
     const int64_t sg = r * cg + t / g.maxb;
-    if (has_piece(g, sg, t % g.maxb)) {
+    if (has_piece(g, v, sg, t % g.maxb)) {
       const double2 p = __ldcg(partials + 2 * (sg * g.maxb + t % g.maxb));
       const double gm = gamma[sg % g.C];
       A += gm * p.x;
       B += gm * p.y;
     }
   }
-  const double L = (double)cg * (double)g.S;
+  const double L = (double)g.L;
   return make_double2(warp_sum(A) / L, warp_sum(B) / L);
 }
 
+// Block b's slice of a wave: values [s0, s0 + n) of x, the first h held, rows r_first to
+// r_last.
+struct Slice {
+  Wave v;
+  int64_t s0, n, h, r_first, r_last;
+};
+
+// WAVES false: the one wave of the launch, its slicing constant (no state in registers).
+template <bool WAVES>
+__device__ __forceinline__ Slice slice_of(const Geometry& g, int w, int b) {
+  Slice s;
+  s.v = WAVES ? wave(g, w) : Wave{0, g.E, false};
+  const int64_t q = wave_q(g, s.v);
+  s.s0 = s.v.e0 + (int64_t)b * q;
+  s.n = s.s0 >= s.v.e1 ? 0 : q < s.v.e1 - s.s0 ? q : s.v.e1 - s.s0;
+  s.h = g.held < s.n ? g.held : s.n;
+  s.r_first = s.s0 / g.L;
+  s.r_last = s.n > 0 ? (s.s0 + s.n - 1) / g.L : s.r_first - 1;
+  return s;
+}
+
+// The part of dx of [lo, hi) of slice s, its rows' (mean, rstd, a, b) in tab (row
+// r_first + i at i): x and dy from the buffer below s.h, read again from x and dy (L2,
+// evict first) above; dx stored evict-first.
 template <int VEC, typename T>
+__device__ __forceinline__ void dx_range(const Bwd<T>& a, const Slice& s, const float4* tab,
+                                         const T* sx, const T* sdy, int64_t lo, int64_t hi) {
+  using V = Io<VEC, T>;
+  using Raw = typename V::Raw;
+  constexpr int64_t STRIDE = (int64_t)COOP_THREADS * VEC;
+  const Geometry& g = a.g;
+  const T* const gx = a.x + s.s0;
+  const T* const gdy = a.dy + s.s0;
+  for (int64_t i0 = lo + (int64_t)threadIdx.x * VEC; i0 < hi; i0 += UNROLL * STRIDE) {
+    Raw xr[UNROLL], dr[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t i = i0 + u * STRIDE;
+      if (i < hi) {
+        xr[u] = i < s.h ? V::load(sx + i) : V::load_last(gx + i);
+        dr[u] = i < s.h ? V::load(sdy + i) : V::load_last(gdy + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t i = i0 + u * STRIDE;
+      if (i < hi) {
+        uint32_t c, r;
+        locate(g, (uint32_t)(s.s0 + i), &c, &r);
+        const float4 st = tab[r - s.r_first];
+        const float gm = __ldg(a.gamma + c), bt = __ldg(a.beta + c);
+        const float xb = a.xbias != nullptr ? __ldg(a.xbias + c) : 0.0f;
+        float xv[VEC], d[VEC], o[VEC];
+        V::unpack(xr[u], xv);
+        V::unpack(dr[u], d);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xh = (xv[e] + xb - st.x) * st.y;
+          const float gg = dleaky<T>(xh * gm + bt, d[e]) * gm;
+          o[e] = st.y * ((gg - st.z) - xh * st.w);
+        }
+        V::store_last(a.dx + s.s0 + i, o);
+      }
+    }
+  }
+}
+
+// The rows of slice s: (mean, rstd, a, b) into tab (a warp a row), a and b from the
+// partials of the row's spans in a fixed order; the owner of a row (the block its first
+// value is in) writes its (a, b).
+template <typename T>
+__device__ __forceinline__ void row_table(const Bwd<T>& a, const Slice& s, float4* tab) {
+  const int lane = threadIdx.x & 31;
+  for (int64_t r = s.r_first + (threadIdx.x >> 5); r <= s.r_last; r += COOP_WARPS) {
+    const double2 ab = row_ab(a.g, s.v, a.partials, a.gamma, r);
+    if (lane == 0) {
+      tab[r - s.r_first] = make_float4(a.stats[2 * r], a.stats[2 * r + 1], (float)ab.x,
+                                       (float)ab.y);
+      if (r * a.g.L >= s.s0) a.ab[r] = ab;
+    }
+  }
+}
+
+// The backward, wave by wave: pass 1 of a wave reads each block's slice of x and dy
+// (16-byte loads, eight in flight a thread), stores its first ``held`` values in the
+// block's buffer in shared memory and writes the f64 partials of its span pieces; one
+// grid barrier; pass 2 writes dx of the wave from what is held (the rest read again). A
+// block goes on to the next wave as soon as its own pass 2 is done: its buffer is its
+// own, and the next wave's rows are not this wave's. After the last wave, one grid
+// barrier more, then pass 3. WAVES false: a launch of one wave, compiled without the
+// loop's state.
+template <int VEC, typename T, bool WAVES>
 __global__ void __launch_bounds__(COOP_THREADS, 1) gn_bwd_kernel(const Bwd<T> a) {
   using V = Io<VEC, T>;
   using Raw = typename V::Raw;
@@ -466,124 +605,86 @@ __global__ void __launch_bounds__(COOP_THREADS, 1) gn_bwd_kernel(const Bwd<T> a)
   T* const sx = reinterpret_cast<T*>(smem_raw);
   T* const sdy = sx + g.held;
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t s0 = (int64_t)b * g.q;
-  const int64_t n = g.q < g.E - s0 ? g.q : g.E - s0;
-  const int64_t h = g.held < n ? g.held : n;
-  int64_t r_first, r_last;
-  block_rows(g, s0, n, &r_first, &r_last);
-  for (int64_t r = r_first + tid; r <= r_last && r < r_first + R_MAX; r += COOP_THREADS)
-    rtab[r - r_first] = make_float4(a.stats[2 * r], a.stats[2 * r + 1], 0.0f, 0.0f);
-  __syncthreads();
-  const T* const gx = a.x + s0;
-  const T* const gdy = a.dy + s0;
   const Mode mode = piece_mode(g);
   const int cg = g.C / g.G;
-
-  // 1. f64 sums of g, g x_hat and x_hat over each span piece.
-  for_pieces(g, s0, 0, n, mode, [&](int64_t sg, int64_t lo, int64_t hi) {
-    const int64_t r = sg / cg;
-    const int c = (int)(sg % g.C);
-    const float mu = r - r_first < R_MAX ? rtab[r - r_first].x : a.stats[2 * r];
-    const float rs = r - r_first < R_MAX ? rtab[r - r_first].y : a.stats[2 * r + 1];
-    const float gm = a.gamma[c], bt = a.beta[c];
-    const float xb = a.xbias != nullptr ? a.xbias[c] : 0.0f;
-    const int64_t stride = mode == LANE ? VEC : mode == WARP ? 32 * VEC : STRIDE;
-    double sums[3] = {0.0, 0.0, 0.0};
-    for (int64_t i0 = lo + (mode == LANE ? 0 : (int64_t)(mode == WARP ? lane : tid) * VEC);
-         i0 < hi; i0 += UNROLL * stride) {
-      Raw xr[UNROLL], dr[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int64_t i = i0 + u * stride;
-        if (i < hi) {
-          xr[u] = V::load(gx + i);
-          dr[u] = V::load(gdy + i);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int64_t i = i0 + u * stride;
-        if (i < hi) {
-          if (i < h) {  // held for the second pass
-            *reinterpret_cast<Raw*>(sx + i) = xr[u];
-            *reinterpret_cast<Raw*>(sdy + i) = dr[u];
-          }
-          float v[VEC], d[VEC];
-          V::unpack(xr[u], v);
-          V::unpack(dr[u], d);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            const float xh = (v[e] + xb - mu) * rs;
-            const float gv = dleaky<T>(xh * gm + bt, d[e]);
-            sums[0] += (double)gv;
-            sums[1] += (double)gv * (double)xh;
-            sums[2] += (double)xh;
-          }
-        }
-      }
-    }
-    if (piece_sum<3>(sums, mode, red)) {
-      double2* p = a.partials + 2 * slot(g, sg, b);
-      p[0] = make_double2(sums[0], sums[1]);
-      p[1] = make_double2(sums[2], 0.0);
-    }
-  });
-  grid_barrier(a.barrier);
-
-  // 2. dx, R_MAX rows at a time: the rows' (a, b) into rtab (a warp a row), then every
-  // value of the rows in the slice, the re-read part first (the most recently read), then
-  // the held part; the owner of a row (the block its first value is in) writes its (a, b).
-  const int64_t L = (int64_t)cg * g.S;
-  auto backward = [&](int64_t lo, int64_t hi, int64_t w0) {
-    for (int64_t i0 = lo + (int64_t)tid * VEC; i0 < hi; i0 += UNROLL * STRIDE) {
-      Raw xr[UNROLL], dr[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int64_t i = i0 + u * STRIDE;
-        if (i < hi) {
-          xr[u] = i < h ? V::load(sx + i) : V::load_last(gx + i);
-          dr[u] = i < h ? V::load(sdy + i) : V::load_last(gdy + i);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int64_t i = i0 + u * STRIDE;
-        if (i < hi) {
-          uint32_t c, r;
-          locate(g, (uint32_t)(s0 + i), &c, &r);
-          const float4 st = rtab[r - w0];
-          const float gm = __ldg(a.gamma + c), bt = __ldg(a.beta + c);
-          const float xb = a.xbias != nullptr ? __ldg(a.xbias + c) : 0.0f;
-          float v[VEC], d[VEC], o[VEC];
-          V::unpack(xr[u], v);
-          V::unpack(dr[u], d);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            const float xh = (v[e] + xb - st.x) * st.y;
-            const float gg = dleaky<T>(xh * gm + bt, d[e]) * gm;
-            o[e] = st.y * ((gg - st.z) - xh * st.w);
-          }
-          V::store(a.dx + s0 + i, o);
-        }
-      }
-    }
-  };
-  for (int64_t w0 = r_first; w0 <= r_last; w0 += R_MAX) {
-    const int64_t w1 = w0 + R_MAX < r_last + 1 ? w0 + R_MAX : r_last + 1;
+  for (int w = 0; w < (WAVES ? g.waves : 1); ++w) {
+    const Slice s = slice_of<WAVES>(g, w, b);
+    const int64_t s0 = s.s0, n = s.n, h = s.h, r_first = s.r_first, r_last = s.r_last;
+    __syncthreads();  // the last wave's pass 2 is done with rtab and the buffer
+    for (int64_t r = r_first + tid; r <= r_last && r < r_first + R_MAX; r += COOP_THREADS)
+      rtab[r - r_first] = make_float4(a.stats[2 * r], a.stats[2 * r + 1], 0.0f, 0.0f);
     __syncthreads();
-    for (int64_t r = w0 + warp; r < w1; r += COOP_WARPS) {
-      const double2 ab = row_ab(g, a.partials, a.gamma, r);
-      if (lane == 0) {
-        rtab[r - w0] = make_float4(a.stats[2 * r], a.stats[2 * r + 1], (float)ab.x,
-                                   (float)ab.y);
-        if (r * L >= s0) a.ab[r] = ab;
+    const T* const gx = a.x + s0;
+    const T* const gdy = a.dy + s0;
+
+    // 1. f64 sums of g, g x_hat and x_hat over each span piece.
+    for_pieces(g, s0, 0, n, mode, [&](int64_t sg, int64_t lo, int64_t hi) {
+      const int64_t r = sg / cg;
+      const int c = (int)(sg % g.C);
+      const float mu = r - r_first < R_MAX ? rtab[r - r_first].x : a.stats[2 * r];
+      const float rs = r - r_first < R_MAX ? rtab[r - r_first].y : a.stats[2 * r + 1];
+      const float gm = a.gamma[c], bt = a.beta[c];
+      const float xb = a.xbias != nullptr ? a.xbias[c] : 0.0f;
+      const int64_t stride = mode == LANE ? VEC : mode == WARP ? 32 * VEC : STRIDE;
+      double sums[3] = {0.0, 0.0, 0.0};
+      for (int64_t i0 = lo + (mode == LANE ? 0 : (int64_t)(mode == WARP ? lane : tid) * VEC);
+           i0 < hi; i0 += UNROLL * stride) {
+        Raw xr[UNROLL], dr[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int64_t i = i0 + u * stride;
+          if (i < hi) {
+            xr[u] = V::load(gx + i);
+            dr[u] = V::load(gdy + i);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int64_t i = i0 + u * stride;
+          if (i < hi) {
+            if (i < h) {  // held for the second pass
+              *reinterpret_cast<Raw*>(sx + i) = xr[u];
+              *reinterpret_cast<Raw*>(sdy + i) = dr[u];
+            }
+            float xv[VEC], d[VEC];
+            V::unpack(xr[u], xv);
+            V::unpack(dr[u], d);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              const float xh = (xv[e] + xb - mu) * rs;
+              const float gv = dleaky<T>(xh * gm + bt, d[e]);
+              sums[0] += (double)gv;
+              sums[1] += (double)gv * (double)xh;
+              sums[2] += (double)xh;
+            }
+          }
+        }
       }
+      if (piece_sum<3>(sums, mode, red)) {
+        double2* p = a.partials + 2 * slot(g, s.v, sg, b);
+        p[0] = make_double2(sums[0], sums[1]);
+        p[1] = make_double2(sums[2], 0.0);
+      }
+    });
+    grid_barrier(a.barrier);
+
+    // 2. dx, R_MAX rows at a time: the rows' (a, b) into rtab (a warp a row), then
+    // every value of the rows in the slice, the re-read part first (the most recently
+    // read), then the held part; the owner of a row (the block its first value is in)
+    // writes its (a, b).
+    for (int64_t w0 = r_first; w0 <= r_last; w0 += R_MAX) {
+      const int64_t w1 = w0 + R_MAX < r_last + 1 ? w0 + R_MAX : r_last + 1;
+      Slice win = s;  // the window's rows, as dx_range reads them
+      win.r_first = w0;
+      win.r_last = w1 - 1;
+      __syncthreads();
+      row_table(a, win, rtab);
+      __syncthreads();
+      const int64_t lo = (w0 * g.L > s0 ? w0 * g.L : s0) - s0;
+      const int64_t hi = (w1 * g.L < s0 + n ? w1 * g.L : s0 + n) - s0;
+      dx_range<VEC>(a, win, rtab, sx, sdy, lo > h ? lo : h, hi);
+      dx_range<VEC>(a, win, rtab, sx, sdy, lo, hi < h ? hi : h);
     }
-    __syncthreads();
-    const int64_t lo = (w0 * L > s0 ? w0 * L : s0) - s0;
-    const int64_t hi = (w1 * L < s0 + n ? w1 * L : s0 + n) - s0;
-    backward(lo > h ? lo : h, hi, w0);
-    backward(lo, hi < h ? hi : h, w0);
   }
   grid_barrier(a.barrier);
 
@@ -594,11 +695,18 @@ __global__ void __launch_bounds__(COOP_THREADS, 1) gn_bwd_kernel(const Bwd<T> a)
   for (int c = b + P * warp; c < g.C; c += P * COOP_WARPS) {
     const double gm = a.gamma[c];
     double db = 0.0, dg = 0.0, dxb = 0.0;
+    int wc = -1;
+    Wave v;
     for (int64_t t = lane; t < N * g.maxb; t += 32) {
       const int64_t sg = (t / g.maxb) * g.C + c;
       const int m = (int)(t % g.maxb);
-      if (has_piece(g, sg, m)) {
-        const int64_t r = sg / cg;
+      const int64_t r = sg / cg;
+      const int wr = WAVES ? wave_of_row(g, r) : 0;
+      if (wr != wc) {
+        v = WAVES ? wave(g, wr) : Wave{0, g.E, false};
+        wc = wr;
+      }
+      if (has_piece(g, v, sg, m)) {
         const double2 p0 = __ldcg(a.partials + 2 * (sg * g.maxb + m));
         const double2 p1 = __ldcg(a.partials + 2 * (sg * g.maxb + m) + 1);
         const double2 ab = __ldcg(a.ab + r);
@@ -651,27 +759,32 @@ int coop_launch(void (*kernel)(const Args), bool* ready, const Args& a, int bloc
 }
 
 // The geometry of a backward launch, or false for one the kernel does not take: fewer
-// than 2^31 values, q a multiple of 8, every block a non-empty slice, ``held`` (values a
-// tensor) a multiple of 8 within HOLD_BYTES for x and dy, and ``slots`` partials enough.
-bool geometry(Geometry* g, int N, int C, int G, int64_t S, int blocks, int64_t q,
+// than 2^31 values, 1 to N * G waves, ``held`` (values a tensor) a multiple of 8 within
+// HOLD_BYTES for x and dy, and ``slots`` partials enough.
+bool geometry(Geometry* g, int N, int C, int G, int64_t S, int blocks, int waves,
               int64_t held, int64_t slots, size_t elem) {
-  if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G || blocks < 1 || q < 8 || q % 8 ||
-      held < 0 || held % 8 || held * (int64_t)elem * 2 > HOLD_BYTES)
+  if (N <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G || blocks < 1 || waves < 1 ||
+      waves > N * G || held < 0 || held % 8 || held * (int64_t)elem * 2 > HOLD_BYTES)
     return false;
   g->E = (int64_t)N * C * S;
   g->S = S;
-  g->q = q;
+  g->L = (int64_t)(C / G) * S;
   g->held = held;
   g->C = C;
   g->G = G;
-  g->maxb = (int)((S + q - 1) / q + 1);
-  if (g->E >= ((int64_t)1 << 31) || (int64_t)(blocks - 1) * q >= g->E ||
-      (int64_t)blocks * q < g->E || slots < (int64_t)N * C * g->maxb)
-    return false;
+  g->rows = N * G;
+  g->waves = waves;
+  if (g->E >= ((int64_t)1 << 31)) return false;
+  g->R = g->rows / waves;
+  g->qa = slice(g->R * g->L, blocks);
+  g->qb = slice((g->R + 1) * g->L, blocks);
+  g->maxb = (int)((S + g->qa - 1) / g->qa + 1);
+  if (slots < (int64_t)N * C * g->maxb) return false;
   g->divS = IntDiv((uint32_t)S);
   g->divC = IntDiv((uint32_t)C);
   g->divCG = IntDiv((uint32_t)(C / G));
-  g->divQ = IntDiv((uint32_t)q);
+  g->divQa = IntDiv((uint32_t)g->qa);
+  g->divQb = IntDiv((uint32_t)g->qb);
   return true;
 }
 
@@ -679,18 +792,22 @@ template <typename T>
 int backward(const T* x, const float* xbias, const float* gamma, const float* beta,
              const float* stats, const T* dy, T* dx, float* dgamma, float* dbeta,
              float* dxbias, double* partials, double* ab, unsigned int* barrier, int N, int C,
-             int G, int64_t S, int blocks, int64_t q, int64_t held, int64_t slots, int vec,
-             cudaStream_t stream) {
+             int G, int64_t S, int blocks, int waves, int64_t held, int64_t slots,
+             int vec, cudaStream_t stream) {
   if (N == 0 || S == 0) return 0;
   Bwd<T> a{x, xbias, gamma, beta, stats, dy, dx, dgamma, dbeta, dxbias,
            reinterpret_cast<double2*>(partials), reinterpret_cast<double2*>(ab), barrier, {}};
-  if (!geometry(&a.g, N, C, G, S, blocks, q, held, slots, sizeof(T)))
+  if (!geometry(&a.g, N, C, G, S, blocks, waves, held, slots, sizeof(T)))
     return (int)cudaErrorInvalidValue;
-  static bool ready[2][MAX_DEVICES] = {};
+  static bool ready[4][MAX_DEVICES] = {};
   constexpr int VEC = 16 / sizeof(T);
   const size_t smem = 2 * (size_t)held * sizeof(T);
-  if (vec == VEC) return coop_launch(gn_bwd_kernel<VEC, T>, ready[0], a, blocks, smem, stream);
-  return coop_launch(gn_bwd_kernel<1, T>, ready[1], a, blocks, smem, stream);
+  const bool vector = vec == VEC;
+  if (waves > 1)
+    return vector ? coop_launch(gn_bwd_kernel<VEC, T, true>, ready[0], a, blocks, smem, stream)
+                  : coop_launch(gn_bwd_kernel<1, T, true>, ready[1], a, blocks, smem, stream);
+  return vector ? coop_launch(gn_bwd_kernel<VEC, T, false>, ready[2], a, blocks, smem, stream)
+                : coop_launch(gn_bwd_kernel<1, T, false>, ready[3], a, blocks, smem, stream);
 }
 
 template <int VEC, typename T>
@@ -752,25 +869,28 @@ extern "C" int mvs_gn_act_bf16(const __nv_bfloat16* x, const float* xbias,
 
 // The backward. x, dy, dx (N, C, S) contiguous, of one type; gamma, beta (C,); xbias (C,)
 // f32 or null; stats: the forward's (N * G, 2) mean and rstd; dgamma, dbeta (C,) f32;
-// dxbias (C,) f32, or null with xbias null. The N * C * S values are cut into ``blocks``
-// slices of q values (a multiple of 8; the last may be shorter, none empty), each block
+// dxbias (C,) f32, or null with xbias null. The N * G (sample, group) rows go in ``waves``
+// waves of whole rows (wave w: rows [w * N * G / waves, (w + 1) * N * G / waves)), each
+// wave's values cut into ``blocks`` slices of q values (the wave's values over blocks,
+// rounded up to a multiple of 8; the last slices may be shorter or empty), each block
 // holding the first ``held`` (a multiple of 8) of its slice of x and of dy in shared
 // memory (2 * held values). partials: ``slots`` pairs of pairs of f64 scratch, at least
-// N * C * (ceil(S / q) + 1); ab: (N * G) pairs of f64 scratch. barrier: a uint32 that no
-// launch on another stream uses at the same time, 0 before its first launch (a launch
-// leaves it ready for the next). vec == 16 / sizeof(T) (one 16-byte vector) needs
-// S % vec == 0 and x, dy and dx 16-byte aligned; any other vec takes one value at a
-// time. Returns a cudaError_t code: cudaErrorInvalidValue for a geometry it does not
-// take, cudaErrorCooperativeLaunchTooLarge for more blocks than the card holds at once (a
+// N * C * (ceil(S / q) + 1) for the least q of a wave; ab: (N * G) pairs of f64 scratch.
+// barrier: a uint32 that no launch on another stream uses at the same time, 0 before its
+// first launch (a launch leaves it ready for the next). vec == 16 / sizeof(T) (one 16-byte
+// vector) needs S % vec == 0 and x, dy and dx 16-byte aligned; any other vec takes one
+// value at a time.
+// Returns a cudaError_t code: cudaErrorInvalidValue for a geometry it does not take,
+// cudaErrorCooperativeLaunchTooLarge for more blocks than the card holds at once (a
 // refused launch's error is cleared, so none is left pending).
 extern "C" int mvs_gn_act_bwd_f32(const float* x, const float* xbias, const float* gamma,
                                   const float* beta, const float* stats, const float* dy,
                                   float* dx, float* dgamma, float* dbeta, float* dxbias,
                                   double* partials, double* ab, unsigned int* barrier, int N,
-                                  int C, int G, int64_t S, int blocks, int64_t q, int64_t held,
+                                  int C, int G, int64_t S, int blocks, int waves, int64_t held,
                                   int64_t slots, int vec, cudaStream_t stream) {
   return backward(x, xbias, gamma, beta, stats, dy, dx, dgamma, dbeta, dxbias, partials, ab,
-                  barrier, N, C, G, S, blocks, q, held, slots, vec, stream);
+                  barrier, N, C, G, S, blocks, waves, held, slots, vec, stream);
 }
 
 extern "C" int mvs_gn_act_bwd_bf16(const __nv_bfloat16* x, const float* xbias,
@@ -778,8 +898,8 @@ extern "C" int mvs_gn_act_bwd_bf16(const __nv_bfloat16* x, const float* xbias,
                                    const __nv_bfloat16* dy, __nv_bfloat16* dx, float* dgamma,
                                    float* dbeta, float* dxbias, double* partials, double* ab,
                                    unsigned int* barrier, int N, int C, int G, int64_t S,
-                                   int blocks, int64_t q, int64_t held, int64_t slots, int vec,
+                                   int blocks, int waves, int64_t held, int64_t slots, int vec,
                                    cudaStream_t stream) {
   return backward(x, xbias, gamma, beta, stats, dy, dx, dgamma, dbeta, dxbias, partials, ab,
-                  barrier, N, C, G, S, blocks, q, held, slots, vec, stream);
+                  barrier, N, C, G, S, blocks, waves, held, slots, vec, stream);
 }

@@ -21,12 +21,14 @@ and the card's SM count alone. The forward is a statistics pass over chunks of e
 ``_GroupNormAct``: its forward also writes each row's f32 mean and rstd, and its
 backward launches the backward kernel from them (``group_norm_act_backward``, whose
 plain version in closed form is ``group_norm_act_backward_plain``): one cooperative
-launch that holds x and the gradient in the shared memory of up to one block an SM
-("resident", or "partial" where they do not all fit and the rest is read twice). The
-residual's gradient is the output's. A launch the card refuses raises; nothing retries
-on another route. The JAX
-``_bwd`` (``gn_apply.py:120-126``) takes the VJP of ``_xla_reference`` instead. Backward
-launches count in ``backward_launches``, so ``launches`` counts forwards only.
+launch that holds x and the gradient in the shared memory of up to one block an SM, the
+whole call at once where it fits ("resident"), else at f32 in waves of whole (sample,
+group) rows, each held between its two passes ("waves"), and at bf16, or where little
+would be read twice, in one wave whose rest is read twice ("partial"). The residual's
+gradient is the output's. A launch the card refuses raises; nothing retries on another
+route. The JAX ``_bwd`` (``gn_apply.py:120-126``) takes the VJP of ``_xla_reference``
+instead. Backward launches count in ``backward_launches``, so ``launches`` counts
+forwards only.
 """
 
 from __future__ import annotations
@@ -55,10 +57,15 @@ SLOPE = 0.2
 BLOCKS_PER_SM = 4
 MIN_CHUNK = 4096
 # The backward kernel (csrc/gn_apply.cu): shared memory a block holds its slices of x and
-# dy in (HOLD_BYTES there), and the bytes of x and dy a block gets at least, so that a
-# small call takes few blocks to its grid barrier.
+# dy in (HOLD_BYTES there); the bytes of x and dy a block gets at least, so that a small
+# call takes few blocks to its grid barrier; the bytes of a wave, over the card, that may
+# go beyond what the blocks hold and be read again from L2.
 HOLD_BYTES = 224 * 1024
 SLICE_BYTES = 32 * 1024
+REREAD_BYTES = 12 * 2 ** 20
+# The bytes of x and dy one wave over the card would read twice, at most, for the backward
+# to stay in one wave ("partial") at f32: below them the waves' barriers cost more.
+WAVES_BYTES = 64 * 2 ** 20
 MAX_VALUES = 2 ** 31  # the backward kernel indexes values in 31 bits
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -67,16 +74,16 @@ FORWARD = {torch.float32: "mvs_gn_act_f32", torch.bfloat16: "mvs_gn_act_bf16"}
 BACKWARD = {torch.float32: "mvs_gn_act_bwd_f32", torch.bfloat16: "mvs_gn_act_bwd_bf16"}
 _ARGS = {
     "forward": [_PTR] * 8 + [_INT] * 3 + [_I64, _I64, _INT, _INT, ctypes.c_float, _PTR],
-    "backward": [_PTR] * 13 + [_INT] * 3 + [_I64, _INT, _I64, _I64, _I64, _INT, _PTR]}
+    "backward": [_PTR] * 13 + [_INT] * 3 + [_I64, _INT, _INT, _I64, _I64, _INT, _PTR]}
 # Per device index: (SM count, {entry name: ctypes entry}).
 _device_cache: dict = {}
 
-Plan = collections.namedtuple("Plan", "route blocks slice held")
-Plan.__doc__ = """How one call runs: ``route`` ("chunked" for the forward, "resident" or
-"partial" for the backward); for the forward ``blocks`` chunks of ``slice`` values a
-(sample, group) row; for the backward ``blocks`` slices of ``slice`` values (the last may
-be shorter), each block holding the first ``held`` values of its slice of x and of dy in
-shared memory."""
+Plan = collections.namedtuple("Plan", "route blocks slice held waves", defaults=(1,))
+Plan.__doc__ = """How one call runs: ``route`` ("chunked" for the forward, "resident",
+"partial" or "waves" for the backward); for the forward ``blocks`` chunks of ``slice``
+values a (sample, group) row; for the backward ``waves`` waves of whole (sample, group)
+rows, each cut into ``blocks`` slices (``wave_slices``; ``slice``: the longest), each
+block holding the first ``held`` values of its slice of x and of dy in shared memory."""
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -173,18 +180,49 @@ def chunking(rows: int, L: int, target_blocks: int) -> tuple:
     return chunk, -(-L // chunk)
 
 
-def plan(shape, groups: int, dtype: torch.dtype, sms: int, backward: bool = False) -> Plan:
+def _slice(values: int, blocks: int) -> int:
+    """The values of a backward slice: ``values`` over ``blocks``, rounded up to a
+    multiple of 8 (the kernel's ``wave``)."""
+    return (-(-values // blocks) + 7) // 8 * 8
+
+
+def wave_slices(shape, groups: int, p: Plan) -> list:
+    """[(e0, e1, q)] a wave of the backward ``p`` at x of ``shape``: wave w's values
+    [e0, e1), the rows [w * rows / waves, (w + 1) * rows / waves) of the N * groups
+    (sample, group) rows, cut into ``p.blocks`` slices of q values (block b's: [e0 + b q,
+    min(e1, e0 + (b + 1) q)), maybe empty), as csrc/gn_apply.cu ``wave`` cuts them."""
+    rows = shape[0] * groups
+    L = math.prod(shape) // rows
+    out = []
+    for w in range(p.waves):
+        e0, e1 = w * rows // p.waves * L, (w + 1) * rows // p.waves * L
+        out.append((e0, e1, _slice(e1 - e0, p.blocks)))
+    return out
+
+
+def plan(shape, groups: int, dtype: torch.dtype, sms: int, backward: bool = False,
+         reread: int = REREAD_BYTES, hold: int = HOLD_BYTES,
+         partial: int = WAVES_BYTES) -> Plan:
     """How K4 runs a call on x of ``shape`` (N, C, ...) and storage ``dtype`` on a card of
     ``sms`` SMs: the forward or, with ``backward``, the backward kernel. The rule, from
     these alone:
 
     - the forward: each (sample, group) row cut by ``chunking`` over BLOCKS_PER_SM * sms
       blocks ("chunked");
-    - the backward: ``blocks`` = the bytes of x and dy over SLICE_BYTES, rounded up, at
-      least 1 and at most ``sms``; the N * C * S values cut into slices of a multiple of 8
-      values, each holding its first ``held`` (a multiple of 8; HOLD_BYTES over the bytes
-      a value of x and one of dy take) in shared memory: "resident" where every slice fits
-      whole, "partial" where the rest of each slice is read twice. It raises at
+    - the backward, with ``cap`` the values of x (and of dy) a block holds (``hold``, at
+      most HOLD_BYTES, over the bytes of a value of x and one of dy, a multiple of 8):
+      "resident" where the whole call fits, ``blocks`` = the bytes of x and dy over
+      SLICE_BYTES, rounded up, at least 1 and at most ``sms`` (``sms`` where fewer do not
+      hold it), each holding its whole slice. Else ``sms`` blocks: "partial", one wave,
+      where its slices go beyond ``cap`` by at most ``partial`` bytes of x and dy over the
+      card (that rest of each slice read twice), and at bf16 storage whatever the
+      excess; else "waves", the fewest waves of whole rows (balanced, at most N * groups)
+      whose longest slice goes beyond ``cap`` by at most ``reread`` bytes over the card
+      (by a row's share where one row alone does). A wave costs two grid-wide phases and
+      a barrier; at bf16 it holds twice the values for the same bytes, so its f64 sums
+      cost more than the second read it saves. On an H100 the waves lost to one wave at
+      bf16 (the recipe's 480x640 and 240x320 calls) and at f32 (1, 32, 480, 640), and won
+      9% at the recipe's f32 480x640 and 240x320 (PERF.md §6). It raises at
       MAX_VALUES values."""
     N = shape[0]
     E = math.prod(shape)
@@ -195,12 +233,22 @@ def plan(shape, groups: int, dtype: torch.dtype, sms: int, backward: bool = Fals
         raise ValueError(f"the GroupNorm backward kernel takes fewer than {MAX_VALUES} "
                          f"values, got {tuple(shape)}")
     size = torch.empty((), dtype=dtype).element_size()
+    cap = min(hold, HOLD_BYTES) // (size * 2) // 8 * 8
     blocks = max(1, min(sms, -(-E * size * 2 // SLICE_BYTES)))
-    q = -(-max(E, 1) // blocks)
-    q = -(-q // 8) * 8
-    blocks = -(-max(E, 1) // q)
-    held = min(q, HOLD_BYTES // (size * 2) // 8 * 8)
-    return Plan("resident" if held >= q else "partial", blocks, q, held)
+    if _slice(max(E, 1), blocks) > cap:
+        blocks = sms
+    q = _slice(max(E, 1), blocks)
+    if q <= cap:
+        blocks = -(-max(E, 1) // q)
+        q = _slice(max(E, 1), blocks)
+        return Plan("resident", blocks, q, q)
+    if (q - cap) * size * 2 * sms <= partial or size < 4:
+        return Plan("partial", sms, q, cap)
+    extra = reread // (size * 2 * sms)  # values a block of a wave may read twice
+    rows = N * groups
+    waves = -(-rows // max(1, (cap + extra) // 8 * 8 * sms // (E // rows)))
+    q = max(s[2] for s in wave_slices(shape, groups, Plan("", sms, 0, 0, waves)))
+    return Plan("waves", sms, q, min(q, cap), waves)
 
 
 def _device_functions(device: int) -> tuple:
@@ -258,9 +306,11 @@ def _vec16(span: int, *tensors) -> int:
     return _vec(span, *tensors, width=16 // tensors[0].element_size())
 
 
-def _slots(shape, q: int) -> int:
-    """Partial slots of a backward launch: one a (sample, channel, block it meets)."""
+def _slots(shape, groups: int, p: Plan) -> int:
+    """Partial slots of a backward launch ``p``: one a (sample, channel, block it meets),
+    as many blocks as a span meets at most in a wave."""
     span = math.prod(shape[2:])
+    q = min(s[2] for s in wave_slices(shape, groups, p))
     return shape[0] * shape[1] * (-(-span // q) + 1)
 
 
@@ -337,7 +387,8 @@ def group_norm_act_backward(x: torch.Tensor, weight: torch.Tensor, bias: torch.T
     """The backward kernel on CUDA tensors: (dx, dweight, dbias, dxbias) as
     ``group_norm_act_backward_plain`` computes them, from the forward's ``stats``; one
     cooperative launch as ``plan(..., backward=True)`` cuts it (``route``: a whole Plan in
-    its place). A launch the card refuses raises."""
+    its place; the kernel computes each wave's slices from its rows, blocks and waves, as
+    ``wave_slices`` does). A launch the card refuses raises."""
     global backward_launches
     if not x.is_cuda:
         raise ValueError("group_norm_act_backward needs CUDA tensors")
@@ -354,7 +405,7 @@ def group_norm_act_backward(x: torch.Tensor, weight: torch.Tensor, bias: torch.T
     N, C, span = x.shape[0], x.shape[1], math.prod(x.shape[2:])
     sms, fns = _device_functions(dev)
     p = route or plan(x.shape, groups, x.dtype, sms, backward=True)
-    slots = _slots(x.shape, p.slice)
+    slots = _slots(x.shape, groups, p)
     partials = torch.empty((slots, 4), dtype=torch.float64, device=x.device)
     ab = torch.empty((N * groups, 2), dtype=torch.float64, device=x.device)
     params = torch.empty((3 if xbias is not None else 2, C), dtype=torch.float32,
@@ -369,7 +420,7 @@ def group_norm_act_backward(x: torch.Tensor, weight: torch.Tensor, bias: torch.T
             params[0].data_ptr(), params[1].data_ptr(),
             None if xbias is None else params[2].data_ptr(), partials.data_ptr(),
             ab.data_ptr(), barrier_counter(x.device, stream).data_ptr(), N, C, groups, span,
-            p.blocks, p.slice, p.held, slots, vec, stream)
+            p.blocks, p.waves, p.held, slots, vec, stream)
     check_status(name, status)
     backward_launches += 1
     if x.numel() == 0:

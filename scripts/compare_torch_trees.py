@@ -2,7 +2,7 @@
 """Compare two checkouts of the PyTorch port on one NVIDIA card, in turns.
 
     python scripts/compare_torch_trees.py PARENT_DIR CHANGE_DIR [--pairs 6] [--out FILE]
-        [--backward [--k1-only] | --train-step [--two-view]]
+        [--backward [--k1-only | --k4-only] | --train-step [--two-view]]
 
 Each directory is a whole checkout (for example ``git archive`` of a commit,
 unpacked). The script runs, one process a run, in the order parent, change,
@@ -34,7 +34,11 @@ two-view step's calls and at the other shapes the records time (``chip_smoke.py`
 ``k1_step_calls``, of this script's checkout, and ``k1_other_calls``), each with its
 gradients, beside ``F.grid_sample``'s autograd for the same gradients on the same data
 in the same run, and the sum of a step's 20 calls of each. ``--k1-only`` times K1's
-alone.
+alone. ``--k4-only`` times K4's alone (``gn_apply.group_norm_act``'s Function, the
+gradients of x, the weight, the bias and the residual at the 2-D maps, and of the conv's
+bias as xbias at bf16) at each shape of a recipe step (``chip_smoke.py``
+``k4_step_calls``) and of the serving forward (``GN_SHAPES``), f32 and bf16, and the sum
+of a step's 31 calls at each.
 
 With ``--train-step`` each run times instead the recipe's train step (B = 8, V = 1,
 480x640, D = 12, cost filter and five refiners on, adam 1e-3, augmentation on;
@@ -246,7 +250,39 @@ def measure_k1_backward(smoke, dev) -> dict:
     return result
 
 
-def measure_backward(tree: str, k1_only: bool = False) -> dict:
+def measure_k4_backward(smoke, dev) -> dict:
+    """K4's backward through its Function at each shape of ``smoke.k4_step_calls`` and
+    ``smoke.GN_SHAPES``, f32 and bf16, timed by ``smoke.backward_graph_ms``; and the sums
+    over a step's calls."""
+    import torch
+
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+
+    g = torch.Generator().manual_seed(6)
+    weight = (torch.rand(32, generator=g) + 0.5).to(dev).requires_grad_()
+    bias = (torch.randn(32, generator=g) * 0.1).to(dev).requires_grad_()
+    xbias = (torch.randn(32, generator=g) * 0.3).to(dev).requires_grad_()
+    result = {}
+    serving = [(shape, 0) for shape, _, _ in smoke.GN_SHAPES]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        result[f"k4_step_ms {name}"] = 0.0
+        for shape, calls in smoke.k4_step_calls() + list(dict(serving).items()):
+            x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev, dtype).requires_grad_()
+            res = (torch.randn(shape, generator=g).to(dev, dtype).requires_grad_()
+                   if len(shape) == 4 else None)
+            xb = xbias if dtype == torch.bfloat16 else None
+            leaves = [t for t in (x, weight, bias, res, xb) if t is not None]
+            ms = smoke.backward_graph_ms(
+                lambda x=x, res=res, xb=xb: gn_apply.group_norm_act(x, weight, bias, 4, res,
+                                                                    xbias=xb), leaves)
+            result[f"k4_backward_ms {tuple(shape)} {name}"] = ms
+            result[f"k4_step_ms {name}"] += calls * ms
+            del x, res
+    return result
+
+
+def measure_backward(tree: str, k1_only: bool = False, k4_only: bool = False) -> dict:
     """One checkout's backward times (``--backward``), imported from ``tree``; each
     backward timed by ``chip_smoke.backward_graph_ms`` (of this script's checkout)."""
     sys.path.insert(0, tree)
@@ -265,6 +301,9 @@ def measure_backward(tree: str, k1_only: bool = False) -> dict:
     backward_ms = smoke.backward_graph_ms
 
     result = {"tree": tree}
+    if k4_only:
+        result.update(measure_k4_backward(smoke, dev))
+        return result
     result.update(measure_k1_backward(smoke, dev))
     if k1_only:
         return result
@@ -424,12 +463,15 @@ def main():
                         help="with --train-step, the two-view recipe's step (phase 8's)")
     parser.add_argument("--k1-only", action="store_true",
                         help="with --backward, time K1's backward alone")
+    parser.add_argument("--k4-only", action="store_true",
+                        help="with --backward, time K4's backward alone")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
         tree = os.path.abspath(args.child)
         run = (measure_train_step(tree, args.two_view) if args.train_step
-               else measure_backward(tree, args.k1_only) if args.backward else measure(tree))
+               else measure_backward(tree, args.k1_only, args.k4_only) if args.backward
+               else measure(tree))
         print(json.dumps(run), flush=True)
         return
 
@@ -442,6 +484,7 @@ def main():
                               + ["--train-step"] * args.train_step
                               + ["--backward"] * args.backward
                               + ["--k1-only"] * args.k1_only
+                              + ["--k4-only"] * args.k4_only
                               + ["--two-view"] * args.two_view, capture_output=True,
                               text=True, check=True, cwd=trees[label])
         run = {"label": label, **json.loads(proc.stdout.strip().splitlines()[-1])}

@@ -2,11 +2,13 @@
 """Time edited copies of a kernel of the port against the kernel as it stands, in one
 process.
 
-    python scripts/refiner_variants.py [--kernel k3|k3_backward|k2_backward|k1_backward]
+    python scripts/refiner_variants.py
+        [--kernel k3|k3_backward|k2_backward|k1_backward|k4_backward]
         [--tree DIR] [--rounds 2] [--ptxas] [--out FILE]
 
 Builds the kernel's source (``csrc/idepthmap_refiner.cu`` for K3 and its backward,
-``csrc/incremental_chain.cu`` for K2's backward, ``csrc/warp.cu`` for K1's backward) of
+``csrc/incremental_chain.cu`` for K2's backward, ``csrc/warp.cu`` for K1's backward,
+``csrc/gn_apply.cu`` for K4's backward) of
 the checkout ``--tree`` (this one
 by default; ``git archive`` of another commit unpacked under ``_checkout/`` times that
 commit's design) as it stands and each variant below (the same source with a few text
@@ -26,6 +28,10 @@ shipped one:
   ``compare_torch_trees.k1_other_calls``' shapes, each with its ``needs``; the sum of a
   step's 20 calls; and the zero fill of the image's gradient alone (``torch.zeros_like``,
   what the first design's wrapper launches before the kernel);
+- ``k4_backward``: the backward (``gn_apply.group_norm_act_backward``, with what its
+  wrapper adds) at each shape of a recipe step (``chip_smoke.k4_step_calls``), f32 and
+  bf16, and the sum of a step's 31 calls at each; the shipped library also under other
+  plans of each shape (``k4_cases``);
 
 the device time of one call, 20 calls replayed from a CUDA graph, median of 7, in the
 order shipped, variants, variants reversed, shipped (``--rounds`` times), and prints the
@@ -213,10 +219,32 @@ K1_BACKWARD = {
         "    if (dgrid != nullptr && u.on) {", "    if (dgrid == (float*)16 && u.on) {", 1)]),
 }
 
+# K4's backward. The wave design: each wave of whole rows held between its two passes,
+# one grid barrier a wave, a block's next wave started as soon as its own pass 2 is done.
+K4_BACKWARD = {
+    "no second read of the part not held": ("knockout", [(
+        "V::load_last(gx + i)", "V::load(sx + (i & 7))", 1), (
+        "V::load_last(gdy + i)", "V::load(sdy + (i & 7))", 1)]),
+    "no grid barrier between a wave's passes": ("knockout", [(
+        "    grid_barrier(a.barrier);\n\n    // 2. dx", "    __syncthreads();\n\n    // 2. dx",
+        1)]),
+    "no f64 sums in pass 1": ("knockout", [(
+        "              sums[0] += (double)gv;\n              sums[1] += (double)gv * (double)xh;"
+        "\n              sums[2] += (double)xh;\n",
+        "              if (gv * xh == 1234.5f) sums[0] += 1.0;\n", 1)]),
+    "a grid barrier after each wave (no overlap of the next wave's loads)": ("lever", [(
+        "      dx_range<VEC>(a, win, rtab, sx, sdy, lo, hi < h ? hi : h);\n    }\n  }\n",
+        "      dx_range<VEC>(a, win, rtab, sx, sdy, lo, hi < h ? hi : h);\n    }\n"
+        "    if (WAVES && w + 1 < g.waves) grid_barrier(a.barrier);\n  }\n", 1)]),
+    "dx stored as any other store (not evict first)": ("lever", [(
+        "V::store_last(a.dx + s.s0 + i, o);", "V::store(a.dx + s.s0 + i, o);", 1)]),
+}
+
 KERNELS = {"k3": ("idepthmap_refiner", FORWARD),
            "k3_backward": ("idepthmap_refiner", K3_BACKWARD),
            "k2_backward": ("incremental_chain", K2_BACKWARD),
-           "k1_backward": ("warp", K1_BACKWARD)}
+           "k1_backward": ("warp", K1_BACKWARD),
+           "k4_backward": ("gn_apply", K4_BACKWARD)}
 
 
 def smi() -> str:
@@ -432,6 +460,72 @@ def k1_cases(calls) -> list:
     return cases
 
 
+def k4_cases(dev) -> list:
+    """(label, call, check, every) a shape of a recipe step (``chip_smoke.k4_step_calls``)
+    and of the serving forward (``GN_SHAPES``, "x0": no call a step) at f32 and bf16 (the
+    conv's bias as xbias): the backward kernel as ``plan`` cuts it and
+    a check of every gradient against its plain version within 1e-4 of max|plain|
+    (phase 3b's bar), for every variant; and, where the tree's ``plan`` takes a share of
+    L2 (``reread``), the shipped library alone under other plans of that shape: no share
+    of L2, twice the share, one wave over the card (the first design's route) and waves
+    where ``plan`` keeps one wave."""
+    import inspect
+
+    import torch
+
+    from compare_torch_trees import chip_smoke_module
+    from multi_view_stereonet_tpu_torch.ops.cuda import gn_apply
+
+    smoke = chip_smoke_module()
+    sms = gn_apply.sm_count(dev)
+    g = torch.Generator().manual_seed(4)
+    weight = (torch.rand(32, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(32, generator=g) * 0.1).to(dev)
+    xbias = (torch.randn(32, generator=g) * 0.3).to(dev)
+    others = "reread" in inspect.signature(gn_apply.plan).parameters  # the tree plans waves
+    cases = []
+    serving = list(dict((shape, 0) for shape, _, _ in smoke.GN_SHAPES).items())
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, calls in smoke.k4_step_calls() + serving:
+            x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev, dtype)
+            dy = torch.randn(shape, generator=g).to(dev, dtype)
+            xb = xbias if dtype == torch.bfloat16 else None
+            with torch.no_grad():
+                _, stats = gn_apply._forward_launch(x, weight, bias, None, 4, xb, stats=True)
+                ref = gn_apply.group_norm_act_backward_plain(x, weight, bias, 4, stats, dy, xb)
+
+            def check(got, ref=ref):
+                return all((a.float() - r.float()).abs().max() <= 1e-4 * r.float().abs().max()
+                           for a, r in zip(got, ref) if r is not None)
+            label = f"{tuple(shape)} {str(dtype)[6:]} x{calls}"
+            args = (x, weight, bias, 4, stats, dy, xb)
+            cases.append((label, lambda a=args: gn_apply.group_norm_act_backward(*a), check,
+                          True))
+            if not others:
+                continue
+            p = gn_apply.plan(shape, 4, dtype, sms, backward=True)
+            size = x.element_size()
+            cap = gn_apply.HOLD_BYTES // (2 * size) // 8 * 8
+            one = gn_apply.Plan("partial", sms, 0, cap)
+            rows, L = shape[0] * 4, x.numel() // (shape[0] * 4)
+            extra = gn_apply.REREAD_BYTES // (2 * size * sms)
+            waves = gn_apply.Plan("waves", sms, 0, cap, -(-rows // max(
+                1, (cap + extra) // 8 * 8 * sms // L)))
+            plans = {"reread 0": gn_apply.plan(shape, 4, dtype, sms, backward=True, reread=0),
+                     "reread x2": gn_apply.plan(shape, 4, dtype, sms, backward=True,
+                                                reread=2 * gn_apply.REREAD_BYTES)}
+            for name, alt in (("one wave", one), ("waves", waves)):
+                q = max(q for _, _, q in gn_apply.wave_slices(shape, 4, alt))
+                plans[name] = alt._replace(slice=q, held=min(cap, q))
+            for name, alt in plans.items():
+                if p.route != "resident" and alt != p and (alt.waves > 1) == (
+                        alt.route == "waves"):
+                    cases.append((f"{label} [{name}: {alt.route}, {alt.waves} waves]",
+                                  lambda a=args, r=alt: gn_apply.group_norm_act_backward(
+                                      *a, route=r), check, False))
+    return cases
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=tuple(KERNELS), default="k3")
@@ -445,7 +539,7 @@ def main():
     sys.path.insert(0, tree)
     import torch
 
-    from multi_view_stereonet_tpu_torch.ops.cuda import build
+    from multi_view_stereonet_tpu_torch.ops.cuda import build, gn_apply
     from multi_view_stereonet_tpu_torch.ops.cuda import incremental_chain as chain
     from multi_view_stereonet_tpu_torch.ops.cuda import refiner as refiner_op
 
@@ -459,6 +553,7 @@ def main():
         """Load ``path`` in place of the shipped library; the wrappers' entries reload."""
         build._libs[source] = ctypes.CDLL(path)
         refiner_op._fns.clear()
+        gn_apply._device_cache.clear()
 
     with tempfile.TemporaryDirectory() as tmp:
         paths, skipped = build_all(tree, source, variants, tmp, args.ptxas)
@@ -467,15 +562,23 @@ def main():
         if args.kernel == "k1_backward":
             calls = k1_calls(dev)
             cases = k1_cases(calls)
+        elif args.kernel == "k4_backward":
+            cases = k4_cases(dev)
         elif args.kernel == "k2_backward":
             cases = k2_cases(dev)
         else:
             cases = k3_cases(dev, args.kernel == "k3_backward")
+        # A case of four is (label, call, check, every): every=False runs with the shipped
+        # library only.
+        cases = [c if len(c) == 4 else (*c, True) for c in cases]
         order = (["shipped", *names, *names[::-1], "shipped"]) * args.rounds
-        times = {(v, c[0]): [] for v in paths for c in cases}
+        times = {(v, c[0]): [] for v in paths for c in cases
+                 if c[3] or v == "shipped"}
         for v in order:
             use(paths[v])
-            for label, call, check in cases:
+            for label, call, check, every in cases:
+                if not (every or v == "shipped"):
+                    continue
                 with torch.inference_mode(check is not None):
                     got = call()
                     if check is not None and (v == "shipped" or variants[v][0] == "lever"):
@@ -484,7 +587,8 @@ def main():
                                              "version")
                     times[(v, label)].append(graph_ms(call))
         use(paths["shipped"])
-    medians = {v: {c[0]: statistics.median(times[(v, c[0])]) for c in cases} for v in paths}
+    medians = {v: {c[0]: statistics.median(times[(v, c[0])]) for c in cases
+                   if (v, c[0]) in times} for v in paths}
     if args.kernel == "k2_backward":  # the one-launch wrapper's slot sum alone, if any
         src = open(os.path.join(tree, "multi_view_stereonet_tpu_torch", "ops", "cuda",
                                 "incremental_chain.py")).read()
@@ -496,6 +600,12 @@ def main():
                                       device=dev)
                 row[f"N={n}"] = graph_ms(lambda p=partial: p.sum(0))
             medians["the wrapper's slot sum alone"] = row
+    if args.kernel == "k4_backward":
+        for v in paths:
+            for dtype in ("float32", "bfloat16"):
+                medians[v][f"a recipe step's 31 calls, {dtype}"] = sum(
+                    int(label.rsplit(" x", 1)[1]) * ms for label, ms in medians[v].items()
+                    if dtype in label and "[" not in label and " x" in label)
     if args.kernel == "k1_backward":
         for v in paths:
             medians[v]["a two-view step's 20 calls"] = sum(

@@ -14,7 +14,7 @@ refiner within atol 2e-5 * max|plain|, rtol 2e-4, also after its weights are wri
 every serving and recipe shape (at bf16 within phase 11's rounding bar), and its backward
 kernel within 1e-4 of max|plain| of its plain version and of plain autograd (1e-2 at
 bf16; the output's gradient 0 within a rounding of LeakyReLU's kink), bit-equal over two
-calls, a refused launch raising in either; the grid sample's backward kernel within 1e-5,
+calls, also cut into many waves by a small hold budget, a refused launch raising in either; the grid sample's backward kernel within 1e-5,
 the chain's within 1e-4 (1e-3 in 1xTF32, 1e-2 at bf16) and the refiner's within 1e-4 (1e-3
 in 1xTF32, 2e-2 at bf16) of max|plain| of their closed forms, one backward launch a call;
 the whole forward within 0.2% of each level's output range; the multi-view and
@@ -770,6 +770,7 @@ GN_ROUTE_SHAPES = [((2, 32, 30, 40), True), ((1, 32, 120, 160), True),
                    ((1, 32, 240, 320), True), ((1, 32, 480, 640), True),
                    ((1, 32, 480, 640), False), ((1, 32, 12, 30, 40), False),
                    ((5, 32, 12, 30, 40), False), ((16, 32, 30, 40), True),
+                   ((8, 32, 120, 160), True), ((8, 32, 240, 320), True),
                    ((8, 32, 480, 640), True), ((8, 32, 480, 640), False),
                    ((8, 32, 12, 30, 40), False), ((8, 32, 6, 8), True),
                    ((4, 32, 96, 128), True), ((4, 32, 96, 128), False),
@@ -889,6 +890,59 @@ def test_gn_backward_kernel_matches_plain_and_autograd(dev, shape, residual, dty
         assert k.dtype == p.dtype
         scale = max(p.float().abs().max().item(), floor)
         assert (k.float() - p.float()).abs().max().item() <= bar * scale
+
+
+# Small calls that ``plan`` cuts into many waves when a block may hold only ``hold``
+# bytes of x and dy: no share of L2 (every wave held whole), waves that go beyond what the
+# blocks hold and read the rest again (bulk copies into the buffer), the same on tensors
+# off a 16-byte boundary (one-value loads, the held part stored by pass 1), and a map
+# whose span takes no 16-byte vectors.
+GN_WAVE_BUDGETS = [((8, 32, 30, 40), {"hold": 2048, "reread": 0, "partial": 0}, False),
+                   ((8, 32, 30, 40), {"hold": 2048, "reread": 64 * 1024, "partial": 0}, False),
+                   ((8, 32, 30, 40), {"hold": 2048, "reread": 64 * 1024, "partial": 0}, True),
+                   ((3, 16, 45, 47), {"hold": 512, "reread": 0, "partial": 0}, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,budget,unaligned", GN_WAVE_BUDGETS)
+def test_gn_backward_in_many_waves_matches_plain(dev, shape, budget, unaligned, dtype):
+    """The backward kernel cut into many waves (``plan`` at f32 with a small hold budget,
+    at bf16 too; tensors
+    off a 16-byte boundary and a (45, 47) map take the one-value loads, the latter in
+    one-row waves) against its plain version,
+    every gradient within 1e-4 of max|plain| at either dtype (bf16 with a conv bias as
+    xbias), bit-equal over two launches, and within the same bar of the kernel as
+    ``plan`` cuts it by default."""
+    groups = shape[1] // 8
+    x, weight, bias, _ = gn_case(shape, False, dev)
+    x = x.to(dtype)
+    xbias = None
+    if dtype == torch.bfloat16:
+        xbias = (0.3 * torch.randn(shape[1], generator=torch.Generator().manual_seed(2))).to(dev)
+    dy = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(dev, dtype)
+    if unaligned:
+        x, dy = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(shape) for t in (x, dy))
+        assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    _, stats = gn_apply._forward_launch(x, weight, bias, None, groups, xbias, stats=True)
+    # plan keeps bf16 calls to one wave; an f32 plan's waves hold half the bytes at bf16
+    p = gn_apply.plan(shape, groups, torch.float32, gn_apply.sm_count(dev), backward=True,
+                      **budget)
+    assert p.waves > 3
+    before = gn_apply.backward_launches
+    got = gn_apply.group_norm_act_backward(x, weight, bias, groups, stats, dy, xbias, route=p)
+    again = gn_apply.group_norm_act_backward(x, weight, bias, groups, stats, dy, xbias,
+                                             route=p)
+    default = gn_apply.group_norm_act_backward(x, weight, bias, groups, stats, dy, xbias)
+    ref = gn_apply.group_norm_act_backward_plain(x, weight, bias, groups, stats, dy, xbias)
+    torch.cuda.synchronize()
+    assert gn_apply.backward_launches == before + 3
+    for a, b, d, r in zip(got, again, default, ref):
+        if r is None:
+            continue
+        assert torch.equal(a, b)
+        scale = r.float().abs().max()
+        assert (a.float() - r.float()).abs().max() <= 1e-4 * scale
+        assert (a.float() - d.float()).abs().max() <= 1e-4 * scale
 
 
 def test_gn_launch_error_raises(dev):

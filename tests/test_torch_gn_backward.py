@@ -16,7 +16,9 @@ transposed. Inputs are made from a seed with numpy. Bars:
   max|autograd|;
 - the statistics the forward writes (``group_stats_plain``) within 1e-6 relative of an
   f64 numpy computation (their f32 rounding);
-- the route rule (``plan``) at every serving and recipe shape for an H100's 132 SMs.
+- the route rule (``plan``) at every serving and recipe shape for an H100's 132 SMs, and
+  the backward's wave schedule (``wave_slices``): every value in one block's slice of one
+  wave, every row whole in one wave, each wave within the hold budget.
 """
 
 import numpy as np
@@ -137,49 +139,110 @@ def test_forward_statistics_match_f64(shape, with_xbias):
 # Every K4 shape of the serving forward (B = 1, V = 1 and 5), of the recipe's training
 # step (B = 8, 480x640: extractor N = B + B*V, refiners 2-0, the filter N = B*V) and of
 # the convergence recipe (96x128, B = 4), with the residual or without, and for 132 SMs
-# the forward's chunks a (sample, group) row and the backward's route and blocks at f32
-# and at bf16.
+# the forward's chunks a (sample, group) row and the backward's (route, blocks, waves,
+# values a block holds) at f32 and at bf16.
 ROUTES = [
-    ((2, 32, 30, 40), True, 3, "resident", 19, "resident", 10),
-    ((1, 32, 120, 160), True, 38, "resident", 132, "resident", 75),
-    ((1, 32, 240, 320), True, 132, "resident", 132, "resident", 132),
-    ((1, 32, 480, 640), True, 132, "partial", 132, "partial", 132),
-    ((1, 32, 480, 640), False, 132, "partial", 132, "partial", 132),
-    ((1, 32, 12, 30, 40), False, 29, "resident", 113, "resident", 57),
-    ((5, 32, 12, 30, 40), False, 27, "resident", 132, "resident", 132),
-    ((16, 32, 30, 40), True, 3, "resident", 132, "resident", 75),
-    ((8, 32, 120, 160), True, 17, "partial", 132, "resident", 132),
-    ((8, 32, 240, 320), True, 17, "partial", 132, "partial", 132),
-    ((8, 32, 480, 640), True, 17, "partial", 132, "partial", 132),
-    ((8, 32, 480, 640), False, 17, "partial", 132, "partial", 132),
-    ((8, 32, 12, 30, 40), False, 17, "resident", 132, "resident", 132),
-    ((8, 32, 6, 8), True, 1, "resident", 3, "resident", 2),
-    ((4, 32, 96, 128), True, 24, "resident", 132, "resident", 132),
-    ((4, 32, 96, 128), False, 24, "resident", 132, "resident", 132),
-    ((4, 32, 12, 6, 8), False, 2, "resident", 18, "resident", 9),
+    ((2, 32, 30, 40), True, 3, ("resident", 19, 1, 4048), ("resident", 10, 1, 7680)),
+    ((1, 32, 120, 160), True, 38, ("resident", 132, 1, 4656), ("resident", 75, 1, 8192)),
+    ((1, 32, 240, 320), True, 132, ("resident", 132, 1, 18624), ("resident", 132, 1, 18624)),
+    ((1, 32, 480, 640), True, 132, ("partial", 132, 1, 28672), ("partial", 132, 1, 57344)),
+    ((1, 32, 480, 640), False, 132, ("partial", 132, 1, 28672), ("partial", 132, 1, 57344)),
+    ((1, 32, 12, 30, 40), False, 29, ("resident", 113, 1, 4080), ("resident", 57, 1, 8088)),
+    ((5, 32, 12, 30, 40), False, 27, ("resident", 132, 1, 17456), ("resident", 132, 1, 17456)),
+    ((16, 32, 30, 40), True, 3, ("resident", 132, 1, 4656), ("resident", 75, 1, 8192)),
+    ((8, 32, 120, 160), True, 17, ("partial", 132, 1, 28672), ("resident", 132, 1, 37240)),
+    ((8, 32, 240, 320), True, 17, ("waves", 132, 4, 28672), ("partial", 132, 1, 57344)),
+    ((8, 32, 480, 640), True, 17, ("waves", 132, 16, 28672), ("partial", 132, 1, 57344)),
+    ((8, 32, 480, 640), False, 17, ("waves", 132, 16, 28672), ("partial", 132, 1, 57344)),
+    ((8, 32, 12, 30, 40), False, 17, ("resident", 132, 1, 27928), ("resident", 132, 1, 27928)),
+    ((8, 32, 6, 8), True, 1, ("resident", 3, 1, 4096), ("resident", 2, 1, 6144)),
+    ((4, 32, 96, 128), True, 24, ("resident", 132, 1, 11920), ("resident", 132, 1, 11920)),
+    ((4, 32, 96, 128), False, 24, ("resident", 132, 1, 11920), ("resident", 132, 1, 11920)),
+    ((4, 32, 12, 6, 8), False, 2, ("resident", 18, 1, 4096), ("resident", 9, 1, 8192)),
 ]
 
 
-@pytest.mark.parametrize(
-    "shape,residual,chunks,f32_route,f32_blocks,bf16_route,bf16_blocks", ROUTES)
-def test_route_rule_at_the_serving_and_recipe_shapes(shape, residual, chunks, f32_route,
-                                                     f32_blocks, bf16_route, bf16_blocks):
+@pytest.mark.parametrize("shape,residual,chunks,f32_plan,bf16_plan", ROUTES)
+def test_route_rule_at_the_serving_and_recipe_shapes(shape, residual, chunks, f32_plan,
+                                                     bf16_plan):
     """``plan`` from shape, dtype and SM count alone: the forward's chunks (``chunking``
-    over BLOCKS_PER_SM blocks an SM) at either dtype, and the backward's route and grid
-    with the geometry it keeps (slices of a multiple of 8 values covering x with none
-    empty, at most one block an SM, ``held`` a multiple of 8 with x's and dy's within
-    HOLD_BYTES, "resident" exactly where a whole slice is held)."""
+    over BLOCKS_PER_SM blocks an SM) at either dtype, and the backward's route, blocks,
+    waves and held values, with the geometry it keeps (at most one block an SM, ``held``
+    a multiple of 8 with x's and dy's within HOLD_BYTES; "resident": one wave of slices
+    covering x with none empty, each held whole; "partial": one wave over every SM, held
+    in part; "waves": more)."""
     E = int(np.prod(shape))
-    for dtype, route, blocks in ((torch.float32, f32_route, f32_blocks),
-                                 (BF16, bf16_route, bf16_blocks)):
+    for dtype, want in ((torch.float32, f32_plan), (BF16, bf16_plan)):
         p = gn_apply.plan(shape, 4, dtype, H100_SMS)
         assert (p.route, p.slice, p.blocks) == ("chunked", *gn_apply.chunking(
             shape[0] * 4, E // (shape[0] * 4), gn_apply.BLOCKS_PER_SM * H100_SMS))
         assert p.blocks == chunks
         p = gn_apply.plan(shape, 4, dtype, H100_SMS, backward=True)
-        assert (p.route, p.blocks) == (route, blocks)
+        assert (p.route, p.blocks, p.waves, p.held) == want
         size = torch.empty((), dtype=dtype).element_size() * 2
         assert p.slice % 8 == 0 and p.held % 8 == 0 and p.held * size <= gn_apply.HOLD_BYTES
-        assert (p.blocks - 1) * p.slice < E <= p.blocks * p.slice <= E + 8 * p.blocks
-        assert 1 <= p.blocks <= H100_SMS
-        assert (p.route == "resident") == (p.held >= p.slice)
+        assert 1 <= p.blocks <= H100_SMS and p.held <= p.slice
+        assert p.slice == max(q for _, _, q in gn_apply.wave_slices(shape, 4, p))
+        if p.route == "resident":
+            assert p.waves == 1 and p.held == p.slice
+            assert (p.blocks - 1) * p.slice < E <= p.blocks * p.slice <= E + 8 * p.blocks
+        else:
+            assert p.blocks == H100_SMS and (p.waves == 1) == (p.route == "partial")
+
+
+# The wave schedule: the recipe's large calls as planned, and small calls cut into many
+# waves by a smaller hold budget, with no share of L2 and with one.
+SCHEDULES = [((8, 32, 480, 640), torch.float32, {}), ((8, 32, 480, 640), BF16, {}),
+             ((8, 32, 240, 320), torch.float32, {}), ((8, 32, 120, 160), torch.float32, {}),
+             ((8, 32, 30, 40), torch.float32, {"hold": 2048, "reread": 0, "partial": 0}),
+             ((8, 32, 30, 40), torch.float32,
+              {"hold": 4096, "reread": 64 * 1024, "partial": 0}),
+             ((3, 16, 45, 47), torch.float32, {"hold": 512, "reread": 0, "partial": 0})]
+
+
+@pytest.mark.parametrize("shape,dtype,budget", SCHEDULES)
+def test_wave_schedule_covers_every_value_once(shape, dtype, budget):
+    """Every value of x lies in exactly one block's slice of exactly one wave, every
+    (sample, group) row lies whole in one wave, a wave holds at most ``hold`` bytes of x
+    and dy a block (its held part) and goes beyond that by at most ``reread`` over the card
+    in waves (unless one row alone does), by at most ``partial`` in one wave at f32; every span piece has its own partial slot among
+    ``_slots``'s, as csrc/gn_apply.cu indexes them (sg * maxb + b - first block of the
+    span)."""
+    groups = shape[1] // 8
+    p = gn_apply.plan(shape, groups, dtype, H100_SMS, backward=True, **budget)
+    hold = budget.get("hold", gn_apply.HOLD_BYTES)
+    reread = budget.get("reread", gn_apply.REREAD_BYTES)
+    size = torch.empty((), dtype=dtype).element_size() * 2
+    E, S = int(np.prod(shape)), int(np.prod(shape[2:]))
+    L = E // (shape[0] * groups)
+    parts = []  # (lo, hi) of every non-empty slice
+    slots = gn_apply._slots(shape, groups, p)
+    used = set()
+    waves = gn_apply.wave_slices(shape, groups, p)
+    assert len(waves) == p.waves and waves[0][0] == 0 and waves[-1][1] == E
+    for (e0, e1, q), nxt in zip(waves, waves[1:] + [(E, E, 0)]):
+        assert e0 % L == 0 and e1 % L == 0 and e1 > e0 and nxt[0] == e1  # whole rows
+        assert q % 8 == 0 and p.blocks * q >= e1 - e0
+        assert p.held * size <= hold
+        twice = max(0, q - p.held) * size * p.blocks  # bytes the wave reads twice
+        if p.route == "waves":
+            assert twice <= reread or e1 - e0 == L
+        elif dtype == torch.float32:  # bf16 keeps one wave, whatever it reads twice
+            assert twice <= budget.get("partial", gn_apply.WAVES_BYTES)
+        maxb = -(-S // min(w[2] for w in waves)) + 1
+        for b in range(p.blocks):
+            lo, hi = e0 + b * q, min(e1, e0 + (b + 1) * q)
+            if lo >= hi:
+                continue
+            parts.append((lo, hi))
+            for sg in range(lo // S, (hi - 1) // S + 1):
+                first = (sg * S - e0) // q
+                assert first <= b <= ((sg + 1) * S - 1 - e0) // q and b - first < maxb
+                slot = sg * maxb + b - first
+                assert slot < slots and slot not in used
+                used.add(slot)
+    parts.sort()
+    assert parts[0][0] == 0 and parts[-1][1] == E
+    assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))  # no gap, no overlap
+    if budget:
+        assert p.waves > 3

@@ -388,8 +388,13 @@ PARITY = {"high": {"matmul_precision": "high"},
 
 @pytest.fixture(scope="module")
 def parity_case():
+    """The weights, the inputs and the port's output at "highest" on them, which every
+    case is held to."""
     model, params = weights(7)
-    return model, params, nhwc_inputs(1, 2, 7, 64, 80)
+    inputs = nhwc_inputs(1, 2, 7, 64, 80)
+    exact = port_model_forward(model, *inputs, MultiViewStereoNetConfig(
+        num_idepth_samples=4, matmul_precision="highest"))
+    return model, params, inputs, exact
 
 
 @pytest.mark.parametrize("case", sorted(PARITY))
@@ -397,15 +402,13 @@ def test_forward_at_a_precision_matches_jax(case, parity_case):
     """JAX at the same config (its plain paths, as tests/test_torch_model.py runs it)
     within the f32 bar; the port's output bit-equal to its "highest" output, since on
     the CPU every precision is exact, as it is in JAX."""
-    model, params, (left, rights, K, T) = parity_case
+    model, params, (left, rights, K, T), exact = parity_case
     knobs = {**JAX_PARITY, **PARITY[case]}
     ref = jax_model_forward(params, left, rights, K, T,
                             JaxConfig(num_idepth_samples=4, **knobs))
     got = port_model_forward(model, left, rights, K, T, MultiViewStereoNetConfig(
         num_idepth_samples=4, **PARITY[case]))
     assert_forward_close(got, ref)
-    exact = port_model_forward(model, left, rights, K, T, MultiViewStereoNetConfig(
-        num_idepth_samples=4, matmul_precision="highest"))
     for key in KEYS:
         assert all(np.array_equal(a, b) for a, b in zip(got[key], exact[key])), key
 
